@@ -5,13 +5,23 @@
 
 Builds the port's CUDA kernels from ``raft_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version, times it, and drives the
-port's main path at full width: an IVF-Flat index over 1,000,000
-clustered rows of width 96 (DEEP's width) built with 1024 lists, warmed
-per serving bucket, serving ~200 requests through the bucketed
-micro-batcher and the grouped search, with recall@10 of both scan
-engines against exact brute force. Any failed check raises, and the
-script exits non-zero. The last two lines of stdout are one JSON object
-per kernel run and the ``{"ok": true, ...}`` device line.
+port's two paths at full width, each with the kernels' launch counters
+set to 0 just before it and read just after:
+
+* IVF-Flat: an index over 1,000,000 clustered rows of width 96 (DEEP's
+  width) built with 1024 lists, warmed per serving bucket, serving ~200
+  requests through the bucketed micro-batcher and the grouped search,
+  with recall@10 of both scan engines against exact brute force;
+* brute-force kNN through ``brute_force_knn``: 1,000,000 x 128 clustered
+  rows (SIFT-1M's shape) serving ~100 bucketed requests, one
+  10,000-query batch with f32 and bf16 phase 1, the scan path on 1,000
+  of those queries, and 2,000,000 x 768 bf16 rows in two partitions
+  (the width of the 10M x 768 regime, depth cut for the time limit),
+  with recall@10 and distances against an exact oracle.
+
+Any failed check raises, and the script exits non-zero. The last two
+lines of stdout are the ``kernels`` JSON line (one object per kernel)
+and the ``{"ok": true, ...}`` device line.
 
 Imports neither JAX nor the JAX package. Needs one CUDA device of
 compute capability 9.0; without one it exits non-zero and prints no
@@ -37,10 +47,17 @@ import torch
 # operations over the rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
 
 N_ROWS, DIM, N_LISTS, N_PROBES, K = 1_000_000, 96, 1024, 8, 10
 BUCKETS = (8, 64, 512, 4096)
 N_REQUESTS = 200
+
+# brute-force kNN at SIFT-1M's shape (bench/bench_knn.py:19), and the
+# width of the 10M x 768 regime at 2M rows in two bf16 partitions
+SIFT_ROWS, SIFT_DIM, SIFT_QUERIES = 1_000_000, 128, 10_000
+BF_REQUESTS = 100
+WIDE_ROWS, WIDE_DIM, WIDE_QUERIES = 2_000_000, 768, 1024
 
 
 def log(msg: str) -> None:
@@ -71,15 +88,23 @@ def cuda_time_ms(fn, arg_sets, iters: int = 50, warm: int = 5) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def input_copies(qr, slabs_t, bounds):
-    """Enough copies of one scan's inputs (each keeping its strides) to
-    fill four times the card's L2 cache, at least two."""
+def input_copies(*ts):
+    """Enough copies of a call's tensor inputs (each keeping its strides)
+    to fill four times the card's L2 cache, at least two, so timed
+    launches read device memory."""
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
                  50 << 20)
-    nbytes = sum(t.numel() * t.element_size() for t in (qr, slabs_t, bounds))
-    n = max(2, math.ceil(4 * l2 / nbytes))
-    return [(qr.clone(), slabs_t.transpose(1, 2).clone().transpose(1, 2),
-             bounds.clone()) for _ in range(n)]
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    return [tuple(t.clone() for t in ts)
+            for _ in range(max(2, math.ceil(4 * l2 / nbytes)))]
+
+
+def bound(nbytes, flops, flop_rate):
+    """(bound_ms, bound_by): the larger of the bytes at the memory rate
+    and the operations at ``flop_rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def scan_bound(lb: int, q: int, d: int, l_pad: int):
@@ -88,10 +113,7 @@ def scan_bound(lb: int, q: int, d: int, l_pad: int):
     2 flop per multiply-add at the bf16 rate."""
     nbytes = lb * (q * d * 2 + d * l_pad * 2) + lb * q * (l_pad // 8) * 4 \
         + lb * 2 * 4
-    flops = 2.0 * lb * q * l_pad * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(nbytes, 2.0 * lb * q * l_pad * d, BF16_FLOP_PER_S)
 
 
 def phase_device():
@@ -255,7 +277,8 @@ def clustered_rows(rng, n, d, n_centers=2000):
 
 
 def exact_knn(x, q, k, block=1 << 16):
-    """Exact squared-L2 top-k ids by plain f32 brute force (the oracle)."""
+    """Exact squared-L2 top-k ids by plain f32 brute force (the oracle);
+    ``x`` is one tensor or a list of row partitions (global ids)."""
     from raft_tpu_torch.core.device import full_f32
 
     @full_f32
@@ -264,14 +287,17 @@ def exact_knn(x, q, k, block=1 << 16):
         best_v = torch.full((q.shape[0], k), float("inf"), device=q.device)
         best_i = torch.zeros((q.shape[0], k), dtype=torch.int64,
                              device=q.device)
-        for s in range(0, x.shape[0], block):
-            xb = x[s:s + block]
-            d2 = qn + (xb * xb).sum(1)[None, :] - 2.0 * (q @ xb.T)
-            v, i = torch.topk(d2, k, dim=1, largest=False)
-            cat_v = torch.cat([best_v, v], 1)
-            cat_i = torch.cat([best_i, i + s], 1)
-            best_v, o = torch.topk(cat_v, k, dim=1, largest=False)
-            best_i = torch.gather(cat_i, 1, o)
+        off = 0
+        for part in (x if isinstance(x, (list, tuple)) else [x]):
+            for s in range(0, part.shape[0], block):
+                xb = part[s:s + block].float()
+                d2 = qn + (xb * xb).sum(1)[None, :] - 2.0 * (q @ xb.T)
+                v, i = torch.topk(d2, k, dim=1, largest=False)
+                cat_v = torch.cat([best_v, v], 1)
+                cat_i = torch.cat([best_i, i + off + s], 1)
+                best_v, o = torch.topk(cat_v, k, dim=1, largest=False)
+                best_i = torch.gather(cat_i, 1, o)
+            off += part.shape[0]
         return best_i
     return run()
 
@@ -393,15 +419,9 @@ def main_path(seed, card, dev):
     return index, qcaps, x
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
-    card = phase_device()
-    dev = torch.device("cuda")
-    phase_build()
-
+def ivf_flat_phase(args, card, dev):
+    """The IVF-Flat path and its scan kernel; returns the kernel's entry
+    of the ``kernels`` line."""
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
     # kernel vs plain version: the fixed reference shape and a ragged one
@@ -412,10 +432,10 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     qr, rows = _int_inputs(gen, 32, 64, DIM, 3072, dev)
     ref = time_kernel(qr, rows.transpose(1, 2), _bounds(gen, 32, 3072, dev))
-    bound = scan_bound(32, 64, DIM, 3072)
+    ref_bound = scan_bound(32, 64, DIM, 3072)
     log(f"[{card}] flat_scan_subchunk_min (32, 64, {DIM}, 3072): "
         f"kernel {ref[0]:.4f} ms, plain {ref[1]:.4f} ms, library "
-        f"{ref[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        f"{ref[2]:.4f} ms, bound {ref_bound[0]:.4f} ms ({ref_bound[1]})")
 
     # the main path, with every launch counter at 0 just before it
     from raft_tpu_torch.spatial.ann import ivf_flat
@@ -471,7 +491,7 @@ def main(argv=None) -> int:
     (qc, l_pad), _ = shapes.most_common(1)[0]
     ms, plain_ms, library_ms, bound_ms, bound_by = timed[qc, l_pad]
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "flat_scan_subchunk_min",
         "route": "cuda",
         "source": "raft_tpu_torch/csrc/flat_scan.cu",
@@ -486,7 +506,540 @@ def main(argv=None) -> int:
         "library_ms": library_ms,
         "shape": [32, qc, DIM, l_pad],
         "card": card,
-    }]}), flush=True)
+    }
+
+
+# ---------------------------------------------------------------------------
+# Brute-force kNN: fused chunk-min + chunk-rescore kernels
+# ---------------------------------------------------------------------------
+
+
+def _tol(q, yn_max, d):
+    """Per-query bound on |kernel - plain| for f32 sums of d terms in two
+    orders: 2 d u (max ||y||^2 + 2 ||q|| max ||y||), u = 2^-24 (the
+    recursive-summation error bound, twice)."""
+    qn = q.float().norm(dim=1, keepdim=True)
+    return 2 * d * 2.0**-24 * (yn_max + 2 * qn * math.sqrt(yn_max))
+
+
+def compare_chunk_mins(q, y, yn, npad, cd):
+    """chunk_mins kernel vs plain version within :func:`_tol` (f32 sums
+    in another order); returns max |kernel - plain|."""
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    got = fz.chunk_mins(q, y, yn, npad, cd)
+    want = fz.chunk_mins_plain(q, y, yn, npad, cd)
+    err = (got - want).abs()
+    tol = _tol(q, yn.max().item(), q.shape[1])
+    if not (err <= tol).all():
+        raise AssertionError(
+            f"chunk_mins {tuple(q.shape)} x {tuple(y.shape)} {y.dtype} "
+            f"{cd}: off by {err.max().item()} > the f32 summation bound")
+    return err.max().item()
+
+
+def compare_rescore(q, cids, y):
+    """rescore_scores kernel vs plain version within :func:`_tol`;
+    returns max |kernel - plain|."""
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    got = fz.rescore_scores(q, cids, y)
+    want = fz.rescore_scores_plain(q, cids, y)
+    err = (got - want).abs()
+    yn_max = max((y[s:s + (1 << 20)].float() ** 2).sum(1).max().item()
+                 for s in range(0, y.shape[0], 1 << 20))
+    if not (err <= _tol(q, yn_max, q.shape[1])).all():
+        raise AssertionError(
+            f"rescore_scores {tuple(q.shape)} x {tuple(cids.shape)} "
+            f"{y.dtype}: off by {err.max().item()} > the f32 summation "
+            "bound")
+    return err.max().item()
+
+
+def check_fused_kernels(seed):
+    """chunk_mins and rescore_scores against their plain versions at a
+    ragged and an aligned shape: bitwise on integer-exact inputs (f32 and
+    bf16 storage, f32 and bf16 compute, chunk ids past the index), within
+    the f32 summation bound on Gaussian ones. Returns the max Gaussian
+    |kernel - plain| of each."""
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    errs = {"chunk_mins": 0.0, "rescore_scores": 0.0}
+    for m, n, d in ((37, 8192 + 37, 19), (200, 16384, 128)):
+        npad = -(-n // 2048) * 2048
+        q = torch.randint(-8, 8, (m, d), generator=gen).float().to(dev)
+        y = torch.randint(-8, 8, (n, d), generator=gen).float().to(dev)
+        cids = torch.randint(0, npad // 128, (m, 24),
+                             generator=gen).int().to(dev)
+        for yt in (y, y.to(torch.bfloat16)):
+            yn = (yt.float() ** 2).sum(1)
+            for cd in (torch.float32, torch.bfloat16):
+                got = fz.chunk_mins(q, yt, yn, npad, cd)
+                want = fz.chunk_mins_plain(q, yt, yn, npad, cd)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"chunk_mins ({m}, {n}, {d}) {yt.dtype} {cd}: "
+                      f"{(got != want).sum().item()} entries differ on "
+                      "integer-exact inputs")
+            got = fz.rescore_scores(q, cids, yt)
+            want = fz.rescore_scores_plain(q, cids, yt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"rescore_scores ({m}, {n}, {d}) {yt.dtype}: "
+                  f"{(got != want).sum().item()} entries differ on "
+                  "integer-exact inputs")
+        qg = torch.randn((m, d), generator=gen).to(dev)
+        yg = torch.randn((n, d), generator=gen).to(dev)
+        for yt in (yg, yg.to(torch.bfloat16)):
+            yn = (yt.float() ** 2).sum(1)
+            for cd in (torch.float32, torch.bfloat16):
+                errs["chunk_mins"] = max(errs["chunk_mins"],
+                                         compare_chunk_mins(qg, yt, yn, npad,
+                                                            cd))
+            errs["rescore_scores"] = max(errs["rescore_scores"],
+                                         compare_rescore(qg, cids, yt))
+        log(f"fused kernel check ({m}, {n}, {d}): bitwise on integer-exact "
+            "inputs (f32/bf16 storage, f32/bf16 compute); Gaussian inputs "
+            "within 2 d 2^-24 (max|y|^2 + 2 |q| max|y|) per query (f32 "
+            f"sums in another order), max |kernel - plain| {errs}")
+    return errs
+
+
+@contextlib.contextmanager
+def fused_calls(keep):
+    """Count the calls of the chunk_mins and rescore_scores wrappers by
+    shape and keep the last call's inputs of each shape in ``keep`` (a
+    served batch, not a warmup's zero queries).
+    The wrappers still run (and count their launches) as before."""
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    wrappers = (fz.chunk_mins, fz.rescore_scores)
+    shapes = {"chunk_mins": collections.Counter(),
+              "rescore_scores": collections.Counter()}
+
+    def chunk_mins(q, y, yn, npad, cd=torch.float32):
+        key = (q.shape[0], y.shape[0], q.shape[1], str(y.dtype)[6:],
+               str(cd)[6:])
+        shapes["chunk_mins"][key] += 1
+        keep["chunk_mins", key] = (q, y, yn, npad, cd)
+        return wrappers[0](q, y, yn, npad, cd)
+
+    def rescore_scores(q, cids, y):
+        key = (q.shape[0], cids.shape[1], y.shape[0], q.shape[1],
+               str(y.dtype)[6:])
+        shapes["rescore_scores"][key] += 1
+        keep["rescore_scores", key] = (q, cids, y)
+        return wrappers[1](q, cids, y)
+
+    fz.chunk_mins, fz.rescore_scores = chunk_mins, rescore_scores
+    try:
+        yield shapes
+    finally:
+        fz.chunk_mins, fz.rescore_scores = wrappers
+
+
+def true_dists(parts, q, ids):
+    """f64 L2 distances of the returned ids (global over ``parts``)."""
+    rows = []
+    flat = ids.reshape(-1).long()
+    off = 0
+    out = torch.empty(flat.shape[0], dtype=torch.float64, device=q.device)
+    for part in (parts if isinstance(parts, (list, tuple)) else [parts]):
+        sel = (flat >= off) & (flat < off + part.shape[0])
+        rows = part[flat[sel] - off].double()
+        qq = q.double().repeat_interleave(ids.shape[1], 0)[sel]
+        out[sel] = ((rows - qq) ** 2).sum(1).sqrt()
+        off += part.shape[0]
+    return out.reshape(ids.shape)
+
+
+def check_dists(got, parts, q, ids, what):
+    want = true_dists(parts, q, ids)
+    rel = ((got.double() - want).abs() / want.clamp_min(1e-6)).max().item()
+    check(rel <= 1e-4, f"{what}: distances off by {rel:.3g} relative")
+    return rel
+
+
+def sift_path(seed, card, dev, parts_kept):
+    """The brute-force path at SIFT-1M's shape: served requests, one
+    10,000-query batch (f32 and bf16 phase 1), the scan path on 1,000 of
+    those queries. Returns the index and the big batch's queries."""
+    from raft_tpu_torch.distance import row_norm_sq
+    from raft_tpu_torch.serving.batching import (
+        BucketSet, PendingRequest, pack_requests,
+    )
+    from raft_tpu_torch.spatial import brute_force_knn
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(clustered_rows(rng, SIFT_ROWS, SIFT_DIM), device=dev)
+    norms = row_norm_sq(x)                  # once, kept with the index
+    sync(dev)
+
+    def noisy_rows(m):
+        rows = x[torch.as_tensor(rng.integers(0, SIFT_ROWS, m), device=dev)]
+        return (rows.cpu().numpy()
+                + 0.3 * rng.standard_normal((m, SIFT_DIM), dtype=np.float32))
+
+    # a deployment checks once that the card runs its largest phase-1 grid
+    _, bn = fz._plan_blocks(SIFT_QUERIES, SIFT_ROWS, SIFT_DIM)
+    grid = fz._grid_steps(SIFT_QUERIES, -(-SIFT_ROWS // bn) * bn)
+    check(fz.probe_grid_steps(grid), f"the card refused a {grid}-block grid")
+
+    buckets = BucketSet.of(BUCKETS)
+    t0 = time.perf_counter()
+    for b in buckets.sizes:
+        brute_force_knn(x, np.zeros((b, SIFT_DIM), np.float32), K,
+                        index_norms=norms)
+    sync(dev)
+    log(f"[{card}] brute-force warmup of {len(buckets.sizes)} buckets: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    sizes = np.exp(rng.uniform(0.0, np.log(513.0), BF_REQUESTS))
+    requests = [noisy_rows(int(m)) for m in np.clip(sizes, 1, 512)]
+    arrivals = [PendingRequest(r, None, 0.0) for r in requests]
+    pending, served, bucket_of = [], {}, {}
+    lat = {b: [] for b in buckets.sizes}
+    t_serve = time.perf_counter()
+    while arrivals or pending:
+        n_new = int(rng.integers(1, 5))
+        pending += arrivals[:n_new]
+        arrivals = arrivals[n_new:]
+        batch, pending = pack_requests(pending, buckets, SIFT_DIM)
+        t0 = time.perf_counter()
+        d, ids = brute_force_knn(x, batch.queries, K, index_norms=norms)
+        d, ids = d.cpu(), ids.cpu()           # waits for the device
+        lat[batch.bucket].append(1e3 * (time.perf_counter() - t0))
+        for req, start in batch.entries:
+            served[id(req.queries)] = (d[start:start + req.n_rows],
+                                       ids[start:start + req.n_rows])
+            bucket_of[id(req.queries)] = batch.bucket
+    serve_s = time.perf_counter() - t_serve
+    n_rows = sum(r.shape[0] for r in requests)
+    for r in requests:
+        d, ids = served[id(r)]
+        check(d.shape == (r.shape[0], K) and bool(torch.isfinite(d).all()),
+              f"served distances of shape {tuple(d.shape)} not finite")
+        check(bool(((ids >= 0) & (ids < SIFT_ROWS)).all()),
+              "served ids out of range")
+        check(bool((d[:, 1:] >= d[:, :-1]).all()), "served distances unsorted")
+    log(f"[{card}] brute-force serve: {len(requests)} requests, {n_rows} "
+        f"rows in {sum(len(v) for v in lat.values())} batches, "
+        f"{serve_s:.3f} s, {n_rows / serve_s:.0f} queries/s")
+    qs = torch.as_tensor(np.concatenate(requests), device=dev)
+    true = exact_knn(x, qs, K).cpu()
+    got = torch.cat([served[id(r)][1] for r in requests])
+    got_d = torch.cat([served[id(r)][0] for r in requests])
+    check_dists(got_d.to(dev), x, qs, got.to(dev), "served")
+    which = np.concatenate([[bucket_of[id(r)]] * r.shape[0]
+                            for r in requests])
+    for b, v in lat.items():
+        sel = torch.as_tensor(which == b)
+        if v and sel.any():
+            log(f"[{card}] bucket {b}: {len(v)} batches, p50 "
+                f"{float(np.median(v)):.3f} ms, recall@10 "
+                f"{recall(got[sel], true[sel]):.4f}")
+    r_served = recall(got, true)
+    log(f"[{card}] served recall@10 (all {n_rows} rows): {r_served:.4f}")
+    check(r_served >= 0.999, f"served recall@10 {r_served}")
+
+    qb = torch.as_tensor(noisy_rows(SIFT_QUERIES), device=dev)
+    true = exact_knn(x, qb, K)
+    results = {}
+    for name, kw in (("f32", {}),
+                     ("bf16", {"compute_dtype": torch.bfloat16,
+                               "extra_chunks": 32})):
+        sync(dev)
+        t0 = time.perf_counter()
+        d, ids = brute_force_knn(x, qb, K, index_norms=norms, **kw)
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        results[name] = (recall(ids, true), ms,
+                         check_dists(d, x, qb, ids, f"{name} batch"))
+    sync(dev)
+    t0 = time.perf_counter()
+    d, ids = brute_force_knn(x, qb[:1000], K, use_fused=False)
+    sync(dev)
+    results["scan"] = (recall(ids, true[:1000]),
+                       1e3 * (time.perf_counter() - t0),
+                       check_dists(d, x, qb[:1000], ids, "scan"))
+    for name, (r, ms, rel) in results.items():
+        nq = 1000 if name == "scan" else SIFT_QUERIES
+        log(f"[{card}] SIFT-shape {nq}-query batch, {name}: recall@10 "
+            f"{r:.4f}, {ms:.2f} ms, {1e3 * nq / ms:.0f} queries/s, "
+            f"distances within {rel:.3g} relative of f64")
+    check(results["f32"][0] >= 0.999, f"f32 recall@10 {results['f32'][0]}")
+    check(results["scan"][0] >= 0.999, f"scan recall@10 {results['scan'][0]}")
+    check(results["bf16"][0] >= 0.99, f"bf16 recall@10 {results['bf16'][0]}")
+    parts_kept["sift"] = (x, norms, qb)
+
+
+def wide_path(seed, card, dev, parts_kept):
+    """Full width of the 10M x 768 regime at reduced depth: 2M bf16 rows
+    in two partitions, 1,024 queries, bf16 phase 1."""
+    from raft_tpu_torch.spatial import brute_force_knn
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((2000, WIDE_DIM), generator=g, device=dev) * 2.0
+    parts, norms = [], []
+    for _ in range(2):
+        lab = torch.randint(0, 2000, (WIDE_ROWS // 2,), generator=g,
+                            device=dev)
+        p = (centers[lab] + torch.randn((WIDE_ROWS // 2, WIDE_DIM),
+                                        generator=g, device=dev))
+        parts.append(p.to(torch.bfloat16))
+        norms.append((parts[-1].float() ** 2).sum(1))
+        del p, lab
+    pick = torch.randint(0, WIDE_ROWS, (WIDE_QUERIES,), generator=g,
+                         device=dev)
+    base = torch.where((pick < WIDE_ROWS // 2)[:, None],
+                       parts[0][pick.clamp(max=WIDE_ROWS // 2 - 1)],
+                       parts[1][(pick - WIDE_ROWS // 2).clamp(min=0)])
+    q = base.float() + 0.3 * torch.randn((WIDE_QUERIES, WIDE_DIM),
+                                         generator=g, device=dev)
+    true = exact_knn(parts, q, K)
+    sync(dev)
+    t0 = time.perf_counter()
+    d, ids = brute_force_knn(parts, q, K, use_fused=True,
+                             compute_dtype=torch.bfloat16, extra_chunks=32,
+                             index_norms=norms)
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    r = recall(ids, true)
+    rel = check_dists(d, parts, q, ids, "wide batch")
+    log(f"[{card}] {WIDE_ROWS} x {WIDE_DIM} bf16 in 2 partitions (depth cut "
+        "from the 9.2M x 768 regime of BASELINE.md for the smoke's time "
+        f"limit), {WIDE_QUERIES} queries: recall@10 {r:.4f}, {ms:.2f} ms, "
+        f"{1e3 * WIDE_QUERIES / ms:.0f} queries/s, distances within "
+        f"{rel:.3g} relative of f64")
+    check(r >= 0.99, f"wide recall@10 {r}")
+    parts_kept["wide"] = (parts, norms, q)
+
+
+def time_chunk_mins(q, y, yn, npad, cd, library):
+    """ms of the chunk_mins kernel, its plain version and (with
+    ``library``) the addmm + amin yardstick, over input copies."""
+    from raft_tpu_torch.core.device import full_f32
+    from raft_tpu_torch.spatial import fused_knn as fz
+
+    sets = [(a, b, c, npad, cd) for a, b, c in input_copies(q, y, yn)]
+    ms = cuda_time_ms(fz.chunk_mins, sets)
+    plain_ms = cuda_time_ms(fz.chunk_mins_plain, sets, iters=10, warm=1)
+    lib_ms = None
+    if library:
+        m = q.shape[0]
+
+        n = y.shape[0]
+
+        @full_f32
+        def lib(qa, ya, yna, *_):
+            # the (m, n) score matrix, then the min of each 128-column
+            # chunk through a strided view (the ragged last chunk apart)
+            t = torch.addmm(yna, qa, ya.float().T, alpha=-2.0)
+            full = n // 128
+            mins = t.as_strided((m, full, 128), (n, 128, 1)).amin(2)
+            if n % 128:
+                mins = torch.cat([mins, t[:, full * 128:].amin(
+                    1, keepdim=True)], 1)
+            return mins
+
+        lib_ms = cuda_time_ms(lib, sets, iters=10, warm=1)
+    del sets
+    return ms, plain_ms, lib_ms
+
+
+def chunk_mins_bound(m, n, d, npad, itemsize, cd):
+    nbytes = m * d * 4 + n * d * itemsize + n * 4 + m * (npad // 128) * 4
+    rate = BF16_FLOP_PER_S if cd == "bfloat16" else FP32_FLOP_PER_S
+    return bound(nbytes, 2.0 * m * n * d, rate)
+
+
+def rescore_bound(q, cids, y):
+    """Each distinct chunk the ids touch read once, q and the ids read
+    once, the scores written once; 4 flops per element (two FMAs) at the
+    f32 rate. Also returns the no-reuse byte count."""
+    m, d = q.shape
+    c = cids.shape[1]
+    row_bytes = 128 * d * y.element_size()
+    distinct = torch.unique(cids).numel()
+    extra = m * d * 4 + m * c * 4 + m * c * 128 * 4
+    ms, by = bound(distinct * row_bytes + extra, 4.0 * m * c * 128 * d,
+                    FP32_FLOP_PER_S)
+    return ms, by, distinct, m * c * row_bytes + extra
+
+
+def brute_force_phase(args, card, dev):
+    """The brute-force kNN path and its three kernels; returns their
+    entries of the ``kernels`` line."""
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial import knn as bfk
+
+    lib = fz._lib()
+    check(lib.raft_fused_max_grid_x() == fz._MAX_GRID_STEPS_DEFAULT,
+          "the card's 1-D grid limit differs from the port's")
+    gerrs = check_fused_kernels(args.seed)
+    _, bn = fz._plan_blocks(SIFT_QUERIES, SIFT_ROWS, SIFT_DIM)
+    npad = -(-SIFT_ROWS // bn) * bn
+    sift_grid = fz._grid_steps(SIFT_QUERIES, npad)
+    check(fz.probe_grid_steps(sift_grid),
+          f"probe_grid_steps({sift_grid}) refused the SIFT phase-1 grid")
+    check(not fz.probe_grid_steps(2**31),
+          "probe_grid_steps(2**31) ran past the 1-D grid limit")
+    log(f"probe_grid_steps: True at the SIFT phase-1 grid ({sift_grid} "
+        "blocks), False at 2**31 blocks")
+
+    # the main path, with every launch counter at 0 just before it
+    for key in fz.LAUNCHES:
+        fz.LAUNCHES[key] = 0
+    bfk.SCAN_FALLBACKS = 0
+    fz.RESCORE_GATHER_CALLS = 0
+    keep, kept = {}, {}
+    with fused_calls(keep) as shapes:
+        sift_path(args.seed, card, dev, kept)
+        wide_path(args.seed, card, dev, kept)
+    launches = dict(fz.LAUNCHES)
+    log(f"brute-force path: launches {launches}, by shape "
+        f"{ {k: dict(v) for k, v in shapes.items()} }")
+    for name, n in launches.items():
+        check(n > 0, f"the brute-force path never launched {name}")
+    check(bfk.SCAN_FALLBACKS == 0,
+          f"{bfk.SCAN_FALLBACKS} CUDA partitions left the fused kernels")
+    check(fz.RESCORE_GATHER_CALLS == 0,
+          f"{fz.RESCORE_GATHER_CALLS} fused calls took the gather rescore")
+
+    # the kernels against their plain versions on the path's own inputs:
+    # the first 256 queries, all chunks
+    x, norms, qb = kept["sift"]
+    errs = dict(gerrs)
+    for cd in (torch.float32, torch.bfloat16):
+        errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
+            qb[:256].contiguous(), x, norms, npad, cd))
+    parts, wnorms, wq = kept["wide"]
+    _, wbn = fz._plan_blocks(WIDE_QUERIES, WIDE_ROWS // 2, WIDE_DIM)
+    wpad = -(-(WIDE_ROWS // 2) // wbn) * wbn
+    errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
+        wq[:256].contiguous(), parts[0], wnorms[0], wpad, torch.bfloat16))
+    for (kname, key), call in keep.items():
+        if kname == "rescore_scores":
+            q, cids, y = call
+            errs["rescore_scores"] = max(errs["rescore_scores"],
+                                         compare_rescore(
+                                             q[:256].contiguous(),
+                                             cids[:256].contiguous(), y))
+    log(f"kernels vs plain on the path's inputs (first 256 queries, all "
+        f"chunks): max |kernel - plain| {errs}")
+
+    out = []
+    # chunk_mins: the shape launched most, then the 10,000-query batch
+    (cm_key, _), = shapes["chunk_mins"].most_common(1)
+    timed = {}
+    for key in dict.fromkeys([cm_key, (SIFT_QUERIES, SIFT_ROWS, SIFT_DIM,
+                                       "float32", "float32")]):
+        q, y, yn, npad_k, cd = keep[("chunk_mins", key)]
+        ms, plain_ms, lib_ms = time_chunk_mins(q, y, yn, npad_k, cd,
+                                               library=key == cm_key)
+        bound_ms, bound_by = chunk_mins_bound(*key[:3], npad_k,
+                                              y.element_size(), key[4])
+        timed[key] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
+        log(f"[{card}] chunk_mins {key}, {shapes['chunk_mins'][key]} "
+            f"launches: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of the bound")
+    ms, plain_ms, lib_ms, bound_ms, bound_by = timed[cm_key]
+    out.append({
+        "name": "chunk_mins", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/fused_knn.cu",
+        "replaces": "raft_tpu/spatial/fused_knn.py:85",
+        "launches": launches["chunk_mins"],
+        "launches_by_shape": {"x".join(map(str, k)): v for k, v in
+                              shapes["chunk_mins"].items()},
+        "max_abs_err": errs["chunk_mins"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "shape": list(cm_key), "card": card,
+        "sift_10k": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by"), timed[
+            (SIFT_QUERIES, SIFT_ROWS, SIFT_DIM, "float32", "float32")])),
+    })
+
+    (rs_key, _), = shapes["rescore_scores"].most_common(1)
+    timed = {}
+    for key in dict.fromkeys([rs_key, (SIFT_QUERIES, 24, SIFT_ROWS,
+                                       SIFT_DIM, "float32")]):
+        q, cids, y = keep[("rescore_scores", key)]
+        sets = input_copies(q, cids, y)
+        ms = cuda_time_ms(fz.rescore_scores, sets)
+        plain_ms = cuda_time_ms(fz.rescore_scores_plain, sets, iters=10,
+                                warm=1)
+        del sets
+        bound_ms, bound_by, distinct, no_reuse = rescore_bound(q, cids, y)
+        timed[key] = (ms, plain_ms, bound_ms, bound_by)
+        log(f"[{card}] rescore_scores {key}, "
+            f"{shapes['rescore_scores'][key]} launches: kernel {ms:.4f} ms, "
+            f"plain (the yardstick) {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {distinct} distinct chunks), "
+            f"{bound_ms / ms:.1%} of the bound; no-reuse bytes "
+            f"{no_reuse / 1e9:.3f} GB = {1e3 * no_reuse / HBM_BYTES_PER_S:.4f}"
+            " ms")
+    ms, plain_ms, bound_ms, bound_by = timed[rs_key]
+    out.append({
+        "name": "rescore_scores", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/fused_knn.cu",
+        "replaces": "raft_tpu/spatial/fused_knn.py:180",
+        "launches": launches["rescore_scores"],
+        "launches_by_shape": {"x".join(map(str, k)): v for k, v in
+                              shapes["rescore_scores"].items()},
+        "max_abs_err": errs["rescore_scores"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "shape": list(rs_key), "card": card,
+    })
+
+    # the probe at the SIFT phase-1 grid: the raw launch, then a clone
+    src = torch.arange(1024, dtype=torch.float32, device=dev).reshape(8, 128)
+    dst = torch.zeros_like(src)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def probe(s, o):
+        check(lib.raft_fused_probe_grid_steps(s.data_ptr(), o.data_ptr(),
+                                              sift_grid, stream) == 0,
+              "probe launch failed")
+
+    ms = cuda_time_ms(probe, [(src, dst)])
+    plain_ms = cuda_time_ms(lambda s, o: o.copy_(s), [(src, dst)])
+    check(torch.equal(dst, src), "the probe's copy differs")
+    bound_ms, bound_by = bound(2 * src.numel() * 4, 0.0, FP32_FLOP_PER_S)
+    log(f"[{card}] probe_grid_steps kernel at {sift_grid} blocks "
+        f"{ms:.4f} ms, plain (one tile copy) {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    out.append({
+        "name": "probe_grid_steps", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/fused_knn.cu",
+        "replaces": "raft_tpu/spatial/fused_knn.py:443",
+        "launches": launches["probe_grid_steps"],
+        "max_abs_err": (dst - src).abs().max().item(), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "shape": [sift_grid], "card": card,
+    })
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    card = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    t0 = time.perf_counter()
+    kernels = [ivf_flat_phase(args, card, dev)]
+    log(f"IVF-Flat phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += brute_force_phase(args, card, dev)
+    log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-__all__ = ["full_f32", "resolve_device"]
+__all__ = ["as_tensor", "call_device", "full_f32", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,6 +31,25 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def call_device(*args, device=None) -> torch.device:
+    """The device a call runs on: ``device`` when given, else that of
+    the first tensor among ``args``, else :func:`resolve_device`'s
+    default (CUDA, or raise)."""
+    if device is not None:
+        return resolve_device(device)
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return resolve_device(None)
+
+
+def as_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``; float64 becomes float32, as the
+    JAX package stores f64 input (x64 off)."""
+    t = torch.as_tensor(x, device=device)
+    return t.float() if t.dtype == torch.float64 else t
 
 
 @contextlib.contextmanager

@@ -11,7 +11,8 @@ batch for all the queries probing it, at most ``qcap`` of them.
 
 Selection ties: ``lax.top_k`` in the JAX package returns equal values
 lowest index first. ``torch.topk`` does not promise that, so every
-selection here goes through :func:`top_k_smallest`, a stable sort —
+selection here goes through
+:func:`~raft_tpu_torch.spatial.selection.top_k_smallest`, a stable sort —
 with integer-exact data, ties are common and a different tie order would
 pick different probes and different candidates, not just reorder them.
 """
@@ -27,6 +28,7 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import full_f32
+from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
     "ListStorage", "auto_qcap", "build_list_storage",
@@ -35,7 +37,6 @@ __all__ = [
     "probe_drop_stats", "regroup_pairs", "resolve_qcap",
     "resolve_qcap_arg", "score_l2_candidates", "select_candidates",
     "split_oversized_lists", "static_qcap", "throughput_qcap",
-    "top_k_smallest",
 ]
 
 logger = logging.getLogger("raft_tpu_torch")
@@ -56,14 +57,6 @@ class ListStorage:
     list_sizes: torch.Tensor     # (n_lists,) int32
     n: int
     max_list: int
-
-
-def top_k_smallest(x, k: int):
-    """The ``k`` smallest values along the last axis and their indices,
-    ascending, equal values lowest index first (``lax.top_k(-x, k)``
-    with the sign undone)."""
-    vals, idx = torch.sort(x, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 @full_f32

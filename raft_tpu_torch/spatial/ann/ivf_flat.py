@@ -37,8 +37,8 @@ from raft_tpu_torch.spatial.ann.common import (
     select_candidates,
     split_oversized_lists,
     static_qcap,
-    top_k_smallest,
 )
+from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
     "IVFFlatParams",

@@ -53,6 +53,19 @@ def profile_bucket(index, queries, qcap, iters, out_dir=None):
     def run():
         ivf_flat_search_grouped(index, queries, K, n_probes=N_PROBES,
                                 qcap=qcap)
+
+    return trace_calls(run, iters, None if out_dir is None
+                       else out_dir / f"trace_{len(queries)}.json")
+
+
+def trace_calls(fn, iters, trace_path=None):
+    """Time ``iters`` calls of ``fn`` (each ending in a synchronise) on
+    the host clock after one warm call, then trace as many with
+    ``torch.profiler``. Returns (wall_ms per call, busy_ms per call, top
+    kernels as [(name, ms per call, launches per call)]); with
+    ``trace_path``, writes the Chrome trace there."""
+    def run():
+        fn()
         torch.cuda.synchronize()
 
     run()
@@ -67,8 +80,8 @@ def profile_bucket(index, queries, qcap, iters, out_dir=None):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        raise RuntimeError("profile_grouped: the trace holds no device "
-                           "time (is CUPTI tracing available?)")
+        raise RuntimeError("the trace holds no device time (is CUPTI "
+                           "tracing available?)")
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e3 / iters
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -76,10 +89,22 @@ def profile_bucket(index, queries, qcap, iters, out_dir=None):
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    if out_dir is not None:
-        prof.export_chrome_trace(str(out_dir / f"trace_{len(queries)}.json"))
+    if trace_path is not None:
+        prof.export_chrome_trace(str(trace_path))
     return wall_ms, busy_ms, [(n, t / 1e3 / iters, c / iters)
                               for n, (t, c) in top]
+
+
+def card_name(tool: str) -> str:
+    """The card's name and power limit as nvidia-smi gives them; exits
+    when there is no CUDA device."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{tool}: needs a CUDA device")
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -87,13 +112,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_grouped: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name("profile_grouped")
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
 

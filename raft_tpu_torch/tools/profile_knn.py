@@ -1,0 +1,65 @@
+"""Where the time of one brute-force kNN batch goes, on one CUDA card.
+
+    python3 -m raft_tpu_torch.tools.profile_knn [--seed N] [--out DIR]
+
+Makes the brute-force path's SIFT-1M-shaped index (1,000,000 clustered
+rows of width 128, as ``chip_smoke.py``) with its row norms, then for a
+512-query serving batch and the 10,000-query batch times 5 searches
+(``brute_force_knn``, k=10, the fused kernels) on the host clock, each
+ending in a synchronise, and traces the same searches with
+``torch.profiler``. It prints, per batch: the wall time, the device busy
+time (the union of the kernels' intervals), the idle share, and the
+kernels that took the most device time. With ``--out`` it also writes
+each trace as a Chrome trace there.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.distance import row_norm_sq
+from raft_tpu_torch.spatial import brute_force_knn
+from raft_tpu_torch.tools.profile_grouped import card_name, trace_calls
+
+N_ROWS, DIM, K = 1_000_000, 128, 10
+BATCHES = (512, 10_000)
+ITERS = 5
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    card = card_name("profile_knn")
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+
+    rng = np.random.default_rng(args.seed)
+    centers = rng.standard_normal((2000, DIM), dtype=np.float32) * 2.0
+    x_np = (centers[rng.integers(0, 2000, N_ROWS)]
+            + rng.standard_normal((N_ROWS, DIM), dtype=np.float32))
+    x = torch.as_tensor(x_np, device="cuda")
+    norms = row_norm_sq(x)
+    for nq in BATCHES:
+        q = torch.as_tensor(
+            x_np[rng.integers(0, N_ROWS, nq)]
+            + 0.3 * rng.standard_normal((nq, DIM), dtype=np.float32),
+            device="cuda")
+        wall, busy, top = trace_calls(
+            lambda: brute_force_knn(x, q, K, index_norms=norms), ITERS,
+            None if args.out is None else args.out / f"knn_{nq}.json")
+        print(f"[{card}] brute-force batch of {nq}: {wall:.3f} ms per "
+              f"batch, device busy {busy:.3f} ms, idle "
+              f"{1 - busy / wall:.1%}", flush=True)
+        for name, ms, n in top:
+            print(f"    {ms:9.4f} ms {n:7.1f}x  {name[:100]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

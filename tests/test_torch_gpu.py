@@ -60,3 +60,80 @@ def test_cuda_kernel_matches_plain_version():
         qn = (qg.float() ** 2).sum(-1)[:, :, None]
         yn = (sg.float() ** 2).sum(1).reshape(lb, 1, -1, 8).amax(-1)
         assert ((got - want).abs() <= 1e-5 * (qn + yn)).all()
+
+
+def _hopper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda")
+
+
+# (m, n, d): ragged (rows, queries and width off every tile), aligned
+_FUSED_SHAPES = ((37, 8192 + 37, 19), (200, 16384, 128))
+
+
+@pytest.mark.gpu
+def test_chunk_mins_kernel_matches_plain_version():
+    """On a Hopper card: the phase-1 kernel against its plain version,
+    bitwise on integer-exact inputs, for f32 and bf16 storage and both
+    compute types, with whole padded chunks past n."""
+    from raft_tpu_torch.spatial import fused_knn as tfk
+
+    dev = _hopper()
+    rng = np.random.default_rng(0)
+    for m, n, d in _FUSED_SHAPES:
+        q = torch.as_tensor(rng.integers(-8, 8, (m, d)), dtype=torch.float32,
+                            device=dev)
+        y = torch.as_tensor(rng.integers(-8, 8, (n, d)), dtype=torch.float32,
+                            device=dev)
+        npad = -(-n // 2048) * 2048
+        for yt in (y, y.to(torch.bfloat16)):
+            yn = (yt.float() ** 2).sum(1)
+            for cd in (torch.float32, torch.bfloat16):
+                before = tfk.LAUNCHES["chunk_mins"]
+                got = tfk.chunk_mins(q, yt, yn, npad, cd)
+                assert tfk.LAUNCHES["chunk_mins"] == before + 1
+                want = tfk.chunk_mins_plain(q, yt, yn, npad, cd)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (m, n, d, yt.dtype, cd)
+
+
+@pytest.mark.gpu
+def test_rescore_kernel_matches_plain_version():
+    """On a Hopper card: the rescore kernel against its plain version,
+    bitwise on integer-exact inputs (f32 and bf16 storage, vector and
+    scalar row loads, chunk ids past the index)."""
+    from raft_tpu_torch.spatial import fused_knn as tfk
+
+    dev = _hopper()
+    rng = np.random.default_rng(1)
+    for m, n, d in _FUSED_SHAPES:
+        q = torch.as_tensor(rng.integers(-8, 8, (m, d)), dtype=torch.float32,
+                            device=dev)
+        y = torch.as_tensor(rng.integers(-8, 8, (n, d)), dtype=torch.float32,
+                            device=dev)
+        cids = torch.as_tensor(rng.integers(0, -(-n // 2048) * 16, (m, 24)),
+                               dtype=torch.int32, device=dev)
+        for yt in (y, y.to(torch.bfloat16)):
+            before = tfk.LAUNCHES["rescore_scores"]
+            got = tfk.rescore_scores(q, cids, yt)
+            assert tfk.LAUNCHES["rescore_scores"] == before + 1
+            want = tfk.rescore_scores_plain(q, cids, yt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, n, d, yt.dtype)
+
+
+@pytest.mark.gpu
+def test_probe_grid_steps_on_the_card():
+    """The launch probe runs a phase-1-sized grid and reports a grid the
+    card refuses (past the 2**31 - 1 block limit of a 1-D grid)."""
+    from raft_tpu_torch.spatial import fused_knn as tfk
+
+    _hopper()
+    before = tfk.LAUNCHES["probe_grid_steps"]
+    assert tfk.probe_grid_steps(79 * 7824)
+    assert tfk.LAUNCHES["probe_grid_steps"] == before + 1
+    assert not tfk.probe_grid_steps(2**31)
+    assert tfk.LAUNCHES["probe_grid_steps"] == before + 1

@@ -485,6 +485,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import raft_tpu_torch, raft_tpu_torch.spatial.ann.ivf_flat\n"
         "import raft_tpu_torch.spatial.ann, raft_tpu_torch.serving.batching\n"
+        "import raft_tpu_torch.spatial.knn, raft_tpu_torch.distance.pairwise\n"
+        "import raft_tpu_torch.spatial, raft_tpu_torch.distance\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raft_tpu' or m.startswith('raft_tpu.')]\n"
         "assert not bad, bad\n"
