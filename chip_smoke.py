@@ -12,6 +12,10 @@ set to 0 just before it and read just after:
   width) built with 1024 lists, warmed per serving bucket, serving ~200
   requests through the bucketed micro-batcher and the grouped search,
   with recall@10 of both scan engines against exact brute force;
+* IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
+  configurations) over 500,000 rows of width 96 around 1,000 centres:
+  build, warm, serve ~100 requests each, and a 4,096-query batch on both
+  engines, with recall@10 against exact brute force;
 * brute-force kNN through ``brute_force_knn``: 1,000,000 x 128 clustered
   rows (SIFT-1M's shape) serving ~100 bucketed requests, one
   10,000-query batch with f32 and bf16 phase 1, the scan path on 1,000
@@ -52,6 +56,13 @@ FP32_FLOP_PER_S = 67e12
 N_ROWS, DIM, N_LISTS, N_PROBES, K = 1_000_000, 96, 1024, 8, 10
 BUCKETS = (8, 64, 512, 4096)
 N_REQUESTS = 200
+
+# quantized IVF (bench.py extra_sq_scan_kernel / extra_ivf_pq): 500,000
+# clustered rows of width 96 around 1,000 centres, 4,096 queries
+QZ_ROWS, QZ_CENTERS, QZ_QUERIES, QZ_LISTS, QZ_PROBES = \
+    500_000, 1000, 4096, 2048, 16
+QZ_REQUESTS = 100
+PQ_DIM, PQ_BITS, PQ_REFINE = 24, 8, 4.0
 
 # brute-force kNN at SIFT-1M's shape (bench/bench_knn.py:19), and the
 # width of the 10M x 768 regime at 2M rows in two bf16 partitions
@@ -148,9 +159,22 @@ def phase_build():
     t0 = time.perf_counter()
     out_dir = _build.build_all()
     build_s = time.perf_counter() - t0
+    from raft_tpu_torch.spatial.ann import pq_kernel, sq_kernel
+
     lib = flat_kernel._lib()
     check(lib.raft_flat_scan_smem_bytes(DIM) == flat_kernel._smem_bytes(DIM),
           "the wrapper's shared-memory model disagrees with the kernel's")
+    check(sq_kernel._lib().raft_sq_scan_smem_bytes(DIM)
+          == sq_kernel._smem_bytes(DIM),
+          "the SQ wrapper's shared-memory model disagrees with the kernel's")
+    plib = pq_kernel._lib()
+    m, k_codes = PQ_DIM, 1 << PQ_BITS
+    qt = pq_kernel._query_tile(24, m, k_codes)
+    check(plib.raft_pq_adc_max_qtile(m, k_codes)
+          == pq_kernel._max_qtile(m, k_codes)
+          and plib.raft_pq_adc_smem_bytes(qt, m, k_codes)
+          == pq_kernel._smem_bytes(qt, m, k_codes),
+          "the ADC wrapper's shared-memory model disagrees with the kernel's")
     log(f"build: csrc/*.cu -> {out_dir} in {build_s:.2f} s")
 
 
@@ -248,26 +272,32 @@ def time_kernel(qr, slabs_t, bounds):
 
 
 @contextlib.contextmanager
-def scan_calls(keep=None):
-    """Count the calls of the scan's wrapper by (Q, Lpad) shape and, with
-    a list ``keep``, keep each call's inputs there. The wrapper still
-    runs (and counts its launches) as before."""
-    from raft_tpu_torch.spatial.ann import flat_kernel as fk
-
-    wrapper = fk.flat_scan_subchunk_min
+def kernel_calls(mod, name, key, keep=None):
+    """Count the calls of ``mod.name`` (a kernel's wrapper) by
+    ``key(args)`` and, with a list ``keep``, keep each call's inputs
+    there. The wrapper still runs (and counts its launches) as before."""
+    wrapper = getattr(mod, name)
     shapes = collections.Counter()
 
-    def recording(qrows, slabs_t, bounds):
-        shapes[(qrows.shape[1], slabs_t.shape[2])] += 1
+    def recording(*args):
+        shapes[key(args)] += 1
         if keep is not None:
-            keep.append((qrows, slabs_t, bounds))
-        return wrapper(qrows, slabs_t, bounds)
+            keep.append(args)
+        return wrapper(*args)
 
-    fk.flat_scan_subchunk_min = recording
+    setattr(mod, name, recording)
     try:
         yield shapes
     finally:
-        fk.flat_scan_subchunk_min = wrapper
+        setattr(mod, name, wrapper)
+
+
+def scan_calls(keep=None):
+    """The flat scan's calls by (Q, Lpad) shape (:func:`kernel_calls`)."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    return kernel_calls(fk, "flat_scan_subchunk_min",
+                        lambda a: (a[0].shape[1], a[1].shape[2]), keep)
 
 
 def clustered_rows(rng, n, d, n_centers=2000):
@@ -313,13 +343,59 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def serve_requests(search, rows, rng, n_requests, dim, n_index, card, what):
+    """Serve ``n_requests`` bucketed requests (1-512 rows, log-uniform,
+    arriving 1-4 at a time ahead of each batch, so every bucket sees
+    traffic) through the micro-batcher and ``search(queries, bucket)``;
+    checks every answer's shape, range and order. Returns (requests,
+    (dists, ids, bucket) by request id, p50 ms by bucket)."""
+    from raft_tpu_torch.serving.batching import (
+        BucketSet, PendingRequest, pack_requests,
+    )
+
+    buckets = BucketSet.of(BUCKETS)
+    sizes = np.exp(rng.uniform(0.0, np.log(513.0), n_requests))
+    requests = [rows(int(m)) for m in np.clip(sizes, 1, 512)]
+    arrivals = [PendingRequest(r, None, 0.0) for r in requests]
+    pending, served = [], {}
+    lat = {b: [] for b in buckets.sizes}
+    t_serve = time.perf_counter()
+    while arrivals or pending:
+        n_new = int(rng.integers(1, 5))
+        pending += arrivals[:n_new]
+        arrivals = arrivals[n_new:]
+        batch, pending = pack_requests(pending, buckets, dim)
+        t0 = time.perf_counter()
+        d, ids = search(batch.queries, batch.bucket)
+        d, ids = d.cpu(), ids.cpu()           # waits for the device
+        lat[batch.bucket].append(1e3 * (time.perf_counter() - t0))
+        for req, start in batch.entries:
+            served[id(req.queries)] = (d[start:start + req.n_rows],
+                                       ids[start:start + req.n_rows],
+                                       batch.bucket)
+    serve_s = time.perf_counter() - t_serve
+    n_rows = sum(r.shape[0] for r in requests)
+    for r in requests:
+        d, ids, _ = served[id(r)]
+        check(d.shape == (r.shape[0], K) and bool(torch.isfinite(d).all()),
+              f"{what}: served distances of shape {tuple(d.shape)} not "
+              "finite")
+        check(bool(((ids >= 0) & (ids < n_index)).all()),
+              f"{what}: served ids out of range")
+        check(bool((d[:, 1:] >= d[:, :-1]).all()),
+              f"{what}: served distances unsorted")
+    p50 = {b: float(np.median(v)) for b, v in lat.items() if v}
+    log(f"[{card}] {what} serve: {len(requests)} requests, {n_rows} rows in "
+        f"{sum(len(v) for v in lat.values())} batches, {serve_s:.3f} s, "
+        f"{n_rows / serve_s:.0f} queries/s; p50 ms by bucket "
+        f"{ {b: round(v, 3) for b, v in p50.items()} }")
+    return requests, served, p50
+
+
 def main_path(seed, card, dev):
     """Build -> warm each bucket -> serve requests through the
     micro-batcher -> recall of both engines, on ``dev``. Returns the
     index, the warmed qcap of each bucket and the rows."""
-    from raft_tpu_torch.serving.batching import (
-        BucketSet, PendingRequest, pack_requests,
-    )
     from raft_tpu_torch.spatial.ann import (
         IVFFlatParams, ivf_flat_build, ivf_flat_search_grouped,
     )
@@ -339,10 +415,8 @@ def main_path(seed, card, dev):
         f"{build_s:.2f} s (max_list {index.storage.max_list}, "
         f"empty lists {(sizes == 0).sum().item()})")
 
-    buckets = BucketSet.of(BUCKETS)
     t0 = time.perf_counter()
-    qcaps = {b: index.warmup(b, k=K, n_probes=N_PROBES)
-             for b in buckets.sizes}
+    qcaps = {b: index.warmup(b, k=K, n_probes=N_PROBES) for b in BUCKETS}
     log(f"[{card}] warmup: qcap per bucket {qcaps} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -350,44 +424,10 @@ def main_path(seed, card, dev):
         return (x[rng.integers(0, N_ROWS, m)]
                 + 0.3 * rng.standard_normal((m, DIM), dtype=np.float32))
 
-    # request sizes log-uniform over 1..512 rows, arriving 1-4 at a time
-    # ahead of each batch, so every bucket sees traffic
-    sizes = np.exp(rng.uniform(0.0, np.log(513.0), N_REQUESTS))
-    requests = [noisy_rows(int(m)) for m in np.clip(sizes, 1, 512)]
-    arrivals = [PendingRequest(r, None, 0.0) for r in requests]
-    pending = []
-    served, lat = {}, {b: [] for b in buckets.sizes}
-    t_serve = time.perf_counter()
-    while arrivals or pending:
-        n_new = int(rng.integers(1, 5))
-        pending += arrivals[:n_new]
-        arrivals = arrivals[n_new:]
-        batch, pending = pack_requests(pending, buckets, DIM)
-        t0 = time.perf_counter()
-        d, ids = ivf_flat_search_grouped(
-            index, batch.queries, K, n_probes=N_PROBES,
-            qcap=qcaps[batch.bucket])
-        d, ids = d.cpu(), ids.cpu()           # waits for the device
-        lat[batch.bucket].append(1e3 * (time.perf_counter() - t0))
-        for req, start in batch.entries:
-            served[id(req.queries)] = (d[start:start + req.n_rows],
-                                       ids[start:start + req.n_rows])
-    serve_s = time.perf_counter() - t_serve
-    n_rows = sum(r.shape[0] for r in requests)
-    for r in requests:
-        d, ids = served[id(r)]
-        check(d.shape == (r.shape[0], K) and bool(torch.isfinite(d).all()),
-              f"served distances of shape {tuple(d.shape)} not finite")
-        check(bool(((ids >= 0) & (ids < N_ROWS)).all()),
-              "served ids out of range")
-        check(bool((d[:, 1:] >= d[:, :-1]).all()), "served distances unsorted")
-    log(f"[{card}] serve: {len(requests)} requests, {n_rows} rows in "
-        f"{sum(len(v) for v in lat.values())} batches, {serve_s:.3f} s, "
-        f"{n_rows / serve_s:.0f} queries/s")
-    for b, v in lat.items():
-        if v:
-            log(f"[{card}] bucket {b}: {len(v)} batches, p50 "
-                f"{float(np.median(v)):.3f} ms")
+    requests, served, _ = serve_requests(
+        lambda q, b: ivf_flat_search_grouped(index, q, K, n_probes=N_PROBES,
+                                             qcap=qcaps[b]),
+        noisy_rows, rng, N_REQUESTS, DIM, N_ROWS, card, "IVF-Flat")
     # served answers against exact brute force on a sample of requests
     sample = requests[:20]
     qs = torch.as_tensor(np.concatenate(sample), device=dev)
@@ -507,6 +547,353 @@ def ivf_flat_phase(args, card, dev):
         "shape": [32, qc, DIM, l_pad],
         "card": card,
     }
+
+
+# ---------------------------------------------------------------------------
+# Quantized IVF: IVF-SQ (int8 dequant scan) and IVF-PQ (ADC scan + refine)
+# ---------------------------------------------------------------------------
+
+
+def ann_dataset(seed):
+    """bench.py's ann_bench_dataset geometry, made with numpy: 500,000 x
+    96 rows around 1,000 centres uniform in [-10, 10)^96 (std 1), and
+    4,096 queries that are dataset rows plus 0.3-std noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10.0, 10.0, (QZ_CENTERS, DIM)).astype(np.float32)
+    x = (centers[rng.integers(0, QZ_CENTERS, QZ_ROWS)]
+         + rng.standard_normal((QZ_ROWS, DIM), dtype=np.float32))
+    q = (x[rng.integers(0, QZ_ROWS, QZ_QUERIES)]
+         + 0.3 * rng.standard_normal((QZ_QUERIES, DIM), dtype=np.float32))
+    return x, q, rng
+
+
+def quantized_path(kind, x, qb, true, rng, card, dev):
+    """Build -> warm each bucket -> serve requests -> the 4,096-query
+    batch at qcap="throughput" on both engines, for ``kind`` "sq" or
+    "pq"; recall@10 against exact brute force. Returns the index and the
+    warmed qcap of each bucket."""
+    from raft_tpu_torch.spatial import brute_force_knn
+    from raft_tpu_torch.spatial.ann import (
+        IVFPQParams, IVFSQParams, ivf_pq_build, ivf_pq_search_grouped,
+        ivf_sq_build, ivf_sq_search_grouped,
+    )
+
+    t0 = time.perf_counter()
+    if kind == "sq":
+        index = ivf_sq_build(x, IVFSQParams(
+            n_lists=QZ_LISTS, kmeans_n_iters=10, max_list_cap=512),
+            device=dev)
+
+        def search(q, qcap, use_kernel=None):
+            return ivf_sq_search_grouped(index, q, K, n_probes=QZ_PROBES,
+                                         qcap=qcap, use_kernel=use_kernel)
+        warm = {}
+    else:
+        index = ivf_pq_build(x, IVFPQParams(
+            n_lists=QZ_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
+            kmeans_n_iters=10, kmeans_init="random", max_list_cap=512),
+            device=dev)
+
+        def search(q, qcap, use_kernel=None):
+            return ivf_pq_search_grouped(
+                index, q, K, n_probes=QZ_PROBES, qcap=qcap,
+                refine_ratio=PQ_REFINE, use_kernel=use_kernel)
+        warm = {"refine_ratio": PQ_REFINE}
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    check(index.device.type == dev.type, f"{kind} index on {index.device}")
+    log(f"[{card}] {kind} build: {QZ_ROWS} x {DIM} -> "
+        f"{index.centroids.shape[0]} lists in {build_s:.2f} s (max_list "
+        f"{index.storage.max_list})")
+
+    t0 = time.perf_counter()
+    qcaps = {b: index.warmup(b, k=K, n_probes=QZ_PROBES, **warm)
+             for b in BUCKETS}
+    log(f"[{card}] {kind} warmup: qcap per bucket {qcaps} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def noisy_rows(m):
+        return (x[rng.integers(0, QZ_ROWS, m)]
+                + 0.3 * rng.standard_normal((m, DIM), dtype=np.float32))
+
+    requests, served, _ = serve_requests(
+        lambda q, b: search(q, qcaps[b]), noisy_rows, rng, QZ_REQUESTS,
+        DIM, QZ_ROWS, card, kind)
+    sample = requests[:20]
+    qs = torch.as_tensor(np.concatenate(sample), device=dev)
+    _, want = brute_force_knn(torch.as_tensor(x, device=dev), qs, K)
+    r_served = recall(torch.cat([served[id(r)][1] for r in sample]), want)
+    log(f"[{card}] {kind} served recall@10 (first 20 requests): "
+        f"{r_served:.4f}")
+    check(r_served >= 0.8, f"{kind} served recall@10 {r_served}")
+
+    results = {}
+    for name, engine in (("kernel", None), ("legacy", False)):
+        sync(dev)
+        t0 = time.perf_counter()
+        d, ids = search(qb, "throughput", use_kernel=engine)
+        sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(bool(torch.isfinite(d).all()), f"{kind} {name}: non-finite")
+        results[name] = (recall(ids, true), ms)
+    log(f"[{card}] {kind} {QZ_QUERIES}-query batch (qcap 'throughput'): "
+        + ", ".join(f"{n} recall@10 {r:.4f} ({ms:.2f} ms, "
+                    f"{1e3 * QZ_QUERIES / ms:.0f} queries/s)"
+                    for n, (r, ms) in results.items()))
+    check(results["kernel"][0] >= results["legacy"][0] - 0.005,
+          f"{kind} kernel engine recall below legacy: {results}")
+    return index, qcaps
+
+
+def sq_int_inputs(gen, lb, q, d, l_pad, dev, dyadic):
+    """SQ scan inputs: bf16 queries, an int8 (LB, Lpad, d) slab passed
+    transposed, and affine stats — dyadic (every value and sum exact)
+    or generic."""
+    if dyadic:
+        qr = torch.randint(-64, 64, (lb, q, d), generator=gen).float()
+        vmin = torch.randint(-8, 8, (d,), generator=gen).float()
+        vscale = torch.full((d,), 0.5)
+    else:
+        qr = torch.randn((lb, q, d), generator=gen)
+        vmin = torch.randn((d,), generator=gen)
+        vscale = torch.rand((d,), generator=gen) / 64 + 1e-3
+    codes = torch.randint(-128, 128, (lb, l_pad, d), generator=gen,
+                          dtype=torch.int8)
+    return (qr.to(torch.bfloat16).to(dev), codes.to(dev).transpose(1, 2),
+            vmin.to(dev), vscale.to(dev))
+
+
+def pq_inputs(gen, lb, q, m, k_codes, l_pad, dev, integer):
+    """ADC scan inputs: a bf16 LUT (integer-valued or Gaussian) and a
+    uint8 (LB, Lpad, M) code slab passed transposed."""
+    luts = (torch.randint(-64, 64, (lb, q, m * k_codes), generator=gen)
+            .float() if integer else
+            torch.randn((lb, q, m * k_codes), generator=gen))
+    codes = torch.randint(0, k_codes, (lb, l_pad, m), generator=gen,
+                          dtype=torch.uint8)
+    return luts.to(torch.bfloat16).to(dev), codes.to(dev).transpose(1, 2)
+
+
+def bitwise(fn, plain, args, what):
+    """The kernel against its plain version on ``args``: equal bit for
+    bit; returns max |kernel - plain| (0.0)."""
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(
+            f"chip_smoke: {what}: {bad} entries differ from the plain "
+            f"version (max |diff| {(got - want).abs().max().item()})")
+    return (got - want).abs().max().item()
+
+
+def time_sq(qr, codes_t, bounds, vmin, vscale):
+    """ms of the SQ kernel, its plain version, and the library yardstick
+    (the dequant as torch elementwise ops, then baddbmm of the norm bias
+    minus 2 x the f32 gram and the 8-row amin; timed only)."""
+    from raft_tpu_torch.core.device import full_f32
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+
+    lb, q, d = qr.shape
+    l_pad = codes_t.shape[2]
+    sets = [(a, b, c, vmin, vscale)
+            for a, b, c in input_copies(qr, codes_t, bounds)]
+    ms = cuda_time_ms(sk.sq_scan_subchunk_min, sets)
+    plain_ms = cuda_time_ms(sk.sq_scan_subchunk_min_plain, sets, iters=10,
+                            warm=1)
+    lib_sets = [(a.float(), (a.float() ** 2).sum(-1)[:, :, None], b)
+                for a, b, _, _, _ in sets]
+    del sets
+
+    @full_f32
+    def library(qf, qn, codes):
+        y = ((codes.float() + 128.0) * vscale[:, None] + vmin[:, None]).to(
+            torch.bfloat16).float()
+        t = torch.baddbmm(qn + (y * y).sum(1)[:, None, :], qf, y, alpha=-2.0)
+        return t.reshape(lb, q, l_pad // 8, 8).amin(-1)
+
+    library_ms = cuda_time_ms(library, lib_sets, iters=10, warm=1)
+    return ms, plain_ms, library_ms
+
+
+def time_pq(luts, codes_t, bounds):
+    """ms of the ADC kernel, its plain version, and the library yardstick
+    (the JAX legacy engine's spelling: a one-hot bf16 expansion of the
+    codes, bmm with the LUT, the 8-row amin; timed only)."""
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+
+    lb, q, mk = luts.shape
+    m, l_pad = codes_t.shape[1], codes_t.shape[2]
+    k_codes = mk // m
+    sets = input_copies(luts, codes_t, bounds)
+    ms = cuda_time_ms(pk.pq_adc_subchunk_min, sets)
+    plain_ms = cuda_time_ms(pk.pq_adc_subchunk_min_plain, sets, iters=10,
+                            warm=1)
+    kidx = torch.arange(k_codes, device=luts.device, dtype=torch.uint8)
+
+    def library(lut, codes, _):
+        oh = (codes[:, :, None, :] == kidx[None, None, :, None]).to(
+            torch.bfloat16).reshape(lb, mk, l_pad)
+        return torch.bmm(lut, oh).reshape(lb, q, l_pad // 8, 8).amin(-1)
+
+    library_ms = cuda_time_ms(library, sets, iters=10, warm=1)
+    del sets
+    return ms, plain_ms, library_ms
+
+
+def sq_bound(lb, q, d, l_pad):
+    """Each input read once (bf16 queries, int8 slab, bounds, stats),
+    the minima written once; 2 flop per multiply-add at the bf16 rate."""
+    nbytes = (lb * (q * d * 2 + d * l_pad + q * (l_pad // 8) * 4 + 8)
+              + 2 * d * 4)
+    return bound(nbytes, 2.0 * lb * q * l_pad * d, BF16_FLOP_PER_S)
+
+
+def pq_bound(lb, q, m, k_codes, l_pad):
+    """Each input read once (the bf16 LUT, uint8 codes, bounds), the
+    minima written once; one f32 add per (query, row, subspace)."""
+    nbytes = lb * (q * m * k_codes * 2 + m * l_pad + q * (l_pad // 8) * 4
+                   + 8)
+    return bound(nbytes, 1.0 * lb * q * l_pad * m, FP32_FLOP_PER_S)
+
+
+def quantized_phase(kind, args, card, dev, data):
+    """The IVF-SQ ("sq") or IVF-PQ ("pq") path and its scan kernel;
+    returns the kernel's entry of the ``kernels`` line."""
+    from raft_tpu_torch.spatial.ann import ivf_pq, ivf_sq
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+
+    x, q_np, true = data
+    gen = torch.Generator().manual_seed(args.seed)
+    if kind == "sq":
+        kmod, fn_name, engine = sk, "sq_scan_subchunk_min", ivf_sq
+        fn, plain = sk.sq_scan_subchunk_min, sk.sq_scan_subchunk_min_plain
+        # bitwise on dyadic and on generic stats, at the path's shape and
+        # a ragged one (Q off the 64-slot tile, Lpad off the 64-row tile)
+        errs = []
+        for lb, q, d, l_pad in ((32, 24, DIM, 512), (3, 13, 24, 136)):
+            bounds = _bounds(gen, lb, l_pad, dev)
+            for dyadic in (True, False):
+                qr, codes_t, vmin, vscale = sq_int_inputs(
+                    gen, lb, q, d, l_pad, dev, dyadic)
+                errs.append(bitwise(fn, plain,
+                                    (qr, codes_t, bounds, vmin, vscale),
+                                    f"{fn_name} ({lb},{q},{d},{l_pad}) "
+                                    f"dyadic={dyadic}"))
+        log(f"kernel check {fn_name}: bitwise on dyadic and generic stats "
+            "at (32, 24, 96, 512) and (3, 13, 24, 136)")
+    else:
+        kmod, fn_name, engine = pk, "pq_adc_subchunk_min", ivf_pq
+        fn, plain = pk.pq_adc_subchunk_min, pk.pq_adc_subchunk_min_plain
+        errs = []
+        for lb, q, m, k_codes, l_pad in ((8, 24, PQ_DIM, 1 << PQ_BITS, 512),
+                                         (3, 13, 5, 32, 136),
+                                         (2, 13, 96, 256, 264)):
+            bounds = _bounds(gen, lb, l_pad, dev)
+            for integer in (True, False):
+                luts, codes_t = pq_inputs(gen, lb, q, m, k_codes, l_pad,
+                                          dev, integer)
+                errs.append(bitwise(fn, plain, (luts, codes_t, bounds),
+                                    f"{fn_name} ({lb},{q},{m * k_codes},"
+                                    f"{l_pad}) integer={integer}"))
+        log(f"kernel check {fn_name}: bitwise on integer and Gaussian LUTs "
+            "at (8, 24, 6144, 512), (3, 13, 160, 136) and (2, 13, 24576, "
+            "264) (several query tiles)")
+
+    def key(a):
+        # (lists, query slots, d or M*K, Lpad) of one launch
+        return tuple(a[0].shape) + (a[1].shape[2],)
+
+    # the main path, with every launch counter at 0 just before it
+    rng = np.random.default_rng(args.seed + (2 if kind == "sq" else 3))
+    qb = torch.as_tensor(q_np, device=dev)
+    kmod.LAUNCHES = 0
+    engine.ENGINE_FALLBACKS = 0
+    with kernel_calls(kmod, fn_name, key) as shapes:
+        index, qcaps = quantized_path(kind, x, qb, true, rng, card, dev)
+    launches = kmod.LAUNCHES
+    log(f"{kind} path: {fn_name} launched {launches} times, by (LB, Q, "
+        f"width, Lpad): {dict(shapes)}; ENGINE_FALLBACKS "
+        f"{engine.ENGINE_FALLBACKS}")
+    check(launches > 0, f"the {kind} path never launched {fn_name}")
+    check(engine.ENGINE_FALLBACKS == 0,
+          f"{engine.ENGINE_FALLBACKS} {kind} searches left the kernel")
+
+    # the kernel against its plain version on the path's own inputs: every
+    # list block of one batch per bucket, and of the throughput batch
+    by_shape = {}
+    for b in BUCKETS + ("throughput",):
+        nq = QZ_QUERIES if b == "throughput" else b
+        qs = qb[torch.as_tensor(rng.integers(0, QZ_QUERIES, nq), device=dev)]
+        keep = []
+        with kernel_calls(kmod, fn_name, key, keep):
+            if kind == "sq":
+                ivf_sq.ivf_sq_search_grouped(
+                    index, qs, K, n_probes=QZ_PROBES,
+                    qcap=b if b == "throughput" else qcaps[b])
+            else:
+                ivf_pq.ivf_pq_search_grouped(
+                    index, qs, K, n_probes=QZ_PROBES,
+                    qcap=b if b == "throughput" else qcaps[b],
+                    refine_ratio=PQ_REFINE)
+        errs += [bitwise(fn, plain, call, f"{fn_name} on path inputs")
+                 for call in keep]
+        by_shape.setdefault(key(keep[0]), keep[len(keep) // 2])
+        log(f"kernel check {fn_name}, {kind} batch of {nq} (shape "
+            f"{key(keep[0])}): {len(keep)} blocks bitwise equal to the "
+            "plain version")
+    check(set(by_shape) >= set(shapes),
+          f"{kind} path shapes {set(shapes)} not all checked: "
+          f"{set(by_shape)}")
+
+    timed = {}
+    for shp, call in sorted(by_shape.items()):
+        if kind == "sq":
+            ms, plain_ms, library_ms = time_sq(*call)
+            bound_ms, bound_by = sq_bound(*shp)
+        else:
+            ms, plain_ms, library_ms = time_pq(*call)
+            bound_ms, bound_by = pq_bound(shp[0], shp[1], PQ_DIM,
+                                          shp[2] // PQ_DIM, shp[3])
+        timed[shp] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        log(f"[{card}] {fn_name} path shape {shp}, {shapes[shp]} launches: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of the bound")
+    shp, _ = shapes.most_common(1)[0]
+    ms, plain_ms, library_ms, bound_ms, bound_by = timed[shp]
+    return {
+        "name": fn_name,
+        "route": "cuda",
+        "source": f"raft_tpu_torch/csrc/{kind}_scan.cu",
+        "replaces": ("raft_tpu/spatial/ann/sq_kernel.py:114" if kind == "sq"
+                     else "raft_tpu/spatial/ann/pq_kernel.py:107"),
+        "launches": launches,
+        "launches_by_shape": {"x".join(map(str, k)): n
+                              for k, n in shapes.items()},
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": list(shp),
+        "card": card,
+    }
+
+
+def quantized_phases(args, card, dev):
+    """Both quantized paths over one dataset; exact neighbours of the
+    4,096-query batch from the port's brute_force_knn."""
+    from raft_tpu_torch.spatial import brute_force_knn
+
+    x, q, _ = ann_dataset(args.seed)
+    _, true = brute_force_knn(torch.as_tensor(x, device=dev),
+                              torch.as_tensor(q, device=dev), K)
+    return [quantized_phase(kind, args, card, dev, (x, q, true))
+            for kind in ("sq", "pq")]
 
 
 # ---------------------------------------------------------------------------
@@ -667,9 +1054,6 @@ def sift_path(seed, card, dev, parts_kept):
     10,000-query batch (f32 and bf16 phase 1), the scan path on 1,000 of
     those queries. Returns the index and the big batch's queries."""
     from raft_tpu_torch.distance import row_norm_sq
-    from raft_tpu_torch.serving.batching import (
-        BucketSet, PendingRequest, pack_requests,
-    )
     from raft_tpu_torch.spatial import brute_force_knn
     from raft_tpu_torch.spatial import fused_knn as fz
 
@@ -688,61 +1072,32 @@ def sift_path(seed, card, dev, parts_kept):
     grid = fz._grid_steps(SIFT_QUERIES, -(-SIFT_ROWS // bn) * bn)
     check(fz.probe_grid_steps(grid), f"the card refused a {grid}-block grid")
 
-    buckets = BucketSet.of(BUCKETS)
     t0 = time.perf_counter()
-    for b in buckets.sizes:
+    for b in BUCKETS:
         brute_force_knn(x, np.zeros((b, SIFT_DIM), np.float32), K,
                         index_norms=norms)
     sync(dev)
-    log(f"[{card}] brute-force warmup of {len(buckets.sizes)} buckets: "
+    log(f"[{card}] brute-force warmup of {len(BUCKETS)} buckets: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    sizes = np.exp(rng.uniform(0.0, np.log(513.0), BF_REQUESTS))
-    requests = [noisy_rows(int(m)) for m in np.clip(sizes, 1, 512)]
-    arrivals = [PendingRequest(r, None, 0.0) for r in requests]
-    pending, served, bucket_of = [], {}, {}
-    lat = {b: [] for b in buckets.sizes}
-    t_serve = time.perf_counter()
-    while arrivals or pending:
-        n_new = int(rng.integers(1, 5))
-        pending += arrivals[:n_new]
-        arrivals = arrivals[n_new:]
-        batch, pending = pack_requests(pending, buckets, SIFT_DIM)
-        t0 = time.perf_counter()
-        d, ids = brute_force_knn(x, batch.queries, K, index_norms=norms)
-        d, ids = d.cpu(), ids.cpu()           # waits for the device
-        lat[batch.bucket].append(1e3 * (time.perf_counter() - t0))
-        for req, start in batch.entries:
-            served[id(req.queries)] = (d[start:start + req.n_rows],
-                                       ids[start:start + req.n_rows])
-            bucket_of[id(req.queries)] = batch.bucket
-    serve_s = time.perf_counter() - t_serve
-    n_rows = sum(r.shape[0] for r in requests)
-    for r in requests:
-        d, ids = served[id(r)]
-        check(d.shape == (r.shape[0], K) and bool(torch.isfinite(d).all()),
-              f"served distances of shape {tuple(d.shape)} not finite")
-        check(bool(((ids >= 0) & (ids < SIFT_ROWS)).all()),
-              "served ids out of range")
-        check(bool((d[:, 1:] >= d[:, :-1]).all()), "served distances unsorted")
-    log(f"[{card}] brute-force serve: {len(requests)} requests, {n_rows} "
-        f"rows in {sum(len(v) for v in lat.values())} batches, "
-        f"{serve_s:.3f} s, {n_rows / serve_s:.0f} queries/s")
+    requests, served, p50 = serve_requests(
+        lambda q, b: brute_force_knn(x, q, K, index_norms=norms),
+        noisy_rows, rng, BF_REQUESTS, SIFT_DIM, SIFT_ROWS, card,
+        "brute-force")
     qs = torch.as_tensor(np.concatenate(requests), device=dev)
     true = exact_knn(x, qs, K).cpu()
     got = torch.cat([served[id(r)][1] for r in requests])
     got_d = torch.cat([served[id(r)][0] for r in requests])
     check_dists(got_d.to(dev), x, qs, got.to(dev), "served")
-    which = np.concatenate([[bucket_of[id(r)]] * r.shape[0]
+    which = np.concatenate([[served[id(r)][2]] * r.shape[0]
                             for r in requests])
-    for b, v in lat.items():
+    for b, ms in p50.items():
         sel = torch.as_tensor(which == b)
-        if v and sel.any():
-            log(f"[{card}] bucket {b}: {len(v)} batches, p50 "
-                f"{float(np.median(v)):.3f} ms, recall@10 "
-                f"{recall(got[sel], true[sel]):.4f}")
+        log(f"[{card}] bucket {b}: p50 {ms:.3f} ms, recall@10 "
+            f"{recall(got[sel], true[sel]):.4f}")
     r_served = recall(got, true)
-    log(f"[{card}] served recall@10 (all {n_rows} rows): {r_served:.4f}")
+    log(f"[{card}] served recall@10 (all {len(which)} rows): "
+        f"{r_served:.4f}")
     check(r_served >= 0.999, f"served recall@10 {r_served}")
 
     qb = torch.as_tensor(noisy_rows(SIFT_QUERIES), device=dev)
@@ -1036,6 +1391,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels = [ivf_flat_phase(args, card, dev)]
     log(f"IVF-Flat phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels += quantized_phases(args, card, dev)
+    log(f"IVF-SQ and IVF-PQ phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")

@@ -16,6 +16,10 @@ quantizer.
 * the loop stops after ``max_iter`` iterations or once
   ``|Δresidual| / n <= tol``; empty clusters are reseeded onto the rows
   farthest from their centroid.
+
+:func:`kmeans_fit_batched` fits B independent problems of one shape (the
+IVF-PQ codebooks, one per subspace) as a loop of the same Lloyd runs;
+:func:`kmeans_predict` assigns rows to their nearest centroid.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 
 __all__ = [
     "KMeansParams", "KMeansOutput", "kmeans_plus_plus_init", "kmeans_fit",
+    "kmeans_fit_batched", "kmeans_predict",
 ]
 
 
@@ -151,16 +156,76 @@ def kmeans_fit(x, params: Optional[KMeansParams] = None, *,
         (params.n_clusters, x.shape[1]),
         None if centroids is None else tuple(centroids.shape),
     )
-    errors.expects(params.init in ("k-means++", "random"),
-                   "init must be 'k-means++' or 'random', got %r",
-                   params.init)
+    _check_init(params)
     gen = _generator(params.seed)
     if centroids is not None:
         cents0 = torch.as_tensor(centroids, dtype=x.dtype, device=x.device)
-    elif params.init == "random":
-        idx = torch.randperm(x.shape[0], generator=gen)[:params.n_clusters]
-        cents0 = x[idx.to(x.device)]
     else:
-        cents0 = kmeans_plus_plus_init(x, params.n_clusters, gen)
+        cents0 = _seed_centroids(x, params, gen)
     return _lloyd(x, cents0, params.n_clusters, params.max_iter,
                   params.tol, params.block_rows, params.compute_dtype)
+
+
+def _check_init(params: KMeansParams) -> None:
+    errors.expects(params.init in ("k-means++", "random"),
+                   "init must be 'k-means++' or 'random', got %r",
+                   params.init)
+
+
+def _seed_centroids(x, params: KMeansParams, gen: torch.Generator):
+    if params.init == "random":
+        idx = torch.randperm(x.shape[0], generator=gen)[:params.n_clusters]
+        return x[idx.to(x.device)]
+    return kmeans_plus_plus_init(x, params.n_clusters, gen)
+
+
+def kmeans_fit_batched(xs, params: Optional[KMeansParams] = None, *,
+                       centroids=None, device=None, **kw) -> KMeansOutput:
+    """Fit B independent k-means problems of one shape: ``xs`` (B, n, d).
+    Returns a :class:`KMeansOutput` whose leaves carry a leading batch
+    axis (``n_iter`` a (B,) int32 tensor). Each problem runs the same
+    Lloyd loop as :func:`kmeans_fit` — a loop over the batch, so problem
+    b equals ``kmeans_fit(xs[b], centroids=centroids[b])``. Without
+    ``centroids`` the initial centroids of problem 0, 1, ... are drawn in
+    turn from one generator seeded with ``params.seed`` (the JAX package
+    splits its PRNG key instead, so the draws differ)."""
+    if params is None:
+        params = KMeansParams(**kw)
+    if not isinstance(xs, torch.Tensor):
+        xs = torch.as_tensor(xs, device=resolve_device(device))
+    errors.check_matrix(xs, "xs", ndim=3)
+    b, n, d = xs.shape
+    errors.check_k(params.n_clusters, n, "n_clusters vs n rows")
+    errors.expects(params.max_iter >= 1, "max_iter must be >= 1, got %d",
+                   params.max_iter)
+    errors.expects(
+        centroids is None
+        or tuple(centroids.shape) == (b, params.n_clusters, d),
+        "centroids: expected shape %s, got %s", (b, params.n_clusters, d),
+        None if centroids is None else tuple(centroids.shape),
+    )
+    _check_init(params)
+    gen = _generator(params.seed)
+    outs = []
+    for i in range(b):
+        if centroids is not None:
+            c0 = torch.as_tensor(centroids[i], dtype=xs.dtype,
+                                 device=xs.device)
+        else:
+            c0 = _seed_centroids(xs[i], params, gen)
+        outs.append(_lloyd(xs[i], c0, params.n_clusters, params.max_iter,
+                           params.tol, params.block_rows,
+                           params.compute_dtype))
+    return KMeansOutput(
+        torch.stack([o.centroids for o in outs]),
+        torch.stack([o.labels for o in outs]),
+        torch.stack([o.inertia for o in outs]),
+        torch.tensor([o.n_iter for o in outs], dtype=torch.int32),
+    )
+
+
+def kmeans_predict(x, centroids):
+    """Nearest centroid of each row of ``x``: (m,) int32 labels, ties to
+    the lowest centroid index (:func:`fused_l2_nn`, full f32)."""
+    _, labels = fused_l2_nn(x, centroids)
+    return labels

@@ -18,7 +18,8 @@ import functools
 
 import torch
 
-__all__ = ["as_tensor", "call_device", "full_f32", "resolve_device"]
+__all__ = ["as_tensor", "call_device", "full_f32", "hopper_device",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,6 +32,13 @@ def resolve_device(device=None) -> torch.device:
             "device='cpu' to run on the CPU explicitly"
         )
     return dev
+
+
+def hopper_device(device: torch.device) -> bool:
+    """Whether ``device`` is a CUDA card of compute capability 9.0, the
+    target of the port's ``sm_90a`` kernels."""
+    return (device.type == "cuda"
+            and torch.cuda.get_device_capability(device) == (9, 0))
 
 
 def call_device(*args, device=None) -> torch.device:

@@ -1,8 +1,14 @@
-"""Approximate nearest-neighbour indexes of the port (IVF-Flat)."""
+"""Approximate nearest-neighbour indexes of the port: IVF-Flat, IVF-SQ
+and IVF-PQ on one sorted-by-list storage layout."""
 
+from raft_tpu_torch.spatial.ann.common import ListStorage, build_list_storage
 from raft_tpu_torch.spatial.ann.interop import (
     ivf_flat_index_from_arrays,
+    ivf_pq_index_from_arrays,
+    ivf_sq_index_from_arrays,
     load_ivf_flat,
+    load_ivf_pq,
+    load_ivf_sq,
 )
 from raft_tpu_torch.spatial.ann.ivf_flat import (
     IVFFlatIndex,
@@ -11,9 +17,28 @@ from raft_tpu_torch.spatial.ann.ivf_flat import (
     ivf_flat_search,
     ivf_flat_search_grouped,
 )
+from raft_tpu_torch.spatial.ann.ivf_pq import (
+    IVFPQIndex,
+    IVFPQParams,
+    ivf_pq_build,
+    ivf_pq_search,
+    ivf_pq_search_grouped,
+)
+from raft_tpu_torch.spatial.ann.ivf_sq import (
+    IVFSQIndex,
+    IVFSQParams,
+    ivf_sq_build,
+    ivf_sq_search,
+    ivf_sq_search_grouped,
+)
 
 __all__ = [
+    "ListStorage", "build_list_storage",
     "IVFFlatIndex", "IVFFlatParams", "ivf_flat_build",
     "ivf_flat_index_from_arrays", "ivf_flat_search",
     "ivf_flat_search_grouped", "load_ivf_flat",
+    "IVFPQIndex", "IVFPQParams", "ivf_pq_build", "ivf_pq_index_from_arrays",
+    "ivf_pq_search", "ivf_pq_search_grouped", "load_ivf_pq",
+    "IVFSQIndex", "IVFSQParams", "ivf_sq_build", "ivf_sq_index_from_arrays",
+    "ivf_sq_search", "ivf_sq_search_grouped", "load_ivf_sq",
 ]

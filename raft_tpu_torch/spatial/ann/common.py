@@ -28,6 +28,7 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import full_f32
+from raft_tpu_torch.spatial.ann.scan_core import BIG, SUBCHUNK
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
@@ -36,7 +37,8 @@ __all__ = [
     "invert_probe_map", "invert_probe_map_ranked", "map_query_blocks",
     "probe_drop_stats", "regroup_pairs", "resolve_qcap",
     "resolve_qcap_arg", "score_l2_candidates", "select_candidates",
-    "split_oversized_lists", "static_qcap", "throughput_qcap",
+    "split_oversized_lists", "static_qcap", "subchunk_pool_rows",
+    "throughput_qcap", "warn_engine_fallback",
 ]
 
 logger = logging.getLogger("raft_tpu_torch")
@@ -326,6 +328,30 @@ def static_qcap(qcap, nq: int, n_probes: int, n_lists: int) -> int:
     return int(qcap)
 
 
+def subchunk_pool_rows(pv, c: int, probes, storage: ListStorage,
+                       rows_pad: int, l_pad: int, width: int):
+    """The kernel engines' pool tail: the top ``c`` of each query's
+    (nq, p*width) pool of sub-chunk minima (the 8-row cover argument:
+    they hold the top-c rows) and the slab rows they cover, derived from
+    (probe slot, chunk) and the block's clamped window origin
+    ``min(offset, rows_pad - l_pad)``. A window can overhang its list's
+    tail into the next list's rows, so a row is valid only inside its
+    probe slot's exact range, and never in a masked sub-chunk. Returns
+    (rows (nq, c*8), valid (nq, c*8))."""
+    nq = pv.shape[0]
+    nadc, cpos = top_k_smallest(pv, c)                        # (nq, c)
+    slot_sel = cpos // width
+    off_sel = torch.gather(storage.list_offsets.long()[probes], 1, slot_sel)
+    end_sel = off_sel + torch.gather(storage.list_sizes.long()[probes], 1,
+                                     slot_sel)
+    base_sel = (torch.clamp(off_sel, max=rows_pad - l_pad)
+                + SUBCHUNK * (cpos % width))                  # (nq, c)
+    rows = base_sel[:, :, None] + torch.arange(SUBCHUNK, device=pv.device)
+    valid = ((rows >= off_sel[:, :, None]) & (rows < end_sel[:, :, None])
+             & (torch.isfinite(nadc) & (nadc < BIG))[:, :, None])
+    return rows.reshape(nq, c * SUBCHUNK), valid.reshape(nq, c * SUBCHUNK)
+
+
 def check_candidate_pool(k: int, n_probes: int, storage: ListStorage):
     if k > n_probes * storage.max_list:
         raise ValueError(
@@ -382,3 +408,16 @@ def build_list_storage(assignments, n_lists: int, device) -> ListStorage:
         n,
         max_list,
     )
+
+
+def warn_engine_fallback(warned: set, engine: str, reason: str) -> None:
+    """Warn once per ``reason`` (tracked in the caller's ``warned`` set)
+    that a grouped ``engine`` search of a CUDA index left its CUDA kernel
+    for the legacy plain-PyTorch scan; the caller counts every such
+    search in its module's ``ENGINE_FALLBACKS``."""
+    if reason not in warned:
+        warned.add(reason)
+        logger.warning(
+            "%s grouped search of a CUDA index runs the legacy "
+            "plain-PyTorch scan, not the CUDA kernel: %s (use_kernel=False "
+            "chooses it without this warning)", engine, reason)

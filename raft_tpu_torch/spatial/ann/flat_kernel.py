@@ -40,9 +40,6 @@ __all__ = [
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 
-# shared memory one block may use on sm_90 (227 KB)
-_SMEM_LIMIT = 232_448
-
 
 def _smem_bytes(d: int) -> int:
     # csrc/flat_scan.cu smem_bytes(): a 64 x (d + 1) query tile, a
@@ -69,7 +66,7 @@ def flat_scan_supported(d: int, qcap: int) -> bool:
     tiles fit at width ``d`` (the kernel tiles the query axis itself, so
     ``qcap`` only enters through the window rule, which must yield a
     plan for the grouped search to derive ``l_pad``)."""
-    if d < 1 or _smem_bytes(d) > _SMEM_LIMIT:
+    if d < 1 or _smem_bytes(d) > scan_core.SMEM_LIMIT:
         return False
     return plan_l_tile(
         d, pad_queries(qcap), profile=scan_core.tile_profile(qcap)
@@ -86,38 +83,6 @@ def flat_scan_subchunk_min_plain(qrows, slabs_t, bounds):
     return scan_core.mask_subchunk_min(d2, bounds)
 
 
-def _check(qrows, slabs_t, bounds):
-    if qrows.dim() != 3 or slabs_t.dim() != 3:
-        raise ValueError(
-            "flat_scan_subchunk_min: expected qrows (LB, Q, d) and "
-            f"slabs_t (LB, d, Lpad), got {tuple(qrows.shape)} and "
-            f"{tuple(slabs_t.shape)}"
-        )
-    lb, q, d = qrows.shape
-    if slabs_t.shape[0] != lb or slabs_t.shape[1] != d:
-        raise ValueError(
-            f"flat_scan_subchunk_min: query dim {d} / blocks {lb} do not "
-            f"match slab shape {tuple(slabs_t.shape)}"
-        )
-    if tuple(bounds.shape) != (lb, 2) or bounds.dtype != torch.int32:
-        raise ValueError(
-            "flat_scan_subchunk_min: bounds must be (LB, 2) int32, got "
-            f"{tuple(bounds.shape)} {bounds.dtype}"
-        )
-    if qrows.dtype != torch.bfloat16 or slabs_t.dtype != torch.bfloat16:
-        raise ValueError(
-            "flat_scan_subchunk_min: qrows and slabs_t must be bfloat16, "
-            f"got {qrows.dtype} and {slabs_t.dtype}"
-        )
-    scan_core.validate_scan_shapes("flat_scan_subchunk_min",
-                                   slabs_t.shape[2])
-    devs = {qrows.device, slabs_t.device, bounds.device}
-    if len(devs) != 1:
-        raise ValueError(
-            f"flat_scan_subchunk_min: operands on different devices {devs}"
-        )
-
-
 def flat_scan_subchunk_min(qrows, slabs_t, bounds):
     """(LB, Q, d) bf16 query rows x (LB, d, Lpad) bf16 slab rows ->
     (LB, Q, Lpad/8) f32 sub-chunk minima of the squared L2 distance.
@@ -127,7 +92,8 @@ def flat_scan_subchunk_min(qrows, slabs_t, bounds):
     gathered (LB, Lpad, d) slab ``.transpose(1, 2)``); Q is any positive
     count and Lpad any positive multiple of 8. CPU tensors run the plain
     version; CUDA tensors run the kernel."""
-    _check(qrows, slabs_t, bounds)
+    scan_core.check_l2_operands("flat_scan_subchunk_min", qrows, slabs_t,
+                                bounds, torch.bfloat16)
     dev = qrows.device
     if dev.type == "cpu":
         return flat_scan_subchunk_min_plain(qrows, slabs_t, bounds)
@@ -137,16 +103,8 @@ def flat_scan_subchunk_min(qrows, slabs_t, bounds):
         )
     lb, q, d = qrows.shape
     l_pad = slabs_t.shape[2]
-    if _smem_bytes(d) > _SMEM_LIMIT:
-        raise ValueError(
-            f"flat_scan_subchunk_min: d={d} exceeds the kernel's shared "
-            f"memory ({_smem_bytes(d)} > {_SMEM_LIMIT} bytes per block)"
-        )
-    if min(slabs_t.stride()) < 0 or lb > 65535 or -(-q // 64) > 65535:
-        raise ValueError(
-            "flat_scan_subchunk_min: negative slab strides or a grid "
-            f"beyond the launch limits (LB={lb}, Q={q})"
-        )
+    scan_core.check_launch("flat_scan_subchunk_min", _smem_bytes(d),
+                           slabs_t, lb, q)
     qrows = qrows.contiguous()
     bounds = bounds.contiguous()
     out = torch.empty((lb, q, l_pad // SUBCHUNK), dtype=torch.float32,
@@ -159,11 +117,7 @@ def flat_scan_subchunk_min(qrows, slabs_t, bounds):
             qrows.data_ptr(), slabs_t.data_ptr(), bounds.data_ptr(),
             out.data_ptr(), lb, q, d, l_pad, sb, sd, sl, stream,
         )
-    if err:
-        raise RuntimeError(
-            "flat_scan_subchunk_min: kernel launch failed: CUDA error "
-            f"{err} ({lib.raft_cuda_error_string(err).decode()})"
-        )
+    scan_core.raise_on_error(err, "flat_scan_subchunk_min", lib)
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -178,8 +132,9 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, i, i, i, i, ll, ll, ll, p]
         fn.restype = ctypes.c_int
-        lib.raft_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.raft_cuda_error_string.restype = ctypes.c_char_p
+        lib.error_string = lib.raft_cuda_error_string
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
         lib.raft_flat_scan_smem_bytes.argtypes = [ctypes.c_int]
         lib.raft_flat_scan_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -1,13 +1,17 @@
-"""Carrying an IVF-Flat index across from the JAX package.
+"""Carrying IVF indexes across from the JAX package.
 
-* :func:`ivf_flat_index_from_arrays` takes the JAX index's leaves as
-  numpy arrays — ``centroids``, ``data_sorted`` and the four
-  ``storage.*`` arrays, with the ``storage.n`` and ``storage.max_list``
-  ints — keyed as the npz archive keys them.
-* :func:`load_ivf_flat` reads the repo's npz index format (the JAX
-  package's ``spatial/ann/serialize.py``) for the ``"ivf_flat"`` kind
-  with numpy alone: the ``__header__`` JSON (format versions 2-5), the
-  ``storage.`` key prefix, and the per-array CRC32/shape/dtype manifest,
+* ``*_index_from_arrays`` take a JAX index's leaves as numpy arrays,
+  keyed as the npz archive keys them: ``centroids``, the four
+  ``storage.*`` arrays with the ``storage.n`` and ``storage.max_list``
+  ints, and the kind's own arrays (IVF-Flat ``data_sorted``; IVF-SQ
+  ``codes_sorted``, ``vmin``, ``vscale``; IVF-PQ ``codebooks``,
+  ``codes_sorted`` and, unless built with ``store_raw=False``,
+  ``vectors_sorted``).
+* ``load_*`` read the repo's npz index format (the JAX package's
+  ``spatial/ann/serialize.py``) for the ``"ivf_flat"``, ``"ivf_sq"`` and
+  ``"ivf_pq"`` kinds with numpy alone: the ``__header__`` JSON (format
+  versions 2-5), the ``storage.`` key prefix, bf16 arrays archived as
+  their 16-bit words, and the per-array CRC32/shape/dtype manifest,
   verified exactly as the writer computed it. Damage raises
   :class:`~raft_tpu_torch.errors.CorruptIndexError` naming the field.
 """
@@ -24,13 +28,24 @@ from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.spatial.ann.common import ListStorage
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
+from raft_tpu_torch.spatial.ann.ivf_pq import IVFPQIndex
+from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
 
-__all__ = ["ivf_flat_index_from_arrays", "load_ivf_flat"]
+__all__ = [
+    "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
+    "ivf_sq_index_from_arrays", "load_ivf_flat", "load_ivf_pq",
+    "load_ivf_sq",
+]
 
 _READABLE_VERSIONS = (2, 3, 4, 5)
-_ARRAYS = ("centroids", "data_sorted", "storage.sorted_ids",
-           "storage.list_offsets", "storage.list_index",
-           "storage.list_sizes")
+_STORAGE = ("storage.sorted_ids", "storage.list_offsets",
+            "storage.list_index", "storage.list_sizes")
+# the arrays of each kind, besides centroids and storage
+_KIND_ARRAYS = {
+    "ivf_flat": ("data_sorted",),
+    "ivf_sq": ("codes_sorted", "vmin", "vscale"),
+    "ivf_pq": ("codebooks", "codes_sorted", "vectors_sorted"),
+}
 
 
 def _array_crc(arr: np.ndarray) -> int:
@@ -38,29 +53,41 @@ def _array_crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
 
 
-def ivf_flat_index_from_arrays(arrays: dict, metric: str,
-                               device=None) -> IVFFlatIndex:
-    """Build an :class:`IVFFlatIndex` on ``device`` (CUDA by default)
-    from the JAX index's leaves; shapes are checked against each other."""
-    dev = resolve_device(device)
-    for key in _ARRAYS + ("storage.n", "storage.max_list"):
-        errors.expects(key in arrays, "ivf_flat arrays: missing %r", key)
+def _storage(kind: str, arrays: dict, put) -> ListStorage:
+    """Check the leaves of an IVF index against each other (each kind's
+    arrays by their leading row count n + 1 and width) and build its
+    :class:`ListStorage` on the device ``put`` places arrays on."""
+    for key in ("centroids",) + _STORAGE + ("storage.n", "storage.max_list"):
+        errors.expects(key in arrays, "%s arrays: missing %r", kind, key)
     n = int(arrays["storage.n"])
     max_list = int(arrays["storage.max_list"])
     n_lists, d = arrays["centroids"].shape
     want = {
-        "data_sorted": (n + 1, d),
         "storage.sorted_ids": (n,),
         "storage.list_offsets": (n_lists + 1,),
         "storage.list_index": (n_lists, max_list),
         "storage.list_sizes": (n_lists,),
+        "data_sorted": (n + 1, d),
+        "vectors_sorted": (n + 1, d),
+        "vmin": (d,),
+        "vscale": (d,),
     }
+    if "codes_sorted" in arrays:
+        want["codes_sorted"] = (n + 1, d if kind == "ivf_sq"
+                                else arrays["codes_sorted"].shape[1])
     for key, shape in want.items():
-        errors.expects(
-            tuple(arrays[key].shape) == shape,
-            "ivf_flat arrays: %s has shape %s, expected %s", key,
-            tuple(arrays[key].shape), shape,
-        )
+        if arrays.get(key) is not None:
+            errors.expects(
+                tuple(arrays[key].shape) == shape,
+                "%s arrays: %s has shape %s, expected %s", kind, key,
+                tuple(arrays[key].shape), shape,
+            )
+    return ListStorage(*(put(key) for key in _STORAGE), n, max_list)
+
+
+def _placer(arrays: dict, device):
+    """``put(key)``: the array under ``key`` as a tensor on ``device``."""
+    dev = resolve_device(device)
 
     def put(key):
         v = arrays[key]
@@ -69,40 +96,132 @@ def ivf_flat_index_from_arrays(arrays: dict, metric: str,
             v = np.require(v, requirements="W")
         return torch.as_tensor(v, device=dev)
 
-    storage = ListStorage(
-        put("storage.sorted_ids"), put("storage.list_offsets"),
-        put("storage.list_index"), put("storage.list_sizes"), n, max_list,
-    )
+    return put
+
+
+def ivf_flat_index_from_arrays(arrays: dict, metric: str,
+                               device=None) -> IVFFlatIndex:
+    """Build an :class:`IVFFlatIndex` on ``device`` (CUDA by default)
+    from the JAX index's leaves; shapes are checked against each other."""
+    put = _placer(arrays, device)
+    errors.expects("data_sorted" in arrays,
+                   "ivf_flat arrays: missing 'data_sorted'")
+    storage = _storage("ivf_flat", arrays, put)
     return IVFFlatIndex(put("centroids"), put("data_sorted"), storage,
                         metric)
 
 
-def _read(npz, manifest: dict, key: str) -> np.ndarray:
+def ivf_sq_index_from_arrays(arrays: dict, device=None) -> IVFSQIndex:
+    """Build an :class:`IVFSQIndex` on ``device`` (CUDA by default) from
+    the JAX index's leaves (int8 ``codes_sorted``, f32 ``vmin`` and
+    ``vscale``); shapes are checked against each other."""
+    put = _placer(arrays, device)
+    for key in _KIND_ARRAYS["ivf_sq"]:
+        errors.expects(key in arrays, "ivf_sq arrays: missing %r", key)
+    storage = _storage("ivf_sq", arrays, put)
+    return IVFSQIndex(put("centroids"), put("codes_sorted"), put("vmin"),
+                      put("vscale"), storage)
+
+
+def ivf_pq_index_from_arrays(arrays: dict, pq_dim: int, pq_bits: int,
+                             device=None) -> IVFPQIndex:
+    """Build an :class:`IVFPQIndex` on ``device`` (CUDA by default) from
+    the JAX index's leaves and its statics ``pq_dim`` / ``pq_bits``.
+    ``vectors_sorted`` may be absent or None (a ``store_raw=False``
+    index); ``codebooks`` may hold inf rows (a build over fewer rows
+    than codebook entries)."""
+    put = _placer(arrays, device)
+    for key in ("codebooks", "codes_sorted"):
+        errors.expects(key in arrays, "ivf_pq arrays: missing %r", key)
+    storage = _storage("ivf_pq", arrays, put)
+    d = arrays["centroids"].shape[1]
+    errors.expects(
+        tuple(arrays["codebooks"].shape)
+        == (pq_dim, 1 << pq_bits, d // max(pq_dim, 1))
+        and tuple(arrays["codes_sorted"].shape)[1:] == (pq_dim,),
+        "ivf_pq arrays: codebooks %s / codes_sorted %s do not match "
+        "pq_dim=%d pq_bits=%d at d=%d", tuple(arrays["codebooks"].shape),
+        tuple(arrays["codes_sorted"].shape), pq_dim, pq_bits, d,
+    )
+    raw = (put("vectors_sorted")
+           if arrays.get("vectors_sorted") is not None else None)
+    return IVFPQIndex(put("centroids"), put("codebooks"),
+                      put("codes_sorted"), storage, raw, int(pq_dim),
+                      int(pq_bits))
+
+
+def _read(npz, manifest: dict, key: str, where: str) -> np.ndarray:
     try:
         arr = npz[key]
     except Exception as e:  # zipfile.BadZipFile, ValueError, OSError
         raise errors.CorruptIndexError(
-            f"load_ivf_flat: array {key!r} unreadable ({e})", field=key
+            f"{where}: array {key!r} unreadable ({e})", field=key
         ) from e
     want = manifest.get(key)
     if want is None:
         raise errors.CorruptIndexError(
-            f"load_ivf_flat: array {key!r} missing from the integrity "
-            "manifest (truncated or foreign header)", field=key,
+            f"{where}: array {key!r} missing from the integrity manifest "
+            "(truncated or foreign header)", field=key,
         )
     if list(arr.shape) != want["shape"] or str(arr.dtype) != want["dtype"]:
         raise errors.CorruptIndexError(
-            f"load_ivf_flat: array {key!r} is {arr.dtype}{arr.shape}, "
-            f"manifest says {want['dtype']}{tuple(want['shape'])}",
-            field=key,
+            f"{where}: array {key!r} is {arr.dtype}{arr.shape}, manifest "
+            f"says {want['dtype']}{tuple(want['shape'])}", field=key,
         )
     if _array_crc(arr) != want["crc32"]:
         raise errors.CorruptIndexError(
-            f"load_ivf_flat: array {key!r} failed CRC32 verification — the "
+            f"{where}: array {key!r} failed CRC32 verification — the "
             "checkpoint is corrupt; rebuild or restore from a replica",
             field=key,
         )
     return arr
+
+
+def _load_archive(path, kind: str):
+    """Read and verify an archive of ``kind``: returns (arrays keyed as
+    archived, with bf16-tagged arrays as torch bf16 tensors, and the
+    header's statics)."""
+    where = f"load_{kind}"
+    try:
+        npz_file = np.load(path)
+    except Exception as e:  # not a zip / truncated central directory
+        raise errors.CorruptIndexError(
+            f"{where}: archive unreadable ({e})", field="__header__"
+        ) from e
+    with npz_file as npz:
+        try:
+            header = json.loads(bytes(npz["__header__"]).decode("utf-8"))
+        except Exception as e:  # missing key, bad zip member, bad JSON
+            raise errors.CorruptIndexError(
+                f"{where}: header unreadable ({e})", field="__header__",
+            ) from e
+        if header.get("version") not in _READABLE_VERSIONS:
+            raise errors.CorruptIndexError(
+                f"{where}: format version {header.get('version')!r} is not "
+                f"readable (readable: {list(_READABLE_VERSIONS)})",
+                field="__header__",
+            )
+        errors.expects(
+            header.get("type") == kind,
+            "%s: archive holds a %r index, not %r", where,
+            header.get("type"), kind,
+        )
+        static = header["static"]
+        manifest = header.get("integrity") or {}
+        keys = ("centroids",) + _STORAGE + _KIND_ARRAYS[kind]
+        arrays = {key: _read(npz, manifest, key, where) for key in keys
+                  if static.get(key, "") is not None}
+    for key, arr in arrays.items():
+        tagged = static.get(key + ".__dtype__")
+        if tagged is not None:
+            # bf16 arrays are archived as their uint16 bits
+            errors.expects(tagged == "bfloat16",
+                           "%s: unsupported %s dtype %r", where, key, tagged)
+            arrays[key] = torch.from_numpy(
+                arr.view(np.int16)).view(torch.bfloat16)
+    arrays["storage.n"] = static["storage.n"]
+    arrays["storage.max_list"] = static["storage.max_list"]
+    return arrays, static
 
 
 def load_ivf_flat(path, device=None) -> IVFFlatIndex:
@@ -110,42 +229,25 @@ def load_ivf_flat(path, device=None) -> IVFFlatIndex:
     ``save_index``, verifying every array against the CRC32 manifest,
     onto ``device`` (CUDA by default)."""
     dev = resolve_device(device)
-    try:
-        npz_file = np.load(path)
-    except Exception as e:  # not a zip / truncated central directory
-        raise errors.CorruptIndexError(
-            f"load_ivf_flat: archive unreadable ({e})", field="__header__"
-        ) from e
-    with npz_file as npz:
-        try:
-            header = json.loads(bytes(npz["__header__"]).decode("utf-8"))
-        except Exception as e:  # missing key, bad zip member, bad JSON
-            raise errors.CorruptIndexError(
-                f"load_ivf_flat: header unreadable ({e})",
-                field="__header__",
-            ) from e
-        if header.get("version") not in _READABLE_VERSIONS:
-            raise errors.CorruptIndexError(
-                f"load_ivf_flat: format version {header.get('version')!r} "
-                f"is not readable (readable: {list(_READABLE_VERSIONS)})",
-                field="__header__",
-            )
-        errors.expects(
-            header.get("type") == "ivf_flat",
-            "load_ivf_flat: archive holds a %r index, not 'ivf_flat'",
-            header.get("type"),
-        )
-        static = header["static"]
-        manifest = header.get("integrity") or {}
-        arrays = {key: _read(npz, manifest, key) for key in _ARRAYS}
-    arrays["storage.n"] = static["storage.n"]
-    arrays["storage.max_list"] = static["storage.max_list"]
-    tagged = static.get("data_sorted.__dtype__")
-    if tagged is not None:
-        # bf16 rows are archived as their uint16 bits
-        errors.expects(tagged == "bfloat16",
-                       "load_ivf_flat: unsupported data_sorted dtype %r",
-                       tagged)
-        arrays["data_sorted"] = torch.from_numpy(
-            arrays["data_sorted"].view(np.int16)).view(torch.bfloat16)
+    arrays, static = _load_archive(path, "ivf_flat")
     return ivf_flat_index_from_arrays(arrays, static["metric"], dev)
+
+
+def load_ivf_sq(path, device=None) -> IVFSQIndex:
+    """Load an ``"ivf_sq"`` index archive written by the JAX package's
+    ``save_index``, verifying every array against the CRC32 manifest,
+    onto ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    arrays, _ = _load_archive(path, "ivf_sq")
+    return ivf_sq_index_from_arrays(arrays, dev)
+
+
+def load_ivf_pq(path, device=None) -> IVFPQIndex:
+    """Load an ``"ivf_pq"`` index archive written by the JAX package's
+    ``save_index``, verifying every array against the CRC32 manifest,
+    onto ``device`` (CUDA by default). A ``store_raw=False`` archive has
+    no ``vectors_sorted``; search it with ``refine_dataset=``."""
+    dev = resolve_device(device)
+    arrays, static = _load_archive(path, "ivf_pq")
+    return ivf_pq_index_from_arrays(arrays, static["pq_dim"],
+                                    static["pq_bits"], dev)

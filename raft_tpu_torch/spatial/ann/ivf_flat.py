@@ -13,7 +13,6 @@ materialized-tile scan.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import math
 import typing
 from typing import Tuple
@@ -22,8 +21,8 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
-from raft_tpu_torch.core.device import full_f32, resolve_device
-from raft_tpu_torch.spatial.ann import flat_kernel, scan_core
+from raft_tpu_torch.core.device import full_f32, hopper_device, resolve_device
+from raft_tpu_torch.spatial.ann import flat_kernel, scan_core, sq_kernel
 from raft_tpu_torch.spatial.ann.common import (
     ListStorage,
     build_list_storage,
@@ -37,6 +36,8 @@ from raft_tpu_torch.spatial.ann.common import (
     select_candidates,
     split_oversized_lists,
     static_qcap,
+    subchunk_pool_rows,
+    warn_engine_fallback,
 )
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
@@ -47,8 +48,6 @@ __all__ = [
     "ivf_flat_search",
     "ivf_flat_search_grouped",
 ]
-
-logger = logging.getLogger("raft_tpu_torch")
 
 # grouped searches of a CUDA index that use_kernel=None sent to the legacy
 # (plain PyTorch) scan because the kernel cannot serve them
@@ -75,7 +74,7 @@ class IVFFlatIndex:
     data_sorted: torch.Tensor    # (n + 1, d) — last row is the sentinel (zeros)
     storage: ListStorage
     metric: str
-    # the kernel engine's bf16 copies of data_sorted, by padded row count
+    # the kernel engine's slab operands of data_sorted, by padded row count
     _scan_rows: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -83,13 +82,17 @@ class IVFFlatIndex:
     def device(self) -> torch.device:
         return self.centroids.device
 
-    def scan_rows_bf16(self, n_rows: int) -> torch.Tensor:
-        """``data_sorted`` as the scan kernel's bf16 operand, with zero
-        rows appended up to ``n_rows``: made on first use, then kept (an
-        index is not mutated in place)."""
+    def scan_rows(self, n_rows: int) -> torch.Tensor:
+        """``data_sorted`` as a scan kernel's slab operand — bf16 for
+        float rows, the int8 codes as they are for the IVF-SQ view — with
+        zero rows appended up to ``n_rows``: made on first use, then kept
+        (an index is not mutated in place). int8 codes that need no
+        padding are returned without a copy."""
         rows = self._scan_rows.get(n_rows)
         if rows is None:
-            rows = self.data_sorted.to(torch.bfloat16)
+            rows = self.data_sorted
+            if rows.dtype != torch.int8:
+                rows = rows.to(torch.bfloat16)
             if n_rows > rows.shape[0]:
                 rows = torch.nn.functional.pad(
                     rows, (0, 0, 0, n_rows - rows.shape[0]))
@@ -189,11 +192,6 @@ def _sqrt(vals):
     return torch.sqrt(torch.clamp_min(vals, 0.0).double()).float()
 
 
-def _kernel_device_ok(device: torch.device) -> bool:
-    return (device.type == "cuda"
-            and torch.cuda.get_device_capability(device) == (9, 0))
-
-
 def _resolve_scan_engine(use_kernel, d: int, qcap: int,
                          device: torch.device) -> bool:
     """Resolve the ``use_kernel`` knob of the grouped search.
@@ -211,7 +209,7 @@ def _resolve_scan_engine(use_kernel, d: int, qcap: int,
         if not flat_kernel.flat_scan_supported(d, qcap):
             reason = (f"d={d} qcap={qcap} does not fit the kernel's "
                       "shared-memory tiles")
-        elif not _kernel_device_ok(device):
+        elif not hopper_device(device):
             reason = f"{device} is not a capability-9.0 (Hopper) card"
         else:
             return True
@@ -225,7 +223,7 @@ def _resolve_scan_engine(use_kernel, d: int, qcap: int,
             "the legacy scan (use_kernel=False)", d, qcap,
         )
         errors.expects(
-            device.type == "cpu" or _kernel_device_ok(device),
+            device.type == "cpu" or hopper_device(device),
             "use_kernel=True needs a capability-9.0 (Hopper) CUDA device "
             "for the sm_90a kernel; %s is not one", device,
         )
@@ -235,12 +233,7 @@ def _resolve_scan_engine(use_kernel, d: int, qcap: int,
 def _note_fallback(reason: str) -> None:
     global ENGINE_FALLBACKS
     ENGINE_FALLBACKS += 1
-    if reason not in _fallback_reasons_warned:
-        _fallback_reasons_warned.add(reason)
-        logger.warning(
-            "grouped search of a CUDA index runs the legacy plain-PyTorch "
-            "scan, not the CUDA kernel: %s (use_kernel=False chooses it "
-            "without this warning)", reason)
+    warn_engine_fallback(_fallback_reasons_warned, "IVF-Flat", reason)
 
 
 # rerank-pool gather budget per query block on the kernel path
@@ -250,7 +243,12 @@ _RERANK_BLOCK_BYTES = 256 << 20
 @full_f32
 def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
                   stream_partials=None, use_kernel=False,
-                  rerank_ratio=4.0):
+                  rerank_ratio=4.0, dequant=None):
+    # ``dequant``: optional (vmin, vscale) (d,) f32 pair — the IVF-SQ mode
+    # of this one grouped body. ``index.data_sorted`` then holds int8
+    # codes: the legacy scan and the rerank tail decode the rows they
+    # touch through ``ivf_sq.sq_decode``, and the kernel engine hands the
+    # int8 slabs to ``sq_kernel`` untouched (no bf16 or f32 copy).
     storage = index.storage
     dev = q.device
     n_lists = storage.list_index.shape[0]
@@ -260,6 +258,13 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
     f32 = torch.float32
     qf = q.float()
     inf = torch.tensor(float("inf"), device=dev)
+
+    def dq_rows(rows_f32):
+        if dequant is None:
+            return rows_f32
+        from raft_tpu_torch.spatial.ann.ivf_sq import sq_decode
+
+        return sq_decode(rows_f32, dequant[0], dequant[1])
 
     if probes is None:
         probes, _ = coarse_probe(qf, index.centroids, p)     # (nq, p)
@@ -281,7 +286,7 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         szs = sizes[lblk]
         o_c = torch.clamp(offs, max=storage.n + 1 - L)       # slice clamp
         pos = o_c[:, None] + torch.arange(L, device=dev)[None, :]
-        mv = index.data_sorted[pos].float()                  # (LB, L, d)
+        mv = dq_rows(index.data_sorted[pos].float())         # (LB, L, d)
         in_list = (pos >= offs[:, None]) & (pos < (offs + szs)[:, None])
         mn = torch.sum(mv * mv, dim=2)                       # (LB, L)
         dots = torch.bmm(qv, mv.transpose(1, 2))             # full f32
@@ -293,19 +298,22 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         return vals, memp
 
     if use_kernel:
+        kmod = flat_kernel if dequant is None else sq_kernel
         sub = scan_core.SUBCHUNK
         # the JAX window rule fixes l_pad (and with it the sub-chunk
         # windows and the pool clamp); the kernel takes qcap rows as-is
-        l_tile = flat_kernel.plan_l_tile(
+        l_tile = kmod.plan_l_tile(
             d, scan_core.pad_queries(qcap),
             l_tile=scan_core.round_up(L, scan_core.LANE),
             profile=scan_core.tile_profile(qcap),
         )
         l_pad = scan_core.round_up(L, l_tile)
         nsc = l_pad // sub
-        # n + 1 rows (sentinel last), zero-padded to one full window
+        # n + 1 rows (sentinel last), zero-padded to one full window: bf16
+        # rows, or int8 codes whose zero pad rows decode to 128·vscale +
+        # vmin and lie outside every list's [lo, hi)
         rows_pad = max(index.data_sorted.shape[0], l_pad)
-        data_bf16 = index.scan_rows_bf16(rows_pad)
+        data_src = index.scan_rows(rows_pad)
         q_bf16 = q_pad.to(torch.bfloat16)
         win = torch.arange(l_pad, device=dev)
 
@@ -313,12 +321,15 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
             qv = q_bf16[qmat_l[lblk]]                        # (LB, qcap, d)
             offs = offsets[lblk]
             o_c = torch.clamp(offs, max=rows_pad - l_pad)    # slice clamp
-            slabs = data_bf16[o_c[:, None] + win[None, :]]   # (LB, l_pad, d)
+            slabs = data_src[o_c[:, None] + win[None, :]]    # (LB, l_pad, d)
             lo = offs - o_c
             bounds = torch.stack([lo, lo + sizes[lblk]], 1).to(torch.int32)
             # the kernel reads the slab through its strides: no copy
-            return flat_kernel.flat_scan_subchunk_min(
-                qv, slabs.transpose(1, 2), bounds)           # (LB, qcap, nsc)
+            if dequant is None:
+                return flat_kernel.flat_scan_subchunk_min(
+                    qv, slabs.transpose(1, 2), bounds)       # (LB, qcap, nsc)
+            return sq_kernel.sq_scan_subchunk_min(
+                qv, slabs.transpose(1, 2), bounds, dequant[0], dequant[1])
 
         width, scan_fn = nsc, block_fn_kernel
     else:
@@ -367,32 +378,16 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
 
     if use_kernel:
-        # pool entries are sub-chunk minima: take the top-c sub-chunks
-        # (the 8-row cover argument: they hold the top-c rows), derive
-        # each one's slab rows from (probe slot, chunk), and rescore
-        # those rows in exact f32. Clamp c to the pool width last.
+        # rescore the rows of the top-c sub-chunks in exact f32; clamp c
+        # to the pool width last
         c = min(p * width, max(k, int(math.ceil(rerank_ratio * k))))
-        nadc, cpos = top_k_smallest(pv, c)                   # (nq, c)
-        offs_q = offsets[probes]                             # (nq, p)
-        szs_q = sizes[probes]
-        slot_sel = cpos // width
-        off_sel = torch.gather(offs_q, 1, slot_sel)
-        end_sel = off_sel + torch.gather(szs_q, 1, slot_sel)
-        base_sel = (torch.clamp(off_sel, max=rows_pad - l_pad)
-                    + sub * (cpos % width))                  # (nq, c)
-        # a sub-chunk window can overhang its list's tail into the next
-        # list's rows: mask against the probe slot's exact range
-        rows_sel = base_sel[:, :, None] + torch.arange(sub, device=dev)
-        validf = (
-            (rows_sel >= off_sel[:, :, None])
-            & (rows_sel < end_sel[:, :, None])
-            & (torch.isfinite(nadc) & (nadc < scan_core.BIG))[:, :, None]
-        ).reshape(nq, c * sub)
-        rpos = rows_sel.reshape(nq, c * sub)
+        rpos, validf = subchunk_pool_rows(pv, c, probes, storage, rows_pad,
+                                          l_pad, width)
 
         def rerank_blk(args):
             qb, rp, vl = args
-            raw = index.data_sorted[torch.clamp(rp, 0, storage.n)].float()
+            raw = dq_rows(
+                index.data_sorted[torch.clamp(rp, 0, storage.n)].float())
             exact = score_l2_candidates(qb, raw, vl & (rp < storage.n))
             return select_candidates(storage, rp, exact, k)
 
@@ -412,7 +407,7 @@ def ivf_flat_search_grouped(
     stream_partials: typing.Optional[bool] = None,
     qcap_max_drop_frac: typing.Optional[float] = None,
     use_kernel: typing.Optional[bool] = None,
-    rerank_ratio: float = 4.0, dequant=None, row_mask=None,
+    rerank_ratio: float = 4.0, row_mask=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Throughput-mode IVF search, grouped by list instead of by query:
     each list's vectors are read once per batch and scored against all
@@ -435,13 +430,12 @@ def ivf_flat_search_grouped(
     (the rerank pool covers the top-k at the ``rerank_ratio`` margin);
     tied candidates may order differently.
 
-    ``dequant`` (IVF-SQ) and ``row_mask`` (mutation tombstones) belong to
-    modules not yet ported; passing either raises.
+    ``row_mask`` (mutation tombstones) belongs to a module not yet
+    ported; passing it raises. (The IVF-SQ mode of this search is
+    :func:`~.ivf_sq.ivf_sq_search_grouped`.)
 
     With ``qcap`` large enough this returns what :func:`ivf_flat_search`
     returns for the same ``n_probes``."""
-    errors.expects(dequant is None,
-                   "dequant=: IVF-SQ is not yet ported to raft_tpu_torch")
     errors.expects(row_mask is None,
                    "row_mask=: the mutation tier is not yet ported to "
                    "raft_tpu_torch")

@@ -18,9 +18,16 @@ What carries over unchanged, because it fixes results:
   packages. :data:`WINDOW_BUDGET` is that rule's constant (the JAX
   package's per-step VMEM budget); it is not a limit of any CUDA device.
 
-What does not: the CUDA kernel's own block tiling is internal to
-``csrc/flat_scan.cu`` and independent of the window tile, and the kernel
-takes any query count (no 16-row query granule).
+What does not: the CUDA kernels' own block tiling is internal to
+``csrc/scan_core.cuh`` (the shared grid, mask, sub-chunk-min epilogue and
+launch checks that ``flat_scan.cu``, ``sq_scan.cu`` and ``pq_scan.cu``
+instantiate) and independent of the window tile, and the kernels take
+any query count (no 16-row query granule).
+
+The plain pieces fix one summation order, the kernels' own: every sum
+over the feature axis (or over PQ subspaces) runs in ascending order,
+one rounded f32 add per term, so a kernel and its plain version agree
+bitwise on any input.
 """
 
 from __future__ import annotations
@@ -30,9 +37,11 @@ from typing import Callable, Optional
 import torch
 
 __all__ = [
-    "BIG", "LANE", "Q_GRANULE", "SUBCHUNK", "WINDOW_BUDGET",
-    "l2_gram_tile", "mask_subchunk_min", "pad_queries", "plan_l_tile",
-    "round_up", "tile_profile", "validate_scan_shapes",
+    "BIG", "LANE", "Q_GRANULE", "SMEM_LIMIT", "SUBCHUNK", "WINDOW_BUDGET",
+    "check_bounds", "check_l2_operands", "check_launch",
+    "check_same_device", "l2_gram_tile", "mask_subchunk_min",
+    "pad_queries", "plan_l_tile", "raise_on_error", "round_up",
+    "tile_profile", "validate_scan_shapes",
 ]
 
 SUBCHUNK = 8      # rows per selection granule
@@ -45,6 +54,9 @@ BIG = 1e30
 
 # The window rule's per-step byte budget (the JAX package's VMEM budget).
 WINDOW_BUDGET = 10 * 2**20
+
+# shared memory one block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232_448
 
 _PROFILE_START = {"throughput": 512, "latency": 1024}
 _LATENCY_QCAP = 8
@@ -87,14 +99,21 @@ def plan_l_tile(step_bytes: Callable[[int, int], int], q_pad: int,
 def l2_gram_tile(qv, y):
     """THE flat-family distance body: ``(‖q‖² + ‖y‖²) − 2 qᵀy`` for
     (..., Q, d) x (..., d, L) operands — bf16-rounded operands, products
-    and sums in f32, the norms f32 sums of the rounded squares. The
-    caller pins full f32 matmuls (no TF32)."""
+    and sums in f32, the norms f32 sums of the rounded squares. Every sum
+    runs over the feature axis in ascending order, as the CUDA kernels
+    sum (a product of two bf16 values is exact in f32, so how the add is
+    fused does not matter)."""
     qf = qv.to(torch.bfloat16).float()
     yf = y.to(torch.bfloat16).float()
-    dots = torch.matmul(qf, yf)
-    qn = torch.sum(qf * qf, dim=-1)[..., :, None]
-    yn = torch.sum(yf * yf, dim=-2)[..., None, :]
-    return qn + yn - 2.0 * dots
+    dots = qf.new_zeros(qf.shape[:-1] + yf.shape[-1:])
+    qn = qf.new_zeros(qf.shape[:-1])
+    yn = yf.new_zeros(yf.shape[:-2] + yf.shape[-1:])
+    for c in range(qf.shape[-1]):
+        qc, yc = qf[..., c], yf[..., c, :]
+        dots.addcmul_(qc[..., :, None], yc[..., None, :])
+        qn.addcmul_(qc, qc)
+        yn.addcmul_(yc, yc)
+    return qn[..., :, None] + yn[..., None, :] - 2.0 * dots
 
 
 def mask_subchunk_min(d2, bounds, sub: int = SUBCHUNK, big: float = BIG):
@@ -115,4 +134,70 @@ def validate_scan_shapes(name: str, l_pad: int):
         raise ValueError(
             f"{name}: Lpad={l_pad} must be a positive multiple of "
             f"{SUBCHUNK}"
+        )
+
+
+def check_l2_operands(name, qrows, slabs_t, bounds, slab_dtype):
+    """Shape, dtype and device checks of an L2 scan's operands: bf16
+    (LB, Q, d) query rows, an (LB, d, Lpad) slab of ``slab_dtype`` (bf16
+    rows for the flat scan, int8 codes for the SQ scan), (LB, 2) int32
+    bounds, Lpad on the sub-chunk granule."""
+    if qrows.dim() != 3 or slabs_t.dim() != 3:
+        raise ValueError(
+            f"{name}: expected qrows (LB, Q, d) and slabs_t (LB, d, Lpad), "
+            f"got {tuple(qrows.shape)} and {tuple(slabs_t.shape)}"
+        )
+    lb, q, d = qrows.shape
+    if slabs_t.shape[0] != lb or slabs_t.shape[1] != d:
+        raise ValueError(
+            f"{name}: query dim {d} / blocks {lb} do not match slab shape "
+            f"{tuple(slabs_t.shape)}"
+        )
+    check_bounds(name, bounds, lb)
+    if qrows.dtype != torch.bfloat16 or slabs_t.dtype != slab_dtype:
+        raise ValueError(
+            f"{name}: qrows must be bfloat16 and the slab {slab_dtype}, "
+            f"got {qrows.dtype} and {slabs_t.dtype}"
+        )
+    validate_scan_shapes(name, slabs_t.shape[2])
+    check_same_device(name, qrows, slabs_t, bounds)
+
+
+def check_bounds(name, bounds, lb: int):
+    if tuple(bounds.shape) != (lb, 2) or bounds.dtype != torch.int32:
+        raise ValueError(
+            f"{name}: bounds must be (LB, 2) int32, got "
+            f"{tuple(bounds.shape)} {bounds.dtype}"
+        )
+
+
+def check_same_device(name, *ts):
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: operands on different devices {devs}")
+
+
+def check_launch(name, smem: int, slabs_t, lb: int, q: int,
+                 q_tile: int = 64):
+    """The launch limits the CUDA scans check again, as a clear error:
+    shared memory per block, non-negative slab strides, grid y and z."""
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: the kernel's shared memory exceeds a block's "
+            f"({smem} > {SMEM_LIMIT} bytes)"
+        )
+    if min(slabs_t.stride()) < 0 or lb > 65535 or -(-q // q_tile) > 65535:
+        raise ValueError(
+            f"{name}: negative slab strides or a grid beyond the launch "
+            f"limits (LB={lb}, Q={q})"
+        )
+
+
+def raise_on_error(err: int, name: str, lib) -> None:
+    """Raise when a launch returned a CUDA error (``lib.error_string``
+    names it)."""
+    if err:
+        raise RuntimeError(
+            f"{name}: kernel launch failed: CUDA error {err} "
+            f"({lib.error_string(err).decode()})"
         )

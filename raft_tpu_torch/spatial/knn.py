@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from raft_tpu_torch import errors
-from raft_tpu_torch.core.device import as_tensor, call_device
+from raft_tpu_torch.core.device import as_tensor, call_device, hopper_device
 from raft_tpu_torch.distance.distance_type import (
     EXPANDED_METRICS, DistanceType, resolve_metric,
 )
@@ -122,8 +122,7 @@ def knn_merge_parts(part_dists, part_indices, *,
 
 
 def _fused_device_ok(dev: torch.device) -> bool:
-    return (dev.type == "cuda"
-            and torch.cuda.get_device_capability(dev) == (9, 0))
+    return hopper_device(dev)
 
 
 def _note_scan_fallback(m: int, n: int, d: int) -> None:

@@ -1,16 +1,23 @@
-"""Where the time of one grouped IVF-Flat search batch goes, on one CUDA
-card.
+"""Where the time of one grouped IVF search batch goes, on one CUDA card.
 
-    python3 -m raft_tpu_torch.tools.profile_grouped [--seed N] [--out DIR]
+    python3 -m raft_tpu_torch.tools.profile_grouped [--kind flat|sq|pq]
+        [--seed N] [--out DIR]
 
-Builds the main path's index (1,000,000 clustered rows of width 96,
-1024 lists, as ``chip_smoke.py``), warms each profiled bucket, then for
-each bucket times 5 searches (k=10, n_probes=8, the warmed qcap) on the
-host clock, each ending in a synchronise, and traces the same searches
-with ``torch.profiler``. It prints, per bucket: the batch
-wall time, the device busy time (the union of the kernels' intervals),
-the idle share, and the kernels that took the most device time. With
-``--out`` it also writes each trace as a Chrome trace there.
+Builds the index of ``chip_smoke.py``'s path of that kind:
+
+* ``flat``: 1,000,000 clustered rows of width 96, 1024 lists; buckets 8
+  and 4096 at their warmed qcap;
+* ``sq`` / ``pq``: 500,000 rows of width 96 around 1,000 centres
+  (bench.py's ``ann_bench_dataset`` geometry), 2048 lists capped at 512
+  rows, n_probes=16 (PQ: pq_dim=24, 8 bits, refine_ratio=4); bucket 8 at
+  its warmed qcap and the 4,096-query batch at ``qcap="throughput"``.
+
+For each bucket it times 5 searches (k=10) on the host clock, each
+ending in a synchronise, and traces the same searches with
+``torch.profiler``. It prints, per bucket: the batch wall time, the
+device busy time (the union of the kernels' intervals), the idle share,
+and the kernels that took the most device time. With ``--out`` it also
+writes each trace as a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -27,13 +34,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from raft_tpu_torch.spatial.ann import (
     IVFFlatParams,
+    IVFPQParams,
+    IVFSQParams,
     ivf_flat_build,
     ivf_flat_search_grouped,
+    ivf_pq_build,
+    ivf_pq_search_grouped,
+    ivf_sq_build,
+    ivf_sq_search_grouped,
 )
 
-N_ROWS, DIM, N_LISTS, N_PROBES, K = 1_000_000, 96, 1024, 8, 10
-# the smallest and the largest serving bucket of chip_smoke.py
-BUCKETS = (8, 4096)
+DIM, K = 96, 10
 ITERS = 5
 
 
@@ -45,17 +56,6 @@ def _busy_us(intervals):
             busy += e - max(s, end)
             end = e
     return busy
-
-
-def profile_bucket(index, queries, qcap, iters, out_dir=None):
-    """Returns (wall_ms per batch, busy_ms per batch, top kernels as
-    [(name, ms per batch, launches per batch)])."""
-    def run():
-        ivf_flat_search_grouped(index, queries, K, n_probes=N_PROBES,
-                                qcap=qcap)
-
-    return trace_calls(run, iters, None if out_dir is None
-                       else out_dir / f"trace_{len(queries)}.json")
 
 
 def trace_calls(fn, iters, trace_path=None):
@@ -88,7 +88,7 @@ def trace_calls(fn, iters, trace_path=None):
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     if trace_path is not None:
         prof.export_chrome_trace(str(trace_path))
     return wall_ms, busy_ms, [(n, t / 1e3 / iters, c / iters)
@@ -107,8 +107,58 @@ def card_name(tool: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _clustered(rng, n, n_centers, spread):
+    if spread is None:       # chip_smoke.py clustered_rows
+        centers = rng.standard_normal((n_centers, DIM),
+                                      dtype=np.float32) * 2.0
+    else:                    # chip_smoke.py ann_dataset
+        centers = rng.uniform(-spread, spread,
+                              (n_centers, DIM)).astype(np.float32)
+    return (centers[rng.integers(0, n_centers, n)]
+            + rng.standard_normal((n, DIM), dtype=np.float32))
+
+
+def build(kind: str, rng):
+    """(rows, index, search(q, qcap), [(bucket, qcap argument)]) of the
+    path of ``kind``."""
+    if kind == "flat":
+        x = _clustered(rng, 1_000_000, 2000, None)
+        index = ivf_flat_build(x, IVFFlatParams(
+            n_lists=1024, kmeans_n_iters=10, kmeans_init="random"))
+
+        def search(q, qcap):
+            return ivf_flat_search_grouped(index, q, K, n_probes=8,
+                                           qcap=qcap)
+        warm = dict(n_probes=8)
+        plan = [(8, None), (4096, None)]
+    else:
+        x = _clustered(rng, 500_000, 1000, 10.0)
+        if kind == "sq":
+            index = ivf_sq_build(x, IVFSQParams(
+                n_lists=2048, kmeans_n_iters=10, max_list_cap=512))
+
+            def search(q, qcap):
+                return ivf_sq_search_grouped(index, q, K, n_probes=16,
+                                             qcap=qcap)
+            warm = dict(n_probes=16)
+        else:
+            index = ivf_pq_build(x, IVFPQParams(
+                n_lists=2048, pq_dim=24, kmeans_n_iters=10,
+                kmeans_init="random", max_list_cap=512))
+
+            def search(q, qcap):
+                return ivf_pq_search_grouped(index, q, K, n_probes=16,
+                                             qcap=qcap, refine_ratio=4.0)
+            warm = dict(n_probes=16, refine_ratio=4.0)
+        plan = [(8, None), (4096, "throughput")]
+    plan = [(nq, index.warmup(nq, k=K, **warm) if qc is None else qc)
+            for nq, qc in plan]
+    return x, index, search, plan
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kind", choices=("flat", "sq", "pq"), default="flat")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -117,20 +167,18 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
 
     rng = np.random.default_rng(args.seed)
-    centers = rng.standard_normal((2000, DIM), dtype=np.float32) * 2.0
-    x = (centers[rng.integers(0, 2000, N_ROWS)]
-         + rng.standard_normal((N_ROWS, DIM), dtype=np.float32))
-    index = ivf_flat_build(x, IVFFlatParams(
-        n_lists=N_LISTS, kmeans_n_iters=10, kmeans_init="random"))
-    for nq in BUCKETS:
-        qcap = index.warmup(nq, k=K, n_probes=N_PROBES)
+    x, index, search, plan = build(args.kind, rng)
+    for nq, qcap in plan:
         q = torch.as_tensor(
-            x[rng.integers(0, N_ROWS, nq)]
+            x[rng.integers(0, x.shape[0], nq)]
             + 0.3 * rng.standard_normal((nq, DIM), dtype=np.float32),
             device=index.device)
-        wall, busy, top = profile_bucket(index, q, qcap, ITERS, args.out)
-        print(f"[{card}] bucket {nq} (qcap {qcap}): {wall:.3f} ms per "
-              f"batch, device busy {busy:.3f} ms, idle "
+        wall, busy, top = trace_calls(
+            lambda: search(q, qcap), ITERS,
+            None if args.out is None
+            else args.out / f"trace_{args.kind}_{nq}.json")
+        print(f"[{card}] {args.kind} bucket {nq} (qcap {qcap}): "
+              f"{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
               f"{1 - busy / wall:.1%}", flush=True)
         for name, ms, n in top:
             print(f"    {ms:9.4f} ms {n:7.1f}x  {name[:100]}", flush=True)

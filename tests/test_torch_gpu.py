@@ -137,3 +137,87 @@ def test_probe_grid_steps_on_the_card():
     assert tfk.LAUNCHES["probe_grid_steps"] == before + 1
     assert not tfk.probe_grid_steps(2**31)
     assert tfk.LAUNCHES["probe_grid_steps"] == before + 1
+
+
+def _bounds(l_pad):
+    # full, empty, ragged off the 8-row grain, a short run
+    return [[0, l_pad], [7, 7], [5, l_pad - 11], [1, 9]]
+
+
+@pytest.mark.gpu
+def test_sq_kernel_matches_plain_version():
+    """On a Hopper card: the SQ dequant + scan kernel against its plain
+    version, bitwise on dyadic and on generic affine stats (the dequant
+    rounds its multiply and add on their own, as the plain version does,
+    and both sum over d in ascending order), at ragged Q and Lpad, with
+    empty and full ranges and a transposed-view code slab."""
+    from raft_tpu_torch.spatial.ann import sq_kernel as tsq
+
+    dev = _hopper()
+    rng = np.random.default_rng(2)
+    for lb, q, d, l_pad in ((4, 64, 96, 512), (3, 13, 24, 136),
+                            (2, 70, 96, 264)):
+        qrows = torch.as_tensor(rng.standard_normal((lb, q, d)),
+                                dtype=torch.float32).to(torch.bfloat16)
+        codes = torch.as_tensor(rng.integers(-128, 128, (lb, l_pad, d)),
+                                dtype=torch.int8)
+        bt = torch.as_tensor(_bounds(l_pad)[:lb], dtype=torch.int32,
+                             device=dev)
+        for dyadic in (True, False):
+            if dyadic:
+                vmin = torch.as_tensor(rng.integers(-8, 8, d),
+                                       dtype=torch.float32)
+                vscale = torch.full((d,), 0.5)
+            else:
+                vmin = torch.as_tensor(rng.standard_normal(d),
+                                       dtype=torch.float32)
+                vscale = torch.as_tensor(
+                    np.abs(rng.standard_normal(d)) / 255.0 + 1e-3,
+                    dtype=torch.float32)
+            args = (qrows.to(dev), codes.to(dev).transpose(1, 2), bt,
+                    vmin.to(dev), vscale.to(dev))
+            before = tsq.LAUNCHES
+            got = tsq.sq_scan_subchunk_min(*args)
+            assert tsq.LAUNCHES == before + 1
+            want = tsq.sq_scan_subchunk_min_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (lb, q, d, l_pad, dyadic)
+            assert (got[1] == tsq.BIG).all()
+            contiguous = tsq.sq_scan_subchunk_min(
+                args[0], args[1].contiguous(), *args[2:])
+            assert torch.equal(contiguous, got)
+
+
+@pytest.mark.gpu
+def test_pq_kernel_matches_plain_version():
+    """On a Hopper card: the ADC kernel against its plain version,
+    bitwise on Gaussian LUTs (both add the M entries in ascending m), at
+    ragged Q and Lpad, with empty and full ranges, and at an M·K whose
+    LUT rows need more than one query tile of shared memory."""
+    from raft_tpu_torch.spatial.ann import pq_kernel as tpq
+
+    dev = _hopper()
+    rng = np.random.default_rng(3)
+    for lb, q, m, k_codes, l_pad in ((4, 24, 24, 256, 512),
+                                     (3, 13, 5, 32, 136),
+                                     (2, 13, 96, 256, 264),
+                                     (1, 40, 3, 7, 520)):
+        luts = torch.as_tensor(rng.standard_normal((lb, q, m * k_codes)),
+                               dtype=torch.float32).to(torch.bfloat16)
+        codes = torch.as_tensor(rng.integers(0, k_codes, (lb, l_pad, m)),
+                                dtype=torch.uint8)
+        bt = torch.as_tensor(_bounds(l_pad)[:lb], dtype=torch.int32,
+                             device=dev)
+        args = (luts.to(dev), codes.to(dev).transpose(1, 2), bt)
+        before = tpq.LAUNCHES
+        got = tpq.pq_adc_subchunk_min(*args)
+        assert tpq.LAUNCHES == before + 1
+        want = tpq.pq_adc_subchunk_min_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (lb, q, m, k_codes, l_pad)
+        if lb > 1:
+            assert (got[1] == tpq.BIG).all()
+        lib = tpq._lib()
+        assert lib.raft_pq_adc_max_qtile(m, k_codes) == tpq._max_qtile(
+            m, k_codes)
+    assert tpq._query_tile(13, 96, 256) < 13     # several query tiles

@@ -437,7 +437,9 @@ def test_engine_resolution_and_unported_options(dataset, carried):
     with pytest.raises(ValueError, match="per-query"):
         ivf_flat_search_grouped(idx, q, idx.storage.max_list + 1,
                                 n_probes=4, use_kernel=True)
-    with pytest.raises(ValueError, match="IVF-SQ"):
+    # the IVF-SQ mode of the grouped body is reached through ivf_sq, as
+    # in the JAX package, not through the flat entry point
+    with pytest.raises(TypeError, match="dequant"):
         ivf_flat_search_grouped(idx, q, 5, dequant=(1, 2))
     with pytest.raises(ValueError, match="mutation"):
         ivf_flat_search_grouped(idx, q, 5, row_mask=torch.ones(3))
@@ -468,16 +470,22 @@ def test_cuda_index_leaving_the_kernel_is_counted_and_warned(caplog):
 def test_scan_rows_bf16_made_once_per_row_count(carried):
     idx = carried["plain", "arrays"]
     n = idx.data_sorted.shape[0]
-    a = idx.scan_rows_bf16(n)
-    assert a is idx.scan_rows_bf16(n) and a.dtype == torch.bfloat16
+    a = idx.scan_rows(n)
+    assert a is idx.scan_rows(n) and a.dtype == torch.bfloat16
     assert torch.equal(a, idx.data_sorted.to(torch.bfloat16))
-    b = idx.scan_rows_bf16(n + 5)
+    b = idx.scan_rows(n + 5)
     assert b.shape == (n + 5, idx.data_sorted.shape[1])
     assert torch.equal(b[:n], a) and not b[n:].any()
     # a replaced index starts without the old copies
     fresh = dataclasses.replace(idx, data_sorted=idx.data_sorted + 1)
-    assert torch.equal(fresh.scan_rows_bf16(n),
+    assert torch.equal(fresh.scan_rows(n),
                        (idx.data_sorted + 1).to(torch.bfloat16))
+    # int8 codes (the IVF-SQ view) stay int8: no copy without padding
+    codes = dataclasses.replace(idx, data_sorted=idx.data_sorted.to(
+        torch.int8))
+    assert codes.scan_rows(n) is codes.data_sorted
+    c = codes.scan_rows(n + 3)
+    assert c.dtype == torch.int8 and not c[n:].any()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
