@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from ``raft_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version, times it, and drives the
-port's two paths at full width, each with the kernels' launch counters
-set to 0 just before it and read just after:
+port's paths at full width, each with the kernels' launch counters set
+to 0 just before it and read just after:
 
 * IVF-Flat: an index over 1,000,000 clustered rows of width 96 (DEEP's
   width) built with 1024 lists, warmed per serving bucket, serving ~200
@@ -16,6 +16,13 @@ set to 0 just before it and read just after:
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
   engines, with recall@10 against exact brute force;
+* graph ANN (bench/bench_serving.py's graph_ann_row) over the same rows:
+  a degree-16 graph built on the card, recall@10 of the 4,096-query
+  batch at beams 16/32/64 on both engines (equal distances required)
+  beside IVF-Flat's (2048 lists, 16 probes), warmup per bucket at the
+  smallest beam within 0.01 of it (else the widest), ~100 served
+  requests, and the nq = 1 p50 of the beam search beside IVF-Flat's at
+  qcap 1;
 * brute-force kNN through ``brute_force_knn``: 1,000,000 x 128 clustered
   rows (SIFT-1M's shape) serving ~100 bucketed requests, one
   10,000-query batch with f32 and bf16 phase 1, the scan path on 1,000
@@ -63,6 +70,13 @@ QZ_ROWS, QZ_CENTERS, QZ_QUERIES, QZ_LISTS, QZ_PROBES = \
     500_000, 1000, 4096, 2048, 16
 QZ_REQUESTS = 100
 PQ_DIM, PQ_BITS, PQ_REFINE = 24, 8, 4.0
+
+# graph ANN (bench/bench_serving.py:1312 graph_ann_row on the same corpus):
+# degree 16 (intermediate 32), 4 seeded entries, beams 16/32/64; the
+# IVF-Flat baseline at 2048 lists capped at 488 rows (serving_latency_rows'
+# cap rule), 16 probes
+GRAPH_DEGREE, GRAPH_ENTRIES, GRAPH_BEAMS = 16, 4, (16, 32, 64)
+GRAPH_IVF_CAP = 488
 
 # brute-force kNN at SIFT-1M's shape (bench/bench_knn.py:19), and the
 # width of the 10M x 768 regime at 2M rows in two bf16 partitions
@@ -884,16 +898,402 @@ def quantized_phase(kind, args, card, dev, data):
     }
 
 
-def quantized_phases(args, card, dev):
-    """Both quantized paths over one dataset; exact neighbours of the
-    4,096-query batch from the port's brute_force_knn."""
+def ann_data(seed, dev):
+    """:func:`ann_dataset` and the exact neighbours of its 4,096-query
+    batch from the port's brute_force_knn: the data and oracle of the
+    quantized and graph paths."""
     from raft_tpu_torch.spatial import brute_force_knn
 
-    x, q, _ = ann_dataset(args.seed)
+    x, q, _ = ann_dataset(seed)
     _, true = brute_force_knn(torch.as_tensor(x, device=dev),
                               torch.as_tensor(q, device=dev), K)
-    return [quantized_phase(kind, args, card, dev, (x, q, true))
+    return x, q, true
+
+
+def quantized_phases(args, card, dev, data):
+    """Both quantized paths over the :func:`ann_data` dataset."""
+    return [quantized_phase(kind, args, card, dev, data)
             for kind in ("sq", "pq")]
+
+
+# ---------------------------------------------------------------------------
+# Graph ANN: kNN-graph build -> beam search (beam_scan_subchunk_min)
+# ---------------------------------------------------------------------------
+
+
+def check_beam_kernel(seed, dev):
+    """beam_scan_subchunk_min against its plain version, bitwise, on
+    integer and Gaussian rows with sentinel-padded ids, ragged, empty and
+    full bounds, at the path's width, a width off the 16-byte load, and
+    a Cpad over several blocks. Returns max |kernel - plain|."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as gk
+
+    gen = torch.Generator().manual_seed(seed)
+    errs = []
+    for nq, d, n, c_pad in ((64, DIM, 4096, 512), (7, 19, 300, 136),
+                            (3, DIM, 1000, 1024)):
+        bounds = _bounds(gen, nq, c_pad, dev)
+        for integer in (True, False):
+            if integer:
+                table = torch.randint(-8, 8, (n + 1, d), generator=gen).float()
+                q = torch.randint(-8, 8, (nq, d), generator=gen).float()
+            else:
+                table = torch.randn((n + 1, d), generator=gen)
+                q = torch.randn((nq, d), generator=gen)
+            table[n] = 1e15                       # the sentinel row
+            ids = torch.randint(0, n + 1, (nq, c_pad), generator=gen,
+                                dtype=torch.int32)
+            ids[:, -(c_pad // 4):] = n            # sentinel padding
+            args = (q.to(dev), table.to(dev), ids.to(dev), bounds)
+            errs.append(bitwise(gk.beam_scan_subchunk_min,
+                                gk.beam_scan_subchunk_min_plain, args,
+                                f"beam_scan_subchunk_min ({nq}, {d}, {n}, "
+                                f"{c_pad}) integer={integer}"))
+    log("kernel check beam_scan_subchunk_min: bitwise on integer and "
+        "Gaussian rows, sentinel-padded ids, ragged/empty/full bounds, at "
+        "(64, 96, 4096, 512), (7, 19, 300, 136) and (3, 96, 1000, 1024)")
+    return max(errs)
+
+
+def beam_bound(ids, d):
+    """Each input read once — the ids, each distinct table row they name
+    (f32), the f32 queries, the bounds — and the minima written once; a
+    dot and a norm (2 FMAs) per (candidate, feature) at the f32 rate.
+    Returns (bound_ms, bound_by, distinct rows, the no-reuse ms: every
+    named row read from device memory, as the TPU kernel's gathered
+    operand was)."""
+    nq, c_pad = ids.shape
+    distinct = torch.unique(ids).numel()
+    rest = nq * c_pad * 4 + nq * 4 * d + nq * c_pad // 2 + 8 * nq
+    ms, by = bound(distinct * 4 * d + rest, 4.0 * nq * c_pad * d,
+                   FP32_FLOP_PER_S)
+    no_reuse = nq * c_pad * 4 * d + rest
+    return ms, by, distinct, 1e3 * no_reuse / HBM_BYTES_PER_S
+
+
+def time_beam(q, table, ids, bounds):
+    """ms of the beam kernel, its plain version, and the library yardstick
+    (``table[ids]``, a bf16 ``bmm``, the norms and the 8-row ``amin``;
+    timed only, never called by the port), over input copies."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as gk
+
+    nq, c_pad = ids.shape
+    sets = input_copies(q, table, ids, bounds)
+    ms = cuda_time_ms(gk.beam_scan_subchunk_min, sets)
+    plain_ms = cuda_time_ms(gk.beam_scan_subchunk_min_plain, sets, iters=10,
+                            warm=1)
+
+    def library(qa, ta, ia, _):
+        rows = ta[ia.long()].to(torch.bfloat16)            # (NQ, Cpad, d)
+        qb = qa.to(torch.bfloat16)
+        dots = torch.bmm(rows, qb[:, :, None])[:, :, 0].float()
+        rf, qf = rows.float(), qb.float()
+        d2 = ((qf * qf).sum(-1)[:, None] + (rf * rf).sum(-1)) - 2.0 * dots
+        return d2.reshape(nq, c_pad // 8, 8).amin(-1)
+
+    library_ms = cuda_time_ms(library, sets, iters=10, warm=1)
+    del sets
+    return ms, plain_ms, library_ms
+
+
+def ids_tied_only(d, a, b):
+    """Queries whose ids differ beyond equal-distance runs (the interior
+    runs must hold the same id set; the run cut by k, distances only)."""
+    d, a, b = d.cpu().numpy(), a.cpu().numpy(), b.cpu().numpy()
+    bad = 0
+    for r in np.flatnonzero((a != b).any(1)):
+        start, k = 0, d.shape[1]
+        for end in range(1, k + 1):
+            if end == k or d[r, end] != d[r, start]:
+                if (end < k or start == 0) and (
+                        set(a[r, start:end]) != set(b[r, start:end])):
+                    bad += 1
+                    break
+                start = end
+    return bad
+
+
+def p50_ms(fn, dev, repeats=50, warm=3):
+    """Median host-clock ms of ``fn()`` then a synchronise."""
+    for _ in range(warm):
+        fn()
+    sync(dev)
+    lat = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        lat.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(lat))
+
+
+def reachable(adj, entries):
+    """Rows reachable from ``entries`` over an (n, degree) adjacency."""
+    n = adj.shape[0]
+    seen = np.zeros(n, bool)
+    seen[entries] = True
+    frontier = np.asarray(entries, np.int64)
+    while frontier.size:
+        nxt = adj[frontier].ravel()
+        nxt = np.unique(nxt[(nxt >= 0) & ~seen[np.maximum(nxt, 0)]])
+        seen[nxt] = True
+        frontier = nxt
+    return int(seen.sum())
+
+
+def beam_key(a):
+    # (queries, padded candidates) of one launch
+    return tuple(a[2].shape)
+
+
+def graph_path(x, qb, true, rng, card, dev, keep):
+    """graph_ann_row on the card: build -> the IVF-Flat baseline's recall
+    -> recall at each beam on both engines (the kernel engine's distances
+    must equal the exact engine's) -> warm each bucket at the smallest
+    beam within 0.01 of IVF-Flat's recall -> serve requests -> the nq = 1
+    p50 of both engines beside IVF-Flat's at qcap 1. ``keep`` collects
+    the kernel's inputs of one 4,096-query search per beam and of one
+    nq = 1 search. Returns the summary of the path."""
+    from raft_tpu_torch.spatial import brute_force_knn
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial.ann import (
+        GraphParams, IVFFlatParams, graph_build, graph_search,
+        ivf_flat_build, ivf_flat_search_grouped,
+    )
+    from raft_tpu_torch.spatial.ann import graph_kernel as gk
+
+    def fused_counts():
+        return dict(fz.LAUNCHES, gather_rescores=fz.RESCORE_GATHER_CALLS)
+
+    fused0 = fused_counts()
+    t0 = time.perf_counter()
+    index = graph_build(x, GraphParams(
+        degree=GRAPH_DEGREE, intermediate_degree=2 * GRAPH_DEGREE,
+        n_entry=GRAPH_ENTRIES, seed=0), metric="sqeuclidean", device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    st = index.build_stats
+    fused = {k: v - fused0[k] for k, v in fused_counts().items()}
+    adj = index.storage.adjacency.cpu().numpy()
+    n_reach = reachable(adj[:-1], index.storage.entries.cpu().numpy())
+    log(f"[{card}] graph build: {QZ_ROWS} x {DIM}, degree {GRAPH_DEGREE} "
+        f"(intermediate {2 * GRAPH_DEGREE}) in {build_s:.2f} s: kNN graph "
+        f"{st['knn_graph_s']:.2f} s ({st['edges']} edges; fused kNN "
+        f"launches and gather rescores {fused}), prune "
+        f"{st['prune_s']:.2f} s, patch {st['patch_s']:.2f} s "
+        f"({st['patch_edges']} edges written to {st['patched_rows']} rows; "
+        f"unreached rows by round {st['patch_misses']}); {n_reach} of "
+        f"{QZ_ROWS} rows reachable from the entries")
+    # the fused kNN's phase 1 runs chunk_mins; at d = 96 its rescore is
+    # the gather route (the rescore kernel takes d % 128 == 0, the JAX rule)
+    check(fused["chunk_mins"] > 0,
+          "the graph build's kNN graph did not run the chunk_mins kernel")
+    check(fused["rescore_scores"] + fused["gather_rescores"]
+          == fused["chunk_mins"], f"unexpected kNN routes {fused}")
+    check(adj.shape == (QZ_ROWS + 1, GRAPH_DEGREE)
+          and ((adj >= -1) & (adj < QZ_ROWS)).all()
+          and (adj[-1] == -1).all(), "malformed adjacency")
+    check(n_reach == QZ_ROWS, f"{QZ_ROWS - n_reach} rows unreachable")
+    del adj
+
+    # the IVF-Flat baseline over the same corpus (graph_ann_row)
+    t0 = time.perf_counter()
+    ivf = ivf_flat_build(x, IVFFlatParams(
+        n_lists=QZ_LISTS, kmeans_n_iters=10, kmeans_init="random",
+        max_list_cap=GRAPH_IVF_CAP), metric="sqeuclidean", device=dev)
+    qc = ivf.warmup(QZ_QUERIES, k=K, n_probes=QZ_PROBES)
+    _, ids = ivf_flat_search_grouped(ivf, qb, K, n_probes=QZ_PROBES, qcap=qc)
+    ivf_rec = recall(ids, true)
+    log(f"[{card}] IVF-Flat baseline ({QZ_LISTS} lists, {QZ_PROBES} probes) "
+        f"built and warmed in {time.perf_counter() - t0:.2f} s; "
+        f"{QZ_QUERIES}-query recall@10 {ivf_rec:.4f}")
+
+    sweep = {}
+    for beam in GRAPH_BEAMS:
+        it = index.warmup(QZ_QUERIES, k=K, beam=beam)
+        res = {}
+        for name, engine in (("kernel", None), ("exact", False)):
+            calls = []
+            with kernel_calls(gk, "beam_scan_subchunk_min", beam_key,
+                              calls if name == "kernel" else None):
+                sync(dev)
+                t0 = time.perf_counter()
+                d, i = graph_search(index, qb, K, beam=beam, iters=it,
+                                    use_kernel=engine)
+                sync(dev)
+            res[name] = (d, i, 1e3 * (time.perf_counter() - t0))
+            if calls:
+                keep[("batch", beam)] = calls
+        dk, ik, ms_k = res["kernel"]
+        de, ie, ms_e = res["exact"]
+        check(torch.equal(dk, de), f"beam {beam}: the kernel engine's "
+              "distances differ from the exact engine's")
+        bad = ids_tied_only(de, ie, ik)
+        check(bad == 0, f"beam {beam}: {bad} queries' ids differ beyond ties")
+        sweep[beam] = dict(recall_kernel=recall(ik, true),
+                           recall_exact=recall(ie, true), kernel_ms=ms_k,
+                           exact_ms=ms_e, iters=it)
+        log(f"[{card}] graph {QZ_QUERIES}-query batch, beam {beam} "
+            f"({it} iters): recall@10 kernel "
+            f"{sweep[beam]['recall_kernel']:.4f} ({ms_k:.2f} ms, "
+            f"{1e3 * QZ_QUERIES / ms_k:.0f} queries/s), exact "
+            f"{sweep[beam]['recall_exact']:.4f} ({ms_e:.2f} ms); distances "
+            "equal, ids equal up to ties")
+    met = [b for b in GRAPH_BEAMS
+           if sweep[b]["recall_kernel"] >= ivf_rec - 0.01]
+    beam = met[0] if met else GRAPH_BEAMS[-1]
+    log(f"[{card}] smallest beam within 0.01 of IVF-Flat's recall@10 "
+        f"{ivf_rec:.4f}: {beam if met else f'none (serving at {beam})'}")
+
+    t0 = time.perf_counter()
+    iters = {b: index.warmup(b, k=K, beam=beam) for b in BUCKETS}
+    log(f"[{card}] graph warmup at beam {beam}: iters per bucket {iters} "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    def noisy_rows(m):
+        return (x[rng.integers(0, QZ_ROWS, m)]
+                + 0.3 * rng.standard_normal((m, DIM), dtype=np.float32))
+
+    requests, served, _ = serve_requests(
+        lambda q, b: graph_search(index, q, K, beam=beam, iters=iters[b]),
+        noisy_rows, rng, QZ_REQUESTS, DIM, QZ_ROWS, card, "graph")
+    sample = requests[:20]
+    qs = torch.as_tensor(np.concatenate(sample), device=dev)
+    _, want = brute_force_knn(torch.as_tensor(x, device=dev), qs, K)
+    r_served = recall(torch.cat([served[id(r)][1] for r in sample]), want)
+    log(f"[{card}] graph served recall@10 (first 20 requests): "
+        f"{r_served:.4f}")
+    check(r_served >= 0.8, f"graph served recall@10 {r_served}")
+
+    # the docs/graph_ann.md acceptance figure: nq = 1 p50 of the beam
+    # search beside IVF-Flat's at its latency point (qcap 1)
+    q1 = qb[:1].contiguous()
+    qcap1 = ivf.warmup(1, k=K, n_probes=QZ_PROBES)
+    p50 = {
+        "ivf_flat": p50_ms(lambda: ivf_flat_search_grouped(
+            ivf, q1, K, n_probes=QZ_PROBES, qcap=qcap1), dev),
+        "graph_kernel": p50_ms(lambda: graph_search(
+            index, q1, K, beam=beam, iters=iters[min(BUCKETS)]), dev),
+        "graph_exact": p50_ms(lambda: graph_search(
+            index, q1, K, beam=beam, iters=iters[min(BUCKETS)],
+            use_kernel=False), dev),
+    }
+    calls = []
+    with kernel_calls(gk, "beam_scan_subchunk_min", beam_key, calls):
+        graph_search(index, q1, K, beam=beam, iters=iters[min(BUCKETS)])
+    keep[("one", beam)] = calls
+    log(f"[{card}] nq = 1 p50 (host clock, 50 searches): graph beam {beam} "
+        f"kernel engine {p50['graph_kernel']:.3f} ms, exact engine "
+        f"{p50['graph_exact']:.3f} ms; IVF-Flat qcap {qcap1} "
+        f"{p50['ivf_flat']:.3f} ms")
+    del ivf
+    return dict(index=index, beam=beam, ivf_recall=ivf_rec, sweep=sweep,
+                p50=p50, build_s=build_s)
+
+
+def graph_phase(args, card, dev, data):
+    """The graph-ANN path and its beam-scan kernel; returns the kernel's
+    entry of the ``kernels`` line."""
+    from raft_tpu_torch.spatial.ann import graph as gmod
+    from raft_tpu_torch.spatial.ann import graph_kernel as gk
+
+    x, q_np, true = data
+    errs = [check_beam_kernel(args.seed, dev)]
+    lib = gk._lib()
+    check(lib.raft_beam_scan_rows_per_block(DIM) == gk.rows_per_block(DIM)
+          and lib.raft_beam_scan_smem_bytes(DIM)
+          == gk._smem_bytes(DIM, gk.rows_per_block(DIM)),
+          "the beam wrapper's shared-memory model disagrees with the "
+          "kernel's")
+
+    # the main path, with every launch counter at 0 just before it
+    rng = np.random.default_rng(args.seed + 4)
+    qb = torch.as_tensor(q_np, device=dev)
+    keep = {}
+    gk.LAUNCHES = 0
+    gmod.ENGINE_FALLBACKS = 0
+    with kernel_calls(gk, "beam_scan_subchunk_min", beam_key) as shapes:
+        out = graph_path(x, qb, true, rng, card, dev, keep)
+    launches = gk.LAUNCHES
+    log(f"graph path: beam_scan_subchunk_min launched {launches} times, by "
+        f"(queries, Cpad): {dict(shapes)}; ENGINE_FALLBACKS "
+        f"{gmod.ENGINE_FALLBACKS}")
+    check(launches > 0, "the graph path never launched beam_scan_subchunk_min")
+    check(gmod.ENGINE_FALLBACKS == 0,
+          f"{gmod.ENGINE_FALLBACKS} graph searches left the kernel")
+
+    # the kernel against its plain version on the path's own inputs: every
+    # round of one 4,096-query search per beam and of one nq = 1 search
+    n_calls = 0
+    for calls in keep.values():
+        errs += [bitwise(gk.beam_scan_subchunk_min,
+                         gk.beam_scan_subchunk_min_plain, call,
+                         "beam_scan_subchunk_min on path inputs")
+                 for call in calls]
+        n_calls += len(calls)
+    path_shapes = sorted({beam_key(c[0]) for c in keep.values()})
+    log(f"kernel check beam_scan_subchunk_min: {n_calls} launches on the "
+        f"path's own inputs (shapes {path_shapes}) bitwise equal to the "
+        "plain version")
+    per_round = [torch.unique(c[2]).numel()
+                 for c in keep[("batch", out["beam"])]]
+    log(f"graph path: distinct candidate ids per round of the "
+        f"{QZ_QUERIES}-query batch at beam {out['beam']}: {per_round}")
+
+    # times at the path's shapes, each at the round whose candidate lists
+    # name the most distinct rows (once the walk converges, a round's lists
+    # hold mostly the sentinel), and kernel-only at degree 32 (beam 32 x
+    # 32 neighbours = 1,024 candidates) on random ids over the same table
+    index = out["index"]
+    timed = {}
+    for calls in keep.values():
+        shp = beam_key(calls[0])
+        call = max(calls, key=lambda c: torch.unique(c[2]).numel())
+        timed[shp] = time_beam(*call) + beam_bound(call[2], DIM)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    ids32 = torch.randint(0, index.n + 1, (QZ_QUERIES, 1024), generator=gen,
+                          device=dev, dtype=torch.int32)
+    full = torch.tensor([[0, 1024]], dtype=torch.int32,
+                        device=dev).expand(QZ_QUERIES, 2).contiguous()
+    deg32 = (qb, index.data_padded, ids32, full)
+    errs.append(bitwise(gk.beam_scan_subchunk_min,
+                        gk.beam_scan_subchunk_min_plain, deg32,
+                        "beam_scan_subchunk_min at degree 32"))
+    timed["degree32"] = time_beam(*deg32) + beam_bound(ids32, DIM)
+    for shp, (ms, plain_ms, library_ms, bound_ms, bound_by, distinct,
+              no_reuse_ms) in timed.items():
+        log(f"[{card}] beam_scan_subchunk_min {shp} (queries, Cpad), "
+            f"{shapes.get(shp, 0)} launches: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}; {distinct} distinct rows), "
+            f"{bound_ms / ms:.1%} of the bound; no-reuse bytes "
+            f"{no_reuse_ms:.5f} ms")
+    shp = beam_key(keep[("batch", out["beam"])][0])
+    ms, plain_ms, library_ms, bound_ms, bound_by = timed[shp][:5]
+    return {
+        "name": "beam_scan_subchunk_min",
+        "route": "cuda",
+        "source": "raft_tpu_torch/csrc/beam_scan.cu",
+        "replaces": "raft_tpu/spatial/ann/graph_kernel.py:88",
+        "launches": launches,
+        "launches_by_shape": {"x".join(map(str, k)): n
+                              for k, n in shapes.items()},
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": [shp[0], shp[1], DIM],
+        "timed": {("x".join(map(str, k)) if isinstance(k, tuple) else k):
+                  dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "distinct_rows", "no_reuse_ms"), v))
+                  for k, v in timed.items()},
+        "graph": {"beam": out["beam"], "ivf_recall": out["ivf_recall"],
+                  "p50_ms": out["p50"], "build_s": out["build_s"],
+                  "sweep": {str(b): v for b, v in out["sweep"].items()}},
+        "card": card,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1392,8 +1792,13 @@ def main(argv=None) -> int:
     kernels = [ivf_flat_phase(args, card, dev)]
     log(f"IVF-Flat phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    kernels += quantized_phases(args, card, dev)
+    data = ann_data(args.seed, dev)
+    kernels += quantized_phases(args, card, dev, data)
     log(f"IVF-SQ and IVF-PQ phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kernels.append(graph_phase(args, card, dev, data))
+    del data
+    log(f"graph phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")

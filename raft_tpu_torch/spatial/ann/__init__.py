@@ -1,11 +1,24 @@
 """Approximate nearest-neighbour indexes of the port: IVF-Flat, IVF-SQ
-and IVF-PQ on one sorted-by-list storage layout."""
+and IVF-PQ on one sorted-by-list storage layout, and the fixed-degree
+graph index with its beam search."""
 
 from raft_tpu_torch.spatial.ann.common import ListStorage, build_list_storage
+from raft_tpu_torch.spatial.ann.graph import (
+    GraphIndex,
+    GraphParams,
+    GraphStorage,
+    graph_build,
+    graph_delete,
+    graph_live_mask,
+    graph_restore,
+    graph_search,
+)
 from raft_tpu_torch.spatial.ann.interop import (
+    graph_index_from_arrays,
     ivf_flat_index_from_arrays,
     ivf_pq_index_from_arrays,
     ivf_sq_index_from_arrays,
+    load_graph,
     load_ivf_flat,
     load_ivf_pq,
     load_ivf_sq,
@@ -34,6 +47,9 @@ from raft_tpu_torch.spatial.ann.ivf_sq import (
 
 __all__ = [
     "ListStorage", "build_list_storage",
+    "GraphIndex", "GraphParams", "GraphStorage", "graph_build",
+    "graph_delete", "graph_index_from_arrays", "graph_live_mask",
+    "graph_restore", "graph_search", "load_graph",
     "IVFFlatIndex", "IVFFlatParams", "ivf_flat_build",
     "ivf_flat_index_from_arrays", "ivf_flat_search",
     "ivf_flat_search_grouped", "load_ivf_flat",

@@ -1,18 +1,20 @@
-"""Carrying IVF indexes across from the JAX package.
+"""Carrying IVF and graph indexes across from the JAX package.
 
 * ``*_index_from_arrays`` take a JAX index's leaves as numpy arrays,
-  keyed as the npz archive keys them: ``centroids``, the four
-  ``storage.*`` arrays with the ``storage.n`` and ``storage.max_list``
-  ints, and the kind's own arrays (IVF-Flat ``data_sorted``; IVF-SQ
-  ``codes_sorted``, ``vmin``, ``vscale``; IVF-PQ ``codebooks``,
-  ``codes_sorted`` and, unless built with ``store_raw=False``,
-  ``vectors_sorted``).
+  keyed as the npz archive keys them. An IVF index has ``centroids``,
+  the four ``storage.*`` arrays with the ``storage.n`` and
+  ``storage.max_list`` ints, and the kind's own arrays (IVF-Flat
+  ``data_sorted``; IVF-SQ ``codes_sorted``, ``vmin``, ``vscale``; IVF-PQ
+  ``codebooks``, ``codes_sorted`` and, unless built with
+  ``store_raw=False``, ``vectors_sorted``). A graph index has
+  ``data_padded``, ``storage.adjacency`` and ``storage.entries``.
 * ``load_*`` read the repo's npz index format (the JAX package's
-  ``spatial/ann/serialize.py``) for the ``"ivf_flat"``, ``"ivf_sq"`` and
-  ``"ivf_pq"`` kinds with numpy alone: the ``__header__`` JSON (format
-  versions 2-5), the ``storage.`` key prefix, bf16 arrays archived as
-  their 16-bit words, and the per-array CRC32/shape/dtype manifest,
-  verified exactly as the writer computed it. Damage raises
+  ``spatial/ann/serialize.py``) for the ``"ivf_flat"``, ``"ivf_sq"``,
+  ``"ivf_pq"`` and ``"graph"`` kinds with numpy alone: the
+  ``__header__`` JSON (format versions 2-5), the ``storage.`` key
+  prefix, bf16 arrays archived as their 16-bit words, and the per-array
+  CRC32/shape/dtype manifest, verified exactly as the writer computed
+  it. Damage raises
   :class:`~raft_tpu_torch.errors.CorruptIndexError` naming the field.
 """
 
@@ -27,25 +29,27 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.spatial.ann.common import ListStorage
+from raft_tpu_torch.spatial.ann.graph import GraphIndex, GraphStorage
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
 from raft_tpu_torch.spatial.ann.ivf_pq import IVFPQIndex
 from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
 
 __all__ = [
-    "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
-    "ivf_sq_index_from_arrays", "load_ivf_flat", "load_ivf_pq",
-    "load_ivf_sq",
+    "graph_index_from_arrays", "ivf_flat_index_from_arrays",
+    "ivf_pq_index_from_arrays", "ivf_sq_index_from_arrays", "load_graph",
+    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
 ]
 
 _READABLE_VERSIONS = (2, 3, 4, 5)
 _STORAGE = ("storage.sorted_ids", "storage.list_offsets",
             "storage.list_index", "storage.list_sizes")
-# the arrays of each kind, besides centroids and storage
+# the arrays of each IVF kind, besides centroids and storage
 _KIND_ARRAYS = {
     "ivf_flat": ("data_sorted",),
     "ivf_sq": ("codes_sorted", "vmin", "vscale"),
     "ivf_pq": ("codebooks", "codes_sorted", "vectors_sorted"),
 }
+_GRAPH_ARRAYS = ("data_padded", "storage.adjacency", "storage.entries")
 
 
 def _array_crc(arr: np.ndarray) -> int:
@@ -150,6 +154,28 @@ def ivf_pq_index_from_arrays(arrays: dict, pq_dim: int, pq_bits: int,
                       int(pq_bits))
 
 
+def graph_index_from_arrays(arrays: dict, metric: str,
+                            device=None) -> GraphIndex:
+    """Build a :class:`~.graph.GraphIndex` on ``device`` (CUDA by
+    default) from the JAX graph index's leaves: ``data_padded`` (n + 1,
+    d), stored as f32 (exact for the float types the JAX package keeps),
+    the int32 ``storage.adjacency`` (n + 1, degree) and
+    ``storage.entries``; shapes are checked against each other."""
+    put = _placer(arrays, device)
+    for key in _GRAPH_ARRAYS:
+        errors.expects(key in arrays, "graph arrays: missing %r", key)
+    data, adj, ent = (tuple(arrays[key].shape) for key in _GRAPH_ARRAYS)
+    errors.expects(
+        len(data) == 2 and len(adj) == 2 and adj[0] == data[0]
+        and data[0] >= 2 and len(ent) == 1 and ent[0] >= 1,
+        "graph arrays: data_padded %s, storage.adjacency %s and "
+        "storage.entries %s do not fit together", data, adj, ent,
+    )
+    storage = GraphStorage(put("storage.adjacency").to(torch.int32),
+                           put("storage.entries").to(torch.int32))
+    return GraphIndex(put("data_padded").float(), storage, metric)
+
+
 def _read(npz, manifest: dict, key: str, where: str) -> np.ndarray:
     try:
         arr = npz[key]
@@ -208,7 +234,8 @@ def _load_archive(path, kind: str):
         )
         static = header["static"]
         manifest = header.get("integrity") or {}
-        keys = ("centroids",) + _STORAGE + _KIND_ARRAYS[kind]
+        keys = (_GRAPH_ARRAYS if kind == "graph"
+                else ("centroids",) + _STORAGE + _KIND_ARRAYS[kind])
         arrays = {key: _read(npz, manifest, key, where) for key in keys
                   if static.get(key, "") is not None}
     for key, arr in arrays.items():
@@ -219,8 +246,9 @@ def _load_archive(path, kind: str):
                            "%s: unsupported %s dtype %r", where, key, tagged)
             arrays[key] = torch.from_numpy(
                 arr.view(np.int16)).view(torch.bfloat16)
-    arrays["storage.n"] = static["storage.n"]
-    arrays["storage.max_list"] = static["storage.max_list"]
+    for key in ("storage.n", "storage.max_list"):
+        if key in static:
+            arrays[key] = static[key]
     return arrays, static
 
 
@@ -251,3 +279,12 @@ def load_ivf_pq(path, device=None) -> IVFPQIndex:
     arrays, static = _load_archive(path, "ivf_pq")
     return ivf_pq_index_from_arrays(arrays, static["pq_dim"],
                                     static["pq_bits"], dev)
+
+
+def load_graph(path, device=None) -> GraphIndex:
+    """Load a ``"graph"`` index archive (format v5) written by the JAX
+    package's ``save_index``, verifying every array against the CRC32
+    manifest, onto ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    arrays, static = _load_archive(path, "graph")
+    return graph_index_from_arrays(arrays, static["metric"], dev)

@@ -1,7 +1,7 @@
-"""Where the time of one grouped IVF search batch goes, on one CUDA card.
+"""Where the time of one IVF or graph search batch goes, on one CUDA card.
 
-    python3 -m raft_tpu_torch.tools.profile_grouped [--kind flat|sq|pq]
-        [--seed N] [--out DIR]
+    python3 -m raft_tpu_torch.tools.profile_grouped
+        [--kind flat|sq|pq|graph] [--beam B] [--seed N] [--out DIR]
 
 Builds the index of ``chip_smoke.py``'s path of that kind:
 
@@ -10,7 +10,10 @@ Builds the index of ``chip_smoke.py``'s path of that kind:
 * ``sq`` / ``pq``: 500,000 rows of width 96 around 1,000 centres
   (bench.py's ``ann_bench_dataset`` geometry), 2048 lists capped at 512
   rows, n_probes=16 (PQ: pq_dim=24, 8 bits, refine_ratio=4); bucket 8 at
-  its warmed qcap and the 4,096-query batch at ``qcap="throughput"``.
+  its warmed qcap and the 4,096-query batch at ``qcap="throughput"``;
+* ``graph``: the same 500,000 rows, a degree-16 graph (intermediate 32,
+  4 entries); the beam search at ``--beam`` (default 32) at nq 1 and
+  4,096 with its warmed iteration count.
 
 For each bucket it times 5 searches (k=10) on the host clock, each
 ending in a synchronise, and traces the same searches with
@@ -33,9 +36,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raft_tpu_torch.spatial.ann import (
+    GraphParams,
     IVFFlatParams,
     IVFPQParams,
     IVFSQParams,
+    graph_build,
+    graph_search,
     ivf_flat_build,
     ivf_flat_search_grouped,
     ivf_pq_build,
@@ -118,9 +124,20 @@ def _clustered(rng, n, n_centers, spread):
             + rng.standard_normal((n, DIM), dtype=np.float32))
 
 
-def build(kind: str, rng):
-    """(rows, index, search(q, qcap), [(bucket, qcap argument)]) of the
-    path of ``kind``."""
+def build(kind: str, rng, beam: int = 32):
+    """(rows, index, search(q, arg), [(bucket, arg)]) of the path of
+    ``kind``: the arg is the qcap of an IVF search and the warmed
+    iteration count of a graph search."""
+    if kind == "graph":
+        x = _clustered(rng, 500_000, 1000, 10.0)
+        index = graph_build(x, GraphParams(degree=16, intermediate_degree=32,
+                                           n_entry=4, seed=0),
+                            metric="sqeuclidean")
+
+        def search(q, iters):
+            return graph_search(index, q, K, beam=beam, iters=iters)
+        plan = [(nq, index.warmup(nq, k=K, beam=beam)) for nq in (1, 4096)]
+        return x, index, search, plan
     if kind == "flat":
         x = _clustered(rng, 1_000_000, 2000, None)
         index = ivf_flat_build(x, IVFFlatParams(
@@ -158,7 +175,9 @@ def build(kind: str, rng):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("flat", "sq", "pq"), default="flat")
+    ap.add_argument("--kind", choices=("flat", "sq", "pq", "graph"),
+                    default="flat")
+    ap.add_argument("--beam", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -167,7 +186,8 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
 
     rng = np.random.default_rng(args.seed)
-    x, index, search, plan = build(args.kind, rng)
+    x, index, search, plan = build(args.kind, rng, args.beam)
+    arg_name = "iters" if args.kind == "graph" else "qcap"
     for nq, qcap in plan:
         q = torch.as_tensor(
             x[rng.integers(0, x.shape[0], nq)]
@@ -177,7 +197,7 @@ def main(argv=None) -> int:
             lambda: search(q, qcap), ITERS,
             None if args.out is None
             else args.out / f"trace_{args.kind}_{nq}.json")
-        print(f"[{card}] {args.kind} bucket {nq} (qcap {qcap}): "
+        print(f"[{card}] {args.kind} bucket {nq} ({arg_name} {qcap}): "
               f"{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
               f"{1 - busy / wall:.1%}", flush=True)
         for name, ms, n in top:

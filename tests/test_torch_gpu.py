@@ -221,3 +221,79 @@ def test_pq_kernel_matches_plain_version():
         assert lib.raft_pq_adc_max_qtile(m, k_codes) == tpq._max_qtile(
             m, k_codes)
     assert tpq._query_tile(13, 96, 256) < 13     # several query tiles
+
+
+@pytest.mark.gpu
+def test_beam_scan_kernel_matches_plain_version():
+    """On a Hopper card: the beam-scan kernel against its plain version,
+    bitwise on integer, Gaussian and sentinel-padded inputs, with
+    bounds narrower than Cpad (ragged, empty, full), at a Cpad over
+    several 128-row blocks and a ragged one, at the 16-byte-load width
+    and at a width off it."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as tgk
+
+    dev = _hopper()
+    rng = np.random.default_rng(4)
+    for nq, d, n, c_pad in ((4, 96, 2000, 1024), (3, 19, 300, 136),
+                            (4, 96, 500, 512)):
+        bounds = torch.as_tensor(_bounds(c_pad)[:nq], dtype=torch.int32,
+                                 device=dev)
+        for integer in (True, False):
+            if integer:
+                table = rng.integers(-8, 8, (n + 1, d)).astype(np.float32)
+                q = rng.integers(-8, 8, (nq, d)).astype(np.float32)
+            else:
+                table = rng.standard_normal((n + 1, d)).astype(np.float32)
+                q = rng.standard_normal((nq, d)).astype(np.float32)
+            table[n] = 1e15
+            ids = rng.integers(0, n + 1, (nq, c_pad)).astype(np.int32)
+            ids[:, -(c_pad // 4):] = n
+            args = tuple(torch.as_tensor(a, device=dev)
+                         for a in (q, table, ids)) + (bounds,)
+            before = tgk.LAUNCHES
+            got = tgk.beam_scan_subchunk_min(*args)
+            assert tgk.LAUNCHES == before + 1
+            want = tgk.beam_scan_subchunk_min_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (nq, d, n, c_pad, integer)
+            assert (got[1] == tgk.BIG).all()
+    lib = tgk._lib()
+    for d in (19, 96, 600, 2000):
+        assert lib.raft_beam_scan_rows_per_block(d) == tgk.rows_per_block(d)
+
+
+@pytest.mark.gpu
+def test_graph_search_engines_agree_on_card():
+    """A small index built on the card: the kernel engine and the exact
+    engine return equal distances and ids up to ties, and the kernel
+    engine launches the kernel once per round."""
+    from raft_tpu_torch.spatial.ann import GraphParams, graph_build
+    from raft_tpu_torch.spatial.ann import graph as tgraph
+    from raft_tpu_torch.spatial.ann import graph_kernel as tgk
+
+    dev = _hopper()
+    rng = np.random.default_rng(6)
+    centres = rng.uniform(-10, 10, (20, 32)).astype(np.float32)
+    x = centres[rng.integers(0, 20, 3000)] + rng.standard_normal(
+        (3000, 32)).astype(np.float32)
+    q = x[rng.integers(0, 3000, 64)] + 0.3 * rng.standard_normal(
+        (64, 32)).astype(np.float32)
+    index = graph_build(x, GraphParams(degree=16, seed=0),
+                        metric="sqeuclidean", device=dev)
+    assert index.device.type == "cuda"
+    fallbacks = tgraph.ENGINE_FALLBACKS
+    before = tgk.LAUNCHES
+    dk, ik = tgraph.graph_search(index, q, 10, beam=32, iters=9)
+    assert tgk.LAUNCHES == before + 9
+    assert tgraph.ENGINE_FALLBACKS == fallbacks
+    de, ie = tgraph.graph_search(index, q, 10, beam=32, iters=9,
+                                 use_kernel=False)
+    assert torch.equal(dk, de)
+    d, a, b = de.cpu().numpy(), ie.cpu().numpy(), ik.cpu().numpy()
+    for r in range(d.shape[0]):
+        start = 0
+        for end in range(1, 11):
+            if end == 10 or d[r, end] != d[r, start]:
+                if end < 10 or start == 0:
+                    assert set(a[r, start:end]) == set(b[r, start:end])
+                start = end
