@@ -132,15 +132,6 @@ def bound(nbytes, flops, flop_rate):
                                        else "operations")
 
 
-def scan_bound(lb: int, q: int, d: int, l_pad: int):
-    """(bound_ms, bound_by) of the sub-chunk scan: each input read once
-    (bf16 queries and slab, int32 bounds), the f32 minima written once,
-    2 flop per multiply-add at the bf16 rate."""
-    nbytes = lb * (q * d * 2 + d * l_pad * 2) + lb * q * (l_pad // 8) * 4 \
-        + lb * 2 * 4
-    return bound(nbytes, 2.0 * lb * q * l_pad * d, BF16_FLOP_PER_S)
-
-
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -176,18 +167,21 @@ def phase_build():
     from raft_tpu_torch.spatial.ann import pq_kernel, sq_kernel
 
     lib = flat_kernel._lib()
-    check(lib.raft_flat_scan_smem_bytes(DIM) == flat_kernel._smem_bytes(DIM),
+    check(all(lib.raft_flat_scan_q_tile(q) == flat_kernel._q_tile(q)
+              and lib.raft_flat_scan_smem_bytes(DIM, flat_kernel._q_tile(q))
+              == flat_kernel._lists_smem_bytes(DIM, flat_kernel._q_tile(q))
+              for q in (1, 8, 9, 24, 64, 65, 4096)),
           "the wrapper's shared-memory model disagrees with the kernel's")
     check(sq_kernel._lib().raft_sq_scan_smem_bytes(DIM)
           == sq_kernel._smem_bytes(DIM),
           "the SQ wrapper's shared-memory model disagrees with the kernel's")
     plib = pq_kernel._lib()
-    m, k_codes = PQ_DIM, 1 << PQ_BITS
-    qt = pq_kernel._query_tile(24, m, k_codes)
-    check(plib.raft_pq_adc_max_qtile(m, k_codes)
-          == pq_kernel._max_qtile(m, k_codes)
-          and plib.raft_pq_adc_smem_bytes(qt, m, k_codes)
-          == pq_kernel._smem_bytes(qt, m, k_codes),
+    check(all(plib.raft_pq_lists_slots(q, m, k) == pq_kernel._slots(q, m, k)
+              and plib.raft_pq_lists_smem_bytes(pq_kernel._slots(q, m, k),
+                                                m, k)
+              == pq_kernel._smem_bytes(pq_kernel._slots(q, m, k), m, k)
+              for q in (1, 3, 8, 24) for m, k in ((PQ_DIM, 1 << PQ_BITS),
+                                                  (96, 256), (5, 7))),
           "the ADC wrapper's shared-memory model disagrees with the kernel's")
     log(f"build: csrc/*.cu -> {out_dir} in {build_s:.2f} s")
 
@@ -293,11 +287,11 @@ def kernel_calls(mod, name, key, keep=None):
     wrapper = getattr(mod, name)
     shapes = collections.Counter()
 
-    def recording(*args):
+    def recording(*args, **kw):
         shapes[key(args)] += 1
         if keep is not None:
             keep.append(args)
-        return wrapper(*args)
+        return wrapper(*args, **kw)
 
     setattr(mod, name, recording)
     try:
@@ -306,12 +300,208 @@ def kernel_calls(mod, name, key, keep=None):
         setattr(mod, name, wrapper)
 
 
+@contextlib.contextmanager
+def path_batches(mod, impl, keep):
+    """Record the kernel-engine batches of ``mod.impl`` (a grouped-search
+    body): for each, its queries and the calls it launched, the slice of
+    ``keep`` (filled by :func:`kernel_calls`) that it added."""
+    real = getattr(mod, impl)
+    batches = []
+
+    def recording(*args, **kw):
+        start = len(keep)
+        out = real(*args, **kw)
+        if kw.get("use_kernel"):
+            batches.append((args[1], keep[start:]))
+        return out
+
+    setattr(mod, impl, recording)
+    try:
+        yield batches
+    finally:
+        setattr(mod, impl, real)
+
+
+def batch_per_key(batches, key):
+    """One recorded batch for each ``key(nq, calls)``: the last one with
+    a nonzero query (a served or measured batch), else the warmup's
+    all-zeros batch. Returns {key: (nq, calls, warmup)}."""
+    out = {}
+    for q, calls in batches:
+        k = key(q.shape[0], calls)
+        warm = not bool(q.any())
+        if k not in out or not warm:
+            out[k] = (q.shape[0], calls, warm)
+    return out
+
+
 def scan_calls(keep=None):
-    """The flat scan's calls by (Q, Lpad) shape (:func:`kernel_calls`)."""
+    """The grouped search's flat-scan calls (``flat_scan_lists``, one a
+    batch) by (Q, Lpad) shape (:func:`kernel_calls`)."""
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
-    return kernel_calls(fk, "flat_scan_subchunk_min",
-                        lambda a: (a[0].shape[1], a[1].shape[2]), keep)
+    return kernel_calls(fk, "flat_scan_lists",
+                        lambda a: (a[1].shape[1], a[5]), keep)
+
+
+def list_windows(gen, n_lists, n_rows, l_pad, dev):
+    """(origins, bounds) of list windows as the grouped search makes
+    them: lists 0 and 1 empty, list 2 full, the last list at the storage
+    tail (its origin clamped, its range off the 8-row grain), the rest
+    ragged."""
+    sizes = torch.randint(1, l_pad + 1, (n_lists,), generator=gen)
+    sizes[:2] = 0
+    sizes[2] = l_pad
+    sizes[-1] = l_pad // 2 + 3
+    offsets = torch.randint(0, n_rows - l_pad, (n_lists,), generator=gen)
+    offsets[-1] = n_rows - 1 - sizes[-1]
+    origins = torch.clamp(offsets, max=n_rows - l_pad)
+    lo = offsets - origins
+    return (origins.to(torch.int32).to(dev),
+            torch.stack([lo, lo + sizes], 1).to(torch.int32).to(dev))
+
+
+def slot_map(gen, n_lists, q, n_live, dead, dev):
+    """(lists, Q) int32 slot map: live slots front-packed with ids in
+    [0, n_live), the rest ``dead``; list 2 all live, list 3 none."""
+    occ = torch.randint(0, q + 1, (n_lists, 1), generator=gen)
+    occ[2], occ[3] = q, 0
+    ids = torch.randint(0, n_live, (n_lists, q), generator=gen)
+    return torch.where(torch.arange(q)[None, :] < occ, ids,
+                       dead).to(torch.int32).to(dev)
+
+
+def check_lists_kernel(seed, dev):
+    """flat_scan_lists against its plain version: bitwise on
+    integer-exact inputs, within 1e-5 x (qn + yn) on Gaussian ones, at
+    query tiles of 8, 24, 64 and two of 40, d = 96 and a ragged d, with
+    dead slots, empty and full ranges and the clamped tail window.
+    Returns the Gaussian cases' max |kernel - plain| over live slots."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    gen = torch.Generator().manual_seed(seed)
+    n_lists, nq, l_pad, err = 9, 60, 1160, 0.0
+    for d in (DIM, 20):
+        n_rows = 4 * l_pad + 3
+        origins, bounds = list_windows(gen, n_lists, n_rows, l_pad, dev)
+        for integer in (True, False):
+            draw = ((lambda s: torch.randint(-64, 64, s, generator=gen)
+                     .float()) if integer else
+                    (lambda s: torch.randn(s, generator=gen)))
+            queries = torch.cat([draw((nq, d)), torch.zeros((1, d))])
+            queries = queries.to(torch.bfloat16).to(dev)
+            rows = draw((n_rows, d)).to(torch.bfloat16).to(dev)
+            for q in (8, 24, 64, 65):
+                call = (queries, slot_map(gen, n_lists, q, nq, nq, dev),
+                        rows, origins, bounds, l_pad)
+                if integer:
+                    bitwise(fk.flat_scan_lists, fk.flat_scan_lists_plain,
+                            call, f"flat_scan_lists d={d} Q={q}")
+                else:
+                    err = max(err, compare_lists_to_plain(call))
+    return err
+
+
+def compare_lists_to_plain(call):
+    """flat_scan_lists vs its plain version on one batch's inputs: dead
+    slots BIG in both, live ones within 1e-5 x (qn + yn) of each other
+    (the tensor cores sum the dot in another order). Returns max
+    |kernel - plain| over live entries below BIG."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    queries, qmat, rows, origins, bounds, l_pad = call
+    got = fk.flat_scan_lists(*call)
+    want = fk.flat_scan_lists_plain(*call)
+    n = queries.shape[0] - 1
+    live = (qmat >= 0) & (qmat < n)
+    check(bool((got[~live] == fk.BIG).all() and (want[~live] == fk.BIG)
+               .all()), "flat_scan_lists: a dead slot is not BIG")
+    qn = (queries.float() ** 2).sum(1)[qmat.clamp(0, n).long()][:, :, None]
+    win = origins.long()[:, None] + torch.arange(l_pad, device=rows.device)
+    yn = (rows.float() ** 2).sum(1)[win].reshape(
+        qmat.shape[0], 1, -1, 8).amax(-1)
+    err = (got - want).abs()
+    if not (err <= 1e-5 * (qn + yn)).all():
+        raise AssertionError(
+            f"chip_smoke: flat_scan_lists {tuple(qmat.shape)} x {l_pad}: off "
+            f"by {err.max().item()} > 1e-5 x (qn + yn)")
+    valid = live[:, :, None] & (want < 1e30)
+    return err[valid].max().item() if valid.any() else 0.0
+
+
+def lists_scan_bound(queries, qmat, rows, origins, bounds, l_pad,
+                     live_only=False):
+    """(bound_ms, bound_by) of one flat list-scan launch, counted on
+    these inputs: the rows in [lo, hi) of the lists with a live slot and
+    each distinct live query row read once (bf16), the slot map, origins
+    and bounds read once, and every (list, slot, sub-chunk) minimum
+    written once (f32), or with ``live_only`` the live slots' minima
+    only (those the pool reads); 2 flop per multiply-add of a live slot
+    and an in-range row at the bf16 rate."""
+    n = queries.shape[0] - 1
+    d = rows.shape[1]
+    n_lists, q = qmat.shape
+    live = (qmat >= 0) & (qmat < n)
+    n_live = live.sum(1)
+    span = (bounds[:, 1].clamp(0, l_pad)
+            - bounds[:, 0].clamp(0, l_pad)).clamp(min=0)
+    span = torch.where(n_live > 0, span, 0)
+    n_out = int(n_live.sum()) if live_only else n_lists * q
+    nbytes = (int(span.sum()) * d * 2 + torch.unique(qmat[live]).numel()
+              * d * 2 + n_lists * q * 4 + n_lists * 12
+              + n_out * (l_pad // 8) * 4)
+    return bound(nbytes, 2.0 * int((n_live * span).sum()) * d,
+                 BF16_FLOP_PER_S)
+
+
+def gathered_flat(queries, qmat, rows, origins, bounds, l_pad):
+    """The flat engine's scan as it ran before the list entry: per
+    32-list block a query-row gather, a (32, Lpad, d) slab gather and one
+    gathered-form launch (timed only; the path no longer runs it)."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    win = torch.arange(l_pad, device=rows.device)
+    for s in range(0, qmat.shape[0], 32):
+        blk = slice(s, s + 32)
+        slab = rows[origins[blk].long()[:, None] + win]
+        fk.flat_scan_subchunk_min(queries[qmat[blk].long()],
+                                  slab.transpose(1, 2), bounds[blk])
+
+
+def time_lists(call):
+    """ms of one batch's flat list scan, of its plain version, of the
+    gathered form it replaced (:func:`gathered_flat`, gathers included)
+    and of the library yardstick (baddbmm of the norm bias minus 2 x
+    the f32 gram over every list, then the 8-row amin, on pre-gathered
+    f32 operands; timed only, never called by the port), each rotating
+    over copies of the inputs that overflow L2."""
+    from raft_tpu_torch.core.device import full_f32
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    queries, qmat, rows, origins, bounds, l_pad = call
+    n_lists, q = qmat.shape
+    sets = input_copies(queries, qmat, rows, origins, bounds)
+    ms = cuda_time_ms(lambda *a: fk.flat_scan_lists(*a, l_pad), sets)
+    plain_ms = cuda_time_ms(lambda *a: fk.flat_scan_lists_plain(*a, l_pad),
+                            sets, iters=2, warm=1)
+    gathered_ms = cuda_time_ms(lambda *a: gathered_flat(*a, l_pad), sets,
+                               iters=5, warm=1)
+    win = torch.arange(l_pad, device=rows.device)
+    lib_sets = []
+    for qs, qm, rw, og, _ in sets[:2]:
+        qf = qs[qm.long()].float()
+        yf = rw[og.long()[:, None] + win].float().transpose(1, 2)
+        lib_sets.append((qf, yf, (qf * qf).sum(-1)[:, :, None]
+                         + (yf * yf).sum(1)[:, None, :]))
+    del sets
+
+    @full_f32
+    def library(qf, yf, bias):
+        t = torch.baddbmm(bias, qf, yf, alpha=-2.0)
+        return t.reshape(n_lists, q, l_pad // 8, 8).amin(-1)
+
+    library_ms = cuda_time_ms(library, lib_sets, iters=5, warm=1)
+    return ms, plain_ms, gathered_ms, library_ms
 
 
 def clustered_rows(rng, n, d, n_centers=2000):
@@ -485,71 +675,93 @@ def ivf_flat_phase(args, card, dev):
             f"Gaussian max |kernel - plain| {err:.3g}")
     gen = torch.Generator().manual_seed(args.seed)
     qr, rows = _int_inputs(gen, 32, 64, DIM, 3072, dev)
-    ref = time_kernel(qr, rows.transpose(1, 2), _bounds(gen, 32, 3072, dev))
-    ref_bound = scan_bound(32, 64, DIM, 3072)
+    bounds = _bounds(gen, 32, 3072, dev)
+    ref = time_kernel(qr, rows.transpose(1, 2), bounds)
+    # the gathered form as a list scan: every slot live, list b's window
+    # at row b * 3072 of the slab
+    ref_bound = lists_scan_bound(
+        torch.cat([qr.reshape(-1, DIM), qr.new_zeros((1, DIM))]),
+        torch.arange(32 * 64, device=dev, dtype=torch.int32).reshape(32, 64),
+        rows.reshape(-1, DIM),
+        torch.arange(0, 32 * 3072, 3072, device=dev, dtype=torch.int32),
+        bounds, 3072)
     log(f"[{card}] flat_scan_subchunk_min (32, 64, {DIM}, 3072): "
         f"kernel {ref[0]:.4f} ms, plain {ref[1]:.4f} ms, library "
         f"{ref[2]:.4f} ms, bound {ref_bound[0]:.4f} ms ({ref_bound[1]})")
 
-    # the main path, with every launch counter at 0 just before it
+    err = check_lists_kernel(args.seed, dev)
+    log("kernel check flat_scan_lists: bitwise on integer-exact inputs, "
+        f"Gaussian max |kernel - plain| {err:.3g} (Q 8/24/64/65, d "
+        f"{DIM} and 20, dead slots, empty/full/tail windows)")
+
+    # the main path, with every launch counter at 0 just before it; each
+    # kernel-engine batch and the calls it launched are kept
     from raft_tpu_torch.spatial.ann import ivf_flat
 
     fk.LAUNCHES = 0
     ivf_flat.ENGINE_FALLBACKS = 0
-    with scan_calls() as shapes:
-        index, qcaps, x = main_path(args.seed, card, dev)
+    keep = []
+    with scan_calls(keep) as shapes, \
+            path_batches(ivf_flat, "_grouped_impl", keep) as batches:
+        main_path(args.seed, card, dev)
     launches = fk.LAUNCHES
-    log(f"main path: flat_scan_subchunk_min launched {launches} times, "
-        f"by (Q, Lpad): {dict(shapes)}")
+    log(f"main path: flat_scan_lists launched {launches} times, by "
+        f"(Q, Lpad): {dict(shapes)}")
     check(launches > 0, "the main path never launched the kernel")
     check(ivf_flat.ENGINE_FALLBACKS == 0,
           f"{ivf_flat.ENGINE_FALLBACKS} main-path searches left the kernel")
+    per_batch = collections.Counter(len(c) for _, c in batches)
+    log(f"main path: {len(batches)} kernel-engine batches, flat-scan "
+        f"launches per batch {dict(per_batch)}")
+    check(set(per_batch) == {1} and len(batches) == launches,
+          f"flat-scan launches per batch {dict(per_batch)} (one expected)")
 
-    # the kernel against its plain version on every list block of one
-    # batch per bucket: the main path's own inputs (its slabs, bounds and
-    # zero-padded query slots) at each (Q, Lpad) it launches
-    from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
-
-    rng = np.random.default_rng(args.seed + 1)
-    max_err, by_shape = 0.0, {}
-    for b in BUCKETS:
-        q = torch.as_tensor(
-            x[rng.integers(0, N_ROWS, b)]
-            + 0.3 * rng.standard_normal((b, DIM), dtype=np.float32),
-            device=dev)
-        keep = []
-        with scan_calls(keep):
-            ivf_flat_search_grouped(index, q, K, n_probes=N_PROBES,
-                                    qcap=qcaps[b])
-        err = max(compare_to_plain(*call) for call in keep)
-        shape = (keep[0][0].shape[1], keep[0][1].shape[2])
-        log(f"kernel check, bucket {b} (Q, Lpad) {shape}: {len(keep)} "
-            f"blocks within 1e-5 x (qn + yn), max |kernel - plain| {err:.3g}")
-        max_err = max(max_err, err)
-        by_shape.setdefault(shape, keep[0])
-    check(set(by_shape) >= set(shapes),
-          f"main-path shapes {set(shapes)} not all checked: {set(by_shape)}")
-    del keep
+    # the kernel against its plain version on every launch of the path:
+    # its own query rows, slot maps, in-place rows and windows
+    max_err = 0.0
+    for call in keep:
+        max_err = max(max_err, compare_lists_to_plain(call))
+    log(f"kernel check on the main path: all {len(keep)} flat_scan_lists "
+        f"calls within 1e-5 x (qn + yn) of the plain version, max |kernel "
+        f"- plain| {max_err:.3g}")
+    by_batch = batch_per_key(
+        batches, lambda nq, c: (nq, c[0][1].shape[1], c[0][5]))
+    del keep, batches
 
     timed = {}
-    for (q_, l_pad), call in sorted(by_shape.items()):
-        ms, plain_ms, library_ms = time_kernel(*call)
-        bound_ms, bound_by = scan_bound(call[0].shape[0], q_, DIM, l_pad)
-        timed[q_, l_pad] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-        log(f"[{card}] flat_scan_subchunk_min main-path shape (32, {q_}, "
-            f"{DIM}, {l_pad}), {shapes[q_, l_pad]} launches: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of the bound")
-    # the line reports the shape the main path launched most
-    (qc, l_pad), _ = shapes.most_common(1)[0]
-    ms, plain_ms, library_ms, bound_ms, bound_by = timed[qc, l_pad]
+    for (nq, q_, l_pad), (_, (call,), warm) in sorted(by_batch.items()):
+        ms, plain_ms, gathered_ms, library_ms = time_lists(call)
+        bound_ms, bound_by = lists_scan_bound(*call)
+        live_ms, _ = lists_scan_bound(*call, live_only=True)
+        timed[nq, q_, l_pad] = (ms, plain_ms, library_ms, bound_ms, bound_by,
+                                gathered_ms, live_ms)
+        live = int((call[1] < call[0].shape[0] - 1).any(1).sum())
+        log(f"[{card}] flat_scan_lists per batch of {nq}"
+            f"{' (the warmup, all zeros)' if warm else ''} at (lists, Q, d, "
+            f"Lpad) ({call[1].shape[0]}, {q_}, {DIM}, {l_pad}), {live} "
+            f"lists with a live slot, {shapes[q_, l_pad]} launches at this "
+            f"(Q, Lpad): kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the "
+            f"bound, {live_ms / ms:.1%} of the live-minima bound), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), live-minima bound "
+            f"{live_ms:.4f} ms, gathered form {gathered_ms:.4f} ms (32-list "
+            f"gathers + launches; the bound is {bound_ms / gathered_ms:.1%} "
+            f"of it), library {library_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the line reports the batch size of the (Q, Lpad) launched most,
+    # its smallest bucket
+    qc, l_pad = shapes.most_common(1)[0][0]
+    nq = min(k[0] for k in timed if k[1:] == (qc, l_pad))
+    ms, plain_ms, library_ms, bound_ms, bound_by, gathered_ms, live_ms = \
+        timed[nq, qc, l_pad]
+    slower = {k: (t[0], t[2]) for k, t in timed.items() if t[0] > t[2]}
+    log("flat_scan_lists against baddbmm + amin per batch: "
+        + (f"slower at {slower}" if slower else "no slower at any shape"))
 
     return {
         "name": "flat_scan_subchunk_min",
         "route": "cuda",
         "source": "raft_tpu_torch/csrc/flat_scan.cu",
         "replaces": "raft_tpu/spatial/ann/flat_kernel.py:115",
+        "entry": "flat_scan_lists",
         "launches": launches,
         "launches_by_shape": {f"{a}x{b}": n for (a, b), n in shapes.items()},
         "max_abs_err": max_err,
@@ -557,8 +769,11 @@ def ivf_flat_phase(args, card, dev):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_live_ms": live_ms,
         "library_ms": library_ms,
-        "shape": [32, qc, DIM, l_pad],
+        "gathered_ms": gathered_ms,
+        "batch": nq,
+        "shape": [N_LISTS, qc, DIM, l_pad],
         "card": card,
     }
 
@@ -731,31 +946,6 @@ def time_sq(qr, codes_t, bounds, vmin, vscale):
     return ms, plain_ms, library_ms
 
 
-def time_pq(luts, codes_t, bounds):
-    """ms of the ADC kernel, its plain version, and the library yardstick
-    (the JAX legacy engine's spelling: a one-hot bf16 expansion of the
-    codes, bmm with the LUT, the 8-row amin; timed only)."""
-    from raft_tpu_torch.spatial.ann import pq_kernel as pk
-
-    lb, q, mk = luts.shape
-    m, l_pad = codes_t.shape[1], codes_t.shape[2]
-    k_codes = mk // m
-    sets = input_copies(luts, codes_t, bounds)
-    ms = cuda_time_ms(pk.pq_adc_subchunk_min, sets)
-    plain_ms = cuda_time_ms(pk.pq_adc_subchunk_min_plain, sets, iters=10,
-                            warm=1)
-    kidx = torch.arange(k_codes, device=luts.device, dtype=torch.uint8)
-
-    def library(lut, codes, _):
-        oh = (codes[:, :, None, :] == kidx[None, None, :, None]).to(
-            torch.bfloat16).reshape(lb, mk, l_pad)
-        return torch.bmm(lut, oh).reshape(lb, q, l_pad // 8, 8).amin(-1)
-
-    library_ms = cuda_time_ms(library, sets, iters=10, warm=1)
-    del sets
-    return ms, plain_ms, library_ms
-
-
 def sq_bound(lb, q, d, l_pad):
     """Each input read once (bf16 queries, int8 slab, bounds, stats),
     the minima written once; 2 flop per multiply-add at the bf16 rate."""
@@ -764,64 +954,38 @@ def sq_bound(lb, q, d, l_pad):
     return bound(nbytes, 2.0 * lb * q * l_pad * d, BF16_FLOP_PER_S)
 
 
-def pq_bound(lb, q, m, k_codes, l_pad):
-    """Each input read once (the bf16 LUT, uint8 codes, bounds), the
-    minima written once; one f32 add per (query, row, subspace)."""
-    nbytes = lb * (q * m * k_codes * 2 + m * l_pad + q * (l_pad // 8) * 4
-                   + 8)
-    return bound(nbytes, 1.0 * lb * q * l_pad * m, FP32_FLOP_PER_S)
-
-
 def quantized_phase(kind, args, card, dev, data):
-    """The IVF-SQ ("sq") or IVF-PQ ("pq") path and its scan kernel;
-    returns the kernel's entry of the ``kernels`` line."""
-    from raft_tpu_torch.spatial.ann import ivf_pq, ivf_sq
-    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+    """The IVF-SQ path ("sq") and its scan kernel; returns the kernel's
+    entry of the ``kernels`` line. (IVF-PQ is :func:`pq_phase`.)"""
+    from raft_tpu_torch.spatial.ann import ivf_sq
     from raft_tpu_torch.spatial.ann import sq_kernel as sk
 
+    check(kind == "sq", f"quantized_phase runs IVF-SQ, not {kind}")
     x, q_np, true = data
     gen = torch.Generator().manual_seed(args.seed)
-    if kind == "sq":
-        kmod, fn_name, engine = sk, "sq_scan_subchunk_min", ivf_sq
-        fn, plain = sk.sq_scan_subchunk_min, sk.sq_scan_subchunk_min_plain
-        # bitwise on dyadic and on generic stats, at the path's shape and
-        # a ragged one (Q off the 64-slot tile, Lpad off the 64-row tile)
-        errs = []
-        for lb, q, d, l_pad in ((32, 24, DIM, 512), (3, 13, 24, 136)):
-            bounds = _bounds(gen, lb, l_pad, dev)
-            for dyadic in (True, False):
-                qr, codes_t, vmin, vscale = sq_int_inputs(
-                    gen, lb, q, d, l_pad, dev, dyadic)
-                errs.append(bitwise(fn, plain,
-                                    (qr, codes_t, bounds, vmin, vscale),
-                                    f"{fn_name} ({lb},{q},{d},{l_pad}) "
-                                    f"dyadic={dyadic}"))
-        log(f"kernel check {fn_name}: bitwise on dyadic and generic stats "
-            "at (32, 24, 96, 512) and (3, 13, 24, 136)")
-    else:
-        kmod, fn_name, engine = pk, "pq_adc_subchunk_min", ivf_pq
-        fn, plain = pk.pq_adc_subchunk_min, pk.pq_adc_subchunk_min_plain
-        errs = []
-        for lb, q, m, k_codes, l_pad in ((8, 24, PQ_DIM, 1 << PQ_BITS, 512),
-                                         (3, 13, 5, 32, 136),
-                                         (2, 13, 96, 256, 264)):
-            bounds = _bounds(gen, lb, l_pad, dev)
-            for integer in (True, False):
-                luts, codes_t = pq_inputs(gen, lb, q, m, k_codes, l_pad,
-                                          dev, integer)
-                errs.append(bitwise(fn, plain, (luts, codes_t, bounds),
-                                    f"{fn_name} ({lb},{q},{m * k_codes},"
-                                    f"{l_pad}) integer={integer}"))
-        log(f"kernel check {fn_name}: bitwise on integer and Gaussian LUTs "
-            "at (8, 24, 6144, 512), (3, 13, 160, 136) and (2, 13, 24576, "
-            "264) (several query tiles)")
+    kmod, fn_name, engine = sk, "sq_scan_subchunk_min", ivf_sq
+    fn, plain = sk.sq_scan_subchunk_min, sk.sq_scan_subchunk_min_plain
+    # bitwise on dyadic and on generic stats, at the path's shape and
+    # a ragged one (Q off the 64-slot tile, Lpad off the 64-row tile)
+    errs = []
+    for lb, q, d, l_pad in ((32, 24, DIM, 512), (3, 13, 24, 136)):
+        bounds = _bounds(gen, lb, l_pad, dev)
+        for dyadic in (True, False):
+            qr, codes_t, vmin, vscale = sq_int_inputs(
+                gen, lb, q, d, l_pad, dev, dyadic)
+            errs.append(bitwise(fn, plain,
+                                (qr, codes_t, bounds, vmin, vscale),
+                                f"{fn_name} ({lb},{q},{d},{l_pad}) "
+                                f"dyadic={dyadic}"))
+    log(f"kernel check {fn_name}: bitwise on dyadic and generic stats "
+        "at (32, 24, 96, 512) and (3, 13, 24, 136)")
 
     def key(a):
-        # (lists, query slots, d or M*K, Lpad) of one launch
+        # (lists, query slots, d, Lpad) of one launch
         return tuple(a[0].shape) + (a[1].shape[2],)
 
     # the main path, with every launch counter at 0 just before it
-    rng = np.random.default_rng(args.seed + (2 if kind == "sq" else 3))
+    rng = np.random.default_rng(args.seed + 2)
     qb = torch.as_tensor(q_np, device=dev)
     kmod.LAUNCHES = 0
     engine.ENGINE_FALLBACKS = 0
@@ -843,15 +1007,9 @@ def quantized_phase(kind, args, card, dev, data):
         qs = qb[torch.as_tensor(rng.integers(0, QZ_QUERIES, nq), device=dev)]
         keep = []
         with kernel_calls(kmod, fn_name, key, keep):
-            if kind == "sq":
-                ivf_sq.ivf_sq_search_grouped(
-                    index, qs, K, n_probes=QZ_PROBES,
-                    qcap=b if b == "throughput" else qcaps[b])
-            else:
-                ivf_pq.ivf_pq_search_grouped(
-                    index, qs, K, n_probes=QZ_PROBES,
-                    qcap=b if b == "throughput" else qcaps[b],
-                    refine_ratio=PQ_REFINE)
+            ivf_sq.ivf_sq_search_grouped(
+                index, qs, K, n_probes=QZ_PROBES,
+                qcap=b if b == "throughput" else qcaps[b])
         errs += [bitwise(fn, plain, call, f"{fn_name} on path inputs")
                  for call in keep]
         by_shape.setdefault(key(keep[0]), keep[len(keep) // 2])
@@ -864,13 +1022,8 @@ def quantized_phase(kind, args, card, dev, data):
 
     timed = {}
     for shp, call in sorted(by_shape.items()):
-        if kind == "sq":
-            ms, plain_ms, library_ms = time_sq(*call)
-            bound_ms, bound_by = sq_bound(*shp)
-        else:
-            ms, plain_ms, library_ms = time_pq(*call)
-            bound_ms, bound_by = pq_bound(shp[0], shp[1], PQ_DIM,
-                                          shp[2] // PQ_DIM, shp[3])
+        ms, plain_ms, library_ms = time_sq(*call)
+        bound_ms, bound_by = sq_bound(*shp)
         timed[shp] = (ms, plain_ms, library_ms, bound_ms, bound_by)
         log(f"[{card}] {fn_name} path shape {shp}, {shapes[shp]} launches: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -882,8 +1035,7 @@ def quantized_phase(kind, args, card, dev, data):
         "name": fn_name,
         "route": "cuda",
         "source": f"raft_tpu_torch/csrc/{kind}_scan.cu",
-        "replaces": ("raft_tpu/spatial/ann/sq_kernel.py:114" if kind == "sq"
-                     else "raft_tpu/spatial/ann/pq_kernel.py:107"),
+        "replaces": "raft_tpu/spatial/ann/sq_kernel.py:114",
         "launches": launches,
         "launches_by_shape": {"x".join(map(str, k)): n
                               for k, n in shapes.items()},
@@ -894,6 +1046,258 @@ def quantized_phase(kind, args, card, dev, data):
         "bound_by": bound_by,
         "library_ms": library_ms,
         "shape": list(shp),
+        "card": card,
+    }
+
+
+def pq_lists_inputs(gen, n_lists, q, m, k_codes, l_pad, dev, integer):
+    """An ADC list-scan case: LUT rows (integer-valued or Gaussian), a
+    slot map with dead slots (-1), code rows and their windows."""
+    n_luts, n_rows = 60, 4 * l_pad + 3
+    luts = (torch.randint(-64, 64, (n_luts, m * k_codes), generator=gen)
+            .float() if integer else
+            torch.randn((n_luts, m * k_codes), generator=gen))
+    codes = torch.randint(0, k_codes, (n_rows, m), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    origins, bounds = list_windows(gen, n_lists, n_rows, l_pad, dev)
+    return (luts.to(torch.bfloat16).to(dev),
+            slot_map(gen, n_lists, q, n_luts, -1, dev), codes, origins,
+            bounds, l_pad)
+
+
+def pq_batch_bound(calls, live_only=False):
+    """(bound_ms, bound_by) of one batch's ADC launches, counted on
+    these inputs: the LUT rows of the live slots (bf16), the codes of the
+    [lo, hi) rows of the lists with a live slot, the slot maps, origins
+    and bounds read once, and every minimum written once (f32), or with
+    ``live_only`` the live slots' minima only (those the pool reads); one
+    f32 add per (live slot, in-range row, subspace)."""
+    nbytes, adds = 0, 0
+    for luts, lut_map, codes, _, bounds, l_pad in calls:
+        m = codes.shape[1]
+        n_lists, q = lut_map.shape
+        n_live = ((lut_map >= 0) & (lut_map < luts.shape[0])).sum(1)
+        span = (bounds[:, 1].clamp(0, l_pad)
+                - bounds[:, 0].clamp(0, l_pad)).clamp(min=0)
+        span = torch.where(n_live > 0, span, 0)
+        n_out = int(n_live.sum()) if live_only else n_lists * q
+        nbytes += (int(n_live.sum()) * luts.shape[1] * 2
+                   + int(span.sum()) * m + n_lists * q * 4 + n_lists * 12
+                   + n_out * (l_pad // 8) * 4)
+        adds += int((n_live * span).sum()) * m
+    return bound(nbytes, 1.0 * adds, FP32_FLOP_PER_S)
+
+
+def batch_copies(calls):
+    """Copies of a batch's launch arguments (each tensor cloned) that
+    together fill four times the L2 cache, at least two."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    nbytes = sum(t.numel() * t.element_size() for c in calls for t in c
+                 if isinstance(t, torch.Tensor))
+    return [tuple(tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                        for t in c) for c in calls)
+            for _ in range(max(2, math.ceil(4 * l2 / nbytes)))]
+
+
+def dense_batch(calls):
+    """A batch's LUT rows laid out per (list, slot), zeros in dead slots,
+    and its windows over all lists: the gathered form's operands."""
+    luts = [c[0][c[1].clamp(min=0).long()]
+            * (c[1] >= 0)[:, :, None].to(torch.bfloat16)
+            if c[0].shape[0] else
+            c[0].new_zeros(tuple(c[1].shape) + (c[0].shape[1],))
+            for c in calls]
+    return (torch.cat(luts), torch.cat([c[3] for c in calls]),
+            torch.cat([c[4] for c in calls]))
+
+
+def time_pq_batch(calls):
+    """ms of one batch's ADC launches (every LUT chunk), of their plain
+    versions, of the gathered form they replaced (per 8-list block a
+    code-slab gather and one launch over the block's dense LUT; the LUT
+    build not included) and of the library yardstick (per 8-list block
+    a one-hot bf16 expansion of the pre-gathered codes, bmm with the
+    dense LUT, the 8-row amin; timed only), each over copies of the
+    inputs that overflow L2."""
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+
+    def run(fn):
+        def batch(*cs):
+            for c in cs:
+                fn(*c)
+        return batch
+
+    sets = batch_copies(calls)
+    ms = cuda_time_ms(run(pk.pq_adc_lists), sets)
+    plain_ms = cuda_time_ms(run(pk.pq_adc_lists_plain), sets, iters=2,
+                            warm=1)
+    del sets
+    codes, l_pad = calls[0][2], calls[0][5]
+    win = torch.arange(l_pad, device=codes.device)
+    dsets = [dense_batch(calls) for _ in range(2)]
+
+    def gathered(dense, origins, bounds):
+        for s in range(0, dense.shape[0], 8):
+            slab = codes[origins[s:s + 8].long()[:, None] + win]
+            pk.pq_adc_subchunk_min(dense[s:s + 8], slab.transpose(1, 2),
+                                   bounds[s:s + 8])
+
+    gathered_ms = cuda_time_ms(gathered, dsets, iters=3, warm=1)
+    m = codes.shape[1]
+    lib_sets = [(dense, codes[origins.long()[:, None] + win])
+                for dense, origins, _ in dsets]
+    del dsets
+    mk = lib_sets[0][0].shape[2]
+    kidx = torch.arange(mk // m, device=codes.device, dtype=torch.uint8)
+
+    def library(dense, slabs):
+        q = dense.shape[1]
+        for s in range(0, dense.shape[0], 8):
+            sl = slabs[s:s + 8].transpose(1, 2)
+            lb = sl.shape[0]
+            oh = (sl[:, :, None, :] == kidx[None, None, :, None]).to(
+                torch.bfloat16).reshape(lb, mk, l_pad)
+            torch.bmm(dense[s:s + 8], oh).reshape(
+                lb, q, l_pad // 8, 8).amin(-1)
+
+    library_ms = cuda_time_ms(library, lib_sets, iters=2, warm=1)
+    return ms, plain_ms, gathered_ms, library_ms
+
+
+def pq_phase(args, card, dev, data):
+    """The IVF-PQ path and its ADC kernel; returns the kernel's entry of
+    the ``kernels`` line."""
+    from raft_tpu_torch.spatial.ann import ivf_pq
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+
+    x, q_np, true = data
+    gen = torch.Generator().manual_seed(args.seed)
+    fn_name = "pq_adc_subchunk_min"
+    errs = []
+    for lb, q, m, k_codes, l_pad in ((8, 24, PQ_DIM, 1 << PQ_BITS, 512),
+                                     (3, 13, 5, 32, 136),
+                                     (2, 13, 96, 256, 264)):
+        bounds = _bounds(gen, lb, l_pad, dev)
+        for integer in (True, False):
+            luts, codes_t = pq_inputs(gen, lb, q, m, k_codes, l_pad,
+                                      dev, integer)
+            errs.append(bitwise(pk.pq_adc_subchunk_min,
+                                pk.pq_adc_subchunk_min_plain,
+                                (luts, codes_t, bounds),
+                                f"{fn_name} ({lb},{q},{m * k_codes},"
+                                f"{l_pad}) integer={integer}"))
+    for m, k_codes in ((PQ_DIM, 1 << PQ_BITS), (5, 7), (96, 256)):
+        for q in (1, 8, 24, 65):
+            for integer in (True, False):
+                call = pq_lists_inputs(gen, 9, q, m, k_codes, 1032, dev,
+                                       integer)
+                errs.append(bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain,
+                                    call, f"pq_adc_lists M={m} K={k_codes} "
+                                    f"Q={q} integer={integer}"))
+    log(f"kernel check {fn_name}: bitwise on integer and Gaussian LUTs "
+        "at (8, 24, 6144, 512), (3, 13, 160, 136) and (2, 13, 24576, "
+        "264); pq_adc_lists bitwise at (M, K) (24, 256), (5, 7), (96, 256), "
+        "Q 1/8/24/65, dead slots, empty/full/tail windows")
+
+    def key(a):
+        # (query slots, M*K, Lpad) of one launch
+        return (a[1].shape[1], a[0].shape[1], a[5])
+
+    # the main path, with every launch counter at 0 just before it; each
+    # kernel-engine batch and the calls it launched are kept
+    rng = np.random.default_rng(args.seed + 3)
+    qb = torch.as_tensor(q_np, device=dev)
+    pk.LAUNCHES = 0
+    ivf_pq.ENGINE_FALLBACKS = 0
+    keep = []
+    with kernel_calls(pk, "pq_adc_lists", key, keep) as shapes, \
+            path_batches(ivf_pq, "_pq_grouped_impl", keep) as batches:
+        index, _ = quantized_path("pq", x, qb, true, rng, card, dev)
+    launches = pk.LAUNCHES
+    log(f"pq path: pq_adc_lists launched {launches} times, by (Q, M*K, "
+        f"Lpad): {dict(shapes)}; ENGINE_FALLBACKS {ivf_pq.ENGINE_FALLBACKS}")
+    check(launches > 0, "the pq path never launched the ADC kernel")
+    check(ivf_pq.ENGINE_FALLBACKS == 0,
+          f"{ivf_pq.ENGINE_FALLBACKS} pq searches left the kernel")
+
+    # launches per batch: one where the batch's nq * p pairs fit one LUT
+    # chunk, else one per chunk of lists under the pair budget, each with
+    # a live pair
+    n_lists = index.centroids.shape[0]
+    max_pairs = ivf_pq._max_lut_pairs(PQ_DIM << PQ_BITS)
+    per_batch = collections.Counter()
+    for q, calls in batches:
+        nq = q.shape[0]
+        pairs = [int((c[1] >= 0).sum()) for c in calls]
+        per_batch[nq, calls[0][1].shape[1], len(calls)] += 1
+        check(len(calls) == 1 if nq * QZ_PROBES <= max_pairs else
+              (sum(c[1].shape[0] for c in calls) <= n_lists
+               and all(0 < n <= max_pairs or c[1].shape[0] == 1
+                       for n, c in zip(pairs, calls))),
+              f"pq batch of {nq}: {len(calls)} launches with live pairs "
+              f"{pairs} (one, or LUT chunks of at most {max_pairs} pairs)")
+    log(f"pq path: {len(batches)} kernel-engine batches, ADC launches per "
+        "batch by (queries, Q): "
+        + ", ".join(f"{a} x {q_}: {n} ({c} batches)"
+                    for (a, q_, n), c in sorted(per_batch.items()))
+        + f"; 256 8-list blocks a batch before, at most {max_pairs} live "
+        "pairs a chunk")
+    check(sum(len(c) for _, c in batches) == launches,
+          "pq launches outside the recorded batches")
+
+    # the kernel against its plain version on every launch of the path
+    errs += [bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain, call,
+                     "pq_adc_lists on path inputs") for call in keep]
+    log(f"kernel check on the pq path: all {len(keep)} pq_adc_lists calls "
+        "bitwise equal to the plain version")
+    by_batch = batch_per_key(batches, lambda nq, c: (nq,) + key(c[0]))
+    del keep, batches
+
+    timed = {}
+    for (nq, *shp), (_, calls, warm) in sorted(by_batch.items()):
+        ms, plain_ms, gathered_ms, library_ms = time_pq_batch(calls)
+        bound_ms, bound_by = pq_batch_bound(calls)
+        live_ms, _ = pq_batch_bound(calls, live_only=True)
+        timed[nq, *shp] = (ms, plain_ms, library_ms, bound_ms, bound_by,
+                           gathered_ms, len(calls), live_ms)
+        pairs = sum(int((c[1] >= 0).sum()) for c in calls)
+        log(f"[{card}] pq_adc_lists per batch of {nq}"
+            f"{' (the warmup, all zeros)' if warm else ''} at (Q, M*K, Lpad) "
+            f"{tuple(shp)}, {len(calls)} launches, {pairs} live pairs: "
+            f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound, "
+            f"{live_ms / ms:.1%} of the live-minima bound), bound "
+            f"{bound_ms:.5f} ms ({bound_by}), live-minima bound "
+            f"{live_ms:.5f} ms, gathered form {gathered_ms:.4f} ms (8-list "
+            f"code gathers + launches; the bound is "
+            f"{bound_ms / gathered_ms:.1%} of it), library "
+            f"{library_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the line reports the batch size of the shape launched most, its
+    # smallest bucket
+    shp = shapes.most_common(1)[0][0]
+    nq = min(k[0] for k in timed if tuple(k[1:]) == shp)
+    ms, plain_ms, library_ms, bound_ms, bound_by, gathered_ms, n, live_ms = \
+        timed[(nq,) + shp]
+    return {
+        "name": fn_name,
+        "route": "cuda",
+        "source": "raft_tpu_torch/csrc/pq_scan.cu",
+        "replaces": "raft_tpu/spatial/ann/pq_kernel.py:107",
+        "entry": "pq_adc_lists",
+        "launches": launches,
+        "launches_by_shape": {"x".join(map(str, k)): n
+                              for k, n in shapes.items()},
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_live_ms": live_ms,
+        "library_ms": library_ms,
+        "gathered_ms": gathered_ms,
+        "launches_per_batch": n,
+        "batch": nq,
+        "shape": [n_lists] + list(shp),
         "card": card,
     }
 
@@ -912,8 +1316,8 @@ def ann_data(seed, dev):
 
 def quantized_phases(args, card, dev, data):
     """Both quantized paths over the :func:`ann_data` dataset."""
-    return [quantized_phase(kind, args, card, dev, data)
-            for kind in ("sq", "pq")]
+    return [quantized_phase("sq", args, card, dev, data),
+            pq_phase(args, card, dev, data)]
 
 
 # ---------------------------------------------------------------------------
@@ -1600,7 +2004,14 @@ def time_chunk_mins(q, y, yn, npad, cd, library):
                     1, keepdim=True)], 1)
             return mins
 
-        lib_ms = cuda_time_ms(lib, sets, iters=10, warm=1)
+        # at 10,000 queries x 1M rows the score matrix is 40 GB of f32
+        try:
+            lib_ms = cuda_time_ms(lib, sets, iters=10 if m < 4096 else 3,
+                                  warm=1)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"chunk_mins library yardstick at ({m}, {n}): out of device "
+                f"memory ({str(e).splitlines()[0]})")
+        torch.cuda.empty_cache()
     del sets
     return ms, plain_ms, lib_ms
 
@@ -1694,7 +2105,7 @@ def brute_force_phase(args, card, dev):
                                        "float32", "float32")]):
         q, y, yn, npad_k, cd = keep[("chunk_mins", key)]
         ms, plain_ms, lib_ms = time_chunk_mins(q, y, yn, npad_k, cd,
-                                               library=key == cm_key)
+                                               library=True)
         bound_ms, bound_by = chunk_mins_bound(*key[:3], npad_k,
                                               y.element_size(), key[4])
         timed[key] = (ms, plain_ms, lib_ms, bound_ms, bound_by)

@@ -1,54 +1,402 @@
-// Flat sub-chunk-min scan for Hopper (sm_90a).
+// Flat sub-chunk-min scan for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel flat_scan_subchunk_min
 // (raft_tpu/spatial/ann/flat_kernel.py:115), which runs through the shared
 // Pallas scan scan_core.subchunk_scan (raft_tpu/spatial/ann/scan_core.py:211).
 //
-// Computes, for every list b, query q and 8-row sub-chunk j of the slab,
-//   out[b, q, j] = min over r in 8j..8j+7 of (|q|^2 + |y_r|^2) - 2 q.y_r
-// with bf16 operands, f32 products and sums, and rows outside the list's
-// [lo, hi) range scoring BIG. Only the (LB, Q, Lpad/8) minima are written:
-// the distance tile never reaches device memory. The kernel is
-// scan_core::l2_scan_kernel (scan_core.cuh) with the bf16 row loader; its
-// arithmetic note is there.
+// One launch scans every list of a grouped-search batch. For list b, query
+// slot s and 8-row sub-chunk j of the list's window,
+//   out[b, s, j] = min over r in 8j..8j+7 of (|q|^2 + |y_r|^2) - 2 q.y_r
+// where q = queries[qmat[b, s]] and y_r = rows[origin[b] + r]: query rows are
+// read by id and slab rows in place from the index's row-major bf16 rows, so
+// no (lists, Lpad, d) slab and no (lists, Q, d) query copy is ever made.
+// Rows outside the list's [lo, hi) (relative to its origin) score BIG; a slot
+// whose id is outside [0, n_ids) (the sentinel) scores BIG.
 //
-// What bounds it on the H100: at the main path's shapes (Q = 64 queries per
-// list, d = 96) the scan does about 54 FLOP per byte it must move, far
-// under the ~295 FLOP/byte ridge of the bf16 tensor cores, so the least
-// time is set by device memory. This first version computes on the CUDA
-// cores in f32 instead of the tensor cores, which makes the f32 FMA rate
-// (67 TFLOP/s) and shared-memory bandwidth its practical limit. What the
-// design does about the bytes: each block stages its query rows and a
-// 64-row slab tile in shared memory once, computes every norm once per
-// row, and keeps the 8 x 2 partial dots of a thread in registers, so each
-// input byte crosses device memory once per (row tile, query tile) pair and
-// the output is 8x smaller than the distance tile. wgmma and TMA are left
-// for a later version.
+// Arithmetic: bf16 operands; the dot runs on the tensor cores
+// (mma.sync.m16n8k16, bf16 x bf16 -> f32: slab rows on M, query slots on N,
+// the feature axis on K, zero-padded to a multiple of 16); the norms are f32
+// sums of the squares in ascending feature order on the CUDA cores; the
+// formula order is (qn + yn) - 2 * dot. Only the dot's summation order
+// differs from the plain version's (scan_core.l2_gram_tile of the port), so
+// the two agree bitwise wherever every partial sum is exact in f32 (small
+// integer inputs: each bf16 product is exact) and within 1e-5 x (qn + yn)
+// elsewhere.
 //
-// Layout: the slab is read through its strides (b, d, l), so the caller can
-// pass a gathered row-major (LB, Lpad, d) slab as a transposed view without
-// a copy. Queries are a contiguous (LB, Q, d) array with any Q.
+// Work skipped: a block whose query tile holds no live slot, or whose 512
+// rows lie wholly outside [lo, hi), writes BIG without reading a row; inside
+// a live block only the 64-row tiles that meet [lo, hi) are loaded and
+// multiplied. At qcap 8 a batch has at most 8 * n_probes live lists, and an
+// average list fills a seventh of its window, so most of the grid exits at
+// once.
+//
+// Design against the bound. The bytes these inputs need are the rows in
+// [lo, hi) of the live lists, the live query rows and the (lists, Q, Lpad/8)
+// minima, at the 3.35 TB/s of device memory; the tensor cores lift the work
+// far under that (a 64 x 64 x 96 tile is 786 kflop). So:
+//   * grid (512-row groups, query tiles, lists); 4 warps, each owning 16 rows
+//     of a 64-row tile and every query slot of the tile;
+//   * the query tile is round_up(Q, 8) slots up to 64 (NT = 1..8 n-tiles of
+//     8), balanced over grid y past 64, so qcap 8 pays for 8 slots, not 64;
+//   * row tiles stream through two shared-memory stages with 16-byte
+//     cp.async copies (double-buffered: the next tile lands while this one is
+//     multiplied); shared rows are padded to an odd number of 16-byte units
+//     so ldmatrix reads them without bank conflicts;
+//   * the 8-row min is a butterfly over the 8 lanes that hold a column of the
+//     accumulator fragment; a block's minima collect in shared memory and
+//     leave as one coalesced write per query slot.
+// Widths off the 16-byte grain (d % 8 != 0) load rows with plain loads.
+//
+// nvcc -Xptxas -v (sm_90a, CUDA 12.8): 48 registers at NT 1-3, 56 at NT 4,
+// 71-72 at NT 5-8, no spills but 8-16 bytes at NT 7-8 with 16-byte copies;
+// one barrier; 57 KB of dynamic shared memory at d = 96 and 64 slots, so
+// four blocks share an SM.
 
 #include "scan_core.cuh"
 
-extern "C" {
+namespace {
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// qrows (lb, nq, d) bf16 contiguous; slabs (lb, d, lpad) bf16 with element
-// strides (sb, sd, sl); bounds (lb, 2) int32 contiguous; out (lb, nq,
-// lpad/8) f32 contiguous. lpad must be a multiple of 8.
-int raft_flat_scan_subchunk_min(const void* qrows, const void* slabs,
-                                const void* bounds, void* out, int lb, int nq,
-                                int d, int lpad, long long sb, long long sd,
-                                long long sl, void* stream) {
-  return scan_core::launch_l2_scan<scan_core::Bf16Rows>(
-      qrows, slabs, nullptr, bounds, out, lb, nq, d, lpad, sb, sd, sl,
-      stream);
+using scan_core::kBig;
+using scan_core::kSub;
+
+constexpr int kTileRows = 64;                  // rows per pipeline stage
+constexpr int kThreads = 128;                  // 4 warps x 16 rows
+constexpr int kGroupTiles = 8;                 // tiles per block
+constexpr int kGroupRows = kTileRows * kGroupTiles;
+constexpr int kGroupSubs = kGroupRows / kSub;  // sub-chunks per block
+constexpr int kMaxNT = 8;                      // n-tiles: 64 query slots
+constexpr size_t kSmemLimit = 232448;
+
+__host__ __device__ inline int k_pad(int d) { return (d + 15) / 16 * 16; }
+
+// bf16 elements per shared row: an odd number of 16-byte units
+__host__ __device__ inline int row_stride(int d) { return k_pad(d) + 8; }
+
+__host__ __device__ inline size_t smem_bytes(int d, int q_tile) {
+  // query tile and two row stages (bf16), then the block's minima, the
+  // query and row norms (f32) and the slot ids
+  return 2 * (size_t)row_stride(d) * (q_tile + 2 * kTileRows) +
+         4 * ((size_t)q_tile * kGroupSubs + q_tile + kTileRows + q_tile);
 }
 
-// Dynamic shared memory one block needs at feature width d.
-long long raft_flat_scan_smem_bytes(int d) {
-  return (long long)scan_core::l2_smem_bytes(d, scan_core::Bf16Rows::kParams);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, rows x k) * b (16 x 8, k x query slots), f32 accumulate
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int NT, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
+                  const int32_t* __restrict__ qmat,
+                  const __nv_bfloat16* __restrict__ rows,
+                  const int32_t* __restrict__ origins,
+                  const int32_t* __restrict__ bounds, float* __restrict__ out,
+                  int q_slots, int n_ids, int d, int l_pad) {
+  constexpr int QT = NT * 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int st = row_stride(d);
+  const int kp = k_pad(d);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][st]
+  __nv_bfloat16* sy = sq + QT * st;               // [2][kTileRows][st]
+  float* smin = reinterpret_cast<float*>(sy + 2 * kTileRows * st);
+  float* sqn = smin + QT * kGroupSubs;            // [QT]
+  float* syn = sqn + QT;                          // [kTileRows]
+  int* sid = reinterpret_cast<int*>(syn + kTileRows);  // [QT]
+
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.y * QT;
+  const int g0 = blockIdx.x * kGroupRows;
+  const int t = threadIdx.x;
+  const int nsc = l_pad / kSub;
+  const int sc0 = g0 / kSub;
+  const int n_sub = min(kGroupSubs, nsc - sc0);
+  const int lo = bounds[2 * b];
+  const int hi = bounds[2 * b + 1];
+  const int r_beg = max(lo, g0);
+  const int r_end = min(min(hi, l_pad), g0 + kGroupRows);
+
+  int live = 0;
+  if (t < QT) {
+    int id = -1;
+    if (q0 + t < q_slots) {
+      const int v = qmat[(long long)b * q_slots + q0 + t];
+      if (v >= 0 && v < n_ids) id = v;
+    }
+    sid[t] = id;
+    live = id >= 0;
+  }
+  if (!__syncthreads_or(live) || r_beg >= r_end) {
+    for (int i = t; i < QT * n_sub; i += kThreads) {
+      const int s = i / n_sub, j = i - s * n_sub;
+      if (q0 + s < q_slots) {
+        out[((long long)b * q_slots + q0 + s) * nsc + sc0 + j] = kBig;
+      }
+    }
+    return;
+  }
+
+  const long long org = origins[b];
+  const int tb = (r_beg - g0) / kTileRows;
+  const int te = (r_end - 1 - g0) / kTileRows + 1;
+
+  auto load_tile = [&](int tt, int buf) {
+    const int l0 = g0 + tt * kTileRows;
+    __nv_bfloat16* dst = sy + buf * kTileRows * st;
+    const __nv_bfloat16* src = rows + (org + l0) * d;
+    if constexpr (kVec) {
+      const int cpr = d / 8;
+      for (int i = t; i < kTileRows * cpr; i += kThreads) {
+        const int r = i / cpr, c = i - r * cpr;
+        if (l0 + r < l_pad) {
+          cp_async16(dst + r * st + c * 8, src + (long long)r * d + c * 8);
+        }
+      }
+      cp_async_commit();
+    } else {
+      for (int i = t; i < kTileRows * d; i += kThreads) {
+        const int r = i / d, c = i - r * d;
+        if (l0 + r < l_pad) dst[r * st + c] = src[(long long)r * d + c];
+      }
+    }
+  };
+  load_tile(tb, 0);
+
+  // query rows by id (dead slots zero), the K padding of both stages zero,
+  // every minimum BIG until a live tile writes it
+  for (int i = t; i < QT * kp; i += kThreads) {
+    const int s = i / kp, c = i - s * kp;
+    const int id = sid[s];
+    sq[s * st + c] = (id >= 0 && c < d) ? queries[(long long)id * d + c]
+                                        : __float2bfloat16_rn(0.f);
+  }
+  if (kp > d) {
+    const int w = kp - d;
+    for (int i = t; i < 2 * kTileRows * w; i += kThreads) {
+      const int r = i / w;
+      sy[r * st + d + (i - r * w)] = __float2bfloat16_rn(0.f);
+    }
+  }
+  for (int i = t; i < QT * kGroupSubs; i += kThreads) smin[i] = kBig;
+  __syncthreads();
+  if (t < QT) {
+    float s = 0.f;
+    for (int c = 0; c < d; ++c) {
+      const float v = __bfloat162float(sq[t * st + c]);
+      s = fmaf(v, v, s);
+    }
+    sqn[t] = s;
+  }
+
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // ldmatrix row addresses: A (16 rows x 16 k) from the row stage, B (8
+  // slots x 16 k) from the query tile
+  const int a_off = (warp * 16 + (lane & 15)) * st + (lane >> 4) * 8;
+  const int b_off = (lane & 7) * st + ((lane >> 3) & 1) * 8;
+
+  for (int tt = tb; tt < te; ++tt) {
+    const int buf = (tt - tb) & 1;
+    if (tt + 1 < te) {
+      load_tile(tt + 1, buf ^ 1);
+      if constexpr (kVec) cp_async_wait<1>();
+    } else if constexpr (kVec) {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile tt landed; the query norms are visible
+    const __nv_bfloat16* ys = sy + buf * kTileRows * st;
+    if (t < kTileRows) {
+      float s = 0.f;
+      for (int c = 0; c < d; ++c) {
+        const float v = __bfloat162float(ys[t * st + c]);
+        s = fmaf(v, v, s);
+      }
+      syn[t] = s;
+    }
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, ys + a_off + k0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bq[2];
+        ldmatrix_x2(bq, sq + j * 8 * st + b_off + k0);
+        mma_16816(acc[j], a, bq);
+      }
+    }
+    __syncthreads();  // row norms visible; the stage may be refilled
+
+    // accumulator rows g and g + 8 of this warp's 16; columns 2tq, 2tq + 1
+    const int ra = g0 + tt * kTileRows + warp * 16 + g;
+    const int rb = ra + 8;
+    const float yna = syn[warp * 16 + g];
+    const float ynb = syn[warp * 16 + g + 8];
+    const bool va = ra >= lo && ra < hi;
+    const bool vb = rb >= lo && rb < hi;
+    const int jl = (tt * kTileRows + warp * 16) / kSub;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int s = j * 8 + tq * 2 + e;
+        const float qn = sqn[s];
+        float da = va ? (qn + yna) - 2.f * acc[j][e] : kBig;
+        float db = vb ? (qn + ynb) - 2.f * acc[j][2 + e] : kBig;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          da = fminf(da, __shfl_xor_sync(0xffffffffu, da, o));
+          db = fminf(db, __shfl_xor_sync(0xffffffffu, db, o));
+        }
+        if (g == 0 && sid[s] >= 0) {
+          smin[s * kGroupSubs + jl] = da;
+          smin[s * kGroupSubs + jl + 1] = db;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < QT * n_sub; i += kThreads) {
+    const int s = i / n_sub, j = i - s * n_sub;
+    if (q0 + s < q_slots) {
+      out[((long long)b * q_slots + q0 + s) * nsc + sc0 + j] =
+          smin[s * kGroupSubs + j];
+    }
+  }
+}
+
+template <int NT, bool kVec>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
+                   const void* queries, const void* qmat, const void* rows,
+                   const void* origins, const void* bounds, void* out,
+                   int q_slots, int n_ids, int d, int l_pad) {
+  auto kernel = flat_lists_kernel<NT, kVec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(queries),
+      static_cast<const int32_t*>(qmat),
+      static_cast<const __nv_bfloat16*>(rows),
+      static_cast<const int32_t*>(origins), static_cast<const int32_t*>(bounds),
+      static_cast<float*>(out), q_slots, n_ids, d, l_pad);
+  return cudaGetLastError();
+}
+
+template <bool kVec>
+cudaError_t launch_nt(int nt, dim3 grid, size_t smem, cudaStream_t stream,
+                      const void* queries, const void* qmat, const void* rows,
+                      const void* origins, const void* bounds, void* out,
+                      int q_slots, int n_ids, int d, int l_pad) {
+#define RAFT_FLAT_NT(N)                                                       \
+  case N:                                                                     \
+    return launch<N, kVec>(grid, smem, stream, queries, qmat, rows, origins, \
+                           bounds, out, q_slots, n_ids, d, l_pad);
+  switch (nt) {
+    RAFT_FLAT_NT(1)
+    RAFT_FLAT_NT(2)
+    RAFT_FLAT_NT(3)
+    RAFT_FLAT_NT(4)
+    RAFT_FLAT_NT(5)
+    RAFT_FLAT_NT(6)
+    RAFT_FLAT_NT(7)
+    RAFT_FLAT_NT(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RAFT_FLAT_NT
+}
+
+}  // namespace
+
+extern "C" {
+
+// Query slots per block for Q slots: round_up(ceil(Q / tiles), 8) over the
+// fewest tiles of at most 64 slots.
+int raft_flat_scan_q_tile(int q_slots) {
+  if (q_slots < 1) return 0;
+  const int tiles = (q_slots + 8 * kMaxNT - 1) / (8 * kMaxNT);
+  const int per = (q_slots + tiles - 1) / tiles;
+  return (per + 7) / 8 * 8;
+}
+
+// Dynamic shared memory one block needs at feature width d and a query tile
+// of q_tile slots.
+long long raft_flat_scan_smem_bytes(int d, int q_tile) {
+  return (long long)smem_bytes(d, q_tile);
+}
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
+// queries (n, d) bf16 contiguous; qmat (n_lists, q_slots) int32, an id
+// outside [0, n_ids) marking a dead slot; rows (*, d) bf16 contiguous, list
+// b's window being rows origins[b] .. origins[b] + l_pad - 1 (all in range);
+// origins (n_lists,) int32; bounds (n_lists, 2) int32, [lo, hi) relative to
+// the origin; out (n_lists, q_slots, l_pad/8) f32 contiguous. l_pad must be
+// a multiple of 8.
+int raft_flat_scan_lists(const void* queries, const void* qmat,
+                         const void* rows, const void* origins,
+                         const void* bounds, void* out, int n_lists,
+                         int q_slots, int n_ids, int d, int l_pad,
+                         void* stream) {
+  if (n_lists < 1 || q_slots < 1 || d < 1 || l_pad < kSub || l_pad % kSub) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int q_tile = raft_flat_scan_q_tile(q_slots);
+  const int q_tiles = (q_slots + q_tile - 1) / q_tile;
+  if (n_lists > scan_core::kMaxGridYZ || q_tiles > scan_core::kMaxGridYZ) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const size_t smem = smem_bytes(d, q_tile);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((l_pad + kGroupRows - 1) / kGroupRows, q_tiles, n_lists);
+  const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nt = q_tile / 8;
+  return (int)(vec ? launch_nt<true>(nt, grid, smem, s, queries, qmat, rows,
+                                     origins, bounds, out, q_slots, n_ids, d,
+                                     l_pad)
+                   : launch_nt<false>(nt, grid, smem, s, queries, qmat, rows,
+                                      origins, bounds, out, q_slots, n_ids, d,
+                                      l_pad));
 }
 
 const char* raft_cuda_error_string(int err) {

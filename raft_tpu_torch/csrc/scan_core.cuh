@@ -10,12 +10,13 @@
 //     (LB, Q, Lpad/8) f32 array; the distance tile never reaches device memory;
 //   * the launch-limit checks of that grid.
 //
-// The L2 scan of IVF-Flat and IVF-SQ is one templated kernel,
-// l2_scan_kernel<Rows>, with a tile-loader policy Rows that says how a slab
-// element becomes the f32 value of a bf16 operand: Bf16Rows reads a bf16 row
-// element (flat_scan.cu), Int8DequantRows reads an int8 code and dequantizes
-// it as it is staged into shared memory (sq_scan.cu). The ADC scan of IVF-PQ
-// (pq_scan.cu) has its own body and uses the epilogue and launch checks.
+// The L2 scan of IVF-SQ is a templated kernel, l2_scan_kernel<Rows>, with a
+// tile-loader policy Rows that says how a slab element becomes the f32 value
+// of a bf16 operand: Int8DequantRows reads an int8 code and dequantizes it as
+// it is staged into shared memory (sq_scan.cu). The flat scan (flat_scan.cu,
+// on the tensor cores) and the ADC scan of IVF-PQ (pq_scan.cu) read list
+// rows in place with their own bodies and use the constants and the
+// sub-chunk min.
 //
 // Arithmetic of the L2 scan (scan_core.l2_gram_tile of the port): norms are
 // f32 sums of the bf16-rounded squares, the dot is bf16 x bf16 accumulated in
@@ -75,15 +76,6 @@ constexpr int kQPerThread = 2;                // queries per thread
 constexpr int kQTile = kQLanes * kQPerThread; // query rows per block
 constexpr int kL2Threads = kQLanes * (kRowTile / kSub);
 constexpr int kRowStride = kRowTile + 4;      // shared slab row stride (16-byte aligned)
-
-// Tile loader of bf16 slab rows (IVF-Flat).
-struct Bf16Rows {
-  using T = __nv_bfloat16;
-  static constexpr int kParams = 0;           // f32 parameters per feature
-  __device__ static float load(T v, const float*, int, int) {
-    return __bfloat162float(v);
-  }
-};
 
 // Tile loader of int8 codes (IVF-SQ): y = (code + 128) * vscale + vmin in
 // f32, each operation rounded on its own (no contraction into an FMA, as the

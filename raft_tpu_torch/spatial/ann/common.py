@@ -35,10 +35,10 @@ __all__ = [
     "ListStorage", "auto_qcap", "build_list_storage",
     "check_candidate_pool", "coarse_probe", "default_qcap",
     "invert_probe_map", "invert_probe_map_ranked", "map_query_blocks",
-    "probe_drop_stats", "regroup_pairs", "resolve_qcap",
-    "resolve_qcap_arg", "score_l2_candidates", "select_candidates",
-    "split_oversized_lists", "static_qcap", "subchunk_pool_rows",
-    "throughput_qcap", "warn_engine_fallback",
+    "probe_drop_stats", "regroup_pairs", "regroup_values", "resolve_qcap",
+    "resolve_qcap_arg", "scatter_pairs", "score_l2_candidates",
+    "select_candidates", "split_oversized_lists", "static_qcap",
+    "subchunk_pool_rows", "throughput_qcap", "warn_engine_fallback",
 ]
 
 logger = logging.getLogger("raft_tpu_torch")
@@ -133,7 +133,8 @@ def invert_probe_map_ranked(probes, n_lists: int, qcap: int):
     dev = probes.device
     i32 = torch.int32
     l_flat = probes.reshape(-1).long()
-    q_flat = torch.arange(nq, device=dev, dtype=i32).repeat_interleave(p)
+    # arange // p, not repeat_interleave: that reads its size on the host
+    q_flat = torch.arange(nq * p, device=dev, dtype=i32) // p
     rank_flat = torch.arange(p, device=dev, dtype=i32).repeat(nq)
     # two stable sorts = lexicographic (list, rank) order
     by_rank = torch.argsort(rank_flat, stable=True)
@@ -142,14 +143,29 @@ def invert_probe_map_ranked(probes, n_lists: int, qcap: int):
     sq = q_flat[order]
     starts = torch.searchsorted(sl, torch.arange(n_lists, device=dev))
     slot_sorted = (torch.arange(nq * p, device=dev) - starts[sl]).to(i32)
-    keep = slot_sorted < qcap          # .at[...].set(mode="drop")
-    qmat = torch.full((n_lists, qcap), nq, dtype=i32, device=dev)
-    qmat[sl[keep], slot_sorted[keep].long()] = sq[keep]
-    rmat = torch.full((n_lists, qcap), p, dtype=i32, device=dev)
-    rmat[sl[keep], slot_sorted[keep].long()] = rank_flat[order][keep]
+    # .at[...].set(mode="drop"): overflowing pairs land in a spare column
+    # that is cut off (no boolean mask, which reads its count on the host)
+    col = torch.clamp(slot_sorted, max=qcap).long()
+    qmat = torch.full((n_lists, qcap + 1), nq, dtype=i32, device=dev)
+    qmat[sl, col] = sq
+    rmat = torch.full((n_lists, qcap + 1), p, dtype=i32, device=dev)
+    rmat[sl, col] = rank_flat[order]
+    qmat, rmat = qmat[:, :qcap].contiguous(), rmat[:, :qcap].contiguous()
     slot = torch.zeros(nq * p, dtype=i32, device=dev)
     slot[order] = slot_sorted
     return qmat, rmat, l_flat, slot
+
+
+def regroup_values(vals, l_flat, slot, nq: int, p: int, qcap: int):
+    """Redistribute per-(list, query-slot) values to query-major order:
+    (n_lists, qcap, w) -> (nq, p*w) (+inf where the pair overflowed
+    qcap)."""
+    w = vals.shape[-1]
+    ok = slot < qcap
+    safe_slot = torch.clamp(slot, max=qcap - 1).long()
+    pv = torch.where(ok[:, None], vals[l_flat, safe_slot],
+                     torch.tensor(float("inf"), device=vals.device))
+    return pv.reshape(nq, p * w)
 
 
 def regroup_pairs(vals, mem, l_flat, slot, nq: int, p: int, qcap: int):
@@ -157,12 +173,18 @@ def regroup_pairs(vals, mem, l_flat, slot, nq: int, p: int, qcap: int):
     order: (n_lists, qcap, k) -> (nq, p*k) (+inf where the pair
     overflowed qcap)."""
     k = vals.shape[-1]
-    ok = slot < qcap
-    safe_slot = torch.clamp(slot, max=qcap - 1).long()
-    pv = torch.where(ok[:, None], vals[l_flat, safe_slot],
-                     torch.tensor(float("inf"), device=vals.device))
-    pm = mem[l_flat, safe_slot]
-    return pv.reshape(nq, p * k), pm.reshape(nq, p * k)
+    pm = mem[l_flat, torch.clamp(slot, max=qcap - 1).long()]
+    return (regroup_values(vals, l_flat, slot, nq, p, qcap),
+            pm.reshape(nq, p * k))
+
+
+def scatter_pairs(pool, qmat, rmat, out, nq: int, p: int):
+    """Scatter one list block's per-(list, query-slot) partials ``out``
+    into the query-major (nq, p, w) ``pool`` in place; sentinel slots
+    drop."""
+    qi, ri = qmat.long(), rmat.long()
+    keep = (qi < nq) & (ri < p)
+    pool[qi[keep], ri[keep]] = out[keep]
 
 
 def default_qcap(nq: int, n_probes: int, n_lists: int) -> int:

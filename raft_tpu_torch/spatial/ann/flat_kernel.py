@@ -1,20 +1,31 @@
 """Flat sub-chunk-min scan — the port of the TPU kernel
 ``flat_scan_subchunk_min`` (``raft_tpu/spatial/ann/flat_kernel.py:115``,
 driven by ``scan_core.subchunk_scan``). The CUDA kernel is
-``raft_tpu_torch/csrc/flat_scan.cu``; its source note says what bounds
-it on the H100 and what the design does about it.
+``raft_tpu_torch/csrc/flat_scan.cu`` (tensor cores); its source note says
+what bounds it on the H100 and what the design does about it.
 
-For each list block b, query slot q and 8-row sub-chunk j:
+For each list b, query slot q and 8-row sub-chunk j:
 ``out[b, q, j] = min over r in 8j..8j+7 of (‖q‖² + ‖y_r‖²) − 2 q·y_r``
 with bf16 operands and f32 products, norms and sums; rows outside the
-list's ``[lo, hi)`` range score :data:`BIG`. Only the (LB, Q, Lpad/8)
+list's ``[lo, hi)`` range score :data:`BIG`. Only the (lists, Q, Lpad/8)
 minima leave the kernel.
 
-:func:`flat_scan_subchunk_min` is the wrapper: tensors on the CPU go to
-:func:`flat_scan_subchunk_min_plain` (the counterpart of the JAX
-``flat_scan_subchunk_min_lax`` mirror), tensors on a CUDA device go to
-the kernel — or the wrapper raises. :data:`LAUNCHES` counts kernel
-launches, so a run can show that it went through the kernel.
+Two entries launch the one kernel:
+
+* :func:`flat_scan_lists` — the grouped search's form: one launch per
+  batch, query rows read by id through the (lists, Q) slot map, slab
+  rows read in place from the index's rows by window origin; dead slots
+  (the sentinel id) and lists without a live slot score BIG.
+* :func:`flat_scan_subchunk_min` — the gathered form of the JAX kernel,
+  (LB, Q, d) query rows x an (LB, d, Lpad) slab: list b's window starts
+  at row b·Lpad of the slab and every slot is live.
+
+Tensors on the CPU go to the plain versions
+(:func:`flat_scan_lists_plain`, :func:`flat_scan_subchunk_min_plain`,
+the counterpart of the JAX ``flat_scan_subchunk_min_lax`` mirror),
+tensors on a CUDA device go to the kernel — or the wrapper raises.
+:data:`LAUNCHES` counts kernel launches of both entries, so a run can
+show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -30,21 +41,38 @@ from raft_tpu_torch.spatial.ann.scan_core import (
     BIG as BIG,  # re-export: callers read the masked-row constant here
     SUBCHUNK,
     pad_queries,
+    round_up,
 )
 
 __all__ = [
-    "BIG", "LAUNCHES", "SUBCHUNK", "flat_scan_subchunk_min",
-    "flat_scan_subchunk_min_plain", "flat_scan_supported", "plan_l_tile",
+    "BIG", "LAUNCHES", "SUBCHUNK", "flat_scan_lists", "flat_scan_lists_plain",
+    "flat_scan_subchunk_min", "flat_scan_subchunk_min_plain",
+    "flat_scan_supported", "plan_l_tile",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 
+_MAX_Q_TILE = 64         # csrc/flat_scan.cu: 8 n-tiles of 8 query slots
+_GROUP_SUBS = 64         # sub-chunks per block (512 rows)
+_TILE_ROWS = 64          # rows per pipeline stage
 
-def _smem_bytes(d: int) -> int:
-    # csrc/flat_scan.cu smem_bytes(): a 64 x (d + 1) query tile, a
-    # d x 68 transposed slab tile, 64 query norms and 64 row norms, f32
-    return 4 * (64 * (d + 1) + d * 68 + 64 + 64)
+
+def _q_tile(q: int) -> int:
+    """csrc/flat_scan.cu raft_flat_scan_q_tile(): the query slots of a
+    block for Q slots, round_up(ceil(Q / tiles), 8) over the fewest
+    tiles of at most 64."""
+    tiles = -(-q // _MAX_Q_TILE)
+    return round_up(-(-q // tiles), 8)
+
+
+def _lists_smem_bytes(d: int, q_tile: int) -> int:
+    # csrc/flat_scan.cu smem_bytes(): the query tile and two row stages
+    # (bf16 rows padded to round_up(d, 16) + 8 elements), the block's
+    # minima, the query and row norms and the slot ids
+    stride = round_up(d, 16) + 8
+    return (2 * stride * (q_tile + 2 * _TILE_ROWS)
+            + 4 * (q_tile * _GROUP_SUBS + q_tile + _TILE_ROWS + q_tile))
 
 
 def _step_bytes(d: int, q_pad: int, l_tile: int) -> int:
@@ -63,10 +91,11 @@ def plan_l_tile(d: int, q_pad: int, l_tile=None, profile="throughput"):
 
 def flat_scan_supported(d: int, qcap: int) -> bool:
     """Whether the kernel engine applies: one block's shared-memory
-    tiles fit at width ``d`` (the kernel tiles the query axis itself, so
-    ``qcap`` only enters through the window rule, which must yield a
-    plan for the grouped search to derive ``l_pad``)."""
-    if d < 1 or _smem_bytes(d) > scan_core.SMEM_LIMIT:
+    tiles fit at width ``d`` and the query tile of ``qcap`` slots, and
+    the window rule yields a plan for the grouped search to derive
+    ``l_pad``."""
+    if (d < 1 or _lists_smem_bytes(d, _q_tile(max(qcap, 1)))
+            > scan_core.SMEM_LIMIT):
         return False
     return plan_l_tile(
         d, pad_queries(qcap), profile=scan_core.tile_profile(qcap)
@@ -83,41 +112,144 @@ def flat_scan_subchunk_min_plain(qrows, slabs_t, bounds):
     return scan_core.mask_subchunk_min(d2, bounds)
 
 
+def flat_scan_lists_plain(queries, qmat, rows, origins, bounds, l_pad: int):
+    """Plain PyTorch version of :func:`flat_scan_lists`: the gathered
+    form (:func:`flat_scan_subchunk_min_plain`) of every list with a live
+    slot, on ``queries[qmat[b]]`` and the window
+    ``rows[origins[b] : origins[b] + l_pad]``. As in the kernel, a dead
+    slot (an id outside ``[0, n − 1)``: the sentinel, the last row of
+    ``queries``) scores :data:`BIG`, and a list with no live slot is not
+    scanned at all — its minima are all BIG."""
+    return _lists_plain(queries, qmat, rows, origins, bounds, l_pad,
+                        queries.shape[0] - 1)
+
+
+def _lists_plain(queries, qmat, rows, origins, bounds, l_pad, n_ids):
+    n_lists, q = qmat.shape
+    live = (qmat >= 0) & (qmat < n_ids)
+    out = torch.full((n_lists, q, l_pad // SUBCHUNK), BIG,
+                     dtype=torch.float32, device=queries.device)
+    scanned = torch.nonzero(live.any(1)).squeeze(1)
+    if scanned.numel():
+        lv = live[scanned]
+        qv = queries[torch.where(lv, qmat[scanned], 0).long()]
+        win = (origins[scanned].long()[:, None]
+               + torch.arange(l_pad, device=rows.device))
+        got = flat_scan_subchunk_min_plain(qv, rows[win].transpose(1, 2),
+                                           bounds[scanned])
+        out[scanned] = torch.where(lv[:, :, None], got, BIG)
+    return out
+
+
+def _check_lists(name, queries, qmat, rows, origins, bounds, l_pad):
+    if queries.dim() != 2 or rows.dim() != 2 or qmat.dim() != 2:
+        raise ValueError(
+            f"{name}: expected queries (n, d), rows (R, d) and qmat "
+            f"(lists, Q), got {tuple(queries.shape)}, {tuple(rows.shape)} "
+            f"and {tuple(qmat.shape)}"
+        )
+    if queries.shape[1] != rows.shape[1]:
+        raise ValueError(
+            f"{name}: query dim {queries.shape[1]} does not match row dim "
+            f"{rows.shape[1]}"
+        )
+    if queries.dtype != torch.bfloat16 or rows.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{name}: queries and rows must be bfloat16, got "
+            f"{queries.dtype} and {rows.dtype}"
+        )
+    n_lists = qmat.shape[0]
+    if (qmat.dtype != torch.int32 or origins.dtype != torch.int32
+            or tuple(origins.shape) != (n_lists,)):
+        raise ValueError(
+            f"{name}: qmat and origins must be int32 of shapes (lists, Q) "
+            f"and (lists,), got {qmat.dtype} {tuple(qmat.shape)} and "
+            f"{origins.dtype} {tuple(origins.shape)}"
+        )
+    scan_core.check_bounds(name, bounds, n_lists)
+    scan_core.validate_scan_shapes(name, l_pad)
+    if rows.shape[0] < l_pad:
+        raise ValueError(
+            f"{name}: {rows.shape[0]} rows cannot hold a window of {l_pad}")
+    scan_core.check_same_device(name, queries, qmat, rows, origins, bounds)
+
+
+def flat_scan_lists(queries, qmat, rows, origins, bounds, l_pad: int):
+    """One launch over every list of a grouped-search batch -> (lists,
+    Q, l_pad/8) f32 sub-chunk minima.
+
+    ``queries`` (nq + 1, d) bf16 holds the batch's query rows with the
+    sentinel (zero) row last; ``qmat`` (lists, Q) int32 names each slot's
+    query row, the sentinel id ``nq`` marking a dead slot (it scores
+    BIG). ``rows`` (R, d) bf16 contiguous are the index's rows, read in
+    place: list b's window is rows ``origins[b] .. origins[b] + l_pad −
+    1`` (the caller keeps every window inside ``rows``), and ``bounds``
+    (lists, 2) int32 its valid ``[lo, hi)`` relative to that origin. On
+    live slots the result equals :func:`flat_scan_subchunk_min` on the
+    gathered slabs. CPU tensors run the plain version; CUDA tensors run
+    the kernel."""
+    name = "flat_scan_lists"
+    _check_lists(name, queries, qmat, rows, origins, bounds, l_pad)
+    if queries.device.type == "cpu":
+        return flat_scan_lists_plain(queries, qmat, rows, origins, bounds,
+                                     l_pad)
+    return _launch(name, queries, qmat, rows, origins, bounds, l_pad,
+                   queries.shape[0] - 1)
+
+
 def flat_scan_subchunk_min(qrows, slabs_t, bounds):
     """(LB, Q, d) bf16 query rows x (LB, d, Lpad) bf16 slab rows ->
     (LB, Q, Lpad/8) f32 sub-chunk minima of the squared L2 distance.
 
     ``bounds`` (LB, 2) int32 is each list's valid row range ``[lo, hi)``
     in its slab window. ``slabs_t`` may be a strided view (for example a
-    gathered (LB, Lpad, d) slab ``.transpose(1, 2)``); Q is any positive
-    count and Lpad any positive multiple of 8. CPU tensors run the plain
-    version; CUDA tensors run the kernel."""
-    scan_core.check_l2_operands("flat_scan_subchunk_min", qrows, slabs_t,
-                                bounds, torch.bfloat16)
+    gathered (LB, Lpad, d) slab ``.transpose(1, 2)``, which the kernel
+    reads without a copy; other layouts are made row-major first); Q is
+    any positive count and Lpad any positive multiple of 8. CPU tensors
+    run the plain version; CUDA tensors run the kernel of
+    :func:`flat_scan_lists` with list b's window at row b·Lpad and every
+    slot live."""
+    name = "flat_scan_subchunk_min"
+    scan_core.check_l2_operands(name, qrows, slabs_t, bounds, torch.bfloat16)
     dev = qrows.device
     if dev.type == "cpu":
         return flat_scan_subchunk_min_plain(qrows, slabs_t, bounds)
-    if dev.type != "cuda":
-        raise ValueError(
-            f"flat_scan_subchunk_min: unsupported device {dev}"
-        )
     lb, q, d = qrows.shape
     l_pad = slabs_t.shape[2]
-    scan_core.check_launch("flat_scan_subchunk_min", _smem_bytes(d),
-                           slabs_t, lb, q)
-    qrows = qrows.contiguous()
+    rows = slabs_t.transpose(1, 2).contiguous().reshape(lb * l_pad, d)
+    i32 = torch.int32
+    qmat = torch.arange(lb * q, dtype=i32, device=dev).reshape(lb, q)
+    origins = torch.arange(0, lb * l_pad, l_pad, dtype=i32, device=dev)
+    return _launch(name, qrows.reshape(lb * q, d), qmat, rows, origins,
+                   bounds, l_pad, lb * q)
+
+
+def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids):
+    dev = queries.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not rows.is_contiguous():
+        raise ValueError(f"{name}: rows must be contiguous (row-major)")
+    n_lists, q = qmat.shape
+    d = rows.shape[1]
+    q_tile = _q_tile(q)
+    scan_core.check_launch(name, _lists_smem_bytes(d, q_tile), rows,
+                           n_lists, q, q_tile=q_tile)
+    queries = queries.contiguous()
+    qmat = qmat.contiguous()
+    origins = origins.contiguous()
     bounds = bounds.contiguous()
-    out = torch.empty((lb, q, l_pad // SUBCHUNK), dtype=torch.float32,
+    out = torch.empty((n_lists, q, l_pad // SUBCHUNK), dtype=torch.float32,
                       device=dev)
     lib = _lib()
-    sb, sd, sl = slabs_t.stride()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raft_flat_scan_subchunk_min(
-            qrows.data_ptr(), slabs_t.data_ptr(), bounds.data_ptr(),
-            out.data_ptr(), lb, q, d, l_pad, sb, sd, sl, stream,
+        err = lib.raft_flat_scan_lists(
+            queries.data_ptr(), qmat.data_ptr(), rows.data_ptr(),
+            origins.data_ptr(), bounds.data_ptr(), out.data_ptr(), n_lists,
+            q, n_ids, d, l_pad, stream,
         )
-    scan_core.raise_on_error(err, "flat_scan_subchunk_min", lib)
+    scan_core.raise_on_error(err, name, lib)
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -127,14 +259,16 @@ def _lib():
     from raft_tpu_torch import _build
 
     lib = _build.load("flat_scan")
-    fn = lib.raft_flat_scan_subchunk_min
+    fn = lib.raft_flat_scan_lists
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, ll, ll, ll, p]
-        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
         lib.error_string = lib.raft_cuda_error_string
-        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.argtypes = [i]
         lib.error_string.restype = ctypes.c_char_p
-        lib.raft_flat_scan_smem_bytes.argtypes = [ctypes.c_int]
+        lib.raft_flat_scan_smem_bytes.argtypes = [i, i]
         lib.raft_flat_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.raft_flat_scan_q_tile.argtypes = [i]
+        lib.raft_flat_scan_q_tile.restype = i
     return lib

@@ -31,7 +31,9 @@ from raft_tpu_torch.spatial.ann.common import (
     invert_probe_map_ranked,
     map_query_blocks,
     regroup_pairs,
+    regroup_values,
     resolve_qcap_arg,
+    scatter_pairs,
     score_l2_candidates,
     select_candidates,
     split_oversized_lists,
@@ -315,9 +317,23 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         rows_pad = max(index.data_sorted.shape[0], l_pad)
         data_src = index.scan_rows(rows_pad)
         q_bf16 = q_pad.to(torch.bfloat16)
-        win = torch.arange(l_pad, device=dev)
+        if dequant is None:
+            # every list's window origin (the slice clamp) and its
+            # [lo, hi) relative to it: the flat scan reads rows in place
+            o_all = torch.clamp(offsets[:n_lists], max=rows_pad - l_pad)
+            lo_all = offsets[:n_lists] - o_all
+            win_origin = o_all.to(torch.int32)
+            win_bounds = torch.stack([lo_all, lo_all + sizes],
+                                     1).to(torch.int32)
+        else:
+            win = torch.arange(l_pad, device=dev)
 
         def block_fn_kernel(lblk):
+            if dequant is None:
+                # query rows by id, slab rows in place: no gather
+                return flat_kernel.flat_scan_lists(
+                    q_bf16, qmat[lblk], data_src, win_origin[lblk],
+                    win_bounds[lblk], l_pad)                 # (LB, qcap, nsc)
             qv = q_bf16[qmat_l[lblk]]                        # (LB, qcap, d)
             offs = offsets[lblk]
             o_c = torch.clamp(offs, max=rows_pad - l_pad)    # slice clamp
@@ -325,9 +341,6 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
             lo = offs - o_c
             bounds = torch.stack([lo, lo + sizes[lblk]], 1).to(torch.int32)
             # the kernel reads the slab through its strides: no copy
-            if dequant is None:
-                return flat_kernel.flat_scan_subchunk_min(
-                    qv, slabs.transpose(1, 2), bounds)       # (LB, qcap, nsc)
             return sq_kernel.sq_scan_subchunk_min(
                 qv, slabs.transpose(1, 2), bounds, dequant[0], dequant[1])
 
@@ -354,22 +367,20 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
             (nq, p, k), storage.n, dtype=torch.int64, device=dev)
         for lblk in lids:
             out = scan_fn(lblk)
-            qi, ri = qmat_l[lblk], rmat[lblk].long()
-            keep = (qi < nq) & (ri < p)
             if use_kernel:
-                pv[qi[keep], ri[keep]] = out[keep]
+                scatter_pairs(pv, qmat[lblk], rmat[lblk], out, nq, p)
             else:
-                pv[qi[keep], ri[keep]] = out[0][keep]
-                pm[qi[keep], ri[keep]] = out[1][keep]
+                scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
+                scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
         pv = pv.reshape(nq, p * width)
         if pm is not None:
             pm = pm.reshape(nq, p * k)
     elif use_kernel:
-        vals = torch.cat([scan_fn(lblk) for lblk in lids])[:n_lists]
-        ok = slot < qcap
-        safe_slot = torch.clamp(slot, max=qcap - 1).long()
-        pv = torch.where(ok[:, None], vals[l_flat, safe_slot],
-                         inf).reshape(nq, p * width)
+        if dequant is None:
+            vals = scan_fn(slice(None))          # one launch for the batch
+        else:
+            vals = torch.cat([scan_fn(lblk) for lblk in lids])[:n_lists]
+        pv = regroup_values(vals, l_flat, slot, nq, p, qcap)
         pm = None
     else:
         outs = [scan_fn(lblk) for lblk in lids]

@@ -34,6 +34,7 @@ import math
 import typing
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from raft_tpu_torch import errors
@@ -54,7 +55,9 @@ from raft_tpu_torch.spatial.ann.common import (
     invert_probe_map_ranked,
     map_query_blocks,
     regroup_pairs,
+    regroup_values,
     resolve_qcap_arg,
+    scatter_pairs,
     score_l2_candidates,
     select_candidates,
     split_oversized_lists,
@@ -459,6 +462,103 @@ def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
 _REFINE_BLOCK_BYTES = 256 << 20
 
 
+# f32 LUT bytes of one chunk of live (list, slot) pairs on the kernel path
+# (its transients, the einsum's products and the sums, take a few times
+# that); one ADC launch covers each chunk
+_LUT_BLOCK_BYTES = 256 << 20
+
+
+def _pair_luts(qf, cents, cb, cb_n, m: int, pair_lists, pair_qids):
+    """bf16 ADC tables (P, M*K) of live (list, query) pairs: each query's
+    residual against its list's centroid, scored against every codebook
+    entry, residual-norm term included — the arithmetic of
+    ``_pq_grouped_impl``'s ``block_luts``, row for row, without the dead
+    slots."""
+    ds = qf.shape[1] // m
+    res = (qf[pair_qids] - cents[pair_lists]).reshape(-1, m, ds)
+    dots = torch.einsum("pmd,mkd->pmk", res, cb)
+    res_n = torch.sum(res * res, dim=2)                        # (P, M)
+    lut = res_n[..., None] + cb_n[None] - 2.0 * dots
+    return lut.flatten(1).to(torch.bfloat16)
+
+
+def _max_lut_pairs(mk: int) -> int:
+    """The live pairs of one LUT chunk: (M*K)-wide f32 rows under
+    :data:`_LUT_BLOCK_BYTES`."""
+    return max(1, _LUT_BLOCK_BYTES // (4 * mk))
+
+
+def _lut_chunks(cum, max_pairs: int, max_lists: int):
+    """[a, b) list ranges, in order, covering every list: each holds at
+    most ``max_lists`` lists and ``max_pairs`` live pairs (but always at
+    least one list). ``cum[i]`` counts the live pairs of lists 0..i."""
+    chunks, a, n = [], 0, len(cum)
+    while a < n:
+        base = int(cum[a - 1]) if a else 0
+        b = int(np.searchsorted(cum, base + max_pairs, side="right"))
+        b = min(max(b, a + 1), a + max_lists, n)
+        chunks.append((a, b))
+        a = b
+    return chunks
+
+
+def _pq_kernel_pool(pair_luts, scan, probes, pmap, width: int,
+                    max_pairs: int, max_lists: int, stream: bool):
+    """The ADC kernel engine's (nq, p * width) pool of sub-chunk minima.
+
+    ``pair_luts(pair_lists, pair_qids)`` builds LUT rows
+    (:func:`_pair_luts`); ``scan(luts, lut_map, a, b, out=None)`` is one
+    :func:`~.pq_kernel.pq_adc_lists` launch over lists [a, b), code rows
+    read in place; ``pmap`` is the (qmat, rmat, slot) of
+    :func:`invert_probe_map_ranked`. When the batch's nq * p pairs fit
+    ``max_pairs``, one launch covers every list, its LUT rows in
+    (query, probe) order, with no host sync. Otherwise (or with
+    ``stream``) one host sync reads the live-pair counts that cut the
+    lists into chunks of at most ``max_lists`` lists and ``max_pairs``
+    live pairs; a chunk without a live pair is skipped, since nothing
+    reads its lists. ``stream`` scatters each chunk into the query-major
+    pool instead of materializing the (lists, qcap, width) minima."""
+    qmat, rmat, slot = pmap
+    n_lists, qcap = qmat.shape
+    nq, p = probes.shape
+    dev = qmat.device
+    l_flat = probes.reshape(-1).long()
+    live = qmat < nq
+    if not stream and nq * p <= max_pairs:
+        luts = pair_luts(l_flat, torch.arange(nq * p, device=dev) // p)
+        lut_map = torch.where(live, qmat * p + rmat, -1).to(torch.int32)
+        return regroup_values(scan(luts, lut_map, 0, n_lists), l_flat,
+                              slot, nq, p, qcap)
+    pair = torch.nonzero(live.reshape(-1)).squeeze(1)          # list-major
+    pair_lists = pair // qcap
+    pair_qids = qmat.reshape(-1)[pair].long()
+    gmap = torch.full((n_lists * qcap,), -1, dtype=torch.int32, device=dev)
+    gmap[pair] = torch.arange(pair.numel(), dtype=torch.int32, device=dev)
+    gmap = gmap.reshape(n_lists, qcap)
+    cum = torch.cumsum(live.sum(1), 0).cpu().numpy()
+    if stream:
+        pv = torch.full((nq, p, width), float("inf"), dtype=torch.float32,
+                        device=dev)
+    else:
+        vals = torch.empty((n_lists, qcap, width), dtype=torch.float32,
+                           device=dev)
+    for a, b in _lut_chunks(cum, max_pairs, max_lists):
+        p0, p1 = (int(cum[a - 1]) if a else 0), int(cum[b - 1])
+        if p0 == p1:
+            continue
+        luts = pair_luts(pair_lists[p0:p1], pair_qids[p0:p1])
+        gm = gmap[a:b]
+        lut_map = torch.where(gm >= 0, gm - p0, gm)
+        if stream:
+            scatter_pairs(pv, qmat[a:b], rmat[a:b],
+                          scan(luts, lut_map, a, b), nq, p)
+        else:
+            scan(luts, lut_map, a, b, out=vals[a:b])
+    if stream:
+        return pv.reshape(nq, p * width)
+    return regroup_values(vals, l_flat, slot, nq, p, qcap)
+
+
 @full_f32
 def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
                      refine_dataset=None, probes=None,
@@ -500,8 +600,10 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         """Per-(list, query-slot) ADC tables of one list block — each
         slot's query residual against THIS list's centroid, scored
         against every codebook entry, residual-norm term included, so
-        summed entries are complete squared distances. The one LUT of
-        both engines. Returns (qids (LB, qcap), lut (LB, qcap, M, K))."""
+        summed entries are complete squared distances. The one-hot
+        engine's LUT (the kernel engine builds the same rows for live
+        pairs only, :func:`_pair_luts`). Returns (qids (LB, qcap), lut
+        (LB, qcap, M, K))."""
         lb = lblk.shape[0]
         qids = qmat_l[lblk]                                    # (LB, qcap)
         res = (q_pad[qids] - cents[lblk][:, None, :]).reshape(
@@ -541,70 +643,61 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
             profile=scan_core.tile_profile(qcap),
         )
         l_pad = scan_core.round_up(L, l_tile)
-        nsc = l_pad // scan_core.SUBCHUNK
+        width = l_pad // scan_core.SUBCHUNK
         # n + 1 code rows (sentinel last), zero-padded to one full window
         rows_pad = max(index.codes_sorted.shape[0], l_pad)
         codes_src = index.code_rows(rows_pad)
-        win = torch.arange(l_pad, device=dev)
+        # every list's window origin (the slice clamp) and its [lo, hi)
+        # relative to it: the kernel reads code rows in place from these
+        o_all = torch.clamp(offsets[:n_lists], max=rows_pad - l_pad)
+        lo_all = offsets[:n_lists] - o_all
+        win_origin = o_all.to(torch.int32)
+        win_bounds = torch.stack([lo_all, lo_all + sizes], 1).to(torch.int32)
+        if stream_partials is None:
+            stream_partials = n_lists * qcap * width * 4 > (1 << 31)
 
-        def block_fn_kernel(lblk):
-            lb = lblk.shape[0]
-            _, lut = block_luts(lblk)                          # shared LUT
-            lutf = lut.reshape(lb, qcap, m * kc).to(torch.bfloat16)
-            offs = offsets[lblk]
-            o_c = torch.clamp(offs, max=rows_pad - l_pad)      # slice clamp
-            slab = codes_src[o_c[:, None] + win[None, :]]      # (LB, l_pad, M)
-            lo = offs - o_c
-            bounds = torch.stack([lo, lo + sizes[lblk]], 1).to(torch.int32)
-            # the kernel reads the slab through its strides: no copy
-            return pq_kernel.pq_adc_subchunk_min(
-                lutf, slab.transpose(1, 2), bounds)            # (LB, qcap, nsc)
+        def pair_luts(pair_lists, pair_qids):
+            return _pair_luts(qf, cents, cb, cb_n, m, pair_lists, pair_qids)
 
-        width, scan_fn = nsc, block_fn_kernel
-    else:
-        width, scan_fn = kk, block_fn
+        def scan(luts, lut_map, a, b, out=None):
+            return pq_kernel.pq_adc_lists(
+                luts, lut_map, codes_src, win_origin[a:b], win_bounds[a:b],
+                l_pad, out=out)
 
-    # pad the list axis to a multiple of list_block with clamped ids (the
-    # padded slots recompute the last list; nothing reads them)
-    nl_pad = -(-n_lists // list_block) * list_block
-    lids = torch.clamp(torch.arange(nl_pad, device=dev),
-                       max=n_lists - 1).reshape(-1, list_block)
-
-    if stream_partials is None:
-        # stream once materialized (n_lists, qcap, width) partials pass
-        # ~2 GB; the kernel path pools values only
-        per_entry = 4 if use_kernel else 8
-        stream_partials = n_lists * qcap * width * per_entry > (1 << 31)
-    if stream_partials:
-        # scatter each list block's partials straight into the
-        # query-major (nq, p, width) pool; sentinel slots drop
-        pv = torch.full((nq, p, width), float("inf"), dtype=f32, device=dev)
-        pm = None if use_kernel else torch.full(
-            (nq, p, width), storage.n, dtype=torch.int64, device=dev)
-        for lblk in lids:
-            out = scan_fn(lblk)
-            qi, ri = qmat_l[lblk], rmat[lblk].long()
-            keep = (qi < nq) & (ri < p)
-            if use_kernel:
-                pv[qi[keep], ri[keep]] = out[keep]
-            else:
-                pv[qi[keep], ri[keep]] = out[0][keep]
-                pm[qi[keep], ri[keep]] = out[1][keep]
-        pv = pv.reshape(nq, p * width)
-        if pm is not None:
-            pm = pm.reshape(nq, p * width)
-    elif use_kernel:
-        vals = torch.cat([scan_fn(lblk) for lblk in lids])[:n_lists]
-        ok = slot < qcap
-        safe_slot = torch.clamp(slot, max=qcap - 1).long()
-        pv = torch.where(ok[:, None], vals[l_flat, safe_slot],
-                         inf).reshape(nq, p * width)
+        pv = _pq_kernel_pool(
+            pair_luts, scan, probes, (qmat, rmat, slot), width,
+            _max_lut_pairs(m * kc),
+            list_block if stream_partials else n_lists, stream_partials)
         pm = None
     else:
-        outs = [scan_fn(lblk) for lblk in lids]
-        vals = torch.cat([o[0] for o in outs])[:n_lists]
-        mem = torch.cat([o[1] for o in outs])[:n_lists]
-        pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
+        width = kk
+        # pad the list axis to a multiple of list_block with clamped ids
+        # (the padded slots recompute the last list; nothing reads them)
+        nl_pad = -(-n_lists // list_block) * list_block
+        lids = torch.clamp(torch.arange(nl_pad, device=dev),
+                           max=n_lists - 1).reshape(-1, list_block)
+        if stream_partials is None:
+            # stream once materialized (n_lists, qcap, width) partials
+            # pass ~2 GB
+            stream_partials = n_lists * qcap * width * 8 > (1 << 31)
+        if stream_partials:
+            # scatter each list block's partials straight into the
+            # query-major (nq, p, width) pool; sentinel slots drop
+            pv = torch.full((nq, p, width), float("inf"), dtype=f32,
+                            device=dev)
+            pm = torch.full((nq, p, width), storage.n, dtype=torch.int64,
+                            device=dev)
+            for lblk in lids:
+                out = block_fn(lblk)
+                scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
+                scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
+            pv = pv.reshape(nq, p * width)
+            pm = pm.reshape(nq, p * width)
+        else:
+            outs = [block_fn(lblk) for lblk in lids]
+            vals = torch.cat([o[0] for o in outs])[:n_lists]
+            mem = torch.cat([o[1] for o in outs])[:n_lists]
+            pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
 
     if not refine:
         return select_candidates(storage, pm, pv, k)

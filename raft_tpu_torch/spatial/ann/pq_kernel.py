@@ -4,18 +4,29 @@ driven by ``scan_core.subchunk_scan``). The CUDA kernel is
 ``raft_tpu_torch/csrc/pq_scan.cu``; its source note says what bounds it
 on the H100 and what the design does about it.
 
-For each list block b, query slot q and 8-row sub-chunk j:
+For each list b, query slot q and 8-row sub-chunk j:
 ``out[b, q, j] = min over r in 8j..8j+7 of Σ_m lut[b, q, m·K + code[b, m, r]]``
-over a bf16 LUT (LB, Q, M·K) and uint8 codes (LB, M, Lpad), the entries
-widened to f32 and summed over ``m = 0..M−1`` in ascending order. Rows
-outside the list's ``[lo, hi)`` range score :data:`BIG`. The TPU kernel
-spells the lookup as a one-hot MXU contraction (Mosaic had no dynamic
-gather); the CUDA kernel gathers from the LUT held in shared memory, and
-the plain version gathers too.
+over bf16 LUT rows and uint8 codes, the entries widened to f32 and
+summed over ``m = 0..M−1`` in ascending order. Rows outside the list's
+``[lo, hi)`` range score :data:`BIG`. The TPU kernel spells the lookup
+as a one-hot MXU contraction (Mosaic had no dynamic gather); the CUDA
+kernel gathers from LUT rows held in shared memory, and the plain
+version gathers too.
 
-:func:`pq_adc_subchunk_min` is the wrapper: tensors on the CPU go to
-:func:`pq_adc_subchunk_min_plain`, tensors on a CUDA device go to the
-kernel — or the wrapper raises. :data:`LAUNCHES` counts kernel launches.
+Two entries launch the one kernel:
+
+* :func:`pq_adc_lists` — the grouped search's form: one launch over
+  every list of a chunk, LUT rows read through a (lists, Q) slot map
+  (−1: a dead slot, which scores BIG) and codes read in place from the
+  index's code rows by window origin.
+* :func:`pq_adc_subchunk_min` — the gathered form of the JAX kernel,
+  (LB, Q, M·K) LUTs x an (LB, M, Lpad) code slab: the identity slot map
+  and list b's window at row b·Lpad of the slab.
+
+Tensors on the CPU go to the plain versions
+(:func:`pq_adc_lists_plain`, :func:`pq_adc_subchunk_min_plain`),
+tensors on a CUDA device go to the kernel — or the wrapper raises.
+:data:`LAUNCHES` counts kernel launches of both entries.
 """
 
 from __future__ import annotations
@@ -34,39 +45,43 @@ from raft_tpu_torch.spatial.ann.scan_core import (
 )
 
 __all__ = [
-    "BIG", "LAUNCHES", "SUBCHUNK", "plan_l_tile", "pq_adc_subchunk_min",
-    "pq_adc_subchunk_min_plain", "pq_adc_supported",
+    "BIG", "LAUNCHES", "SUBCHUNK", "plan_l_tile", "pq_adc_lists",
+    "pq_adc_lists_plain", "pq_adc_subchunk_min", "pq_adc_subchunk_min_plain",
+    "pq_adc_supported",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
 
 _ROW_TILE = 256          # csrc/pq_scan.cu kPqRowTile
+_MAX_SLOTS = 8           # csrc/pq_scan.cu kPqMaxSlots
 
 
-def _smem_bytes(qtile: int, m: int, k: int) -> int:
-    # csrc/pq_scan.cu pq_smem_bytes(): qtile LUT rows (bf16, the region
-    # rounded up to 16 bytes) and an (M, 256) uint8 code tile
-    return round_up(qtile * m * k * 2, 16) + m * _ROW_TILE
+def _lut_stride_words(mk: int, slots: int) -> int:
+    """csrc/pq_scan.cu lut_stride_words(): 32-bit words per staged LUT
+    row, 16-byte rows at a stride of 32/S modulo 32 words."""
+    w = round_up((mk + 1) // 2, 4)
+    return w + (32 // slots - w % 32 + 64) % 32
 
 
-def _max_qtile(m: int, k: int) -> int:
-    """csrc/pq_scan.cu raft_pq_adc_max_qtile(): the most query slots whose
-    LUT rows fit one block beside the code tile (0: not even one)."""
-    limit = scan_core.SMEM_LIMIT
-    if m < 1 or k < 1 or m * _ROW_TILE >= limit:
+def _smem_bytes(slots: int, m: int, k: int) -> int:
+    # csrc/pq_scan.cu pq_smem_bytes(): S staged LUT rows and an (M, 256)
+    # uint8 code tile
+    return slots * _lut_stride_words(m * k, slots) * 4 + m * _ROW_TILE
+
+
+def _slots(q: int, m: int, k: int) -> int:
+    """csrc/pq_scan.cu raft_pq_lists_slots(): query slots per block, the
+    largest power of two up to 8 (and up to Q rounded up to one) whose
+    LUT rows fit beside a code tile; 0 when not even one fits."""
+    if q < 1 or m < 1 or k < 1:
         return 0
-    q = (limit - m * _ROW_TILE) // (m * k * 2)
-    while q > 0 and _smem_bytes(q, m, k) > limit:
-        q -= 1
-    return q
-
-
-def _query_tile(q: int, m: int, k: int) -> int:
-    """The kernel's query tile for Q slots: the largest balanced tiles
-    that fit (the wrapper's grid y is ``ceil(Q / tile)``)."""
-    n_tiles = -(-q // _max_qtile(m, k))
-    return -(-q // n_tiles)
+    s = 1
+    while s < _MAX_SLOTS and s < q:
+        s *= 2
+    while s > 0 and _smem_bytes(s, m, k) > scan_core.SMEM_LIMIT:
+        s //= 2
+    return s
 
 
 def _step_bytes(mk: int, q_pad: int, l_tile: int) -> int:
@@ -90,7 +105,7 @@ def pq_adc_supported(pq_dim: int, pq_bits: int, qcap: int) -> bool:
     plan from which the grouped search derives ``l_pad``."""
     if not (1 <= pq_bits <= 8) or pq_dim < 1:
         return False
-    if _max_qtile(pq_dim, 1 << pq_bits) < 1:
+    if _slots(1, pq_dim, 1 << pq_bits) < 1:
         return False
     return plan_l_tile(
         pq_dim * (1 << pq_bits), pad_queries(qcap),
@@ -113,6 +128,29 @@ def pq_adc_subchunk_min_plain(luts, codes_t, bounds):
     return scan_core.mask_subchunk_min(acc, bounds)
 
 
+def pq_adc_lists_plain(luts, lut_map, codes, origins, bounds, l_pad: int):
+    """Plain PyTorch version of :func:`pq_adc_lists`: the gathered form
+    (:func:`pq_adc_subchunk_min_plain`) of every list with a live slot,
+    on ``luts[lut_map[b]]`` and the code window ``codes[origins[b] :
+    origins[b] + l_pad]``. As in the kernel, a dead slot (a map entry
+    outside ``[0, n_luts)``) scores :data:`BIG`, and a list with no live
+    slot is not scanned at all — its minima are all BIG."""
+    n_lists, q = lut_map.shape
+    live = (lut_map >= 0) & (lut_map < luts.shape[0])
+    out = torch.full((n_lists, q, l_pad // SUBCHUNK), BIG,
+                     dtype=torch.float32, device=luts.device)
+    scanned = torch.nonzero(live.any(1)).squeeze(1)
+    if scanned.numel():
+        lv = live[scanned]
+        lg = luts[torch.where(lv, lut_map[scanned], 0).long()]
+        win = (origins[scanned].long()[:, None]
+               + torch.arange(l_pad, device=codes.device))
+        got = pq_adc_subchunk_min_plain(lg, codes[win].transpose(1, 2),
+                                        bounds[scanned])
+        out[scanned] = torch.where(lv[:, :, None], got, BIG)
+    return out
+
+
 def _check(luts, codes_t, bounds):
     name = "pq_adc_subchunk_min"
     if luts.dim() != 3 or codes_t.dim() != 3:
@@ -127,16 +165,77 @@ def _check(luts, codes_t, bounds):
             f"{name}: LUT width {mk} / blocks {lb} do not match code slab "
             f"shape {tuple(codes_t.shape)} (the width must be M*K)"
         )
-    if mk // m_dim > 256:
-        raise ValueError(f"{name}: K={mk // m_dim} exceeds uint8 codes")
+    _check_types(name, luts, codes_t, mk // m_dim)
     scan_core.check_bounds(name, bounds, lb)
-    if luts.dtype != torch.bfloat16 or codes_t.dtype != torch.uint8:
-        raise ValueError(
-            f"{name}: luts must be bfloat16 and codes_t uint8, got "
-            f"{luts.dtype} and {codes_t.dtype}"
-        )
     scan_core.validate_scan_shapes(name, codes_t.shape[2])
     scan_core.check_same_device(name, luts, codes_t, bounds)
+
+
+def _check_types(name, luts, codes, k_dim):
+    if k_dim > 256:
+        raise ValueError(f"{name}: K={k_dim} exceeds uint8 codes")
+    if luts.dtype != torch.bfloat16 or codes.dtype != torch.uint8:
+        raise ValueError(
+            f"{name}: luts must be bfloat16 and codes uint8, got "
+            f"{luts.dtype} and {codes.dtype}"
+        )
+
+
+def _check_lists(name, luts, lut_map, codes, origins, bounds, l_pad):
+    if luts.dim() != 2 or codes.dim() != 2 or lut_map.dim() != 2:
+        raise ValueError(
+            f"{name}: expected luts (P, M*K), codes (R, M) and lut_map "
+            f"(lists, Q), got {tuple(luts.shape)}, {tuple(codes.shape)} "
+            f"and {tuple(lut_map.shape)}"
+        )
+    m_dim = codes.shape[1]
+    if m_dim < 1 or luts.shape[1] % m_dim or luts.shape[1] < m_dim:
+        raise ValueError(
+            f"{name}: LUT width {luts.shape[1]} does not match {m_dim} "
+            "code columns (the width must be M*K)"
+        )
+    _check_types(name, luts, codes, luts.shape[1] // m_dim)
+    n_lists = lut_map.shape[0]
+    if (lut_map.dtype != torch.int32 or origins.dtype != torch.int32
+            or tuple(origins.shape) != (n_lists,)):
+        raise ValueError(
+            f"{name}: lut_map and origins must be int32 of shapes "
+            f"(lists, Q) and (lists,), got {lut_map.dtype} "
+            f"{tuple(lut_map.shape)} and {origins.dtype} "
+            f"{tuple(origins.shape)}"
+        )
+    scan_core.check_bounds(name, bounds, n_lists)
+    scan_core.validate_scan_shapes(name, l_pad)
+    if codes.shape[0] < l_pad:
+        raise ValueError(
+            f"{name}: {codes.shape[0]} code rows cannot hold a window of "
+            f"{l_pad}")
+    scan_core.check_same_device(name, luts, lut_map, codes, origins, bounds)
+
+
+def pq_adc_lists(luts, lut_map, codes, origins, bounds, l_pad: int,
+                 out=None):
+    """One launch over every list of a chunk -> (lists, Q, l_pad/8) f32
+    sub-chunk ADC minima (written into ``out`` when given: a contiguous
+    f32 tensor of that shape, for example a slice of a batch's array).
+
+    ``luts`` (P, M·K) bf16 holds the LUT rows of the chunk's live
+    (list, slot) pairs; ``lut_map`` (lists, Q) int32 names each slot's
+    row, −1 marking a dead slot (it scores BIG). ``codes`` (R, M) uint8
+    contiguous are the index's code rows, read in place: list b's window
+    is rows ``origins[b] .. origins[b] + l_pad − 1`` (the caller keeps
+    every window inside ``codes``), and ``bounds`` (lists, 2) int32 its
+    valid ``[lo, hi)`` relative to that origin. On live slots the result
+    equals :func:`pq_adc_subchunk_min` on the gathered LUT and code
+    slabs. CPU tensors run the plain version; CUDA tensors run the
+    kernel."""
+    name = "pq_adc_lists"
+    _check_lists(name, luts, lut_map, codes, origins, bounds, l_pad)
+    if luts.device.type == "cpu":
+        res = pq_adc_lists_plain(luts, lut_map, codes, origins, bounds,
+                                 l_pad)
+        return res if out is None else out.copy_(res)
+    return _launch(name, luts, lut_map, codes, origins, bounds, l_pad, out)
 
 
 def pq_adc_subchunk_min(luts, codes_t, bounds):
@@ -145,38 +244,62 @@ def pq_adc_subchunk_min(luts, codes_t, bounds):
 
     ``bounds`` (LB, 2) int32 is each list's valid row range ``[lo, hi)``
     in its code window. ``codes_t`` may be a strided view (a gathered
-    (LB, Lpad, M) code slab ``.transpose(1, 2)``); Q is any positive
-    count and Lpad any positive multiple of 8. CPU tensors run the plain
-    version; CUDA tensors run the kernel."""
+    (LB, Lpad, M) code slab ``.transpose(1, 2)``, read without a copy;
+    other layouts are made row-major first); Q is any positive count and
+    Lpad any positive multiple of 8. CPU tensors run the plain version;
+    CUDA tensors run the kernel of :func:`pq_adc_lists` with the identity
+    slot map and list b's window at row b·Lpad."""
     name = "pq_adc_subchunk_min"
     _check(luts, codes_t, bounds)
     dev = luts.device
     if dev.type == "cpu":
         return pq_adc_subchunk_min_plain(luts, codes_t, bounds)
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
     lb, q, mk = luts.shape
     m_dim, l_pad = codes_t.shape[1], codes_t.shape[2]
-    k_dim = mk // m_dim
-    if _max_qtile(m_dim, k_dim) < 1:
+    codes = codes_t.transpose(1, 2).contiguous().reshape(lb * l_pad, m_dim)
+    i32 = torch.int32
+    lut_map = torch.arange(lb * q, dtype=i32, device=dev).reshape(lb, q)
+    origins = torch.arange(0, lb * l_pad, l_pad, dtype=i32, device=dev)
+    return _launch(name, luts.reshape(lb * q, mk), lut_map, codes, origins,
+                   bounds, l_pad, None)
+
+
+def _launch(name, luts, lut_map, codes, origins, bounds, l_pad, out):
+    dev = luts.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not codes.is_contiguous():
+        raise ValueError(f"{name}: codes must be contiguous (row-major)")
+    n_lists, q = lut_map.shape
+    m_dim = codes.shape[1]
+    k_dim = luts.shape[1] // m_dim
+    slots = _slots(q, m_dim, k_dim)
+    if slots < 1:
         raise ValueError(
-            f"{name}: one query's LUT ({mk} bf16) and a code tile exceed "
-            f"a block's shared memory ({scan_core.SMEM_LIMIT} bytes)"
+            f"{name}: one query's LUT ({luts.shape[1]} bf16) and a code "
+            f"tile exceed a block's shared memory ({scan_core.SMEM_LIMIT} "
+            "bytes)"
         )
-    qtile = _query_tile(q, m_dim, k_dim)
-    scan_core.check_launch(name, _smem_bytes(qtile, m_dim, k_dim), codes_t,
-                           lb, q, q_tile=qtile)
+    if n_lists > 65535:
+        raise ValueError(f"{name}: {n_lists} lists exceed the grid's 65535")
+    shape = (n_lists, q, l_pad // SUBCHUNK)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or not out.is_contiguous() or out.device != dev):
+        raise ValueError(
+            f"{name}: out must be a contiguous f32 {shape} tensor on {dev}")
     luts = luts.contiguous()
+    lut_map = lut_map.contiguous()
+    origins = origins.contiguous()
     bounds = bounds.contiguous()
-    out = torch.empty((lb, q, l_pad // SUBCHUNK), dtype=torch.float32,
-                      device=dev)
     lib = _lib()
-    sb, sm, sl = codes_t.stride()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raft_pq_adc_subchunk_min(
-            luts.data_ptr(), codes_t.data_ptr(), bounds.data_ptr(),
-            out.data_ptr(), lb, q, m_dim, k_dim, l_pad, sb, sm, sl, stream,
+        err = lib.raft_pq_adc_lists(
+            luts.data_ptr(), lut_map.data_ptr(), codes.data_ptr(),
+            origins.data_ptr(), bounds.data_ptr(), out.data_ptr(), n_lists,
+            q, luts.shape[0], m_dim, k_dim, l_pad, stream,
         )
     scan_core.raise_on_error(err, name, lib)
     global LAUNCHES
@@ -188,16 +311,16 @@ def _lib():
     from raft_tpu_torch import _build
 
     lib = _build.load("pq_scan")
-    fn = lib.raft_pq_adc_subchunk_min
+    fn = lib.raft_pq_adc_lists
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, ll, ll, ll, p]
-        fn.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
         lib.error_string = lib.raft_pq_error_string
         lib.error_string.argtypes = [i]
         lib.error_string.restype = ctypes.c_char_p
-        lib.raft_pq_adc_max_qtile.argtypes = [i, i]
-        lib.raft_pq_adc_max_qtile.restype = i
-        lib.raft_pq_adc_smem_bytes.argtypes = [i, i, i]
-        lib.raft_pq_adc_smem_bytes.restype = ll
+        lib.raft_pq_lists_slots.argtypes = [i, i, i]
+        lib.raft_pq_lists_slots.restype = i
+        lib.raft_pq_lists_smem_bytes.argtypes = [i, i, i]
+        lib.raft_pq_lists_smem_bytes.restype = ctypes.c_longlong
     return lib

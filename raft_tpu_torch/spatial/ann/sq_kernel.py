@@ -26,7 +26,7 @@ import functools
 import torch
 
 from raft_tpu_torch.core.device import full_f32
-from raft_tpu_torch.spatial.ann import flat_kernel, scan_core
+from raft_tpu_torch.spatial.ann import scan_core
 from raft_tpu_torch.spatial.ann.scan_core import (
     BIG as BIG,  # re-export: callers read the masked-row constant here
     SUBCHUNK,
@@ -43,9 +43,10 @@ LAUNCHES = 0
 
 
 def _smem_bytes(d: int) -> int:
-    # csrc/scan_core.cuh l2_smem_bytes(d, 2): the flat scan's tiles plus
-    # vmin and vscale, d f32 each
-    return flat_kernel._smem_bytes(d) + 4 * 2 * d
+    # csrc/scan_core.cuh l2_smem_bytes(d, 2): the L2 scan template's
+    # tiles (a 64 x (d + 1) query tile, a d x 68 transposed slab tile, 64
+    # query norms and 64 row norms) plus vmin and vscale, all f32
+    return 4 * (64 * (d + 1) + d * 68 + 64 + 64) + 4 * 2 * d
 
 
 def _step_bytes(d: int, q_pad: int, l_tile: int) -> int:

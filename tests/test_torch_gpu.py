@@ -218,9 +218,11 @@ def test_pq_kernel_matches_plain_version():
         if lb > 1:
             assert (got[1] == tpq.BIG).all()
         lib = tpq._lib()
-        assert lib.raft_pq_adc_max_qtile(m, k_codes) == tpq._max_qtile(
-            m, k_codes)
-    assert tpq._query_tile(13, 96, 256) < 13     # several query tiles
+        slots = tpq._slots(q, m, k_codes)
+        assert lib.raft_pq_lists_slots(q, m, k_codes) == slots
+        assert lib.raft_pq_lists_smem_bytes(slots, m, k_codes) == \
+            tpq._smem_bytes(slots, m, k_codes)
+    assert tpq._slots(13, 96, 256) < 8           # fewer slots per block
 
 
 @pytest.mark.gpu
@@ -297,3 +299,122 @@ def test_graph_search_engines_agree_on_card():
                 if end < 10 or start == 0:
                     assert set(a[r, start:end]) == set(b[r, start:end])
                 start = end
+
+
+# qcap 1, 7, 8, 9, 64 and 65 (query tiles of 8, 16, 64 and two of 40),
+# at d = 96 and a ragged d
+_LIST_QCAPS = (1, 7, 8, 9, 64, 65)
+
+
+def _list_windows(rng, n_lists, n_rows, l_pad, dev):
+    """Windows as the grouped search makes them: lists 0 and 1 empty,
+    list 2 full (the whole window), the last list at the storage tail
+    (its origin clamped, its range off the 8-row grain), the rest
+    ragged."""
+    sizes = rng.integers(1, l_pad + 1, n_lists)
+    sizes[:2] = 0
+    sizes[2] = l_pad
+    sizes[-1] = l_pad // 2 + 3
+    offsets = rng.integers(0, n_rows - l_pad, n_lists)
+    offsets[-1] = n_rows - 1 - sizes[-1]
+    origins = np.minimum(offsets, n_rows - l_pad)
+    lo = offsets - origins
+    bounds = np.stack([lo, lo + sizes], 1)
+    return (torch.as_tensor(origins, dtype=torch.int32, device=dev),
+            torch.as_tensor(bounds, dtype=torch.int32, device=dev))
+
+
+def _list_slots(rng, n_lists, q, n_live, dead, dev):
+    """Front-packed live slots; list 3 has none, list 2 all of them."""
+    occ = rng.integers(0, q + 1, n_lists)
+    occ[2], occ[3] = q, 0
+    ids = rng.integers(0, n_live, (n_lists, q))
+    return torch.as_tensor(
+        np.where(np.arange(q)[None, :] < occ[:, None], ids, dead),
+        dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+def test_flat_scan_lists_kernel_matches_plain_version():
+    """On a Hopper card: the one-launch list scan against its plain
+    version — bitwise on integer-exact inputs, within 1e-5 x (qn + yn)
+    on Gaussian ones — at every query-tile width, with dead slots, a
+    list without a live slot, empty and full ranges and the clamped tail
+    window, at d = 96 (16-byte copies) and a ragged d (plain loads)."""
+    dev = _hopper()
+    rng = np.random.default_rng(7)
+    n_lists, nq, l_pad = 9, 50, 1160          # 3 row groups, a ragged one
+    for d in (96, 20):
+        n_rows = 4 * l_pad + 3
+        origins, bounds = _list_windows(rng, n_lists, n_rows, l_pad, dev)
+        for integer in (True, False):
+            if integer:
+                qr = rng.integers(-64, 64, (nq + 1, d))
+                rows = rng.integers(-64, 64, (n_rows, d))
+            else:
+                qr = rng.standard_normal((nq + 1, d))
+                rows = rng.standard_normal((n_rows, d))
+            qr[nq] = 0
+            qt = torch.as_tensor(qr, dtype=torch.float32,
+                                 device=dev).to(torch.bfloat16)
+            rt = torch.as_tensor(rows, dtype=torch.float32,
+                                 device=dev).to(torch.bfloat16)
+            yn_rows = (rt.float() ** 2).sum(1)
+            for q in _LIST_QCAPS:
+                qmat = _list_slots(rng, n_lists, q, nq, nq, dev)
+                args = (qt, qmat, rt, origins, bounds, l_pad)
+                before = tfk.LAUNCHES
+                got = tfk.flat_scan_lists(*args)
+                assert tfk.LAUNCHES == before + 1
+                want = tfk.flat_scan_lists_plain(*args)
+                torch.cuda.synchronize()
+                live = qmat < nq
+                assert (got[~live] == tfk.BIG).all(), (d, q)
+                assert (got[:2] == tfk.BIG).all() and (got[3] == tfk.BIG).all()
+                if integer:
+                    assert torch.equal(got, want), (d, q)
+                    continue
+                qn = (qt.float() ** 2).sum(1)[qmat.long()][:, :, None]
+                win = origins.long()[:, None] + torch.arange(l_pad,
+                                                             device=dev)
+                yn = yn_rows[win].reshape(n_lists, 1, -1, 8).amax(-1)
+                err = (got - want).abs()
+                assert (err <= 1e-5 * (qn + yn)).all(), (d, q)
+
+
+@pytest.mark.gpu
+def test_pq_adc_lists_kernel_matches_plain_version():
+    """On a Hopper card: the one-launch ADC list scan against its plain
+    version, bitwise on Gaussian and integer LUTs, at every slot count
+    per block (S = 1 .. 8), with dead slots, a list without a live slot,
+    empty and full ranges and the clamped tail window, at the path's
+    (M, K) = (24, 256), a ragged one, and rows wide enough to cut S."""
+    from raft_tpu_torch.spatial.ann import pq_kernel as tpq
+
+    dev = _hopper()
+    rng = np.random.default_rng(8)
+    n_lists, l_pad = 9, 1032                  # 5 code tiles, a ragged one
+    n_rows = 4 * l_pad + 3
+    origins, bounds = _list_windows(rng, n_lists, n_rows, l_pad, dev)
+    for m, k_codes in ((24, 256), (5, 7), (96, 256)):
+        codes = torch.as_tensor(rng.integers(0, k_codes, (n_rows, m)),
+                                dtype=torch.uint8, device=dev)
+        for integer in (True, False):
+            n_luts = 60
+            luts = (rng.integers(-64, 64, (n_luts, m * k_codes)) if integer
+                    else rng.standard_normal((n_luts, m * k_codes)))
+            luts = torch.as_tensor(luts, dtype=torch.float32,
+                                   device=dev).to(torch.bfloat16)
+            for q in _LIST_QCAPS:
+                lut_map = _list_slots(rng, n_lists, q, n_luts, -1, dev)
+                args = (luts, lut_map, codes, origins, bounds, l_pad)
+                before = tpq.LAUNCHES
+                got = tpq.pq_adc_lists(*args)
+                assert tpq.LAUNCHES == before + 1
+                want = tpq.pq_adc_lists_plain(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (m, k_codes, q, integer)
+                assert (got[lut_map < 0] == tpq.BIG).all()
+                out = torch.empty_like(got)
+                tpq.pq_adc_lists(*args, out=out)
+                assert torch.equal(out, got)

@@ -165,14 +165,23 @@ def test_plan_supported_and_query_tiles():
         for qcap in (8, 24, 512):
             assert tpq.pq_adc_supported(m, bits, qcap) == (
                 jpq.pq_adc_supported(m, bits, qcap)
-                and tpq._max_qtile(m, 1 << bits) >= 1)
+                and tpq._slots(1, m, 1 << bits) >= 1)
     assert not tpq.pq_adc_supported(24, 9, 8)
-    # the slice's configuration: 18 LUT rows of 12 KB fit, a 24-slot
-    # qcap runs as two balanced tiles of 12
-    assert tpq._max_qtile(24, 256) == 18
-    assert tpq._query_tile(24, 24, 256) == 12
-    assert tpq._query_tile(8, 24, 256) == 8
-    assert tpq._smem_bytes(12, 24, 256) <= 232_448
+    # the slice's configuration: 8 slots' LUT rows of 12 KB fit beside a
+    # code tile; fewer slots where Q is smaller or the rows are wider
+    assert tpq._slots(24, 24, 256) == 8
+    assert tpq._slots(8, 24, 256) == 8
+    assert tpq._slots(3, 24, 256) == 4
+    assert tpq._slots(1, 24, 256) == 1
+    assert tpq._slots(13, 96, 256) == 4
+    assert tpq._smem_bytes(8, 24, 256) <= 232_448
+    # staged LUT rows are 16-byte rows whose word stride puts the S slots
+    # of one code on S distinct banks (32/S apart)
+    for mk in (6144, 21, 160, 24576):
+        for s in (1, 2, 4, 8):
+            w = tpq._lut_stride_words(mk, s)
+            assert w % 4 == 0 and 2 * w >= mk
+            assert len({(i * w) % 32 for i in range(s)}) == s
 
 
 # -- k-means pieces ------------------------------------------------------------
