@@ -31,8 +31,8 @@ to 0 just before it and read just after:
   with recall@10 and distances against an exact oracle.
 
 Any failed check raises, and the script exits non-zero. The last two
-lines of stdout are the ``kernels`` JSON line (one object per kernel)
-and the ``{"ok": true, ...}`` device line.
+lines of stdout are the ``kernels`` JSON line (one object for each of the
+eight TPU kernels) and the ``{"ok": true, ...}`` device line.
 
 Imports neither JAX nor the JAX package. Needs one CUDA device of
 compute capability 9.0; without one it exits non-zero and prints no
@@ -164,7 +164,7 @@ def phase_build():
     t0 = time.perf_counter()
     out_dir = _build.build_all()
     build_s = time.perf_counter() - t0
-    from raft_tpu_torch.spatial.ann import pq_kernel, sq_kernel
+    from raft_tpu_torch.spatial.ann import pq_kernel
 
     lib = flat_kernel._lib()
     check(all(lib.raft_flat_scan_q_tile(q) == flat_kernel._q_tile(q)
@@ -172,8 +172,9 @@ def phase_build():
               == flat_kernel._lists_smem_bytes(DIM, flat_kernel._q_tile(q))
               for q in (1, 8, 9, 24, 64, 65, 4096)),
           "the wrapper's shared-memory model disagrees with the kernel's")
-    check(sq_kernel._lib().raft_sq_scan_smem_bytes(DIM)
-          == sq_kernel._smem_bytes(DIM),
+    check(all(lib.raft_sq_scan_smem_bytes(d, flat_kernel._q_tile(q))
+              == flat_kernel._sq_lists_smem_bytes(d, flat_kernel._q_tile(q))
+              for q in (1, 8, 24, 64, 65) for d in (DIM, 20, 24)),
           "the SQ wrapper's shared-memory model disagrees with the kernel's")
     plib = pq_kernel._lib()
     check(all(plib.raft_pq_lists_slots(q, m, k) == pq_kernel._slots(q, m, k)
@@ -371,6 +372,29 @@ def slot_map(gen, n_lists, q, n_live, dead, dev):
                        dead).to(torch.int32).to(dev)
 
 
+def lists_entry(call):
+    """(kernel wrapper, plain version) of a list-scan call: the IVF-SQ
+    scan when its rows are int8 codes, else the flat scan."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+
+    if call[2].dtype == torch.int8:
+        return sk.sq_scan_lists, sk.sq_scan_lists_plain
+    return fk.flat_scan_lists, fk.flat_scan_lists_plain
+
+
+def row_values(call, rows=None):
+    """f32 values of a list-scan call's rows (or of ``rows`` in their
+    place): bf16 rows as they are, int8 codes dequantized as the kernel
+    stages them."""
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+
+    rows = call[2] if rows is None else rows
+    if rows.dtype == torch.int8:
+        return sk._dequant_tile(rows, call[6], call[7]).float()
+    return rows.float()
+
+
 def check_lists_kernel(seed, dev):
     """flat_scan_lists against its plain version: bitwise on
     integer-exact inputs, within 1e-5 x (qn + yn) on Gaussian ones, at
@@ -403,41 +427,43 @@ def check_lists_kernel(seed, dev):
 
 
 def compare_lists_to_plain(call):
-    """flat_scan_lists vs its plain version on one batch's inputs: dead
-    slots BIG in both, live ones within 1e-5 x (qn + yn) of each other
-    (the tensor cores sum the dot in another order). Returns max
-    |kernel - plain| over live entries below BIG."""
+    """A list scan (flat or SQ, :func:`lists_entry`) vs its plain version
+    on one batch's inputs: dead slots BIG in both, live ones within 1e-5
+    x (qn + yn) of each other (the tensor cores sum the dot in another
+    order). Returns max |kernel - plain| over live entries below BIG."""
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
-    queries, qmat, rows, origins, bounds, l_pad = call
-    got = fk.flat_scan_lists(*call)
-    want = fk.flat_scan_lists_plain(*call)
+    queries, qmat, rows, origins, bounds, l_pad = call[:6]
+    fn, plain = lists_entry(call)
+    got = fn(*call)
+    want = plain(*call)
     n = queries.shape[0] - 1
     live = (qmat >= 0) & (qmat < n)
     check(bool((got[~live] == fk.BIG).all() and (want[~live] == fk.BIG)
-               .all()), "flat_scan_lists: a dead slot is not BIG")
+               .all()), f"{fn.__name__}: a dead slot is not BIG")
     qn = (queries.float() ** 2).sum(1)[qmat.clamp(0, n).long()][:, :, None]
     win = origins.long()[:, None] + torch.arange(l_pad, device=rows.device)
-    yn = (rows.float() ** 2).sum(1)[win].reshape(
+    yn = (row_values(call, rows[win]) ** 2).sum(-1).reshape(
         qmat.shape[0], 1, -1, 8).amax(-1)
     err = (got - want).abs()
     if not (err <= 1e-5 * (qn + yn)).all():
         raise AssertionError(
-            f"chip_smoke: flat_scan_lists {tuple(qmat.shape)} x {l_pad}: off "
+            f"chip_smoke: {fn.__name__} {tuple(qmat.shape)} x {l_pad}: off "
             f"by {err.max().item()} > 1e-5 x (qn + yn)")
     valid = live[:, :, None] & (want < 1e30)
     return err[valid].max().item() if valid.any() else 0.0
 
 
 def lists_scan_bound(queries, qmat, rows, origins, bounds, l_pad,
-                     live_only=False):
-    """(bound_ms, bound_by) of one flat list-scan launch, counted on
-    these inputs: the rows in [lo, hi) of the lists with a live slot and
-    each distinct live query row read once (bf16), the slot map, origins
-    and bounds read once, and every (list, slot, sub-chunk) minimum
-    written once (f32), or with ``live_only`` the live slots' minima
-    only (those the pool reads); 2 flop per multiply-add of a live slot
-    and an in-range row at the bf16 rate."""
+                     *params, live_only=False):
+    """(bound_ms, bound_by) of one list-scan launch (flat, or SQ with
+    ``params`` vmin and vscale), counted on these inputs: the rows in
+    [lo, hi) of the lists with a live slot (bf16 rows, or int8 codes and
+    the f32 stats) and each distinct live query row read once (bf16), the
+    slot map, origins and bounds read once, and every (list, slot,
+    sub-chunk) minimum written once (f32), or with ``live_only`` the live
+    slots' minima only (those the pool reads); 2 flop per multiply-add of
+    a live slot and an in-range row at the bf16 rate."""
     n = queries.shape[0] - 1
     d = rows.shape[1]
     n_lists, q = qmat.shape
@@ -447,57 +473,74 @@ def lists_scan_bound(queries, qmat, rows, origins, bounds, l_pad,
             - bounds[:, 0].clamp(0, l_pad)).clamp(min=0)
     span = torch.where(n_live > 0, span, 0)
     n_out = int(n_live.sum()) if live_only else n_lists * q
-    nbytes = (int(span.sum()) * d * 2 + torch.unique(qmat[live]).numel()
-              * d * 2 + n_lists * q * 4 + n_lists * 12
-              + n_out * (l_pad // 8) * 4)
+    nbytes = (int(span.sum()) * d * rows.element_size()
+              + torch.unique(qmat[live]).numel() * d * 2 + n_lists * q * 4
+              + n_lists * 12 + n_out * (l_pad // 8) * 4
+              + sum(t.numel() * 4 for t in params))
     return bound(nbytes, 2.0 * int((n_live * span).sum()) * d,
                  BF16_FLOP_PER_S)
 
 
-def gathered_flat(queries, qmat, rows, origins, bounds, l_pad):
-    """The flat engine's scan as it ran before the list entry: per
-    32-list block a query-row gather, a (32, Lpad, d) slab gather and one
-    gathered-form launch (timed only; the path no longer runs it)."""
+def gathered_lists(queries, qmat, rows, origins, bounds, l_pad, *params):
+    """A list scan's engine as it ran before the list entry: per 32-list
+    block a query-row gather, a (32, Lpad, d) slab gather and one
+    gathered-form launch (``flat_scan_subchunk_min``, or with ``params``
+    vmin and vscale ``sq_scan_subchunk_min``; timed only, the path no
+    longer runs it)."""
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
 
     win = torch.arange(l_pad, device=rows.device)
     for s in range(0, qmat.shape[0], 32):
         blk = slice(s, s + 32)
-        slab = rows[origins[blk].long()[:, None] + win]
-        fk.flat_scan_subchunk_min(queries[qmat[blk].long()],
-                                  slab.transpose(1, 2), bounds[blk])
+        slab = rows[origins[blk].long()[:, None] + win].transpose(1, 2)
+        qv = queries[qmat[blk].long()]
+        if params:
+            sk.sq_scan_subchunk_min(qv, slab, bounds[blk], *params)
+        else:
+            fk.flat_scan_subchunk_min(qv, slab, bounds[blk])
 
 
 def time_lists(call):
-    """ms of one batch's flat list scan, of its plain version, of the
-    gathered form it replaced (:func:`gathered_flat`, gathers included)
-    and of the library yardstick (baddbmm of the norm bias minus 2 x
-    the f32 gram over every list, then the 8-row amin, on pre-gathered
-    f32 operands; timed only, never called by the port), each rotating
+    """ms of one batch's list scan (flat or SQ, :func:`lists_entry`), of
+    its plain version, of the gathered form it replaced
+    (:func:`gathered_lists`, gathers included) and of the library
+    yardstick (baddbmm of the norm bias minus 2 x the f32 gram over every
+    list, then the 8-row amin, on pre-gathered f32 operands; for SQ the
+    dequant, as torch elementwise operations, and the row norms are
+    timed with it; timed only, never called by the port), each rotating
     over copies of the inputs that overflow L2."""
     from raft_tpu_torch.core.device import full_f32
-    from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
-    queries, qmat, rows, origins, bounds, l_pad = call
+    queries, qmat, rows, origins, bounds, l_pad = call[:6]
+    params = call[6:]
+    fn, plain = lists_entry(call)
     n_lists, q = qmat.shape
     sets = input_copies(queries, qmat, rows, origins, bounds)
-    ms = cuda_time_ms(lambda *a: fk.flat_scan_lists(*a, l_pad), sets)
-    plain_ms = cuda_time_ms(lambda *a: fk.flat_scan_lists_plain(*a, l_pad),
-                            sets, iters=2, warm=1)
-    gathered_ms = cuda_time_ms(lambda *a: gathered_flat(*a, l_pad), sets,
-                               iters=5, warm=1)
+    ms = cuda_time_ms(lambda *a: fn(*a, l_pad, *params), sets)
+    plain_ms = cuda_time_ms(lambda *a: plain(*a, l_pad, *params), sets,
+                            iters=2, warm=1)
+    gathered_ms = cuda_time_ms(lambda *a: gathered_lists(*a, l_pad, *params),
+                               sets, iters=5, warm=1)
     win = torch.arange(l_pad, device=rows.device)
     lib_sets = []
     for qs, qm, rw, og, _ in sets[:2]:
         qf = qs[qm.long()].float()
-        yf = rw[og.long()[:, None] + win].float().transpose(1, 2)
-        lib_sets.append((qf, yf, (qf * qf).sum(-1)[:, :, None]
-                         + (yf * yf).sum(1)[:, None, :]))
+        slab = rw[og.long()[:, None] + win]
+        if params:      # SQ: the codes, dequantized inside the timed call
+            lib_sets.append((qf, slab, (qf * qf).sum(-1)[:, :, None]))
+        else:
+            yf = slab.float().transpose(1, 2)
+            lib_sets.append((qf, yf, (qf * qf).sum(-1)[:, :, None]
+                             + (yf * yf).sum(1)[:, None, :]))
     del sets
 
     @full_f32
-    def library(qf, yf, bias):
-        t = torch.baddbmm(bias, qf, yf, alpha=-2.0)
+    def library(qf, y, bias):
+        if params:
+            y = row_values(call, y).transpose(1, 2)
+            bias = bias + (y * y).sum(1)[:, None, :]
+        t = torch.baddbmm(bias, qf, y, alpha=-2.0)
         return t.reshape(n_lists, q, l_pad // 8, 8).amin(-1)
 
     library_ms = cuda_time_ms(library, lib_sets, iters=5, warm=1)
@@ -669,8 +712,10 @@ def ivf_flat_phase(args, card, dev):
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
     # kernel vs plain version: the fixed reference shape and a ragged one
+    ref_err = 0.0
     for shape in ((32, 64, DIM, 3072), (3, 13, 24, 136)):
         err = check_kernel(*shape, seed=args.seed)
+        ref_err = max(ref_err, err)
         log(f"kernel check {shape}: bitwise on integer-exact inputs, "
             f"Gaussian max |kernel - plain| {err:.3g}")
     gen = torch.Generator().manual_seed(args.seed)
@@ -775,6 +820,31 @@ def ivf_flat_phase(args, card, dev):
         "batch": nq,
         "shape": [N_LISTS, qc, DIM, l_pad],
         "card": card,
+        "gathered": {"ms": ref[0], "plain_ms": ref[1], "library_ms": ref[2],
+                     "bound_ms": ref_bound[0], "bound_by": ref_bound[1],
+                     "max_abs_err": ref_err, "shape": [32, 64, DIM, 3072]},
+    }
+
+
+def subchunk_scan_entry(flat, sq):
+    """The ``kernels`` entry of the shared sub-chunk scan (#1): its
+    counterpart is the grid of the list kernel in csrc/flat_scan.cu
+    (row groups x query tiles x lists, the [lo, hi) mask and the 8-row
+    minima of csrc/scan_core.cuh), which every flat and SQ scan of the
+    paths launches; timed in the gathered form of the JAX scan, list
+    b's window at row b * Lpad with every slot live (the flat phase's
+    reference shape)."""
+    g = flat["gathered"]
+    return {
+        "name": "subchunk_scan", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/scan_core.cuh",
+        "replaces": "raft_tpu/spatial/ann/scan_core.py:211",
+        "entry": "flat_scan_subchunk_min (gathered form)",
+        "launches": flat["launches"] + sq["launches"],
+        "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "shape": g["shape"], "card": flat["card"],
     }
 
 
@@ -917,41 +987,55 @@ def bitwise(fn, plain, args, what):
     return (got - want).abs().max().item()
 
 
-def time_sq(qr, codes_t, bounds, vmin, vscale):
-    """ms of the SQ kernel, its plain version, and the library yardstick
-    (the dequant as torch elementwise ops, then baddbmm of the norm bias
-    minus 2 x the f32 gram and the 8-row amin; timed only)."""
-    from raft_tpu_torch.core.device import full_f32
+def check_sq_lists_kernel(seed, dev):
+    """sq_scan_lists against its plain version: bitwise on dyadic stats
+    with integer queries, within 1e-5 x (qn + yn) on generic stats and
+    Gaussian queries, at query tiles of 8, 24, 64 and two of 40, d = 96
+    (16-byte code copies) and d = 20 (plain loads), with dead slots,
+    empty and full ranges and the clamped tail window. Returns the
+    generic cases' max |kernel - plain| over live slots."""
     from raft_tpu_torch.spatial.ann import sq_kernel as sk
 
+    gen = torch.Generator().manual_seed(seed)
+    n_lists, nq, l_pad, err = 9, 60, 1160, 0.0
+    for d in (DIM, 20):
+        n_rows = 4 * l_pad + 3
+        origins, bounds = list_windows(gen, n_lists, n_rows, l_pad, dev)
+        codes = torch.randint(-128, 128, (n_rows, d), generator=gen,
+                              dtype=torch.int8).to(dev)
+        for dyadic in (True, False):
+            qr, _, vmin, vscale = sq_int_inputs(gen, 1, nq, d, 8, dev, dyadic)
+            queries = torch.cat([qr[0], qr.new_zeros((1, d))])
+            for q in (8, 24, 64, 65):
+                call = (queries, slot_map(gen, n_lists, q, nq, nq, dev), codes,
+                        origins, bounds, l_pad, vmin, vscale)
+                if dyadic:
+                    bitwise(sk.sq_scan_lists, sk.sq_scan_lists_plain, call,
+                            f"sq_scan_lists d={d} Q={q}")
+                else:
+                    err = max(err, compare_lists_to_plain(call))
+    return err
+
+
+def compare_sq_to_plain(args):
+    """sq_scan_subchunk_min (the gathered entry) vs its plain version on
+    generic stats: masked entries equal, valid ones within 1e-5 x (qn +
+    yn). Returns max |kernel - plain|."""
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+
+    qr, codes_t, bounds, vmin, vscale = args
     lb, q, d = qr.shape
-    l_pad = codes_t.shape[2]
-    sets = [(a, b, c, vmin, vscale)
-            for a, b, c in input_copies(qr, codes_t, bounds)]
-    ms = cuda_time_ms(sk.sq_scan_subchunk_min, sets)
-    plain_ms = cuda_time_ms(sk.sq_scan_subchunk_min_plain, sets, iters=10,
-                            warm=1)
-    lib_sets = [(a.float(), (a.float() ** 2).sum(-1)[:, :, None], b)
-                for a, b, _, _, _ in sets]
-    del sets
-
-    @full_f32
-    def library(qf, qn, codes):
-        y = ((codes.float() + 128.0) * vscale[:, None] + vmin[:, None]).to(
-            torch.bfloat16).float()
-        t = torch.baddbmm(qn + (y * y).sum(1)[:, None, :], qf, y, alpha=-2.0)
-        return t.reshape(lb, q, l_pad // 8, 8).amin(-1)
-
-    library_ms = cuda_time_ms(library, lib_sets, iters=10, warm=1)
-    return ms, plain_ms, library_ms
-
-
-def sq_bound(lb, q, d, l_pad):
-    """Each input read once (bf16 queries, int8 slab, bounds, stats),
-    the minima written once; 2 flop per multiply-add at the bf16 rate."""
-    nbytes = (lb * (q * d * 2 + d * l_pad + q * (l_pad // 8) * 4 + 8)
-              + 2 * d * 4)
-    return bound(nbytes, 2.0 * lb * q * l_pad * d, BF16_FLOP_PER_S)
+    got = sk.sq_scan_subchunk_min(*args)
+    want = sk.sq_scan_subchunk_min_plain(*args)
+    y = sk._dequant_tile(codes_t, vmin.reshape(1, d, 1),
+                         vscale.reshape(1, d, 1)).float()
+    qn = (qr.float() ** 2).sum(-1)[:, :, None]
+    yn = (y ** 2).sum(1).reshape(lb, 1, -1, 8).amax(-1)
+    err = (got - want).abs()
+    check(bool((err <= 1e-5 * (qn + yn)).all()),
+          f"sq_scan_subchunk_min {tuple(qr.shape)} x {tuple(codes_t.shape)}: "
+          f"off by {err.max().item()} > 1e-5 x (qn + yn)")
+    return err.max().item()
 
 
 def quantized_phase(kind, args, card, dev, data):
@@ -963,90 +1047,112 @@ def quantized_phase(kind, args, card, dev, data):
     check(kind == "sq", f"quantized_phase runs IVF-SQ, not {kind}")
     x, q_np, true = data
     gen = torch.Generator().manual_seed(args.seed)
-    kmod, fn_name, engine = sk, "sq_scan_subchunk_min", ivf_sq
-    fn, plain = sk.sq_scan_subchunk_min, sk.sq_scan_subchunk_min_plain
-    # bitwise on dyadic and on generic stats, at the path's shape and
-    # a ragged one (Q off the 64-slot tile, Lpad off the 64-row tile)
+    fn_name = "sq_scan_subchunk_min"
+    # the gathered entry: bitwise on dyadic stats (integer queries), within
+    # 1e-5 x (qn + yn) on generic ones, at the old per-block shape and a
+    # ragged one (Q off the 8-slot grain, d off the 16-byte code grain)
     errs = []
     for lb, q, d, l_pad in ((32, 24, DIM, 512), (3, 13, 24, 136)):
         bounds = _bounds(gen, lb, l_pad, dev)
         for dyadic in (True, False):
             qr, codes_t, vmin, vscale = sq_int_inputs(
                 gen, lb, q, d, l_pad, dev, dyadic)
-            errs.append(bitwise(fn, plain,
-                                (qr, codes_t, bounds, vmin, vscale),
-                                f"{fn_name} ({lb},{q},{d},{l_pad}) "
-                                f"dyadic={dyadic}"))
-    log(f"kernel check {fn_name}: bitwise on dyadic and generic stats "
-        "at (32, 24, 96, 512) and (3, 13, 24, 136)")
+            call = (qr, codes_t, bounds, vmin, vscale)
+            if dyadic:
+                errs.append(bitwise(sk.sq_scan_subchunk_min,
+                                    sk.sq_scan_subchunk_min_plain, call,
+                                    f"{fn_name} ({lb},{q},{d},{l_pad})"))
+            else:
+                errs.append(compare_sq_to_plain(call))
+    errs.append(check_sq_lists_kernel(args.seed, dev))
+    log(f"kernel check {fn_name} and sq_scan_lists: bitwise on dyadic "
+        "stats, generic stats within 1e-5 x (qn + yn), max |kernel - "
+        f"plain| {max(errs):.3g} (gathered (32, 24, 96, 512), (3, 13, 24, "
+        "136); lists Q 8/24/64/65, d 96 and 20, dead slots, empty/full/"
+        "tail windows)")
 
     def key(a):
-        # (lists, query slots, d, Lpad) of one launch
-        return tuple(a[0].shape) + (a[1].shape[2],)
+        # (query slots, Lpad) of one launch
+        return (a[1].shape[1], a[5])
 
-    # the main path, with every launch counter at 0 just before it
+    # the main path, with every launch counter at 0 just before it; each
+    # kernel-engine batch and the calls it launched are kept
     rng = np.random.default_rng(args.seed + 2)
     qb = torch.as_tensor(q_np, device=dev)
-    kmod.LAUNCHES = 0
-    engine.ENGINE_FALLBACKS = 0
-    with kernel_calls(kmod, fn_name, key) as shapes:
-        index, qcaps = quantized_path(kind, x, qb, true, rng, card, dev)
-    launches = kmod.LAUNCHES
-    log(f"{kind} path: {fn_name} launched {launches} times, by (LB, Q, "
-        f"width, Lpad): {dict(shapes)}; ENGINE_FALLBACKS "
-        f"{engine.ENGINE_FALLBACKS}")
-    check(launches > 0, f"the {kind} path never launched {fn_name}")
-    check(engine.ENGINE_FALLBACKS == 0,
-          f"{engine.ENGINE_FALLBACKS} {kind} searches left the kernel")
+    sk.LAUNCHES = 0
+    ivf_sq.ENGINE_FALLBACKS = 0
+    keep = []
+    with kernel_calls(sk, "sq_scan_lists", key, keep) as shapes, \
+            path_batches(ivf_sq, "_grouped_impl", keep) as batches:
+        index, _ = quantized_path(kind, x, qb, true, rng, card, dev)
+    launches = sk.LAUNCHES
+    log(f"sq path: sq_scan_lists launched {launches} times, by (Q, Lpad): "
+        f"{dict(shapes)}; ENGINE_FALLBACKS {ivf_sq.ENGINE_FALLBACKS}")
+    check(launches > 0, "the sq path never launched sq_scan_lists")
+    check(ivf_sq.ENGINE_FALLBACKS == 0,
+          f"{ivf_sq.ENGINE_FALLBACKS} sq searches left the kernel")
+    per_batch = collections.Counter(len(c) for _, c in batches)
+    log(f"sq path: {len(batches)} kernel-engine batches, sq_scan_lists "
+        f"launches per batch {dict(per_batch)} (68 per batch before)")
+    check(set(per_batch) == {1} and len(batches) == launches,
+          f"sq launches per batch {dict(per_batch)} (one expected)")
 
-    # the kernel against its plain version on the path's own inputs: every
-    # list block of one batch per bucket, and of the throughput batch
-    by_shape = {}
-    for b in BUCKETS + ("throughput",):
-        nq = QZ_QUERIES if b == "throughput" else b
-        qs = qb[torch.as_tensor(rng.integers(0, QZ_QUERIES, nq), device=dev)]
-        keep = []
-        with kernel_calls(kmod, fn_name, key, keep):
-            ivf_sq.ivf_sq_search_grouped(
-                index, qs, K, n_probes=QZ_PROBES,
-                qcap=b if b == "throughput" else qcaps[b])
-        errs += [bitwise(fn, plain, call, f"{fn_name} on path inputs")
-                 for call in keep]
-        by_shape.setdefault(key(keep[0]), keep[len(keep) // 2])
-        log(f"kernel check {fn_name}, {kind} batch of {nq} (shape "
-            f"{key(keep[0])}): {len(keep)} blocks bitwise equal to the "
-            "plain version")
-    check(set(by_shape) >= set(shapes),
-          f"{kind} path shapes {set(shapes)} not all checked: "
-          f"{set(by_shape)}")
+    # the kernel against its plain version on every launch of the path:
+    # its own query rows, slot maps, in-place codes and windows
+    max_err = max(compare_lists_to_plain(call) for call in keep)
+    log(f"kernel check on the sq path: all {len(keep)} sq_scan_lists calls "
+        "within 1e-5 x (qn + yn) of the plain version, max |kernel - "
+        f"plain| {max_err:.3g}")
+    by_batch = batch_per_key(batches, lambda nq, c: (nq,) + key(c[0]))
+    n_lists = index.centroids.shape[0]
+    del keep, batches
 
     timed = {}
-    for shp, call in sorted(by_shape.items()):
-        ms, plain_ms, library_ms = time_sq(*call)
-        bound_ms, bound_by = sq_bound(*shp)
-        timed[shp] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-        log(f"[{card}] {fn_name} path shape {shp}, {shapes[shp]} launches: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of the bound")
-    shp, _ = shapes.most_common(1)[0]
-    ms, plain_ms, library_ms, bound_ms, bound_by = timed[shp]
+    for (nq, q_, l_pad), (_, (call,), warm) in sorted(by_batch.items()):
+        ms, plain_ms, gathered_ms, library_ms = time_lists(call)
+        bound_ms, bound_by = lists_scan_bound(*call)
+        live_ms, _ = lists_scan_bound(*call, live_only=True)
+        timed[nq, q_, l_pad] = (ms, plain_ms, library_ms, bound_ms, bound_by,
+                                gathered_ms, live_ms)
+        live = int((call[1] < call[0].shape[0] - 1).any(1).sum())
+        log(f"[{card}] sq_scan_lists per batch of {nq}"
+            f"{' (the warmup, all zeros)' if warm else ''} at (lists, Q, d, "
+            f"Lpad) ({n_lists}, {q_}, {DIM}, {l_pad}), {live} lists with a "
+            f"live slot, {shapes[q_, l_pad]} launches at this (Q, Lpad): "
+            f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound, "
+            f"{live_ms / ms:.1%} of the live-minima bound), bound "
+            f"{bound_ms:.5f} ms ({bound_by}), live-minima bound "
+            f"{live_ms:.5f} ms, gathered form {gathered_ms:.4f} ms (32-list "
+            f"gathers + launches), library {library_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+    # the line reports the batch size of the (Q, Lpad) launched most, its
+    # smallest bucket
+    qc, l_pad = shapes.most_common(1)[0][0]
+    nq = min(k[0] for k in timed if k[1:] == (qc, l_pad))
+    ms, plain_ms, library_ms, bound_ms, bound_by, gathered_ms, live_ms = \
+        timed[nq, qc, l_pad]
     return {
         "name": fn_name,
         "route": "cuda",
-        "source": f"raft_tpu_torch/csrc/{kind}_scan.cu",
+        "source": "raft_tpu_torch/csrc/flat_scan.cu",
         "replaces": "raft_tpu/spatial/ann/sq_kernel.py:114",
+        "entry": "sq_scan_lists",
         "launches": launches,
-        "launches_by_shape": {"x".join(map(str, k)): n
-                              for k, n in shapes.items()},
-        "max_abs_err": max(errs),
+        "launches_by_shape": {f"{a}x{b}": n for (a, b), n in shapes.items()},
+        "max_abs_err": max(max(errs), max_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_live_ms": live_ms,
         "library_ms": library_ms,
-        "shape": list(shp),
+        "gathered_ms": gathered_ms,
+        "batch": nq,
+        "shape": [n_lists, qc, DIM, l_pad],
         "card": card,
+        "per_batch": {"x".join(map(str, k[:2])): dict(zip(
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "gathered_ms", "bound_live_ms"), v)) for k, v in timed.items()},
     }
 
 
@@ -2016,6 +2122,47 @@ def time_chunk_mins(q, y, yn, npad, cd, library):
     return ms, plain_ms, lib_ms
 
 
+def time_chunk_mins_bf16_library(q, y, yn):
+    """ms of the bf16 library yardstick of chunk_mins: one cuBLAS bf16
+    product with f32 output (``torch.mm(..., out_dtype=torch.float32)``
+    where this torch has it, else bf16 ``addmm`` with its output upcast),
+    then ``ynorm - 2 g`` in place and the min of each 128-column chunk;
+    the operands are rounded to bf16 outside the timed call. Returns
+    (ms or None when the score matrix does not fit, the call's name)."""
+    m, n = q.shape[0], y.shape[0]
+    full = n // 128
+    sets = [(a.to(torch.bfloat16), b.to(torch.bfloat16), c)
+            for a, b, c in input_copies(q, y, yn)[:2]]
+    try:
+        torch.mm(sets[0][0][:1], sets[0][1][:1].T, out_dtype=torch.float32)
+        name = "torch.mm(out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        name = "addmm(bf16).float()"
+
+    def lib(qb, yb, ynb):
+        if name.startswith("torch.mm"):
+            t = torch.mm(qb, yb.T, out_dtype=torch.float32).mul_(-2.0)
+            t.add_(ynb)
+        else:
+            t = torch.addmm(ynb.to(torch.bfloat16), qb, yb.T,
+                            alpha=-2.0).float()
+        mins = t.as_strided((m, full, 128), (n, 128, 1)).amin(2)
+        if n % 128:
+            mins = torch.cat([mins, t[:, full * 128:].amin(1, keepdim=True)],
+                             1)
+        return mins
+
+    try:
+        ms = cuda_time_ms(lib, sets, iters=3, warm=1)
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"chunk_mins bf16 library yardstick at ({m}, {n}): out of device "
+            f"memory ({str(e).splitlines()[0]})")
+        ms = None
+    del sets
+    torch.cuda.empty_cache()
+    return ms, name
+
+
 def chunk_mins_bound(m, n, d, npad, itemsize, cd):
     nbytes = m * d * 4 + n * d * itemsize + n * 4 + m * (npad // 128) * 4
     rate = BF16_FLOP_PER_S if cd == "bfloat16" else FP32_FLOP_PER_S
@@ -2115,6 +2262,26 @@ def brute_force_phase(args, card, dev):
             f"bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.1%} of the bound")
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed[cm_key]
+    # bf16 compute (the tensor-core kernel) at both bf16 batches
+    bf16 = {}
+    for label, key in (("sift_10k", (SIFT_QUERIES, SIFT_ROWS, SIFT_DIM,
+                                     "float32", "bfloat16")),
+                       ("wide", (WIDE_QUERIES, WIDE_ROWS // 2, WIDE_DIM,
+                                 "bfloat16", "bfloat16"))):
+        q, y, yn, npad_k, cd = keep[("chunk_mins", key)]
+        kms, kplain, _ = time_chunk_mins(q, y, yn, npad_k, cd, library=False)
+        klib, lib_name = time_chunk_mins_bf16_library(q, y, yn)
+        kb, kby = chunk_mins_bound(*key[:3], npad_k, y.element_size(), key[4])
+        bf16[label] = {"shape": list(key),
+                       "launches": shapes["chunk_mins"][key], "ms": kms,
+                       "plain_ms": kplain, "library_ms": klib,
+                       "library_call": lib_name, "bound_ms": kb,
+                       "bound_by": kby}
+        log(f"[{card}] chunk_mins bf16 compute {key}, "
+            f"{shapes['chunk_mins'][key]} launches: kernel {kms:.4f} ms "
+            f"({kb / kms:.1%} of the bound), plain {kplain:.4f} ms, library "
+            f"({lib_name}) {klib if klib is None else f'{klib:.4f}'} ms, "
+            f"bound {kb:.4f} ms ({kby})")
     out.append({
         "name": "chunk_mins", "route": "cuda",
         "source": "raft_tpu_torch/csrc/fused_knn.cu",
@@ -2128,6 +2295,7 @@ def brute_force_phase(args, card, dev):
         "sift_10k": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by"), timed[
             (SIFT_QUERIES, SIFT_ROWS, SIFT_DIM, "float32", "float32")])),
+        "bf16": bf16,
     })
 
     (rs_key, _), = shapes["rescore_scores"].most_common(1)
@@ -2205,6 +2373,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)
+    kernels.insert(0, subchunk_scan_entry(kernels[0], kernels[1]))
     log(f"IVF-SQ and IVF-PQ phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     kernels.append(graph_phase(args, card, dev, data))
@@ -2213,6 +2382,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    check(len(kernels) == 8 and all(keys <= set(k) for k in kernels),
+          "the kernels line needs all eight kernels with every key")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

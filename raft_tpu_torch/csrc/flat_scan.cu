@@ -1,7 +1,9 @@
-// Flat sub-chunk-min scan for Hopper (sm_90a), on the tensor cores.
+// Flat and IVF-SQ sub-chunk-min scans for Hopper (sm_90a), on the tensor
+// cores.
 //
-// Replaces the TPU kernel flat_scan_subchunk_min
-// (raft_tpu/spatial/ann/flat_kernel.py:115), which runs through the shared
+// Replaces the TPU kernels flat_scan_subchunk_min
+// (raft_tpu/spatial/ann/flat_kernel.py:115) and sq_scan_subchunk_min
+// (raft_tpu/spatial/ann/sq_kernel.py:114), which run through the shared
 // Pallas scan scan_core.subchunk_scan (raft_tpu/spatial/ann/scan_core.py:211).
 //
 // One launch scans every list of a grouped-search batch. For list b, query
@@ -47,10 +49,26 @@
 //     leave as one coalesced write per query slot.
 // Widths off the 16-byte grain (d % 8 != 0) load rows with plain loads.
 //
+// IVF-SQ (raft_sq_scan_lists) is the same kernel with an int8 row loader:
+// rows are the index's int8 codes, read in place at one byte per element
+// (the bytes the scan must move fall by half) and dequantized into the bf16
+// stage as y = bf16((code + 128) * vscale + vmin), the multiply and the add
+// each rounded on its own (__fmul_rn, __fadd_rn), as sq_kernel._dequant_tile
+// of the port rounds them; vmin and vscale stay in shared memory for the
+// block. With d % 16 == 0 a tile's codes land in a raw int8 stage by 16-byte
+// cp.async, and each thread dequantizes the units it copied itself (so no
+// barrier sits between the copy and the dequant); other widths load codes
+// with plain loads and dequantize them as they are stored. Everything after
+// the stage is the flat scan's.
+//
 // nvcc -Xptxas -v (sm_90a, CUDA 12.8): 48 registers at NT 1-3, 56 at NT 4,
 // 71-72 at NT 5-8, no spills but 8-16 bytes at NT 7-8 with 16-byte copies;
 // one barrier; 57 KB of dynamic shared memory at d = 96 and 64 slots, so
-// four blocks share an SM.
+// four blocks share an SM. The SQ loader: 40-72 registers, 4-12 bytes of
+// spills at NT 3, 7 and 8 with 16-byte copies (tools/inspect_build.py), one
+// more barrier (the stats), 70 KB at d = 96 and 64 slots (three blocks).
+
+#include <type_traits>
 
 #include "scan_core.cuh"
 
@@ -77,6 +95,29 @@ __host__ __device__ inline size_t smem_bytes(int d, int q_tile) {
   // query and row norms (f32) and the slot ids
   return 2 * (size_t)row_stride(d) * (q_tile + 2 * kTileRows) +
          4 * ((size_t)q_tile * kGroupSubs + q_tile + kTileRows + q_tile);
+}
+
+// Query slots per block for Q slots: round_up(ceil(Q / tiles), 8) over the
+// fewest tiles of at most 64 slots.
+inline int q_tile_of(int q_slots) {
+  if (q_slots < 1) return 0;
+  const int tiles = (q_slots + 8 * kMaxNT - 1) / (8 * kMaxNT);
+  return ((q_slots + tiles - 1) / tiles + 7) / 8 * 8;
+}
+
+__host__ __device__ inline size_t round16(size_t v) { return (v + 15) / 16 * 16; }
+
+// The SQ loader's extra shared memory after the flat layout: vmin and
+// vscale (f32), then two raw int8 row stages.
+__host__ __device__ inline size_t sq_smem_bytes(int d, int q_tile) {
+  return smem_bytes(d, q_tile) + round16(8 * (size_t)d) +
+         2 * kTileRows * round16((size_t)d);
+}
+
+__device__ __forceinline__ __nv_bfloat16 dequant(int code, float vmin,
+                                                 float vscale) {
+  return __float2bfloat16_rn(__fadd_rn(
+      __fmul_rn(__fadd_rn(static_cast<float>(code), 128.f), vscale), vmin));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -121,13 +162,18 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int NT, bool kVec>
+// kVec: 16-byte copies of rows (bf16 rows with d % 8 == 0, int8 codes with
+// d % 16 == 0, 16-byte aligned). kInt8: rows are int8 codes dequantized by
+// params (vmin[d] then vscale[d]); otherwise bf16 rows and params unused.
+template <int NT, bool kVec, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
                   const int32_t* __restrict__ qmat,
-                  const __nv_bfloat16* __restrict__ rows,
+                  const std::conditional_t<kInt8, int8_t, __nv_bfloat16>*
+                      __restrict__ rows,
                   const int32_t* __restrict__ origins,
-                  const int32_t* __restrict__ bounds, float* __restrict__ out,
+                  const int32_t* __restrict__ bounds,
+                  const float* __restrict__ params, float* __restrict__ out,
                   int q_slots, int n_ids, int d, int l_pad) {
   constexpr int QT = NT * 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -139,6 +185,10 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
   float* sqn = smin + QT * kGroupSubs;            // [QT]
   float* syn = sqn + QT;                          // [kTileRows]
   int* sid = reinterpret_cast<int*>(syn + kTileRows);  // [QT]
+  // SQ only: vmin then vscale, then the raw code stages [2][kTileRows][d]
+  float* sprm = reinterpret_cast<float*>(smem + smem_bytes(d, QT));
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + smem_bytes(d, QT) +
+                                          round16(8 * (size_t)d));
 
   const int b = blockIdx.z;
   const int q0 = blockIdx.y * QT;
@@ -175,12 +225,24 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
   const long long org = origins[b];
   const int tb = (r_beg - g0) / kTileRows;
   const int te = (r_end - 1 - g0) / kTileRows + 1;
+  if constexpr (kInt8) {
+    for (int i = t; i < 2 * d; i += kThreads) sprm[i] = params[i];
+    __syncthreads();
+  }
 
   auto load_tile = [&](int tt, int buf) {
     const int l0 = g0 + tt * kTileRows;
     __nv_bfloat16* dst = sy + buf * kTileRows * st;
-    const __nv_bfloat16* src = rows + (org + l0) * d;
-    if constexpr (kVec) {
+    const auto* src = rows + (org + l0) * d;
+    if constexpr (kVec && kInt8) {
+      const int cpr = d / 16;
+      int8_t* rdst = raw + buf * kTileRows * d;
+      for (int i = t; i < kTileRows * cpr; i += kThreads) {
+        const int r = i / cpr;
+        if (l0 + r < l_pad) cp_async16(rdst + i * 16, src + (long long)i * 16);
+      }
+      cp_async_commit();
+    } else if constexpr (kVec) {
       const int cpr = d / 8;
       for (int i = t; i < kTileRows * cpr; i += kThreads) {
         const int r = i / cpr, c = i - r * cpr;
@@ -192,7 +254,43 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
     } else {
       for (int i = t; i < kTileRows * d; i += kThreads) {
         const int r = i / d, c = i - r * d;
-        if (l0 + r < l_pad) dst[r * st + c] = src[(long long)r * d + c];
+        if (l0 + r < l_pad) {
+          if constexpr (kInt8) {
+            dst[r * st + c] = dequant(src[(long long)r * d + c], sprm[c],
+                                      sprm[d + c]);
+          } else {
+            dst[r * st + c] = src[(long long)r * d + c];
+          }
+        }
+      }
+    }
+  };
+  // SQ with 16-byte copies: dequantize the raw units this thread copied
+  // (its own cp.async groups have landed) into the bf16 stage
+  auto land_tile = [&](int tt, int buf) {
+    if constexpr (kVec && kInt8) {
+      const int l0 = g0 + tt * kTileRows;
+      const int cpr = d / 16;
+      const int8_t* rsrc = raw + buf * kTileRows * d;
+      __nv_bfloat16* dst = sy + buf * kTileRows * st;
+      for (int i = t; i < kTileRows * cpr; i += kThreads) {
+        const int r = i / cpr, c = i - r * cpr;
+        if (l0 + r >= l_pad) continue;
+        const int4 w = *reinterpret_cast<const int4*>(rsrc + i * 16);
+        const int8_t* cb = reinterpret_cast<const int8_t*>(&w);
+        uint32_t packed[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int f = c * 16 + 2 * e;
+          const __nv_bfloat16 lo = dequant(cb[2 * e], sprm[f], sprm[d + f]);
+          const __nv_bfloat16 hi =
+              dequant(cb[2 * e + 1], sprm[f + 1], sprm[d + f + 1]);
+          packed[e] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+                      (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+        }
+        uint4* out4 = reinterpret_cast<uint4*>(dst + r * st + c * 16);
+        out4[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        out4[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
       }
     }
   };
@@ -239,6 +337,7 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
     } else if constexpr (kVec) {
       cp_async_wait<0>();
     }
+    land_tile(tt, buf);
     __syncthreads();  // tile tt landed; the query norms are visible
     const __nv_bfloat16* ys = sy + buf * kTileRows * st;
     if (t < kTileRows) {
@@ -304,33 +403,36 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
   }
 }
 
-template <int NT, bool kVec>
+template <int NT, bool kVec, bool kInt8>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const void* queries, const void* qmat, const void* rows,
-                   const void* origins, const void* bounds, void* out,
-                   int q_slots, int n_ids, int d, int l_pad) {
-  auto kernel = flat_lists_kernel<NT, kVec>;
+                   const void* origins, const void* bounds, const void* params,
+                   void* out, int q_slots, int n_ids, int d, int l_pad) {
+  auto kernel = flat_lists_kernel<NT, kVec, kInt8>;
+  using Row = std::conditional_t<kInt8, int8_t, __nv_bfloat16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(queries),
-      static_cast<const int32_t*>(qmat),
-      static_cast<const __nv_bfloat16*>(rows),
+      static_cast<const int32_t*>(qmat), static_cast<const Row*>(rows),
       static_cast<const int32_t*>(origins), static_cast<const int32_t*>(bounds),
-      static_cast<float*>(out), q_slots, n_ids, d, l_pad);
+      static_cast<const float*>(params), static_cast<float*>(out), q_slots,
+      n_ids, d, l_pad);
   return cudaGetLastError();
 }
 
-template <bool kVec>
+template <bool kVec, bool kInt8>
 cudaError_t launch_nt(int nt, dim3 grid, size_t smem, cudaStream_t stream,
                       const void* queries, const void* qmat, const void* rows,
-                      const void* origins, const void* bounds, void* out,
-                      int q_slots, int n_ids, int d, int l_pad) {
-#define RAFT_FLAT_NT(N)                                                       \
-  case N:                                                                     \
-    return launch<N, kVec>(grid, smem, stream, queries, qmat, rows, origins, \
-                           bounds, out, q_slots, n_ids, d, l_pad);
+                      const void* origins, const void* bounds,
+                      const void* params, void* out, int q_slots, int n_ids,
+                      int d, int l_pad) {
+#define RAFT_FLAT_NT(N)                                                    \
+  case N:                                                                  \
+    return launch<N, kVec, kInt8>(grid, smem, stream, queries, qmat, rows, \
+                                  origins, bounds, params, out, q_slots,   \
+                                  n_ids, d, l_pad);
   switch (nt) {
     RAFT_FLAT_NT(1)
     RAFT_FLAT_NT(2)
@@ -346,23 +448,52 @@ cudaError_t launch_nt(int nt, dim3 grid, size_t smem, cudaStream_t stream,
 #undef RAFT_FLAT_NT
 }
 
+// The launch both entries share: checks, grid, and the 16-byte-copy
+// choice (bf16 rows: d % 8 == 0; int8 codes: d % 16 == 0; aligned rows).
+template <bool kInt8>
+int launch_lists(const void* queries, const void* qmat, const void* rows,
+                 const void* origins, const void* bounds, const void* params,
+                 void* out, int n_lists, int q_slots, int n_ids, int d,
+                 int l_pad, void* stream) {
+  if (n_lists < 1 || q_slots < 1 || d < 1 || l_pad < kSub || l_pad % kSub) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int q_tile = q_tile_of(q_slots);
+  const int q_tiles = (q_slots + q_tile - 1) / q_tile;
+  if (n_lists > scan_core::kMaxGridYZ || q_tiles > scan_core::kMaxGridYZ) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const size_t smem = kInt8 ? sq_smem_bytes(d, q_tile) : smem_bytes(d, q_tile);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((l_pad + kGroupRows - 1) / kGroupRows, q_tiles, n_lists);
+  const bool vec = d % (kInt8 ? 16 : 8) == 0 &&
+                   reinterpret_cast<uintptr_t>(rows) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nt = q_tile / 8;
+  return (int)(vec ? launch_nt<true, kInt8>(nt, grid, smem, s, queries, qmat,
+                                            rows, origins, bounds, params, out,
+                                            q_slots, n_ids, d, l_pad)
+                   : launch_nt<false, kInt8>(nt, grid, smem, s, queries, qmat,
+                                             rows, origins, bounds, params,
+                                             out, q_slots, n_ids, d, l_pad));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Query slots per block for Q slots: round_up(ceil(Q / tiles), 8) over the
-// fewest tiles of at most 64 slots.
-int raft_flat_scan_q_tile(int q_slots) {
-  if (q_slots < 1) return 0;
-  const int tiles = (q_slots + 8 * kMaxNT - 1) / (8 * kMaxNT);
-  const int per = (q_slots + tiles - 1) / tiles;
-  return (per + 7) / 8 * 8;
-}
+// Query slots per block for Q slots (q_tile_of).
+int raft_flat_scan_q_tile(int q_slots) { return q_tile_of(q_slots); }
 
 // Dynamic shared memory one block needs at feature width d and a query tile
 // of q_tile slots.
 long long raft_flat_scan_smem_bytes(int d, int q_tile) {
   return (long long)smem_bytes(d, q_tile);
+}
+
+// Dynamic shared memory one SQ block needs at width d and q_tile slots.
+long long raft_sq_scan_smem_bytes(int d, int q_tile) {
+  return (long long)sq_smem_bytes(d, q_tile);
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
@@ -377,26 +508,19 @@ int raft_flat_scan_lists(const void* queries, const void* qmat,
                          const void* bounds, void* out, int n_lists,
                          int q_slots, int n_ids, int d, int l_pad,
                          void* stream) {
-  if (n_lists < 1 || q_slots < 1 || d < 1 || l_pad < kSub || l_pad % kSub) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int q_tile = raft_flat_scan_q_tile(q_slots);
-  const int q_tiles = (q_slots + q_tile - 1) / q_tile;
-  if (n_lists > scan_core::kMaxGridYZ || q_tiles > scan_core::kMaxGridYZ) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
-  const size_t smem = smem_bytes(d, q_tile);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const dim3 grid((l_pad + kGroupRows - 1) / kGroupRows, q_tiles, n_lists);
-  const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = q_tile / 8;
-  return (int)(vec ? launch_nt<true>(nt, grid, smem, s, queries, qmat, rows,
-                                     origins, bounds, out, q_slots, n_ids, d,
-                                     l_pad)
-                   : launch_nt<false>(nt, grid, smem, s, queries, qmat, rows,
-                                      origins, bounds, out, q_slots, n_ids, d,
-                                      l_pad));
+  return launch_lists<false>(queries, qmat, rows, origins, bounds, nullptr,
+                             out, n_lists, q_slots, n_ids, d, l_pad, stream);
+}
+
+// The IVF-SQ scan: as raft_flat_scan_lists, with rows (*, d) the int8
+// codes and params (2, d) f32 contiguous, vmin then vscale.
+int raft_sq_scan_lists(const void* queries, const void* qmat,
+                       const void* codes, const void* origins,
+                       const void* bounds, const void* params, void* out,
+                       int n_lists, int q_slots, int n_ids, int d, int l_pad,
+                       void* stream) {
+  return launch_lists<true>(queries, qmat, codes, origins, bounds, params, out,
+                            n_lists, q_slots, n_ids, d, l_pad, stream);
 }
 
 const char* raft_cuda_error_string(int err) {

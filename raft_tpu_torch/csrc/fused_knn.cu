@@ -26,8 +26,41 @@
 // memory in 16-wide slices (any d, up to the 4096 of fused_knn_supported),
 // with the next slice's global loads in flight during the current slice's
 // FMAs. Consecutive blocks share one index chunk, so the index is read from
-// device memory about once and the queries stay in L2. wgmma is left for a
-// later version.
+// device memory about once and the queries stay in L2. This kernel serves
+// f32 compute only.
+//
+// Phase 1 with bf16 compute (chunk_mins_tc_kernel) runs on the tensor cores:
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, index rows on M,
+// queries on N, the feature axis on K, with the fragment and ldmatrix code
+// of flat_scan.cu. Its bound at the SIFT shape is 2.6 ms of bf16 tensor
+// work (2.56 TFLOP at 989 TFLOP/s); at 1,024 x 1M x 768 it is 1.6 ms.
+//   * Block tile: 128 queries x 128 index rows (one chunk), 8 warps as 2 row
+//     halves x 4 query quarters, each warp 64 rows x 32 queries (4 x 4
+//     mma tiles, 64 f32 sums a thread). A block walks 8 consecutive chunks
+//     with the same query tile, so its 128 x 8 minima leave as one
+//     coalesced store (32 bytes a query) and the grid is 8x smaller than
+//     the routing count _grid_steps. Chosen over a larger tile because a
+//     128 x 128 tile keeps the sums at 64 registers a thread (123-162
+//     registers in all, no spills), but at 128 x 128 x 32 the block reads
+//     16 KB (bf16) to 32 KB (f32 operands) a slice for 1 MFLOP, so L2
+//     bandwidth, not the tensor cores, bounds it.
+//   * Up to d = 320 the query tile is rounded to bf16 once and stays in
+//     shared memory for the block's 8 chunks, which halves the L2 traffic
+//     of an f32 batch; wider tiles stream like the index (kTcResidentMax).
+//   * The feature axis streams through two shared-memory stages of 32
+//     features (bf16 rows padded to 40 elements, 5 16-byte units, so
+//     ldmatrix reads them without bank conflicts). The slice after the
+//     current one is in flight during its mma: a bf16 index with d % 8 == 0
+//     is copied with 16-byte cp.async; f32 operands (an f32 index, streamed
+//     queries) are loaded into registers, rounded with __float2bfloat16_rn
+//     and stored into the other stage after the mma.
+//   * Epilogue per chunk: ynorm - 2 * dot in the plain version's order, the
+//     min of each query column over the warp's 64 rows by a butterfly over
+//     the 8 lanes that hold it, then across the two row halves in shared
+//     memory. Chunks wholly past n are written BIG without work.
+// bf16 products are exact in f32 and integer partial sums are exact, so on
+// integer inputs the result equals the plain version's bit for bit; on
+// others it differs by the f32 summation order only.
 //
 // Phase 2 computes, for every query i and candidate slot j, the score of
 // each of the 128 contiguous rows of chunk cids[i, j]:
@@ -71,7 +104,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));  // round to nearest even
 }
 
-// T: storage type of the index; kBf16: round both operands to bf16.
+// T: storage type of the index; kBf16: round both operands to bf16 (only
+// false is launched: bf16 compute runs chunk_mins_tc_kernel).
 template <typename T, bool kBf16>
 __global__ void __launch_bounds__(kThreads1, 2)
 chunk_mins_kernel(const float* __restrict__ q, const T* __restrict__ y,
@@ -176,6 +210,310 @@ chunk_mins_kernel(const float* __restrict__ q, const T* __restrict__ y,
 #pragma unroll
     for (int w = 1; w < kThreads1 / 32; ++w) v = fminf(v, red[w][t]);
     out[(long long)(q0 + t) * n_chunks + chunk] = v;
+  }
+}
+
+// ---- phase 1, bf16 compute, on the tensor cores ----
+constexpr int kTcQ = 128;          // queries per block
+constexpr int kTcK = 32;           // feature slice per stage
+constexpr int kTcChunks = 8;       // chunks per block (one coalesced store)
+constexpr int kTcThreads = 256;    // 8 warps: 2 row halves x 4 query quarters
+constexpr int kTcStride = kTcK + 8;  // bf16 per shared row: 5 16-byte units
+constexpr int kTcUnits = kChunk * kTcK / 8 / kTcThreads;  // 8-element units a thread loads per operand
+// The most shared memory a block may take to keep its query tile resident:
+// two blocks an SM (228 KB, 1 KB reserved a block), so d <= 320. Past it
+// the query slices stream (H100, 700 W: at d = 768 one resident block an SM
+// ran 9.9 ms against 8.1 ms streamed; at d = 128 resident 14.5 ms against
+// 21.2 ms streamed; tools/time_chunk_mins.py).
+constexpr size_t kTcResidentMax = 115712;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, rows x k) * b (16 x 8, k x queries), f32 accumulate
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Eight consecutive elements from p as f32, the first `rem` of them read
+// (16-byte loads when vec and all eight are there), the rest zero.
+__device__ __forceinline__ void load8(const float* p, int rem, bool vec,
+                                      float (&v)[8]) {
+  if (vec && rem >= 8) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < rem ? p[e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int rem,
+                                      bool vec, float (&v)[8]) {
+  if (vec && rem >= 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < rem ? __bfloat162float(p[e]) : 0.f;
+  }
+}
+
+// Round eight f32 values to bf16 (nearest even) and store them as 16 bytes.
+__device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
+                                            const float (&v)[8]) {
+  uint4 w;
+  uint32_t* u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    u[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = w;
+}
+
+// Shared memory of chunk_mins_tc_kernel: two index stages, the row-half
+// minima and the block's chunk minima, then the query tile: resident
+// (kTcQ rows of tc_q_stride(d) bf16) or two stages like the index's.
+constexpr size_t kTcBase = 2 * kChunk * kTcStride * 2 + 4 * 2 * kTcQ +
+                           4 * kTcQ * kTcChunks;
+
+__host__ __device__ inline int tc_q_stride(int d) {
+  return (d + kTcK - 1) / kTcK * kTcK + 8;  // an odd number of 16-byte units
+}
+
+inline size_t tc_smem_bytes(int d, bool resident) {
+  return kTcBase + 2 * (size_t)kTcQ *
+                       (resident ? tc_q_stride(d) : 2 * kTcStride);
+}
+
+// T: storage type of the index. kAsync: the index is bf16 with d % 8 == 0
+// and 16-byte aligned rows, copied into the stage with cp.async. kQRes:
+// the block's query tile is rounded to bf16 once and stays in shared
+// memory for all its chunks (only the index streams); otherwise the query
+// slices stream through two stages beside the index's.
+template <typename T, bool kAsync, bool kQRes>
+__global__ void __launch_bounds__(kTcThreads)
+chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
+                     const float* __restrict__ ynorm, float* __restrict__ out,
+                     int m, long long n, int d, long long n_chunks,
+                     int q_tiles, bool vec_q, bool vec_y) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  auto sy = reinterpret_cast<__nv_bfloat16(*)[kChunk * kTcStride]>(tc_smem);
+  auto red = reinterpret_cast<float(*)[kTcQ]>(tc_smem +
+                                              2 * kChunk * kTcStride * 2);
+  float* cmin = &red[2][0];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(tc_smem + kTcBase);
+  const int qst = kQRes ? tc_q_stride(d) : kTcStride;  // query row stride
+
+  const long long grp = blockIdx.x / q_tiles;
+  const int q0 = (int)(blockIdx.x - grp * q_tiles) * kTcQ;
+  const long long c0 = grp * kTcChunks;
+  const int t = threadIdx.x;
+  // chunks this block writes, and those that hold a row < n
+  const int n_out = (int)min((long long)kTcChunks, n_chunks - c0);
+  const long long left = n - c0 * kChunk;
+  const int n_live =
+      left > 0 ? (int)min((long long)n_out, (left + kChunk - 1) / kChunk) : 0;
+
+  for (int i = t; i < kTcQ * kTcChunks; i += kTcThreads) cmin[i] = kBig;
+
+  if (n_live > 0) {
+    const int nks = (d + kTcK - 1) / kTcK;
+    const int steps = n_live * nks;
+    const int warp = t >> 5, lane = t & 31;
+    const int wr = warp & 1, wq = warp >> 1;
+    const int g = lane >> 2, tq = lane & 3;
+    // ldmatrix row addresses: A (16 rows x 16 k) from the index stage, B
+    // (16 queries x 16 k, two n-tiles) from the query stage
+    const int a_off = (wr * 64 + (lane & 15)) * kTcStride + (lane >> 4) * 8;
+    const int b_off = (wq * 32 + (lane & 7) + ((lane >> 4) << 3)) * qst +
+                      ((lane >> 3) & 1) * 8;
+
+    if constexpr (kQRes) {  // the query tile, once (visible after the loop's first barrier)
+      const int groups = (qst - 8) / 8;
+      for (int u = t; u < kTcQ * groups; u += kTcThreads) {
+        const int r = u / groups;
+        const int k = 8 * (u - r * groups);
+        const int qq = q0 + r;
+        float v[8];
+        load8(qq < m ? q + (long long)qq * d + k : q, qq < m ? d - k : 0,
+              vec_q, v);
+        store8_bf16(&sq[r * qst + k], v);
+      }
+    }
+
+    float pq[kTcUnits][8], py[kTcUnits][8];
+    // global loads of step s into registers (the index too unless kAsync)
+    auto fetch = [&](int s) {
+      const int cc = s / nks;
+      const int k0 = (s - cc * nks) * kTcK;
+      const long long r0 = (c0 + cc) * kChunk;
+#pragma unroll
+      for (int h = 0; h < kTcUnits; ++h) {
+        const int u = t + h * kTcThreads;
+        const int r = u >> 2;
+        const int k = k0 + 8 * (u & 3);
+        if constexpr (!kQRes) {
+          const int qq = q0 + r;
+          load8(qq < m ? q + (long long)qq * d + k : q, qq < m ? d - k : 0,
+                vec_q, pq[h]);
+        }
+        if constexpr (!kAsync) {
+          const long long row = r0 + r;
+          load8(row < n ? y + row * d + k : y, row < n ? d - k : 0, vec_y,
+                py[h]);
+        }
+      }
+    };
+    // the index slice of step s copied into stage buf with cp.async
+    auto copy_y = [&](int s, int buf) {
+      const int cc = s / nks;
+      const int k0 = (s - cc * nks) * kTcK;
+      const long long r0 = (c0 + cc) * kChunk;
+#pragma unroll
+      for (int h = 0; h < kTcUnits; ++h) {
+        const int u = t + h * kTcThreads;
+        const int r = u >> 2;
+        const int k = k0 + 8 * (u & 3);
+        __nv_bfloat16* dst = &sy[buf][r * kTcStride + 8 * (u & 3)];
+        if (r0 + r < n && k < d) {
+          cp_async16(dst, y + (r0 + r) * d + k);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    auto store = [&](int buf) {
+#pragma unroll
+      for (int h = 0; h < kTcUnits; ++h) {
+        const int u = t + h * kTcThreads;
+        const int off = (u >> 2) * kTcStride + 8 * (u & 3);
+        if constexpr (!kQRes) store8_bf16(&sq[buf * kTcQ * kTcStride + off], pq[h]);
+        if constexpr (!kAsync) store8_bf16(&sy[buf][off], py[h]);
+      }
+    };
+
+    fetch(0);
+    if constexpr (kAsync) copy_y(0, 0);
+    store(0);
+
+    float acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    for (int s = 0; s < steps; ++s) {
+      const int buf = s & 1;
+      const bool more = s + 1 < steps;
+      if (more) fetch(s + 1);  // in flight during this step's mma
+      if constexpr (kAsync) asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();  // stage s landed; the other stage is free
+      if constexpr (kAsync) {
+        if (more) copy_y(s + 1, buf ^ 1);
+      }
+      const int cc = s / nks;
+      const int k0 = (s - cc * nks) * kTcK;
+      const int ksteps = min(kTcK / 16, (d - k0 + 15) / 16);
+      const __nv_bfloat16* ys = sy[buf];
+      const __nv_bfloat16* qs = kQRes ? sq + k0 : sq + buf * kTcQ * kTcStride;
+      for (int kk = 0; kk < ksteps; ++kk) {
+        uint32_t a[4][4], b[2][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ldmatrix_x4(a[i], ys + a_off + i * 16 * kTcStride + kk * 16);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          ldmatrix_x4(b[jj], qs + b_off + jj * 16 * qst + kk * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_16816(acc[i][j], a[i][0], a[i][1], a[i][2], a[i][3],
+                      b[j >> 1][2 * (j & 1)], b[j >> 1][2 * (j & 1) + 1]);
+      }
+      if (more) store(buf ^ 1);
+
+      if (k0 + kTcK >= d) {  // the chunk's last slice: its minima
+        const long long r0 = (c0 + cc) * kChunk + wr * 64 + g;
+        float mn[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mn[j][0] = mn[j][1] = __int_as_float(0x7f800000);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // accumulator rows g and g + 8
+            const long long row = r0 + i * 16 + h * 8;
+            const bool valid = row < n;
+            const float yn = valid ? ynorm[row] : 0.f;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int p = 0; p < 2; ++p) {
+                const float sc = valid ? yn - 2.f * acc[i][j][2 * h + p] : kBig;
+                mn[j][p] = fminf(mn[j][p], sc);
+                acc[i][j][2 * h + p] = 0.f;
+              }
+          }
+        }
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              mn[j][p] = fminf(mn[j][p], __shfl_xor_sync(0xffffffffu, mn[j][p], o));
+        if (g == 0) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+              red[wr][wq * 32 + j * 8 + 2 * tq + p] = mn[j][p];
+        }
+        __syncthreads();
+        if (t < kTcQ) cmin[t * kTcChunks + cc] = fminf(red[0][t], red[1][t]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < kTcQ * n_out; i += kTcThreads) {
+    const int s = i / n_out, j = i - s * n_out;
+    if (q0 + s < m) {
+      out[(long long)(q0 + s) * n_chunks + c0 + j] = cmin[s * kTcChunks + j];
+    }
   }
 }
 
@@ -286,7 +624,9 @@ extern "C" {
 
 // q (m, d) f32; y (n, d) f32 (y_bf16 = 0) or bf16 (y_bf16 = 1); ynorm (n,)
 // f32; out (m, n_chunks) f32, n_chunks * 128 >= n. bf16_compute rounds both
-// operands to bf16. One block per (128-query tile, chunk), chunk-major.
+// operands to bf16 and runs chunk_mins_tc_kernel on the tensor cores: one
+// block per (128-query tile, 8 chunks), chunk-major. f32 compute runs
+// chunk_mins_kernel: one block per (128-query tile, chunk), chunk-major.
 int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
                           void* out, int m, long long n, int d,
                           long long n_chunks, int y_bf16, int bf16_compute,
@@ -295,31 +635,54 @@ int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
     return (int)cudaErrorInvalidValue;
   }
   const int q_tiles = (m + kQTile - 1) / kQTile;
-  const long long blocks = (long long)q_tiles * n_chunks;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks);
   cudaStream_t s = (cudaStream_t)stream;
   const float* qf = static_cast<const float*>(q);
   const float* yn = static_cast<const float*>(ynorm);
   float* o = static_cast<float*>(out);
+  if (bf16_compute) {
+    const long long groups = (n_chunks + kTcChunks - 1) / kTcChunks;
+    const long long blocks = (long long)q_tiles * groups;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const bool vec_q = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    const bool aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0;
+    const bool resident = tc_smem_bytes(d, true) <= kTcResidentMax;
+    const size_t smem = tc_smem_bytes(d, resident);
+    cudaError_t err = cudaSuccess;
+#define RAFT_TC_LAUNCH(T, A, R, VY)                                           \
+  do {                                                                        \
+    err = cudaFuncSetAttribute(chunk_mins_tc_kernel<T, A, R>,                 \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                               (int)smem);                                    \
+    if (err != cudaSuccess) return (int)err;                                  \
+    chunk_mins_tc_kernel<T, A, R><<<(unsigned)blocks, kTcThreads, smem, s>>>( \
+        qf, static_cast<const T*>(y), yn, o, m, n, d, n_chunks, q_tiles,      \
+        vec_q, VY);                                                           \
+  } while (0)
+#define RAFT_TC_RES(T, A, VY)                \
+  do {                                       \
+    if (resident) RAFT_TC_LAUNCH(T, A, true, VY);  \
+    else RAFT_TC_LAUNCH(T, A, false, VY);    \
+  } while (0)
+    if (y_bf16) {
+      if (d % 8 == 0 && aligned) RAFT_TC_RES(__nv_bfloat16, true, true);
+      else RAFT_TC_RES(__nv_bfloat16, false, false);
+    } else {
+      RAFT_TC_RES(float, false, d % 4 == 0 && aligned);
+    }
+#undef RAFT_TC_RES
+#undef RAFT_TC_LAUNCH
+    return (int)cudaGetLastError();
+  }
+  const long long blocks = (long long)q_tiles * n_chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks);
   if (y_bf16) {
-    const __nv_bfloat16* yb = static_cast<const __nv_bfloat16*>(y);
-    if (bf16_compute) {
-      chunk_mins_kernel<__nv_bfloat16, true><<<grid, kThreads1, 0, s>>>(
-          qf, yb, yn, o, m, n, d, n_chunks, q_tiles);
-    } else {
-      chunk_mins_kernel<__nv_bfloat16, false><<<grid, kThreads1, 0, s>>>(
-          qf, yb, yn, o, m, n, d, n_chunks, q_tiles);
-    }
+    chunk_mins_kernel<__nv_bfloat16, false><<<grid, kThreads1, 0, s>>>(
+        qf, static_cast<const __nv_bfloat16*>(y), yn, o, m, n, d, n_chunks,
+        q_tiles);
   } else {
-    const float* yf = static_cast<const float*>(y);
-    if (bf16_compute) {
-      chunk_mins_kernel<float, true><<<grid, kThreads1, 0, s>>>(
-          qf, yf, yn, o, m, n, d, n_chunks, q_tiles);
-    } else {
-      chunk_mins_kernel<float, false><<<grid, kThreads1, 0, s>>>(
-          qf, yf, yn, o, m, n, d, n_chunks, q_tiles);
-    }
+    chunk_mins_kernel<float, false><<<grid, kThreads1, 0, s>>>(
+        qf, static_cast<const float*>(y), yn, o, m, n, d, n_chunks, q_tiles);
   }
   return (int)cudaGetLastError();
 }

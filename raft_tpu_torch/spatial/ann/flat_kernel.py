@@ -10,7 +10,8 @@ with bf16 operands and f32 products, norms and sums; rows outside the
 list's ``[lo, hi)`` range score :data:`BIG`. Only the (lists, Q, Lpad/8)
 minima leave the kernel.
 
-Two entries launch the one kernel:
+Two entries launch the one kernel (which, with its int8 row loader, is
+also the IVF-SQ scan of :mod:`.sq_kernel`):
 
 * :func:`flat_scan_lists` — the grouped search's form: one launch per
   batch, query rows read by id through the (lists, Q) slot map, slab
@@ -75,6 +76,13 @@ def _lists_smem_bytes(d: int, q_tile: int) -> int:
             + 4 * (q_tile * _GROUP_SUBS + q_tile + _TILE_ROWS + q_tile))
 
 
+def _sq_lists_smem_bytes(d: int, q_tile: int) -> int:
+    # csrc/flat_scan.cu sq_smem_bytes(): the flat layout, then vmin and
+    # vscale (f32) and two raw int8 row stages, each 16-byte aligned
+    return (_lists_smem_bytes(d, q_tile) + round_up(8 * d, 16)
+            + 2 * _TILE_ROWS * round_up(d, 16))
+
+
 def _step_bytes(d: int, q_pad: int, l_tile: int) -> int:
     # the JAX engine's window byte model (raft_tpu flat_kernel._step_bytes)
     return 2 * 2 * d * l_tile + 2 * 2 * q_pad * d + 4 * q_pad * l_tile
@@ -121,10 +129,12 @@ def flat_scan_lists_plain(queries, qmat, rows, origins, bounds, l_pad: int):
     ``queries``) scores :data:`BIG`, and a list with no live slot is not
     scanned at all — its minima are all BIG."""
     return _lists_plain(queries, qmat, rows, origins, bounds, l_pad,
-                        queries.shape[0] - 1)
+                        queries.shape[0] - 1, flat_scan_subchunk_min_plain)
 
 
-def _lists_plain(queries, qmat, rows, origins, bounds, l_pad, n_ids):
+def _lists_plain(queries, qmat, rows, origins, bounds, l_pad, n_ids, scan):
+    """The gathered form of a list scan: ``scan(query rows, slabs_t,
+    bounds)`` over the lists with a live slot, BIG elsewhere."""
     n_lists, q = qmat.shape
     live = (qmat >= 0) & (qmat < n_ids)
     out = torch.full((n_lists, q, l_pad // SUBCHUNK), BIG,
@@ -135,13 +145,13 @@ def _lists_plain(queries, qmat, rows, origins, bounds, l_pad, n_ids):
         qv = queries[torch.where(lv, qmat[scanned], 0).long()]
         win = (origins[scanned].long()[:, None]
                + torch.arange(l_pad, device=rows.device))
-        got = flat_scan_subchunk_min_plain(qv, rows[win].transpose(1, 2),
-                                           bounds[scanned])
+        got = scan(qv, rows[win].transpose(1, 2), bounds[scanned])
         out[scanned] = torch.where(lv[:, :, None], got, BIG)
     return out
 
 
-def _check_lists(name, queries, qmat, rows, origins, bounds, l_pad):
+def _check_lists(name, queries, qmat, rows, origins, bounds, l_pad,
+                 row_dtype=torch.bfloat16):
     if queries.dim() != 2 or rows.dim() != 2 or qmat.dim() != 2:
         raise ValueError(
             f"{name}: expected queries (n, d), rows (R, d) and qmat "
@@ -153,9 +163,9 @@ def _check_lists(name, queries, qmat, rows, origins, bounds, l_pad):
             f"{name}: query dim {queries.shape[1]} does not match row dim "
             f"{rows.shape[1]}"
         )
-    if queries.dtype != torch.bfloat16 or rows.dtype != torch.bfloat16:
+    if queries.dtype != torch.bfloat16 or rows.dtype != row_dtype:
         raise ValueError(
-            f"{name}: queries and rows must be bfloat16, got "
+            f"{name}: queries must be bfloat16 and rows {row_dtype}, got "
             f"{queries.dtype} and {rows.dtype}"
         )
     n_lists = qmat.shape[0]
@@ -193,8 +203,11 @@ def flat_scan_lists(queries, qmat, rows, origins, bounds, l_pad: int):
     if queries.device.type == "cpu":
         return flat_scan_lists_plain(queries, qmat, rows, origins, bounds,
                                      l_pad)
-    return _launch(name, queries, qmat, rows, origins, bounds, l_pad,
-                   queries.shape[0] - 1)
+    out = _launch(name, queries, qmat, rows, origins, bounds, l_pad,
+                  queries.shape[0] - 1)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
 
 
 def flat_scan_subchunk_min(qrows, slabs_t, bounds):
@@ -220,11 +233,18 @@ def flat_scan_subchunk_min(qrows, slabs_t, bounds):
     i32 = torch.int32
     qmat = torch.arange(lb * q, dtype=i32, device=dev).reshape(lb, q)
     origins = torch.arange(0, lb * l_pad, l_pad, dtype=i32, device=dev)
-    return _launch(name, qrows.reshape(lb * q, d), qmat, rows, origins,
-                   bounds, l_pad, lb * q)
+    out = _launch(name, qrows.reshape(lb * q, d), qmat, rows, origins,
+                  bounds, l_pad, lb * q)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
 
 
-def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids):
+def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids,
+            params=None):
+    """Launch the list kernel (the caller counts the launch): bf16
+    ``rows``, or with ``params`` ((2, d) f32, vmin then vscale) the
+    IVF-SQ loader over int8 code rows."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -233,8 +253,9 @@ def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids):
     n_lists, q = qmat.shape
     d = rows.shape[1]
     q_tile = _q_tile(q)
-    scan_core.check_launch(name, _lists_smem_bytes(d, q_tile), rows,
-                           n_lists, q, q_tile=q_tile)
+    smem = (_lists_smem_bytes(d, q_tile) if params is None
+            else _sq_lists_smem_bytes(d, q_tile))
+    scan_core.check_launch(name, smem, rows, n_lists, q, q_tile=q_tile)
     queries = queries.contiguous()
     qmat = qmat.contiguous()
     origins = origins.contiguous()
@@ -244,14 +265,17 @@ def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raft_flat_scan_lists(
-            queries.data_ptr(), qmat.data_ptr(), rows.data_ptr(),
-            origins.data_ptr(), bounds.data_ptr(), out.data_ptr(), n_lists,
-            q, n_ids, d, l_pad, stream,
-        )
+        ptrs = (queries.data_ptr(), qmat.data_ptr(), rows.data_ptr(),
+                origins.data_ptr(), bounds.data_ptr())
+        if params is None:
+            err = lib.raft_flat_scan_lists(*ptrs, out.data_ptr(), n_lists,
+                                           q, n_ids, d, l_pad, stream)
+        else:
+            params = params.contiguous()
+            err = lib.raft_sq_scan_lists(*ptrs, params.data_ptr(),
+                                         out.data_ptr(), n_lists, q, n_ids,
+                                         d, l_pad, stream)
     scan_core.raise_on_error(err, name, lib)
-    global LAUNCHES
-    LAUNCHES += 1
     return out
 
 
@@ -271,4 +295,9 @@ def _lib():
         lib.raft_flat_scan_smem_bytes.restype = ctypes.c_longlong
         lib.raft_flat_scan_q_tile.argtypes = [i]
         lib.raft_flat_scan_q_tile.restype = i
+        lib.raft_sq_scan_lists.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                           i, p]
+        lib.raft_sq_scan_lists.restype = i
+        lib.raft_sq_scan_smem_bytes.argtypes = [i, i]
+        lib.raft_sq_scan_smem_bytes.restype = ctypes.c_longlong
     return lib

@@ -249,8 +249,8 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
     # ``dequant``: optional (vmin, vscale) (d,) f32 pair — the IVF-SQ mode
     # of this one grouped body. ``index.data_sorted`` then holds int8
     # codes: the legacy scan and the rerank tail decode the rows they
-    # touch through ``ivf_sq.sq_decode``, and the kernel engine hands the
-    # int8 slabs to ``sq_kernel`` untouched (no bf16 or f32 copy).
+    # touch through ``ivf_sq.sq_decode``, and the kernel engine's
+    # ``sq_kernel`` reads the int8 codes in place (no bf16 or f32 copy).
     storage = index.storage
     dev = q.device
     n_lists = storage.list_index.shape[0]
@@ -317,32 +317,22 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         rows_pad = max(index.data_sorted.shape[0], l_pad)
         data_src = index.scan_rows(rows_pad)
         q_bf16 = q_pad.to(torch.bfloat16)
-        if dequant is None:
-            # every list's window origin (the slice clamp) and its
-            # [lo, hi) relative to it: the flat scan reads rows in place
-            o_all = torch.clamp(offsets[:n_lists], max=rows_pad - l_pad)
-            lo_all = offsets[:n_lists] - o_all
-            win_origin = o_all.to(torch.int32)
-            win_bounds = torch.stack([lo_all, lo_all + sizes],
-                                     1).to(torch.int32)
-        else:
-            win = torch.arange(l_pad, device=dev)
+        # every list's window origin (the slice clamp) and its [lo, hi)
+        # relative to it: the scans read rows (or codes) in place
+        o_all = torch.clamp(offsets[:n_lists], max=rows_pad - l_pad)
+        lo_all = offsets[:n_lists] - o_all
+        win_origin = o_all.to(torch.int32)
+        win_bounds = torch.stack([lo_all, lo_all + sizes], 1).to(torch.int32)
 
         def block_fn_kernel(lblk):
+            # query rows by id, slab rows in place: no gather
             if dequant is None:
-                # query rows by id, slab rows in place: no gather
                 return flat_kernel.flat_scan_lists(
                     q_bf16, qmat[lblk], data_src, win_origin[lblk],
                     win_bounds[lblk], l_pad)                 # (LB, qcap, nsc)
-            qv = q_bf16[qmat_l[lblk]]                        # (LB, qcap, d)
-            offs = offsets[lblk]
-            o_c = torch.clamp(offs, max=rows_pad - l_pad)    # slice clamp
-            slabs = data_src[o_c[:, None] + win[None, :]]    # (LB, l_pad, d)
-            lo = offs - o_c
-            bounds = torch.stack([lo, lo + sizes[lblk]], 1).to(torch.int32)
-            # the kernel reads the slab through its strides: no copy
-            return sq_kernel.sq_scan_subchunk_min(
-                qv, slabs.transpose(1, 2), bounds, dequant[0], dequant[1])
+            return sq_kernel.sq_scan_lists(
+                q_bf16, qmat[lblk], data_src, win_origin[lblk],
+                win_bounds[lblk], l_pad, dequant[0], dequant[1])
 
         width, scan_fn = nsc, block_fn_kernel
     else:
@@ -376,10 +366,7 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         if pm is not None:
             pm = pm.reshape(nq, p * k)
     elif use_kernel:
-        if dequant is None:
-            vals = scan_fn(slice(None))          # one launch for the batch
-        else:
-            vals = torch.cat([scan_fn(lblk) for lblk in lids])[:n_lists]
+        vals = scan_fn(slice(None))              # one launch for the batch
         pv = regroup_values(vals, l_flat, slot, nq, p, qcap)
         pm = None
     else:

@@ -5,9 +5,10 @@ Rows are mapped to int8 per dimension by a global min/max affine map
 (the QT_8bit scheme); lists and search reuse the IVF-Flat machinery with
 the dequantization fused into the scan. The grouped search is the one
 grouped body of IVF-Flat (:func:`.ivf_flat._grouped_impl`) in its
-``dequant`` mode: the kernel engine scans the int8 slabs with the
-hand-written CUDA dequant + sub-chunk-min scan (:mod:`.sq_kernel`; the
-slab crosses device memory at one byte per element), the legacy engine
+``dequant`` mode: the kernel engine scans the int8 codes in place, one
+launch per batch, with the hand-written CUDA dequant + sub-chunk-min scan
+(:mod:`.sq_kernel`; codes cross device memory at one byte per element),
+the legacy engine
 decodes the sliced rows to f32 first, and both rescore or score the rows
 they keep against f32-decoded values.
 """

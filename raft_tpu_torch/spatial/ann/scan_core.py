@@ -19,10 +19,10 @@ What carries over unchanged, because it fixes results:
   package's per-step VMEM budget); it is not a limit of any CUDA device.
 
 What does not: the CUDA kernels' own block tiling is internal to
-``csrc/`` (``scan_core.cuh`` holds the constants, the sub-chunk min and
-the SQ scan's template; ``flat_scan.cu`` and ``pq_scan.cu`` scan whole
-batches of lists in place) and independent of the window tile, and the
-kernels take any query count (no 16-row query granule).
+``csrc/`` (``scan_core.cuh`` holds the constants and the sub-chunk min;
+``flat_scan.cu``, with its int8 row loader for IVF-SQ, and ``pq_scan.cu``
+scan whole batches of lists in place) and independent of the window
+tile, and the kernels take any query count (no 16-row query granule).
 
 The plain pieces fix one summation order, the kernels' own: every sum
 over the feature axis (or over PQ subspaces) runs in ascending order,

@@ -1,13 +1,16 @@
 """Where the time of one brute-force kNN batch goes, on one CUDA card.
 
-    python3 -m raft_tpu_torch.tools.profile_knn [--seed N] [--out DIR]
+    python3 -m raft_tpu_torch.tools.profile_knn [--bf16] [--seed N]
+        [--out DIR]
 
 Makes the brute-force path's SIFT-1M-shaped index (1,000,000 clustered
 rows of width 128, as ``chip_smoke.py``) with its row norms, then for a
 512-query serving batch and the 10,000-query batch times 5 searches
 (``brute_force_knn``, k=10, the fused kernels) on the host clock, each
 ending in a synchronise, and traces the same searches with
-``torch.profiler``. It prints, per batch: the wall time, the device busy
+``torch.profiler``. With ``--bf16`` phase 1 runs in bf16 on the tensor
+cores (``compute_dtype=torch.bfloat16``, ``extra_chunks=32``, as
+``chip_smoke.py``'s bf16 batch). It prints, per batch: the wall time, the device busy
 time (the union of the kernels' intervals), the idle share, and the
 kernels that took the most device time. With ``--out`` it also writes
 each trace as a Chrome trace there.
@@ -34,6 +37,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 phase 1 (compute_dtype=bfloat16)")
     args = ap.parse_args(argv)
     card = card_name("profile_knn")
     if args.out is not None:
@@ -45,16 +50,20 @@ def main(argv=None) -> int:
             + rng.standard_normal((N_ROWS, DIM), dtype=np.float32))
     x = torch.as_tensor(x_np, device="cuda")
     norms = row_norm_sq(x)
+    kw = ({"compute_dtype": torch.bfloat16, "extra_chunks": 32} if args.bf16
+          else {})
+    what = "bf16 phase 1" if args.bf16 else "f32 phase 1"
     for nq in BATCHES:
         q = torch.as_tensor(
             x_np[rng.integers(0, N_ROWS, nq)]
             + 0.3 * rng.standard_normal((nq, DIM), dtype=np.float32),
             device="cuda")
         wall, busy, top = trace_calls(
-            lambda: brute_force_knn(x, q, K, index_norms=norms), ITERS,
-            None if args.out is None else args.out / f"knn_{nq}.json")
-        print(f"[{card}] brute-force batch of {nq}: {wall:.3f} ms per "
-              f"batch, device busy {busy:.3f} ms, idle "
+            lambda: brute_force_knn(x, q, K, index_norms=norms, **kw), ITERS,
+            None if args.out is None else
+            args.out / f"knn_{nq}{'_bf16' if args.bf16 else ''}.json")
+        print(f"[{card}] brute-force batch of {nq} ({what}): {wall:.3f} ms "
+              f"per batch, device busy {busy:.3f} ms, idle "
               f"{1 - busy / wall:.1%}", flush=True)
         for name, ms, n in top:
             print(f"    {ms:9.4f} ms {n:7.1f}x  {name[:100]}", flush=True)

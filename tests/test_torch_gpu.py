@@ -74,16 +74,32 @@ def _hopper():
 _FUSED_SHAPES = ((37, 8192 + 37, 19), (200, 16384, 128))
 
 
+# phase 1 adds: d = 768 (the wide regime, many feature slices), a width
+# off every 8-element grain, m off the bf16 kernel's 128-query tile, and a
+# width whose query tile no longer fits shared memory (streamed slices)
+_CHUNK_MINS_SHAPES = _FUSED_SHAPES + ((300, 3000, 768), (129, 5000, 20),
+                                      (70, 3000, 1000))
+
+
+def _tol(q, yn_max, d):
+    # 2 d u (max |y|^2 + 2 |q| max |y|), u = 2^-24: the recursive-summation
+    # bound of two f32 sums of d terms in different orders
+    qn = q.float().norm(dim=1, keepdim=True)
+    return 2 * d * 2.0**-24 * (yn_max + 2 * qn * yn_max ** 0.5)
+
+
 @pytest.mark.gpu
 def test_chunk_mins_kernel_matches_plain_version():
-    """On a Hopper card: the phase-1 kernel against its plain version,
-    bitwise on integer-exact inputs, for f32 and bf16 storage and both
-    compute types, with whole padded chunks past n."""
+    """On a Hopper card: the phase-1 kernels against their plain
+    version, bitwise on integer-exact inputs, for f32 and bf16 storage
+    and both compute types (bf16 compute on the tensor cores), with whole
+    padded chunks past n, d = 768, a ragged d and m off the query tile;
+    on Gaussian inputs with bf16 compute within the f32 summation bound."""
     from raft_tpu_torch.spatial import fused_knn as tfk
 
     dev = _hopper()
     rng = np.random.default_rng(0)
-    for m, n, d in _FUSED_SHAPES:
+    for m, n, d in _CHUNK_MINS_SHAPES:
         q = torch.as_tensor(rng.integers(-8, 8, (m, d)), dtype=torch.float32,
                             device=dev)
         y = torch.as_tensor(rng.integers(-8, 8, (n, d)), dtype=torch.float32,
@@ -98,6 +114,18 @@ def test_chunk_mins_kernel_matches_plain_version():
                 want = tfk.chunk_mins_plain(q, yt, yn, npad, cd)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (m, n, d, yt.dtype, cd)
+                assert (got[:, -(-n // 128):] == tfk.BIG).all()
+        qg = torch.as_tensor(rng.standard_normal((m, d)), dtype=torch.float32,
+                             device=dev)
+        yg = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                             device=dev)
+        for yt in (yg, yg.to(torch.bfloat16)):
+            yn = (yt.float() ** 2).sum(1)
+            got = tfk.chunk_mins(qg, yt, yn, npad, torch.bfloat16)
+            want = tfk.chunk_mins_plain(qg, yt, yn, npad, torch.bfloat16)
+            err = (got - want).abs()
+            assert (err <= _tol(qg, yn.max().item(), d)).all(), (
+                m, n, d, yt.dtype, err.max().item())
 
 
 @pytest.mark.gpu
@@ -146,24 +174,28 @@ def _bounds(l_pad):
 
 @pytest.mark.gpu
 def test_sq_kernel_matches_plain_version():
-    """On a Hopper card: the SQ dequant + scan kernel against its plain
-    version, bitwise on dyadic and on generic affine stats (the dequant
-    rounds its multiply and add on their own, as the plain version does,
-    and both sum over d in ascending order), at ragged Q and Lpad, with
-    empty and full ranges and a transposed-view code slab."""
+    """On a Hopper card: the SQ dequant + scan kernel (the gathered
+    entry) against its plain version — bitwise on dyadic affine stats
+    with integer queries (the dequant rounds its multiply and add on their own, as the plain
+    version does, and every partial sum is exact), within 1e-5 x (qn +
+    yn) on generic ones (the tensor cores sum the dot in their own
+    order) — at ragged Q and Lpad, with empty and full ranges and a
+    transposed-view code slab."""
     from raft_tpu_torch.spatial.ann import sq_kernel as tsq
 
     dev = _hopper()
     rng = np.random.default_rng(2)
     for lb, q, d, l_pad in ((4, 64, 96, 512), (3, 13, 24, 136),
                             (2, 70, 96, 264)):
-        qrows = torch.as_tensor(rng.standard_normal((lb, q, d)),
-                                dtype=torch.float32).to(torch.bfloat16)
         codes = torch.as_tensor(rng.integers(-128, 128, (lb, l_pad, d)),
                                 dtype=torch.int8)
         bt = torch.as_tensor(_bounds(l_pad)[:lb], dtype=torch.int32,
                              device=dev)
         for dyadic in (True, False):
+            qrows = torch.as_tensor(
+                rng.integers(-64, 64, (lb, q, d)) if dyadic
+                else rng.standard_normal((lb, q, d)),
+                dtype=torch.float32).to(torch.bfloat16)
             if dyadic:
                 vmin = torch.as_tensor(rng.integers(-8, 8, d),
                                        dtype=torch.float32)
@@ -181,11 +213,28 @@ def test_sq_kernel_matches_plain_version():
             assert tsq.LAUNCHES == before + 1
             want = tsq.sq_scan_subchunk_min_plain(*args)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), (lb, q, d, l_pad, dyadic)
+            if dyadic:
+                assert torch.equal(got, want), (lb, q, d, l_pad)
+            else:
+                assert ((got - want).abs()
+                        <= 1e-5 * _sq_norm_scale(*args)).all(), (lb, q, d)
             assert (got[1] == tsq.BIG).all()
             contiguous = tsq.sq_scan_subchunk_min(
                 args[0], args[1].contiguous(), *args[2:])
             assert torch.equal(contiguous, got)
+
+
+def _sq_norm_scale(qrows, codes_t, bounds, vmin, vscale):
+    """qn + yn of the gathered SQ scan per (list, slot, sub-chunk): the
+    query's squared norm plus the largest squared norm of the
+    sub-chunk's dequantized rows."""
+    from raft_tpu_torch.spatial.ann import sq_kernel as tsq
+
+    lb, q, d = qrows.shape
+    y = tsq._dequant_tile(codes_t, vmin.reshape(1, d, 1),
+                          vscale.reshape(1, d, 1)).float()
+    qn = (qrows.float() ** 2).sum(-1)[:, :, None]
+    return qn + (y ** 2).sum(1).reshape(lb, 1, -1, 8).amax(-1)
 
 
 @pytest.mark.gpu
@@ -418,3 +467,59 @@ def test_pq_adc_lists_kernel_matches_plain_version():
                 out = torch.empty_like(got)
                 tpq.pq_adc_lists(*args, out=out)
                 assert torch.equal(out, got)
+
+
+@pytest.mark.gpu
+def test_sq_scan_lists_kernel_matches_plain_version():
+    """On a Hopper card: the one-launch IVF-SQ list scan against its
+    plain version — bitwise on dyadic stats with integer queries, within
+    1e-5 x (qn + yn) on generic stats and Gaussian queries — at every
+    query-tile width, with dead slots, a list without a live slot, empty
+    and full ranges and the clamped tail window, at d = 96 (16-byte code
+    copies) and d = 20 and 24 (plain loads)."""
+    from raft_tpu_torch.spatial.ann import sq_kernel as tsq
+
+    dev = _hopper()
+    rng = np.random.default_rng(9)
+    n_lists, nq, l_pad = 9, 50, 1160
+    for d in (96, 20, 24):
+        n_rows = 4 * l_pad + 3
+        origins, bounds = _list_windows(rng, n_lists, n_rows, l_pad, dev)
+        codes = torch.as_tensor(rng.integers(-128, 128, (n_rows, d)),
+                                dtype=torch.int8, device=dev)
+        for dyadic in (True, False):
+            if dyadic:
+                qr = rng.integers(-64, 64, (nq + 1, d))
+                vmin = rng.integers(-8, 8, d)
+                vscale = np.full(d, 0.5)
+            else:
+                qr = rng.standard_normal((nq + 1, d))
+                vmin = rng.standard_normal(d)
+                vscale = np.abs(rng.standard_normal(d)) / 255.0 + 1e-3
+            qr[nq] = 0
+            qt = torch.as_tensor(qr, dtype=torch.float32,
+                                 device=dev).to(torch.bfloat16)
+            vmin = torch.as_tensor(vmin, dtype=torch.float32, device=dev)
+            vscale = torch.as_tensor(vscale, dtype=torch.float32, device=dev)
+            y = tsq._dequant_tile(codes, vmin, vscale).float()
+            yn_rows = (y ** 2).sum(1)
+            for q in _LIST_QCAPS:
+                qmat = _list_slots(rng, n_lists, q, nq, nq, dev)
+                args = (qt, qmat, codes, origins, bounds, l_pad, vmin, vscale)
+                before = tsq.LAUNCHES
+                got = tsq.sq_scan_lists(*args)
+                assert tsq.LAUNCHES == before + 1
+                want = tsq.sq_scan_lists_plain(*args)
+                torch.cuda.synchronize()
+                live = qmat < nq
+                assert (got[~live] == tsq.BIG).all(), (d, q)
+                assert (got[:2] == tsq.BIG).all() and (got[3] == tsq.BIG).all()
+                if dyadic:
+                    assert torch.equal(got, want), (d, q)
+                    continue
+                qn = (qt.float() ** 2).sum(1)[qmat.long()][:, :, None]
+                win = origins.long()[:, None] + torch.arange(l_pad,
+                                                             device=dev)
+                yn = yn_rows[win].reshape(n_lists, 1, -1, 8).amax(-1)
+                err = (got - want).abs()
+                assert (err <= 1e-5 * (qn + yn)).all(), (d, q)

@@ -189,6 +189,35 @@ def test_chunk_mins_plain_matches_jax_kernel_bitwise(m, n, d, storage,
     assert (got[:, -(-n // 128):] == tfk.BIG).all()
 
 
+@pytest.mark.parametrize("m,n,d", [
+    (130, 4096, 16),         # m off the bf16 kernel's 128-query tile
+    (40, 4096, 20),          # d off the 16-wide mma grain
+    (40, 4096 + 77, 32),     # a ragged last chunk
+    (40, 2100, 48),          # npad with whole chunks past n
+])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_chunk_mins_bf16_plain_matches_jax_kernel_at_tile_edges(
+        m, n, d, storage, rng_np):
+    """bf16 compute, the tensor-core kernel's edges: the plain version
+    equals the JAX kernel in interpret mode bit for bit on integer
+    inputs (bf16 products exact in f32, integer sums exact)."""
+    q, y = _ints(rng_np, m, d), _ints(rng_np, n, d)
+    bm, bn = jfk._plan_blocks(m, n, d)
+    npad = -(-n // bn) * bn
+    yn = (y * y).sum(1)
+    yp, ynp = _padded(y, yn, npad)
+    want = _np(jfk._chunk_mins(
+        jnp.asarray(q), jnp.asarray(yp, storage), jnp.asarray(ynp)[:, None],
+        bm=bm, bn=bn, compute_dtype=jnp.bfloat16, interpret=True))
+    got = tfk.chunk_mins(torch.as_tensor(q),
+                         torch.as_tensor(y).to(getattr(torch, storage)),
+                         torch.as_tensor(yn), npad, torch.bfloat16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[:, -(-n // 128):] == tfk.BIG).all()
+    if n % 128:
+        assert (got[:, n // 128] < tfk.BIG).all()     # the ragged chunk
+
+
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])
 def test_rescore_plain_matches_jax_kernel_bitwise(storage, rng_np):
     m, n, d, c = 16, 4096 + 57, 128, 8

@@ -1,12 +1,14 @@
-"""The list-scan entries of the port's flat and ADC scans
-(``flat_kernel.flat_scan_lists``, ``pq_kernel.pq_adc_lists``), which the
-grouped searches launch once per batch (flat) or once per LUT chunk
-(IVF-PQ), reading query rows by id and list rows in place.
+"""The list-scan entries of the port's flat, IVF-SQ and ADC scans
+(``flat_kernel.flat_scan_lists``, ``sq_kernel.sq_scan_lists``,
+``pq_kernel.pq_adc_lists``), which the grouped searches launch once per
+batch (flat, SQ) or once per LUT chunk (IVF-PQ), reading query rows by
+id and list rows in place.
 
 On the CPU each runs its plain version, which must equal the gathered
-form (``flat_scan_subchunk_min_plain`` / ``pq_adc_subchunk_min_plain`` on
-gathered query rows, LUTs and slabs) on live slots and score BIG on dead
-ones, and match the JAX lax mirrors through the gathered form. The
+form (``flat_scan_subchunk_min_plain`` / ``sq_scan_subchunk_min_plain`` /
+``pq_adc_subchunk_min_plain`` on gathered query rows, LUTs and slabs) on
+live slots and score BIG on dead ones, and match the JAX lax mirrors
+through the gathered form. The
 grouped searches must return what the per-block gathered form returned
 before, and the live-pair LUTs must equal ``block_luts``'s rows bit for
 bit. The CUDA kernels are checked against these plain versions in
@@ -21,16 +23,21 @@ import jax.numpy as jnp
 
 from raft_tpu.spatial.ann import flat_kernel as jfk
 from raft_tpu.spatial.ann import pq_kernel as jpq
+from raft_tpu.spatial.ann import sq_kernel as jsq
 from raft_tpu_torch.spatial.ann import flat_kernel as tfk
 from raft_tpu_torch.spatial.ann import ivf_pq as tivf_pq
 from raft_tpu_torch.spatial.ann import pq_kernel as tpq
+from raft_tpu_torch.spatial.ann import sq_kernel as tsq
 from raft_tpu_torch.spatial.ann import (
     IVFFlatParams,
     IVFPQParams,
+    IVFSQParams,
     ivf_flat_build,
     ivf_flat_search_grouped,
     ivf_pq_build,
     ivf_pq_search_grouped,
+    ivf_sq_build,
+    ivf_sq_search_grouped,
 )
 
 torch.set_num_threads(1)
@@ -142,6 +149,101 @@ def test_flat_lists_checks_and_cpu_counts_no_launch():
         tfk.flat_scan_lists(queries[:, :8], qmat, rows, origins, bounds, 136)
     with pytest.raises(ValueError, match="bounds"):
         tfk.flat_scan_lists(queries, qmat, rows, origins, bounds[:2], 136)
+
+
+def _sq_case(seed, n_lists, q, d, l_pad, dyadic):
+    """An SQ list-scan case: bf16 query rows (integers with dyadic
+    stats, Gaussian with generic ones) with the sentinel last, int8 code
+    rows, the slot map, the windows and the affine stats."""
+    rng = np.random.default_rng(seed)
+    nq, n_rows = 40, 3 * l_pad + 5
+    if dyadic:
+        qr = rng.integers(-64, 64, (nq, d)).astype(np.float32)
+        vmin = rng.integers(-8, 8, d).astype(np.float32)
+        vscale = np.full(d, 0.5, np.float32)
+    else:
+        qr = rng.standard_normal((nq, d)).astype(np.float32)
+        vmin = rng.standard_normal(d).astype(np.float32)
+        vscale = (np.abs(rng.standard_normal(d)) / 255.0 + 1e-3).astype(
+            np.float32)
+    queries = torch.as_tensor(np.concatenate(
+        [qr, np.zeros((1, d), np.float32)])).to(torch.bfloat16)
+    codes = torch.as_tensor(rng.integers(-128, 128, (n_rows, d)),
+                            dtype=torch.int8)
+    origins, bounds = _windows(rng, n_lists, n_rows, l_pad)
+    qmat = _slot_map(rng, n_lists, q, nq, nq)
+    return (queries, qmat, codes, origins, bounds, torch.as_tensor(vmin),
+            torch.as_tensor(vscale))
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("n_lists,q,d,l_pad", [
+    (6, 8, 16, 136),     # one query tile, a ragged window
+    (5, 13, 24, 256),    # ragged Q, d off the 16-byte code grain
+    (4, 70, 20, 512),    # Q past one 64-slot tile, d = 20
+    (5, 9, 96, 264),     # the path's width, a ragged Lpad
+])
+def test_sq_lists_plain_is_the_gathered_form_on_live_slots(
+        n_lists, q, d, l_pad, dyadic):
+    queries, qmat, codes, origins, bounds, vmin, vscale = _sq_case(
+        n_lists + q + d, n_lists, q, d, l_pad, dyadic)
+    got = tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, l_pad,
+                            vmin, vscale)
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (n_lists, q, l_pad // 8)
+    want = tsq.sq_scan_subchunk_min_plain(
+        queries[qmat.long()], _gathered(codes, origins, l_pad).transpose(1, 2),
+        bounds, vmin, vscale)
+    live = qmat < queries.shape[0] - 1
+    assert torch.equal(got[live], want[live])
+    assert (got[~live] == BIG).all()
+    assert (got[:3] == BIG).all()            # empty lists, no live slot
+    assert bounds[-1, 0] > 0 and (got[-1][live[-1]] < BIG).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sq_lists_plain_matches_jax_mirror_through_gathered_form(seed):
+    """Dyadic stats and integer queries: the JAX lax mirror on the
+    gathered query rows and code slabs equals the list scan bit for bit
+    on live slots."""
+    queries, qmat, codes, origins, bounds, vmin, vscale = _sq_case(
+        seed, 5, 16, 16, 256, True)
+    got = tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, 256,
+                            vmin, vscale)
+    qv = queries[qmat.long()].float().numpy()
+    codes_t = _gathered(codes, origins, 256).transpose(1, 2).numpy()
+    ref = np.asarray(jsq.sq_scan_subchunk_min_lax(
+        jnp.asarray(qv), jnp.asarray(codes_t), jnp.asarray(bounds.numpy()),
+        jnp.asarray(vmin.numpy()), jnp.asarray(vscale.numpy())))
+    live = (qmat < queries.shape[0] - 1).numpy()
+    np.testing.assert_array_equal(got.numpy()[live], ref[live])
+
+
+def test_sq_lists_checks_and_cpu_counts_no_launch():
+    queries, qmat, codes, origins, bounds, vmin, vscale = _sq_case(
+        3, 4, 8, 16, 136, True)
+    before = tsq.LAUNCHES
+    tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, 136, vmin,
+                      vscale)
+    assert tsq.LAUNCHES == before
+    with pytest.raises(ValueError, match="int8"):
+        tsq.sq_scan_lists(queries, qmat, codes.to(torch.bfloat16), origins,
+                          bounds, 136, vmin, vscale)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tsq.sq_scan_lists(queries.float(), qmat, codes, origins, bounds, 136,
+                          vmin, vscale)
+    with pytest.raises(ValueError, match="int32"):
+        tsq.sq_scan_lists(queries, qmat.long(), codes, origins, bounds, 136,
+                          vmin, vscale)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, 130, vmin,
+                          vscale)
+    with pytest.raises(ValueError, match="vscale"):
+        tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, 136, vmin,
+                          vscale[:8])
+    with pytest.raises(ValueError, match="vmin"):
+        tsq.sq_scan_lists(queries, qmat, codes, origins, bounds, 136,
+                          vmin.double(), vscale)
 
 
 def _pq_case(seed, n_lists, q, m, k_codes, l_pad, integer):
@@ -267,6 +369,51 @@ def test_flat_grouped_kernel_engine_unchanged(flat_index, monkeypatch,
     assert launches == ([32, 32] if stream else [40])
     monkeypatch.setattr(tfk, "flat_scan_lists", _gathered_flat_lists)
     d0, i0 = ivf_flat_search_grouped(index, q, 5, **kw)
+    assert torch.equal(d1, d0) and torch.equal(i1, i0)
+
+
+@pytest.fixture(scope="module")
+def sq_index():
+    x, q = _int_rows(13)
+    return ivf_sq_build(x, IVFSQParams(n_lists=40, kmeans_n_iters=4),
+                        device="cpu"), q
+
+
+def _gathered_sq_lists(queries, qmat, codes, origins, bounds, l_pad, vmin,
+                       vscale):
+    """The SQ kernel engine's scan as it ran before the list entry: a
+    query-row and code-slab gather, then one gathered-form scan, per
+    block of 32 lists."""
+    outs = []
+    for s in range(0, qmat.shape[0], 32):
+        blk = slice(s, s + 32)
+        outs.append(tsq.sq_scan_subchunk_min(
+            queries[qmat[blk].long()],
+            _gathered(codes, origins[blk], l_pad).transpose(1, 2),
+            bounds[blk], vmin, vscale))
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("stream", [None, True])
+@pytest.mark.parametrize("qcap", [8, 64])
+def test_sq_grouped_kernel_engine_unchanged(sq_index, monkeypatch, qcap,
+                                            stream):
+    index, q = sq_index
+    kw = dict(n_probes=6, qcap=qcap, stream_partials=stream,
+              use_kernel=True)
+    launches = []
+    real = tsq.sq_scan_lists
+
+    def counted(*a):
+        launches.append(a[1].shape[0])
+        return real(*a)
+
+    monkeypatch.setattr(tsq, "sq_scan_lists", counted)
+    d1, i1 = ivf_sq_search_grouped(index, q, 5, **kw)
+    # one scan of all 40 lists per batch, or one per streamed 32-list block
+    assert launches == ([32, 32] if stream else [40])
+    monkeypatch.setattr(tsq, "sq_scan_lists", _gathered_sq_lists)
+    d0, i0 = ivf_sq_search_grouped(index, q, 5, **kw)
     assert torch.equal(d1, d0) and torch.equal(i1, i0)
 
 

@@ -40,6 +40,7 @@ from raft_tpu_torch.spatial.ann import (
     ivf_sq_search_grouped,
     load_ivf_sq,
 )
+from raft_tpu_torch.spatial.ann import flat_kernel as tfk
 from raft_tpu_torch.spatial.ann import ivf_sq as tivf_sq
 from raft_tpu_torch.spatial.ann import scan_core as tsc
 from raft_tpu_torch.spatial.ann import sq_kernel as tsq
@@ -211,10 +212,11 @@ def test_window_plan_and_supported_match_jax():
                     d, q_pad, l_tile=cap, profile=tsc.tile_profile(qcap)
                 ) == jsq.plan_l_tile(d, q_pad, l_tile=cap,
                                      profile=jsc.tile_profile(qcap))
-            # the port adds its own shared-memory model to the JAX rule
+            # the port adds its list kernel's shared-memory model (query
+            # tile sized to qcap) to the JAX rule
             assert tsq.sq_scan_supported(d, qcap) == (
                 jsq.sq_scan_supported(d, qcap)
-                and tsq._smem_bytes(d) <= 232_448)
+                and tfk._sq_lists_smem_bytes(d, tfk._q_tile(qcap)) <= 232_448)
     assert tsq.sq_scan_supported(96, 24) and not tsq.sq_scan_supported(0, 8)
     assert not tsq.sq_scan_supported(1000, 8)
 
