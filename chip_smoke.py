@@ -18,7 +18,8 @@ to 0 just before it and read just after:
   engines, with recall@10 against exact brute force;
 * graph ANN (bench/bench_serving.py's graph_ann_row) over the same rows:
   a degree-16 graph built on the card, recall@10 of the 4,096-query
-  batch at beams 16/32/64 on both engines (equal distances required)
+  batch at beams 16/32/64 on both engines (equal distances required,
+  but on queries whose walks diverge at a near-tie, each one shown)
   beside IVF-Flat's (2048 lists, 16 probes), warmup per bucket at the
   smallest beam within 0.01 of it (else the widest), ~100 served
   requests, and the nq = 1 p50 of the beam search beside IVF-Flat's at
@@ -1427,21 +1428,68 @@ def quantized_phases(args, card, dev, data):
 
 
 # ---------------------------------------------------------------------------
-# Graph ANN: kNN-graph build -> beam search (beam_scan_subchunk_min)
+# Graph ANN: kNN-graph build -> beam search (beam_scan_score)
 # ---------------------------------------------------------------------------
 
 
+def beam_tol(q, yn_rows, ids):
+    """Per-candidate bound on |kernel - plain| of the beam scan's exact
+    distances: 2 d u (qn + yn + 2 |q| |y|), u = 2^-24 (the norms and the
+    dot, each an f32 sum of d terms in two orders). ``yn_rows``: the
+    table's squared row norms in f64."""
+    qn = (q.double() ** 2).sum(1)[:, None]
+    yn = yn_rows[ids.long()]
+    return 2 * q.shape[1] * 2.0**-24 * (qn + yn + 2 * (qn * yn).sqrt())
+
+
+def compare_beam_score(call, what, yn_rows=None, integer=False):
+    """beam_scan_score on ``call`` = (q, table, ids, bounds, n) against
+    its plain version: the minima bitwise, the exact distances +inf
+    exactly at ids >= n and within :func:`beam_tol` elsewhere (bitwise
+    with ``integer``). Returns max |exact kernel - plain| over live
+    candidates."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as gk
+
+    q, table, ids, _, n = call
+    mins, exact = gk.beam_scan_score(*call)
+    want_m, want_e = gk.beam_scan_score_plain(*call)
+    torch.cuda.synchronize()
+    if not torch.equal(mins, want_m):
+        raise AssertionError(
+            f"chip_smoke: {what}: {(mins != want_m).sum().item()} minima "
+            "differ from the plain version")
+    live = ids < n
+    check(torch.equal(torch.isinf(exact), ~live),
+          f"{what}: exact distances not +inf exactly at ids >= n")
+    err = (exact[live] - want_e[live]).abs()
+    if integer:
+        check(torch.equal(exact, want_e),
+              f"{what}: exact distances differ on integer inputs (max "
+              f"{err.max().item() if err.numel() else 0.0})")
+    if yn_rows is None:
+        yn_rows = (table.double() ** 2).sum(1)
+    tol = beam_tol(q, yn_rows, ids)[live]
+    if not (err.double() <= tol).all():
+        raise AssertionError(
+            f"chip_smoke: {what}: exact distances off by "
+            f"{err.max().item()} > the f32 summation bound")
+    return err.max().item() if err.numel() else 0.0
+
+
 def check_beam_kernel(seed, dev):
-    """beam_scan_subchunk_min against its plain version, bitwise, on
-    integer and Gaussian rows with sentinel-padded ids, ragged, empty and
-    full bounds, at the path's width, a width off the 16-byte load, and
-    a Cpad over several blocks. Returns max |kernel - plain|."""
+    """beam_scan_subchunk_min and both outputs of beam_scan_score against
+    their plain versions on integer and Gaussian rows with
+    sentinel-padded ids, ragged, empty and full bounds, at the path's
+    width, a width off the 16-byte load, and a Cpad over several blocks:
+    the minima bitwise, the exact distances bitwise on integer rows and
+    within :func:`beam_tol` on Gaussian ones. Returns max |kernel -
+    plain|."""
     from raft_tpu_torch.spatial.ann import graph_kernel as gk
 
     gen = torch.Generator().manual_seed(seed)
     errs = []
     for nq, d, n, c_pad in ((64, DIM, 4096, 512), (7, 19, 300, 136),
-                            (3, DIM, 1000, 1024)):
+                            (3, DIM, 1000, 1024), (2, DIM, 4096, 1024)):
         bounds = _bounds(gen, nq, c_pad, dev)
         for integer in (True, False):
             if integer:
@@ -1455,55 +1503,130 @@ def check_beam_kernel(seed, dev):
                                 dtype=torch.int32)
             ids[:, -(c_pad // 4):] = n            # sentinel padding
             args = (q.to(dev), table.to(dev), ids.to(dev), bounds)
+            what = f"({nq}, {d}, {n}, {c_pad}) integer={integer}"
             errs.append(bitwise(gk.beam_scan_subchunk_min,
                                 gk.beam_scan_subchunk_min_plain, args,
-                                f"beam_scan_subchunk_min ({nq}, {d}, {n}, "
-                                f"{c_pad}) integer={integer}"))
-    log("kernel check beam_scan_subchunk_min: bitwise on integer and "
-        "Gaussian rows, sentinel-padded ids, ragged/empty/full bounds, at "
-        "(64, 96, 4096, 512), (7, 19, 300, 136) and (3, 96, 1000, 1024)")
+                                f"beam_scan_subchunk_min {what}"))
+            errs.append(compare_beam_score(args + (n,),
+                                           f"beam_scan_score {what}",
+                                           integer=integer))
+    log("kernel check beam_scan_subchunk_min / beam_scan_score: minima "
+        "bitwise, exact distances bitwise on integer rows and within 2 d "
+        "2^-24 (qn + yn + 2 |q| |y|) on Gaussian ones (max |diff| "
+        f"{max(errs)}), sentinel-padded ids, ragged/empty/full bounds, at "
+        "(64, 96, 4096, 512), (7, 19, 300, 136), (3, 96, 1000, 1024) and "
+        "(2, 96, 4096, 1024)")
     return max(errs)
 
 
 def beam_bound(ids, d):
     """Each input read once — the ids, each distinct table row they name
-    (f32), the f32 queries, the bounds — and the minima written once; a
-    dot and a norm (2 FMAs) per (candidate, feature) at the f32 rate.
-    Returns (bound_ms, bound_by, distinct rows, the no-reuse ms: every
-    named row read from device memory, as the TPU kernel's gathered
-    operand was)."""
+    (f32), the f32 queries, the bounds — and the minima and the exact
+    distances written once; at the f32 rate, a dot on rounded and on
+    unrounded operands (2 FMAs) per (candidate, feature), and the two
+    norms (2 FMAs) per (distinct row or query, feature). Returns
+    (bound_ms, bound_by, distinct rows, the no-reuse ms: every named row
+    read from device memory, as the TPU kernel's gathered operand was)."""
     nq, c_pad = ids.shape
     distinct = torch.unique(ids).numel()
-    rest = nq * c_pad * 4 + nq * 4 * d + nq * c_pad // 2 + 8 * nq
-    ms, by = bound(distinct * 4 * d + rest, 4.0 * nq * c_pad * d,
-                   FP32_FLOP_PER_S)
+    rest = (nq * c_pad * 4 + nq * 4 * d + nq * c_pad // 2 + 8 * nq
+            + nq * c_pad * 4)
+    ms, by = bound(distinct * 4 * d + rest,
+                   4.0 * (nq * c_pad + distinct + nq) * d, FP32_FLOP_PER_S)
     no_reuse = nq * c_pad * 4 * d + rest
     return ms, by, distinct, 1e3 * no_reuse / HBM_BYTES_PER_S
 
 
-def time_beam(q, table, ids, bounds):
-    """ms of the beam kernel, its plain version, and the library yardstick
-    (``table[ids]``, a bf16 ``bmm``, the norms and the 8-row ``amin``;
-    timed only, never called by the port), over input copies."""
+def time_beam(q, table, ids, bounds, n):
+    """ms of the beam kernel (both outputs, then the minima alone), its
+    plain version, and the library yardstick (``table[ids]``, a bf16
+    ``bmm``, the norms and the 8-row ``amin``, and an f32 ``bmm`` for the
+    exact distances; timed only, never called by the port), over input
+    copies."""
+    from raft_tpu_torch.core.device import full_f32
     from raft_tpu_torch.spatial.ann import graph_kernel as gk
 
     nq, c_pad = ids.shape
-    sets = input_copies(q, table, ids, bounds)
-    ms = cuda_time_ms(gk.beam_scan_subchunk_min, sets)
-    plain_ms = cuda_time_ms(gk.beam_scan_subchunk_min_plain, sets, iters=10,
+    sets = [s + (n,) for s in input_copies(q, table, ids, bounds)]
+    ms = cuda_time_ms(gk.beam_scan_score, sets)
+    mins_ms = cuda_time_ms(lambda *a: gk.beam_scan_subchunk_min(*a[:4]),
+                           sets)
+    plain_ms = cuda_time_ms(gk.beam_scan_score_plain, sets, iters=10,
                             warm=1)
 
-    def library(qa, ta, ia, _):
-        rows = ta[ia.long()].to(torch.bfloat16)            # (NQ, Cpad, d)
-        qb = qa.to(torch.bfloat16)
-        dots = torch.bmm(rows, qb[:, :, None])[:, :, 0].float()
-        rf, qf = rows.float(), qb.float()
+    @full_f32
+    def library(qa, ta, ia, _, nn):
+        rows = ta[ia.long()]                               # (NQ, Cpad, d)
+        rb, qb = rows.to(torch.bfloat16), qa.to(torch.bfloat16)
+        dots = torch.bmm(rb, qb[:, :, None])[:, :, 0].float()
+        rf, qf = rb.float(), qb.float()
         d2 = ((qf * qf).sum(-1)[:, None] + (rf * rf).sum(-1)) - 2.0 * dots
-        return d2.reshape(nq, c_pad // 8, 8).amin(-1)
+        mins = d2.reshape(nq, c_pad // 8, 8).amin(-1)
+        ex = ((qa * qa).sum(-1)[:, None] + (rows * rows).sum(-1)
+              - 2.0 * torch.bmm(rows, qa[:, :, None])[:, :, 0])
+        return mins, torch.where(ia < nn, ex, torch.inf)
 
     library_ms = cuda_time_ms(library, sets, iters=10, warm=1)
     del sets
-    return ms, plain_ms, library_ms
+    return ms, plain_ms, library_ms, mins_ms
+
+
+def walk_divergence(index, qb, beam, iters, rows):
+    """Replay both engines' walks of the batch round by round (the
+    ``on_round`` hook of ``graph._beam_impl``) and, for each query in
+    ``rows``, find the first round whose frontier or merged pool differs
+    as a set of ids. Returns one report a query: that round, which
+    selection differed, the ids only the kernel engine selected and those
+    only the exact engine selected, with their f64 distances and
+    tolerances (:func:`beam_tol`), and ``near_tie``: every id one engine
+    selected instead of another lies within tol(a) + tol(b) of it, so
+    f32 sums in another order (each within its tolerance) can flip the
+    choice."""
+    from raft_tpu_torch.spatial.ann import graph as gmod
+
+    sel = torch.as_tensor(rows, device=qb.device)
+    n, table = index.n, index.data_padded
+    hb = gmod._auto_hash_bits(iters, beam, index.storage.degree,
+                              index.storage.entries.shape[0])
+    traces = {}
+    for name, engine in (("kernel", True), ("exact", False)):
+        trace = traces[name] = []
+        gmod._beam_impl(index, qb, k=K, beam=beam, iters=iters,
+                        hash_bits=hb, use_kernel=engine,
+                        on_round=lambda f, pi, pd, tr=trace: tr.append(
+                            (f[sel].cpu(), pi[sel].cpu())))
+    reports = []
+    for j, r in enumerate(rows):
+        q = qb[r].double()
+
+        def dist_tol(ids):
+            live = [i for i in sorted(ids) if i < n]
+            y = table[torch.as_tensor(live, device=table.device).long()]
+            y = y.double()
+            qn, yn = (q * q).sum(), (y * y).sum(1)
+            tol = 2 * y.shape[1] * 2.0**-24 * (qn + yn + 2 * (qn * yn).sqrt())
+            out = {i: (float("inf"), 0.0) for i in ids if i >= n}
+            out.update({i: (dv, tv) for i, dv, tv in zip(
+                live, ((y - q) ** 2).sum(1).tolist(), tol.tolist())})
+            return out
+
+        rep = {"query": r, "round": None, "kind": None, "near_tie": False}
+        for t, ((fk, pk), (fe, pe)) in enumerate(zip(traces["kernel"],
+                                                     traces["exact"])):
+            for kind, a, b in (("frontier", fk, fe), ("pool", pk, pe)):
+                a, b = set(a[j].tolist()), set(b[j].tolist())
+                if a != b:
+                    only_k, only_e = dist_tol(a - b), dist_tol(b - a)
+                    rep.update(round=t, kind=kind, kernel_only=only_k,
+                               exact_only=only_e, near_tie=all(
+                                   abs(dk - de) <= tk + te
+                                   for dk, tk in only_k.values()
+                                   for de, te in only_e.values()))
+                    break
+            if rep["kind"] is not None:
+                break
+        reports.append(rep)
+    return reports
 
 
 def ids_tied_only(d, a, b):
@@ -1570,6 +1693,7 @@ def graph_path(x, qb, true, rng, card, dev, keep):
         GraphParams, IVFFlatParams, graph_build, graph_search,
         ivf_flat_build, ivf_flat_search_grouped,
     )
+    from raft_tpu_torch.spatial.ann import graph as gmod
     from raft_tpu_torch.spatial.ann import graph_kernel as gk
 
     def fused_counts():
@@ -1624,31 +1748,68 @@ def graph_path(x, qb, true, rng, card, dev, keep):
         res = {}
         for name, engine in (("kernel", None), ("exact", False)):
             calls = []
-            with kernel_calls(gk, "beam_scan_subchunk_min", beam_key,
-                              calls if name == "kernel" else None):
+            with kernel_calls(gk, "beam_scan_score", beam_key,
+                              calls if name == "kernel" else None), \
+                    kernel_calls(gmod, "score_l2_candidates",
+                                 lambda a: tuple(a[1].shape)) as rescores:
                 sync(dev)
                 t0 = time.perf_counter()
                 d, i = graph_search(index, qb, K, beam=beam, iters=it,
                                     use_kernel=engine)
                 sync(dev)
             res[name] = (d, i, 1e3 * (time.perf_counter() - t0))
+            n_rescores = sum(rescores.values())
             if calls:
                 keep[("batch", beam)] = calls
+                # the rounds take the scan's exact distances: no gathered
+                # rows, no score_l2_candidates but the init's and the tail's
+                check(n_rescores == 2,
+                      f"beam {beam}: the kernel engine's search called "
+                      f"score_l2_candidates {n_rescores} times "
+                      f"({dict(rescores)}), not the init's and the tail's")
+            else:
+                check(n_rescores == it + 2,
+                      f"beam {beam}: the exact engine's search called "
+                      f"score_l2_candidates {n_rescores} times")
         dk, ik, ms_k = res["kernel"]
         de, ie, ms_e = res["exact"]
-        check(torch.equal(dk, de), f"beam {beam}: the kernel engine's "
-              "distances differ from the exact engine's")
-        bad = ids_tied_only(de, ie, ik)
+        # the kernel's exact sums and score_l2_candidates add in other
+        # orders, so a walk may take another turn where two candidates tie
+        # to within that rounding: such queries (final distances differ)
+        # are printed and each must be a near-tie at its first differing
+        # round; every other query's distances are equal and its ids equal
+        # up to ties
+        split = (dk != de).any(1)
+        diverged = split.nonzero().flatten().tolist()
+        agree = ~split
+        reports = (walk_divergence(index, qb, beam, it, diverged)
+                   if diverged else [])
+        for rep in reports:
+            r = rep["query"]
+            log(f"beam {beam}, query {r}: walks diverge at round "
+                f"{rep['round']} ({rep['kind']}): kernel engine only "
+                f"{rep.get('kernel_only')}, exact engine only "
+                f"{rep.get('exact_only')} (id: (f64 distance, tolerance)); "
+                f"near-tie {rep['near_tie']}; final kernel {dk[r].tolist()} "
+                f"ids {ik[r].tolist()}, exact {de[r].tolist()} ids "
+                f"{ie[r].tolist()}")
+        check(all(rep["near_tie"] for rep in reports),
+              f"beam {beam}: a diverged walk is not a near-tie")
+        bad = ids_tied_only(de[agree], ie[agree], ik[agree])
         check(bad == 0, f"beam {beam}: {bad} queries' ids differ beyond ties")
         sweep[beam] = dict(recall_kernel=recall(ik, true),
                            recall_exact=recall(ie, true), kernel_ms=ms_k,
-                           exact_ms=ms_e, iters=it)
+                           exact_ms=ms_e, iters=it,
+                           diverged_near_ties=len(diverged))
         log(f"[{card}] graph {QZ_QUERIES}-query batch, beam {beam} "
             f"({it} iters): recall@10 kernel "
             f"{sweep[beam]['recall_kernel']:.4f} ({ms_k:.2f} ms, "
             f"{1e3 * QZ_QUERIES / ms_k:.0f} queries/s), exact "
-            f"{sweep[beam]['recall_exact']:.4f} ({ms_e:.2f} ms); distances "
-            "equal, ids equal up to ties")
+            f"{sweep[beam]['recall_exact']:.4f} ({ms_e:.2f} ms); "
+            f"{len(diverged)} walks diverged at a near-tie, on the other "
+            f"{int(agree.sum())} queries distances equal and ids equal up "
+            "to ties; score_l2_candidates calls a "
+            f"search: kernel engine 2 (init and tail), exact engine {it + 2}")
     met = [b for b in GRAPH_BEAMS
            if sweep[b]["recall_kernel"] >= ivf_rec - 0.01]
     beam = met[0] if met else GRAPH_BEAMS[-1]
@@ -1689,7 +1850,7 @@ def graph_path(x, qb, true, rng, card, dev, keep):
             use_kernel=False), dev),
     }
     calls = []
-    with kernel_calls(gk, "beam_scan_subchunk_min", beam_key, calls):
+    with kernel_calls(gk, "beam_scan_score", beam_key, calls):
         graph_search(index, q1, K, beam=beam, iters=iters[min(BUCKETS)])
     keep[("one", beam)] = calls
     log(f"[{card}] nq = 1 p50 (host clock, 50 searches): graph beam {beam} "
@@ -1710,9 +1871,10 @@ def graph_phase(args, card, dev, data):
     x, q_np, true = data
     errs = [check_beam_kernel(args.seed, dev)]
     lib = gk._lib()
-    check(lib.raft_beam_scan_rows_per_block(DIM) == gk.rows_per_block(DIM)
+    rows = gk.rows_per_block(DIM)
+    check(lib.raft_beam_scan_rows_per_block(DIM) == rows
           and lib.raft_beam_scan_smem_bytes(DIM)
-          == gk._smem_bytes(DIM, gk.rows_per_block(DIM)),
+          == gk._smem_bytes(DIM, rows),
           "the beam wrapper's shared-memory model disagrees with the "
           "kernel's")
 
@@ -1722,29 +1884,34 @@ def graph_phase(args, card, dev, data):
     keep = {}
     gk.LAUNCHES = 0
     gmod.ENGINE_FALLBACKS = 0
-    with kernel_calls(gk, "beam_scan_subchunk_min", beam_key) as shapes:
+    with kernel_calls(gk, "beam_scan_score", beam_key) as shapes:
         out = graph_path(x, qb, true, rng, card, dev, keep)
     launches = gk.LAUNCHES
-    log(f"graph path: beam_scan_subchunk_min launched {launches} times, by "
+    log(f"graph path: beam_scan_score launched {launches} times, by "
         f"(queries, Cpad): {dict(shapes)}; ENGINE_FALLBACKS "
         f"{gmod.ENGINE_FALLBACKS}")
-    check(launches > 0, "the graph path never launched beam_scan_subchunk_min")
+    check(launches > 0, "the graph path never launched beam_scan_score")
+    check(launches == sum(shapes.values()),
+          "beam_scan launches outside beam_scan_score on the graph path")
     check(gmod.ENGINE_FALLBACKS == 0,
           f"{gmod.ENGINE_FALLBACKS} graph searches left the kernel")
 
     # the kernel against its plain version on the path's own inputs: every
     # round of one 4,096-query search per beam and of one nq = 1 search
+    index = out["index"]
+    yn_rows = (index.data_padded.double() ** 2).sum(1)
     n_calls = 0
     for calls in keep.values():
-        errs += [bitwise(gk.beam_scan_subchunk_min,
-                         gk.beam_scan_subchunk_min_plain, call,
-                         "beam_scan_subchunk_min on path inputs")
+        errs += [compare_beam_score(call, "beam_scan_score on path inputs",
+                                    yn_rows)
                  for call in calls]
         n_calls += len(calls)
+    del yn_rows
     path_shapes = sorted({beam_key(c[0]) for c in keep.values()})
-    log(f"kernel check beam_scan_subchunk_min: {n_calls} launches on the "
-        f"path's own inputs (shapes {path_shapes}) bitwise equal to the "
-        "plain version")
+    log(f"kernel check beam_scan_score: {n_calls} launches on the path's "
+        f"own inputs (shapes {path_shapes}): minima bitwise equal to the "
+        "plain version, exact distances within 2 d 2^-24 (qn + yn + 2 |q| "
+        f"|y|), max |diff| {max(errs)}")
     per_round = [torch.unique(c[2]).numel()
                  for c in keep[("batch", out["beam"])]]
     log(f"graph path: distinct candidate ids per round of the "
@@ -1754,7 +1921,6 @@ def graph_phase(args, card, dev, data):
     # name the most distinct rows (once the walk converges, a round's lists
     # hold mostly the sentinel), and kernel-only at degree 32 (beam 32 x
     # 32 neighbours = 1,024 candidates) on random ids over the same table
-    index = out["index"]
     timed = {}
     for calls in keep.values():
         shp = beam_key(calls[0])
@@ -1765,21 +1931,19 @@ def graph_phase(args, card, dev, data):
                           device=dev, dtype=torch.int32)
     full = torch.tensor([[0, 1024]], dtype=torch.int32,
                         device=dev).expand(QZ_QUERIES, 2).contiguous()
-    deg32 = (qb, index.data_padded, ids32, full)
-    errs.append(bitwise(gk.beam_scan_subchunk_min,
-                        gk.beam_scan_subchunk_min_plain, deg32,
-                        "beam_scan_subchunk_min at degree 32"))
+    deg32 = (qb, index.data_padded, ids32, full, index.n)
+    errs.append(compare_beam_score(deg32, "beam_scan_score at degree 32"))
     timed["degree32"] = time_beam(*deg32) + beam_bound(ids32, DIM)
-    for shp, (ms, plain_ms, library_ms, bound_ms, bound_by, distinct,
-              no_reuse_ms) in timed.items():
-        log(f"[{card}] beam_scan_subchunk_min {shp} (queries, Cpad), "
-            f"{shapes.get(shp, 0)} launches: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}; {distinct} distinct rows), "
-            f"{bound_ms / ms:.1%} of the bound; no-reuse bytes "
-            f"{no_reuse_ms:.5f} ms")
+    for shp, (ms, plain_ms, library_ms, mins_ms, bound_ms, bound_by,
+              distinct, no_reuse_ms) in timed.items():
+        log(f"[{card}] beam_scan_score {shp} (queries, Cpad), "
+            f"{shapes.get(shp, 0)} launches: kernel {ms:.4f} ms (minima "
+            f"alone {mins_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{distinct} distinct rows), {bound_ms / ms:.1%} of the bound; "
+            f"no-reuse bytes {no_reuse_ms:.5f} ms")
     shp = beam_key(keep[("batch", out["beam"])][0])
-    ms, plain_ms, library_ms, bound_ms, bound_by = timed[shp][:5]
+    ms, plain_ms, library_ms, _, bound_ms, bound_by = timed[shp][:6]
     return {
         "name": "beam_scan_subchunk_min",
         "route": "cuda",
@@ -1796,8 +1960,9 @@ def graph_phase(args, card, dev, data):
         "library_ms": library_ms,
         "shape": [shp[0], shp[1], DIM],
         "timed": {("x".join(map(str, k)) if isinstance(k, tuple) else k):
-                  dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by", "distinct_rows", "no_reuse_ms"), v))
+                  dict(zip(("ms", "plain_ms", "library_ms", "minima_ms",
+                            "bound_ms", "bound_by", "distinct_rows",
+                            "no_reuse_ms"), v))
                   for k, v in timed.items()},
         "graph": {"beam": out["beam"], "ivf_recall": out["ivf_recall"],
                   "p50_ms": out["p50"], "build_s": out["build_s"],
@@ -1908,7 +2073,8 @@ def check_fused_kernels(seed):
 def fused_calls(keep):
     """Count the calls of the chunk_mins and rescore_scores wrappers by
     shape and keep the last call's inputs of each shape in ``keep`` (a
-    served batch, not a warmup's zero queries).
+    served batch, not a warmup's zero queries); ``keep["rescore_scores"]``
+    also holds the last rescore call of each shape and index partition.
     The wrappers still run (and count their launches) as before."""
     from raft_tpu_torch.spatial import fused_knn as fz
 
@@ -1928,6 +2094,8 @@ def fused_calls(keep):
                str(y.dtype)[6:])
         shapes["rescore_scores"][key] += 1
         keep["rescore_scores", key] = (q, cids, y)
+        keep.setdefault("rescore_scores", {})[key + (y.data_ptr(),)] = (
+            q, cids, y)
         return wrappers[1](q, cids, y)
 
     fz.chunk_mins, fz.rescore_scores = chunk_mins, rescore_scores
@@ -2171,15 +2339,16 @@ def chunk_mins_bound(m, n, d, npad, itemsize, cd):
 
 def rescore_bound(q, cids, y):
     """Each distinct chunk the ids touch read once, q and the ids read
-    once, the scores written once; 4 flops per element (two FMAs) at the
-    f32 rate. Also returns the no-reuse byte count."""
+    once, the scores written once; at the f32 rate, the dot (one FMA) per
+    (pair, row, feature) and the row norm (one FMA) per (distinct row,
+    feature). Also returns the no-reuse byte count."""
     m, d = q.shape
     c = cids.shape[1]
     row_bytes = 128 * d * y.element_size()
     distinct = torch.unique(cids).numel()
     extra = m * d * 4 + m * c * 4 + m * c * 128 * 4
-    ms, by = bound(distinct * row_bytes + extra, 4.0 * m * c * 128 * d,
-                    FP32_FLOP_PER_S)
+    ms, by = bound(distinct * row_bytes + extra,
+                   2.0 * (m * c + distinct) * 128 * d, FP32_FLOP_PER_S)
     return ms, by, distinct, m * c * row_bytes + extra
 
 
@@ -2192,6 +2361,7 @@ def brute_force_phase(args, card, dev):
     lib = fz._lib()
     check(lib.raft_fused_max_grid_x() == fz._MAX_GRID_STEPS_DEFAULT,
           "the card's 1-D grid limit differs from the port's")
+    group = lib.raft_fused_rescore_group()
     gerrs = check_fused_kernels(args.seed)
     _, bn = fz._plan_blocks(SIFT_QUERIES, SIFT_ROWS, SIFT_DIM)
     npad = -(-SIFT_ROWS // bn) * bn
@@ -2234,15 +2404,16 @@ def brute_force_phase(args, card, dev):
     wpad = -(-(WIDE_ROWS // 2) // wbn) * wbn
     errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
         wq[:256].contiguous(), parts[0], wnorms[0], wpad, torch.bfloat16))
-    for (kname, key), call in keep.items():
-        if kname == "rescore_scores":
-            q, cids, y = call
-            errs["rescore_scores"] = max(errs["rescore_scores"],
-                                         compare_rescore(
-                                             q[:256].contiguous(),
-                                             cids[:256].contiguous(), y))
-    log(f"kernels vs plain on the path's inputs (first 256 queries, all "
-        f"chunks): max |kernel - plain| {errs}")
+    # every kept rescore call in full (each shape's last, each wide
+    # partition's): a launch's pair groups depend on all of its queries
+    for key, (q, cids, y) in keep["rescore_scores"].items():
+        err = compare_rescore(q, cids, y)
+        errs["rescore_scores"] = max(errs["rescore_scores"], err)
+        log(f"rescore_scores {key[:-1]} (index at {key[-1]:#x}) in full vs "
+            f"plain: max |kernel - plain| {err}")
+    log(f"kernels vs plain on the path's inputs (chunk_mins: first 256 "
+        f"queries, all chunks; rescore_scores: every kept call in full): "
+        f"max |kernel - plain| {errs}")
 
     out = []
     # chunk_mins: the shape launched most, then the 10,000-query batch
@@ -2298,10 +2469,14 @@ def brute_force_phase(args, card, dev):
         "bf16": bf16,
     })
 
+    # rescore_scores: the shape launched most, then the three batches' own
+    # (f32 and bf16 phase 1 at the SIFT shape, the wide partitions)
     (rs_key, _), = shapes["rescore_scores"].most_common(1)
     timed = {}
-    for key in dict.fromkeys([rs_key, (SIFT_QUERIES, 24, SIFT_ROWS,
-                                       SIFT_DIM, "float32")]):
+    for key in dict.fromkeys([
+            rs_key, (SIFT_QUERIES, 24, SIFT_ROWS, SIFT_DIM, "float32"),
+            (SIFT_QUERIES, 48, SIFT_ROWS, SIFT_DIM, "float32"),
+            (WIDE_QUERIES, 48, WIDE_ROWS // 2, WIDE_DIM, "bfloat16")]):
         q, cids, y = keep[("rescore_scores", key)]
         sets = input_copies(q, cids, y)
         ms = cuda_time_ms(fz.rescore_scores, sets)
@@ -2309,15 +2484,23 @@ def brute_force_phase(args, card, dev):
                                 warm=1)
         del sets
         bound_ms, bound_by, distinct, no_reuse = rescore_bound(q, cids, y)
-        timed[key] = (ms, plain_ms, bound_ms, bound_by)
+        # the launch's blocks: each chunk's pairs in groups of at most
+        # `group` (ids outside the index share one bucket)
+        n_chunks = -(-y.shape[0] // 128)
+        bucket = cids.reshape(-1).long()
+        bucket = torch.where((bucket >= 0) & (bucket < n_chunks), bucket,
+                             n_chunks)
+        count = torch.bincount(bucket, minlength=n_chunks + 1)
+        groups = int((-(-count // group)).sum())
+        timed[key] = (ms, plain_ms, bound_ms, bound_by, distinct, groups)
         log(f"[{card}] rescore_scores {key}, "
             f"{shapes['rescore_scores'][key]} launches: kernel {ms:.4f} ms, "
             f"plain (the yardstick) {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}; {distinct} distinct chunks), "
-            f"{bound_ms / ms:.1%} of the bound; no-reuse bytes "
-            f"{no_reuse / 1e9:.3f} GB = {1e3 * no_reuse / HBM_BYTES_PER_S:.4f}"
-            " ms")
-    ms, plain_ms, bound_ms, bound_by = timed[rs_key]
+            f"{bound_ms:.4f} ms ({bound_by}; {distinct} distinct chunks, "
+            f"{groups} groups of <= {group} pairs), {bound_ms / ms:.1%} of "
+            f"the bound; no-reuse bytes {no_reuse / 1e9:.3f} GB = "
+            f"{1e3 * no_reuse / HBM_BYTES_PER_S:.4f} ms")
+    ms, plain_ms, bound_ms, bound_by = timed[rs_key][:4]
     out.append({
         "name": "rescore_scores", "route": "cuda",
         "source": "raft_tpu_torch/csrc/fused_knn.cu",
@@ -2328,6 +2511,9 @@ def brute_force_phase(args, card, dev):
         "max_abs_err": errs["rescore_scores"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "shape": list(rs_key), "card": card,
+        "timed": {"x".join(map(str, k)): dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "distinct_chunks",
+             "groups"), v)) for k, v in timed.items()},
     })
 
     # the probe at the SIFT phase-1 grid: the raw launch, then a clone

@@ -65,14 +65,31 @@
 // Phase 2 computes, for every query i and candidate slot j, the score of
 // each of the 128 contiguous rows of chunk cids[i, j]:
 //   out[i, 128 j + r] = sum over d of y * (y - 2 q_i)     (y upcast to f32)
-// with q in f32 (never rounded). The caller adds |q|^2 and masks rows >= n.
-// It is bound by bytes: each candidate chunk is 128 * d elements, read
-// straight from the index layout. One block serves one query; its row of q
-// sits in shared memory (at most 16 KB at d = 4096); each warp scores 32
-// rows at a time, one row per step with every lane on its own 16-byte
-// slice of the row (coalesced), a shuffle reduction per row, and one
-// coalesced 128-byte store per 32 rows. A block loads its own chunk ids:
-// the counterpart of the TPU kernel's scalar prefetch.
+// with q in f32 (never rounded), summed over d in ascending order, one
+// fmaf(-2, q, y) and one fmaf per term. The caller adds |q|^2 and masks
+// rows >= n. Its bound at (10,000 queries, 24 chunks, d = 128) is about
+// 0.19 ms of bytes: the 7,813 distinct chunks it names (0.5 GB) and the
+// scores it writes (0.12 GB). Each chunk is named by ~31 queries, and one
+// block a query would read each chunk again for every query naming it
+// (15.7 GB).
+// What the design does about it:
+//   * the launch inverts the pair map first, on the card and with no host
+//     sync: a counting sort of the (query, slot) pairs by chunk
+//     (rescore_count_kernel, rescore_scan_kernel, rescore_scatter_kernel;
+//     the CPU tests hold a plain mirror of it), each chunk's
+//     bucket cut into groups of at most kGroup = 32 pairs;
+//   * one block a group reads the chunk once for all its pairs: the 128
+//     rows (in the index's type) and the pairs' queries stream through
+//     shared memory in 32-feature slices by 16-byte cp.async, a ring of
+//     stages keeping the next slices in flight (4 for f32, so a d = 128
+//     chunk is in flight whole, 6 for bf16: groups are small where
+//     queries are few, and a block that waited on one slice at a time was
+//     latency-bound);
+//   * a register-blocked 128 x 32 tile of sums on the CUDA cores (the port
+//     keeps TF32 off, and the formula is no bf16 product) writes each
+//     pair's 128 scores as four coalesced 128-byte stores;
+//   * blocks are launched for an upper bound of the group count, and the
+//     ones past the last group return at once.
 //
 // The probe copies one (8, 128) f32 tile with every block of a 1-D grid of
 // `steps` blocks of 256 threads: the layout of the phase-1 launch. It tells
@@ -83,6 +100,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -517,95 +536,291 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
   }
 }
 
-// ---- phase 2 ----
-constexpr int kThreads2 = 256;
-constexpr int kWarps2 = kThreads2 / 32;
+// ---- phase 2: the rescore, one block per (chunk, group of pairs) ----
+constexpr int kGroup = 32;            // (query, slot) pairs of one chunk
+constexpr int kThreads2 = 256;        // 8 warps x 4 pairs; a lane 4 rows
+constexpr int kSlice2 = 32;           // features per stage
+constexpr int kQStride2 = kSlice2 + 4;  // f32 query row: 9 16-byte units
+constexpr int kScanThreads = 1024;    // the plan's one-block scan
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// A stage: one 32-feature slice of the chunk's 128 rows in the index's
+// type (rows padded to an odd number of 16-byte units: 9 for f32, 5 for
+// bf16, so the 8 lanes of a quarter-warp reading 16 bytes of 8 rows hit
+// distinct banks) and of the group's queries in f32. Stages in the ring:
+// 4 for f32 (a d = 128 chunk in flight whole), 6 for bf16.
+template <typename T>
+struct RescoreStage {
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kYStride = kBf16 ? kSlice2 + 8 : kSlice2 + 4;
+  static constexpr int kStages = kBf16 ? 6 : 4;
+  static constexpr size_t kYBytes = sizeof(T) * kChunk * kYStride;
+  static constexpr size_t kBytes =
+      kYBytes + sizeof(float) * kGroup * kQStride2;
+  static constexpr size_t kSmem = kStages * kBytes;
+};
+
+// Blocks of a rescore launch: an upper bound of the group count, sum over
+// buckets of ceil(pairs / kGroup) <= pairs / kGroup + buckets, and at most
+// one a pair. The blocks past the last group return at once.
+inline long long rescore_blocks(long long n_pairs, int buckets) {
+  const long long ub = n_pairs / kGroup + buckets;
+  return ub < n_pairs ? ub : n_pairs;
 }
 
-// One lane's share of sum y * (y - 2q) over one row: 16-byte slices when
-// kVec (rows a whole number of 16-byte slices, the index 16-byte aligned),
-// single elements otherwise.
-template <bool kVec>
-__device__ __forceinline__ float row_part(const float* __restrict__ yr,
-                                          const float* sq, int d, int lane) {
-  float s = 0.f;
-  if (kVec) {
-    for (int e = 4 * lane; e < d; e += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(yr + e);
-      const float4 w = *reinterpret_cast<const float4*>(sq + e);
-      s = fmaf(v.x, v.x - 2.f * w.x, s);
-      s = fmaf(v.y, v.y - 2.f * w.y, s);
-      s = fmaf(v.z, v.z - 2.f * w.z, s);
-      s = fmaf(v.w, v.w - 2.f * w.w, s);
-    }
-  } else {
-    for (int e = lane; e < d; e += 32) {
-      const float v = yr[e];
-      s = fmaf(v, v - 2.f * sq[e], s);
-    }
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// The plan: the (query i, slot j) pairs p = i * c + j bucketed by chunk id
+// (a counting sort), each bucket cut into groups of at most kGroup pairs.
+// Bucket k < n_chunks is chunk k; bucket n_chunks takes every id outside
+// [0, n_chunks) (rows past the index, scoring 0).
+__device__ __forceinline__ int bucket_of(int id, int n_chunks) {
+  return id >= 0 && id < n_chunks ? id : n_chunks;
+}
+
+__global__ void rescore_count_kernel(const int32_t* __restrict__ cids,
+                                     int* __restrict__ count, int n_pairs,
+                                     int n_chunks) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pairs;
+       p += gridDim.x * blockDim.x) {
+    atomicAdd(&count[bucket_of(cids[p], n_chunks)], 1);
   }
-  return s;
 }
 
-template <bool kVec>
-__device__ __forceinline__ float row_part(const __nv_bfloat16* __restrict__ yr,
-                                          const float* sq, int d, int lane) {
-  float s = 0.f;
-  if (kVec) {
-    for (int e = 8 * lane; e < d; e += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(yr + e);
+// Inclusive sum over the block of v (kScanThreads threads); `tmp` holds
+// one value a warp.
+__device__ __forceinline__ int block_scan(int v, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
+  if (lane == 31) tmp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int w = tmp[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += u;
+    }
+    tmp[lane] = w;
+  }
+  __syncthreads();
+  const int out = v + (warp > 0 ? tmp[warp - 1] : 0);
+  __syncthreads();
+  return out;
+}
+
+// One block: each bucket's first sorted position (start, and the scatter
+// cursor), its first group (gstart; gstart[buckets] = the group count) and
+// each group's bucket (gkey).
+__global__ void __launch_bounds__(kScanThreads)
+rescore_scan_kernel(const int* __restrict__ count, int* __restrict__ start,
+                    int* __restrict__ cursor, int* __restrict__ gstart,
+                    int* __restrict__ gkey, int buckets) {
+  __shared__ int tmp[32];
+  __shared__ int tot[2];
+  int carry_p = 0, carry_g = 0;
+  for (int base = 0; base < buckets; base += kScanThreads) {
+    const int k = base + threadIdx.x;
+    const int cnt = k < buckets ? count[k] : 0;
+    const int grp = (cnt + kGroup - 1) / kGroup;
+    const int ip = block_scan(cnt, tmp);
+    const int ig = block_scan(grp, tmp);
+    if (k < buckets) {
+      start[k] = cursor[k] = carry_p + ip - cnt;
+      const int g0 = gstart[k] = carry_g + ig - grp;
+      for (int j = 0; j < grp; ++j) gkey[g0 + j] = k;
+    }
+    if (threadIdx.x == kScanThreads - 1) {  // this slice's totals
+      tot[0] = ip;
+      tot[1] = ig;
+    }
+    __syncthreads();
+    carry_p += tot[0];
+    carry_g += tot[1];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) gstart[buckets] = carry_g;
+}
+
+__global__ void rescore_scatter_kernel(const int32_t* __restrict__ cids,
+                                       int* __restrict__ cursor,
+                                       int32_t* __restrict__ spair,
+                                       int n_pairs, int n_chunks) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n_pairs;
+       p += gridDim.x * blockDim.x) {
+    spair[atomicAdd(&cursor[bucket_of(cids[p], n_chunks)], 1)] = p;
+  }
+}
+
+// Block g scores the pairs of group g: the j-th group of bucket k =
+// gkey[g] (j = g - gstart[k]), at most kGroup pairs that all name chunk k:
+// the chunk's 128 rows and the pairs' queries stream through a ring of
+// shared-memory stages in 32-feature slices (RescoreStage); warp w holds
+// pairs 4w..4w+3 and lane l rows l, l + 32, l + 64, l + 96, 16 sums in
+// registers. Blocks past the last group return at once. kVec: 16-byte cp.async of rows and queries (d a
+// whole number of 16-byte units, both 16-byte aligned); else
+// single-element loads.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads2, 2)
+rescore_kernel(const float* __restrict__ q, const int* __restrict__ start,
+               const int* __restrict__ count, const int* __restrict__ gstart,
+               const int* __restrict__ gkey,
+               const int32_t* __restrict__ spair, const T* __restrict__ y,
+               float* __restrict__ out, long long n, int d, int c,
+               int buckets) {
+  using Stage = RescoreStage<T>;
+  constexpr int kYS = Stage::kYStride;
+  constexpr int kStages = Stage::kStages;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  __shared__ long long sout[kGroup];   // each pair's first output element
+  __shared__ long long sqrow[kGroup];  // each pair's query row offset
+
+  const int g = blockIdx.x;
+  if (g >= gstart[buckets]) return;
+  const int k = gkey[g];
+  const int s0 = start[k] + (g - gstart[k]) * kGroup;
+  const int ng = min(kGroup, start[k] + count[k] - s0);
+  const long long row0 = (long long)k * kChunk;
+  const int nrows = (int)max(0LL, min((long long)kChunk, n - row0));
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t < ng) {
+    const int p = spair[s0 + t];
+    sout[t] = (long long)p * kChunk;
+    sqrow[t] = (long long)(p / c) * d;
+  }
+  __syncthreads();
+  if (nrows == 0) {  // a chunk past the index: every row scores 0
+    for (int i = t; i < ng * kChunk; i += kThreads2) {
+      out[sout[i / kChunk] + i % kChunk] = 0.f;
+    }
+    return;
+  }
+
+  constexpr int kElems = 16 / sizeof(T);       // elements per 16-byte unit
+  constexpr int kUnits = kSlice2 / kElems;     // units per row slice
+  auto stage_y = [&](int buf) {
+    return reinterpret_cast<T*>(smem + buf * Stage::kBytes);
+  };
+  auto stage_q = [&](int buf) {
+    return reinterpret_cast<float*>(smem + buf * Stage::kBytes +
+                                    Stage::kYBytes);
+  };
+  // slice s into stage buf, as one cp.async group (empty past the last
+  // slice, so every thread commits one group a step)
+  const int n_slices = (d + kSlice2 - 1) / kSlice2;
+  auto load = [&](int s, int buf) {
+    if (s < n_slices) {
+      const int f0 = s * kSlice2;
+      T* ydst = stage_y(buf);
+      float* qdst = stage_q(buf);
+      if constexpr (kVec) {
+        for (int u = t; u < kChunk * kUnits; u += kThreads2) {
+          const int r = u / kUnits, f = kElems * (u % kUnits);
+          const bool ok = r < nrows && f0 + f < d;
+          cp_async16_zfill(ydst + r * kYS + f,
+                           ok ? y + (row0 + r) * d + f0 + f : y, ok);
+        }
+        const int j = t / 8, f = 4 * (t % 8);  // one query unit a thread
+        const bool ok = j < ng && f0 + f < d;
+        cp_async16_zfill(qdst + j * kQStride2 + f,
+                         ok ? q + sqrow[j] + f0 + f : q, ok);
+      } else {
+        for (int u = t; u < kChunk * kSlice2; u += kThreads2) {
+          const int r = u / kSlice2, f = u % kSlice2;
+          ydst[r * kYS + f] = (r < nrows && f0 + f < d)
+                                  ? y[(row0 + r) * d + f0 + f]
+                                  : T(0.f);
+        }
+        for (int u = t; u < kGroup * kSlice2; u += kThreads2) {
+          const int j = u / kSlice2, f = u % kSlice2;
+          qdst[j * kQStride2 + f] =
+              (j < ng && f0 + f < d) ? q[sqrow[j] + f0 + f] : 0.f;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // 8 features of row r of a stage, widened to f32
+  auto row8 = [&](const T* yb, int r, int f, float (&v)[8]) {
+    if constexpr (Stage::kBf16) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(yb + r * kYS + f);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const float2 v = __bfloat1622float2(h[p]);
-        s = fmaf(v.x, v.x - 2.f * sq[e + 2 * p], s);
-        s = fmaf(v.y, v.y - 2.f * sq[e + 2 * p + 1], s);
+      for (int e = 0; e < 4; ++e) {
+        const float2 w = __bfloat1622float2(h[e]);
+        v[2 * e] = w.x;
+        v[2 * e + 1] = w.y;
+      }
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(yb + r * kYS + f);
+      const float4 b = *reinterpret_cast<const float4*>(yb + r * kYS + f + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // the ring: kStages - 1 slices in flight ahead of the one being summed
+  for (int s = 0; s < kStages - 1; ++s) load(s, s);
+  for (int s = 0; s < n_slices; ++s) {
+    load(s + kStages - 1, (s + kStages - 1) % kStages);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    __syncthreads();
+    if (4 * warp < ng) {  // warp-uniform: warps without pairs skip the sums
+      const T* yb = stage_y(s % kStages);
+      const float* qb = stage_q(s % kStages) + 4 * warp * kQStride2;
+      for (int f = 0; f < kSlice2; f += 8) {
+        float yv[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) row8(yb, lane + 32 * i, f, yv[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 qa =
+              *reinterpret_cast<const float4*>(qb + j * kQStride2 + f);
+          const float4 qc =
+              *reinterpret_cast<const float4*>(qb + j * kQStride2 + f + 4);
+          const float qv[8] = {qa.x, qa.y, qa.z, qa.w,
+                               qc.x, qc.y, qc.z, qc.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float a = acc[i][j];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              a = fmaf(yv[i][e], fmaf(-2.f, qv[e], yv[i][e]), a);
+            }
+            acc[i][j] = a;
+          }
+        }
       }
     }
-  } else {
-    for (int e = lane; e < d; e += 32) {
-      const float v = __bfloat162float(yr[e]);
-      s = fmaf(v, v - 2.f * sq[e], s);
-    }
+    __syncthreads();
   }
-  return s;
-}
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads2)
-rescore_kernel(const float* __restrict__ q, const int32_t* __restrict__ cids,
-               const T* __restrict__ y, float* __restrict__ out, long long n,
-               int d, int c) {
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  const long long i = blockIdx.x;  // query
-  const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  for (int e = t; e < d; e += kThreads2) sq[e] = q[i * d + e];
-  __syncthreads();
-
-  const int groups = c * (kChunk / 32);  // 32-row groups of this query
-  for (int g = warp; g < groups; g += kWarps2) {
-    const int j = g / (kChunk / 32);
-    const int sub = g % (kChunk / 32);
-    const long long row0 = (long long)cids[i * c + j] * kChunk + 32 * sub;
-    float res = 0.f;
-#pragma unroll 8
-    for (int rr = 0; rr < 32; ++rr) {
-      const long long row = row0 + rr;
-      float s = 0.f;
-      if (row >= 0 && row < n) {  // warp-uniform; other rows score 0
-        s = row_part<kVec>(y + row * d, sq, d, lane);
+  // each pair's 128 scores: 4 coalesced 128-byte stores by one warp
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int jj = 4 * warp + j;
+    if (jj < ng) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = lane + 32 * i;
+        out[sout[jj] + r] = r < nrows ? acc[i][j] : 0.f;
       }
-      s = warp_sum(s);
-      if (lane == rr) res = s;
     }
-    out[(i * c + j) * kChunk + 32 * sub + lane] = res;
   }
 }
 
@@ -687,29 +902,60 @@ int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
   return (int)cudaGetLastError();
 }
 
-// q (m, d) f32; cids (m, c) int32 chunk ids < ceil(n / 128) rounded up to
-// the caller's plan; y (n, d) f32 or bf16; out (m, c * 128) f32. Rows past
-// n score 0 (the caller masks them). One block per query.
+// q (m, d) f32; cids (m, c) int32 chunk ids; y (n, d) f32 or bf16; out
+// (m, c * 128) f32. Rows past n, and ids outside [0, ceil(n / 128)), score
+// 0. `plan` is int32 scratch of plan_ints(m, c, n) elements: the launch
+// first builds the plan there (count, scan, scatter), then runs one block
+// per group of pairs.
 int raft_fused_rescore(const void* q, const void* cids, const void* y,
-                       void* out, int m, long long n, int d, int c,
-                       int y_bf16, void* stream) {
+                       void* out, void* plan, int m, long long n, int d,
+                       int c, int y_bf16, void* stream) {
   if (m < 1 || n < 1 || d < 1 || c < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)((d + 3) / 4 * 4);
-  const int elems = y_bf16 ? 8 : 4;  // elements per 16-byte slice
-  const bool vec = d % elems == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const long long n_pairs = (long long)m * c;
+  const long long n_chunks = (n + kChunk - 1) / kChunk;
+  if (n_pairs > 0x7fffffffLL || n_chunks >= 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int buckets = (int)n_chunks + 1;
+  const long long blocks = rescore_blocks(n_pairs, buckets);
   cudaStream_t s = (cudaStream_t)stream;
-  const float* qf = static_cast<const float*>(q);
+  int* count = static_cast<int*>(plan);
+  int* start = count + buckets;
+  int* cursor = start + buckets;
+  int* gstart = cursor + buckets;                 // buckets + 1
+  int* gkey = gstart + buckets + 1;               // blocks
+  int32_t* spair = gkey + blocks;                 // n_pairs
   const int32_t* ci = static_cast<const int32_t*>(cids);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int) * buckets, s);
+  if (err != cudaSuccess) return (int)err;
+  const int pair_blocks = (int)((n_pairs + 255) / 256 < 1024
+                                    ? (n_pairs + 255) / 256 : 1024);
+  rescore_count_kernel<<<pair_blocks, 256, 0, s>>>(ci, count, (int)n_pairs,
+                                                   (int)n_chunks);
+  rescore_scan_kernel<<<1, kScanThreads, 0, s>>>(count, start, cursor,
+                                                 gstart, gkey, buckets);
+  rescore_scatter_kernel<<<pair_blocks, 256, 0, s>>>(
+      ci, cursor, spair, (int)n_pairs, (int)n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = y_bf16 ? RescoreStage<__nv_bfloat16>::kSmem
+                             : RescoreStage<float>::kSmem;
+  const int elems = y_bf16 ? 8 : 4;  // elements per 16-byte unit
+  const bool vec = d % elems == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const float* qf = static_cast<const float*>(q);
   float* o = static_cast<float*>(out);
-  cudaError_t err = cudaSuccess;
 #define RAFT_RESCORE_LAUNCH(T, V)                                            \
   do {                                                                       \
     err = cudaFuncSetAttribute(rescore_kernel<T, V>,                         \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,  \
                                (int)smem);                                   \
     if (err != cudaSuccess) return (int)err;                                 \
-    rescore_kernel<T, V><<<m, kThreads2, smem, s>>>(                         \
-        qf, ci, static_cast<const T*>(y), o, n, d, c);                       \
+    rescore_kernel<T, V><<<(unsigned)blocks, kThreads2, smem, s>>>(          \
+        qf, start, count, gstart, gkey, spair, static_cast<const T*>(y), o,  \
+        n, d, c, buckets);                                                   \
   } while (0)
   if (y_bf16) {
     if (vec) RAFT_RESCORE_LAUNCH(__nv_bfloat16, true);
@@ -721,6 +967,18 @@ int raft_fused_rescore(const void* q, const void* cids, const void* y,
 #undef RAFT_RESCORE_LAUNCH
   return (int)cudaGetLastError();
 }
+
+// int32 scratch elements the rescore's plan needs: four arrays over the
+// buckets (count, start, cursor, gstart + 1), the group bucket of every
+// launched block, the sorted pairs.
+long long raft_fused_rescore_plan_ints(int m, long long n, int c) {
+  const long long n_pairs = (long long)m * c;
+  const int buckets = (int)((n + kChunk - 1) / kChunk) + 1;
+  return 4LL * buckets + 1 + rescore_blocks(n_pairs, buckets) + n_pairs;
+}
+
+// Pairs per rescore block at most (the plan's group cap).
+int raft_fused_rescore_group(void) { return kGroup; }
 
 // Copy one (8, 128) f32 tile in each of `steps` blocks (1-D grid of
 // 256-thread blocks, the phase-1 layout). Returns the launch's error:

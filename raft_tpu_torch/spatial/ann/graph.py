@@ -24,15 +24,17 @@ which breaks ties as ``lax.top_k`` does, so the walk expands and keeps
 the same slots. Candidates are scored by one of two engines:
 
 * the **kernel engine**: the hand-written CUDA scan
-  (:mod:`.graph_kernel`, bf16 operands) writes the 8-row sub-chunk
-  minima of each query's padded candidate list, the top ``s`` sub-chunks
-  are kept, and their rows are rescored exactly;
-* the **exact engine**: every candidate is scored exactly.
+  (:mod:`.graph_kernel`) reads each candidate row once and writes the
+  8-row sub-chunk minima of each query's padded candidate list (bf16
+  operands) and every candidate's exact f32 distance; the top ``s``
+  sub-chunks are kept with their exact distances;
+* the **exact engine**: every candidate is scored exactly by
+  :func:`~.common.score_l2_candidates`.
 
-Both tails score with :func:`~.common.score_l2_candidates` (full f32),
-so returned distances are exact in both. The tombstone ``row_mask`` is
-folded only at the final rerank: a deleted row still guides the walk
-and is never returned.
+Both tails rescore the pool with :func:`~.common.score_l2_candidates`
+(full f32), so returned distances are exact in both. The tombstone
+``row_mask`` is folded only at the final rerank: a deleted row still
+guides the walk and is never returned.
 """
 
 from __future__ import annotations
@@ -533,10 +535,14 @@ def _visited_hash(ids, n: int, hash_bits: int):
 
 @full_f32
 def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
-               hash_bits: int, row_mask=None, use_kernel: bool = False):
+               hash_bits: int, row_mask=None, use_kernel: bool = False,
+               on_round=None):
     # Pool width P = max(k, beam) + beam (>= beam unexpanded slots survive
     # a full expansion round, >= k for the tail), candidate buffer
     # C = beam * degree, visited table 2^hash_bits + 1 bytes per query.
+    # on_round(fids, pool_i, pool_d), when given, sees each round's
+    # frontier and merged pool (a tracing hook: two walks can be compared
+    # round by round).
     adjacency = index.storage.adjacency
     table = index.data_padded
     n = adjacency.shape[0] - 1
@@ -559,7 +565,8 @@ def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
         # the kernel scores the candidate list padded with the sentinel to
         # the 128-id granule, all of it in range; the cover argument (the
         # top-s sub-chunks by minimum hold the top-s rows) makes s = P
-        # sub-chunks enough for the pool merge
+        # sub-chunks enough for the pool merge, which takes the exact
+        # distances the kernel computed from the same read of each row
         c_pad = round_up(C, LANE)
         bounds = torch.tensor([[0, c_pad]], dtype=i32,
                               device=dev).expand(nq, 2).contiguous()
@@ -569,13 +576,11 @@ def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
 
         def _score_new(cand):
             cp = torch.cat([cand, pad], dim=1)
-            mins = gk.beam_scan_subchunk_min(qf, table, cp, bounds)
+            mins, exact = gk.beam_scan_score(qf, table, cp, bounds, n)
             _, sub = top_k_smallest(mins, s)
             pos = (sub[:, :, None] * SUBCHUNK + sub_rows).reshape(
                 nq, s * SUBCHUNK)
-            csel = torch.gather(cp, 1, pos)
-            return score_l2_candidates(qf, table[csel.long()].float(),
-                                       csel < n), csel
+            return torch.gather(exact, 1, pos), torch.gather(cp, 1, pos)
     else:
 
         def _score_new(cand):
@@ -624,6 +629,8 @@ def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
         pool_d, idx = top_k_smallest(all_d, P)
         pool_i = torch.gather(all_i, 1, idx)
         pool_x = torch.gather(all_x, 1, idx)
+        if on_round is not None:
+            on_round(fids, pool_i, pool_d)
 
     # exact tail: the only place tombstones fold
     live = pool_i < n

@@ -11,7 +11,8 @@ Two phases, exact:
   chunk cover argument; ``extra_chunks`` adds margin for phase-1
   rounding), so their rows are rescored and the k best kept. With ``d`` a
   multiple of 128 the rescore is the CUDA kernel :func:`rescore_scores`,
-  which reads each 128-row chunk straight from the index; otherwise (or
+  which reads each 128-row chunk straight from the index, once for up to
+  32 of the queries that name it; otherwise (or
   with ``gather_rows`` pinned) a torch gather of the candidate rows, with
   the JAX package's other formula and chunk count.
 
@@ -73,9 +74,6 @@ RESCORE_GATHER_CALLS = 0
 
 # elements of one f32 working tile of the plain versions
 _PLAIN_TILE_ELEMS = 1 << 24
-
-# shared memory one block may use on sm_90 (227 KB)
-_SMEM_LIMIT = 232_448
 
 
 def _cdiv(a, b):
@@ -228,7 +226,9 @@ def rescore_scores(q, cids, y):
     the 128 rows of each candidate chunk (``‖y‖² − 2 q·y``; the caller
     adds ``‖q‖²`` and masks rows past ``n``, which score 0 here). q is
     never rounded. CPU tensors run the plain version; CUDA tensors run
-    the kernel."""
+    the kernel, which inverts the pair map on the card first (the
+    (query, slot) pairs sorted by chunk) and then reads each chunk once
+    for up to 32 of the queries that name it."""
     _check_queries("rescore_scores", q)
     m, d = q.shape
     _check_index("rescore_scores", y, d)
@@ -240,19 +240,24 @@ def rescore_scores(q, cids, y):
     dev = _check_devices("rescore_scores", q, cids, y)
     if dev.type == "cpu":
         return rescore_scores_plain(q, cids, y)
-    if 4 * d > _SMEM_LIMIT:
-        raise ValueError(
-            f"rescore_scores: d={d} exceeds the kernel's shared memory")
     c = cids.shape[1]
+    n = y.shape[0]
+    if m * c >= 2**31 or _cdiv(n, _CHUNK) >= 2**31 - 1:
+        raise ValueError(
+            f"rescore_scores: {m} x {c} pairs or {n} rows exceed the "
+            "kernel's int32 indices")
     q = q.contiguous()
     cids = cids.contiguous()
     out = torch.empty((m, c * _CHUNK), dtype=torch.float32, device=dev)
     lib = _lib()
+    plan = torch.empty(lib.raft_fused_rescore_plan_ints(m, n, c),
+                       dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.raft_fused_rescore(
             q.data_ptr(), cids.data_ptr(), y.data_ptr(), out.data_ptr(),
-            m, y.shape[0], d, c, int(y.dtype == torch.bfloat16), stream)
+            plan.data_ptr(), m, n, d, c, int(y.dtype == torch.bfloat16),
+            stream)
     _raise_on(lib, err, "rescore_scores")
     LAUNCHES["rescore_scores"] += 1
     return out
@@ -411,7 +416,8 @@ def _fused_l2_knn_impl(queries, index, k: int, metric: DistanceType, *,
         # the rescore kernel: each candidate chunk read in place
         _, cids = top_k_smallest(cmins, cpad)             # (m, cpad)
         cids32 = cids.to(torch.int32)
-        blk = max(1, grid_limit)
+        # the kernel launches at most one block per (query, slot) pair
+        blk = max(1, grid_limit // cpad)
         scores = torch.cat([
             rescore_scores(q[s:s + blk], cids32[s:s + blk], y)
             for s in range(0, m, blk)
@@ -529,8 +535,13 @@ def _lib():
         lib.raft_fused_chunk_mins.argtypes = [p, p, p, p, i, ll, i, ll, i,
                                               i, p]
         lib.raft_fused_chunk_mins.restype = i
-        lib.raft_fused_rescore.argtypes = [p, p, p, p, i, ll, i, i, i, p]
+        lib.raft_fused_rescore.argtypes = [p, p, p, p, p, i, ll, i, i, i,
+                                           p]
         lib.raft_fused_rescore.restype = i
+        lib.raft_fused_rescore_group.argtypes = []
+        lib.raft_fused_rescore_group.restype = i
+        lib.raft_fused_rescore_plan_ints.argtypes = [i, ll, i]
+        lib.raft_fused_rescore_plan_ints.restype = ll
         lib.raft_fused_probe_grid_steps.argtypes = [p, p, ll, p]
         lib.raft_fused_probe_grid_steps.restype = i
         lib.raft_fused_invalid_configuration.argtypes = []

@@ -309,8 +309,125 @@ def test_beam_scan_kernel_matches_plain_version():
             assert torch.equal(got, want), (nq, d, n, c_pad, integer)
             assert (got[1] == tgk.BIG).all()
     lib = tgk._lib()
-    for d in (19, 96, 600, 2000):
+    for d in (19, 96, 600, 1752, 1755, 2000):
         assert lib.raft_beam_scan_rows_per_block(d) == tgk.rows_per_block(d)
+
+
+def _beam_tol(q, table, ids):
+    # 2 d u (qn + yn + 2 |q| |y|), u = 2^-24: the recursive-summation
+    # bound of the norms and the dot, each summed in two orders
+    d = q.shape[1]
+    qn = (q.double() ** 2).sum(1)[:, None]
+    yn = (table.double() ** 2).sum(1)[ids.long()]
+    return 2 * d * 2.0**-24 * (qn + yn + 2 * (qn * yn).sqrt())
+
+
+@pytest.mark.gpu
+def test_beam_scan_score_kernel_matches_plain_version():
+    """On a Hopper card: both outputs of the beam scan against
+    ``beam_scan_score_plain`` at nq 1 and 4096, Cpad 256 / 1024 and a
+    ragged 136, d 96 / 20 / 600, 19 (off the 16-byte load) and 1755 /
+    1752 (16-row tiles, the widest the engine routes here), random
+    ids with repeats and sentinel ids, n below the table's rows: the
+    minima bitwise, the exact distances bitwise on integer inputs and
+    within the f32 summation bound on Gaussian ones, +inf exactly at ids
+    >= n."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as tgk
+
+    dev = _hopper()
+    rng = np.random.default_rng(8)
+    for nq, d, n, c_pad in ((1, 96, 5000, 1024), (4096, 96, 20000, 1024),
+                            (4096, 20, 3000, 256), (1, 600, 2000, 256),
+                            (64, 600, 3000, 1024), (3, 19, 300, 136),
+                            (2, 1755, 2000, 256), (512, 1752, 3000, 256)):
+        bounds = torch.as_tensor(
+            (_bounds(c_pad) * nq)[:nq], dtype=torch.int32, device=dev)
+        for integer in (True, False):
+            if integer:
+                table = rng.integers(-8, 8, (n + 1, d)).astype(np.float32)
+                q = rng.integers(-8, 8, (nq, d)).astype(np.float32)
+            else:
+                table = rng.standard_normal((n + 1, d)).astype(np.float32)
+                q = rng.standard_normal((nq, d)).astype(np.float32)
+            table[n] = 1e15
+            ids = rng.integers(0, n + 1, (nq, c_pad)).astype(np.int32)
+            ids[:, 5] = ids[:, 4]                        # a repeat
+            ids[:, -(c_pad // 4):] = n                   # sentinel padding
+            args = tuple(torch.as_tensor(a, device=dev)
+                         for a in (q, table, ids)) + (bounds,)
+            for cut in (n, n // 2):
+                before = tgk.LAUNCHES
+                mins, exact = tgk.beam_scan_score(*args, cut)
+                assert tgk.LAUNCHES == before + 1
+                want_m, want_e = tgk.beam_scan_score_plain(*args, cut)
+                torch.cuda.synchronize()
+                what = (nq, d, n, c_pad, integer, cut)
+                assert torch.equal(mins, want_m), what
+                assert torch.equal(mins, tgk.beam_scan_subchunk_min(*args))
+                assert torch.equal(torch.isinf(exact), args[2] >= cut), what
+                live = args[2] < cut
+                if integer:
+                    assert torch.equal(exact, want_e), what
+                else:
+                    err = (exact - want_e).abs()[live].double()
+                    tol = _beam_tol(args[0], args[1], args[2])[live]
+                    assert (err <= tol).all(), (what, err.max().item())
+
+
+# (m, n, d, c): d 128 (f32 and bf16 index) and 768 (the wide regime)
+_RESCORE_SHAPES = ((300, 20000 + 37, 128, 24), (200, 16384, 128, 48),
+                   (96, 6000, 768, 48), (40, 3000, 768, 24))
+
+
+@pytest.mark.gpu
+def test_rescore_pair_inverted_kernel_matches_plain_version():
+    """On a Hopper card: the rescore kernel over its inverted pair map
+    against its plain version, d 128 and 768, f32 and bf16 storage, c 24
+    and 48, skewed ids (one chunk in every query's list, a chunk named by
+    more than 32 queries, one by exactly 32) and ids past n: bitwise on
+    integer-exact inputs, within the f32 summation bound on Gaussian
+    ones."""
+    from raft_tpu_torch.spatial import fused_knn as tfk
+
+    dev = _hopper()
+    # the group cap of the plan's plain mirror in test_torch_knn.py
+    assert tfk._lib().raft_fused_rescore_group() == 32
+    rng = np.random.default_rng(9)
+    for m, n, d, c in _RESCORE_SHAPES:
+        n_chunks = -(-n // 128)
+        cids = rng.integers(0, n_chunks, (m, c)).astype(np.int32)
+        cids[:, 0] = n_chunks - 1               # every query, the ragged one
+        cids[:40, 1] = 3                        # 40 > 32 queries
+        cids[40:72, 2] = 4                      # exactly 32
+        cids[1, 3] = n_chunks                   # past the index
+        cids[2, 4] = n_chunks + 5
+        cids = torch.as_tensor(cids, device=dev)
+        for integer in (True, False):
+            if integer:
+                q = torch.as_tensor(rng.integers(-8, 8, (m, d)),
+                                    dtype=torch.float32, device=dev)
+                y = torch.as_tensor(rng.integers(-8, 8, (n, d)),
+                                    dtype=torch.float32, device=dev)
+            else:
+                q = torch.as_tensor(rng.standard_normal((m, d)),
+                                    dtype=torch.float32, device=dev)
+                y = torch.as_tensor(rng.standard_normal((n, d)),
+                                    dtype=torch.float32, device=dev)
+            for yt in (y, y.to(torch.bfloat16)):
+                before = tfk.LAUNCHES["rescore_scores"]
+                got = tfk.rescore_scores(q, cids, yt)
+                assert tfk.LAUNCHES["rescore_scores"] == before + 1
+                want = tfk.rescore_scores_plain(q, cids, yt)
+                torch.cuda.synchronize()
+                what = (m, n, d, c, integer, yt.dtype)
+                assert (got[1, 3 * 128:4 * 128] == 0).all(), what
+                if integer:
+                    assert torch.equal(got, want), what
+                else:
+                    yn = (yt.float() ** 2).sum(1).max().item()
+                    err = (got - want).abs()
+                    assert (err <= _tol(q, yn, d)).all(), (
+                        what, err.max().item())
 
 
 @pytest.mark.gpu

@@ -37,6 +37,7 @@ from raft_tpu.sparse.linalg import coo_degree as j_coo_degree
 from raft_tpu.sparse.linalg import coo_symmetrize as j_coo_symmetrize
 from raft_tpu.sparse.op import coo_sort as j_coo_sort
 from raft_tpu.spatial.ann import GraphParams as JGraphParams
+from raft_tpu.spatial.ann import common as jcommon
 from raft_tpu.spatial.ann import graph as jgraph
 from raft_tpu.spatial.ann import graph_build as j_graph_build
 from raft_tpu.spatial.ann import graph_delete as j_graph_delete
@@ -513,6 +514,22 @@ def test_engine_resolution_on_cpu():
     assert tgk.rows_per_block(96) == 128 and tgk.rows_per_block(600) == 64
 
 
+def test_kernel_engine_routes_the_same_widths():
+    """The kernel engine takes exactly the widths it took when a block
+    staged 32 rows of d + 1 floats (d <= 1,755), though 16-row tiles of
+    the kernel fit wider ones; d = 1,701 to 1,755 run 16-row tiles."""
+    def first_model_fits(d):
+        return 4 * (d + 32 * (d + 1) + 32) + 4 * 128 <= 232_448
+
+    for d in range(1, 4001):
+        assert tgk.beam_scan_supported(d, 512) == first_model_fits(d), d
+    assert tgk.rows_per_block(1700) == 32
+    assert tgk.rows_per_block(1701) == tgk.rows_per_block(1755) == 16
+    assert tgk.rows_per_block(3000) == 16
+    with pytest.raises(ValueError, match="use_kernel=True unsupported"):
+        tgraph._resolve_beam_engine(True, 1756, 512, CPU)
+
+
 @pytest.mark.parametrize("beam", [16, 32, 64])
 def test_degree16_select_keeps_every_subchunk(beam):
     """At degree 16 with k <= beam, s = min(c_pad/8, P) equals c_pad/8:
@@ -622,15 +639,131 @@ def test_kernel_engine_calls_the_scan_once_per_round(jgauss, gauss,
     _, q = gauss
     tidx = _carried(jgauss)
     shapes = []
-    wrapper = tgk.beam_scan_subchunk_min
+    wrapper = tgk.beam_scan_score
 
     def recording(*args):
         shapes.append(tuple(args[2].shape))
         return wrapper(*args)
 
-    monkeypatch.setattr(tgk, "beam_scan_subchunk_min", recording)
+    monkeypatch.setattr(tgk, "beam_scan_score", recording)
     graph_search(tidx, q, 10, beam=16, iters=6, use_kernel=True)
     assert shapes == [(q.shape[0], 128)] * 6
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_kernel_engine_rounds_make_no_exact_rescore(jgauss, gauss,
+                                                    monkeypatch, use_kernel):
+    """The kernel engine's rounds take the scan's exact distances: a
+    search calls ``score_l2_candidates`` for the init and the tail only;
+    the exact engine also once a round."""
+    _, q = gauss
+    tidx = _carried(jgauss)
+    calls = []
+    real = tgraph.score_l2_candidates
+
+    def counting(*args):
+        calls.append(tuple(args[1].shape))
+        return real(*args)
+
+    monkeypatch.setattr(tgraph, "score_l2_candidates", counting)
+    graph_search(tidx, q, 10, beam=16, iters=6, use_kernel=use_kernel)
+    assert len(calls) == (2 if use_kernel else 8)
+
+
+def test_engines_walk_alike_round_by_round(jgauss, gauss):
+    """``_beam_impl``'s ``on_round`` hook sees every round's frontier and
+    merged pool; on the CPU the kernel engine (the scan's plain version)
+    and the exact engine walk the same pools, round by round."""
+    _, q = gauss
+    tidx = _carried(jgauss)
+    qt = torch.as_tensor(q)
+    traces = {}
+    for engine in (True, False):
+        trace = traces[engine] = []
+        tgraph._beam_impl(tidx, qt, k=10, beam=16, iters=6, hash_bits=14,
+                          use_kernel=engine,
+                          on_round=lambda f, pi, pd, tr=trace: tr.append(
+                              (f.clone(), pi.clone(), pd.clone())))
+    assert len(traces[True]) == len(traces[False]) == 6
+    for (fk, ik, dk), (fe, ie, de) in zip(traces[True], traces[False]):
+        assert fk.shape == fe.shape == (q.shape[0], 16)
+        assert ik.shape == (q.shape[0], 32)
+        assert torch.equal(fk, fe) and torch.equal(dk, de)
+        assert all(set(a) == set(b) for a, b in zip(ik.tolist(),
+                                                    ie.tolist()))
+
+
+def _jax_exact(q, table, ids, n):
+    return np.asarray(jcommon.score_l2_candidates(
+        jnp.asarray(q), jnp.asarray(table[ids]), jnp.asarray(ids < n)))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("interpret", [False, True])
+def test_beam_scan_score_plain_matches_jax(integer, interpret):
+    """Both outputs of the scan's plain version against JAX: the minima
+    against the JAX kernel (interpret mode) or its lax mirror as
+    :func:`test_beam_scan_plain_matches_jax` holds them; the exact
+    distances against JAX ``score_l2_candidates`` on the gathered rows,
+    bitwise on the integer grid and within 1e-6 x (qn + yn) on Gaussian
+    data (f32 sums in another order), +inf at the sentinel id and the
+    padded tail."""
+    rng = np.random.default_rng(11 + integer)
+    nq, d, n, c_pad = 4, 16, 300, 256
+    q, table, ids = _kernel_case(rng, nq, d, n, c_pad, integer)
+    ids[1, :40] = n                                      # more sentinels
+    bounds = np.asarray([[0, c_pad], [0, 100], [9, 201], [3, 3]], np.int32)
+    mins, exact = tgk.beam_scan_score(
+        torch.as_tensor(q), torch.as_tensor(table), torch.as_tensor(ids),
+        torch.as_tensor(bounds), n)
+    assert mins.shape == (nq, c_pad // 8) and exact.shape == (nq, c_pad)
+    np.testing.assert_array_equal(
+        mins.numpy(), tgk.beam_scan_subchunk_min(
+            torch.as_tensor(q), torch.as_tensor(table), torch.as_tensor(ids),
+            torch.as_tensor(bounds)).numpy())
+    want_mins = _jax_mins(q, table, ids, bounds, interpret)
+    want = _jax_exact(q, table, ids, n)
+    got = exact.numpy()
+    assert np.array_equal(np.isinf(got), ids >= n)
+    assert np.isinf(got[:, -20:]).all() and np.isinf(got[1, :40]).all()
+    live = ids < n
+    if integer:
+        np.testing.assert_array_equal(mins.numpy(), want_mins)
+        np.testing.assert_array_equal(got, want)
+    else:
+        qn = (q ** 2).sum(1)[:, None]
+        yn = (table[ids] ** 2).sum(-1)
+        assert (np.abs(got[live] - want[live]) <= 1e-6 * (qn + yn)[live]).all()
+        ynm = yn.reshape(nq, -1, 8).max(-1)
+        assert (np.abs(mins.numpy() - want_mins) <= 1e-5 * (qn + ynm)).all()
+    # n below the table's rows: every id at n or past it is +inf
+    _, cut = tgk.beam_scan_score(
+        torch.as_tensor(q), torch.as_tensor(table), torch.as_tensor(ids),
+        torch.as_tensor(bounds), 150)
+    assert np.array_equal(np.isinf(cut.numpy()), ids >= 150)
+    np.testing.assert_array_equal(cut.numpy()[ids < 150], got[ids < 150])
+
+
+def test_beam_scan_score_argument_checks():
+    q = torch.zeros((2, 8))
+    table = torch.zeros((10, 8))
+    ids = torch.zeros((2, 16), dtype=torch.int32)
+    bounds = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="n=11"):
+        tgk.beam_scan_score(q, table, ids, bounds, 11)
+    with pytest.raises(ValueError, match="n=-1"):
+        tgk.beam_scan_score(q, table, ids, bounds, -1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgk.beam_scan_score(q, table, ids[:, :12], bounds, 9)
+    with pytest.raises(ValueError, match="int32"):
+        tgk.beam_scan_score(q, table, ids.long(), bounds, 9)
+    with pytest.raises(ValueError, match="bounds"):
+        tgk.beam_scan_score(q, table, ids, bounds[:1], 9)
+    with pytest.raises(ValueError, match="do not match"):
+        tgk.beam_scan_score(q, table[:, :4], ids, bounds, 9)
+    mins, exact = tgk.beam_scan_score(q, table, ids, bounds, 10)
+    assert mins.shape == (2, 2) and exact.shape == (2, 16)
+    assert (exact == 0).all()
 
 
 def test_graph_modules_import_neither_jax_nor_the_jax_package():

@@ -236,6 +236,130 @@ def test_rescore_plain_matches_jax_kernel_bitwise(storage, rng_np):
     assert (got.numpy()[~valid] == 0).all()
 
 
+# (query, slot) pairs one rescore block scores (csrc/fused_knn.cu kGroup)
+_RESCORE_GROUP = 32
+
+
+def _rescore_plan(cids, n: int):
+    """The rescore kernel's inverted pair map, in plain PyTorch (the
+    launch builds the same on the card before its blocks run). The
+    (query i, slot j) pairs ``p = i·c + j`` of the (m, c) chunk ids go
+    into one bucket per chunk id (bucket ``ceil(n/128)`` takes every id
+    outside ``[0, ceil(n/128))``: rows past the index, scoring 0), and
+    each bucket is cut into groups of at most 32 pairs, one block
+    each. Returns int32 ``(start, count, gstart, gkey, pairs)``: bucket k
+    holds ``pairs[start[k]:start[k] + count[k]]``; its groups are
+    ``gstart[k]:gstart[k + 1]`` (``gstart[-1]``, the group count); group
+    g belongs to bucket ``gkey[g]`` and holds the bucket's pairs from
+    ``start[k] + (g − gstart[k])·32``. The kernel fills a bucket in
+    arrival order (atomics), this version in pair order: any order gives
+    the same scores, since each pair's sums are its own."""
+    m, c = cids.shape
+    n_chunks = -(-n // 128)
+    keys = cids.reshape(m * c).long()
+    keys = torch.where((keys >= 0) & (keys < n_chunks), keys,
+                       torch.full_like(keys, n_chunks))
+    count = torch.bincount(keys, minlength=n_chunks + 1)
+    start = torch.cumsum(count, 0) - count
+    groups = -(-count // _RESCORE_GROUP)
+    gstart = torch.cat([groups.new_zeros(1), torch.cumsum(groups, 0)])
+    gkey = torch.repeat_interleave(
+        torch.arange(n_chunks + 1, device=cids.device), groups)
+    pairs = torch.argsort(keys, stable=True)
+    i32 = torch.int32
+    return (start.to(i32), count.to(i32), gstart.to(i32), gkey.to(i32),
+            pairs.to(i32))
+
+
+def _rescore_through_plan(q, cids, y):
+    """The rescore kernel's traversal in plain PyTorch: one step per
+    group of :func:`_rescore_plan` (the block's lookup: its bucket, its
+    slice of the bucket's pairs), each scoring its chunk's 128 rows for
+    the group's pairs only (the plain formula), written to each pair's
+    slot. Also checks the plan's invariants."""
+    m, c = cids.shape
+    n = y.shape[0]
+    n_chunks = -(-n // 128)
+    group = _RESCORE_GROUP
+    start, count, gstart, gkey, pairs = _rescore_plan(cids, n)
+    for t in (start, count, gstart, gkey, pairs):
+        assert t.dtype == torch.int32
+    assert start.shape == count.shape == (n_chunks + 1,)
+    assert gstart.shape == (n_chunks + 2,)
+    assert int(count.sum()) == m * c and int(gstart[0]) == 0
+    assert torch.equal(torch.sort(pairs).values,
+                       torch.arange(m * c, dtype=torch.int32))
+    flat = cids.reshape(-1).long()
+    bucket = torch.where((flat >= 0) & (flat < n_chunks), flat, n_chunks)
+    groups = int(gstart[-1])
+    # the launch's grid bound covers every group
+    assert groups <= min(m * c, m * c // group + n_chunks + 1)
+    assert gkey.shape == (groups,)
+    out = torch.full((m, c * 128), float("nan"))
+    for g in range(groups):
+        k = int(gkey[g])
+        assert int(gstart[k]) <= g < int(gstart[k + 1])
+        s0 = int(start[k]) + (g - int(gstart[k])) * group
+        s1 = min(s0 + group, int(start[k] + count[k]))
+        assert 1 <= s1 - s0 <= group
+        p = pairs[s0:s1].long()
+        assert (bucket[p] == k).all()
+        sc = tfk.rescore_scores_plain(
+            q[p // c], torch.full((s1 - s0, 1), k, dtype=torch.int32), y)
+        for r, pp in enumerate(p.tolist()):
+            i, j = divmod(pp, c)
+            out[i, j * 128:(j + 1) * 128] = sc[r]
+    assert not torch.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [8, 48])
+def test_rescore_plan_inverts_the_pair_map(storage, c, rng_np):
+    """The rescore kernel's pair inversion (pairs sorted by chunk, runs
+    cut into groups of at most 32) against ``rescore_scores_plain``,
+    bitwise on integer-exact inputs: one chunk in every query's list
+    (more queries than a group holds), a chunk named by exactly 32, ids
+    past the index and negative ones (rows scoring 0), f32 and bf16
+    storage."""
+    m, n, d = 70, 3000 + 57, 24
+    q = torch.as_tensor(_ints(rng_np, m, d))
+    y = torch.as_tensor(_ints(rng_np, n, d)).to(getattr(torch, storage))
+    cids = rng_np.integers(0, -(-n // 128), (m, c)).astype(np.int32)
+    cids[:, 0] = 5                          # every query: 70 > 32 pairs
+    cids[:32, 1] = 7                        # exactly one full group
+    cids[:, 1][32:] = 9
+    cids[3, 2] = -(-n // 128)               # past the index
+    cids[4, 3] = 40
+    cids[5, 4] = -2                         # negative: scores 0 too
+    cids = torch.as_tensor(cids)
+    want = tfk.rescore_scores_plain(q, cids, y)
+    got = _rescore_through_plan(q, cids, y)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got[3, 2 * 128:3 * 128] == 0).all()
+    assert (got[5, 4 * 128:5 * 128] == 0).all()
+    # the last chunk is ragged: its rows past n score 0
+    last = (-(-n // 128)) - 1
+    cids2 = torch.full((2, 1), last, dtype=torch.int32)
+    tail = _rescore_through_plan(q[:2], cids2, y)
+    assert (tail[:, n - last * 128:] == 0).all()
+    assert torch.equal(tail, tfk.rescore_scores_plain(q[:2], cids2, y))
+
+
+def test_rescore_plan_group_count_and_bound():
+    """Groups: one per run of at most 32 pairs of a chunk, each chunk's
+    bucket in order; a chunk no query names has no group."""
+    cids = torch.zeros((100, 1), dtype=torch.int32)
+    start, count, gstart, gkey, _ = _rescore_plan(cids, 1000)
+    assert count.tolist() == [100] + [0] * 8
+    assert gstart.tolist() == [0] + [4] * 9 and gkey.tolist() == [0] * 4
+    cids = torch.arange(40, dtype=torch.int32).reshape(20, 2)
+    start, count, gstart, gkey, pairs = _rescore_plan(cids, 128 * 40)
+    assert gkey.tolist() == list(range(40)) and pairs.tolist() == \
+        list(range(40))
+    assert gstart[-1] == 40 and count[-1] == 0
+
+
 def test_kernel_wrappers_check_operands():
     q = torch.zeros((3, 16))
     y = torch.zeros((300, 16))
