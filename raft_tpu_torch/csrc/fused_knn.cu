@@ -830,6 +830,11 @@ probe_copy_kernel(const float* __restrict__ in, float* __restrict__ out) {
   for (int e = threadIdx.x; e < 8 * 128; e += kThreads1) out[e] = in[e];
 }
 
+// The same grid doing no work: its time is the card's floor for issuing
+// and retiring that many 256-thread blocks, the other half of the probe's
+// bound (a measuring aid, not a port of a TPU kernel).
+__global__ void __launch_bounds__(kThreads1) probe_empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
@@ -990,6 +995,16 @@ int raft_fused_probe_grid_steps(const void* in, void* out, long long steps,
   probe_copy_kernel<<<dim3((unsigned)steps), kThreads1, 0,
                       (cudaStream_t)stream>>>(static_cast<const float*>(in),
                                               static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// Launch `steps` empty 256-thread blocks (probe_grid_steps' grid) on
+// `stream`; returns the launch's error.
+int raft_fused_probe_empty(long long steps, void* stream) {
+  if (steps < 1) return (int)cudaErrorInvalidValue;
+  if (steps > 0xffffffffLL) return (int)cudaErrorInvalidConfiguration;
+  probe_empty_kernel<<<dim3((unsigned)steps), kThreads1, 0,
+                       (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -87,7 +87,7 @@ def score_l2_candidates(qf, cand, valid):
     cvn = torch.sum(cand * cand, dim=2)
     dots = torch.bmm(cand, qf[:, :, None])[:, :, 0]
     return torch.where(valid, qn[:, None] + cvn - 2.0 * dots,
-                       torch.tensor(float("inf"), device=qf.device))
+                       float("inf"))
 
 
 def select_candidates(storage: ListStorage, cand_pos, d2, k: int):
@@ -163,8 +163,7 @@ def regroup_values(vals, l_flat, slot, nq: int, p: int, qcap: int):
     w = vals.shape[-1]
     ok = slot < qcap
     safe_slot = torch.clamp(slot, max=qcap - 1).long()
-    pv = torch.where(ok[:, None], vals[l_flat, safe_slot],
-                     torch.tensor(float("inf"), device=vals.device))
+    pv = torch.where(ok[:, None], vals[l_flat, safe_slot], float("inf"))
     return pv.reshape(nq, p * w)
 
 

@@ -312,7 +312,7 @@ def _occlusion_prune(xf: torch.Tensor, rows: torch.Tensor,
 
     out = torch.full((n, degree), -1, dtype=torch.int32, device=dev)
     block = block or _prune_block_rows(m, xf.shape[1], dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")  # a Python scalar: no host-to-device copy
     for b0 in range(0, n, block):
         b1 = min(b0 + block, n)
         nb = b1 - b0
@@ -598,7 +598,7 @@ def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
     pool_x = torch.zeros((nq, P), dtype=torch.bool, device=dev)
     visited = torch.zeros((nq, T + 1), dtype=torch.uint8, device=dev)
     visited[:, _hash(e)] = 1
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")  # a Python scalar: no host-to-device copy
     no_x = torch.zeros((nq, C if not use_kernel else s * SUBCHUNK),
                        dtype=torch.bool, device=dev)
     first_col = torch.zeros((nq, 1), dtype=torch.bool, device=dev)

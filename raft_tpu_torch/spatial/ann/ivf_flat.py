@@ -259,7 +259,7 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
     p = n_probes
     f32 = torch.float32
     qf = q.float()
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")  # a Python scalar: no host-to-device copy
 
     def dq_rows(rows_f32):
         if dequant is None:

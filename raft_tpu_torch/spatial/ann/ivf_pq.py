@@ -580,7 +580,7 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
     qf = q.float()
     cents = index.centroids.float()
     cb, cb_n = _finite_codebooks(index)
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")  # a Python scalar: no host-to-device copy
 
     if probes is None:
         probes, _ = coarse_probe(qf, cents, p)                 # (nq, p)

@@ -544,6 +544,8 @@ def _lib():
         lib.raft_fused_rescore_plan_ints.restype = ll
         lib.raft_fused_probe_grid_steps.argtypes = [p, p, ll, p]
         lib.raft_fused_probe_grid_steps.restype = i
+        lib.raft_fused_probe_empty.argtypes = [ll, p]
+        lib.raft_fused_probe_empty.restype = i
         lib.raft_fused_invalid_configuration.argtypes = []
         lib.raft_fused_invalid_configuration.restype = i
         lib.raft_fused_max_grid_x.argtypes = []

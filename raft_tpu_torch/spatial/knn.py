@@ -76,7 +76,7 @@ def _knn_single_part(queries, index, k: int, metric: DistanceType,
     m, d = queries.shape
     n = index.shape[0]
     bn = max(k, min(block_n, n))
-    inf = torch.tensor(float("inf"), device=queries.device)
+    inf = float("inf")  # a Python scalar: no host-to-device copy
 
     def one_query_block(qblk):
         rv = torch.full((qblk.shape[0], k), float("inf"),

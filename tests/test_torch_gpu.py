@@ -640,3 +640,184 @@ def test_sq_scan_lists_kernel_matches_plain_version():
                 yn = yn_rows[win].reshape(n_lists, 1, -1, 8).amax(-1)
                 err = (got - want).abs()
                 assert (err <= 1e-5 * (qn + yn)).all(), (d, q)
+
+
+# ---------------------------------------------------------------------------
+# The open-loop ServingExecutor on the card: events recorded at dispatch,
+# pinned copy-back, cancellable event waits
+# ---------------------------------------------------------------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# spin cycles of torch.cuda._sleep: ~1-2 s on a card clocked near 2 GHz
+_SLEEP_CYCLES = 3_000_000_000
+
+
+@pytest.mark.gpu
+def test_executor_demuxes_in_completion_order_on_card():
+    """A fast batch, then a batch that holds the executor's stream with
+    ``torch.cuda._sleep``: the first future resolves while the second
+    batch still runs (its event was recorded at dispatch, so it does not
+    wait on later work), and the second resolves after, both right."""
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.serving import ServingExecutor
+
+    dev = _cuda()
+    calls = []
+
+    def dispatch(batch, **_rt):
+        calls.append(batch.shape[0])
+        if len(calls) == 2:
+            torch.cuda._sleep(_SLEEP_CYCLES)
+        return batch * 2.0 + 1.0, batch.sum(1)
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((4, 8)).astype(np.float32)
+    b = rng.standard_normal((4, 8)).astype(np.float32)
+    with ServingExecutor(dispatch, (4,), dim=8, flush_age_s=0.0,
+                         max_in_flight=4, device=dev,
+                         registry=MetricRegistry()) as ex:
+        f1 = ex.submit(a)
+        f2 = ex.submit(b)
+        r1 = f1.result(timeout=60)
+        second_pending = not f2.done()
+        r2 = f2.result(timeout=120)
+        st = ex.stats()
+    assert second_pending, "the first batch waited for the second"
+    for r, q in ((r1, a), (r2, b)):
+        want = torch.as_tensor(q, device=dev)
+        assert r[0].tobytes() == (want * 2.0 + 1.0).cpu().numpy().tobytes()
+        assert r[1].tobytes() == want.sum(1).cpu().numpy().tobytes()
+    assert st.batches == 2 and st.completed == 2
+    assert st.stage_p50_ms["dispatch_ready"] < st.stage_p99_ms[
+        "dispatch_ready"]
+
+
+@pytest.mark.gpu
+def test_executor_pinned_copy_back_is_bitwise():
+    """The pinned copy-back of every output leaf (f32, int32, int64, a
+    nested dict) returns the device result bitwise: each request's
+    demuxed leaves equal the same function run on that request alone on
+    the card and brought back with a plain ``.cpu()``. The function is
+    row-wise and exact (integer-valued squared distances, stable sorts),
+    so a request's rows do not depend on the batch around them. Staging
+    goes through a pinned buffer kept with the batch."""
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.serving import ServingExecutor
+
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    ref = torch.as_tensor(
+        rng.integers(-8, 8, (12, 16)).astype(np.float32), device=dev)
+    seen = []
+
+    def rows_fn(batch):
+        d = ((batch[:, None, :] - ref[None]) ** 2).sum(-1)
+        order = torch.argsort(d, dim=1, stable=True)[:, :3]
+        return {"d": d, "x": batch * 0.37 + 0.1,
+                "i": (order.to(torch.int32), order)}
+
+    def dispatch(batch, **_rt):
+        seen.append(batch.device)
+        return rows_fn(batch)
+
+    reqs = [rng.integers(-8, 8, (m, 16)).astype(np.float32)
+            for m in (1, 3, 8, 2, 5, 7, 16, 4)]
+    with ServingExecutor(dispatch, (8, 16), dim=16, device=dev,
+                         registry=MetricRegistry()) as ex:
+        out = ex._to_host(dispatch(torch.zeros(8, 16, device=dev)))
+        assert out.host["d"].is_pinned() and out.host["i"][0].is_pinned()
+        staged, pinned = ex._stage_batch(np.ones((8, 16), np.float32))
+        assert staged.is_cuda and pinned.is_pinned()
+        got = [f.result(timeout=60) for f in [ex.submit(r) for r in reqs]]
+        st = ex.stats()
+    assert all(dv.type == "cuda" for dv in seen)
+    assert st.batches >= 2 and st.completed == len(reqs)
+    for r, g in zip(reqs, got):
+        want = rows_fn(torch.as_tensor(r, device=dev))
+        want = {"d": want["d"].cpu().numpy(), "x": want["x"].cpu().numpy(),
+                "i": tuple(t.cpu().numpy() for t in want["i"])}
+        assert set(g) == {"d", "x", "i"}
+        for gl, wl in ((g["d"], want["d"]), (g["x"], want["x"]),
+                       (g["i"][0], want["i"][0]),
+                       (g["i"][1], want["i"][1])):
+            assert gl.dtype == wl.dtype and gl.shape == wl.shape
+            assert gl.tobytes() == wl.tobytes()
+        assert g["i"][0].dtype == np.int32 and g["i"][1].dtype == np.int64
+
+
+@pytest.mark.gpu
+def test_interruptible_synchronize_on_event_cancel_and_timeout():
+    """``Interruptible.synchronize`` on a CUDA event still pending (a
+    spinning stream): a timeout raises RaftTimeoutError, a cancel from
+    another thread raises InterruptedException, and once the event is
+    done the wait returns."""
+    import threading
+
+    from raft_tpu_torch import errors
+    from raft_tpu_torch.core.interruptible import (
+        InterruptedException,
+        Interruptible,
+    )
+
+    dev = _cuda()
+    s = torch.cuda.Stream(dev)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        ev = torch.cuda.Event()
+        ev.record(s)
+    with pytest.raises(errors.RaftTimeoutError):
+        Interruptible.synchronize(ev, timeout_s=0.05)
+    out = {}
+
+    def waiter():
+        out["tid"] = threading.get_ident()
+        try:
+            Interruptible.synchronize({"e": ev}, timeout_s=60.0)
+        except InterruptedException:
+            out["cancelled"] = not ev.query()
+
+    th = threading.Thread(target=waiter)
+    th.start()
+    while "tid" not in out:
+        pass
+    Interruptible.cancel_thread(out["tid"])
+    th.join(30.0)
+    assert not th.is_alive() and out.get("cancelled")
+    Interruptible.synchronize(ev, timeout_s=60.0)
+    assert ev.query()
+
+
+@pytest.mark.gpu
+def test_vector_cache_on_card_matches_cpu():
+    """The VectorCache's scatters keep the last writer of a slot on the
+    card as on the CPU: one put/get/evict sequence with collisions and
+    duplicate keys leaves equal state and answers."""
+    from raft_tpu_torch.cache import VectorCache
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    caches = [VectorCache(3, n_sets=4, associativity=2, device=d)
+              for d in (torch.device("cpu"), dev)]
+    for step in range(60):
+        keys = rng.integers(0, 24, int(rng.integers(1, 9))).astype(np.int32)
+        op = rng.integers(0, 3)
+        vecs = rng.standard_normal((keys.size, 3)).astype(np.float32)
+        res = []
+        for c in caches:
+            if op == 0:
+                c.store_vecs(keys, vecs)
+            elif op == 1:
+                res.append([t.cpu() for t in c.get_vecs(keys)])
+            else:
+                c.evict(keys)
+        if res:
+            assert all(torch.equal(a, b) for a, b in zip(*res)), step
+        for a, b in zip((caches[0].keys, caches[0].time, caches[0].store),
+                        (caches[1].keys, caches[1].time, caches[1].store)):
+            assert torch.equal(a, b.cpu()), step

@@ -495,8 +495,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import raft_tpu_torch.spatial.ann, raft_tpu_torch.serving.batching\n"
         "import raft_tpu_torch.spatial.knn, raft_tpu_torch.distance.pairwise\n"
         "import raft_tpu_torch.spatial, raft_tpu_torch.distance\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'raft_tpu' or m.startswith('raft_tpu.')]\n"
+        "import raft_tpu_torch.core.interruptible, raft_tpu_torch.core.tree\n"
+        "import raft_tpu_torch.analysis.threads.runtime\n"
+        "import raft_tpu_torch.obs, raft_tpu_torch.obs.crash\n"
+        "import raft_tpu_torch.resilience, raft_tpu_torch.cache\n"
+        "import raft_tpu_torch.serving, raft_tpu_torch.serving.open_loop\n"
+        "import raft_tpu_torch.testing.load\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'raft_tpu', 'bench')]\n"
         "assert not bad, bad\n"
         "print('OK')\n"
     )
