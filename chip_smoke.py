@@ -11,7 +11,13 @@ to 0 just before it and read just after:
 * IVF-Flat: an index over 1,000,000 clustered rows of width 96 (DEEP's
   width) built with 1024 lists, warmed per serving bucket, serving ~200
   requests through the bucketed micro-batcher and the grouped search,
-  with recall@10 of both scan engines against exact brute force;
+  with recall@10 of both scan engines against exact brute force; then
+  the open-loop ``ServingExecutor`` over that index;
+* the two-level coarse probe over 65,792 centroids of width 96 (the
+  served index's and jittered draws of them, bench.py's recipe): the
+  FLOP ratio, both engines' recall against the flat probe, the kernel
+  engine's 16,384-query batch against the legacy engine, the flat scan
+  kernel on both of its stages, and the three probes' times;
 * IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
@@ -1175,6 +1181,276 @@ def subchunk_scan_entry(flat, sq):
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "shape": g["shape"], "card": flat["card"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# The two-level coarse probe at the deployment's centroid count
+# ---------------------------------------------------------------------------
+
+# tests/test_coarse_probe.py:143 and bench.py:956-990: 65,792 centroids of
+# width 96 (the served IVF-Flat index's and jittered draws of them), 16
+# probes at overprobe 2, the fused dispatch's 16,384 queries, the recall
+# audit on 1,024 of them. 4,096 supers with the default cap rule
+# (ceil(1.5 x mean) = 26 members): on these inputs the default ~sqrt(n) =
+# 256 supers keep 0.9077 (legacy) / 0.8820 (kernel) of the flat probe's
+# lists at overprobe 2 and reach 0.99 only at overprobe 6, where the FLOP
+# ratio is 1.76; 2,048 supers keep 0.9971 / 0.9857 (the kernel engine's
+# qcap drops pairs of these clustered queries)
+# (python3 -m raft_tpu_torch.tools.sweep_coarse --smoke); the phase
+# still audits the default geometry
+COARSE_CENTS, COARSE_PROBES, COARSE_OVERPROBE = 65_792, 16, 2.0
+COARSE_SUPERS = 4096
+COARSE_CAP = max(8, -(-3 * -(-COARSE_CENTS // COARSE_SUPERS) // 2))
+COARSE_QUERIES, COARSE_AUDIT = 16_384, 1024
+
+
+def probes_agree(d_a, i_a, d_b, i_b, qn, cn):
+    """Per query, whether two best-first probe lists agree up to ties:
+    distances within 1e-5 x (qn + cn) of each other position by position,
+    and each list's ids closer than the other's last distance (less the
+    tolerance) among the other's ids. Host arrays; returns (agree (nq,)
+    bool, max |d_a - d_b|)."""
+    tol = 1e-5 * (qn[:, None] + cn[i_b])
+    err = np.abs(d_a - d_b)
+    agree = (err <= tol).all(1)
+    for a_ids, a_d, b_ids, b_d in ((i_a, d_a, i_b, d_b),
+                                   (i_b, d_b, i_a, d_a)):
+        inner = a_d < (b_d[:, -1:] - tol[:, -1:])
+        for r in np.nonzero(agree)[0]:
+            if not set(a_ids[r][inner[r]].tolist()) <= set(
+                    b_ids[r].tolist()):
+                agree[r] = False
+    return agree, float(err.max())
+
+
+def coarse_phase(args, card, dev, index, x):
+    """The two-level coarse probe over 65,792 centroids: build, the FLOP
+    ratio, the recall audit of both engines, the kernel engine's 16,384-
+    query batch against the legacy engine's (up to ties where no (query,
+    super) pair dropped), the flat-scan kernel's launches on both stages
+    held against its plain versions, and the three probes' times. Returns
+    the numbers for the flat scan's entry of the ``kernels`` line."""
+    from raft_tpu_torch.spatial.ann import common as cm
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    rng = np.random.default_rng(args.seed + 9)
+    base = index.centroids.float()
+    nb = base.shape[0]
+    sel = torch.as_tensor(rng.integers(0, nb, COARSE_CENTS - nb), device=dev)
+    jitter = torch.as_tensor(0.5 * rng.standard_normal(
+        (COARSE_CENTS - nb, DIM), dtype=np.float32), device=dev)
+    cents = torch.cat([base, base[sel] + jitter])
+    qb = torch.as_tensor(
+        x[rng.integers(0, N_ROWS, COARSE_QUERIES)]
+        + 0.3 * rng.standard_normal((COARSE_QUERIES, DIM), dtype=np.float32),
+        device=dev)
+
+    # the default geometry, audited and not gated (see COARSE_SUPERS)
+    default = cm.build_coarse_index(cents)
+    rec_default = [cm.coarse_probe_recall(
+        qb[:COARSE_AUDIT], cents, default, COARSE_PROBES,
+        overprobe=COARSE_OVERPROBE, use_kernel=k) for k in (False, True)]
+    flops_default = cm.probe_flop_accounting(
+        default, COARSE_PROBES, overprobe=COARSE_OVERPROBE)["ratio"]
+    log(f"[{card}] default coarse geometry ({default.n_super} supers, "
+        f"max_members {default.max_members}), not gated: recall legacy "
+        f"{rec_default[0]:.4f} / kernel {rec_default[1]:.4f}, FLOP ratio "
+        f"{flops_default:.2f}")
+    del default
+
+    t0 = time.perf_counter()
+    coarse = cm.build_coarse_index(cents, n_super=COARSE_SUPERS,
+                                   member_cap=COARSE_CAP)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    check(coarse.super_cents.device.type == "cuda",
+          f"coarse index built on {coarse.super_cents.device}")
+    ns, mm = coarse.n_super, coarse.max_members
+    S = cm.n_super_probes(COARSE_PROBES, ns, COARSE_OVERPROBE)
+    flops = cm.probe_flop_accounting(coarse, COARSE_PROBES,
+                                     overprobe=COARSE_OVERPROBE)
+    log(f"[{card}] coarse index over {COARSE_CENTS} x {DIM} centroids in "
+        f"{build_s:.2f} s: {ns} supers ({COARSE_SUPERS} asked, cap "
+        f"{COARSE_CAP}), max_members {mm}, S {S}; FLOP "
+        f"ratio {flops['ratio']:.2f} (flat {flops['flat']:.0f}, two-level "
+        f"{flops['two_level']:.0f} a query)")
+    check(flops["ratio"] >= 4.0, f"probe FLOP ratio {flops['ratio']} < 4")
+    check(cm.two_level_probe_kernel_supported(
+        DIM, COARSE_QUERIES, COARSE_PROBES, ns, mm, S),
+        "the kernel engine does not apply at the deployment geometry")
+    args_c = (coarse.super_cents, coarse.member_ids, coarse.cents_padded,
+              coarse.n_cents, COARSE_PROBES, S)
+
+    # the probe's path, with the counts at 0 just before it: the kernel
+    # engine's recall audit and its 16,384-query batch
+    fk.LAUNCHES = 0
+    cm.COARSE_ENGINE_FALLBACKS = 0
+    keep1, keep2 = [], []
+    with kernel_calls(fk, "flat_scan_subchunk_min",
+                      lambda a: (a[0].shape[1], a[1].shape[2]),
+                      keep1) as shapes1, \
+            kernel_calls(fk, "flat_scan_lists",
+                         lambda a: (a[1].shape[0], a[1].shape[1], a[5]),
+                         keep2) as shapes2:
+        rec_k = cm.coarse_probe_recall(
+            qb[:COARSE_AUDIT], cents, coarse, COARSE_PROBES,
+            overprobe=COARSE_OVERPROBE, use_kernel=True)
+        pk, dk = cm.two_level_probe(qb, *args_c, use_kernel=True)
+        sync(dev)
+    launches = fk.LAUNCHES
+    log(f"coarse probe path: flat-scan launches {launches}: stage 1 "
+        f"(flat_scan_subchunk_min) by (queries, supers padded) "
+        f"{dict(shapes1)}, stage 2 (flat_scan_lists) by (supers, qcap, "
+        f"Lpad) {dict(shapes2)}; COARSE_ENGINE_FALLBACKS "
+        f"{cm.COARSE_ENGINE_FALLBACKS}")
+    check(cm.COARSE_ENGINE_FALLBACKS == 0,
+          f"{cm.COARSE_ENGINE_FALLBACKS} kernel-engine probes ran legacy")
+    check(sum(shapes1.values()) == 2 and sum(shapes2.values()) == 2
+          and launches == 4,
+          f"{launches} flat-scan launches for 2 probes (one a stage "
+          "expected)")
+
+    rec_l = cm.coarse_probe_recall(
+        qb[:COARSE_AUDIT], cents, coarse, COARSE_PROBES,
+        overprobe=COARSE_OVERPROBE)
+    log(f"[{card}] coarse_probe_recall on {COARSE_AUDIT} queries: kernel "
+        f"engine {rec_k:.4f}, legacy {rec_l:.4f}")
+    check(min(rec_k, rec_l) >= 0.99,
+          f"two-level probe recall {rec_k} / {rec_l} < 0.99")
+    pl, dl = cm.two_level_probe(qb, *args_c)
+
+    # the first launch at each shape against its plain version
+    err = 0.0
+    for call in keep1:
+        err = max(err, compare_to_plain(*call))
+    for call in keep2:
+        err = max(err, compare_lists_to_plain(call))
+    log(f"kernel check on the probe's path: {len(keep1)} + {len(keep2)} "
+        f"launches within 1e-5 x (qn + yn) of plain, max |kernel - plain| "
+        f"{err:.3g}")
+
+    # kernel engine against legacy, up to ties. Ties come at two levels:
+    # equal member distances, and equal super distances at the S-th
+    # super (split supers share their centroid), where the engines may
+    # keep different supers and so different members; and the stage-2
+    # qcap drops (query, super) pairs by design. So: (1) the two super
+    # sets differ only inside the tie at the S-th super; (2) the kernel
+    # engine's probes equal the legacy member stage over the (query,
+    # super) pairs it kept, up to member ties, on every query; (3) on
+    # the queries with no dropped pair and equal super sets they equal
+    # legacy's up to member ties.
+    sup_k = cm._super_scan_kernel(qb, coarse.super_cents, S, 256)
+    qcap = keep2[-1][1].shape[1]
+    slot = cm.invert_probe_map_ranked(sup_k, ns, qcap)[3]
+    keep_pairs = (slot < qcap).reshape(COARSE_QUERIES, S)
+    kept = keep_pairs.all(1).cpu().numpy()
+    n_drop = int((~kept).sum())
+    sup_l, sd2 = cm.coarse_probe(qb, coarse.super_cents, S)
+    d_ref, p_ref = cm.map_query_blocks(
+        lambda a: cm.rerank_members(a[0], a[1], coarse.member_ids,
+                                    coarse.cents_padded, coarse.n_cents,
+                                    COARSE_PROBES, keep=a[2]),
+        (qb, sup_k, keep_pairs), 256)
+    qn = (qb * qb).sum(1).cpu().numpy()
+    cn = (cents * cents).sum(1).cpu().numpy()
+    sn = (coarse.super_cents ** 2).sum(1).cpu().numpy()
+    sd2 = sd2.cpu().numpy()
+    s_tie = np.sort(sd2, 1)[:, S - 1]
+    same_sup = np.zeros(COARSE_QUERIES, bool)
+    tied_only = np.ones(COARSE_QUERIES, bool)
+    for r, (a, b) in enumerate(zip(sup_k.cpu().numpy(), sup_l.cpu().numpy())):
+        diff = np.asarray(sorted(set(a.tolist()) ^ set(b.tolist())), int)
+        same_sup[r] = diff.size == 0
+        tied_only[r] = (np.abs(sd2[r, diff] - s_tie[r])
+                        <= 1e-5 * (qn[r] + sn[diff])).all()
+    own, own_err = probes_agree(dk.cpu().numpy(), pk.cpu().numpy(),
+                                d_ref.cpu().numpy(), p_ref.cpu().numpy(),
+                                qn, cn)
+    agree, d_err = probes_agree(dk.cpu().numpy(), pk.cpu().numpy(),
+                                dl.cpu().numpy(), pl.cpu().numpy(), qn, cn)
+    log(f"[{card}] {COARSE_QUERIES}-query batch: {n_drop} queries had "
+        f"some of their {S} (query, super) pairs dropped by the qcap "
+        f"{qcap} ({int((~keep_pairs).sum())} pairs); super sets equal on "
+        f"{int(same_sup.sum())} queries and differ only at a tie of the "
+        f"S-th super on {int((~same_sup & tied_only).sum())}; kernel "
+        f"engine equals the legacy member stage over its kept pairs up to "
+        f"ties on {int(own.sum())} of {COARSE_QUERIES} queries (max |d| "
+        f"diff {own_err:.3g}), and legacy up to ties on "
+        f"{int(agree[kept & same_sup].sum())} of "
+        f"{int((kept & same_sup).sum())} queries without drops and with "
+        f"equal super sets ({int(agree.sum())} of all, max |d kernel - d "
+        f"legacy| {d_err:.3g})")
+    check(tied_only.all(), "kernel and legacy super sets differ beyond "
+          f"the S-th super's tie on {int((~tied_only).sum())} queries")
+    check(own.all(), "kernel-engine probes differ from the member stage "
+          f"over its kept pairs on {int((~own).sum())} queries")
+    check(agree[kept & same_sup].all(), "kernel-engine probes differ from "
+          f"legacy beyond ties on {int((~agree[kept & same_sup]).sum())} "
+          "queries with equal super sets")
+
+    # ms a 16,384-query batch: the flat probe (f32 GEMM + selection, the
+    # library yardstick), the two engines
+    timed = {
+        "flat": cuda_time_ms(lambda: cm.coarse_probe(qb, cents,
+                                                     COARSE_PROBES),
+                             [()], iters=3, warm=1),
+        "legacy": cuda_time_ms(lambda: cm.two_level_probe(qb, *args_c),
+                               [()], iters=3, warm=1),
+        "kernel": cuda_time_ms(lambda: cm.two_level_probe(
+            qb, *args_c, use_kernel=True), [()], iters=5, warm=1),
+    }
+    log(f"[{card}] {COARSE_QUERIES}-query probe ms: flat coarse_probe "
+        f"{timed['flat']:.3f}, two-level legacy {timed['legacy']:.3f}, "
+        f"two-level kernel {timed['kernel']:.3f}")
+
+    # the kernel at the probe's two shapes: the batch's stage-1 and
+    # stage-2 launches
+    call1 = keep1[-1]
+    s1 = time_kernel(*call1)
+    qr, slabs_t, bounds = call1
+    nq1, l1 = qr.shape[1], slabs_t.shape[2]
+    b1 = lists_scan_bound(
+        torch.cat([qr[0], qr.new_zeros((1, DIM))]),
+        torch.arange(nq1, device=dev, dtype=torch.int32)[None],
+        slabs_t.transpose(1, 2)[0], torch.zeros(1, dtype=torch.int32,
+                                                device=dev), bounds, l1)
+    call2 = keep2[-1]
+    s2 = time_lists(call2)
+    b2 = lists_scan_bound(*call2)
+    b2_live = lists_scan_bound(*call2, live_only=True)
+    shape1 = [1, nq1, DIM, l1]
+    shape2 = [call2[1].shape[0], call2[1].shape[1], DIM, call2[5]]
+    log(f"[{card}] flat_scan_subchunk_min, stage 1 at {tuple(shape1)}: "
+        f"kernel {s1[0]:.4f} ms ({b1[0] / s1[0]:.1%} of the bound), plain "
+        f"{s1[1]:.4f} ms, library {s1[2]:.4f} ms, bound {b1[0]:.4f} ms "
+        f"({b1[1]})")
+    log(f"[{card}] flat_scan_lists, stage 2 at {tuple(shape2)}: kernel "
+        f"{s2[0]:.4f} ms ({b2[0] / s2[0]:.1%} of the bound, "
+        f"{b2_live[0] / s2[0]:.1%} of the live-minima bound), plain "
+        f"{s2[1]:.4f} ms, gathered form {s2[2]:.4f} ms, library "
+        f"{s2[3]:.4f} ms, bound {b2[0]:.4f} ms ({b2[1]}), live-minima "
+        f"bound {b2_live[0]:.4f} ms")
+    del keep1, keep2
+    return {
+        "launches": launches,
+        "launches_by_shape": {
+            **{f"stage1:{a}x{b}": n for (a, b), n in shapes1.items()},
+            **{f"stage2:{a}x{b}x{c}": n for (a, b, c), n in
+               shapes2.items()}},
+        "max_abs_err": err,
+        "stage1": {"shape": shape1, "ms": s1[0], "plain_ms": s1[1],
+                   "library_ms": s1[2], "bound_ms": b1[0],
+                   "bound_by": b1[1]},
+        "stage2": {"shape": shape2, "ms": s2[0], "plain_ms": s2[1],
+                   "gathered_ms": s2[2], "library_ms": s2[3],
+                   "bound_ms": b2[0], "bound_by": b2[1],
+                   "bound_live_ms": b2_live[0]},
+        "probe_ms": timed, "recall": {"kernel": rec_k, "legacy": rec_l},
+        "flop_ratio": flops["ratio"], "n_super": ns, "max_members": mm,
+        "queries_with_drops": n_drop, "build_s": build_s,
+        "default_geometry": {"recall": rec_default,
+                             "flop_ratio": flops_default},
     }
 
 
@@ -2848,38 +3124,44 @@ def brute_force_phase(args, card, dev):
     # the probe at the SIFT phase-1 grid: the raw launch, then a clone
     src = torch.arange(1024, dtype=torch.float32, device=dev).reshape(8, 128)
     dst = torch.zeros_like(src)
+    copies = torch.zeros(2, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
 
     def probe(s, o):
         check(lib.raft_fused_probe_grid_steps(s.data_ptr(), o.data_ptr(),
-                                              sift_grid, stream) == 0,
+                                              copies.data_ptr(), sift_grid,
+                                              stream) == 0,
               "probe launch failed")
+
+    probe(src, dst)
+    check(torch.equal(dst, src) and copies.tolist() == [1, sift_grid - 1],
+          f"the probe's tile was not copied by its last block alone "
+          f"(copies {copies.tolist()})")
+    dst.zero_()
 
     def empty():
         check(lib.raft_fused_probe_empty(sift_grid, stream) == 0,
               "empty probe launch failed")
 
     ms = cuda_time_ms(probe, [(src, dst)])
+    check(torch.equal(dst, src) and copies.tolist() == [56, sift_grid - 1],
+          f"the probe's copy differs or ran in other blocks than the last "
+          f"(copies {copies.tolist()} after 56 launches)")
     plain_ms = cuda_time_ms(lambda s, o: o.copy_(s), [(src, dst)])
-    check(torch.equal(dst, src), "the probe's copy differs")
     # the bound: the function's own work is one (8, 128) f32 tile read
     # and written once, at the memory rate, or the time of an empty
     # kernel over the same grid — the card's floor for issuing that many
     # blocks, the operations the probe exists to run — whichever is
-    # larger. Every block re-copying the same tile (sift_grid x 8 KB,
-    # which stays in L2) is the kernel's own redundancy, not the
-    # function's work: it is logged beside the bound, not counted in it
+    # larger
     floor_ms = cuda_time_ms(empty, [()])
     bytes_ms = bound(2 * src.numel() * 4, 0.0, FP32_FLOP_PER_S)[0]
-    tile_traffic = sift_grid * 2 * src.numel() * 4
     bound_ms = max(bytes_ms, floor_ms)
     bound_by = "bytes" if bytes_ms >= floor_ms else "operations"
     log(f"[{card}] probe_grid_steps kernel at {sift_grid} blocks "
         f"{ms:.4f} ms, plain (one tile copy) {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: empty kernel over the grid "
         f"{floor_ms:.4f} ms, one tile in and out {bytes_ms:.7f} ms), "
-        f"{bound_ms / ms:.1%} of the bound; the blocks' re-copies of the "
-        f"tile {tile_traffic / 1e9:.2f} GB through L2 (not counted)")
+        f"{bound_ms / ms:.1%} of the bound (the last block copies)")
     out.append({
         "name": "probe_grid_steps", "route": "cuda",
         "source": "raft_tpu_torch/csrc/fused_knn.cu",
@@ -2888,7 +3170,6 @@ def brute_force_phase(args, card, dev):
         "max_abs_err": (dst - src).abs().max().item(), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes_ms": bytes_ms, "block_floor_ms": floor_ms,
-        "block_tile_traffic_bytes": tile_traffic,
         "library_ms": None, "shape": [sift_grid], "card": card,
     })
     return out
@@ -2908,8 +3189,12 @@ def main(argv=None) -> int:
     log(f"IVF-Flat phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     executor_phase(args, card, dev, *served)
-    del served
     log(f"executor phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
+                                        served[2])
+    del served
+    log(f"coarse-probe phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)

@@ -91,9 +91,15 @@
 //   * blocks are launched for an upper bound of the group count, and the
 //     ones past the last group return at once.
 //
-// The probe copies one (8, 128) f32 tile with every block of a 1-D grid of
-// `steps` blocks of 256 threads: the layout of the phase-1 launch. It tells
-// whether the card accepts a phase-1 grid of that many blocks.
+// The probe runs a 1-D grid of `steps` blocks of 256 threads, the layout of
+// the phase-1 launch, and copies one (8, 128) f32 tile: it tells whether the
+// card accepts a phase-1 grid of that many blocks. Its bound is the time the
+// card takes to issue and retire the grid (an empty kernel over it,
+// probe_empty_kernel); the tile is 8 KB. Only the grid's last block copies
+// the tile and counts its copy; every other block retires at once. (Every
+// block re-copying the tile into the same 32 L2 lines cost 10x the issue
+// floor.) A copy made by block gridDim.x - 1 also shows that the card
+// issued the whole grid.
 //
 // Every row offset is 64-bit: a 3M x 768 partition holds 2.3e9 elements.
 
@@ -825,9 +831,17 @@ rescore_kernel(const float* __restrict__ q, const int* __restrict__ start,
 }
 
 // ---- launch probe ----
+// copies[0] counts the blocks that copied, copies[1] holds the last one's
+// index: 1 and steps - 1 after a correct launch.
 __global__ void __launch_bounds__(kThreads1)
-probe_copy_kernel(const float* __restrict__ in, float* __restrict__ out) {
+probe_copy_kernel(const float* __restrict__ in, float* __restrict__ out,
+                  unsigned long long* __restrict__ copies) {
+  if (blockIdx.x != gridDim.x - 1) return;
   for (int e = threadIdx.x; e < 8 * 128; e += kThreads1) out[e] = in[e];
+  if (threadIdx.x == 0) {
+    atomicAdd(&copies[0], 1ULL);
+    copies[1] = blockIdx.x;
+  }
 }
 
 // The same grid doing no work: its time is the card's floor for issuing
@@ -985,16 +999,19 @@ long long raft_fused_rescore_plan_ints(int m, long long n, int c) {
 // Pairs per rescore block at most (the plan's group cap).
 int raft_fused_rescore_group(void) { return kGroup; }
 
-// Copy one (8, 128) f32 tile in each of `steps` blocks (1-D grid of
-// 256-thread blocks, the phase-1 layout). Returns the launch's error:
-// cudaErrorInvalidConfiguration when the card refuses the grid.
-int raft_fused_probe_grid_steps(const void* in, void* out, long long steps,
-                                void* stream) {
+// Launch a 1-D grid of `steps` 256-thread blocks (the phase-1 layout) whose
+// last block copies one (8, 128) f32 tile `in` to `out` and adds its copy to
+// `copies` (two uint64: the count of copying blocks, the last one's index).
+// Returns the launch's error: cudaErrorInvalidConfiguration when the card
+// refuses the grid.
+int raft_fused_probe_grid_steps(const void* in, void* out, void* copies,
+                                long long steps, void* stream) {
   if (steps < 1) return (int)cudaErrorInvalidValue;
   if (steps > 0xffffffffLL) return (int)cudaErrorInvalidConfiguration;
   probe_copy_kernel<<<dim3((unsigned)steps), kThreads1, 0,
-                      (cudaStream_t)stream>>>(static_cast<const float*>(in),
-                                              static_cast<float*>(out));
+                      (cudaStream_t)stream>>>(
+      static_cast<const float*>(in), static_cast<float*>(out),
+      static_cast<unsigned long long*>(copies));
   return (int)cudaGetLastError();
 }
 

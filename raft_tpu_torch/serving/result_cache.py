@@ -127,11 +127,14 @@ class CentroidSigner:
 
     @classmethod
     def from_coarse(cls, coarse, n_probes: int = 2) -> "CentroidSigner":
-        """Build from any object with a ``super_cents`` array — the JAX
-        package's ``CoarseIndex``, the serving index's own two-level
-        probe geometry (the signature then matches what the probe would
-        scan)."""
-        return cls(np.asarray(coarse.super_cents), n_probes=n_probes)
+        """Build from any object with a ``super_cents`` array or tensor
+        (on any device) — the port's or the JAX package's
+        ``CoarseIndex``, the serving index's own two-level probe geometry
+        (the signature then matches what the probe would scan)."""
+        sc = coarse.super_cents
+        if isinstance(sc, torch.Tensor):
+            sc = sc.detach().cpu().numpy()
+        return cls(np.asarray(sc), n_probes=n_probes)
 
     def super_ids(self, rows: np.ndarray) -> np.ndarray:
         """``(m, n_probes)`` SORTED top super ids per row (sorted so the

@@ -14,6 +14,7 @@ from raft_tpu_torch.spatial.ann.graph import (
     graph_search,
 )
 from raft_tpu_torch.spatial.ann.interop import (
+    coarse_index_from_arrays,
     graph_index_from_arrays,
     ivf_flat_index_from_arrays,
     ivf_pq_index_from_arrays,
@@ -22,6 +23,8 @@ from raft_tpu_torch.spatial.ann.interop import (
     load_ivf_flat,
     load_ivf_pq,
     load_ivf_sq,
+    load_index,
+    save_index,
 )
 from raft_tpu_torch.spatial.ann.ivf_flat import (
     IVFFlatIndex,
@@ -57,4 +60,5 @@ __all__ = [
     "ivf_pq_search", "ivf_pq_search_grouped", "load_ivf_pq",
     "IVFSQIndex", "IVFSQParams", "ivf_sq_build", "ivf_sq_index_from_arrays",
     "ivf_sq_search", "ivf_sq_search_grouped", "load_ivf_sq",
+    "coarse_index_from_arrays", "load_index", "save_index",
 ]

@@ -27,13 +27,17 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import errors
-from raft_tpu_torch.core.device import full_f32
+from raft_tpu_torch.core.device import as_tensor, call_device, full_f32
 from raft_tpu_torch.spatial.ann.scan_core import BIG, SUBCHUNK
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
-    "ListStorage", "auto_qcap", "build_list_storage",
-    "check_candidate_pool", "coarse_probe", "default_qcap",
+    "COARSE_ENGINE_FALLBACKS", "CoarseIndex", "ListStorage", "auto_qcap",
+    "build_coarse_index", "build_list_storage", "check_candidate_pool",
+    "coarse_index_from_labels", "coarse_probe", "coarse_probe_recall",
+    "default_coarse_geometry", "default_qcap", "n_super_probes",
+    "probe_flop_accounting", "rerank_members", "two_level_probe",
+    "two_level_probe_kernel_supported",
     "invert_probe_map", "invert_probe_map_ranked", "map_query_blocks",
     "probe_drop_stats", "regroup_pairs", "regroup_values", "resolve_qcap",
     "resolve_qcap_arg", "scatter_pairs", "score_l2_candidates",
@@ -42,6 +46,10 @@ __all__ = [
 ]
 
 logger = logging.getLogger("raft_tpu_torch")
+
+# the kernel engines' exact-rerank candidate gather per query block, at
+# most (bytes)
+RERANK_BLOCK_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -59,6 +67,360 @@ class ListStorage:
     list_sizes: torch.Tensor     # (n_lists,) int32
     n: int
     max_list: int
+
+
+@dataclasses.dataclass
+class CoarseIndex:
+    """Two-level coarse quantizer over a centroid set: the n_cents
+    centroids clustered into ~sqrt(n_cents) super-centroids, each super
+    cluster's member centroids stored as one padded block (members first,
+    sentinel id ``n_cents`` after them). :func:`two_level_probe` scores
+    queries against the supers, then reranks only the best supers'
+    members in exact f32 — ~5x fewer centroid-scoring FLOPs than the flat
+    scan at 65k centroids (:func:`probe_flop_accounting`), with recall
+    held by ``overprobe`` and audited by :func:`coarse_probe_recall`."""
+
+    super_cents: torch.Tensor   # (n_super, d) f32
+    member_ids: torch.Tensor    # (n_super, max_members) int32, sentinel n_cents
+    cents_padded: torch.Tensor  # (n_super, max_members, d) f32 member rows
+    n_cents: int
+    n_super: int
+    max_members: int
+    # the build arguments as passed (n_super, member_cap, kmeans_n_iters,
+    # seed), None where defaulted, so a rebuild replays the caller's tuning
+    build_args: tuple = (None, None, 10, 0)
+
+
+def default_coarse_geometry(n_cents: int):
+    """(n_super, member_cap) defaults: ~sqrt(n_cents) super clusters,
+    members capped at ceil(1.5 x mean) (:func:`split_oversized_lists`),
+    so one swollen super cluster cannot widen every probe's member
+    gather."""
+    n_super = max(1, min(n_cents, int(round(n_cents ** 0.5))))
+    mean = -(-n_cents // n_super)
+    return n_super, max(8, -(-3 * mean // 2))
+
+
+def n_super_probes(n_probes: int, n_super: int,
+                   overprobe: float = 2.0) -> int:
+    """How many super clusters a two-level probe scans: ``ceil(overprobe
+    x n_probes)``, clamped to the super count. ``overprobe >= 1``
+    (enforced) and no empty super cluster (the build drops them) give at
+    least n_probes valid candidates; once the clamp engages every super
+    is scanned and the probe equals the flat scan."""
+    errors.expects(
+        overprobe >= 1.0,
+        "overprobe=%s < 1 would under-fill the candidate set (fewer "
+        "valid candidates than n_probes)", overprobe,
+    )
+    return max(1, min(n_super, int(np.ceil(overprobe * n_probes))))
+
+
+def build_coarse_index(centroids, *, n_super=None, member_cap=None,
+                       kmeans_n_iters: int = 10, seed: int = 0,
+                       device=None) -> CoarseIndex:
+    """Cluster a centroid set into a :class:`CoarseIndex` on its device
+    (a tensor's, else ``device``, CUDA by default): k-means with random
+    init and bf16-operand updates for the supers, the member cap by
+    :func:`split_oversized_lists`, empty supers dropped
+    (:func:`coarse_index_from_labels`)."""
+    from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
+
+    cents = as_tensor(centroids, call_device(centroids, device=device))
+    cents = cents.float()
+    errors.expects(
+        cents.dim() == 2 and cents.shape[0] >= 1,
+        "centroids: expected a (n >= 1, d) matrix, got shape %s",
+        tuple(cents.shape),
+    )
+    build_args = (
+        None if n_super is None else int(n_super),
+        None if member_cap is None else int(member_cap),
+        int(kmeans_n_iters), int(seed),
+    )
+    n = cents.shape[0]
+    ns_default, cap_default = default_coarse_geometry(n)
+    n_super = max(1, min(int(ns_default if n_super is None else n_super),
+                         n))
+    out = kmeans_fit(cents, KMeansParams(
+        n_clusters=n_super, max_iter=kmeans_n_iters, seed=seed,
+        init="random", compute_dtype="bfloat16",
+    ))
+    return coarse_index_from_labels(
+        cents, out.labels.cpu().numpy(), out.centroids,
+        cap_default if member_cap is None else member_cap, build_args)
+
+
+def coarse_index_from_labels(cents, labels, supers, member_cap,
+                             build_args=(None, None, 10, 0)) -> CoarseIndex:
+    """The packing half of :func:`build_coarse_index`, from a super
+    clustering: (n,) host ``labels`` and (n_super, d) ``supers`` of the
+    (n, d) centroid tensor ``cents``. Supers over ``member_cap`` members
+    split (a falsy cap: none), empty ones drop, and each super's members
+    fill the front of its padded row in ascending centroid id."""
+    labels = np.asarray(labels)
+    if not isinstance(supers, torch.Tensor):
+        supers = torch.from_numpy(np.array(supers, np.float32))
+    sup = supers.to(device=cents.device, dtype=torch.float32)
+    if member_cap:
+        labels, sup = split_oversized_lists(labels, sup, int(member_cap))
+    n = cents.shape[0]
+    sizes = np.bincount(labels, minlength=sup.shape[0])
+    keep = np.nonzero(sizes > 0)[0]
+    order = np.argsort(labels, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    mm = max(int(sizes.max()), 1)
+    # row r of the packed block: super keep[r]'s members, in id order
+    row_of = np.full(sup.shape[0], -1, np.int64)
+    row_of[keep] = np.arange(keep.size)
+    lbl_sorted = labels[order]
+    member = np.full((keep.size, mm), n, np.int32)
+    member[row_of[lbl_sorted], np.arange(n) - offsets[lbl_sorted]] = order
+    member_t = torch.as_tensor(member, device=cents.device)
+    return CoarseIndex(
+        super_cents=sup[torch.as_tensor(keep, device=cents.device)],
+        member_ids=member_t,
+        cents_padded=cents[torch.clamp(member_t, max=n - 1).long()],
+        n_cents=n,
+        n_super=int(keep.size),
+        max_members=mm,
+        build_args=tuple(build_args),
+    )
+
+
+def two_level_probe(qf, super_cents, member_ids, cents_padded,
+                    n_cents: int, n_probes: int, n_sup_probes: int,
+                    block_q: int = 256, precision=None,
+                    use_kernel: bool = False):
+    """Sub-linear coarse probe: score queries against the super
+    centroids, take the top ``n_sup_probes`` super clusters' member
+    blocks, and rerank only those candidate centroids in exact f32.
+    Returns (probes (nq, p) int64, d2 (nq, p) f32 squared distances,
+    best first; ties lowest id first) — a drop-in for
+    :func:`coarse_probe` at a fraction of its FLOPs.
+
+    Legacy engine (``use_kernel=False``, the default): per ``block_q``
+    queries, the super probe, a gather of the member blocks and the
+    exact rerank. ``use_kernel=True``: both stages on the flat scan
+    kernel (:func:`_two_level_probe_kernel`); equal probes to the legacy
+    engine's whenever its shape-only qcap (:func:`_probe_qcap`) drops no
+    (query, super) pair. Where :func:`two_level_probe_kernel_supported`
+    rejects the geometry, ``use_kernel=True`` serves the legacy engine,
+    counted in ``COARSE_ENGINE_FALLBACKS`` and warned about once. A
+    pinned ``precision`` (any value but None) also selects the legacy
+    engine, as in the JAX package; every product here is full f32
+    either way."""
+    dev = super_cents.device
+    qf = as_tensor(qf, dev).float()
+    ns, mm, d = cents_padded.shape
+    S = max(1, min(int(n_sup_probes), ns))
+    if use_kernel and precision is None:
+        if two_level_probe_kernel_supported(d, qf.shape[0], n_probes, ns,
+                                            mm, S, block_q):
+            return _two_level_probe_kernel(
+                qf, super_cents, member_ids, cents_padded, n_cents,
+                n_probes, S, block_q)
+        _note_coarse_fallback(
+            f"d={d} nq={qf.shape[0]} n_probes={n_probes} n_super={ns} "
+            f"max_members={mm} S={S} block_q={block_q}")
+
+    def blk(qb):
+        sup, _ = coarse_probe(qb, super_cents, S)             # (bq, S)
+        return rerank_members(qb, sup, member_ids, cents_padded, n_cents,
+                              n_probes)
+
+    vals, probes = map_query_blocks(blk, qf, block_q)
+    return probes, vals
+
+
+def rerank_members(qf, sup, member_ids, cents_padded, n_cents: int,
+                   n_probes: int, keep=None):
+    """The legacy engine's member stage for given supers (nq, S): gather
+    their member blocks, score them in exact f32, keep the ``n_probes``
+    best (of the supers where the (nq, S) bool ``keep`` holds, if
+    given). Returns (d2, probes int64), best first; a +inf slot (fewer
+    than n_probes valid candidates) gets id 0, so a caller's
+    owner[probe] gathers stay in range."""
+    nq, S = sup.shape
+    mm, d = cents_padded.shape[1:]
+    cand_ids = member_ids[sup]                               # (nq, S, mm)
+    valid = cand_ids < n_cents
+    if keep is not None:
+        valid = valid & keep[:, :, None]
+    cand_ids = cand_ids.reshape(nq, S * mm)
+    cand = cents_padded[sup].reshape(nq, S * mm, d)
+    d2 = score_l2_candidates(qf, cand, valid.reshape(nq, S * mm))
+    vals, pos = top_k_smallest(d2, n_probes)
+    probes = torch.gather(cand_ids, 1, pos).long()
+    return vals, torch.where(torch.isfinite(vals), probes, 0)
+
+
+# two-level probes with use_kernel=True that the geometry sent to the
+# legacy engine (two_level_probe_kernel_supported was False)
+COARSE_ENGINE_FALLBACKS = 0
+_coarse_fallbacks_warned: set = set()
+
+
+def _note_coarse_fallback(geometry: str) -> None:
+    global COARSE_ENGINE_FALLBACKS
+    COARSE_ENGINE_FALLBACKS += 1
+    if geometry not in _coarse_fallbacks_warned:
+        _coarse_fallbacks_warned.add(geometry)
+        logger.warning(
+            "two_level_probe(use_kernel=True) runs the legacy engine: the "
+            "flat scan kernel does not fit the geometry %s", geometry)
+
+
+def _probe_qcap(nq: int, n_sup_probes: int, n_super: int) -> int:
+    """Queries per super of the kernel engine's grouped member stage: 4x
+    the mean per-super occupancy (twice the grouped searches' default:
+    the probe has no per-call audit), 8-aligned, at most nq. Slots fill
+    in probe-rank order, so a super that still overflows drops each
+    query's last-ranked supers first; audit a skewed workload with
+    :func:`coarse_probe_recall` (``use_kernel=True``)."""
+    return min(nq, 2 * default_qcap(nq, n_sup_probes, n_super))
+
+
+def two_level_probe_kernel_supported(d: int, nq: int, n_probes: int,
+                                     n_super: int, max_members: int,
+                                     n_sup_probes: int,
+                                     block_q: int = 256) -> bool:
+    """Whether the kernel engine of :func:`two_level_probe` applies: both
+    stages' query counts fit the flat scan (``flat_scan_supported``), and
+    the member pool can fill a top-``n_probes`` row."""
+    if d < 1 or n_super < 1 or max_members < 1:
+        return False
+    from raft_tpu_torch.spatial.ann.flat_kernel import flat_scan_supported
+
+    s1_block = min(block_q, max(nq, 1))
+    return (
+        n_probes <= n_sup_probes * max_members
+        and flat_scan_supported(d, s1_block)
+        and flat_scan_supported(d, _probe_qcap(nq, n_sup_probes, n_super))
+    )
+
+
+def _super_scan_kernel(qf, super_cents, S: int, block_q: int):
+    """Stage 1 of the kernel engine: the top ``S`` supers of each query
+    (nq, S) int64. One launch of the flat scan kernel
+    (``flat_scan_subchunk_min``) over the whole batch gives each query's
+    8-row minima over the supers (bf16 operands, f32 sums); the rows of
+    its best ``min(width, 2S)`` granules are reranked in exact f32, in
+    query blocks of at least ``block_q`` whose gather stays under
+    ``RERANK_BLOCK_BYTES`` (a query's result does not depend on its
+    block). The window tile follows the JAX rule at the ``block_q``
+    block, so the granules match the blocked JAX stage."""
+    from raft_tpu_torch.spatial.ann import flat_kernel, scan_core
+
+    nq, d = qf.shape
+    ns = super_cents.shape[0]
+    sub = SUBCHUNK
+    sup_f = super_cents.float()
+    s1_block = min(block_q, max(nq, 1))
+    l_tile1 = flat_kernel.plan_l_tile(
+        d, scan_core.pad_queries(s1_block),
+        l_tile=scan_core.round_up(ns, scan_core.LANE),
+        profile=scan_core.tile_profile(s1_block),
+    )
+    ns_pad = scan_core.round_up(ns, l_tile1)
+    rows_bf16 = torch.nn.functional.pad(
+        sup_f, (0, 0, 0, ns_pad - ns)).to(torch.bfloat16)
+    bounds = torch.tensor([[0, ns]], dtype=torch.int32, device=qf.device)
+    mins = flat_kernel.flat_scan_subchunk_min(
+        qf.to(torch.bfloat16)[None], rows_bf16.T[None], bounds)[0]
+    c1 = min(ns_pad // sub, 2 * S)
+
+    def super_blk(args):
+        qb, mb = args
+        bq = qb.shape[0]
+        nv, cpos = top_k_smallest(mb, c1)
+        rows = (cpos[:, :, None] * sub
+                + torch.arange(sub, device=qb.device)).reshape(bq, c1 * sub)
+        live = (torch.isfinite(nv) & (nv < BIG))[:, :, None].expand(
+            bq, c1, sub).reshape(bq, c1 * sub)
+        cand = sup_f[torch.clamp(rows, max=ns - 1)]
+        exact = score_l2_candidates(qb, cand, (rows < ns) & live)
+        sv, spos = top_k_smallest(exact, S)
+        return sv, torch.clamp(torch.gather(rows, 1, spos), max=ns - 1)
+
+    blk = max(s1_block, RERANK_BLOCK_BYTES // (c1 * sub * d * 4))
+    return map_query_blocks(super_blk, (qf, mins), blk)[1]
+
+
+def _two_level_probe_kernel(qf, super_cents, member_ids, cents_padded,
+                            n_cents: int, n_probes: int, S: int,
+                            block_q: int):
+    """The kernel engine of :func:`two_level_probe` (the caller checked
+    :func:`two_level_probe_kernel_supported`). Stage 1:
+    :func:`_super_scan_kernel`. Stage 2: the IVF-Flat grouped search body
+    over a mini index whose lists are the supers and whose rows are the
+    padded member blocks (members first, so list s's rows are
+    ``[s*mm, s*mm + size_s)``), with the supers of stage 1 as its probes:
+    one ``flat_scan_lists`` launch, then the exact f32 rerank, whose
+    distances are the ones returned."""
+    from raft_tpu_torch.spatial.ann.ivf_flat import (
+        IVFFlatIndex, _grouped_impl,
+    )
+
+    nq = qf.shape[0]
+    ns, mm, d = cents_padded.shape
+    dev = qf.device
+    i32 = torch.int32
+    sup = _super_scan_kernel(qf, super_cents, S, block_q)
+    storage = ListStorage(
+        sorted_ids=member_ids.reshape(ns * mm).to(i32),
+        list_offsets=torch.arange(ns + 1, dtype=i32, device=dev) * mm,
+        # the grouped body reads only this tensor's leading axis
+        list_index=torch.zeros((ns, 1), dtype=i32, device=dev),
+        list_sizes=(member_ids < n_cents).sum(1).to(i32),
+        n=ns * mm,
+        max_list=mm,
+    )
+    # the member rows and the sentinel row the grouped body expects last
+    data_sorted = torch.nn.functional.pad(
+        cents_padded.reshape(ns * mm, d).float(), (0, 0, 0, 1))
+    mini = IVFFlatIndex(super_cents.float(), data_sorted, storage,
+                        "sqeuclidean")
+    d2, probes = _grouped_impl(
+        mini, qf, n_probes, S, _probe_qcap(nq, S, ns), max(1, min(8, ns)),
+        probes=sup, use_kernel=True, rerank_ratio=2.0,
+    )
+    # the legacy engine's clamp of a +inf slot's id
+    return torch.where(torch.isfinite(d2), probes.long(), 0), d2
+
+
+def coarse_probe_recall(queries, centroids, coarse: CoarseIndex,
+                        n_probes: int, *, overprobe: float = 2.0,
+                        block_q: int = 256,
+                        use_kernel: bool = False) -> float:
+    """The two-level probe's recall audit: the fraction of the flat
+    scan's probed lists that the two-level probe (the kernel engine with
+    ``use_kernel=True``) also probes on ``queries``. Workloads should
+    stay within 0.01 of the flat probe; raise ``overprobe`` when they do
+    not."""
+    dev = coarse.super_cents.device
+    qf = as_tensor(queries, dev).float()
+    flat, _ = coarse_probe(qf, as_tensor(centroids, dev).float(), n_probes)
+    S = n_super_probes(n_probes, coarse.n_super, overprobe)
+    two, _ = two_level_probe(
+        qf, coarse.super_cents, coarse.member_ids, coarse.cents_padded,
+        coarse.n_cents, n_probes, S, block_q, use_kernel=use_kernel,
+    )
+    a, b = flat.cpu().numpy(), two.cpu().numpy()
+    hits = sum(len(set(x.tolist()) & set(y.tolist())) for x, y in zip(a, b))
+    return hits / a.size
+
+
+def probe_flop_accounting(coarse: CoarseIndex, n_probes: int, *,
+                          overprobe: float = 2.0) -> dict:
+    """Per-query centroid-scoring MACs from shapes alone: ``flat`` (all
+    n_cents centroids), ``two_level`` (the supers, then S full member
+    blocks) and their ``ratio``."""
+    d = coarse.super_cents.shape[1]
+    S = n_super_probes(n_probes, coarse.n_super, overprobe)
+    flat = 2.0 * coarse.n_cents * d
+    two = 2.0 * (coarse.n_super + S * coarse.max_members) * d
+    return {"flat": flat, "two_level": two, "ratio": flat / two}
 
 
 @full_f32
@@ -237,23 +599,35 @@ class _AuditRegistry:
 _THROUGHPUT_AUDITED = _AuditRegistry()
 
 
-def _eager_probe(q, centroids, n_probes: int):
-    probes, _ = coarse_probe(q.float(), centroids, n_probes)
+def _eager_probe(q, centroids, n_probes: int, coarse=None,
+                 overprobe: float = 2.0):
+    """The eager (qcap-sizing / audit) probe: the two-level probe when a
+    :class:`CoarseIndex` is given (the flat scan costs the very matmul
+    the coarse index exists to avoid, and the drop stats should describe
+    the probe map served), else the flat scan."""
+    qf = q.float()
+    if coarse is not None:
+        probes, _ = two_level_probe(
+            qf, coarse.super_cents, coarse.member_ids, coarse.cents_padded,
+            coarse.n_cents, n_probes,
+            n_super_probes(n_probes, coarse.n_super, overprobe),
+        )
+        return probes
+    probes, _ = coarse_probe(qf, centroids, n_probes)
     return probes
 
 
 def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
-                     max_drop_frac=None, coarse=None):
+                     max_drop_frac=None, coarse=None,
+                     overprobe: float = 2.0):
     """qcap argument of the grouped searches: ``None`` -> the recall-safe
     auto path (:func:`auto_qcap`), ``"throughput"`` ->
     :func:`throughput_qcap` (its first call per signature and index
     audits and logs the dropped-pair fraction; ``max_drop_frac`` audits
     every call and falls back to the auto cap above that fraction), an
-    int -> as-is. Returns (qcap, probes_or_none)."""
-    errors.expects(
-        coarse is None,
-        "coarse=: the two-level coarse probe is not yet ported",
-    )
+    int -> as-is. ``coarse`` / ``overprobe``: the eager probes of the
+    auto and audit paths go through the two-level probe
+    (:func:`_eager_probe`). Returns (qcap, probes_or_none)."""
     if qcap == "throughput":
         nq = q.shape[0]
         qc = throughput_qcap(nq, n_probes, n_lists)
@@ -261,7 +635,7 @@ def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
         if max_drop_frac is None and _THROUGHPUT_AUDITED.seen(centroids,
                                                                sig):
             return qc, None
-        probes = _eager_probe(q, centroids, n_probes)
+        probes = _eager_probe(q, centroids, n_probes, coarse, overprobe)
         stats = probe_drop_stats(probes, n_lists, qc)
         _THROUGHPUT_AUDITED.add(centroids, sig)
         if max_drop_frac is not None and stats["frac"] > max_drop_frac:
@@ -285,7 +659,8 @@ def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
             )
         return qc, probes
     if qcap is None:
-        return auto_qcap(q, centroids, n_lists, n_probes)
+        return auto_qcap(q, centroids, n_lists, n_probes, coarse=coarse,
+                         overprobe=overprobe)
     errors.expects(
         isinstance(qcap, (int, np.integer)) and not isinstance(qcap, bool),
         "qcap must be an int, None, or 'throughput'; got %r", qcap,
@@ -327,10 +702,12 @@ def resolve_qcap(probes, n_lists: int, nq: int, n_probes: int,
     return qcap
 
 
-def auto_qcap(q, centroids, n_lists: int, n_probes: int):
-    """qcap=None path: probe eagerly, size qcap from the actual map, and
-    hand the probes back for reuse. Returns (qcap, probes)."""
-    probes = _eager_probe(q, centroids, n_probes)
+def auto_qcap(q, centroids, n_lists: int, n_probes: int, coarse=None,
+              overprobe: float = 2.0):
+    """qcap=None path: probe eagerly (two-level when ``coarse`` is given,
+    :func:`_eager_probe`), size qcap from the actual map, and hand the
+    probes back for reuse. Returns (qcap, probes)."""
+    probes = _eager_probe(q, centroids, n_probes, coarse, overprobe)
     return resolve_qcap(probes, n_lists, q.shape[0], n_probes), probes
 
 

@@ -8,13 +8,19 @@
   ``codebooks``, ``codes_sorted`` and, unless built with
   ``store_raw=False``, ``vectors_sorted``). A graph index has
   ``data_padded``, ``storage.adjacency`` and ``storage.entries``.
-* ``load_*`` read the repo's npz index format (the JAX package's
-  ``spatial/ann/serialize.py``) for the ``"ivf_flat"``, ``"ivf_sq"``,
-  ``"ivf_pq"`` and ``"graph"`` kinds with numpy alone: the
-  ``__header__`` JSON (format versions 2-5), the ``storage.`` key
-  prefix, bf16 arrays archived as their 16-bit words, and the per-array
-  CRC32/shape/dtype manifest, verified exactly as the writer computed
-  it. Damage raises
+* :func:`coarse_index_from_arrays` takes a JAX ``CoarseIndex``'s
+  leaves under the archive's ``coarse.`` field names.
+* :func:`save_index` writes the repo's npz index format (the JAX
+  package's ``spatial/ann/serialize.py``) with numpy alone, for the
+  ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"`` and ``"graph"`` kinds: the
+  ``__header__`` JSON (type, the lowest format version that holds the
+  payload, the static fields, the per-array CRC32/shape/dtype manifest),
+  one key per leaf under the reference's field names, bf16 arrays as
+  their 16-bit words.
+* :func:`load_index` and ``load_*`` read that format for the same kinds:
+  versions 1-5, the manifest verified exactly as the writer computed it
+  (version 1 archives have none and load unverified). Damage, a future
+  version or a kind the port lacks raises
   :class:`~raft_tpu_torch.errors.CorruptIndexError` naming the field.
 """
 
@@ -28,19 +34,23 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import resolve_device
-from raft_tpu_torch.spatial.ann.common import ListStorage
+from raft_tpu_torch.spatial.ann.common import CoarseIndex, ListStorage
 from raft_tpu_torch.spatial.ann.graph import GraphIndex, GraphStorage
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
 from raft_tpu_torch.spatial.ann.ivf_pq import IVFPQIndex
 from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
 
 __all__ = [
-    "graph_index_from_arrays", "ivf_flat_index_from_arrays",
-    "ivf_pq_index_from_arrays", "ivf_sq_index_from_arrays", "load_graph",
-    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
+    "coarse_index_from_arrays", "graph_index_from_arrays",
+    "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
+    "ivf_sq_index_from_arrays", "load_graph", "load_index",
+    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq", "save_index",
 ]
 
-_READABLE_VERSIONS = (2, 3, 4, 5)
+# 1: no integrity manifest (loads unverified); 2: the manifest; 3-5: the
+# coarse quantizer of the sharded indexes, the mutation tier, the graph
+# index (the port reads the kinds it has of each)
+_READABLE_VERSIONS = (1, 2, 3, 4, 5)
 _STORAGE = ("storage.sorted_ids", "storage.list_offsets",
             "storage.list_index", "storage.list_sizes")
 # the arrays of each IVF kind, besides centroids and storage
@@ -50,6 +60,8 @@ _KIND_ARRAYS = {
     "ivf_pq": ("codebooks", "codes_sorted", "vectors_sorted"),
 }
 _GRAPH_ARRAYS = ("data_padded", "storage.adjacency", "storage.entries")
+_COARSE_ARRAYS = ("coarse.super_cents", "coarse.member_ids",
+                  "coarse.cents_padded")
 
 
 def _array_crc(arr: np.ndarray) -> int:
@@ -176,13 +188,121 @@ def graph_index_from_arrays(arrays: dict, metric: str,
     return GraphIndex(put("data_padded").float(), storage, metric)
 
 
-def _read(npz, manifest: dict, key: str, where: str) -> np.ndarray:
+def coarse_index_from_arrays(arrays: dict, device=None) -> CoarseIndex:
+    """Build the port's :class:`~.common.CoarseIndex` on ``device`` (CUDA
+    by default) from a JAX ``CoarseIndex``'s leaves, keyed as the archive
+    keys them: ``coarse.super_cents`` (n_super, d), ``coarse.member_ids``
+    (n_super, max_members) int32 with the sentinel ``coarse.n_cents``,
+    ``coarse.cents_padded`` (n_super, max_members, d), and optionally the
+    ``coarse.n_super`` / ``coarse.max_members`` statics (checked against
+    the shapes) and ``coarse.build_args``."""
+    put = _placer(arrays, device)
+    for key in _COARSE_ARRAYS + ("coarse.n_cents",):
+        errors.expects(key in arrays, "coarse arrays: missing %r", key)
+    sc, mi, cp = (tuple(arrays[key].shape) for key in _COARSE_ARRAYS)
+    errors.expects(
+        len(sc) == 2 and len(mi) == 2 and mi[0] == sc[0]
+        and cp == mi + sc[1:]
+        and int(arrays.get("coarse.n_super", sc[0])) == sc[0]
+        and int(arrays.get("coarse.max_members", mi[1])) == mi[1],
+        "coarse arrays: super_cents %s, member_ids %s and cents_padded %s "
+        "do not fit together or the statics", sc, mi, cp,
+    )
+    return CoarseIndex(
+        super_cents=put("coarse.super_cents").float(),
+        member_ids=put("coarse.member_ids").to(torch.int32),
+        cents_padded=put("coarse.cents_padded").float(),
+        n_cents=int(arrays["coarse.n_cents"]),
+        n_super=sc[0],
+        max_members=mi[1],
+        build_args=tuple(arrays.get("coarse.build_args",
+                                    (None, None, 10, 0))),
+    )
+
+
+# ---------------------------------------------------------------- writer
+# each kind's fields in the reference's dataclass order (its key order in
+# the archive and in the header's statics), and the nested storages'
+_FIELDS = {
+    IVFFlatIndex: ("centroids", "data_sorted", "storage", "metric"),
+    IVFSQIndex: ("centroids", "codes_sorted", "vmin", "vscale", "storage"),
+    IVFPQIndex: ("centroids", "codebooks", "codes_sorted", "storage",
+                 "vectors_sorted", "pq_dim", "pq_bits"),
+    GraphIndex: ("data_padded", "storage", "metric"),
+    ListStorage: ("sorted_ids", "list_offsets", "list_index", "list_sizes",
+                  "n", "max_list"),
+    GraphStorage: ("adjacency", "entries"),
+}
+_KIND_OF = {IVFFlatIndex: "ivf_flat", IVFSQIndex: "ivf_sq",
+            IVFPQIndex: "ivf_pq", GraphIndex: "graph"}
+
+
+def _archived(t: torch.Tensor, key: str, static: dict) -> np.ndarray:
+    """A leaf as the archive holds it: a host array, bf16 as its 16-bit
+    words with the dtype tagged in the statics."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        static[key + ".__dtype__"] = "bfloat16"
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _flatten(obj, prefix: str, arrays: dict, static: dict) -> None:
+    for name in _FIELDS[type(obj)]:
+        v = getattr(obj, name)
+        key = prefix + name
+        if v is None:
+            static[key] = None
+        elif type(v) in _FIELDS:
+            static[key] = {"__nested__": type(v).__name__}
+            _flatten(v, key + ".", arrays, static)
+        elif isinstance(v, torch.Tensor):
+            arrays[key] = _archived(v, key, static)
+        else:
+            static[key] = v
+
+
+def save_index(index, path) -> None:
+    """Write an IVF-Flat, IVF-SQ, IVF-PQ or graph index to ``path`` in the
+    reference's npz format, readable by the JAX package's ``load_index``:
+    the header carries the kind, the lowest format version that holds the
+    payload (5 for a graph, 2 otherwise), the static fields and a
+    CRC32/shape/dtype manifest of the archived bytes of every array.
+    Written straight to the file (no second copy in memory)."""
+    errors.expects(
+        type(index) in _KIND_OF,
+        "save_index: unsupported index type %s (supported: %s)",
+        type(index).__name__, sorted(_KIND_OF.values()),
+    )
+    arrays: dict = {}
+    static: dict = {}
+    _flatten(index, "", arrays, static)
+    integrity = {
+        key: {"crc32": _array_crc(arr), "shape": list(arr.shape),
+              "dtype": str(arr.dtype)}
+        for key, arr in arrays.items()
+    }
+    header = {
+        "type": _KIND_OF[type(index)],
+        "version": 5 if isinstance(index, GraphIndex) else 2,
+        "static": static,
+        "integrity": integrity,
+    }
+    with open(path, "wb") as f:
+        np.savez(f, __header__=np.frombuffer(
+            json.dumps(header).encode("utf-8"), dtype=np.uint8), **arrays)
+
+
+# ---------------------------------------------------------------- reader
+def _read(npz, manifest, key: str, where: str) -> np.ndarray:
     try:
         arr = npz[key]
     except Exception as e:  # zipfile.BadZipFile, ValueError, OSError
         raise errors.CorruptIndexError(
             f"{where}: array {key!r} unreadable ({e})", field=key
         ) from e
+    if manifest is None:        # a version 1 archive: nothing to verify
+        return arr
     want = manifest.get(key)
     if want is None:
         raise errors.CorruptIndexError(
@@ -203,11 +323,11 @@ def _read(npz, manifest: dict, key: str, where: str) -> np.ndarray:
     return arr
 
 
-def _load_archive(path, kind: str):
-    """Read and verify an archive of ``kind``: returns (arrays keyed as
-    archived, with bf16-tagged arrays as torch bf16 tensors, and the
-    header's statics)."""
-    where = f"load_{kind}"
+def _load_archive(path, kind=None):
+    """Read and verify an archive of ``kind`` (None: any kind the port
+    has): returns (arrays keyed as archived, with bf16-tagged arrays as
+    torch bf16 tensors, the header's statics, the kind)."""
+    where = "load_index" if kind is None else f"load_{kind}"
     try:
         npz_file = np.load(path)
     except Exception as e:  # not a zip / truncated central directory
@@ -227,13 +347,22 @@ def _load_archive(path, kind: str):
                 f"readable (readable: {list(_READABLE_VERSIONS)})",
                 field="__header__",
             )
+        if kind is None:
+            kind = header.get("type")
+            if kind not in _FROM_ARRAYS:
+                raise errors.CorruptIndexError(
+                    f"{where}: index type {kind!r} is not readable by "
+                    f"raft_tpu_torch (readable: {sorted(_FROM_ARRAYS)})",
+                    field="__header__",
+                )
         errors.expects(
             header.get("type") == kind,
             "%s: archive holds a %r index, not %r", where,
             header.get("type"), kind,
         )
         static = header["static"]
-        manifest = header.get("integrity") or {}
+        manifest = (None if header["version"] == 1
+                    else header.get("integrity") or {})
         keys = (_GRAPH_ARRAYS if kind == "graph"
                 else ("centroids",) + _STORAGE + _KIND_ARRAYS[kind])
         arrays = {key: _read(npz, manifest, key, where) for key in keys
@@ -249,42 +378,61 @@ def _load_archive(path, kind: str):
     for key in ("storage.n", "storage.max_list"):
         if key in static:
             arrays[key] = static[key]
-    return arrays, static
+    return arrays, static, kind
+
+
+# each readable kind's index from its arrays and statics
+_FROM_ARRAYS = {
+    "ivf_flat": lambda a, st, dev: ivf_flat_index_from_arrays(
+        a, st["metric"], dev),
+    "ivf_sq": lambda a, st, dev: ivf_sq_index_from_arrays(a, dev),
+    "ivf_pq": lambda a, st, dev: ivf_pq_index_from_arrays(
+        a, st["pq_dim"], st["pq_bits"], dev),
+    "graph": lambda a, st, dev: graph_index_from_arrays(
+        a, st["metric"], dev),
+}
+
+
+def _load(path, kind, device):
+    dev = resolve_device(device)
+    arrays, static, kind = _load_archive(path, kind)
+    return _FROM_ARRAYS[kind](arrays, static, dev)
+
+
+def load_index(path, device=None):
+    """Load an index archive of any kind the port has (``"ivf_flat"``,
+    ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``), written by either
+    package's ``save_index``, verifying every array against the CRC32
+    manifest (a version 1 archive has none), onto ``device`` (CUDA by
+    default)."""
+    return _load(path, None, device)
 
 
 def load_ivf_flat(path, device=None) -> IVFFlatIndex:
-    """Load an ``"ivf_flat"`` index archive written by the JAX package's
-    ``save_index``, verifying every array against the CRC32 manifest,
-    onto ``device`` (CUDA by default)."""
-    dev = resolve_device(device)
-    arrays, static = _load_archive(path, "ivf_flat")
-    return ivf_flat_index_from_arrays(arrays, static["metric"], dev)
+    """Load an ``"ivf_flat"`` index archive written by ``save_index``
+    (either package's), verifying every array against the CRC32
+    manifest, onto ``device`` (CUDA by default)."""
+    return _load(path, "ivf_flat", device)
 
 
 def load_ivf_sq(path, device=None) -> IVFSQIndex:
-    """Load an ``"ivf_sq"`` index archive written by the JAX package's
-    ``save_index``, verifying every array against the CRC32 manifest,
-    onto ``device`` (CUDA by default)."""
-    dev = resolve_device(device)
-    arrays, _ = _load_archive(path, "ivf_sq")
-    return ivf_sq_index_from_arrays(arrays, dev)
+    """Load an ``"ivf_sq"`` index archive written by ``save_index``
+    (either package's), verifying every array against the CRC32
+    manifest, onto ``device`` (CUDA by default)."""
+    return _load(path, "ivf_sq", device)
 
 
 def load_ivf_pq(path, device=None) -> IVFPQIndex:
-    """Load an ``"ivf_pq"`` index archive written by the JAX package's
-    ``save_index``, verifying every array against the CRC32 manifest,
-    onto ``device`` (CUDA by default). A ``store_raw=False`` archive has
-    no ``vectors_sorted``; search it with ``refine_dataset=``."""
-    dev = resolve_device(device)
-    arrays, static = _load_archive(path, "ivf_pq")
-    return ivf_pq_index_from_arrays(arrays, static["pq_dim"],
-                                    static["pq_bits"], dev)
+    """Load an ``"ivf_pq"`` index archive written by ``save_index``
+    (either package's), verifying every array against the CRC32
+    manifest, onto ``device`` (CUDA by default). A ``store_raw=False``
+    archive has no ``vectors_sorted``; search it with
+    ``refine_dataset=``."""
+    return _load(path, "ivf_pq", device)
 
 
 def load_graph(path, device=None) -> GraphIndex:
-    """Load a ``"graph"`` index archive (format v5) written by the JAX
-    package's ``save_index``, verifying every array against the CRC32
-    manifest, onto ``device`` (CUDA by default)."""
-    dev = resolve_device(device)
-    arrays, static = _load_archive(path, "graph")
-    return graph_index_from_arrays(arrays, static["metric"], dev)
+    """Load a ``"graph"`` index archive (format v5) written by
+    ``save_index`` (either package's), verifying every array against the
+    CRC32 manifest, onto ``device`` (CUDA by default)."""
+    return _load(path, "graph", device)

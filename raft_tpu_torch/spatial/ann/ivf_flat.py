@@ -24,6 +24,7 @@ from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
 from raft_tpu_torch.core.device import full_f32, hopper_device, resolve_device
 from raft_tpu_torch.spatial.ann import flat_kernel, scan_core, sq_kernel
 from raft_tpu_torch.spatial.ann.common import (
+    RERANK_BLOCK_BYTES,
     ListStorage,
     build_list_storage,
     check_candidate_pool,
@@ -238,10 +239,6 @@ def _note_fallback(reason: str) -> None:
     warn_engine_fallback(_fallback_reasons_warned, "IVF-Flat", reason)
 
 
-# rerank-pool gather budget per query block on the kernel path
-_RERANK_BLOCK_BYTES = 256 << 20
-
-
 @full_f32
 def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
                   stream_partials=None, use_kernel=False,
@@ -389,7 +386,7 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
             exact = score_l2_candidates(qb, raw, vl & (rp < storage.n))
             return select_candidates(storage, rp, exact, k)
 
-        blk_q = max(8, min(nq, _RERANK_BLOCK_BYTES // (c * sub * d * 4)))
+        blk_q = max(8, min(nq, RERANK_BLOCK_BYTES // (c * sub * d * 4)))
         return map_query_blocks(rerank_blk, (qf, rpos, validf), blk_q)
 
     fvals, fpos = top_k_smallest(pv, k)

@@ -291,26 +291,33 @@ def _max_grid_steps() -> int:
 
 def probe_grid_steps(steps: int, device=None) -> bool:
     """Whether the card runs a ``steps``-block grid laid out as the
-    phase-1 launch (1-D, 256-thread blocks), each block copying one
-    (8, 128) f32 tile. False when the card refuses the configuration;
-    raises without a CUDA device."""
+    phase-1 launch (1-D, 256-thread blocks): the grid's last block copies
+    one (8, 128) f32 tile, and only it. False when the card refuses the
+    configuration; raises without a CUDA device, or when the tile was not
+    copied by the last block alone."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"probe_grid_steps: needs a CUDA device, got {dev}")
     src = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(
         8, 128)
     dst = torch.zeros_like(src)
+    # (blocks that copied, the last one's index), written by the kernel
+    copies = torch.zeros(2, dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.raft_fused_probe_grid_steps(
-            src.data_ptr(), dst.data_ptr(), int(steps), stream)
+            src.data_ptr(), dst.data_ptr(), copies.data_ptr(), int(steps),
+            stream)
     if err == lib.raft_fused_invalid_configuration():
         return False
     _raise_on(lib, err, "probe_grid_steps")
     LAUNCHES["probe_grid_steps"] += 1
-    if not torch.equal(dst, src):
-        raise RuntimeError("probe_grid_steps: the copy kernel did not run")
+    if not torch.equal(dst, src) or copies.tolist() != [1, int(steps) - 1]:
+        raise RuntimeError(
+            f"probe_grid_steps: the tile was not copied by the grid's last "
+            f"block alone (copies {copies.tolist()}, tile equal "
+            f"{torch.equal(dst, src)})")
     return True
 
 
@@ -542,7 +549,7 @@ def _lib():
         lib.raft_fused_rescore_group.restype = i
         lib.raft_fused_rescore_plan_ints.argtypes = [i, ll, i]
         lib.raft_fused_rescore_plan_ints.restype = ll
-        lib.raft_fused_probe_grid_steps.argtypes = [p, p, ll, p]
+        lib.raft_fused_probe_grid_steps.argtypes = [p, p, p, ll, p]
         lib.raft_fused_probe_grid_steps.restype = i
         lib.raft_fused_probe_empty.argtypes = [ll, p]
         lib.raft_fused_probe_empty.restype = i

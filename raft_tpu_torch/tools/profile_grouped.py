@@ -1,7 +1,7 @@
 """Where the time of one IVF or graph search batch goes, on one CUDA card.
 
     python3 -m raft_tpu_torch.tools.profile_grouped
-        [--kind flat|sq|pq|graph] [--beam B] [--seed N] [--out DIR]
+        [--kind flat|sq|pq|graph|coarse] [--beam B] [--seed N] [--out DIR]
 
 Builds the index of ``chip_smoke.py``'s path of that kind:
 
@@ -13,7 +13,12 @@ Builds the index of ``chip_smoke.py``'s path of that kind:
   its warmed qcap and the 4,096-query batch at ``qcap="throughput"``;
 * ``graph``: the same 500,000 rows, a degree-16 graph (intermediate 32,
   4 entries); the beam search at ``--beam`` (default 32) at nq 1 and
-  4,096 with its warmed iteration count.
+  4,096 with its warmed iteration count;
+* ``coarse``: the ``flat`` index's 1,024 centroids and 64,768 draws of
+  them with 0.5-std jitter (65,792 in all), the two-level coarse index
+  of ``chip_smoke.py``'s coarse phase (4,096 supers asked, 26 members at
+  most), 16 probes at overprobe 2; a 16,384-query batch through the flat
+  ``coarse_probe`` and both engines of ``two_level_probe``.
 
 For each bucket it times 5 searches (k=10) on the host clock, each
 ending in a synchronise, and traces the same searches with
@@ -126,8 +131,11 @@ def _clustered(rng, n, n_centers, spread):
 
 def build(kind: str, rng, beam: int = 32):
     """(rows, index, search(q, arg), [(bucket, arg)]) of the path of
-    ``kind``: the arg is the qcap of an IVF search and the warmed
-    iteration count of a graph search."""
+    ``kind``: the arg is the qcap of an IVF search, the warmed iteration
+    count of a graph search and the engine of a coarse probe (the index
+    is then the centroid set)."""
+    if kind == "coarse":
+        return _build_coarse(rng)
     if kind == "graph":
         x = _clustered(rng, 500_000, 1000, 10.0)
         index = graph_build(x, GraphParams(degree=16, intermediate_degree=32,
@@ -173,9 +181,36 @@ def build(kind: str, rng, beam: int = 32):
     return x, index, search, plan
 
 
+def _build_coarse(rng):
+    from raft_tpu_torch.spatial.ann import common as cm
+
+    x = _clustered(rng, 1_000_000, 2000, None)
+    base = ivf_flat_build(x, IVFFlatParams(
+        n_lists=1024, kmeans_n_iters=10, kmeans_init="random",
+    )).centroids.float()
+    n_extra = 65_792 - base.shape[0]
+    sel = torch.as_tensor(rng.integers(0, base.shape[0], n_extra),
+                          device=base.device)
+    jitter = torch.as_tensor(0.5 * rng.standard_normal(
+        (n_extra, DIM), dtype=np.float32), device=base.device)
+    cents = torch.cat([base, base[sel] + jitter])
+    coarse = cm.build_coarse_index(cents, n_super=4096, member_cap=26)
+    args_c = (coarse.super_cents, coarse.member_ids, coarse.cents_padded,
+              coarse.n_cents, 16, cm.n_super_probes(16, coarse.n_super))
+
+    def search(q, engine):
+        if engine == "flat":
+            return cm.coarse_probe(q, cents, 16)
+        return cm.two_level_probe(q, *args_c,
+                                  use_kernel=engine == "kernel")
+    return x, cents, search, [(16_384, e)
+                              for e in ("flat", "legacy", "kernel")]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", choices=("flat", "sq", "pq", "graph"),
+    ap.add_argument("--kind", choices=("flat", "sq", "pq", "graph",
+                                       "coarse"),
                     default="flat")
     ap.add_argument("--beam", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
@@ -187,7 +222,8 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     x, index, search, plan = build(args.kind, rng, args.beam)
-    arg_name = "iters" if args.kind == "graph" else "qcap"
+    arg_name = {"graph": "iters", "coarse": "engine"}.get(args.kind,
+                                                          "qcap")
     for nq, qcap in plan:
         q = torch.as_tensor(
             x[rng.integers(0, x.shape[0], nq)]
@@ -196,7 +232,7 @@ def main(argv=None) -> int:
         wall, busy, top = trace_calls(
             lambda: search(q, qcap), ITERS,
             None if args.out is None
-            else args.out / f"trace_{args.kind}_{nq}.json")
+            else args.out / f"trace_{args.kind}_{nq}_{qcap}.json")
         print(f"[{card}] {args.kind} bucket {nq} ({arg_name} {qcap}): "
               f"{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
               f"{1 - busy / wall:.1%}", flush=True)

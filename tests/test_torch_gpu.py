@@ -8,6 +8,8 @@ JAX package, so it runs on a machine with the card alone:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -156,15 +158,31 @@ def test_rescore_kernel_matches_plain_version():
 @pytest.mark.gpu
 def test_probe_grid_steps_on_the_card():
     """The launch probe runs a phase-1-sized grid and reports a grid the
-    card refuses (past the 2**31 - 1 block limit of a 1-D grid)."""
+    card refuses (past the 2**31 - 1 block limit of a 1-D grid); the
+    tile is copied by the grid's last block and by no other, at 1 block,
+    at a phase-1 grid and at the largest grid the card takes."""
     from raft_tpu_torch.spatial import fused_knn as tfk
 
-    _hopper()
+    dev = _hopper()
     before = tfk.LAUNCHES["probe_grid_steps"]
     assert tfk.probe_grid_steps(79 * 7824)
     assert tfk.LAUNCHES["probe_grid_steps"] == before + 1
     assert not tfk.probe_grid_steps(2**31)
     assert tfk.LAUNCHES["probe_grid_steps"] == before + 1
+    lib = tfk._lib()
+    src = torch.arange(1024, dtype=torch.float32, device=dev).reshape(8, 128)
+    stream = torch.cuda.current_stream().cuda_stream
+    for steps in (1, 79 * 7824, 2**31 - 1):
+        dst = torch.zeros_like(src)
+        copies = torch.zeros(2, dtype=torch.int64, device=dev)
+        assert lib.raft_fused_probe_grid_steps(
+            src.data_ptr(), dst.data_ptr(), copies.data_ptr(), steps,
+            stream) == 0
+        torch.cuda.synchronize()
+        # one copying block, and it is the last
+        assert copies.tolist() == [1, steps - 1], steps
+        assert torch.equal(dst, src), steps
+        assert tfk.probe_grid_steps(steps)
 
 
 def _bounds(l_pad):
@@ -821,3 +839,60 @@ def test_vector_cache_on_card_matches_cpu():
         for a, b in zip((caches[0].keys, caches[0].time, caches[0].store),
                         (caches[1].keys, caches[1].time, caches[1].store)):
             assert torch.equal(a, b.cpu()), step
+
+
+@pytest.mark.gpu
+def test_two_level_probe_kernel_engine_on_the_card():
+    """The two-level probe's kernel engine on the card (two flat-scan
+    launches, no engine fallback) against the same engine's plain
+    versions on the CPU, the legacy engine on both, and the legacy
+    member stage over the kernel engine's own supers: bitwise on
+    integer-exact centroids, supers and queries."""
+    from raft_tpu_torch.spatial.ann import common as cm
+
+    dev = _hopper()
+    rng = np.random.default_rng(3)
+    hubs = rng.integers(-60, 60, (64, 96))
+    cents = (hubs[rng.integers(0, 64, 4096)]
+             + rng.integers(-6, 7, (4096, 96))).astype(np.float32)
+    q = (cents[rng.integers(0, 4096, 1000)]
+         + rng.integers(-3, 4, (1000, 96))).astype(np.float32)
+    card = cm.build_coarse_index(torch.as_tensor(cents, device=dev))
+    card = dataclasses.replace(card, super_cents=torch.round(
+        card.super_cents))
+    host = dataclasses.replace(
+        card, super_cents=card.super_cents.cpu(),
+        member_ids=card.member_ids.cpu(),
+        cents_padded=card.cents_padded.cpu())
+    S = cm.n_super_probes(8, card.n_super)
+    assert card.n_super > S
+
+    def args(c):
+        return (c.super_cents, c.member_ids, c.cents_padded, c.n_cents, 8,
+                S)
+
+    qt = torch.as_tensor(q, device=dev)
+    before, fb = tfk.LAUNCHES, cm.COARSE_ENGINE_FALLBACKS
+    pk, dk = cm.two_level_probe(qt, *args(card), use_kernel=True)
+    torch.cuda.synchronize()
+    assert tfk.LAUNCHES == before + 2
+    assert cm.COARSE_ENGINE_FALLBACKS == fb
+    pp, dp = cm.two_level_probe(q, *args(host), use_kernel=True)
+    assert torch.equal(dk.cpu(), dp) and torch.equal(pk.cpu(), pp)
+    pl, dl = cm.two_level_probe(qt, *args(card))
+    pl_h, dl_h = cm.two_level_probe(q, *args(host))
+    assert torch.equal(dl.cpu(), dl_h) and torch.equal(pl.cpu(), pl_h)
+    sup = cm._super_scan_kernel(qt, card.super_cents, S, 256)
+    d_ref, _ = cm.rerank_members(qt, sup, card.member_ids,
+                                 card.cents_padded, card.n_cents, 8)
+    assert torch.equal(d_ref, dk)
+    sup_l, _ = cm.coarse_probe(qt, card.super_cents, S)
+    same = (torch.sort(sup, 1).values
+            == torch.sort(sup_l, 1).values).all(1)
+    assert same.any() and torch.equal(dk[same], dl[same])
+    # the result cache's semantic signer takes the index on the card
+    from raft_tpu_torch.serving.result_cache import CentroidSigner
+
+    rows = q[:5]
+    assert np.array_equal(CentroidSigner.from_coarse(card)(rows),
+                          CentroidSigner.from_coarse(host)(rows))

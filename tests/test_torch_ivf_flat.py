@@ -289,9 +289,10 @@ def test_qcap_functions_exact():
                         jcommon.static_qcap(qc, nq, p, nl)
     with pytest.raises(ValueError, match="qcap must be"):
         tcommon.static_qcap(True, 8, 2, 4)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcommon.resolve_qcap_arg(8, torch.zeros((2, 3)), torch.zeros((4, 3)),
-                                 4, 2, coarse=object())
+    # an int qcap needs no probe, with or without a coarse index
+    assert tcommon.resolve_qcap_arg(8, torch.zeros((2, 3)),
+                                    torch.zeros((4, 3)), 4, 2,
+                                    coarse=object()) == (8, None)
 
 
 def test_split_and_build_list_storage_exact():
@@ -501,6 +502,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import raft_tpu_torch.resilience, raft_tpu_torch.cache\n"
         "import raft_tpu_torch.serving, raft_tpu_torch.serving.open_loop\n"
         "import raft_tpu_torch.testing.load\n"
+        # the two-level probe on both engines and the writer, whose
+        # imports happen at call time
+        "import tempfile, numpy as np, torch\n"
+        "from raft_tpu_torch.spatial.ann import common as c\n"
+        "from raft_tpu_torch.spatial.ann import IVFFlatParams, "
+        "ivf_flat_build, load_index, save_index\n"
+        "x = np.random.default_rng(0).standard_normal((64, 8))"
+        ".astype('float32')\n"
+        "ci = c.build_coarse_index(x, device='cpu')\n"
+        "for k in (False, True):\n"
+        "    c.two_level_probe(x[:4], ci.super_cents, ci.member_ids, "
+        "ci.cents_padded, ci.n_cents, 2, 4, use_kernel=k)\n"
+        "idx = ivf_flat_build(x, IVFFlatParams(n_lists=4), device='cpu')\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    save_index(idx, d + '/i.npz')\n"
+        "    load_index(d + '/i.npz', device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'raft_tpu', 'bench')]\n"
         "assert not bad, bad\n"
