@@ -12,7 +12,12 @@ to 0 just before it and read just after:
   width) built with 1024 lists, warmed per serving bucket, serving ~200
   requests through the bucketed micro-batcher and the grouped search,
   with recall@10 of both scan engines against exact brute force; then
-  the open-loop ``ServingExecutor`` over that index;
+  the open-loop ``ServingExecutor`` over that index; then the mutation
+  tier over it (upsert -> visible, 10% tombstones, recall on the
+  survivors on both engines, the mixed-ingest row, compaction and a
+  background compaction under searches, a cached answer gone stale
+  after a write, the durable-ingest row, checkpoint + WAL-tail recovery
+  and the v4 archive bitwise, the kill-9 leg);
 * the two-level coarse probe over 65,792 centroids of width 96 (the
   served index's and jittered draws of them, bench.py's recipe): the
   FLOP ratio, both engines' recall against the flat probe, the kernel
@@ -21,7 +26,9 @@ to 0 just before it and read just after:
 * IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
-  engines, with recall@10 against exact brute force;
+  engines, with recall@10 against exact brute force; each then wrapped
+  for mutation (256 upserts, 10% deletes, the batch on both engines,
+  one compaction);
 * graph ANN (bench/bench_serving.py's graph_ann_row) over the same rows:
   a degree-16 graph built on the card, recall@10 of the 4,096-query
   batch at beams 16/32/64 on both engines (equal distances required,
@@ -53,6 +60,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -1162,6 +1170,442 @@ def result_cache_pass(card, dev, search, pool):
               f"result-cache executor accounting: {pass_st}")
 
 
+# ---------------------------------------------------------------------------
+# The mutation tier over the main path's IVF-Flat index
+# ---------------------------------------------------------------------------
+
+MUT_CAP = 64              # the mixed-ingest row's delta capacity
+MUT_INGEST = 256          # rows an upsert batch / ingest dispatch carries
+MUT_DEAD_FRAC = 0.10      # main rows tombstoned (below the policy's 0.25)
+MUT_DELETE_BATCH = 8192   # ids a delete batch carries
+DURABLE_BATCHES, DURABLE_BATCH = 24, 128
+KILL_POINTS = (1, 5, 17)
+
+
+@contextlib.contextmanager
+def engine_batches(mod, impl="_grouped_impl"):
+    """Record, for every kernel-engine call of ``mod.impl`` (a grouped
+    scan body as ``mod`` sees it), the flat-scan launches it made."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    real = getattr(mod, impl)
+    launches = []
+
+    def recording(*args, **kw):
+        before = fk.LAUNCHES
+        out = real(*args, **kw)
+        if kw.get("use_kernel"):
+            launches.append(fk.LAUNCHES - before)
+        return out
+
+    setattr(mod, impl, recording)
+    try:
+        yield launches
+    finally:
+        setattr(mod, impl, real)
+
+
+def dyadic_rows(x, rng, m):
+    """Noisy copies of corpus rows rounded to multiples of 1/16: their
+    squares and dot products are exact in f32, so a row searched against
+    itself scores exactly 0."""
+    rows = (x[rng.integers(0, x.shape[0], m)]
+            + 0.3 * rng.standard_normal((m, x.shape[1]), dtype=np.float32))
+    return np.round(rows * 16.0) / 16.0
+
+
+def mutable_state_tensors(m):
+    """Every tensor of a MutableIndex under its archive key."""
+    from raft_tpu_torch.spatial.ann import interop
+
+    out = {}
+
+    def walk(obj, prefix):
+        for name in interop._FIELDS[type(obj)]:
+            v = getattr(obj, name)
+            if type(v) in interop._FIELDS:
+                walk(v, prefix + name + ".")
+            elif isinstance(v, torch.Tensor):
+                out[prefix + name] = v
+    walk(m, "")
+    return out
+
+
+def mutation_phase(args, card, dev, index, qcaps, x):
+    """The mutation tier over the main path's 1M-row index: upsert ->
+    visible and delete -> masked on both engines, recall on the survivors
+    against an exact oracle, no host sync inside a mutable search or the
+    async upsert, the mixed-ingest row, compaction and one background
+    compaction cycle under searches, an executor whose cached answer goes
+    stale after a write, the durable-ingest row, checkpoint + WAL-tail
+    recovery and the v4 archive bitwise, and the kill-9 fast leg. Returns
+    the phase's entry under the flat scan's ``mutation`` key."""
+    import tempfile
+
+    from raft_tpu_torch.durability import wal
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.serving import ResultCache, ServingExecutor
+    from raft_tpu_torch.serving.ingest_rows import (
+        durable_ingest_row, mixed_ingest_row,
+    )
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import interop, ivf_flat
+    from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
+    from raft_tpu_torch.spatial.ann import mutation as mut
+    from raft_tpu_torch.testing.crash import run_crash_ingest_cycle
+
+    rng = np.random.default_rng(args.seed + 10)
+    nums = {"card": card}
+
+    def search(m, q, engine=None):
+        return mut.mutable_search(m, q, K, n_probes=N_PROBES,
+                                  qcap=qcaps.get(q.shape[0]),
+                                  use_kernel=engine)
+
+    def timed(fn, n=5):
+        fn()
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        sync(dev)
+        return 1e3 * (time.perf_counter() - t0) / n, out
+
+    fk.LAUNCHES = 0
+    ivf_flat.ENGINE_FALLBACKS = 0
+    with engine_batches(mut) as mut_calls, \
+            engine_batches(ivf_flat) as frozen_calls:
+        t0 = time.perf_counter()
+        m0 = mut.wrap_mutable(index, delta_cap=MUT_CAP)
+        for b in BUCKETS:
+            check(mut.mutable_warmup(m0, b, k=K, n_probes=N_PROBES,
+                                     qcap=qcaps[b], ingest_batch=MUT_INGEST)
+                  == qcaps[b], "mutable_warmup changed a bucket's qcap")
+        check(int(m0.delta.counts.sum()) == 0 and m0.epoch == 0
+              and bool((m0.row_mask > 0).all()),
+              "mutable_warmup consumed delta slots or flipped the mask")
+        nums["wrap_warmup_s"] = time.perf_counter() - t0
+
+        # upsert -> visible: every acked row its own top-1 at distance 0
+        fresh = dyadic_rows(x, rng, MUT_INGEST)
+        fresh_ids = np.arange(N_ROWS, N_ROWS + MUT_INGEST, dtype=np.int32)
+        sync(dev)
+        t0 = time.perf_counter()
+        m, acc = mut.upsert(m0, fresh, fresh_ids)
+        nums["upsert_256_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(acc.all() and m.epoch == 1, f"upsert acked {acc.sum()} of "
+              f"{MUT_INGEST} rows")
+        fresh_t = torch.as_tensor(fresh, device=dev)
+        for engine in (None, False):
+            d, i = search(m, fresh_t, engine)
+            check(torch.equal(i[:, 0].cpu(), torch.as_tensor(fresh_ids))
+                  and bool((d[:, 0] == 0).all()),
+                  f"engine {engine}: an acked row is not its own top-1 at 0")
+
+        # delete -> masked: 10% of the main rows and a quarter of the fresh
+        dead_main = np.sort(rng.choice(N_ROWS, int(MUT_DEAD_FRAC * N_ROWS),
+                                       replace=False)).astype(np.int32)
+        dead_fresh = fresh_ids[::4]
+        dead = np.concatenate([dead_main, dead_fresh])
+        sync(dev)
+        t0 = time.perf_counter()
+        for s in range(0, dead.shape[0], MUT_DELETE_BATCH):
+            m, found = mut.delete(m, dead[s:s + MUT_DELETE_BATCH])
+            check(found.all(), "a delete missed a live id")
+        nums["delete_ms"] = 1e3 * (time.perf_counter() - t0)
+        stats = mut.compaction_stats(m)
+        check(abs(stats["tombstone_frac"] - MUT_DEAD_FRAC) < 1e-6
+              and stats["delta_live_rows"] == MUT_INGEST - dead_fresh.size,
+              f"compaction stats {stats}")
+
+        # the 4,096 batch: no dead id, recall against the survivors
+        qb = torch.as_tensor(
+            x[rng.integers(0, N_ROWS, max(BUCKETS))]
+            + 0.3 * rng.standard_normal((max(BUCKETS), DIM),
+                                        dtype=np.float32), device=dev)
+        live_main = np.setdiff1d(np.arange(N_ROWS, dtype=np.int32),
+                                 dead_main)
+        live_fresh = np.setdiff1d(fresh_ids, dead_fresh)
+        surv_ids = torch.as_tensor(np.concatenate([live_main, live_fresh]),
+                                   device=dev)
+        surv = torch.cat([torch.as_tensor(x[live_main], device=dev),
+                          torch.as_tensor(fresh[live_fresh - N_ROWS],
+                                          device=dev)])
+        true = surv_ids[exact_knn(surv, qb, K)]
+        del surv
+        res = {}
+        for name, engine in (("kernel", None), ("legacy", False)):
+            ms, (d, i) = timed(lambda: search(m, qb, engine), n=3)
+            check(not np.isin(i.cpu().numpy(), dead).any(),
+                  f"{name} engine surfaced a deleted id")
+            res[name] = (recall(i, true), ms)
+        nums.update({f"recall_{n}": r for n, (r, _) in res.items()})
+        nums.update({f"batch4096_{n}_ms": t for n, (_, t) in res.items()})
+        check(res["kernel"][0] >= res["legacy"][0] - 0.005,
+              f"kernel recall below legacy on the survivors: {res}")
+        nums["batch4096_frozen_ms"], _ = timed(
+            lambda: ivf_flat_search_grouped(index, qb, K, n_probes=N_PROBES,
+                                            qcap=qcaps[max(BUCKETS)]), n=3)
+        nums["batch8_kernel_ms"], _ = timed(lambda: search(m, qb[:8]))
+        nums["batch8_frozen_ms"], _ = timed(
+            lambda: ivf_flat_search_grouped(index, qb[:8], K,
+                                            n_probes=N_PROBES,
+                                            qcap=qcaps[8]))
+        # the dense delta scan and fold alone, at both sizes
+        nl = m.delta.ids.shape[0]
+        dids = m.delta.ids.reshape(-1)
+        valid = (dids >= 0) & (m.delta.live.reshape(-1) > 0)
+        dvec = m.delta.vecs.reshape(nl * MUT_CAP, DIM)
+        for nq in (8, max(BUCKETS)):
+            vals = torch.full((nq, K), float("inf"), device=dev)
+            ids = torch.full((nq, K), -1, dtype=torch.int32, device=dev)
+            nums[f"delta_scan{nq}_ms"], _ = timed(
+                lambda: mut.delta_merge_topk(qb[:nq], vals, ids, dvec, dids,
+                                             valid, K))
+
+        # no host sync inside a mutable search dispatch or the async upsert
+        ing_ids = torch.arange(2_000_000, 2_000_000 + MUT_INGEST,
+                               dtype=torch.int32, device=dev)
+        prev = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for b in BUCKETS:
+                    search(m, qb[:b])
+                mut._upsert_impl(index.centroids, m.delta, m.row_mask,
+                                 m.id_to_pos, fresh_t, ing_ids)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        syncs = collections.Counter(
+            f"{w.filename}:{w.lineno}" for w in warned
+            if "called a synchronizing" in str(w.message))
+        for where, n in syncs.items():
+            log(f"host sync inside a mutable dispatch ({n}x): {where}")
+        check(not syncs, f"{len(syncs)} host syncs inside mutable dispatches")
+
+        # the mixed-ingest row (recorded, not gated)
+        t0 = time.perf_counter()
+        row = mixed_ingest_row(index, qb[:512], k=K, n_probes=N_PROBES,
+                               ingest_batch=MUT_INGEST, delta_cap=MUT_CAP)
+        nums["mixed_row_s"] = time.perf_counter() - t0
+        nums["mixed_row"] = {key: row.get(key) for key in (
+            "frozen_qps", "ingest_qps", "mixed_search_qps",
+            "qps_ratio_vs_frozen", "upsert_visible_ms", "delete_masked_ms",
+            "spread", "error")}
+
+        # compaction, then one background cycle under searches
+        sync(dev)
+        t0 = time.perf_counter()
+        mc, cst = mut.compact(m)
+        sync(dev)
+        nums["compact_s"] = time.perf_counter() - t0
+        want = N_ROWS - dead_main.size + live_fresh.size
+        check(cst["survivors"] == want
+              and int(mc.delta.counts.sum()) == 0
+              and bool((mc.row_mask > 0).all()) and mc.epoch == m.epoch + 1,
+              f"compaction: survivors {cst['survivors']} (want {want}), "
+              f"stats {cst}")
+        d, i = search(mc, qb)
+        r_after = recall(i, true)
+        nums["recall_kernel_after_compact"] = r_after
+        check(not np.isin(i.cpu().numpy(), dead).any(),
+              "a deleted id surfaced after compaction")
+        check(abs(r_after - res["kernel"][0]) <= 0.005,
+              f"recall after compaction {r_after} vs {res['kernel'][0]}")
+        more = dyadic_rows(x, rng, MUT_INGEST)
+        more_ids = np.arange(N_ROWS + MUT_INGEST, N_ROWS + 2 * MUT_INGEST,
+                             dtype=np.int32)
+        m2, acc = mut.upsert(mc, more, more_ids)
+        check(acc.all(), "upsert into the compacted state rejected rows")
+        bc = mut.BackgroundCompactor(mut.CompactionPolicy(refresh_every=0))
+        t0 = time.perf_counter()
+        check(bc.submit(m2), "the background compactor refused a submit")
+        during = 0
+        while True:
+            busy = bc.busy
+            search(m2, qb[:512])
+            sync(dev)
+            during += busy
+            if not busy:
+                break
+        bc.join(120.0)
+        polled = bc.poll()
+        bc.stop()
+        nums["background_compact_s"] = time.perf_counter() - t0
+        nums["searches_during_compaction"] = during
+        check(polled is not None and during >= 1,
+              f"background compaction: result {polled is not None}, "
+              f"{during} searches while it ran")
+        m3, bst = polled
+        check(bst["survivors"] == want + MUT_INGEST,
+              f"background compaction survivors {bst['survivors']}")
+        d, i = search(m3, torch.as_tensor(more, device=dev))
+        check(torch.equal(i[:, 0].cpu(), torch.as_tensor(more_ids)),
+              "rows folded by the background compaction are not found")
+
+        # serve under writes: a cached answer goes stale after an upsert
+        cache = ResultCache(K, registry=MetricRegistry())
+        state = {"m": m3}
+        req = qb[:4].cpu().numpy()
+        with ServingExecutor(lambda b, **_: search(state["m"], b), BUCKETS,
+                             dim=DIM, device=dev, result_cache=cache,
+                             epoch_fn=lambda: state["m"].epoch,
+                             registry=MetricRegistry()) as ex:
+            first = ex.submit(req).result(timeout=60)
+            again = ex.submit(req)
+            hit = again.done()
+            again.result(timeout=60)
+            stale0 = cache.stats().stale
+            state["m"], acc = mut.upsert(state["m"], req[:1],
+                                         np.asarray([3_000_000], np.int32))
+            ex.set_runtime()
+            served = ex.submit(req).result(timeout=60)
+            stale1 = cache.stats().stale
+        check(acc.all() and hit, f"cache hit before the write: {hit}")
+        check(stale1 > stale0, f"cache stale count {stale0} -> {stale1}")
+        check(int(served[1][0, 0]) == 3_000_000
+              and int(first[1][0, 0]) != 3_000_000,
+              "the answer served after the write lacks the new row")
+        nums["cache_stale"] = stale1 - stale0
+
+        # durability: the durable-ingest row, checkpoint + WAL tail
+        # recovery, the v4 archive, the kill-9 fast leg
+        t0 = time.perf_counter()
+        drow = durable_ingest_row(index, qb[:DURABLE_BATCH],
+                                  ingest_batch=DURABLE_BATCH,
+                                  n_batches=DURABLE_BATCHES,
+                                  delta_cap=MUT_CAP)
+        nums["durable_row_s"] = time.perf_counter() - t0
+        nums["durable_row"] = {key: drow[key] for key in (
+            "nondurable_qps", "durable_qps", "durability_ratio",
+            "fsync_interval_ms", "fsync_p50_ms", "wal_mb_per_s")}
+        with tempfile.TemporaryDirectory() as td:
+            w = wal.WalWriter(f"{td}/wal", flush_interval_s=0.002)
+            ing = wal.DurableIngest(mut.wrap_mutable(index, delta_cap=MUT_CAP),
+                                    w)
+            n_ops, wm = 0, None
+            for b in range(8):
+                ids = np.arange(4_000_000 + b * DURABLE_BATCH,
+                                4_000_000 + (b + 1) * DURABLE_BATCH,
+                                dtype=np.int32)
+                check(ing.upsert(dyadic_rows(x, rng, DURABLE_BATCH),
+                                 ids).all(), "a durable upsert was rejected")
+                found = ing.delete(np.concatenate([
+                    rng.choice(N_ROWS, 64, replace=False).astype(np.int32),
+                    ids[:8]]))
+                check(found[64:].all(), "a durable delete missed")
+                n_ops += 2
+                if b == 3:
+                    wm = ing.checkpoint(f"{td}/delta.ckpt")
+            live = ing.mindex
+            ing.close()
+            t0 = time.perf_counter()
+            rec, frontier, n = wal.recover_mutable(
+                mut.wrap_mutable(index, delta_cap=MUT_CAP), f"{td}/wal",
+                checkpoint_path=f"{td}/delta.ckpt")
+            sync(dev)
+            nums["recover_s"] = time.perf_counter() - t0
+            check(wm == 8 and (frontier, n) == (n_ops, n_ops - wm),
+                  f"recovery: watermark {wm}, frontier {frontier}, "
+                  f"replayed {n}")
+            a, b_ = mutable_state_tensors(live), mutable_state_tensors(rec)
+            check(rec.epoch == live.epoch
+                  and all(torch.equal(a[key], b_[key]) for key in a),
+                  "the recovered state differs from the live state")
+            for x0, x1 in zip(search(live, qb), search(rec, qb)):
+                check(torch.equal(x0, x1),
+                      "the recovered state answers differently")
+            t0 = time.perf_counter()
+            interop.save_index(live, f"{td}/m.npz")
+            loaded = interop.load_index(f"{td}/m.npz", device=dev)
+            sync(dev)
+            nums["v4_roundtrip_s"] = time.perf_counter() - t0
+            nums["v4_archive_mb"] = os.path.getsize(f"{td}/m.npz") / 1e6
+            b_ = mutable_state_tensors(loaded)
+            check(set(a) == set(b_) and all(
+                a[key].device.type == dev.type
+                and torch.equal(a[key], b_[key].to(a[key].device))
+                for key in a), "the v4 archive round trip is not bitwise")
+            del live, rec, loaded
+            t0 = time.perf_counter()
+            for j, after in enumerate(KILL_POINTS):
+                r = run_crash_ingest_cycle(
+                    f"{td}/kill{j}", kill_after_acks=after, n_records=40,
+                    d=8, seed=20 + j)
+                check(r["returncode"] == -9 and len(r["acked"]) == after
+                      and set(r["acked"]) <= set(r["recovered"]),
+                      f"kill-9 at {after} acks: {r['returncode']}, acked "
+                      f"{len(r['acked'])}, recovered {len(r['recovered'])}")
+            nums["kill9_s"] = time.perf_counter() - t0
+    launches = fk.LAUNCHES
+    check(all(n == 1 for n in mut_calls + frozen_calls),
+          f"flat-scan launches per kernel-engine search "
+          f"{collections.Counter(mut_calls + frozen_calls)} (one expected)")
+    check(launches == len(mut_calls) + len(frozen_calls),
+          f"flat_scan_lists launched {launches} times for "
+          f"{len(mut_calls)} mutable and {len(frozen_calls)} frozen "
+          "kernel-engine searches")
+    check(ivf_flat.ENGINE_FALLBACKS == 0,
+          f"{ivf_flat.ENGINE_FALLBACKS} mutation-phase searches left the "
+          "kernel")
+    nums.update(launches=launches, mutable_searches=len(mut_calls),
+                frozen_searches=len(frozen_calls), engine_fallbacks=0)
+    log(f"[{card}] mutation phase: " + json.dumps(nums))
+    return nums
+
+
+def mutable_quantized(kind, index, x, qb, dev):
+    """The mutation tier on a quantized index: upsert 256 rows, delete
+    10%, a 4,096 batch on both engines (no deleted id), the fresh rows
+    found as their own top-1, one compaction. Returns its numbers and
+    the kernel-engine searches it ran."""
+    from raft_tpu_torch.spatial.ann import mutation as mut
+
+    rng = np.random.default_rng(17)
+    kw = {"refine_ratio": PQ_REFINE} if kind == "pq" else {}
+
+    def search(m, q, engine=None):
+        return mut.mutable_search(m, q, K, n_probes=QZ_PROBES,
+                                  qcap="throughput", use_kernel=engine, **kw)
+
+    nums, n_kernel = {}, 0
+    m = mut.wrap_mutable(index, delta_cap=MUT_CAP)
+    fresh = dyadic_rows(x, rng, MUT_INGEST)
+    fresh_ids = np.arange(QZ_ROWS, QZ_ROWS + MUT_INGEST, dtype=np.int32)
+    m, acc = mut.upsert(m, fresh, fresh_ids)
+    check(acc.all(), f"{kind}: upsert acked {acc.sum()} of {MUT_INGEST}")
+    dead = rng.choice(QZ_ROWS, QZ_ROWS // 10, replace=False).astype(np.int32)
+    for s in range(0, dead.shape[0], MUT_DELETE_BATCH):
+        m, found = mut.delete(m, dead[s:s + MUT_DELETE_BATCH])
+        check(found.all(), f"{kind}: a delete missed a live id")
+    for name, engine in (("kernel", None), ("legacy", False)):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, i = search(m, qb, engine)
+        sync(dev)
+        nums[f"batch4096_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        n_kernel += engine is None
+        check(not np.isin(i.cpu().numpy(), dead).any(),
+              f"{kind} {name} engine surfaced a deleted id")
+    _, i = search(m, torch.as_tensor(fresh, device=dev))
+    n_kernel += 1
+    check(torch.equal(i[:, 0].cpu(), torch.as_tensor(fresh_ids)),
+          f"{kind}: an acked row is not its own top-1")
+    sync(dev)
+    t0 = time.perf_counter()
+    mc, st = mut.compact(m)
+    sync(dev)
+    nums["compact_s"] = time.perf_counter() - t0
+    check(st["survivors"] == QZ_ROWS - dead.size + MUT_INGEST,
+          f"{kind} compaction survivors {st['survivors']}")
+    _, i = search(mc, qb)
+    n_kernel += 1
+    check(not np.isin(i.cpu().numpy(), dead).any(),
+          f"{kind}: a deleted id surfaced after compaction")
+    return nums, n_kernel
+
+
 def subchunk_scan_entry(flat, sq):
     """The ``kernels`` entry of the shared sub-chunk scan (#1): its
     counterpart is the grid of the list kernel in csrc/flat_scan.cu
@@ -1737,6 +2181,18 @@ def quantized_phase(kind, args, card, dev, data):
     nq = min(k[0] for k in timed if k[1:] == (qc, l_pad))
     ms, plain_ms, library_ms, bound_ms, bound_by, gathered_ms, live_ms = \
         timed[nq, qc, l_pad]
+
+    # the mutation tier on this index, its counters at 0 just before it
+    sk.LAUNCHES = 0
+    ivf_sq.ENGINE_FALLBACKS = 0
+    mnums, n_kernel = mutable_quantized("sq", index, x, qb, dev)
+    mnums.update(launches=sk.LAUNCHES, kernel_searches=n_kernel,
+                 engine_fallbacks=ivf_sq.ENGINE_FALLBACKS)
+    log(f"[{card}] sq mutation: " + json.dumps(mnums))
+    check(sk.LAUNCHES == n_kernel and ivf_sq.ENGINE_FALLBACKS == 0,
+          f"sq mutation: {sk.LAUNCHES} sq_scan_lists launches for "
+          f"{n_kernel} kernel-engine searches, fallbacks "
+          f"{ivf_sq.ENGINE_FALLBACKS}")
     return {
         "name": fn_name,
         "route": "cuda",
@@ -1759,6 +2215,7 @@ def quantized_phase(kind, args, card, dev, data):
         "per_batch": {"x".join(map(str, k[:2])): dict(zip(
             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "gathered_ms", "bound_live_ms"), v)) for k, v in timed.items()},
+        "mutation": mnums,
     }
 
 
@@ -1990,6 +2447,18 @@ def pq_phase(args, card, dev, data):
     nq = min(k[0] for k in timed if tuple(k[1:]) == shp)
     ms, plain_ms, library_ms, bound_ms, bound_by, gathered_ms, n, live_ms = \
         timed[(nq,) + shp]
+
+    # the mutation tier on this index, its counters at 0 just before it
+    pk.LAUNCHES = 0
+    ivf_pq.ENGINE_FALLBACKS = 0
+    mnums, n_kernel = mutable_quantized("pq", index, x, qb, dev)
+    mnums.update(launches=pk.LAUNCHES, kernel_searches=n_kernel,
+                 engine_fallbacks=ivf_pq.ENGINE_FALLBACKS)
+    log(f"[{card}] pq mutation: " + json.dumps(mnums))
+    check(pk.LAUNCHES >= n_kernel and ivf_pq.ENGINE_FALLBACKS == 0,
+          f"pq mutation: {pk.LAUNCHES} pq_adc_lists launches for "
+          f"{n_kernel} kernel-engine searches, fallbacks "
+          f"{ivf_pq.ENGINE_FALLBACKS}")
     return {
         "name": fn_name,
         "route": "cuda",
@@ -2011,6 +2480,7 @@ def pq_phase(args, card, dev, data):
         "batch": nq,
         "shape": [n_lists] + list(shp),
         "card": card,
+        "mutation": mnums,
     }
 
 
@@ -3190,6 +3660,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     executor_phase(args, card, dev, *served)
     log(f"executor phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flat["mutation"] = mutation_phase(args, card, dev, *served)
+    log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
                                         served[2])

@@ -1,6 +1,7 @@
 """Approximate nearest-neighbour indexes of the port: IVF-Flat, IVF-SQ
-and IVF-PQ on one sorted-by-list storage layout, and the fixed-degree
-graph index with its beam search."""
+and IVF-PQ on one sorted-by-list storage layout with their mutation
+tier (upsert, delete, compaction, delta checkpoints), and the
+fixed-degree graph index with its beam search."""
 
 from raft_tpu_torch.spatial.ann.common import ListStorage, build_list_storage
 from raft_tpu_torch.spatial.ann.graph import (
@@ -24,6 +25,7 @@ from raft_tpu_torch.spatial.ann.interop import (
     load_ivf_pq,
     load_ivf_sq,
     load_index,
+    mutable_index_from_arrays,
     save_index,
 )
 from raft_tpu_torch.spatial.ann.ivf_flat import (
@@ -39,6 +41,24 @@ from raft_tpu_torch.spatial.ann.ivf_pq import (
     ivf_pq_build,
     ivf_pq_search,
     ivf_pq_search_grouped,
+)
+from raft_tpu_torch.spatial.ann.mutation import (
+    BackgroundCompactor,
+    CompactionPolicy,
+    DeltaStore,
+    MutableIndex,
+    apply_delta_checkpoint,
+    compact,
+    compaction_stats,
+    delete,
+    delta_checkpoint_watermark,
+    lists_changed_since,
+    mutable_search,
+    mutable_warmup,
+    probe_overlap,
+    save_delta_checkpoint,
+    upsert,
+    wrap_mutable,
 )
 from raft_tpu_torch.spatial.ann.ivf_sq import (
     IVFSQIndex,
@@ -61,4 +81,9 @@ __all__ = [
     "IVFSQIndex", "IVFSQParams", "ivf_sq_build", "ivf_sq_index_from_arrays",
     "ivf_sq_search", "ivf_sq_search_grouped", "load_ivf_sq",
     "coarse_index_from_arrays", "load_index", "save_index",
+    "BackgroundCompactor", "CompactionPolicy", "DeltaStore", "MutableIndex",
+    "apply_delta_checkpoint", "compact", "compaction_stats", "delete",
+    "delta_checkpoint_watermark", "lists_changed_since",
+    "mutable_index_from_arrays", "mutable_search", "mutable_warmup",
+    "probe_overlap", "save_delta_checkpoint", "upsert", "wrap_mutable",
 ]

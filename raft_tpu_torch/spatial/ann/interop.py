@@ -10,9 +10,15 @@
   ``data_padded``, ``storage.adjacency`` and ``storage.entries``.
 * :func:`coarse_index_from_arrays` takes a JAX ``CoarseIndex``'s
   leaves under the archive's ``coarse.`` field names.
+* :func:`mutable_index_from_arrays` takes a JAX ``MutableIndex``'s
+  leaves as the v4 ``mutable_ivf`` archive keys them: the wrapped
+  index's under ``index.``, ``delta.vecs`` / ``ids`` / ``live`` /
+  ``counts`` with the ``delta.cap`` int, ``row_mask`` and ``id_to_pos``,
+  and the host-side ``epoch`` the archive does not keep.
 * :func:`save_index` writes the repo's npz index format (the JAX
   package's ``spatial/ann/serialize.py``) with numpy alone, for the
-  ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"`` and ``"graph"`` kinds: the
+  ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"`` and
+  ``"mutable_ivf"`` kinds: the
   ``__header__`` JSON (type, the lowest format version that holds the
   payload, the static fields, the per-array CRC32/shape/dtype manifest),
   one key per leaf under the reference's field names, bf16 arrays as
@@ -39,12 +45,14 @@ from raft_tpu_torch.spatial.ann.graph import GraphIndex, GraphStorage
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
 from raft_tpu_torch.spatial.ann.ivf_pq import IVFPQIndex
 from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
+from raft_tpu_torch.spatial.ann.mutation import DeltaStore, MutableIndex
 
 __all__ = [
     "coarse_index_from_arrays", "graph_index_from_arrays",
     "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
     "ivf_sq_index_from_arrays", "load_graph", "load_index",
-    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq", "save_index",
+    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
+    "mutable_index_from_arrays", "save_index",
 ]
 
 # 1: no integrity manifest (loads unverified); 2: the manifest; 3-5: the
@@ -62,6 +70,13 @@ _KIND_ARRAYS = {
 _GRAPH_ARRAYS = ("data_padded", "storage.adjacency", "storage.entries")
 _COARSE_ARRAYS = ("coarse.super_cents", "coarse.member_ids",
                   "coarse.cents_padded")
+# the mutation state of a mutable_ivf archive, beside the wrapped index's
+# arrays under "index."
+_MUTABLE_ARRAYS = ("delta.vecs", "delta.ids", "delta.live", "delta.counts",
+                   "row_mask", "id_to_pos")
+# the wrapped index's nested type name -> its kind
+_WRAPPED_KIND = {"IVFFlatIndex": "ivf_flat", "IVFSQIndex": "ivf_sq",
+                 "IVFPQIndex": "ivf_pq"}
 
 
 def _array_crc(arr: np.ndarray) -> int:
@@ -220,6 +235,49 @@ def coarse_index_from_arrays(arrays: dict, device=None) -> CoarseIndex:
     )
 
 
+def mutable_index_from_arrays(arrays: dict, kind: str, *, metric=None,
+                              pq_dim=None, pq_bits=None,
+                              device=None) -> MutableIndex:
+    """Build a :class:`~.mutation.MutableIndex` on ``device`` (CUDA by
+    default) from a JAX ``MutableIndex``'s leaves: the wrapped ``kind``
+    index (``"ivf_flat"`` with ``metric``, ``"ivf_sq"``, or ``"ivf_pq"``
+    with ``pq_dim`` / ``pq_bits``) from its leaves under ``index.``,
+    the delta segments, ``row_mask``, ``id_to_pos`` and the ``epoch``
+    (0 when absent). The dirty set and the journal start empty, as after
+    the JAX package's ``load_index``."""
+    errors.expects(kind in _WRAPPED_KIND.values(),
+                   "mutable arrays: unknown wrapped kind %r", kind)
+    for key in _MUTABLE_ARRAYS + ("delta.cap",):
+        errors.expects(key in arrays, "mutable arrays: missing %r", key)
+    inner = {key[len("index."):]: v for key, v in arrays.items()
+             if key.startswith("index.")}
+    if kind == "ivf_flat":
+        index = ivf_flat_index_from_arrays(inner, metric, device)
+    elif kind == "ivf_sq":
+        index = ivf_sq_index_from_arrays(inner, device)
+    else:
+        index = ivf_pq_index_from_arrays(inner, pq_dim, pq_bits, device)
+    nl, d = index.centroids.shape
+    cap = int(arrays["delta.cap"])
+    shapes = {key: tuple(arrays[key].shape) for key in _MUTABLE_ARRAYS}
+    want = {"delta.vecs": (nl, cap, d), "delta.ids": (nl, cap),
+            "delta.live": (nl, cap), "delta.counts": (nl,),
+            "row_mask": (index.storage.n + 1,)}
+    for key, shape in want.items():
+        errors.expects(shapes[key] == shape,
+                       "mutable arrays: %s has shape %s, expected %s", key,
+                       shapes[key], shape)
+    errors.expects(len(shapes["id_to_pos"]) == 1,
+                   "mutable arrays: id_to_pos has shape %s",
+                   shapes["id_to_pos"])
+    put = _placer(arrays, device)
+    delta = DeltaStore(put("delta.vecs"), put("delta.ids"),
+                       put("delta.live"), put("delta.counts"), cap)
+    out = MutableIndex(index, delta, put("row_mask"), put("id_to_pos"))
+    out.epoch = int(arrays.get("epoch", 0))
+    return out
+
+
 # ---------------------------------------------------------------- writer
 # each kind's fields in the reference's dataclass order (its key order in
 # the archive and in the header's statics), and the nested storages'
@@ -232,9 +290,14 @@ _FIELDS = {
     ListStorage: ("sorted_ids", "list_offsets", "list_index", "list_sizes",
                   "n", "max_list"),
     GraphStorage: ("adjacency", "entries"),
+    MutableIndex: ("index", "delta", "row_mask", "id_to_pos"),
+    DeltaStore: ("vecs", "ids", "live", "counts", "cap"),
 }
 _KIND_OF = {IVFFlatIndex: "ivf_flat", IVFSQIndex: "ivf_sq",
-            IVFPQIndex: "ivf_pq", GraphIndex: "graph"}
+            IVFPQIndex: "ivf_pq", GraphIndex: "graph",
+            MutableIndex: "mutable_ivf"}
+# the lowest format version holding each kind (2 for the frozen IVF kinds)
+_VERSION_OF = {GraphIndex: 5, MutableIndex: 4}
 
 
 def _archived(t: torch.Tensor, key: str, static: dict) -> np.ndarray:
@@ -263,10 +326,12 @@ def _flatten(obj, prefix: str, arrays: dict, static: dict) -> None:
 
 
 def save_index(index, path) -> None:
-    """Write an IVF-Flat, IVF-SQ, IVF-PQ or graph index to ``path`` in the
-    reference's npz format, readable by the JAX package's ``load_index``:
-    the header carries the kind, the lowest format version that holds the
-    payload (5 for a graph, 2 otherwise), the static fields and a
+    """Write an IVF-Flat, IVF-SQ, IVF-PQ, graph or mutable IVF index
+    (:class:`~.mutation.MutableIndex`) to ``path`` in the reference's npz
+    format, readable by the JAX package's ``load_index``: the header
+    carries the kind, the lowest format version that holds the payload
+    (5 for a graph, 4 for a mutable index, 2 otherwise), the static
+    fields and a
     CRC32/shape/dtype manifest of the archived bytes of every array.
     Written straight to the file (no second copy in memory)."""
     errors.expects(
@@ -284,7 +349,7 @@ def save_index(index, path) -> None:
     }
     header = {
         "type": _KIND_OF[type(index)],
-        "version": 5 if isinstance(index, GraphIndex) else 2,
+        "version": _VERSION_OF.get(type(index), 2),
         "static": static,
         "integrity": integrity,
     }
@@ -363,8 +428,22 @@ def _load_archive(path, kind=None):
         static = header["static"]
         manifest = (None if header["version"] == 1
                     else header.get("integrity") or {})
-        keys = (_GRAPH_ARRAYS if kind == "graph"
-                else ("centroids",) + _STORAGE + _KIND_ARRAYS[kind])
+        if kind == "graph":
+            keys = _GRAPH_ARRAYS
+        elif kind == "mutable_ivf":
+            wrapped = _WRAPPED_KIND.get(
+                (static.get("index") or {}).get("__nested__"))
+            if wrapped is None:
+                raise errors.CorruptIndexError(
+                    f"{where}: mutable_ivf archive wraps "
+                    f"{static.get('index')!r}, not an IVF index",
+                    field="__header__",
+                )
+            static = dict(static, __wrapped_kind__=wrapped)
+            keys = tuple("index." + key for key in ("centroids",) + _STORAGE
+                         + _KIND_ARRAYS[wrapped]) + _MUTABLE_ARRAYS
+        else:
+            keys = ("centroids",) + _STORAGE + _KIND_ARRAYS[kind]
         arrays = {key: _read(npz, manifest, key, where) for key in keys
                   if static.get(key, "") is not None}
     for key, arr in arrays.items():
@@ -375,7 +454,8 @@ def _load_archive(path, kind=None):
                            "%s: unsupported %s dtype %r", where, key, tagged)
             arrays[key] = torch.from_numpy(
                 arr.view(np.int16)).view(torch.bfloat16)
-    for key in ("storage.n", "storage.max_list"):
+    for key in ("storage.n", "storage.max_list", "index.storage.n",
+                "index.storage.max_list", "delta.cap"):
         if key in static:
             arrays[key] = static[key]
     return arrays, static, kind
@@ -390,6 +470,10 @@ _FROM_ARRAYS = {
         a, st["pq_dim"], st["pq_bits"], dev),
     "graph": lambda a, st, dev: graph_index_from_arrays(
         a, st["metric"], dev),
+    "mutable_ivf": lambda a, st, dev: mutable_index_from_arrays(
+        a, st["__wrapped_kind__"], metric=st.get("index.metric"),
+        pq_dim=st.get("index.pq_dim"), pq_bits=st.get("index.pq_bits"),
+        device=dev),
 }
 
 
@@ -401,7 +485,9 @@ def _load(path, kind, device):
 
 def load_index(path, device=None):
     """Load an index archive of any kind the port has (``"ivf_flat"``,
-    ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``), written by either
+    ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``, ``"mutable_ivf"`` — a
+    :class:`~.mutation.MutableIndex` at epoch 0 with an empty dirty
+    set, as the JAX package loads it), written by either
     package's ``save_index``, verifying every array against the CRC32
     manifest (a version 1 archive has none), onto ``device`` (CUDA by
     default)."""

@@ -242,7 +242,14 @@ def _note_fallback(reason: str) -> None:
 @full_f32
 def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
                   stream_partials=None, use_kernel=False,
-                  rerank_ratio=4.0, dequant=None):
+                  rerank_ratio=4.0, dequant=None, row_mask=None):
+    # ``row_mask``: optional (n + 1,) live mask over slab positions (the
+    # mutation tier's tombstones, :mod:`.mutation`); 0 = tombstoned. The
+    # legacy scan folds it into each list's row range; the kernel engine
+    # leaves the kernel's sub-chunk minima unmasked and applies it per row
+    # at the exact rerank tail (a dead row can crowd a pool slot, never
+    # surface), as the JAX package does.
+    #
     # ``dequant``: optional (vmin, vscale) (d,) f32 pair — the IVF-SQ mode
     # of this one grouped body. ``index.data_sorted`` then holds int8
     # codes: the legacy scan and the rerank tail decode the rows they
@@ -287,6 +294,8 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         pos = o_c[:, None] + torch.arange(L, device=dev)[None, :]
         mv = dq_rows(index.data_sorted[pos].float())         # (LB, L, d)
         in_list = (pos >= offs[:, None]) & (pos < (offs + szs)[:, None])
+        if row_mask is not None:
+            in_list = in_list & (row_mask[pos] > 0)
         mn = torch.sum(mv * mv, dim=2)                       # (LB, L)
         dots = torch.bmm(qv, mv.transpose(1, 2))             # full f32
         d2 = qnv[:, :, None] + mn[:, None, :] - 2.0 * dots
@@ -378,6 +387,8 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         c = min(p * width, max(k, int(math.ceil(rerank_ratio * k))))
         rpos, validf = subchunk_pool_rows(pv, c, probes, storage, rows_pad,
                                           l_pad, width)
+        if row_mask is not None:
+            validf = validf & (row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
 
         def rerank_blk(args):
             qb, rp, vl = args
@@ -402,7 +413,7 @@ def ivf_flat_search_grouped(
     stream_partials: typing.Optional[bool] = None,
     qcap_max_drop_frac: typing.Optional[float] = None,
     use_kernel: typing.Optional[bool] = None,
-    rerank_ratio: float = 4.0, row_mask=None,
+    rerank_ratio: float = 4.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Throughput-mode IVF search, grouped by list instead of by query:
     each list's vectors are read once per batch and scored against all
@@ -425,15 +436,12 @@ def ivf_flat_search_grouped(
     (the rerank pool covers the top-k at the ``rerank_ratio`` margin);
     tied candidates may order differently.
 
-    ``row_mask`` (mutation tombstones) belongs to a module not yet
-    ported; passing it raises. (The IVF-SQ mode of this search is
-    :func:`~.ivf_sq.ivf_sq_search_grouped`.)
+    The IVF-SQ mode of this search is
+    :func:`~.ivf_sq.ivf_sq_search_grouped`; tombstoned rows are searched
+    through :func:`~.mutation.mutable_search`.
 
     With ``qcap`` large enough this returns what :func:`ivf_flat_search`
     returns for the same ``n_probes``."""
-    errors.expects(row_mask is None,
-                   "row_mask=: the mutation tier is not yet ported to "
-                   "raft_tpu_torch")
     q = _as_queries(index, queries)
     storage = index.storage
     if k > storage.max_list:

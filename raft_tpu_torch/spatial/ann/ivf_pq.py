@@ -563,7 +563,11 @@ def _pq_kernel_pool(pair_luts, scan, probes, pmap, width: int,
 def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
                      refine_dataset=None, probes=None,
                      exact_selection=False, stream_partials=None,
-                     use_kernel=False):
+                     use_kernel=False, row_mask=None):
+    # ``row_mask``: optional (n + 1,) live mask over slab positions (the
+    # mutation tier's tombstones), as in ivf_flat._grouped_impl: folded
+    # into the one-hot engine's row ranges, applied per row at the kernel
+    # engine's refine tail.
     # ``exact_selection`` is accepted for parity: both of its settings
     # select exactly here (lax.approx_min_k is exact off the TPU)
     del exact_selection
@@ -621,6 +625,8 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         pos = o_c[:, None] + torch.arange(L, device=dev)[None, :]
         codes = index.codes_sorted[pos].long()                 # (LB, L, M)
         in_list = (pos >= offs[:, None]) & (pos < (offs + szs)[:, None])
+        if row_mask is not None:
+            in_list = in_list & (row_mask[pos] > 0)
         # the one-hot engine: dist[b, q, l] = sum_m lut[b, q, m, codes]
         # as a contraction of the bf16 LUT with the one-hot codes, f32
         # accumulation
@@ -709,6 +715,8 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         c = min(p * width, max(k, int(math.ceil(refine_ratio * k))))
         rpos, validf = subchunk_pool_rows(pv, c, probes, storage, rows_pad,
                                           l_pad, width)
+        if row_mask is not None:
+            validf = validf & (row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
 
         def refine_blk(args):
             qb, rp, vl = args

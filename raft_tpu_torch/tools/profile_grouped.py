@@ -1,12 +1,17 @@
 """Where the time of one IVF or graph search batch goes, on one CUDA card.
 
     python3 -m raft_tpu_torch.tools.profile_grouped
-        [--kind flat|sq|pq|graph|coarse] [--beam B] [--seed N] [--out DIR]
+        [--kind flat|sq|pq|graph|coarse|mutable] [--beam B] [--seed N]
+        [--out DIR]
 
 Builds the index of ``chip_smoke.py``'s path of that kind:
 
 * ``flat``: 1,000,000 clustered rows of width 96, 1024 lists; buckets 8
   and 4096 at their warmed qcap;
+* ``mutable``: the ``flat`` index wrapped for mutation as
+  ``chip_smoke.py``'s mutation phase wraps it (delta capacity 64, 256
+  upserted rows, 10% of the rows deleted), searched through
+  ``mutable_search`` at the same buckets;
 * ``sq`` / ``pq``: 500,000 rows of width 96 around 1,000 centres
   (bench.py's ``ann_bench_dataset`` geometry), 2048 lists capped at 512
   rows, n_probes=16 (PQ: pq_dim=24, 8 bits, refine_ratio=4); bucket 8 at
@@ -136,6 +141,8 @@ def build(kind: str, rng, beam: int = 32):
     is then the centroid set)."""
     if kind == "coarse":
         return _build_coarse(rng)
+    if kind == "mutable":
+        return _build_mutable(rng)
     if kind == "graph":
         x = _clustered(rng, 500_000, 1000, 10.0)
         index = graph_build(x, GraphParams(degree=16, intermediate_degree=32,
@@ -181,6 +188,24 @@ def build(kind: str, rng, beam: int = 32):
     return x, index, search, plan
 
 
+def _build_mutable(rng):
+    from raft_tpu_torch.spatial.ann import mutation as mut
+
+    x, index, _, plan = build("flat", rng)
+    n = x.shape[0]
+    m = mut.wrap_mutable(index, delta_cap=64)
+    fresh = (x[rng.integers(0, n, 256)]
+             + 0.3 * rng.standard_normal((256, DIM), dtype=np.float32))
+    m, _ = mut.upsert(m, fresh, np.arange(n, n + 256, dtype=np.int32))
+    dead = rng.choice(n, n // 10, replace=False).astype(np.int32)
+    for s in range(0, dead.size, 8192):
+        m, _ = mut.delete(m, dead[s:s + 8192])
+
+    def search(q, qcap):
+        return mut.mutable_search(m, q, K, n_probes=8, qcap=qcap)
+    return x, index, search, plan
+
+
 def _build_coarse(rng):
     from raft_tpu_torch.spatial.ann import common as cm
 
@@ -210,7 +235,7 @@ def _build_coarse(rng):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("flat", "sq", "pq", "graph",
-                                       "coarse"),
+                                       "coarse", "mutable"),
                     default="flat")
     ap.add_argument("--beam", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)

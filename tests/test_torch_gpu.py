@@ -896,3 +896,96 @@ def test_two_level_probe_kernel_engine_on_the_card():
     rows = q[:5]
     assert np.array_equal(CentroidSigner.from_coarse(card)(rows),
                           CentroidSigner.from_coarse(host)(rows))
+
+
+def _moved(obj, dev):
+    """A port index (or its nested storage) with every tensor on ``dev``."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        if not f.init:
+            continue
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif dataclasses.is_dataclass(v):
+            v = _moved(v, dev)
+        kw[f.name] = v
+    return type(obj)(**kw)
+
+
+@pytest.mark.gpu
+def test_mutable_search_kernel_engines_on_the_card():
+    """The mutable search of each kind (IVF-Flat, IVF-SQ, IVF-PQ) on the
+    card after the same upserts and tombstones as a CPU copy: the kernel
+    engine (one launch of its list scan, no engine fallback) equal to the
+    same engine's plain versions on the CPU and the legacy engine equal
+    to its CPU run, bitwise on integer-exact rows, queries and centroids;
+    the kernel engine never returns a dead id and finds every upserted
+    row at distance 0; on IVF-Flat and IVF-SQ, whose legacy engine scores
+    every probed row exactly, its distances are never below the legacy
+    engine's."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, IVFPQParams, IVFSQIndex, ivf_flat_build,
+        ivf_pq_build, ivf_pq as tpq_ivf, ivf_sq as tsq_ivf,
+        ivf_flat as tflat_ivf, mutation, pq_kernel, sq_kernel,
+    )
+
+    dev = _hopper()
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(5)
+    centers = rng.integers(-60, 60, (16, 32))
+    x = (centers[rng.integers(0, 16, 4000)]
+         + rng.integers(-6, 7, (4000, 32))).clip(-127, 127).astype(
+             np.float32)
+    q = (x[rng.integers(0, 4000, 256)]
+         + rng.integers(-2, 3, (256, 32))).astype(np.float32)
+    flat = ivf_flat_build(x, IVFFlatParams(n_lists=32, kmeans_n_iters=4,
+                                           kmeans_init="random"),
+                          metric="sqeuclidean", device="cpu")
+    flat = dataclasses.replace(flat, centroids=torch.round(flat.centroids))
+    sq = IVFSQIndex(flat.centroids, flat.data_sorted.to(torch.int8),
+                    torch.full((32,), -128.0), torch.ones(32), flat.storage)
+    pq = ivf_pq_build(x, IVFPQParams(n_lists=32, pq_dim=8, pq_bits=4,
+                                     kmeans_n_iters=4, kmeans_init="random"),
+                      device="cpu")
+    pq = dataclasses.replace(pq, centroids=torch.round(pq.centroids),
+                             codebooks=torch.round(pq.codebooks))
+    up_v = (x[rng.integers(0, 4000, 64)]
+            + rng.integers(-3, 4, (64, 32))).astype(np.float32)
+    up_ids = np.arange(50_000, 50_064, dtype=np.int32)
+    dead = rng.choice(4000, 200, replace=False).astype(np.int32)
+    dead = np.concatenate([dead, up_ids[:8]])
+    checks = ((flat, tfk, tflat_ivf, {}),
+              (sq, sq_kernel, tsq_ivf, {}),
+              (pq, pq_kernel, tpq_ivf, {"refine_ratio": 4.0}))
+    for index, kmod, imod, kw in checks:
+        states = {}
+        for d in (cpu, dev):
+            m = mutation.wrap_mutable(
+                index if d == cpu else _moved(index, dev), delta_cap=16)
+            m, acc = mutation.upsert(m, up_v, up_ids)
+            assert acc.all()
+            m, found = mutation.delete(m, dead)
+            assert found.all()
+            states[d] = m
+        qs = np.concatenate([q, up_v[8:]])
+        out = {}
+        for d, m in states.items():
+            for kernel in (True, False):
+                before, fb = kmod.LAUNCHES, imod.ENGINE_FALLBACKS
+                dist, ids = mutation.mutable_search(
+                    m, torch.as_tensor(qs, device=d), 10, n_probes=8,
+                    use_kernel=kernel, **kw)
+                if d == dev:
+                    torch.cuda.synchronize()
+                    assert kmod.LAUNCHES == before + (1 if kernel else 0)
+                    assert imod.ENGINE_FALLBACKS == fb
+                out[d.type, kernel] = (dist.cpu(), ids.cpu())
+        for kernel in (True, False):
+            a, b = out["cuda", kernel], out["cpu", kernel]
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        dk, ik = out["cuda", True]
+        dl, _ = out["cuda", False]
+        assert not np.isin(ik.numpy(), dead).any()
+        assert (dk[q.shape[0]:, 0] == 0).all()
+        assert index is pq or (dk >= dl).all()

@@ -442,7 +442,9 @@ def test_engine_resolution_and_unported_options(dataset, carried):
     # in the JAX package, not through the flat entry point
     with pytest.raises(TypeError, match="dequant"):
         ivf_flat_search_grouped(idx, q, 5, dequant=(1, 2))
-    with pytest.raises(ValueError, match="mutation"):
+    # tombstones are searched through the mutation tier, as in the JAX
+    # package, whose grouped search has no row_mask keyword either
+    with pytest.raises(TypeError, match="row_mask"):
         ivf_flat_search_grouped(idx, q, 5, row_mask=torch.ones(3))
     assert tfk.LAUNCHES == 0
 
@@ -501,7 +503,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import raft_tpu_torch.obs, raft_tpu_torch.obs.crash\n"
         "import raft_tpu_torch.resilience, raft_tpu_torch.cache\n"
         "import raft_tpu_torch.serving, raft_tpu_torch.serving.open_loop\n"
-        "import raft_tpu_torch.testing.load\n"
+        "import raft_tpu_torch.testing.load, raft_tpu_torch.testing.crash\n"
+        "import raft_tpu_torch.spatial.ann.mutation\n"
+        "import raft_tpu_torch.durability, raft_tpu_torch.durability.wal\n"
+        "import raft_tpu_torch.serving.ingest_rows\n"
         # the two-level probe on both engines and the writer, whose
         # imports happen at call time
         "import tempfile, numpy as np, torch\n"
@@ -515,9 +520,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    c.two_level_probe(x[:4], ci.super_cents, ci.member_ids, "
         "ci.cents_padded, ci.n_cents, 2, 4, use_kernel=k)\n"
         "idx = ivf_flat_build(x, IVFFlatParams(n_lists=4), device='cpu')\n"
+        "from raft_tpu_torch.spatial.ann import mutation as m\n"
+        "mi, _ = m.upsert(m.wrap_mutable(idx), x[:3], np.arange(70, 73))\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    save_index(idx, d + '/i.npz')\n"
         "    load_index(d + '/i.npz', device='cpu')\n"
+        # the mutation tier's archives and its compaction, whose imports
+        # happen at call time too
+        "    save_index(mi, d + '/m.npz')\n"
+        "    load_index(d + '/m.npz', device='cpu')\n"
+        "    m.save_delta_checkpoint(mi, d + '/c.npz')\n"
+        "    m.apply_delta_checkpoint(mi, d + '/c.npz')\n"
+        "m.compact(mi)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'raft_tpu', 'bench')]\n"
         "assert not bad, bad\n"
