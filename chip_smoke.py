@@ -17,7 +17,13 @@ to 0 just before it and read just after:
   survivors on both engines, the mixed-ingest row, compaction and a
   background compaction under searches, a cached answer gone stale
   after a write, the durable-ingest row, checkpoint + WAL-tail recovery
-  and the v4 archive bitwise, the kill-9 leg);
+  and the v4 archive bitwise, the kill-9 leg); then the cold tier over
+  it at 4x its hot budget (``TieredListStore`` on the pinned legacy
+  engine: all hot equal to the resident search, convergence from misses
+  to recall >= 0.95 on a working set that fits, the cold-tier row
+  through the executor, a dispatch raced against membership flips,
+  deletes, a recovered state and a compaction synced in, under a stall
+  watchdog);
 * the two-level coarse probe over 65,792 centroids of width 96 (the
   served index's and jittered draws of them, bench.py's recipe): the
   FLOP ratio, both engines' recall against the flat probe, the kernel
@@ -28,7 +34,7 @@ to 0 just before it and read just after:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
   engines, with recall@10 against exact brute force; each then wrapped
   for mutation (256 upserts, 10% deletes, the batch on both engines,
-  one compaction);
+  one compaction); the SQ index tiered with int8 hot slots;
 * graph ANN (bench/bench_serving.py's graph_ann_row) over the same rows:
   a degree-16 graph built on the card, recall@10 of the 4,096-query
   batch at beams 16/32/64 on both engines (equal distances required,
@@ -1500,19 +1506,26 @@ def mutation_phase(args, card, dev, index, qcaps, x):
                     wm = ing.checkpoint(f"{td}/delta.ckpt")
             live = ing.mindex
             ing.close()
+            fresh = mut.wrap_mutable(index, delta_cap=MUT_CAP)
             t0 = time.perf_counter()
             rec, frontier, n = wal.recover_mutable(
-                mut.wrap_mutable(index, delta_cap=MUT_CAP), f"{td}/wal",
-                checkpoint_path=f"{td}/delta.ckpt")
+                fresh, f"{td}/wal", checkpoint_path=f"{td}/delta.ckpt")
             sync(dev)
             nums["recover_s"] = time.perf_counter() - t0
             check(wm == 8 and (frontier, n) == (n_ops, n_ops - wm),
                   f"recovery: watermark {wm}, frontier {frontier}, "
                   f"replayed {n}")
             a, b_ = mutable_state_tensors(live), mutable_state_tensors(rec)
-            check(rec.epoch == live.epoch
-                  and all(torch.equal(a[key], b_[key]) for key in a),
+            check(all(torch.equal(a[key], b_[key]) for key in a),
                   "the recovered state differs from the live state")
+            # the epoch counts on from the fresh wrap's, as the JAX
+            # package's replay does: every replayed write applied (its
+            # rows accepted or found), and each applied write advances
+            # the epoch by one
+            check(rec.epoch == fresh.epoch + n and live.epoch == n_ops,
+                  f"recovered epoch {rec.epoch}, fresh {fresh.epoch} + "
+                  f"{n} replayed; live {live.epoch}")
+            nums["recovered_epoch"], nums["live_epoch"] = rec.epoch, live.epoch
             for x0, x1 in zip(search(live, qb), search(rec, qb)):
                 check(torch.equal(x0, x1),
                       "the recovered state answers differently")
@@ -1626,6 +1639,496 @@ def subchunk_scan_entry(flat, sq):
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "shape": g["shape"], "card": flat["card"],
     }
+
+
+# ---------------------------------------------------------------------------
+# The cold tier over the main path's IVF-Flat index
+# ---------------------------------------------------------------------------
+
+TIER_CAPACITY = 4          # cold slab bytes / hot budget (capacity_x)
+TIER_SAMPLE = 65_536       # corpus rows the working set is chosen on
+TIER_BATCH = 4096          # the tiered batch (the largest bucket)
+TIER_ROUND = 512           # queries a convergence search carries
+TIER_QUERIES = 4096        # working-set queries a convergence round sends
+TIER_ROUNDS = 8            # convergence rounds at most
+TIER_DELETE_FRAC = 0.01    # of the rows in hot lists
+TIER_SLEEP_CYCLES = 200_000_000   # ~0.1 s of the card's clock
+TIER_WATCHDOG_S = 300      # the phase's stall limit
+
+
+@contextlib.contextmanager
+def no_host_sync(what):
+    """Fail if torch's sync debug mode reports a host sync inside."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    syncs = collections.Counter(
+        f"{w.filename}:{w.lineno}" for w in warned
+        if "called a synchronizing" in str(w.message))
+    for where, n in syncs.items():
+        log(f"host sync inside {what} ({n}x): {where}")
+    check(not syncs, f"{len(syncs)} host syncs inside {what}")
+
+
+@contextlib.contextmanager
+def tier_calls():
+    """Record every grouped-scan call the tier makes (its searches and
+    the guardrail's full-path arm): its engine and the flat-scan
+    launches it made."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.tier import store as ts
+
+    real = ts._grouped_impl
+    calls = []
+
+    def recording(*args, **kw):
+        before = fk.LAUNCHES
+        out = real(*args, **kw)
+        calls.append((bool(kw.get("use_kernel")), fk.LAUNCHES - before))
+        return out
+
+    ts._grouped_impl = recording
+    try:
+        yield calls
+    finally:
+        ts._grouped_impl = real
+
+
+def working_set(store, rows, n_probes):
+    """The capacity test's working set (tests/test_tier.py:554-580) at
+    this scale: at most ``store.n_slots`` lists chosen greedily, one a
+    step, each the list that newly covers the most of ``rows`` (rows
+    whose probes, host replay, all fall inside the set), ties to the
+    most probed list, then the highest id. Returns (lists, covered row
+    indices)."""
+    probes = store.host_probes(rows, n_probes)
+    n_lists = store.stats().n_lists
+    hist = np.bincount(probes.ravel(), minlength=n_lists)
+    ids = np.arange(n_lists)
+    in_s = np.zeros(n_lists, bool)
+    covered = np.zeros(len(rows), bool)
+    for _ in range(store.n_slots):
+        # a row one list short of covered gains exactly that list
+        one_short = (~covered) & (in_s[probes].sum(1) == n_probes - 1)
+        sub = probes[one_short]
+        gain = np.bincount(sub[~in_s[sub]], minlength=n_lists)
+        gain[in_s] = -1
+        in_s[np.lexsort((ids, hist, gain))[-1]] = True
+        covered = in_s[probes].all(1)
+    return np.nonzero(in_s)[0], np.nonzero(covered)[0]
+
+
+def tier_phase(args, card, dev, index, qcaps, x):
+    """The cold tier over the main path's 1M-row index at 4x its hot
+    budget: the geometry, all hot equal to the resident legacy search,
+    convergence from misses alone to recall >= 0.95 on a working set
+    that fits, the cold-tier row through the executor, a dispatch raced
+    against membership flips, deletes, a recovered state and a
+    compaction synced into the tier, no host sync in a tiered search
+    after each flip, no extension built, no flat-scan launch from the
+    tier and none lost from the resident arm. Runs under a stall
+    watchdog. Returns the phase's entry under the flat scan's ``tier``
+    key."""
+    import faulthandler
+    import tempfile
+
+    from raft_tpu_torch import _build
+    from raft_tpu_torch.durability import wal
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.serving.tier_rows import cold_tier_row
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import ivf_flat
+    from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
+    from raft_tpu_torch.spatial.ann import mutation as mut
+    from raft_tpu_torch.spatial.ann.common import coarse_probe
+    from raft_tpu_torch.tier import (
+        PromotionPolicy, SlabFetcher, TieredListStore,
+    )
+
+    faulthandler.dump_traceback_later(TIER_WATCHDOG_S, exit=True)
+    try:
+        rng = np.random.default_rng(args.seed + 30)
+        nums = {"card": card}
+        libs = set(_build._LIBS)
+        storage = index.storage
+        n_lists, L = storage.list_index.shape[0], storage.max_list
+        cold_bytes = storage.n * DIM * index.data_sorted.element_size()
+        budget = cold_bytes // TIER_CAPACITY
+        sids = storage.sorted_ids.cpu().numpy()
+        list_of_pos = np.repeat(np.arange(n_lists),
+                                storage.list_sizes.cpu().numpy())
+        list_of_id = np.empty(storage.n, np.int64)
+        list_of_id[sids] = list_of_pos
+        sample = x[rng.choice(N_ROWS, TIER_SAMPLE, replace=False)]
+        qc_big, qc_round = qcaps[TIER_BATCH], qcaps[TIER_ROUND]
+
+        def timed_ms(fn, n=5):
+            fn()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            sync(dev)
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        def tiered(store, q, **kw):
+            return store.search(q, K, n_probes=N_PROBES,
+                                qcap=qcaps[q.shape[0]], **kw)
+
+        def all_hot_rows(store, rows, m):
+            """``m`` rows of ``rows`` (with repeats) whose probes on the
+            card all land in hot lists."""
+            hot = torch.zeros(n_lists, dtype=torch.bool, device=dev)
+            hot[torch.as_tensor(store.hot_lists(), device=dev).long()] = True
+            cand = torch.as_tensor(rows, device=dev)
+            probes, _ = coarse_probe(cand, index.centroids, N_PROBES)
+            ok = torch.nonzero(hot[probes].all(1)).squeeze(1)
+            check(ok.numel() > 0, "no row probes only hot lists")
+            pick = ok[torch.arange(m, device=dev) % ok.numel()]
+            return cand[pick], int(ok.numel())
+
+        def dead_free(ids, dead):
+            got = set(ids.cpu().numpy().ravel().tolist())
+            return not (got & dead)
+
+        def sync_free_search(store, what):
+            rows = sample[:TIER_BATCH]
+            staged = store.stage(rows)
+            with no_host_sync(f"a tiered search after {what}"):
+                tiered(store, staged)
+            sync(dev)
+
+        fk.LAUNCHES = 0
+        ivf_flat.ENGINE_FALLBACKS = 0
+        with engine_batches(ivf_flat) as resident, tier_calls() as tcalls:
+            # -- geometry ----------------------------------------------
+            t0 = time.perf_counter()
+            reg = MetricRegistry()
+            store = TieredListStore(index, hbm_budget_bytes=budget,
+                                    name="smoke_tier", min_recall=0.95,
+                                    registry=reg)
+            sync(dev)
+            nums.update(
+                snapshot_s=time.perf_counter() - t0, max_list=L,
+                n_slots=store.n_slots, hot_bytes=store.stats().hot_bytes,
+                host_bytes=store.host_bytes,
+                capacity_x=cold_bytes / (store.n_slots * L * DIM * 4),
+                hot_share=store.n_slots / n_lists)
+            check(store._hot_data.device.type == "cuda"
+                  and store._data_host.is_pinned(),
+                  "the hot tier is not on the card or the cold slab not "
+                  "pinned")
+            check(nums["capacity_x"] >= TIER_CAPACITY,
+                  f"capacity {nums['capacity_x']}")
+            log(f"[{card}] tier geometry: max_list {L}, {store.n_slots} "
+                f"slots of {n_lists} lists ({nums['hot_share']:.1%} can be "
+                f"hot), hot {nums['hot_bytes'] / 1e6:.1f} MB, pinned host "
+                f"{nums['host_bytes'] / 1e6:.1f} MB, capacity "
+                f"{nums['capacity_x']:.2f}x, snapshot "
+                f"{nums['snapshot_s']:.2f} s")
+
+            # -- all hot equals resident --------------------------------
+            ws_lists, ws_rows = working_set(store, sample, N_PROBES)
+            probe_hist = np.bincount(
+                store.host_probes(sample, N_PROBES).ravel(),
+                minlength=n_lists)
+            rest = [int(c) for c in np.argsort(-probe_hist, kind="stable")
+                    if c not in set(ws_lists.tolist())]
+            fill = [int(c) for c in ws_lists] + rest
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            mem0 = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            n_in = store.promote(fill)
+            sync(dev)
+            nums["install_ms_per_list"] = \
+                1e3 * (time.perf_counter() - t0) / n_in
+            nums["install_peak_extra_bytes"] = \
+                torch.cuda.max_memory_allocated(dev) - mem0
+            nums["clone_bytes"] = (store._hot_data.numel() * 4
+                                   + store._hot_ids.numel() * 4)
+            check(n_in == store.n_slots, f"promoted {n_in} lists")
+            qa, n_ok = all_hot_rows(store, sample, TIER_BATCH)
+            tv, ti = tiered(store, qa)
+            rv, ri = ivf_flat_search_grouped(index, qa, K, n_probes=N_PROBES,
+                                             qcap=qc_big, use_kernel=False)
+            check(torch.equal(ti, ri) and torch.equal(tv, rv),
+                  "all hot: the tier differs from the resident legacy search")
+            log(f"[{card}] all hot: {n_in} lists installed in one "
+                f"transaction ({nums['install_ms_per_list']:.3f} ms a list, "
+                f"the clone {nums['clone_bytes'] / 1e6:.1f} MB, peak "
+                f"+{nums['install_peak_extra_bytes'] / 1e6:.1f} MB); "
+                f"{TIER_BATCH} queries from {n_ok} sampled rows probing "
+                "only hot lists: ids equal and distances bitwise to the "
+                "resident legacy search")
+            host_rows = qa.cpu().numpy()
+            staged = store.stage(host_rows)
+            nums["batch_tiered_ms"] = timed_ms(
+                lambda: tiered(store, staged))
+            nums["batch_tiered_noaccount_ms"] = timed_ms(
+                lambda: tiered(store, qa, account=False))
+            nums["batch_resident_kernel_ms"] = timed_ms(
+                lambda: ivf_flat_search_grouped(
+                    index, qa, K, n_probes=N_PROBES, qcap=qc_big))
+            nums["batch_resident_legacy_ms"] = timed_ms(
+                lambda: ivf_flat_search_grouped(
+                    index, qa, K, n_probes=N_PROBES, qcap=qc_big,
+                    use_kernel=False))
+            nums["d2h_copy_ms"] = timed_ms(lambda: qa.cpu())
+            t0 = time.perf_counter()
+            for _ in range(5):
+                store._account(host_rows, N_PROBES, False)
+            nums["account_host_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+            log(f"[{card}] {TIER_BATCH}-query batch: tiered (legacy "
+                f"engine, host rows accounted) {nums['batch_tiered_ms']:.2f}"
+                f" ms, without accounting "
+                f"{nums['batch_tiered_noaccount_ms']:.2f} ms; resident "
+                f"kernel engine {nums['batch_resident_kernel_ms']:.2f} ms, "
+                f"resident legacy {nums['batch_resident_legacy_ms']:.2f} "
+                f"ms; _account {nums['account_host_ms']:.2f} ms of host "
+                f"time; a CUDA batch's copy back for it "
+                f"{nums['d2h_copy_ms']:.3f} ms")
+            sync_free_search(store, "promote")
+
+            # -- a dispatch raced against membership flips ---------------
+            ref = tiered(store, qa, account=False)
+            sync(dev)
+            ref = [t.clone() for t in ref]
+            hot0 = [int(c) for c in store.hot_lists()]
+            cold0 = [c for c in rest if c not in set(hot0)]
+            torch.cuda._sleep(TIER_SLEEP_CYCLES)
+            out = tiered(store, qa, account=False)   # snapshot A, dropped
+            half = len(hot0) // 2
+            flips = [(hot0[:half], cold0[:half]),
+                     (cold0[:half], cold0[half:2 * half])]
+            for down, up in flips:
+                store.demote(down)
+                check(store.promote(up) == len(up), "a flip's promote")
+            sync(dev)
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  "the in-flight dispatch differs from its snapshot's answer")
+            _, ni = tiered(store, qa, account=False)
+            hot1 = set(int(c) for c in store.hot_lists())
+            got = ni.cpu().numpy().ravel()
+            check(all(list_of_id[g] in hot1 for g in got if g >= 0),
+                  "after the flips an answer came from a cold list")
+            check(not torch.equal(ni, ref[1]),
+                  "the flips did not change the answer")
+            nums["inflight_flips"] = len(flips)
+            log(f"[{card}] in flight: a {TIER_BATCH}-query dispatch held "
+                f"behind ~{TIER_SLEEP_CYCLES / 1e9:.1f} G cycles while "
+                f"{len(flips)} flips demoted and refilled {half} slots each "
+                "answered bitwise as its snapshot; the next search answers "
+                "from the new hot set only")
+            sync_free_search(store, "demote")
+
+            # -- deletes into hot lists, synced --------------------------
+            hot_pos = np.nonzero(np.isin(list_of_pos, sorted(hot1)))[0]
+            del_pos = rng.choice(hot_pos, max(1, int(TIER_DELETE_FRAC
+                                                     * hot_pos.size)),
+                                 replace=False)
+            del_ids = np.sort(sids[del_pos]).astype(np.int32)
+            dead = set(del_ids.tolist())
+            q_del = np.ascontiguousarray(
+                x[del_ids[np.arange(TIER_BATCH) % del_ids.size]])
+            _, before = tiered(store, q_del)
+            self_hits = float((before[:, 0].cpu().numpy() == np.resize(
+                del_ids, TIER_BATCH)).mean())
+            m0 = mut.wrap_mutable(index, delta_cap=MUT_CAP)
+            m, found = mut.delete(m0, del_ids)
+            check(found.all(), "a delete missed")
+            changed = store.sync_mutations(m)
+            check(changed is not None and changed and store.stats().epoch
+                  == m.epoch, f"sync after deletes: {changed}")
+            _, after = tiered(store, q_del)
+            check(dead_free(after, dead) and self_hits >= 0.5,
+                  f"a deleted id surfaced, or too few deleted rows "
+                  f"({self_hits:.1%}) were their own top-1 before")
+            nums.update(deleted=int(del_ids.size),
+                        delete_self_hits_before=self_hits,
+                        delete_changed_lists=len(changed))
+            log(f"[{card}] deletes: {del_ids.size} ids in hot lists "
+                f"({self_hits:.1%} of them their own top-1 before), "
+                f"{len(changed)} lists changed, none surfaces after "
+                "sync_mutations")
+            sync_free_search(store, "a tombstone flip")
+
+            # -- checkpoint + tail recovery (C1), synced -----------------
+            with tempfile.TemporaryDirectory() as td:
+                ing = wal.DurableIngest(
+                    mut.wrap_mutable(index, delta_cap=MUT_CAP),
+                    wal.WalWriter(f"{td}/wal", flush_interval_s=0.002))
+                for i, b in enumerate(np.array_split(del_ids, 4)):
+                    check(ing.delete(b).all(), "a durable delete missed")
+                    if i == 1:
+                        ing.checkpoint(f"{td}/c.ckpt")
+                live = ing.mindex
+                ing.close()
+                fresh = mut.wrap_mutable(index, delta_cap=MUT_CAP)
+                rec, _, n = wal.recover_mutable(
+                    fresh, f"{td}/wal", checkpoint_path=f"{td}/c.ckpt")
+            check(rec.epoch == fresh.epoch + n == 2 and live.epoch == 4
+                  and torch.equal(rec.row_mask, live.row_mask),
+                  f"recovery: epoch {rec.epoch} (live {live.epoch})")
+            store.sync_mutations(live)
+            v0 = store.runtime()["tier"].version
+            back = store.sync_mutations(rec)
+            check(back == set() and store.stats().epoch == rec.epoch
+                  and store.runtime()["tier"].version == v0 + 1,
+                  f"sync onto the recovered state: {back}, epoch "
+                  f"{store.stats().epoch}")
+            _, after = tiered(store, q_del)
+            check(dead_free(after, dead),
+                  "a deleted id surfaced after the recovered sync")
+            nums.update(recovered_epoch=rec.epoch, live_epoch=live.epoch)
+            log(f"[{card}] recovery: checkpoint + tail gives epoch "
+                f"{rec.epoch} (live {live.epoch}); the tier re-publishes "
+                "the recovered mask and adopts its epoch; no deleted id "
+                "surfaces")
+            sync_free_search(store, "a sync onto a recovered state")
+
+            # -- compaction ----------------------------------------------
+            n_hot = store.stats().hot_lists
+            inval0 = store.stats().invalidations
+            t0 = time.perf_counter()
+            mc, _ = mut.compact(rec, list_bucket=L, row_bucket=N_ROWS)
+            check(mut.lists_changed_since(mc, store.stats().epoch) is None,
+                  "the journal does not answer None after a compaction")
+            kept = (mc.index.storage.n == storage.n
+                    and mc.index.storage.max_list == L)
+            if kept:
+                check(store.sync_mutations(mc) is None
+                      and store.stats().hot_lists == 0
+                      and store.stats().invalidations == inval0 + n_hot,
+                      "compaction: the tier did not invalidate every slot")
+            else:
+                try:
+                    store.sync_mutations(mc)
+                    check(False, "a geometry change was synced")
+                except ValueError:
+                    pass
+                store = TieredListStore(mc.index, hbm_budget_bytes=budget,
+                                        name="smoke_tier_compacted",
+                                        epoch=mc.epoch,
+                                        registry=MetricRegistry())
+                check(store.sync_mutations(mc) == set(),
+                      "the rebuilt store's first sync is not a no-op")
+            store.promote(sorted(hot1))
+            _, after = tiered(store, q_del)
+            check(dead_free(after, dead),
+                  "a deleted id surfaced after compaction")
+            nums.update(compact_kept_geometry=bool(kept),
+                        compact_s=time.perf_counter() - t0,
+                        invalidated=n_hot if kept else 0)
+            log(f"[{card}] compaction: the journal answers None; "
+                + (f"geometry kept, sync_mutations re-snapshot the host "
+                   f"authority and invalidated all {n_hot} slots"
+                   if kept else
+                   f"geometry changed (n {mc.index.storage.n}, max_list "
+                   f"{mc.index.storage.max_list}): the sync refused and a "
+                   "new store seeded with the epoch served")
+                + "; no deleted id surfaces")
+            del store, m, m0, rec, live, mc
+
+            # -- capacity at recall: convergence from misses alone -------
+            reg = MetricRegistry()
+            store = TieredListStore(index, hbm_budget_bytes=budget,
+                                    name="smoke_tier_capacity",
+                                    min_recall=0.95, touch_decay=1.0,
+                                    registry=reg)
+            check(ws_rows.size > 0, "the working set covers no row")
+            qs = sample[ws_rows[np.arange(TIER_QUERIES) % ws_rows.size]]
+            pol = PromotionPolicy(demote_margin=1.25, min_touches=2.0,
+                                  max_moves=8)
+            hit_rates = []
+            t0 = time.perf_counter()
+            with SlabFetcher(store, window=4, policy=pol,
+                             max_pending=4 * store.n_slots) as f:
+                for _ in range(TIER_ROUNDS):
+                    pre = store.stats()
+                    for b in range(0, TIER_QUERIES, TIER_ROUND):
+                        tiered(store, qs[b:b + TIER_ROUND])
+                    check(f.drain(60.0), "the fetcher did not drain")
+                    post = store.stats()
+                    h = post.probe_hits - pre.probe_hits
+                    hit_rates.append(h / (h + post.probe_misses
+                                          - pre.probe_misses))
+                    if post.probe_misses == pre.probe_misses:
+                        break
+                fstats = f.stats()
+            converge_s = time.perf_counter() - t0
+            recalls = [store.measure_recall(qs[b:b + TIER_ROUND], K,
+                                            n_probes=N_PROBES, qcap=qc_round)
+                       for b in range(0, TIER_QUERIES, TIER_ROUND)]
+            recall = float(np.mean(recalls))
+            st = store.stats()
+            h_fetch = reg.histogram("tier_fetch_ms", tier=store.name)
+            nums.update(
+                working_set_lists=int(ws_lists.size),
+                working_set_rows=int(ws_rows.size),
+                rounds=len(hit_rates), round_hit_rates=hit_rates,
+                hit_rate=st.hit_rate, converge_s=converge_s,
+                fetches=st.fetches, fetch_p50_ms=h_fetch.p50,
+                fetch_p99_ms=h_fetch.p99, fetcher=fstats,
+                recall=recall, degraded=store.degraded)
+            check(recall >= 0.95 and not store.degraded,
+                  f"capacity: recall {recall} at {nums['capacity_x']:.2f}x")
+            check(set(store.hot_lists().tolist()) <= set(ws_lists.tolist())
+                  and hit_rates[-1] == 1.0,
+                  f"no convergence onto the working set: hit rates "
+                  f"{hit_rates}")
+            log(f"[{card}] capacity {nums['capacity_x']:.2f}x: working set "
+                f"{ws_lists.size} lists covering {ws_rows.size} of "
+                f"{TIER_SAMPLE} sampled rows; from all cold, "
+                f"{len(hit_rates)} rounds of {TIER_QUERIES} queries (hit "
+                f"rate by round {[round(h, 4) for h in hit_rates]}), "
+                f"{st.fetches} fetches (host span p50 {h_fetch.p50} ms, "
+                f"p99 {h_fetch.p99} ms), {converge_s:.2f} s; recall vs "
+                f"the full index {recall:.4f}, degraded {store.degraded}")
+            del store
+
+            # -- the cold-tier row through the executor -------------------
+            pool = (x[rng.integers(0, N_ROWS, 16_384)]
+                    + 0.3 * rng.standard_normal((16_384, DIM),
+                                                dtype=np.float32))
+            t0 = time.perf_counter()
+            row = cold_tier_row(index, pool, k=K, n_probes=N_PROBES)
+            nums["row_s"] = time.perf_counter() - t0
+            nums["row"] = row
+            for key in ("capacity_x", "program_qps", "hot_qps",
+                        "tiered_qps", "qps_ratio_vs_hot", "p99_ms_50",
+                        "p99_ms_80", "p99_ms_95", "tier_hit_rate",
+                        "tier_hit_rate_50", "tier_hit_rate_80",
+                        "tier_hit_rate_95", "recall_vs_hot",
+                        "fetch_overlap_pct"):
+                check(key in row, f"the cold-tier row lacks {key}")
+            log(f"[{card}] cold-tier row ({nums['row_s']:.1f} s, "
+                f"templates probe {row['template_lists']} distinct lists "
+                f"against {row['n_slots']} slots): " + json.dumps(row))
+
+        launches = fk.LAUNCHES
+        check(all(not k and n == 0 for k, n in tcalls),
+              f"the tier ran the kernel engine or launched the flat scan: "
+              f"{collections.Counter(tcalls)}")
+        check(all(n == 1 for n in resident) and launches == len(resident),
+              f"flat_scan_lists launched {launches} times for "
+              f"{len(resident)} resident kernel-engine batches "
+              f"{collections.Counter(resident)}")
+        check(ivf_flat.ENGINE_FALLBACKS == 0,
+              f"{ivf_flat.ENGINE_FALLBACKS} tier-phase searches left the "
+              "kernel")
+        check(set(_build._LIBS) == libs, "the tier phase built an extension")
+        nums.update(launches=launches, resident_batches=len(resident),
+                    tier_scans=len(tcalls), engine_fallbacks=0)
+        log(f"[{card}] tier phase: " + json.dumps(nums))
+        return nums
+    finally:
+        faulthandler.cancel_dump_traceback_later()
 
 
 # ---------------------------------------------------------------------------
@@ -2193,6 +2696,12 @@ def quantized_phase(kind, args, card, dev, data):
           f"sq mutation: {sk.LAUNCHES} sq_scan_lists launches for "
           f"{n_kernel} kernel-engine searches, fallbacks "
           f"{ivf_sq.ENGINE_FALLBACKS}")
+    # the cold tier over this index, on its pinned legacy engine
+    before = (sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS)
+    tnums = sq_tier(index, qb, card, dev)
+    check((sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS) == before,
+          f"the SQ tier launched sq_scan_lists or fell back: {before} -> "
+          f"{(sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS)}")
     return {
         "name": fn_name,
         "route": "cuda",
@@ -2216,7 +2725,65 @@ def quantized_phase(kind, args, card, dev, data):
             ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "gathered_ms", "bound_live_ms"), v)) for k, v in timed.items()},
         "mutation": mnums,
+        "tier": tnums,
     }
+
+
+def sq_tier(index, qb, card, dev):
+    """The cold tier over the IVF-SQ index: at capacity 4 its hot buffer
+    holds the int8 codes, and the batch's queries that probe only hot
+    lists get the resident legacy SQ search's answer; with every list hot
+    (a store of ``n_lists`` slots) the whole 4,096 batch gets it — ids
+    equal and distances bitwise. Returns the numbers."""
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.spatial.ann.common import coarse_probe, static_qcap
+    from raft_tpu_torch.spatial.ann.ivf_sq import ivf_sq_search_grouped
+    from raft_tpu_torch.tier import TieredListStore
+
+    st = index.storage
+    n_lists = st.list_index.shape[0]
+    cold = st.n * DIM
+    store = TieredListStore(index, hbm_budget_bytes=cold // TIER_CAPACITY,
+                            name="smoke_sq_tier", registry=MetricRegistry())
+    cap = cold / (store.n_slots * st.max_list * DIM)
+    check(store._hot_data.dtype == torch.int8 and store._hot_data.is_cuda
+          and cap >= TIER_CAPACITY,
+          f"SQ tier: hot buffer {store._hot_data.dtype} on "
+          f"{store._hot_data.device}, capacity {cap:.2f}x")
+
+    def same(tier_store, q):
+        qc = static_qcap(None, q.shape[0], QZ_PROBES, n_lists)
+        tv, ti = tier_store.search(q, K, n_probes=QZ_PROBES, qcap=qc)
+        rv, ri = ivf_sq_search_grouped(index, q, K, n_probes=QZ_PROBES,
+                                       qcap=qc, use_kernel=False)
+        return torch.equal(ti, ri) and torch.equal(tv, rv)
+
+    probes, _ = coarse_probe(qb, index.centroids, QZ_PROBES)
+    hist = torch.bincount(probes.flatten(), minlength=n_lists).cpu().numpy()
+    store.promote(np.argsort(-hist, kind="stable")[:store.n_slots].tolist())
+    hot = torch.zeros(n_lists, dtype=torch.bool, device=dev)
+    hot[torch.as_tensor(store.hot_lists(), device=dev).long()] = True
+    ok = torch.nonzero(hot[probes].all(1)).squeeze(1)
+    n_ok = int(ok.numel())
+    check(n_ok == 0 or same(store, qb[ok]),
+          "SQ tier at capacity 4: the hot-only queries' answer differs")
+    n_slots = store.n_slots
+    del store
+    full = TieredListStore(index, n_slots=n_lists, name="smoke_sq_tier_all",
+                           registry=MetricRegistry())
+    full.promote(range(n_lists))
+    check(same(full, qb), "SQ tier, every list hot: the answer differs from "
+          "the resident legacy SQ search")
+    nums = {"n_slots": n_slots, "capacity_x": cap, "hot_dtype": "int8",
+            "hot_bytes_all": full.stats().hot_bytes,
+            "hot_only_queries": n_ok}
+    log(f"[{card}] SQ tier: int8 hot buffer at {cap:.2f}x capacity "
+        f"({nums['n_slots']} of {n_lists} lists), {n_ok} of "
+        f"{qb.shape[0]} queries probing only hot lists answered as the "
+        f"resident legacy SQ search; with all {n_lists} lists hot "
+        f"({full.stats().hot_bytes / 1e6:.1f} MB of codes) the "
+        f"{qb.shape[0]}-query batch too, ids equal and distances bitwise")
+    return nums
 
 
 def pq_lists_inputs(gen, n_lists, q, m, k_codes, l_pad, dev, integer):
@@ -3663,6 +4230,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     flat["mutation"] = mutation_phase(args, card, dev, *served)
     log(f"mutation phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flat["tier"] = tier_phase(args, card, dev, *served)
+    log(f"tier phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
                                         served[2])

@@ -609,20 +609,16 @@ def replay_into(mindex, records, *, start_lsn: int = 0,
     acceptance logic the live path ran from the same state, so the
     reconstruction is exact — including the rejections.
 
-    Each record carries the mutation epoch its writer's state had just
-    before it; replay raises the state's epoch to it first, so a
-    checkpoint-plus-tail recovery continues the live epoch chain (the
-    JAX package's replay counts on from the base state's epoch instead;
-    the epoch only ever moves forward, the safe direction for cache
-    invalidation)."""
+    The epoch counts on from the base state's, as the JAX package's
+    replay does: each applied write advances it as the live write did,
+    and the epoch stamped in each frame (kept so the bytes match the
+    JAX writer's) is not read. A delta checkpoint stores no epoch, so a
+    checkpoint-plus-tail recovery can land below the live epoch."""
     last = int(start_lsn)
     n = 0
     for rec in records:
         if rec.lsn <= last:
             continue
-        if rec.epoch > mindex.epoch:
-            mindex = _mutation()._with(mindex)
-            mindex.epoch = int(rec.epoch)
         if rec.op == OP_UPSERT:
             vecs, ids = decode_upsert(rec.payload)
             mindex, _ = _mutation().upsert(mindex, vecs, ids)

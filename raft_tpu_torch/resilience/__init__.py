@@ -10,9 +10,14 @@
 * admission control: :class:`AdmissionController` — bounded queue +
   concurrency + token limiter, shedding with
   :class:`raft_tpu_torch.errors.RaftOverloadError` instead of
-  collapsing.
+  collapsing;
+* the per-shard and per-list load feed (:mod:`.replica`):
+  :func:`record_list_load` / :func:`measured_list_load` and their
+  per-shard counterparts, the cold tier's promotion signal.
 
-Shard health, replicas and failover, degraded results and the
+Shard health, replica placement and failover (the rest of
+``replica.py``: ``ReplicaPlacement``, ``popularity_replication``,
+``FailoverPlan``, ``resolve_route``), degraded results and the
 self-healing supervisor are not ported yet.
 """
 
@@ -28,6 +33,12 @@ from raft_tpu_torch.resilience.deadline import (
     dispatch_with_deadline,
     wait_first,
 )
+from raft_tpu_torch.resilience.replica import (
+    measured_list_load,
+    measured_shard_load,
+    record_list_load,
+    record_shard_load,
+)
 
 __all__ = [
     "AdmissionController",
@@ -37,5 +48,9 @@ __all__ = [
     "RetryPolicy",
     "dispatch_hedged",
     "dispatch_with_deadline",
+    "measured_list_load",
+    "measured_shard_load",
+    "record_list_load",
+    "record_shard_load",
     "wait_first",
 ]

@@ -989,3 +989,71 @@ def test_mutable_search_kernel_engines_on_the_card():
         assert not np.isin(ik.numpy(), dead).any()
         assert (dk[q.shape[0]:, 0] == 0).all()
         assert index is pq or (dk >= dl).all()
+
+
+@pytest.mark.gpu
+def test_tier_dispatch_races_flips_into_its_slots():
+    """The cold tier's copy-publish install on the card: 50 times, a
+    tiered dispatch on the executor's stream is held behind
+    ``torch.cuda._sleep`` while the test thread demotes the hot lists
+    and promotes others into the same slots; every answer is bitwise the
+    one of the membership its snapshot named, and the tiered search runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync would
+    fail the batch)."""
+    import threading
+
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.serving import ServingExecutor
+    from raft_tpu_torch.spatial.ann import IVFFlatParams, ivf_flat_build
+    from raft_tpu_torch.tier import TieredListStore
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((20_000, 32)).astype(np.float32)
+    idx = ivf_flat_build(x, IVFFlatParams(n_lists=64, kmeans_n_iters=5),
+                         device=dev)
+    store = TieredListStore(idx, n_slots=16, registry=MetricRegistry())
+    sets = (list(range(16)), list(range(16, 32)))
+    q = x[rng.integers(0, x.shape[0], 64)]
+
+    def flip_to(which):
+        store.demote(sets[1 - which])
+        assert store.promote(sets[which]) == 16
+        return store.runtime()["tier"].version
+
+    expected, label = [], {}
+    for which in (0, 1):
+        label[flip_to(which)] = which
+        d, i = store.search(q, 10, n_probes=8, qcap=64, account=False)
+        expected.append((d.cpu().numpy(), i.cpu().numpy()))
+    assert not np.array_equal(expected[0][1], expected[1][1])
+
+    enqueued = threading.Event()
+    seen = []
+
+    def dispatch(batch, tier=None, **_rt):
+        seen.append(tier.version)
+        torch.cuda._sleep(_SLEEP_CYCLES // 30)
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = store.search(batch, 10, n_probes=8, qcap=64,
+                               runtime=tier)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        enqueued.set()
+        return out
+
+    with ServingExecutor(dispatch, (64,), dim=32, flush_age_s=0.0,
+                         device=dev, runtime_provider=store.runtime,
+                         stage=store.stage, registry=MetricRegistry()) as ex:
+        for it in range(50):
+            enqueued.clear()
+            fut = ex.submit(q)
+            assert enqueued.wait(60)
+            label[flip_to(it % 2)] = it % 2     # while the batch waits
+            d, i = fut.result(timeout=120)
+            want = expected[label[seen[-1]]]
+            assert d.tobytes() == want[0].tobytes(), it
+            assert i.tobytes() == want[1].tobytes(), it
+    assert len(seen) == 50 and len({label[v] for v in seen}) == 2

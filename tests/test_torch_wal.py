@@ -32,6 +32,7 @@ from raft_tpu_torch.durability import wal
 from raft_tpu_torch.spatial.ann import interop
 from raft_tpu_torch.spatial.ann import mutation as tmut
 from raft_tpu_torch.testing import crash
+from tests.test_torch_ivf_flat import _assert_ids_equal_up_to_ties
 from tests.test_torch_mutation import (
     CAP,
     D,
@@ -148,9 +149,10 @@ def test_wal_replays_in_the_other_package(tmp_path, dataset, jax_indexes,
 def test_checkpoint_plus_tail_and_no_checkpoint_recover_bitwise(
         tmp_path, dataset, jax_indexes):
     """Checkpoint midway + WAL tail, and the whole log without a
-    checkpoint, both rebuild the live state bitwise and answer a batch
-    with identical distances and ids; the checkpoint carries the LSN
-    watermark and recovery replays only the tail."""
+    checkpoint, both rebuild the live delta and mask bitwise and answer
+    a batch with identical distances and ids; the checkpoint carries the
+    LSN watermark and recovery replays only the tail, its epoch counting
+    on from the fresh wrap's as JAX's does."""
     x, q = dataset
     ops = _ops(x)
     base = _carry(jmut.wrap_mutable(jax_indexes["flat"], delta_cap=CAP))
@@ -173,9 +175,13 @@ def test_checkpoint_plus_tail_and_no_checkpoint_recover_bitwise(
     for f in ("vecs", "ids", "live", "counts"):
         assert torch.equal(getattr(rec.delta, f), getattr(live.delta, f))
     assert torch.equal(rec.row_mask, live.row_mask)
-    # the records' stamped epochs carry the live epoch chain across the
-    # checkpoint
-    assert rec.epoch == live.epoch == len(ops)
+    # the epoch counts on from the fresh wrap's, as JAX's recovery of the
+    # same checkpoint and log does
+    jrec, _, _ = jwal.recover_mutable(
+        jmut.wrap_mutable(jax_indexes["flat"], delta_cap=CAP), d,
+        checkpoint_path=ckpt, name="jrec")
+    assert rec.epoch == jrec.epoch == len(ops) - 3
+    assert rec._epoch_journal == jrec._epoch_journal
     for a, b in zip(tmut.mutable_search(rec, q, 5, n_probes=4),
                     tmut.mutable_search(live, q, 5, n_probes=4)):
         assert torch.equal(a, b)
@@ -185,6 +191,90 @@ def test_checkpoint_plus_tail_and_no_checkpoint_recover_bitwise(
     # the checkpoint cleared the live state's dirty set; the rest agrees
     rec0.dirty_lists = set(live.dirty_lists)
     _assert_state(live, rec0)
+
+
+def _recover_after_checkpoint(tmp_path, jax_indexes, ops):
+    """``ops`` through each package's DurableIngest with a delta
+    checkpoint after all but the last, then each package's
+    recover_mutable from its checkpoint plus the tail onto a fresh wrap.
+    Returns the live and recovered states, JAX's first."""
+    jm = jmut.wrap_mutable(jax_indexes["flat"], delta_cap=CAP)
+    out = []
+    for name, mod, m0 in (("j", jwal, jm), ("t", wal, _carry(jm))):
+        d, ckpt = str(tmp_path / name), str(tmp_path / f"{name}.ckpt")
+        ing = mod.DurableIngest(m0, mod.WalWriter(
+            d, flush_interval_s=0.0005))
+        for op, args in ops[:-1]:
+            getattr(ing, op)(*args)
+        assert ing.checkpoint(ckpt, prune=False) == len(ops) - 1
+        getattr(ing, ops[-1][0])(*ops[-1][1])
+        live = ing.mindex
+        ing.close()
+        fresh = (jmut.wrap_mutable(jax_indexes["flat"], delta_cap=CAP)
+                 if mod is jwal else _carry(jm))
+        rec, frontier, n = mod.recover_mutable(fresh, d, checkpoint_path=ckpt,
+                                               name=f"c1-{name}")
+        assert (frontier, n) == (len(ops), 1)
+        out.append((live, rec))
+    return out
+
+
+def test_checkpoint_plus_tail_recovers_the_reference_epoch(
+        tmp_path, dataset, jax_indexes):
+    """ROADMAP C1: three writes, a delta checkpoint after the second,
+    then checkpoint-plus-tail recovery in both packages. Delta, mask and
+    dirty lists are bitwise equal, and so are the epoch and the journal:
+    both count on from the fresh wrap's epoch 0 (the stamped epochs in
+    the frames are not read), so the recovered epoch is 1 where the live
+    one is 3."""
+    x, _ = dataset
+    (jlive, jrec), (tlive, trec) = _recover_after_checkpoint(
+        tmp_path, jax_indexes, _ops(x)[:3])
+    _assert_state(jrec, trec)
+    _assert_state(jlive, tlive)
+    assert trec.epoch == 1 and tlive.epoch == 3
+    assert [e for e, _ in trec._epoch_journal] == [1]
+
+
+def test_tier_syncs_a_recovered_state_as_the_reference(
+        tmp_path, dataset, jax_indexes):
+    """A tier that saw the live epoch (3) syncs onto the recovered state
+    (epoch 1) in both packages alike: the journal answers an empty set
+    for the step back, the mask is re-published all the same, and the
+    recovered epoch is adopted — changed set, seen epoch and view mask
+    equal, and no recovered tombstone surfaces."""
+    from raft_tpu.obs import metrics as jobsm
+    from raft_tpu.tier import TieredListStore as JStore
+    from raft_tpu_torch.obs import metrics as tobsm
+    from raft_tpu_torch.tier import TieredListStore
+
+    x, q = dataset
+    (jlive, jrec), (tlive, trec) = _recover_after_checkpoint(
+        tmp_path, jax_indexes, _ops(x)[:3])
+    j = JStore(jax_indexes["flat"], n_slots=12,
+               registry=jobsm.MetricRegistry())
+    t = TieredListStore(trec.index, n_slots=12,
+                        registry=tobsm.MetricRegistry())
+    seen, answers = [], []
+    for s, live, rec in ((j, jlive, jrec), (t, tlive, trec)):
+        s.promote(range(12))
+        first = s.sync_mutations(live)
+        v0 = s.runtime()["tier"].version
+        again = s.sync_mutations(rec)
+        seen.append((first, again, s.stats().epoch,
+                     s.runtime()["tier"].version - v0))
+        answers.append([np.asarray(a) for a in s.search(q, 5, n_probes=4)])
+    assert seen[1] == seen[0]
+    assert seen[1][1:] == (set(), 1, 1) and trec.epoch == 1
+    np.testing.assert_array_equal(
+        t.runtime()["tier"].row_mask.numpy(),
+        np.asarray(j.runtime()["tier"].row_mask))
+    (jd, ji), (td, ti) = answers
+    assert td.tobytes() == jd.tobytes()
+    _assert_ids_equal_up_to_ties(jd, ji, ti)
+    dead = np.nonzero(trec.row_mask.numpy()[:-1] == 0)[0]
+    dead_ids = set(trec.index.storage.sorted_ids.numpy()[dead].tolist())
+    assert dead_ids and not dead_ids & set(ti.ravel().tolist())
 
 
 def _write_log(path, n=6, d=4, seed=7, mod=wal, **kw):
