@@ -23,7 +23,14 @@ to 0 just before it and read just after:
   to recall >= 0.95 on a working set that fits, the cold-tier row
   through the executor, a dispatch raced against membership flips,
   deletes, a recovered state and a compaction synced in, under a stall
-  watchdog);
+  watchdog); then the same rows in a sharded IVF-Flat index
+  (``raft_tpu_torch.comms``) at P = 8 ranks on the card: both
+  communicator forms' self-tests (in process, and NCCL at world size 1),
+  the build, the 4,096 batch on both engines against the oracle and the
+  single-device index, every list probed, P = 8 against P = 1 and NCCL
+  bitwise, a down rank with and without a replica, a NaN row, a rank
+  recovered from an archive, ~100 requests through the executor with
+  the coverage gauge, and the IVF-SQ sibling;
 * the two-level coarse probe over 65,792 centroids of width 96 (the
   served index's and jittered draws of them, bench.py's recipe): the
   FLOP ratio, both engines' recall against the flat probe, the kernel
@@ -64,6 +71,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -930,8 +938,13 @@ def executor_phase(args, card, dev, index, qcaps, x):
 
     kept, calls, exec_sizes = [], collections.Counter(), []
     # the row's point whose requests are being submitted: batches are
-    # kept from the first point ("sat") only, whose requests are recorded
+    # kept from the two saturation runs ("sat", "sat_off") only, whose
+    # requests are recorded by point (the two runs send the same rows;
+    # one run alone kept 19 batches on a slow host). A point's executor
+    # is closed before the next point submits, so a batch's point is the
+    # one current at its dispatch.
     point = {"now": None}
+    saturation = ("sat", "sat_off")
 
     def make_run(bucket):
         def run(q):
@@ -947,8 +960,9 @@ def executor_phase(args, card, dev, index, qcaps, x):
                 d, i = search(q)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
-            if point["now"] == "sat" and len(kept) < EXEC_KEPT:
-                kept.append((q.clone(), d.clone(), i.clone()))
+            if point["now"] in saturation and len(kept) < EXEC_KEPT:
+                kept.append((point["now"], q.clone(), d.clone(),
+                             i.clone()))
             return d, i
         return run
 
@@ -956,8 +970,8 @@ def executor_phase(args, card, dev, index, qcaps, x):
 
     def on_submit(at, rows, fut):
         point["now"] = at
-        if at == "sat":
-            recorded[rows[0].tobytes()] = (rows, fut)
+        if at in saturation:
+            recorded[at, rows[0].tobytes()] = (rows, fut)
 
     fk.LAUNCHES = 0
     ivf_flat.ENGINE_FALLBACKS = 0
@@ -1035,15 +1049,15 @@ def executor_phase(args, card, dev, index, qcaps, x):
     # batch's output, and a direct search of the batch gives the same
     check(len(kept) == EXEC_KEPT, f"kept {len(kept)} executor batches")
     n_req = 0
-    for staged, d, i in kept:
+    for at, staged, d, i in kept:
         rd, ri = search(staged)
         check(torch.equal(rd, d) and torch.equal(ri, i),
               "a direct search of a kept batch differs from its dispatch")
         host = staged.cpu().numpy()
         d, i = d.cpu().numpy(), i.cpu().numpy()
         o = 0
-        while o < host.shape[0] and host[o].tobytes() in recorded:
-            rows, fut = recorded[host[o].tobytes()]
+        while o < host.shape[0] and (at, host[o].tobytes()) in recorded:
+            rows, fut = recorded[at, host[o].tobytes()]
             m = rows.shape[0]
             check(np.array_equal(host[o:o + m], rows),
                   "a request's rows are not contiguous in its batch")
@@ -2129,6 +2143,457 @@ def tier_phase(args, card, dev, index, qcaps, x):
         return nums
     finally:
         faulthandler.cancel_dump_traceback_later()
+
+
+# ---------------------------------------------------------------------------
+# Sharded IVF-Flat over the main path's rows: in process at P = 8 on the
+# card, and through torch.distributed with NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+# tests/test_mnmg_ivf_flat.py on the 8-device mesh (the shape of
+# tests/conftest.py:13-15), at the served configuration: 1,024 lists,
+# k-means 10 iterations, k = 10, 8 probes
+SHARD_P = 8
+SHARD_BATCH = 4096         # the largest bucket
+SHARD_FULL_Q = 256         # queries of the every-list probe
+SHARD_DOWN = 3             # the rank the degraded steps lose
+SHARD_REQUESTS = 100
+SHARD_BUCKETS = (8, 64, 512)
+SHARD_KEPT = 8             # served batches whose demux is checked
+
+
+def sharded_phase(args, card, dev, index, qcaps, x):
+    """Sharded IVF-Flat (``raft_tpu_torch.comms``) over the main path's
+    1M rows: both communicator forms' self-tests and a health sweep, the
+    P = 8 build (every row once), the 4,096-query batch on both engines
+    against the exact oracle and the single-device index, the every-list
+    probe, P = 8 against P = 1 and NCCL at world size 1, a down rank
+    without and with a replica, a NaN row, rank recovery from an
+    archive, ~100 requests through the ``ServingExecutor`` with the
+    coverage gauge, the IVF-SQ sibling's build and batch, and the
+    host-clock times. The flat-scan kernel's launches are counted over
+    the sharded IVF-Flat path alone, the SQ scan's over the SQ step.
+    Returns the phase's numbers, kept under the flat scan's ``sharded``
+    key."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from raft_tpu_torch.comms import (
+        Comms, build_comms, mnmg_ivf_flat_build, mnmg_ivf_flat_search,
+        mnmg_ivf_sq_build, mnmg_ivf_sq_search, place_index, recover_rank,
+        run_all_self_tests,
+    )
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.resilience import (
+        FailoverPlan, ReplicaPlacement, ShardHealth, health_check,
+    )
+    from raft_tpu_torch.serving import ServingExecutor
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, ivf_flat, ivf_flat_search_grouped, ivf_sq, save_index,
+    )
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import sq_kernel as sk
+    from raft_tpu_torch.spatial.ann.common import coarse_probe
+    from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQParams
+
+    t_phase = time.perf_counter()
+    nums = {"card": card, "ranks": SHARD_P}
+    rng = np.random.default_rng(args.seed + 40)
+    cuda0 = (torch.device("cuda", torch.cuda.current_device())
+             if dev.type == "cuda" else dev)
+    comms = build_comms([cuda0] * SHARD_P)
+    comms1 = build_comms([cuda0])
+
+    # 1. both forms' self-tests, and the timed health sweep
+    tests = run_all_self_tests(comms)
+    check(all(tests.values()), f"in-process self-tests failed: {tests}")
+    report = health_check(comms)
+    check(report.ok, f"health_check failed: {report.failed}")
+    nums["health_check_s"] = report.total_seconds
+    tmp = tempfile.TemporaryDirectory()
+    dcomms = Comms.initialize_distributed(
+        os.path.join(tmp.name, "rendezvous"), 1, 0, device=cuda0,
+        timeout_s=120.0)
+    try:
+        tests = run_all_self_tests(dcomms)
+        check(all(tests.values()), f"NCCL self-tests failed: {tests}")
+        log(f"[{card}] sharded: self-tests pass in process at P = "
+            f"{SHARD_P} and through NCCL at world size 1; health_check "
+            f"ok in {report.total_seconds:.3f} s")
+
+        # the oracle and the single-device index's answer to the 4,096
+        # batch, before the counters go to 0: not the sharded path
+        qb = torch.as_tensor(
+            x[rng.integers(0, N_ROWS, SHARD_BATCH)]
+            + 0.3 * rng.standard_normal((SHARD_BATCH, DIM),
+                                        dtype=np.float32), device=dev)
+        xd = torch.as_tensor(x, device=dev)
+        true = exact_knn(xd, qb, K)
+        _, i1 = ivf_flat_search_grouped(index, qb, K, n_probes=N_PROBES,
+                                        qcap=qcaps[SHARD_BATCH])
+        r_single = recall(i1, true)
+
+        # the sharded path, with the launch counters at 0 just before it
+        fk.LAUNCHES = 0
+        ivf_flat.ENGINE_FALLBACKS = 0
+
+        # 2. the build at P = 8
+        sync(dev)
+        t0 = time.perf_counter()
+        sidx = mnmg_ivf_flat_build(comms, x, IVFFlatParams(
+            n_lists=N_LISTS, kmeans_n_iters=10, kmeans_init="random"))
+        sync(dev)
+        nums["build_s"] = time.perf_counter() - t0
+        szs = sidx.list_sizes.cpu().numpy()
+        sids = sidx.sorted_ids.cpu().numpy()
+        got = np.concatenate([sids[r, :szs[r].sum()]
+                              for r in range(SHARD_P)])
+        check(got.shape[0] == N_ROWS
+              and np.array_equal(np.sort(got), np.arange(N_ROWS)),
+              "the sharded build does not hold every row exactly once")
+        rows_per_rank = szs.sum(1)
+        log(f"[{card}] sharded build: {N_ROWS} x {DIM} over {SHARD_P} "
+            f"ranks in {nums['build_s']:.2f} s ({sidx.centroids.shape[0]} "
+            f"lists after the cap, n_pad {sidx.n_pad}, rows a rank "
+            f"{rows_per_rank.min()}..{rows_per_rank.max()})")
+        qc = {b: sidx.warmup(comms, b, k=K, n_probes=N_PROBES)
+              for b in SHARD_BUCKETS + (SHARD_BATCH,)}
+        for b in SHARD_BUCKETS:
+            sidx.warmup(comms, b, k=K, n_probes=N_PROBES, qcap=qc[b],
+                        shard_mask=True)
+
+        # 3. the 4,096-query batch on both engines, against the oracle
+        def sharded(q, idx=None, c=comms, **kw):
+            kw.setdefault("qcap", qc.get(q.shape[0], q.shape[0]))
+            kw.setdefault("n_probes", N_PROBES)
+            return mnmg_ivf_flat_search(c, sidx if idx is None else idx,
+                                        q, K, **kw)
+
+        keep = []
+        launches0 = fk.LAUNCHES
+        with scan_calls(keep):
+            d8, i8 = sharded(qb)
+        sync(dev)
+        per_batch = fk.LAUNCHES - launches0
+        _, i8_legacy = sharded(qb, use_kernel=False)
+        r_kernel, r_legacy = recall(i8, true), recall(i8_legacy, true)
+        nums.update(recall_single=r_single, recall_kernel=r_kernel,
+                    recall_legacy=r_legacy, launches_per_batch=per_batch)
+        log(f"[{card}] sharded {SHARD_BATCH}-query batch: recall@10 kernel "
+            f"{r_kernel:.4f}, legacy {r_legacy:.4f}, single-device index "
+            f"{r_single:.4f}; flat_scan_lists launched {per_batch} times "
+            "(one a rank)")
+        check(r_kernel >= r_single - 0.02 and r_legacy >= r_single - 0.02,
+              f"sharded recall below the single-device index's: {nums}")
+        check(r_kernel >= r_legacy - 0.005,
+              f"sharded kernel engine below legacy: {nums}")
+        check(1 <= per_batch <= SHARD_P,
+              f"{per_batch} flat-scan launches for one batch at P = "
+              f"{SHARD_P}")
+        # the comparison's own launches are not the path's
+        saved = fk.LAUNCHES
+        max_err = max(compare_lists_to_plain(call) for call in keep)
+        fk.LAUNCHES = saved
+        nums["max_abs_err"] = max_err
+        log(f"[{card}] sharded batch's {len(keep)} flat_scan_lists calls "
+            f"within 1e-5 x (qn + yn) of the plain version, max |kernel - "
+            f"plain| {max_err:.3g}")
+        del keep
+
+        # every list probed: each row scanned, so the oracle's answer
+        # (recall 1.0, the returned rows' exact distances the oracle's
+        # rows') with exact distances; the sentinel list takes ~7/8 of
+        # the probe slots, far past its qcap, and must read as empty
+        qf = qb[:SHARD_FULL_Q]
+        n_all = int(sidx.centroids.shape[0])
+        qc_all = sidx.warmup(comms, SHARD_FULL_Q, k=K, n_probes=n_all)
+        check(qc_all == SHARD_FULL_Q,
+              f"every-list qcap {qc_all}: a list would drop queries")
+        true_all = ((qf[:, None, :].double()
+                     - xd[true[:SHARD_FULL_Q]].double()) ** 2).sum(-1)
+        for engine in (False, None):
+            before = fk.LAUNCHES
+            d_all, i_all = sharded(qf, n_probes=n_all, qcap=qc_all,
+                                   use_kernel=engine)
+            sync(dev)
+            n_launch = fk.LAUNCHES - before
+            r_all = recall(i_all, true[:SHARD_FULL_Q])
+            ref = ((qf[:, None, :].double()
+                    - xd[i_all.long()].double()) ** 2).sum(-1)
+            scale = ((qf * qf).sum(1)[:, None]
+                     + (xd[i_all.long()] ** 2).sum(-1)).double()
+            err = (d_all.double() ** 2 - ref).abs()
+            # the returned set's exact distances are the oracle's
+            gap = (ref - true_all).abs()
+            name = "legacy" if engine is False else "kernel"
+            swaps = int((i_all.long() != true[:SHARD_FULL_Q]).any(1).sum())
+            nums[f"recall_all_{name}"] = r_all
+            nums[f"tie_swaps_all_{name}"] = swaps
+            log(f"[{card}] sharded every-list probe (n_probes {n_all} = "
+                f"every list, qcap {qc_all}, {SHARD_FULL_Q} queries, "
+                f"{name}): recall@10 {r_all:.4f}, max |d^2 - exact| "
+                f"{err.max().item():.3g}, max |exact - oracle's exact| "
+                f"{gap.max().item():.3g} ({swaps} queries' ids in another "
+                f"order or swapped at a tie); flat_scan_lists launched "
+                f"{n_launch} times")
+            check(bool((i_all >= 0).all() and (i_all < N_ROWS).all()),
+                  f"every-list probe returned an alien row ({name})")
+            check(bool((err <= 1e-5 * scale + 1e-3).all()),
+                  f"every-list probe distances not exact ({name})")
+            check(r_all == 1.0 and bool((gap <= 1e-5 * scale + 1e-3).all()),
+                  f"every-list probe recall {r_all} ({name}): not the "
+                  "oracle's answer")
+            check(n_launch == (SHARD_P if engine is None else 0),
+                  f"{n_launch} flat-scan launches for the every-list "
+                  f"probe ({name})")
+        check(ivf_flat.ENGINE_FALLBACKS == 0,
+              f"{ivf_flat.ENGINE_FALLBACKS} sharded searches left the "
+              "kernel")
+
+        # 4. P = 8 against P = 1 and NCCL at world size 1
+        t0 = time.perf_counter()
+        idx1 = place_index(comms1, sidx)
+        nums["reshard_s"] = time.perf_counter() - t0
+        d1, i1s = sharded(qb, idx=idx1, c=comms1)
+        idxd = place_index(dcomms, sidx)
+        dd, ids_d = sharded(qb, idx=idxd, c=dcomms)
+        sync(dev)
+        for name, (d_, i_) in (("P = 1", (d1, i1s)), ("NCCL", (dd, ids_d))):
+            check(torch.equal(d_, d8), f"{name} distances differ from P = 8")
+            bad = ids_tied_only(d8, i8, i_)
+            check(bad == 0, f"{name}: {bad} queries' ids differ beyond ties")
+        log(f"[{card}] sharded P = 8, P = 1 (resharded in "
+            f"{nums['reshard_s']:.2f} s) and NCCL at world size 1: "
+            "distances bitwise equal, ids equal up to ties")
+        del idxd
+
+        # 5. degraded: a down rank without replicas, then with
+        mask = np.ones(SHARD_P, np.int32)
+        mask[SHARD_DOWN] = 0
+        res = sharded(qb, shard_mask=mask)
+        probes, _ = coarse_probe(qb.float(), sidx.centroids, N_PROBES)
+        live = sidx.owner.long()[probes] != SHARD_DOWN
+        want_cov = live.float().sum(1) * (1.0 / N_PROBES)
+        lost = torch.as_tensor(
+            sids[SHARD_DOWN, :szs[SHARD_DOWN].sum()], device=dev)
+        leaked = torch.isin(res.ids, lost).any().item()
+        check(res.partial and torch.equal(res.coverage, want_cov)
+              and not leaked,
+              f"rank {SHARD_DOWN} down: partial {res.partial}, coverage "
+              "against probe_coverage's formula, or one of its ids leaked")
+        sidx2 = place_index(comms, sidx, replication=2)
+        health = ShardHealth(SHARD_P, telemetry=False)
+        health.mark_down(SHARD_DOWN)
+        plan = FailoverPlan.from_health(ReplicaPlacement.of_index(sidx2),
+                                        health)
+        res2 = sharded(qb, idx=sidx2, shard_mask=health, failover=plan)
+        # rank 7's part now carries shard 3's candidates: an equal-distance
+        # pair across the two shards can merge in the other order
+        swapped = int((res2.ids != i8).any(1).sum())
+        check(plan.fully_covered and bool((res2.coverage == 1.0).all())
+              and torch.equal(res2.distances, d8)
+              and ids_tied_only(d8, i8, res2.ids) == 0,
+              "failover at replication 2 is not coverage 1.0 and bitwise "
+              "the healthy search (ids up to ties)")
+        nums["failover_tie_swaps"] = swapped
+        qn = qb[:64].clone()
+        qn[5, 7] = float("nan")
+        res3 = sharded(qn, shard_mask=True)
+        check(not bool(res3.row_valid[5]) and bool(res3.row_valid[:5].all())
+              and bool(torch.isinf(res3.distances[5]).all())
+              and bool((res3.ids[5] == -1).all()),
+              "a NaN query row is not masked")
+        nums["coverage_down"] = float(res.coverage.mean())
+        log(f"[{card}] sharded degraded: rank {SHARD_DOWN} down, mean "
+            f"coverage {nums['coverage_down']:.4f} (probe_coverage's "
+            "formula), none of its ids; replication 2 with a FailoverPlan: "
+            "coverage 1.0, distances bitwise the healthy search's, ids "
+            f"equal up to ties ({swapped} queries' tied ids in the other "
+            "order); a NaN row masked")
+        del sidx2
+
+        # 6. a lost slab recovered from the archive
+        path = os.path.join(tmp.name, "sharded.npz")
+        t0 = time.perf_counter()
+        save_index(sidx, path)
+        nums["save_s"] = time.perf_counter() - t0
+        wrecked = dataclasses.replace(
+            sidx, vectors_sorted=sidx.vectors_sorted.clone(),
+            sorted_ids=sidx.sorted_ids.clone())
+        wrecked.vectors_sorted[SHARD_DOWN] = 0
+        wrecked.sorted_ids[SHARD_DOWN] = 0
+        t0 = time.perf_counter()
+        healed = recover_rank(comms, wrecked, path, SHARD_DOWN)
+        nums["recover_s"] = time.perf_counter() - t0
+        dh, ih = sharded(qb, idx=healed)
+        check(torch.equal(dh, d8) and torch.equal(ih, i8),
+              "the recovered index does not answer bitwise as the healthy")
+        log(f"[{card}] sharded recovery: archive written in "
+            f"{nums['save_s']:.2f} s, rank {SHARD_DOWN} recovered in "
+            f"{nums['recover_s']:.2f} s, answers bitwise the healthy")
+        del wrecked, healed
+
+        # 7. bucketed requests through the ServingExecutor
+        reg = MetricRegistry()
+        all_up = np.ones(SHARD_P, np.int32)
+
+        served_kept, keeping = [], True
+
+        def dispatch(batch, shard_mask=None):
+            res = mnmg_ivf_flat_search(
+                comms, sidx, batch, K, n_probes=N_PROBES,
+                qcap=qc[batch.shape[0]], shard_mask=shard_mask)
+            if keeping and len(served_kept) < SHARD_KEPT:
+                served_kept.append((batch.clone(), res.distances.clone(),
+                                    res.ids.clone()))
+            return res
+
+        sizes = np.exp(rng.uniform(0.0, np.log(513.0), SHARD_REQUESTS))
+        reqs = [x[rng.integers(0, N_ROWS, int(m))]
+                for m in np.clip(sizes, 1, 512)]
+        with ServingExecutor(dispatch, SHARD_BUCKETS, dim=DIM, device=dev,
+                             registry=reg,
+                             runtime_inputs={"shard_mask": all_up}) as ex:
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=120)
+                    for f in [ex.submit(r) for r in reqs]]
+            serve_s = time.perf_counter() - t0
+            gauge = reg.gauge("serving_coverage_min", executor=ex.name)
+            cov_up = gauge.value
+            keeping = False    # every request above is answered
+            ex.set_runtime(shard_mask=mask)
+            # 64 rows: some probe rank SHARD_DOWN's lists
+            out_down = ex.submit(qb[:64].cpu().numpy()).result(timeout=120)
+            cov_down = gauge.value
+        for r, o in zip(reqs, outs):
+            check(o.distances.shape == (r.shape[0], K)
+                  and np.isfinite(o.distances).all()
+                  and ((o.ids >= 0) & (o.ids < N_ROWS)).all()
+                  and (np.diff(o.distances, axis=1) >= 0).all(),
+                  "a served sharded answer is malformed")
+        check(cov_up == 1.0 and cov_down < 1.0
+              and float(out_down.coverage.min()) < 1.0,
+              f"serving_coverage_min {cov_up} all up, {cov_down} with rank "
+              f"{SHARD_DOWN} down")
+        # demux: each request of a kept batch got exactly its rows of the
+        # batch's answer, and a direct search of the batch gives the same
+        sync(dev)
+        by_row = {}
+        for r, o in zip(reqs, outs):
+            by_row.setdefault(r[0].tobytes(), []).append((r, o))
+        n_demuxed = 0
+        check(len(served_kept) == SHARD_KEPT,
+              f"kept {len(served_kept)} sharded executor batches")
+        for staged, d, i in served_kept:
+            direct = mnmg_ivf_flat_search(
+                comms, sidx, staged, K, n_probes=N_PROBES,
+                qcap=qc[staged.shape[0]], shard_mask=all_up)
+            check(torch.equal(direct.distances, d)
+                  and torch.equal(direct.ids, i),
+                  "a direct search of a kept batch differs from its "
+                  "sharded dispatch")
+            host = staged.cpu().numpy()
+            d, i = d.cpu().numpy(), i.cpu().numpy()
+            o = 0
+            while o < host.shape[0] and host[o].tobytes() in by_row:
+                m = None
+                for rows, out in by_row[host[o].tobytes()]:
+                    if np.array_equal(host[o:o + rows.shape[0]], rows):
+                        m = rows.shape[0]
+                        break
+                check(m is not None,
+                      "a request's rows are not contiguous in its batch")
+                check(out.distances.tobytes() == d[o:o + m].tobytes()
+                      and out.ids.tobytes() == i[o:o + m].tobytes(),
+                      "a served sharded answer differs from its rows of "
+                      "the batch's answer")
+                o += m
+                n_demuxed += 1
+            check(o > 0 and not host[o:].any(),
+                  "a kept sharded batch holds rows of no request")
+        del served_kept
+        n_req_rows = int(sum(r.shape[0] for r in reqs))
+        nums.update(serve_s=serve_s, served_rows=n_req_rows,
+                    coverage_gauge_up=cov_up, coverage_gauge_down=cov_down,
+                    demuxed_requests=n_demuxed)
+        log(f"[{card}] sharded serving: {len(reqs)} requests, {n_req_rows} "
+            f"rows through the ServingExecutor in {serve_s:.3f} s; "
+            f"serving_coverage_min {cov_up} all up, {cov_down:.4f} with "
+            f"rank {SHARD_DOWN} down; {n_demuxed} requests of the first "
+            f"{SHARD_KEPT} batches bitwise their rows of the batch's "
+            "answer and of a direct search")
+
+        nums["launches"] = fk.LAUNCHES
+        check(nums["launches"] > 0, "the sharded path never launched #2")
+
+        # 8. the IVF-SQ sibling over the same rows: #3 on each shard
+        sk.LAUNCHES = 0
+        ivf_sq.ENGINE_FALLBACKS = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        sq = mnmg_ivf_sq_build(comms, x, IVFSQParams(n_lists=N_LISTS,
+                                                     kmeans_n_iters=10))
+        sync(dev)
+        nums["sq_build_s"] = time.perf_counter() - t0
+        qcs = sq.warmup(comms, SHARD_BATCH, k=K, n_probes=N_PROBES)
+        keep = []
+        before = sk.LAUNCHES
+        with kernel_calls(sk, "sq_scan_lists", lambda a: a[1].shape, keep):
+            _, i_sq = mnmg_ivf_sq_search(comms, sq, qb, K, n_probes=N_PROBES,
+                                         qcap=qcs)
+        sync(dev)
+        sq_per_batch = sk.LAUNCHES - before
+        _, i_sq_legacy = mnmg_ivf_sq_search(comms, sq, qb, K,
+                                            n_probes=N_PROBES, qcap=qcs,
+                                            use_kernel=False)
+        saved = sk.LAUNCHES
+        sq_err = max(compare_lists_to_plain(call) for call in keep)
+        sk.LAUNCHES = saved
+        del keep
+        nums.update(sq_recall_kernel=recall(i_sq, true),
+                    sq_recall_legacy=recall(i_sq_legacy, true),
+                    sq_launches_per_batch=sq_per_batch,
+                    sq_max_abs_err=sq_err, sq_launches=sk.LAUNCHES)
+        log(f"[{card}] sharded IVF-SQ: built in {nums['sq_build_s']:.2f} s; "
+            f"{SHARD_BATCH}-query batch recall@10 kernel "
+            f"{nums['sq_recall_kernel']:.4f}, legacy "
+            f"{nums['sq_recall_legacy']:.4f}; sq_scan_lists launched "
+            f"{sq_per_batch} times a batch, within 1e-5 x (qn + yn) of the "
+            f"plain version (max {sq_err:.3g})")
+        check(nums["sq_recall_kernel"] >= nums["sq_recall_legacy"] - 0.005,
+              f"sharded SQ kernel engine below legacy: {nums}")
+        check(1 <= sq_per_batch <= SHARD_P,
+              f"{sq_per_batch} SQ-scan launches for one batch")
+        check(ivf_sq.ENGINE_FALLBACKS == 0,
+              f"{ivf_sq.ENGINE_FALLBACKS} sharded SQ searches left the "
+              "kernel")
+        del sq
+
+        # 9. host clock, 5 calls each (not gated)
+        def host_ms(fn, n=5):
+            fn()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            sync(dev)
+            return 1e3 * (time.perf_counter() - t0) / n
+
+        nums["p8_ms"] = host_ms(lambda: sharded(qb))
+        nums["p1_ms"] = host_ms(lambda: sharded(qb, idx=idx1, c=comms1))
+        nums["single_ms"] = host_ms(lambda: ivf_flat_search_grouped(
+            index, qb, K, n_probes=N_PROBES, qcap=qcaps[SHARD_BATCH]))
+        log(f"[{card}] sharded {SHARD_BATCH}-query batch, host clock over 5 "
+            f"calls: P = 8 {nums['p8_ms']:.2f} ms, P = 1 "
+            f"{nums['p1_ms']:.2f} ms, single-device index "
+            f"{nums['single_ms']:.2f} ms")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    nums["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] sharded phase: " + json.dumps(nums))
+    return nums
 
 
 # ---------------------------------------------------------------------------
@@ -4234,6 +4699,10 @@ def main(argv=None) -> int:
     flat["tier"] = tier_phase(args, card, dev, *served)
     log(f"tier phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    flat["sharded"] = sharded_phase(args, card, dev, *served)
+    flat["launches"] += flat["sharded"]["launches"]
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
                                         served[2])
     del served
@@ -4241,6 +4710,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)
+    # the sharded phase's SQ step launched #3 too
+    kernels[1]["launches"] += flat["sharded"]["sq_launches"]
     kernels.insert(0, subchunk_scan_entry(kernels[0], kernels[1]))
     log(f"IVF-SQ and IVF-PQ phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

@@ -892,6 +892,12 @@ class ServingExecutor:
         now = self._clock()
         if fl.hedged or fl.hedge_pending or now - fl.t_dispatch < delay:
             return
+        # a batch whose answer is already in is no straggler: the sweep
+        # checks hedges before readiness, and a dispatch that ran
+        # synchronously past the delay (a CPU dispatch, a slow launch)
+        # must not be hedged on its way to the demux
+        if any(c.ready() for c in fl.candidates):
+            return
         # space retries by the hedge delay: a transiently-failing
         # backup gets another shot next window, not every 0.5 ms sweep
         if (fl.t_hedge_attempt is not None

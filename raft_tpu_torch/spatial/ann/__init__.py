@@ -25,6 +25,7 @@ from raft_tpu_torch.spatial.ann.interop import (
     load_ivf_pq,
     load_ivf_sq,
     load_index,
+    mnmg_index_from_arrays,
     mutable_index_from_arrays,
     save_index,
 )
@@ -80,7 +81,8 @@ __all__ = [
     "ivf_pq_search", "ivf_pq_search_grouped", "load_ivf_pq",
     "IVFSQIndex", "IVFSQParams", "ivf_sq_build", "ivf_sq_index_from_arrays",
     "ivf_sq_search", "ivf_sq_search_grouped", "load_ivf_sq",
-    "coarse_index_from_arrays", "load_index", "save_index",
+    "coarse_index_from_arrays", "load_index", "mnmg_index_from_arrays",
+    "save_index",
     "BackgroundCompactor", "CompactionPolicy", "DeltaStore", "MutableIndex",
     "apply_delta_checkpoint", "compact", "compaction_stats", "delete",
     "delta_checkpoint_watermark", "lists_changed_since",

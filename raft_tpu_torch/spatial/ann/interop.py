@@ -15,10 +15,15 @@
   index's under ``index.``, ``delta.vecs`` / ``ids`` / ``live`` /
   ``counts`` with the ``delta.cap`` int, ``row_mask`` and ``id_to_pos``,
   and the host-side ``epoch`` the archive does not keep.
+* :func:`mnmg_index_from_arrays` takes a JAX ``MnmgIVFFlatIndex``'s
+  or ``MnmgIVFSQIndex``'s leaves (its field names, the coarse
+  quantizer's under ``coarse.``) and statics, and returns the port's
+  sharded index on the host or, with ``comms``, placed on its ranks.
 * :func:`save_index` writes the repo's npz index format (the JAX
   package's ``spatial/ann/serialize.py``) with numpy alone, for the
-  ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"`` and
-  ``"mutable_ivf"`` kinds: the
+  ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``,
+  ``"mutable_ivf"``, ``"mnmg_ivf_flat"`` and ``"mnmg_ivf_sq"`` kinds:
+  the
   ``__header__`` JSON (type, the lowest format version that holds the
   payload, the static fields, the per-array CRC32/shape/dtype manifest),
   one key per leaf under the reference's field names, bf16 arrays as
@@ -52,7 +57,7 @@ __all__ = [
     "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
     "ivf_sq_index_from_arrays", "load_graph", "load_index",
     "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
-    "mutable_index_from_arrays", "save_index",
+    "mnmg_index_from_arrays", "mutable_index_from_arrays", "save_index",
 ]
 
 # 1: no integrity manifest (loads unverified); 2: the manifest; 3-5: the
@@ -74,6 +79,25 @@ _COARSE_ARRAYS = ("coarse.super_cents", "coarse.member_ids",
 # arrays under "index."
 _MUTABLE_ARRAYS = ("delta.vecs", "delta.ids", "delta.live", "delta.counts",
                    "row_mask", "id_to_pos")
+# the arrays and statics of each sharded kind, in the JAX field order
+_MNMG_ARRAYS = {
+    "mnmg_ivf_flat": ("centroids", "owner", "local_id", "local_cents",
+                      "vectors_sorted", "sorted_ids", "list_offsets",
+                      "list_sizes"),
+    "mnmg_ivf_sq": ("centroids", "owner", "local_id", "local_cents",
+                    "codes_sorted", "vmin", "vscale", "sorted_ids",
+                    "list_offsets", "list_sizes"),
+}
+_MNMG_STATICS = {
+    "mnmg_ivf_flat": ("n_pad", "nl_pad", "max_list", "n_rows", "metric",
+                      "replication", "replica_offset"),
+    "mnmg_ivf_sq": ("n_pad", "nl_pad", "max_list", "n_rows", "replication",
+                    "replica_offset"),
+}
+_ALL_MNMG_STATICS = ("n_pad", "nl_pad", "max_list", "n_rows", "metric",
+                     "replication", "replica_offset")
+_COARSE_STATICS = ("coarse.n_cents", "coarse.n_super", "coarse.max_members",
+                   "coarse.build_args")
 # the wrapped index's nested type name -> its kind
 _WRAPPED_KIND = {"IVFFlatIndex": "ivf_flat", "IVFSQIndex": "ivf_sq",
                  "IVFPQIndex": "ivf_pq"}
@@ -278,6 +302,63 @@ def mutable_index_from_arrays(arrays: dict, kind: str, *, metric=None,
     return out
 
 
+def mnmg_index_from_arrays(arrays: dict, comms=None):
+    """Build the port's sharded index — a
+    :class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`, or a
+    :class:`~raft_tpu_torch.comms.MnmgIVFSQIndex` when the arrays hold
+    ``codes_sorted`` — from a JAX sharded index's leaves and statics,
+    keyed by its field names (``centroids``, ``owner``, ``local_id``,
+    the per-rank ``local_cents`` / ``vectors_sorted`` or
+    ``codes_sorted`` / ``sorted_ids`` / ``list_offsets`` /
+    ``list_sizes`` slabs, SQ's ``vmin`` / ``vscale``, ``n_pad``,
+    ``nl_pad``, ``max_list``, ``n_rows``, the flat kind's ``metric``,
+    and optionally ``replication``, ``replica_offset`` and a
+    ``coarse.`` quantizer). Shapes are checked against the statics.
+    Returns the host index (numpy slabs) or, with ``comms``, the index
+    placed on its ranks (:func:`~raft_tpu_torch.comms.place_index`,
+    which re-partitions an index of another rank count)."""
+    from raft_tpu_torch.comms.mnmg_ivf import place_index
+    from raft_tpu_torch.comms.mnmg_ivf_flat import (
+        MnmgIVFFlatIndex,
+        MnmgIVFSQIndex,
+    )
+
+    kind = ("mnmg_ivf_sq" if arrays.get("codes_sorted") is not None
+            else "mnmg_ivf_flat")
+    names, statics = _MNMG_ARRAYS[kind], _MNMG_STATICS[kind]
+    for key in names + statics[:4]:
+        errors.expects(key in arrays, "%s arrays: missing %r", kind, key)
+    a = {key: np.asarray(arrays[key]) for key in names}
+    st = {key: arrays.get(key, 1) for key in statics}
+    n_pad, nl_pad = int(st["n_pad"]), int(st["nl_pad"])
+    nl_g, d = a["centroids"].shape
+    P = a["sorted_ids"].shape[0]
+    slab = "codes_sorted" if kind == "mnmg_ivf_sq" else "vectors_sorted"
+    want = {
+        "owner": (nl_g,), "local_id": (nl_g,),
+        "local_cents": (P, nl_pad, d), slab: (P, n_pad + 1, d),
+        "sorted_ids": (P, n_pad), "list_offsets": (P, nl_pad + 1),
+        "list_sizes": (P, nl_pad), "vmin": (d,), "vscale": (d,),
+    }
+    for key, shape in want.items():
+        errors.expects(
+            key not in a or a[key].shape == shape,
+            "%s arrays: %s has shape %s, expected %s", kind, key,
+            a.get(key, np.empty(0)).shape, shape,
+        )
+    coarse = None
+    if arrays.get("coarse.super_cents") is not None:
+        coarse = coarse_index_from_arrays(arrays, device="cpu")
+    kw = dict(n_pad=n_pad, nl_pad=nl_pad, max_list=int(st["max_list"]),
+              n_rows=int(st["n_rows"]), replication=int(st["replication"]),
+              replica_offset=int(st["replica_offset"]), coarse=coarse)
+    if kind == "mnmg_ivf_sq":
+        host = MnmgIVFSQIndex(**a, **kw)
+    else:
+        host = MnmgIVFFlatIndex(**a, metric=str(st["metric"]), **kw)
+    return host if comms is None else place_index(comms, host)
+
+
 # ---------------------------------------------------------------- writer
 # each kind's fields in the reference's dataclass order (its key order in
 # the archive and in the header's statics), and the nested storages'
@@ -292,6 +373,8 @@ _FIELDS = {
     GraphStorage: ("adjacency", "entries"),
     MutableIndex: ("index", "delta", "row_mask", "id_to_pos"),
     DeltaStore: ("vecs", "ids", "live", "counts", "cap"),
+    CoarseIndex: ("super_cents", "member_ids", "cents_padded", "n_cents",
+                  "n_super", "max_members", "build_args"),
 }
 _KIND_OF = {IVFFlatIndex: "ivf_flat", IVFSQIndex: "ivf_sq",
             IVFPQIndex: "ivf_pq", GraphIndex: "graph",
@@ -300,9 +383,30 @@ _KIND_OF = {IVFFlatIndex: "ivf_flat", IVFSQIndex: "ivf_sq",
 _VERSION_OF = {GraphIndex: 5, MutableIndex: 4}
 
 
-def _archived(t: torch.Tensor, key: str, static: dict) -> np.ndarray:
+def _register_sharded() -> None:
+    # lazy: the comms package imports this module's package
+    from raft_tpu_torch.comms.mnmg_ivf_flat import (
+        MnmgIVFFlatIndex,
+        MnmgIVFSQIndex,
+    )
+
+    if MnmgIVFFlatIndex not in _KIND_OF:
+        for cls, kind, tail in (
+                (MnmgIVFFlatIndex, "mnmg_ivf_flat", ("coarse",)),
+                (MnmgIVFSQIndex, "mnmg_ivf_sq",
+                 ("vectors_sorted", "coarse"))):
+            _FIELDS[cls] = _MNMG_ARRAYS[kind] + _MNMG_STATICS[kind] + tail
+            _KIND_OF[cls] = kind
+
+
+def _archived(t, key: str, static: dict) -> np.ndarray:
     """A leaf as the archive holds it: a host array, bf16 as its 16-bit
-    words with the dtype tagged in the statics."""
+    words with the dtype tagged in the statics. Host arrays and lists of
+    per-rank tensors are accepted too."""
+    if isinstance(t, (list, tuple)):
+        return np.stack([_archived(b, key, static) for b in t])
+    if isinstance(t, np.ndarray):
+        return t
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         static[key + ".__dtype__"] = "bfloat16"
@@ -319,21 +423,32 @@ def _flatten(obj, prefix: str, arrays: dict, static: dict) -> None:
         elif type(v) in _FIELDS:
             static[key] = {"__nested__": type(v).__name__}
             _flatten(v, key + ".", arrays, static)
-        elif isinstance(v, torch.Tensor):
+        elif isinstance(v, (torch.Tensor, np.ndarray, list)):
             arrays[key] = _archived(v, key, static)
+        elif isinstance(v, tuple):
+            static[key] = list(v)
         else:
             static[key] = v
 
 
 def save_index(index, path) -> None:
-    """Write an IVF-Flat, IVF-SQ, IVF-PQ, graph or mutable IVF index
-    (:class:`~.mutation.MutableIndex`) to ``path`` in the reference's npz
-    format, readable by the JAX package's ``load_index``: the header
-    carries the kind, the lowest format version that holds the payload
-    (5 for a graph, 4 for a mutable index, 2 otherwise), the static
-    fields and a
-    CRC32/shape/dtype manifest of the archived bytes of every array.
-    Written straight to the file (no second copy in memory)."""
+    """Write an IVF-Flat, IVF-SQ, IVF-PQ, graph, mutable IVF
+    (:class:`~.mutation.MutableIndex`) or sharded IVF-Flat / IVF-SQ
+    (:class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`,
+    :class:`~raft_tpu_torch.comms.MnmgIVFSQIndex`, every rank's slab)
+    index to ``path`` in the reference's npz format, readable by the JAX
+    package's ``load_index``: the header carries the kind, the lowest
+    format version that holds the payload (5 for a graph, 4 for a
+    mutable index, 3 with a coarse quantizer attached, 2 otherwise), the
+    static fields and a CRC32/shape/dtype manifest of the archived bytes
+    of every array. Written straight to the file (no second copy in
+    memory)."""
+    if type(index) not in _KIND_OF:
+        _register_sharded()
+    if getattr(index, "_placed", None) is not None:
+        errors.fail("save_index: the index holds only the slabs of ranks "
+                    "%s; save the host index it was placed from",
+                    index._placed)
     errors.expects(
         type(index) in _KIND_OF,
         "save_index: unsupported index type %s (supported: %s)",
@@ -349,7 +464,9 @@ def save_index(index, path) -> None:
     }
     header = {
         "type": _KIND_OF[type(index)],
-        "version": _VERSION_OF.get(type(index), 2),
+        "version": _VERSION_OF.get(
+            type(index), 3 if getattr(index, "coarse", None) is not None
+            else 2),
         "static": static,
         "integrity": integrity,
     }
@@ -430,6 +547,9 @@ def _load_archive(path, kind=None):
                     else header.get("integrity") or {})
         if kind == "graph":
             keys = _GRAPH_ARRAYS
+        elif kind in _MNMG_ARRAYS:
+            keys = _MNMG_ARRAYS[kind] + (
+                _COARSE_ARRAYS if static.get("coarse") is not None else ())
         elif kind == "mutable_ivf":
             wrapped = _WRAPPED_KIND.get(
                 (static.get("index") or {}).get("__nested__"))
@@ -455,7 +575,8 @@ def _load_archive(path, kind=None):
             arrays[key] = torch.from_numpy(
                 arr.view(np.int16)).view(torch.bfloat16)
     for key in ("storage.n", "storage.max_list", "index.storage.n",
-                "index.storage.max_list", "delta.cap"):
+                "index.storage.max_list", "delta.cap") + (
+                    _ALL_MNMG_STATICS + _COARSE_STATICS):
         if key in static:
             arrays[key] = static[key]
     return arrays, static, kind
@@ -474,24 +595,30 @@ _FROM_ARRAYS = {
         a, st["__wrapped_kind__"], metric=st.get("index.metric"),
         pq_dim=st.get("index.pq_dim"), pq_bits=st.get("index.pq_bits"),
         device=dev),
+    # the sharded kinds are placed by a communicator, not on a device
+    "mnmg_ivf_flat": None,
+    "mnmg_ivf_sq": None,
 }
 
 
-def _load(path, kind, device):
-    dev = resolve_device(device)
+def _load(path, kind, device, comms=None):
     arrays, static, kind = _load_archive(path, kind)
-    return _FROM_ARRAYS[kind](arrays, static, dev)
+    if kind in _MNMG_ARRAYS:
+        return mnmg_index_from_arrays(arrays, comms)
+    return _FROM_ARRAYS[kind](arrays, static, resolve_device(device))
 
 
-def load_index(path, device=None):
+def load_index(path, device=None, comms=None):
     """Load an index archive of any kind the port has (``"ivf_flat"``,
     ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``, ``"mutable_ivf"`` — a
     :class:`~.mutation.MutableIndex` at epoch 0 with an empty dirty
-    set, as the JAX package loads it), written by either
-    package's ``save_index``, verifying every array against the CRC32
-    manifest (a version 1 archive has none), onto ``device`` (CUDA by
-    default)."""
-    return _load(path, None, device)
+    set, as the JAX package loads it — ``"mnmg_ivf_flat"`` and
+    ``"mnmg_ivf_sq"``), written by either package's ``save_index``,
+    verifying every array against the CRC32 manifest (a version 1
+    archive has none), onto ``device`` (CUDA by default). A sharded
+    index loads onto the host, or with ``comms`` placed on its ranks
+    (re-partitioned when it was saved at another rank count)."""
+    return _load(path, None, device, comms)
 
 
 def load_ivf_flat(path, device=None) -> IVFFlatIndex:

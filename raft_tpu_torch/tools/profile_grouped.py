@@ -1,8 +1,8 @@
 """Where the time of one IVF or graph search batch goes, on one CUDA card.
 
     python3 -m raft_tpu_torch.tools.profile_grouped
-        [--kind flat|sq|pq|graph|coarse|mutable] [--beam B] [--seed N]
-        [--out DIR]
+        [--kind flat|sq|pq|graph|coarse|mutable|sharded] [--beam B]
+        [--ranks P] [--rendezvous-pairs N] [--seed N] [--out DIR]
 
 Builds the index of ``chip_smoke.py``'s path of that kind:
 
@@ -23,7 +23,15 @@ Builds the index of ``chip_smoke.py``'s path of that kind:
   them with 0.5-std jitter (65,792 in all), the two-level coarse index
   of ``chip_smoke.py``'s coarse phase (4,096 supers asked, 26 members at
   most), 16 probes at overprobe 2; a 16,384-query batch through the flat
-  ``coarse_probe`` and both engines of ``two_level_probe``.
+  ``coarse_probe`` and both engines of ``two_level_probe``;
+* ``sharded``: the ``flat`` rows in a sharded IVF-Flat index
+  (``raft_tpu_torch.comms``) over ``--ranks`` in-process ranks on the
+  one card (default 8, ``chip_smoke.py``'s sharded phase), 1024 lists,
+  8 probes; buckets 8 and 4096 at their warmed qcap. With
+  ``--rendezvous-pairs N`` it also times, per bucket, N pairs of 5
+  searches alternating the in-process ranks' two rendezvous: taking
+  turns (``Comms.run``'s) and all at once (every rank thread runs, a
+  rank at a collective sleeps until its peers have posted).
 
 For each bucket it times 5 searches (k=10) on the host clock, each
 ending in a synchronise, and traces the same searches with
@@ -134,7 +142,7 @@ def _clustered(rng, n, n_centers, spread):
             + rng.standard_normal((n, DIM), dtype=np.float32))
 
 
-def build(kind: str, rng, beam: int = 32):
+def build(kind: str, rng, beam: int = 32, ranks: int = 8):
     """(rows, index, search(q, arg), [(bucket, arg)]) of the path of
     ``kind``: the arg is the qcap of an IVF search, the warmed iteration
     count of a graph search and the engine of a coarse probe (the index
@@ -143,6 +151,8 @@ def build(kind: str, rng, beam: int = 32):
         return _build_coarse(rng)
     if kind == "mutable":
         return _build_mutable(rng)
+    if kind == "sharded":
+        return _build_sharded(rng, ranks)
     if kind == "graph":
         x = _clustered(rng, 500_000, 1000, 10.0)
         index = graph_build(x, GraphParams(degree=16, intermediate_degree=32,
@@ -206,6 +216,116 @@ def _build_mutable(rng):
     return x, index, search, plan
 
 
+def _build_sharded(rng, ranks: int):
+    from raft_tpu_torch.comms import (
+        build_comms,
+        mnmg_ivf_flat_build,
+        mnmg_ivf_flat_search,
+    )
+
+    x = _clustered(rng, 1_000_000, 2000, None)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    comms = build_comms([dev] * ranks)
+    index = mnmg_ivf_flat_build(comms, x, IVFFlatParams(
+        n_lists=1024, kmeans_n_iters=10, kmeans_init="random"))
+
+    def search(q, qcap):
+        return mnmg_ivf_flat_search(comms, index, q, K, n_probes=8,
+                                    qcap=qcap)
+    plan = [(nq, index.warmup(comms, nq, k=K, n_probes=8))
+            for nq in (8, 4096)]
+    return x, index, search, plan
+
+
+def _at_once_rendezvous():
+    """(turns, group) classes for ``Comms.run``'s plain alternative to
+    taking turns: every rank thread runs at once; a rank whose peers
+    have not all posted sleeps on its event, and the last poster wakes
+    every waiter of that collective."""
+    from raft_tpu_torch.comms import comms as cm
+
+    class AtOnce(cm._Turns):
+        def pass_turn(self, r):
+            self.progress = time.monotonic()
+            for k in range(self.size):
+                rec = self.waits[k]
+                if rec is not None and rec.complete:
+                    self.wake[k].set()
+
+        def await_turn(self, r):
+            deadline = time.monotonic() + self.timeout_s
+            while not self.broken and not self._runnable(r):
+                self.lock.release()
+                try:
+                    woke = self.wake[r].wait(
+                        max(0.0, deadline - time.monotonic()))
+                finally:
+                    self.lock.acquire()
+                self.wake[r].clear()
+                if not woke and not self.broken:
+                    self.timed_out = True
+                    self._break()
+            if self.broken:
+                raise cm._Aborted()
+            self.waits[r] = None
+
+    class AtOnceGroup(cm._ThreadGroup):
+        def exchange(self, i, value):
+            if self.size == 1:
+                return [value]
+            t, r = self.turns, self.members[i]
+            with t.lock:
+                if t.broken:
+                    raise cm._Aborted()
+                gen = self.gen[i]
+                self.gen[i] += 1
+                rec = self.records.get(gen)
+                if rec is None:
+                    rec = self.records[gen] = cm._Record(self.size)
+                rec.slots[i] = value
+                rec.posted += 1
+                if rec.complete:
+                    t.pass_turn(r)
+                else:
+                    t.waits[r] = rec
+                    t.await_turn(r)
+                got = list(rec.slots)
+                rec.read += 1
+                if rec.read == self.size:
+                    del self.records[gen]
+                return got
+
+    return AtOnce, AtOnceGroup
+
+
+def compare_rendezvous(search, q, arg, pairs: int):
+    """Host ms per search (``ITERS`` searches, each ending in a
+    synchronise) for ``pairs`` alternating pairs: taking turns, then all
+    at once. Returns ([turns ms], [at-once ms])."""
+    from unittest import mock
+
+    from raft_tpu_torch.comms import comms as cm
+
+    at_once, at_once_group = _at_once_rendezvous()
+
+    def timed():
+        search(q, arg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            search(q, arg)
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / ITERS
+
+    turns, plain = [], []
+    for _ in range(pairs):
+        turns.append(timed())
+        with mock.patch.object(cm, "_Turns", at_once), \
+                mock.patch.object(cm, "_ThreadGroup", at_once_group):
+            plain.append(timed())
+    return turns, plain
+
+
 def _build_coarse(rng):
     from raft_tpu_torch.spatial.ann import common as cm
 
@@ -235,9 +355,11 @@ def _build_coarse(rng):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kind", choices=("flat", "sq", "pq", "graph",
-                                       "coarse", "mutable"),
+                                       "coarse", "mutable", "sharded"),
                     default="flat")
     ap.add_argument("--beam", type=int, default=32)
+    ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--rendezvous-pairs", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -246,14 +368,15 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
 
     rng = np.random.default_rng(args.seed)
-    x, index, search, plan = build(args.kind, rng, args.beam)
+    x, index, search, plan = build(args.kind, rng, args.beam, args.ranks)
+    dev = getattr(index, "device", None) or torch.device("cuda")
     arg_name = {"graph": "iters", "coarse": "engine"}.get(args.kind,
                                                           "qcap")
     for nq, qcap in plan:
         q = torch.as_tensor(
             x[rng.integers(0, x.shape[0], nq)]
             + 0.3 * rng.standard_normal((nq, DIM), dtype=np.float32),
-            device=index.device)
+            device=dev)
         wall, busy, top = trace_calls(
             lambda: search(q, qcap), ITERS,
             None if args.out is None
@@ -263,6 +386,19 @@ def main(argv=None) -> int:
               f"{1 - busy / wall:.1%}", flush=True)
         for name, ms, n in top:
             print(f"    {ms:9.4f} ms {n:7.1f}x  {name[:100]}", flush=True)
+        if args.kind == "sharded" and args.rendezvous_pairs > 0:
+            turns, plain = compare_rendezvous(search, q, qcap,
+                                              args.rendezvous_pairs)
+            print(f"[{card}] sharded bucket {nq}, host ms per search over "
+                  f"{ITERS}, pairs (taking turns / all at once): "
+                  + ", ".join(f"{a:.3f} / {b:.3f}"
+                              for a, b in zip(turns, plain))
+                  + f"; medians {np.median(turns):.3f} / "
+                  f"{np.median(plain):.3f}, quartile spreads "
+                  f"{np.subtract(*np.percentile(turns, [75, 25])):.3f} / "
+                  f"{np.subtract(*np.percentile(plain, [75, 25])):.3f}, "
+                  f"turns faster in {sum(a < b for a, b in zip(turns, plain))}"
+                  f" of {len(turns)} pairs", flush=True)
     return 0
 
 

@@ -427,6 +427,28 @@ class TestExecutorHedge:
         assert not any(t.name.startswith("serving-hedge")
                        for t in threading.enumerate())
 
+    def test_slow_ready_dispatch_is_not_hedged(self, tiny_serving):
+        """A dispatch that runs synchronously past the hedge delay but
+        returns a ready answer (a CPU dispatch under load) is demuxed,
+        never hedged: the drain sweep checks hedges before readiness,
+        and a ready batch is no straggler."""
+        idx, dispatch, q, refs, shapes = tiny_serving
+
+        def slow(batch, **rt):
+            time.sleep(0.06)                  # 6x the hedge delay
+            return dispatch(batch)
+
+        pol = HedgePolicy(default_delay_s=0.01, min_samples=10 ** 6)
+        ex = _executor(slow, flush_age_s=0.0, hedge=pol,
+                       backup_dispatch=dispatch)
+        for a, b in ((0, 2), (4, 6), (7, 8)):
+            _check_request(list(range(a, b)),
+                           ex.submit(q[a:b]).result(timeout=60), refs)
+        st = ex.stats()
+        ex.close()
+        assert st.hedged_batches == 0 and st.backup_wins == 0
+        assert pol.hedges == 0 and pol.unhedged == 3
+
     def test_backup_requires_hedge_policy(self, tiny_serving):
         idx, dispatch, q, refs, shapes = tiny_serving
         with pytest.raises(ValueError, match="hedge="):

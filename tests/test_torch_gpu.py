@@ -1057,3 +1057,63 @@ def test_tier_dispatch_races_flips_into_its_slots():
             assert d.tobytes() == want[0].tobytes(), it
             assert i.tobytes() == want[1].tobytes(), it
     assert len(seen) == 50 and len({label[v] for v in seen}) == 2
+
+
+@pytest.mark.gpu
+def test_sharded_search_p8_equals_p1_on_card():
+    """Sharded IVF-Flat on one card: P = 8 in-process ranks against the
+    same index placed at P = 1, bitwise on integer-exact rows (each list
+    is scored by one rank with the same kernel), the flat-scan kernel
+    launched once a rank for a batch, on the caller's stream, with no
+    engine fallback; a rank that raises reaches the caller."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernel is built for sm_90a")
+    from raft_tpu_torch.comms import (
+        build_comms, mnmg_ivf_flat_build, mnmg_ivf_flat_search,
+        place_index,
+    )
+    from raft_tpu_torch.spatial.ann import IVFFlatParams, ivf_flat
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(12)
+    centers = rng.integers(-60, 60, (16, 32))
+    x = (centers[rng.integers(0, 16, 20_000)]
+         + rng.integers(-6, 7, (20_000, 32))).astype(np.float32)
+    q = torch.as_tensor(x[rng.integers(0, 20_000, 512)]
+                        + rng.integers(-2, 3, (512, 32)).astype(np.float32),
+                        device=dev)
+    c8, c1 = build_comms([dev] * 8), build_comms([dev])
+    idx8 = mnmg_ivf_flat_build(c8, x, IVFFlatParams(
+        n_lists=64, kmeans_n_iters=4, kmeans_init="random"),
+        metric="sqeuclidean")
+    idx1 = place_index(c1, idx8)
+    ivf_flat.ENGINE_FALLBACKS = 0
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        before = tfk.LAUNCHES
+        d8, i8 = mnmg_ivf_flat_search(c8, idx8, q, 10, n_probes=8,
+                                      qcap=512)
+        launches = tfk.LAUNCHES - before
+        d1, i1 = mnmg_ivf_flat_search(c1, idx1, q, 10, n_probes=8,
+                                      qcap=512)
+    torch.cuda.synchronize()
+    assert launches == 8
+    assert ivf_flat.ENGINE_FALLBACKS == 0
+    assert torch.equal(d8, d1)
+    # ids equal up to ties: equal-distance runs hold the same id set, but
+    # the run the k-boundary cuts
+    d, a, b = (t.cpu().numpy() for t in (d8, i8, i1))
+    for r in range(d.shape[0]):
+        runs = np.split(np.arange(10), np.flatnonzero(np.diff(d[r])) + 1)
+        for run in runs[:-1]:
+            assert set(a[r, run]) == set(b[r, run]), r
+
+    def body(ax, x_):
+        if ax.get_rank() == 6:
+            raise RuntimeError("rank 6 failed")
+        return ax.allreduce(x_)
+
+    with pytest.raises(RuntimeError, match="rank 6"):
+        c8.run(body, sharded=(torch.ones(8, 4, device=dev),))

@@ -306,8 +306,8 @@ def test_future_version_and_unported_kinds_raise(archives, tmp_path):
                           ({"type": "mutable_ivf", "version": 4},
                            "mutable_ivf"),
                           ({"type": "sparse_colblock"}, "sparse_colblock"),
-                          ({"type": "mnmg_ivf_flat", "version": 3},
-                           "mnmg_ivf_flat")):
+                          ({"type": "mnmg_ivf_pq", "version": 3},
+                           "mnmg_ivf_pq")):
         header = dict(_header(tpath), **change)
         p = tmp_path / "x.npz"
         with open(p, "wb") as f:
