@@ -72,6 +72,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -1200,6 +1201,10 @@ MUT_DEAD_FRAC = 0.10      # main rows tombstoned (below the policy's 0.25)
 MUT_DELETE_BATCH = 8192   # ids a delete batch carries
 DURABLE_BATCHES, DURABLE_BATCH = 24, 128
 KILL_POINTS = (1, 5, 17)
+# the mutation phase's write script and 4,096 batch (fresh rows, dead ids,
+# queries, the survivors' oracle, recall), repeated by the sharded
+# mutation step on the sharded index
+MUTATION_SCRIPT = {}
 
 
 @contextlib.contextmanager
@@ -1363,6 +1368,10 @@ def mutation_phase(args, card, dev, index, qcaps, x):
         nums.update({f"batch4096_{n}_ms": t for n, (_, t) in res.items()})
         check(res["kernel"][0] >= res["legacy"][0] - 0.005,
               f"kernel recall below legacy on the survivors: {res}")
+        MUTATION_SCRIPT.update(
+            fresh=fresh, fresh_ids=fresh_ids, dead=dead,
+            dead_fresh=dead_fresh, qb=qb, true=true,
+            recall={n: r for n, (r, _) in res.items()})
         nums["batch4096_frozen_ms"], _ = timed(
             lambda: ivf_flat_search_grouped(index, qb, K, n_probes=N_PROBES,
                                             qcap=qcaps[max(BUCKETS)]), n=3)
@@ -1671,19 +1680,28 @@ TIER_WATCHDOG_S = 300      # the phase's stall limit
 
 
 @contextlib.contextmanager
-def no_host_sync(what):
-    """Fail if torch's sync debug mode reports a host sync inside."""
+def host_syncs():
+    """Count the host syncs torch's sync debug mode reports inside, by
+    source line (every thread's: the rank threads' too)."""
+    syncs = collections.Counter()
     prev = torch.cuda.get_sync_debug_mode()
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield
+            yield syncs
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    syncs = collections.Counter(
-        f"{w.filename}:{w.lineno}" for w in warned
-        if "called a synchronizing" in str(w.message))
+    syncs.update(f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in warned
+                 if "called a synchronizing" in str(w.message))
+
+
+@contextlib.contextmanager
+def no_host_sync(what):
+    """Fail if torch's sync debug mode reports a host sync inside."""
+    with host_syncs() as syncs:
+        yield
     for where, n in syncs.items():
         log(f"host sync inside {what} ({n}x): {where}")
     check(not syncs, f"{len(syncs)} host syncs inside {what}")
@@ -2411,7 +2429,6 @@ def sharded_phase(args, card, dev, index, qcaps, x):
             "coverage 1.0, distances bitwise the healthy search's, ids "
             f"equal up to ties ({swapped} queries' tied ids in the other "
             "order); a NaN row masked")
-        del sidx2
 
         # 6. a lost slab recovered from the archive
         path = os.path.join(tmp.name, "sharded.npz")
@@ -2527,6 +2544,11 @@ def sharded_phase(args, card, dev, index, qcaps, x):
         nums["launches"] = fk.LAUNCHES
         check(nums["launches"] > 0, "the sharded path never launched #2")
 
+        # 7b. the sharded mutation tier on the replicated index
+        nums["mutation"] = sharded_mutation_step(
+            args, card, dev, comms, sidx2, qc[SHARD_BATCH], tmp.name)
+        del sidx2
+
         # 8. the IVF-SQ sibling over the same rows: #3 on each shard
         sk.LAUNCHES = 0
         ivf_sq.ENGINE_FALLBACKS = 0
@@ -2568,6 +2590,14 @@ def sharded_phase(args, card, dev, index, qcaps, x):
         check(ivf_sq.ENGINE_FALLBACKS == 0,
               f"{ivf_sq.ENGINE_FALLBACKS} sharded SQ searches left the "
               "kernel")
+        before = sk.LAUNCHES
+        nums["sq_mutation"] = mutable_round(
+            comms, sq, x, qb, qcs, rng, "IVF-SQ", card, dev,
+            (sk, "sq_scan_lists", compare_lists_to_plain))
+        nums["sq_mutation"]["launches"] = sk.LAUNCHES - before
+        nums["sq_launches"] = sk.LAUNCHES
+        check(ivf_sq.ENGINE_FALLBACKS == 0 and sk.LAUNCHES > before,
+              "the sharded SQ mutation round left the kernel")
         del sq
 
         # 9. host clock, 5 calls each (not gated)
@@ -2593,6 +2623,443 @@ def sharded_phase(args, card, dev, index, qcaps, x):
         tmp.cleanup()
     nums["phase_s"] = time.perf_counter() - t_phase
     log(f"[{card}] sharded phase: " + json.dumps(nums))
+    return nums
+
+
+def mutable_round(comms, index, x, qb, qcap, rng, what, card, dev, hold,
+                  n_probes=N_PROBES, **kw):
+    """One upsert / delete round on a sharded index, both engines: 64
+    dyadic rows upserted (each its own top-1 at distance 0), 1,024 main
+    ids and a quarter of the fresh ones deleted (none surfaces in the
+    4,096 batch). ``hold = (module, wrapper name, compare)``: the kernel
+    engine's calls of that wrapper are kept and each held against its
+    plain version by ``compare(call)`` (-> max |kernel - plain|), its
+    launches not counted. Returns its numbers."""
+    from raft_tpu_torch.comms import (
+        mnmg_delete, mnmg_mutable_search, mnmg_upsert, wrap_mnmg_mutable,
+    )
+
+    n_main = int(index.n_rows)
+    fresh = dyadic_rows(x, rng, 64)
+    ids = np.arange(n_main + 10_000, n_main + 10_064, dtype=np.int32)
+    dead = np.concatenate([
+        rng.choice(n_main, 1024, replace=False).astype(np.int32), ids[::4]])
+    sync(dev)
+    t0 = time.perf_counter()
+    mw = wrap_mnmg_mutable(comms, index, delta_cap=16)
+    mw, acc = mnmg_upsert(comms, mw, fresh, ids)
+    mw, found = mnmg_delete(comms, mw, dead)
+    sync(dev)
+    nums = {"writes_s": time.perf_counter() - t0}
+    check(acc.all() and found.all(),
+          f"{what} mutation round: {acc.sum()} of 64 acked, {found.sum()} "
+          f"of {dead.size} deletes found")
+    fresh_t = torch.as_tensor(fresh, device=dev)
+    live = torch.as_tensor(~np.isin(ids, dead), device=dev)
+    want = torch.as_tensor(ids, device=dev)[live]
+    mod, wrapper, compare = hold
+    keep = []
+    for name, engine in (("kernel", None), ("legacy", False)):
+        calls = (kernel_calls(mod, wrapper, lambda a: None, keep)
+                 if engine is None else contextlib.nullcontext())
+        with calls:
+            d, i = mnmg_mutable_search(comms, mw, fresh_t, K,
+                                       n_probes=n_probes, qcap=64,
+                                       use_kernel=engine, **kw)
+            check(torch.equal(i[live, 0], want)
+                  and bool((d[live, 0] == 0).all()),
+                  f"{what} {name}: an upserted row is not its own top-1 at 0")
+            sync(dev)
+            t0 = time.perf_counter()
+            _, i = mnmg_mutable_search(comms, mw, qb, K, n_probes=n_probes,
+                                       qcap=qcap, use_kernel=engine, **kw)
+            sync(dev)
+        nums[f"batch4096_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(not np.isin(i.cpu().numpy(), dead).any(),
+              f"{what} {name}: a deleted id surfaced")
+    # these launches are not the path's
+    check(len(keep) > 0, f"{what} mutation round: no {wrapper} call")
+    saved = mod.LAUNCHES
+    nums["max_abs_err"] = max(compare(call) for call in keep)
+    mod.LAUNCHES = saved
+    nums["calls_held"] = len(keep)
+    log(f"[{card}] sharded {what} mutation round: 64 upserts each its own "
+        f"top-1 at 0, {dead.size} deletes masked, both engines; the kernel "
+        f"engine's {len(keep)} {wrapper} calls held against the plain "
+        "version; " + json.dumps(nums))
+    return nums
+
+
+def routing_witness(index, rows, split, card):
+    """Each row's nearest list as ``mnmg_upsert`` routes it
+    (``fused_l2_nn``) with the rows in one batch and in two batches split
+    at ``split``. Logs every row routed differently with both lists' f32
+    distances as ``fused_l2_nn`` forms them (its GEMM block) at each
+    batch size, and in f64. Returns those rows' records."""
+    fl = importlib.import_module("raft_tpu_torch.distance.fused_l2_nn")
+    cents = torch.as_tensor(index.centroids).float()
+    x = torch.as_tensor(rows, device=cents.device).float()
+    yn = (cents * cents).sum(1)
+    bn = fl._choose_block(cents.shape[0])
+    whole = fl.fused_l2_nn(x, cents)[1]
+    parts = torch.cat([fl.fused_l2_nn(x[:split], cents)[1],
+                       fl.fused_l2_nn(x[split:], cents)[1]])
+
+    def d2(xb, r, lst):
+        g = xb @ cents[lst // bn * bn:lst // bn * bn + bn].T
+        return float((xb[r] * xb[r]).sum() + yn[lst]
+                     - 2.0 * g[r, lst % bn])
+
+    out = []
+    for r in torch.nonzero(whole != parts).flatten().tolist():
+        a, b = int(whole[r]), int(parts[r])
+        xb, rb = (x[:split], r) if r < split else (x[split:], r - split)
+        rec = {"row": r, "list_whole": a, "list_split": b,
+               "f32_whole": [d2(x, r, a), d2(x, r, b)],
+               "f32_split": [d2(xb, rb, a), d2(xb, rb, b)],
+               "f64": [float(((x[r].double() - cents[c].double()) ** 2)
+                             .sum()) for c in (a, b)]}
+        out.append(rec)
+        log(f"[{card}] upsert routing witness: " + json.dumps(rec))
+    log(f"[{card}] upsert routing: {len(out)} of {x.shape[0]} rows go to "
+        f"another list in batches of {split} than in one batch of "
+        f"{x.shape[0]}")
+    return out
+
+
+def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
+    """The sharded mutation tier over the replicated (R = 2) P = 8
+    IVF-Flat index: the mutation phase's 256 upserts and 10% deletes,
+    once on a healthy twin and once with rank SHARD_DOWN failed
+    mid-ingest; the 4,096 batch on the twin on both engines (recall on
+    the survivors within 0.005 of the single-device phase's, every live
+    upsert its own top-1 at 0, no deleted id); every acked write served
+    through the failover route, bitwise the twin; the lost rank
+    recovered (``recover_rank`` from an archive, ``resync_rank`` from its
+    replica) to the twin's state bitwise; then ``MnmgDurableIngest`` over
+    8 per-rank WALs (24 batches of 128) and ``mnmg_recover`` onto a
+    fresh wrap, state bitwise. #2's launches are counted over the step
+    alone. Returns its numbers."""
+    from raft_tpu_torch.comms import (
+        MnmgDurableIngest, MnmgMutableIndex, MnmgMutationState, mnmg_delete,
+        mnmg_mutable_search, mnmg_recover, mnmg_upsert, recover_rank,
+        resync_rank, wrap_mnmg_mutable,
+    )
+    from raft_tpu_torch.resilience import (
+        FailoverPlan, ReplicaPlacement, ShardHealth,
+    )
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import ivf_flat, save_index
+
+    S = MUTATION_SCRIPT
+    check(S, "the sharded mutation step needs the mutation phase's script")
+    fresh, fresh_ids, dead = S["fresh"], S["fresh_ids"], S["dead"]
+    qb, true = S["qb"], S["true"]
+    rng = np.random.default_rng(args.seed + 41)
+    nums = {"card": card}
+    half = MUT_INGEST // 2
+    state_keys = ("row_mask", "delta_vecs", "delta_ids", "delta_counts")
+
+    def same_state(a, b):
+        return all(torch.equal(getattr(a.state, f), getattr(b.state, f))
+                   for f in state_keys)
+
+    def search(m, q, **kw):
+        kw.setdefault("qcap", qcap if q.shape[0] == SHARD_BATCH
+                      else q.shape[0])
+        return mnmg_mutable_search(comms, m, q, K, n_probes=N_PROBES, **kw)
+
+    fk.LAUNCHES = 0
+    ivf_flat.ENGINE_FALLBACKS = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    mw0 = wrap_mnmg_mutable(comms, rep, delta_cap=MUT_CAP)
+    # the healthy twin: every write on every holder, in the same batches
+    # as the live path (upserts route by kmeans_predict, whose GEMM may
+    # round a near tie differently at another batch size)
+    ref, acc = mnmg_upsert(comms, mw0, fresh[:half], fresh_ids[:half])
+    ref, acc2 = mnmg_upsert(comms, ref, fresh[half:], fresh_ids[half:])
+    ref, found = mnmg_delete(comms, ref, dead)
+    check(acc.all() and acc2.all() and found.all(),
+          "the healthy twin's writes")
+    sync(dev)
+    nums["twin_writes_s"] = time.perf_counter() - t0
+    nums["routing_witness"] = routing_witness(rep, fresh, half, card)
+    # rank SHARD_DOWN fails after half the upserts
+    health = ShardHealth(SHARD_P, telemetry=False)
+    t0 = time.perf_counter()
+    live, acc1 = mnmg_upsert(comms, mw0, fresh[:half], fresh_ids[:half])
+    health.mark_down(SHARD_DOWN)
+    live, acc2 = mnmg_upsert(comms, live, fresh[half:], fresh_ids[half:],
+                             alive=health.mask())
+    live, found2 = mnmg_delete(comms, live, dead)
+    sync(dev)
+    nums["degraded_writes_s"] = time.perf_counter() - t0
+    check(acc1.all() and acc2.all() and found2.all(),
+          "writes with a rank down were not all acked")
+
+    # the 4,096 batch on the twin: recall on the survivors, no dead id,
+    # every live upsert its own top-1 at 0
+    fresh_t = torch.as_tensor(fresh, device=dev)
+    live_f = torch.as_tensor(~np.isin(fresh_ids, dead), device=dev)
+    want_f = torch.as_tensor(fresh_ids, device=dev)[live_f]
+    keep = []
+    for name, engine in (("kernel", None), ("legacy", False)):
+        before = fk.LAUNCHES
+        sync(dev)
+        t0 = time.perf_counter()
+        with scan_calls(keep if engine is None else None):
+            _, i = search(ref, qb, use_kernel=engine)
+        sync(dev)
+        nums[f"batch4096_{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        nums[f"launches_batch_{name}"] = fk.LAUNCHES - before
+        nums[f"recall_{name}"] = recall(i, true)
+        check(not np.isin(i.cpu().numpy(), dead).any(),
+              f"sharded mutable {name}: a deleted id surfaced")
+        d, i = search(ref, fresh_t, use_kernel=engine)
+        check(torch.equal(i[live_f, 0], want_f)
+              and bool((d[live_f, 0] == 0).all()),
+              f"sharded mutable {name}: an upsert is not its own top-1 at 0")
+        check(nums[f"recall_{name}"] >= S["recall"][name] - 0.005,
+              f"sharded mutable recall {nums[f'recall_{name}']} ({name}) "
+              f"below the single device's {S['recall'][name]} - 0.005")
+    log(f"[{card}] sharded mutation: {MUT_INGEST} upserts, {dead.size} "
+        f"deletes; {SHARD_BATCH}-query batch recall@10 on the survivors "
+        f"kernel {nums['recall_kernel']:.5f}, legacy "
+        f"{nums['recall_legacy']:.5f} (single device "
+        f"{S['recall']['kernel']:.5f} / {S['recall']['legacy']:.5f}); "
+        f"{nums['batch4096_kernel_ms']:.2f} / "
+        f"{nums['batch4096_legacy_ms']:.2f} ms; flat_scan_lists "
+        f"{nums['launches_batch_kernel']} launches a kernel batch")
+
+    # every acked write served through the failover route: bitwise the
+    # healthy twin (ids up to ties: a tied pair across two shards can
+    # merge in the other order)
+    plan = FailoverPlan.from_health(ReplicaPlacement.of_index(rep), health)
+    qcat = torch.cat([qb[:512], fresh_t])
+    for name, engine in (("kernel", None), ("legacy", False)):
+        want = search(ref, qcat, shard_mask=True, use_kernel=engine)
+        with scan_calls(keep if engine is None else None):
+            got = search(live, qcat, shard_mask=health, failover=plan,
+                         use_kernel=engine)
+        check(plan.fully_covered and bool((got.coverage == 1.0).all())
+              and torch.equal(got.distances, want.distances)
+              and ids_tied_only(want.distances, want.ids, got.ids) == 0
+              and torch.equal(got.ids[512:][live_f, 0], want_f),
+              f"failover after a rank failed mid-ingest ({name}): not "
+              "coverage 1.0 and bitwise the healthy twin")
+    # #2 against its plain version at the replicated slabs' shapes (the
+    # twin's kernel batch and the failover search); these launches are
+    # not the path's
+    saved = fk.LAUNCHES
+    nums["max_abs_err"] = max(compare_lists_to_plain(c) for c in keep)
+    fk.LAUNCHES = saved
+    log(f"[{card}] sharded mutation's {len(keep)} kept flat_scan_lists "
+        f"calls (lists x Q x Lpad "
+        f"{sorted({(*c[1].shape, c[5]) for c in keep})}) within 1e-5 x "
+        f"(qn + yn) of the plain version, max |kernel - plain| "
+        f"{nums['max_abs_err']:.3g}")
+    del keep
+
+    # the lost rank recovered: main slabs from the archive, mutation slabs
+    # from its replica -> the twin's state, bitwise
+    path = os.path.join(tmpdir, "replicated.npz")
+    t0 = time.perf_counter()
+    save_index(rep, path)
+    nums["save_s"] = time.perf_counter() - t0
+    vs, si = rep.vectors_sorted.clone(), rep.sorted_ids.clone()
+    vs[SHARD_DOWN] = 0
+    si[SHARD_DOWN] = 0
+    st = live.state
+    rm, dv, di, dc = (getattr(st, f).clone() for f in state_keys)
+    rm[SHARD_DOWN], dv[SHARD_DOWN], di[SHARD_DOWN], dc[SHARD_DOWN] = \
+        1, 0, -1, 0
+    lost = MnmgMutableIndex(
+        index=dataclasses.replace(rep, vectors_sorted=vs, sorted_ids=si),
+        state=MnmgMutationState(rm, dv, di, dc, st.cap))
+    sync(dev)
+    t0 = time.perf_counter()
+    healed = MnmgMutableIndex(
+        index=recover_rank(comms, lost.index, path, SHARD_DOWN),
+        state=lost.state)
+    healed = resync_rank(comms, healed, SHARD_DOWN)
+    sync(dev)
+    nums["recover_resync_s"] = time.perf_counter() - t0
+    os.remove(path)
+    check(same_state(healed, ref),
+          "recover_rank + resync_rank did not give the twin's state")
+    dh, ih = search(healed, qb)
+    dr, ir = search(ref, qb)
+    check(torch.equal(dh, dr) and torch.equal(ih, ir),
+          "the healed mesh does not answer bitwise as the twin")
+    log(f"[{card}] sharded mutation: rank {SHARD_DOWN} failed after "
+        f"{half} upserts, every acked write served through failover at "
+        "coverage 1.0, distances bitwise the healthy twin, on both engines; "
+        f"archive {nums['save_s']:.2f} s, recover_rank + resync_rank "
+        f"{nums['recover_resync_s']:.2f} s, state and answers bitwise the "
+        "twin's")
+    del lost, healed, live
+
+    # quorum-durable ingest over 8 per-rank WALs, and fleet recovery
+    root = os.path.join(tmpdir, "mnmg-wal")
+    rows = dyadic_rows(S["qb"].cpu().numpy(), rng, 24 * 128)
+    ids = np.arange(3_000_000, 3_000_000 + rows.shape[0], dtype=np.int32)
+    ing = MnmgDurableIngest(comms, wrap_mnmg_mutable(comms, rep,
+                                                     delta_cap=MUT_CAP),
+                            root)
+    sync(dev)
+    t0 = time.perf_counter()
+    acked = [ing.upsert(rows[b:b + 128], ids[b:b + 128])
+             for b in range(0, rows.shape[0], 128)]
+    dt = time.perf_counter() - t0
+    durable = ing.mindex
+    frontiers = ing.frontiers()
+    ing.close()
+    nums["durable_rows_s"] = rows.shape[0] / dt
+    check(all(a.all() for a in acked) and max(frontiers.values()) == 24,
+          f"durable ingest: acks {[int(a.sum()) for a in acked]}, "
+          f"frontiers {frontiers}")
+    t0 = time.perf_counter()
+    rec, rec_frontiers, n_replayed = mnmg_recover(
+        comms, wrap_mnmg_mutable(comms, rep, delta_cap=MUT_CAP), root)
+    sync(dev)
+    nums["mnmg_recover_s"] = time.perf_counter() - t0
+    check(n_replayed == 24 and rec_frontiers == frontiers
+          and same_state(rec, durable),
+          f"mnmg_recover replayed {n_replayed}, frontiers {rec_frontiers}")
+    log(f"[{card}] sharded durable ingest: 24 batches of 128 over 8 "
+        f"per-rank WALs at {nums['durable_rows_s']:.0f} rows/s, every row "
+        f"acked; mnmg_recover replayed 24 in {nums['mnmg_recover_s']:.2f} s "
+        "onto a fresh wrap, state bitwise")
+    nums["launches"] = fk.LAUNCHES
+    nums["engine_fallbacks"] = ivf_flat.ENGINE_FALLBACKS
+    check(fk.LAUNCHES > 0 and ivf_flat.ENGINE_FALLBACKS == 0,
+          f"sharded mutation: {fk.LAUNCHES} flat-scan launches, "
+          f"{ivf_flat.ENGINE_FALLBACKS} fallbacks")
+    return nums
+
+
+HEAL_WATCHDOG_S = 300      # the self-heal phase's stall limit
+
+
+def self_heal_phase(args, card, dev, x):
+    """The self-healing supervisor at P = 8 on the card, replication 2,
+    under a stall watchdog: bench/bench_serving.py's ``self_heal_row``
+    recipe (``raft_tpu_torch.testing.heal_rows``: 65,536 of the main
+    path's rows, 32 lists, requests of 8 rows from 32 Zipf(1.1)
+    templates through a ``ServingExecutor``, rank 4 killed at 0.6 s and
+    its slabs wrecked, healed at 2.0 s, recover_rank from an archive and
+    resync_rank run by the supervisor), then a short schedule that also
+    flaps rank 1's probe. #2's launches are counted over the phase, and
+    every one of its calls is held against the plain version afterwards
+    (at the shapes the rows gave it: bucket 8, the replicated slabs)."""
+    import faulthandler
+
+    from raft_tpu_torch.comms import build_comms
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.testing.heal_rows import self_heal_row
+
+    faulthandler.dump_traceback_later(HEAL_WATCHDOG_S, exit=True)
+    try:
+        rng = np.random.default_rng(args.seed + 50)
+        cuda0 = (torch.device("cuda", torch.cuda.current_device())
+                 if dev.type == "cuda" else dev)
+        comms = build_comms([cuda0] * SHARD_P)
+        q = (x[rng.integers(0, min(65_536, x.shape[0]), 512)]
+             + 0.3 * rng.standard_normal((512, DIM), dtype=np.float32))
+        fk.LAUNCHES = 0
+        keep = []
+        t0 = time.perf_counter()
+        with scan_calls(keep):
+            row = self_heal_row(comms, x, q, k=K, n_probes=16,
+                                seed=args.seed + 43)
+        row["row_s"] = time.perf_counter() - t0
+        n_row_calls = len(keep)
+        log(f"[{card}] self-heal row (P = {SHARD_P}, R = 2, rank 4 killed "
+            "and healed): detection_ms "
+            f"{row.get('detection_ms', float('nan')):.1f}, "
+            "route_convergence_ms "
+            f"{row.get('route_convergence_ms', float('nan')):.1f}, "
+            "reintegration_ms "
+            f"{row.get('reintegration_ms', float('nan')):.1f}; p99 ms "
+            f"healthy {row.get('p99_ms_healthy', float('nan')):.2f}, "
+            f"degraded {row.get('p99_ms_degraded', float('nan')):.2f}, "
+            f"healed {row.get('p99_ms_healed', float('nan')):.2f}; "
+            f"{row['answers_after_push']} answers of "
+            f"{row['submitted_after_push']} requests submitted after the "
+            f"route push, {row['answers_after_push_bad']} not bitwise "
+            f"healthy; {row['failed_requests']} requests failed")
+        check("error" not in row and all(
+            key in row for key in ("detection_ms", "route_convergence_ms",
+                                   "reintegration_ms")),
+              f"self-heal row incomplete: {row}")
+        check(row["failed_requests"] == 0
+              and row["answers_after_push"] > 0
+              and row["answers_after_push"] == row["submitted_after_push"]
+              and row["answers_after_push_bad"] == 0,
+              f"{row['failed_requests']} requests failed; "
+              f"{row['answers_after_push']} of "
+              f"{row['submitted_after_push']} requests submitted after the "
+              f"route push answered, {row['answers_after_push_bad']} not "
+              "the healthy answer")
+        check(row["supervisor_heals_ok"] == 1 and row["all_serving"],
+              f"supervisor_heals_total{{outcome=ok}} "
+              f"{row['supervisor_heals_ok']}, all serving "
+              f"{row['all_serving']}")
+        check(1 <= row["route_pushes"] <= row["transitions"]
+              and row["chaos_ok"],
+              f"route pushes {row['route_pushes']} against "
+              f"{row['transitions']} confirmed transitions; "
+              + row["chaos_summary"])
+        t0 = time.perf_counter()
+        with scan_calls(keep):
+            flap = self_heal_row(comms, x, q, k=K, n_probes=16,
+                                 kill_at_s=0.2, heal_at_s=0.9,
+                                 duration_s=1.6,
+                                 oscillate=(1, 0.4, 0.02, 0.3),
+                                 seed=args.seed + 44)
+        flap["row_s"] = time.perf_counter() - t0
+        log(f"[{card}] chaos schedule (kill rank 4, flap rank 1, heal): "
+            + flap["chaos_summary"].replace("\n", "; ")
+            + f"; {flap['transitions']} confirmed transitions, "
+            f"{flap['route_pushes']} route pushes, heals ok "
+            f"{flap['heals_ok']}, {flap['answers_after_push_bad']} of "
+            f"{flap['answers_after_push']} answers "
+            f"({flap['submitted_after_push']} submitted) after the push "
+            "not bitwise healthy, "
+            f"{flap['failed_requests']} requests failed")
+        check(flap["chaos_ok"] and flap["all_serving"]
+              and flap["failed_requests"] == 0
+              and flap["answers_after_push"] == flap["submitted_after_push"]
+              and flap["answers_after_push_bad"] == 0,
+              "the chaos schedule's invariants: " + flap["chaos_summary"])
+        check(fk.LAUNCHES > 0 and len(keep) == fk.LAUNCHES,
+              f"the self-heal phase launched #2 {fk.LAUNCHES} times in "
+              f"{len(keep)} flat_scan_lists calls")
+        # every call of both rows against the plain version; these
+        # launches are not the path's
+        saved = fk.LAUNCHES
+        max_err = max(compare_lists_to_plain(call) for call in keep)
+        fk.LAUNCHES = saved
+        shapes = collections.Counter(
+            "x".join(map(str, (*c[1].shape, c[5]))) for c in keep)
+        log(f"[{card}] self-heal phase's {len(keep)} flat_scan_lists calls "
+            f"({n_row_calls} in the row, {len(keep) - n_row_calls} in the "
+            f"schedule; lists x Q x Lpad {dict(shapes)}) within 1e-5 x "
+            f"(qn + yn) of the plain version, max |kernel - plain| "
+            f"{max_err:.3g}")
+        del keep
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    nums = {"card": card, "row": row, "max_abs_err": max_err,
+            "flap": {key: flap.get(key) for key in (
+                "chaos_ok", "transitions", "route_pushes", "heals_ok",
+                "detection_ms", "route_convergence_ms", "reintegration_ms",
+                "answers_after_push", "answers_after_push_bad",
+                "submitted_after_push", "failed_requests", "row_s")},
+            "launches": fk.LAUNCHES}
+    row.pop("chaos_summary", None)
+    log(f"[{card}] self-heal phase: " + json.dumps(nums))
     return nums
 
 
@@ -3491,13 +3958,17 @@ def pq_phase(args, card, dev, data):
           f"pq mutation: {pk.LAUNCHES} pq_adc_lists launches for "
           f"{n_kernel} kernel-engine searches, fallbacks "
           f"{ivf_pq.ENGINE_FALLBACKS}")
+    # the sharded IVF-PQ step, its counters at 0 just before it
+    t0 = time.perf_counter()
+    snums = sharded_pq_step(args, card, dev, data, index)
+    log(f"sharded PQ step: {time.perf_counter() - t0:.1f} s")
     return {
         "name": fn_name,
         "route": "cuda",
         "source": "raft_tpu_torch/csrc/pq_scan.cu",
         "replaces": "raft_tpu/spatial/ann/pq_kernel.py:107",
         "entry": "pq_adc_lists",
-        "launches": launches,
+        "launches": launches + snums["launches"],
         "launches_by_shape": {"x".join(map(str, k)): n
                               for k, n in shapes.items()},
         "max_abs_err": max(errs),
@@ -3513,7 +3984,325 @@ def pq_phase(args, card, dev, data):
         "shape": [n_lists] + list(shp),
         "card": card,
         "mutation": mnums,
+        "sharded": snums,
     }
+
+
+def sharded_pq_step(args, card, dev, data, index):
+    """Sharded IVF-PQ (``raft_tpu_torch.comms.mnmg_ivf``) over the
+    quantized paths' 500,000 rows: bench.py's ``extra_mnmg_ivf_pq``
+    configuration built at P = 8 ranks on the card (every row once), the
+    4,096 batch at qcap "throughput" on both engines against the oracle
+    and the single-device index, #4 launched on every rank and held
+    against its plain version at each rank's shapes (the sentinel list
+    read as empty), the batch's host syncs counted; P = 1 by reshard
+    (its refine pools a subset: distances no better than P = 8's;
+    bitwise at a saturated refine pool); rank 3 down at replication 2
+    with a FailoverPlan (coverage 1.0; bitwise at a saturated pool),
+    without a replica (``probe_coverage``'s formula, none of its ids), a
+    NaN row, ``recover_rank`` from an archive, ~100 requests through the
+    ``ServingExecutor``, an upsert / delete round, the host-clock times.
+    #4's launches are counted over the step alone. Returns its numbers,
+    kept under #4's ``sharded`` key."""
+    import tempfile
+
+    from raft_tpu_torch.comms import (
+        build_comms, mnmg_ivf_pq_build, mnmg_ivf_pq_search, place_index,
+        recover_rank,
+    )
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.resilience import (
+        FailoverPlan, ReplicaPlacement, ShardHealth,
+    )
+    from raft_tpu_torch.serving import ServingExecutor
+    from raft_tpu_torch.spatial.ann import (
+        IVFPQParams, ivf_pq, ivf_pq_search_grouped, save_index,
+    )
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+    from raft_tpu_torch.spatial.ann.common import coarse_probe
+
+    x, q_np, true = data
+    rng = np.random.default_rng(args.seed + 60)
+    nums = {"card": card, "ranks": SHARD_P}
+    cuda0 = (torch.device("cuda", torch.cuda.current_device())
+             if dev.type == "cuda" else dev)
+    comms, comms1 = build_comms([cuda0] * SHARD_P), build_comms([cuda0])
+    qb = torch.as_tensor(q_np, device=dev)
+    tmp = tempfile.TemporaryDirectory()
+
+    # the single device's answers on both engines, before the counters
+    # go to 0
+    for name, engine in (("kernel", None), ("legacy", False)):
+        _, i_s = ivf_pq_search_grouped(index, qb, K, n_probes=QZ_PROBES,
+                                       qcap="throughput",
+                                       refine_ratio=PQ_REFINE,
+                                       use_kernel=engine)
+        nums[f"recall_single_{name}"] = recall(i_s, true)
+
+    def key(a):
+        return (a[1].shape[1], a[0].shape[1], a[5])
+
+    pk.LAUNCHES = 0
+    ivf_pq.ENGINE_FALLBACKS = 0
+    with kernel_calls(pk, "pq_adc_lists", key) as shapes:
+        sync(dev)
+        t0 = time.perf_counter()
+        sidx = mnmg_ivf_pq_build(comms, x, IVFPQParams(
+            n_lists=QZ_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
+            kmeans_n_iters=10, kmeans_init="random", max_list_cap=512))
+        sync(dev)
+        nums["build_s"] = time.perf_counter() - t0
+        szs = sidx.list_sizes.cpu().numpy()
+        sids = sidx.sorted_ids.cpu().numpy()
+        got = np.concatenate([sids[r, :szs[r].sum()]
+                              for r in range(SHARD_P)])
+        check(got.shape[0] == QZ_ROWS
+              and np.array_equal(np.sort(got), np.arange(QZ_ROWS)),
+              "the sharded PQ build does not hold every row exactly once")
+        # the served buckets at the default qcap rule, the batch at the
+        # throughput rule (the single-device PQ row's)
+        qc = {b: sidx.warmup(comms, b, k=K, n_probes=QZ_PROBES,
+                             qcap="throughput" if b == SHARD_BATCH else None,
+                             refine_ratio=PQ_REFINE)
+              for b in SHARD_BUCKETS + (SHARD_BATCH,)}
+        for b in SHARD_BUCKETS:
+            sidx.warmup(comms, b, k=K, n_probes=QZ_PROBES, qcap=qc[b],
+                        refine_ratio=PQ_REFINE, shard_mask=True)
+        nums["qcap"] = qc
+        log(f"[{card}] sharded PQ build: {QZ_ROWS} x {DIM} over {SHARD_P} "
+            f"ranks in {nums['build_s']:.2f} s ({sidx.centroids.shape[0]} "
+            f"lists after the cap, nl_pad {sidx.nl_pad}, n_pad "
+            f"{sidx.n_pad}); qcap by bucket {qc}")
+
+        def sharded(q, idx=None, c=comms, **kw):
+            kw.setdefault("qcap", qc.get(q.shape[0], q.shape[0]))
+            kw.setdefault("refine_ratio", PQ_REFINE)
+            return mnmg_ivf_pq_search(c, sidx if idx is None else idx, q, K,
+                                      n_probes=QZ_PROBES, **kw)
+
+        # the 4,096 batch on the kernel engine: its launches, the ranks
+        # that made them, its host syncs
+        keep = []
+        before = pk.LAUNCHES
+        with kernel_calls(pk, "pq_adc_lists", key, keep), \
+                host_syncs() as syncs:
+            d8, i8 = sharded(qb)
+            sync(dev)
+        per_batch = pk.LAUNCHES - before
+        n_ranks_launched = len({c[2].data_ptr() for c in keep})
+        nums.update(launches_per_batch=per_batch,
+                    ranks_launched=n_ranks_launched,
+                    host_syncs_per_batch=sum(syncs.values()),
+                    host_syncs_by_line=dict(syncs))
+        _, i8_legacy = sharded(qb, use_kernel=False)
+        nums.update(recall_kernel=recall(i8, true),
+                    recall_legacy=recall(i8_legacy, true))
+        log(f"[{card}] sharded PQ {SHARD_BATCH}-query batch: recall@10 "
+            f"kernel {nums['recall_kernel']:.4f}, legacy "
+            f"{nums['recall_legacy']:.4f}, single-device index "
+            f"{nums['recall_single_kernel']:.4f} / "
+            f"{nums['recall_single_legacy']:.4f}; pq_adc_lists launched "
+            f"{per_batch} times by {n_ranks_launched} ranks; "
+            f"{nums['host_syncs_per_batch']} host syncs in the batch "
+            f"({dict(syncs)})")
+        check(all(nums[f"recall_{n}"] >= nums[f"recall_single_{n}"] - 0.02
+                  for n in ("kernel", "legacy")),
+              f"sharded PQ recall below the single device's - 0.02: {nums}")
+        check(n_ranks_launched == SHARD_P and per_batch >= SHARD_P,
+              f"#4 launched by {n_ranks_launched} of {SHARD_P} ranks")
+        # #4 against its plain version at each rank's shapes, and every
+        # list without rows (the sentinel) read as empty; these launches
+        # are not the path's
+        saved = pk.LAUNCHES
+        errs, n_empty = [], 0
+        for call in keep:
+            errs.append(bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain, call,
+                                f"pq_adc_lists on a rank at {key(call)}"))
+            out = pk.pq_adc_lists(*call)
+            shapes[key(call)] -= 2      # the two comparison launches
+            bnd, lut_map = call[4], call[1]
+            empty = (bnd[:, 1] <= bnd[:, 0]) & (lut_map >= 0).any(1)
+            n_empty += int(empty.sum())
+            check(bool((out[empty] >= pk.BIG).all()),
+                  "a list without rows did not read as empty")
+        pk.LAUNCHES = saved
+        nums["max_abs_err"] = max(errs)
+        log(f"[{card}] sharded PQ batch's {len(keep)} pq_adc_lists calls "
+            f"bitwise equal to the plain version; {n_empty} live lists "
+            "without rows (the sentinel, every unowned probe slot) read as "
+            "empty")
+        check(n_empty >= SHARD_P, f"{n_empty} empty sentinel lists seen")
+        del keep
+
+        # P = 1: each probed list scanned by one rank either way, but P = 8
+        # refines each rank's own top candidates (a superset of the P = 1
+        # pool); at a saturated pool both refine every probed row
+        idx1 = place_index(comms1, sidx)
+        d1, i1 = sharded(qb, idx=idx1, c=comms1)
+        n_better = int((d8 != d1).any(1).sum())
+        check(bool((d8 <= d1).all()),
+              "P = 8 distances worse than P = 1's (its pools are a superset)")
+        q_sat = qb[:256]
+        rr_sat = QZ_PROBES * sidx.max_list / K + 1.0
+        d8s, i8s = sharded(q_sat, refine_ratio=rr_sat)
+        d1s, i1s = sharded(q_sat, idx=idx1, c=comms1, refine_ratio=rr_sat)
+        check(torch.equal(d8s, d1s) and ids_tied_only(d8s, i8s, i1s) == 0,
+              "P = 8 and P = 1 differ at a saturated refine pool")
+        nums["p8_better_than_p1_queries"] = n_better
+        log(f"[{card}] sharded PQ P = 8 against P = 1 (reshard): at refine "
+            f"{PQ_REFINE} P = 8 no worse anywhere, closer on {n_better} of "
+            f"{SHARD_BATCH} queries (its per-rank pools are a superset); at "
+            f"a saturated pool (refine {rr_sat:.0f}, 256 queries) distances "
+            "bitwise, ids equal up to ties")
+
+        # degraded: rank SHARD_DOWN down without a replica, then with one
+        mask = np.ones(SHARD_P, np.int32)
+        mask[SHARD_DOWN] = 0
+        res = sharded(qb, shard_mask=mask)
+        probes, _ = coarse_probe(qb.float(), sidx.centroids, QZ_PROBES)
+        want_cov = ((sidx.owner.long()[probes] != SHARD_DOWN).float().sum(1)
+                    * (1.0 / QZ_PROBES))
+        lost = torch.as_tensor(
+            sids[SHARD_DOWN, :szs[SHARD_DOWN].sum()], device=dev)
+        check(res.partial and torch.equal(res.coverage, want_cov)
+              and not torch.isin(res.ids, lost).any().item(),
+              f"PQ rank {SHARD_DOWN} down: coverage or a leaked id")
+        sidx2 = place_index(comms, sidx, replication=2)
+        health = ShardHealth(SHARD_P, telemetry=False)
+        health.mark_down(SHARD_DOWN)
+        plan = FailoverPlan.from_health(ReplicaPlacement.of_index(sidx2),
+                                        health)
+        res2 = sharded(qb, idx=sidx2, shard_mask=health, failover=plan)
+        n_worse = int((res2.distances != d8).any(1).sum())
+        res2s = sharded(q_sat, idx=sidx2, shard_mask=health, failover=plan,
+                        refine_ratio=rr_sat)
+        check(plan.fully_covered and bool((res2.coverage == 1.0).all())
+              and bool((res2.distances >= d8).all())
+              and bool((res2s.coverage == 1.0).all())
+              and torch.equal(res2s.distances, d8s)
+              and ids_tied_only(d8s, i8s, res2s.ids) == 0,
+              "PQ failover at replication 2: not coverage 1.0, or not "
+              "bitwise the healthy search at a saturated pool")
+        nums["failover_differs_queries"] = n_worse
+        qn = qb[:64].clone()
+        qn[5, 7] = float("nan")
+        res3 = sharded(qn, shard_mask=True)
+        check(not bool(res3.row_valid[5]) and bool(res3.row_valid[:5].all())
+              and bool(torch.isinf(res3.distances[5]).all())
+              and bool((res3.ids[5] == -1).all()),
+              "a NaN query row is not masked (PQ)")
+        nums["coverage_down"] = float(res.coverage.mean())
+        log(f"[{card}] sharded PQ degraded: rank {SHARD_DOWN} down, mean "
+            f"coverage {nums['coverage_down']:.4f} (probe_coverage's "
+            "formula), none of its ids; replication 2 with a FailoverPlan: "
+            f"coverage 1.0; at refine {PQ_REFINE} the failover rank's "
+            f"merged pool differs on {n_worse} queries (never closer), at "
+            "a saturated pool distances bitwise the healthy search; a NaN "
+            "row masked")
+        del sidx2, idx1
+
+        # a lost slab recovered from the archive
+        path = os.path.join(tmp.name, "sharded_pq.npz")
+        t0 = time.perf_counter()
+        save_index(sidx, path)
+        nums["save_s"] = time.perf_counter() - t0
+        wrecked = dataclasses.replace(
+            sidx, codes_sorted=sidx.codes_sorted.clone(),
+            vectors_sorted=sidx.vectors_sorted.clone(),
+            sorted_ids=sidx.sorted_ids.clone())
+        wrecked.codes_sorted[SHARD_DOWN] = 0
+        wrecked.vectors_sorted[SHARD_DOWN] = 0
+        wrecked.sorted_ids[SHARD_DOWN] = 0
+        t0 = time.perf_counter()
+        healed = recover_rank(comms, wrecked, path, SHARD_DOWN)
+        nums["recover_s"] = time.perf_counter() - t0
+        dh, ih = sharded(qb, idx=healed)
+        check(torch.equal(dh, d8) and torch.equal(ih, i8),
+              "the recovered PQ index does not answer bitwise as the "
+              "healthy")
+        del wrecked, healed
+        log(f"[{card}] sharded PQ recovery: archive {nums['save_s']:.2f} s, "
+            f"recover_rank {nums['recover_s']:.2f} s, bitwise the healthy")
+
+        # bucketed requests through the ServingExecutor
+        reg = MetricRegistry()
+
+        def dispatch(batch, shard_mask=None):
+            return mnmg_ivf_pq_search(
+                comms, sidx, batch, K, n_probes=QZ_PROBES,
+                qcap=qc[batch.shape[0]], refine_ratio=PQ_REFINE,
+                shard_mask=shard_mask)
+
+        sizes = np.exp(rng.uniform(0.0, np.log(513.0), SHARD_REQUESTS))
+        reqs = [x[rng.integers(0, QZ_ROWS, int(m))]
+                for m in np.clip(sizes, 1, 512)]
+        with ServingExecutor(dispatch, SHARD_BUCKETS, dim=DIM, device=dev,
+                             registry=reg, runtime_inputs={
+                                 "shard_mask": np.ones(SHARD_P, np.int32)}
+                             ) as ex:
+            t0 = time.perf_counter()
+            outs = [f.result(timeout=120)
+                    for f in [ex.submit(r) for r in reqs]]
+            nums["serve_s"] = time.perf_counter() - t0
+            cov = reg.gauge("serving_coverage_min", executor=ex.name).value
+        for r, o in zip(reqs, outs):
+            check(o.distances.shape == (r.shape[0], K)
+                  and np.isfinite(o.distances).all()
+                  and ((o.ids >= 0) & (o.ids < QZ_ROWS)).all()
+                  and (np.diff(o.distances, axis=1) >= 0).all(),
+                  "a served sharded PQ answer is malformed")
+        check(cov == 1.0, f"serving_coverage_min {cov}")
+        nums["served_rows"] = int(sum(r.shape[0] for r in reqs))
+        log(f"[{card}] sharded PQ serving: {len(reqs)} requests, "
+            f"{nums['served_rows']} rows through the ServingExecutor in "
+            f"{nums['serve_s']:.3f} s, serving_coverage_min {cov}")
+
+        # one upsert / delete round on the sharded PQ index, each #4 call
+        # held bitwise against the plain version
+        def hold_pq(call):
+            err = bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain, call,
+                          f"pq_adc_lists in the mutation round at "
+                          f"{key(call)}")
+            shapes[key(call)] -= 1      # the comparison's launch
+            return err
+
+        before = pk.LAUNCHES
+        nums["mutation"] = mutable_round(
+            comms, sidx, x, qb, qc[SHARD_BATCH], rng, "IVF-PQ", card, dev,
+            (pk, "pq_adc_lists", hold_pq), n_probes=QZ_PROBES,
+            refine_ratio=PQ_REFINE)
+        nums["mutation"]["launches"] = pk.LAUNCHES - before
+    nums["launches"] = pk.LAUNCHES
+    nums["launches_by_shape"] = {"x".join(map(str, k)): n
+                                 for k, n in shapes.items()}
+    nums["engine_fallbacks"] = ivf_pq.ENGINE_FALLBACKS
+    check(ivf_pq.ENGINE_FALLBACKS == 0,
+          f"{ivf_pq.ENGINE_FALLBACKS} sharded PQ searches left the kernel")
+    check(nums["mutation"]["launches"] > 0,
+          "the sharded PQ mutation round never launched #4")
+
+    # host clock, 5 calls each (not gated)
+    def host_ms(fn, n=5):
+        fn()
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync(dev)
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    idx1 = place_index(comms1, sidx)
+    nums["p8_ms"] = host_ms(lambda: sharded(qb))
+    nums["p1_ms"] = host_ms(lambda: sharded(qb, idx=idx1, c=comms1))
+    nums["single_ms"] = host_ms(lambda: ivf_pq_search_grouped(
+        index, qb, K, n_probes=QZ_PROBES, qcap="throughput",
+        refine_ratio=PQ_REFINE))
+    log(f"[{card}] sharded PQ {SHARD_BATCH}-query batch, host clock over 5 "
+        f"calls: P = 8 {nums['p8_ms']:.2f} ms, P = 1 {nums['p1_ms']:.2f} "
+        f"ms, single-device index {nums['single_ms']:.2f} ms")
+    tmp.cleanup()
+    log(f"[{card}] sharded PQ step: " + json.dumps(nums))
+    return nums
 
 
 def ann_data(seed, dev):
@@ -4700,8 +5489,13 @@ def main(argv=None) -> int:
     log(f"tier phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     flat["sharded"] = sharded_phase(args, card, dev, *served)
-    flat["launches"] += flat["sharded"]["launches"]
+    flat["launches"] += (flat["sharded"]["launches"]
+                         + flat["sharded"]["mutation"]["launches"])
     log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flat["self_heal"] = self_heal_phase(args, card, dev, served[2])
+    flat["launches"] += flat["self_heal"]["launches"]
+    log(f"self-heal phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
                                         served[2])

@@ -1,4 +1,4 @@
-"""Communication layer and the sharded IVF-Flat engine — the port of
+"""Communication layer and the sharded IVF engines — the port of
 ``raft_tpu/comms`` (the analog of raft/comms, cpp/include/raft/core/
 comms.hpp and pyraft's bootstrap).
 
@@ -9,8 +9,11 @@ process per rank over a torch.distributed process group
 (:class:`DistComms`: gloo on the CPU, NCCL on the card).
 :mod:`.comms`'s docstring sets out the design.
 
-Not ported yet: the sharded IVF-PQ engine and the sharded mutation
-tier.
+The sharded engines — IVF-Flat and IVF-SQ (:mod:`.mnmg_ivf_flat`) and
+IVF-PQ (:mod:`.mnmg_ivf`) — share one per-rank search body, and the
+sharded mutation tier (:mod:`.mnmg_mutation`: replica-routed upserts and
+deletes, quorum-durable ingest over per-rank WALs, recovery) rides it
+through ``mutation=``.
 """
 
 from raft_tpu_torch.comms import self_test
@@ -27,9 +30,14 @@ from raft_tpu_torch.comms.comms import (
     inject_comms,
 )
 from raft_tpu_torch.comms.mnmg import mnmg_kmeans_fit, mnmg_knn
+from raft_tpu_torch.comms import mnmg_mutation
 from raft_tpu_torch.comms.mnmg_ivf import (
+    MnmgIVFPQIndex,
     attach_coarse_index,
     expand_probe_set,
+    mnmg_ivf_pq_build,
+    mnmg_ivf_pq_build_distributed,
+    mnmg_ivf_pq_search,
     place_index,
     recover_rank,
     replicate_index,
@@ -45,6 +53,17 @@ from raft_tpu_torch.comms.mnmg_ivf_flat import (
     mnmg_ivf_sq_build,
     mnmg_ivf_sq_build_distributed,
     mnmg_ivf_sq_search,
+)
+from raft_tpu_torch.comms.mnmg_mutation import (
+    MnmgDurableIngest,
+    MnmgMutableIndex,
+    MnmgMutationState,
+    mnmg_delete,
+    mnmg_mutable_search,
+    mnmg_recover,
+    mnmg_upsert,
+    resync_rank,
+    wrap_mnmg_mutable,
 )
 from raft_tpu_torch.comms.multihost import (
     comms_levels,
@@ -62,8 +81,12 @@ __all__ = [
     "DistAxisComms",
     "DistComms",
     "HierarchicalComms",
+    "MnmgDurableIngest",
     "MnmgIVFFlatIndex",
+    "MnmgIVFPQIndex",
     "MnmgIVFSQIndex",
+    "MnmgMutableIndex",
+    "MnmgMutationState",
     "P2PBatch",
     "ReduceOp",
     "attach_coarse_index",
@@ -76,21 +99,31 @@ __all__ = [
     "host_aware_offset",
     "host_rank_mask",
     "inject_comms",
+    "mnmg_delete",
     "mnmg_ivf_flat_build",
     "mnmg_ivf_flat_build_distributed",
     "mnmg_ivf_flat_search",
+    "mnmg_ivf_pq_build",
+    "mnmg_ivf_pq_build_distributed",
+    "mnmg_ivf_pq_search",
     "mnmg_ivf_sq_build",
     "mnmg_ivf_sq_build_distributed",
     "mnmg_ivf_sq_search",
     "mnmg_kmeans_fit",
     "mnmg_knn",
+    "mnmg_mutable_search",
+    "mnmg_mutation",
+    "mnmg_recover",
+    "mnmg_upsert",
     "place_index",
     "recover_rank",
     "replicate_index",
     "reshard_index",
+    "resync_rank",
     "ring_knn",
     "ring_pairwise_distance",
     "run_all_self_tests",
     "self_test",
     "shard_rows",
+    "wrap_mnmg_mutable",
 ]

@@ -1,32 +1,42 @@
-"""The shared shard machinery of the sharded IVF engines — the port of the
-engine-independent half of ``raft_tpu/comms/mnmg_ivf.py`` (the sharded
-IVF-PQ engine itself is not ported yet).
+"""The sharded IVF engines' shared shard machinery and the sharded IVF-PQ
+engine — the port of ``raft_tpu/comms/mnmg_ivf.py`` (the DEEP-100M
+design: list-sharded PQ codes with exact refinement on each shard).
 
 A sharded index shards its inverted lists by list id and replicates its
 quantizer:
 
-* **Shard lists, replicate the coarse quantizer.** Greedy-LPT list
+* **Shard lists, replicate the quantizers.** Greedy-LPT list
   ownership (:func:`_lpt_assign`: biggest list to the least-loaded
   rank); each rank's slab is a complete single-device inverted-list
-  layout — contiguous rows, per-rank offsets and sizes, ``sorted_ids``
-  carrying GLOBAL row ids — plus one empty sentinel list at
-  ``nl_pad - 1``.
+  layout — contiguous rows (PQ codes and, for refinement, the raw rows),
+  per-rank offsets and sizes, ``sorted_ids`` carrying GLOBAL row ids —
+  plus one empty sentinel list at ``nl_pad - 1``. Coarse centroids and
+  PQ codebooks replicate.
 * **Queries replicate; lists never move.** Every rank probes the global
   centroid set, keeps the probes it owns (the sentinel list takes the
   rest) and runs the unchanged single-device grouped search on its
-  shard.
+  shard (:func:`_rank_body`, shared by every engine): for IVF-PQ
+  ``ivf_pq._pq_grouped_impl``, whose kernel engine launches the ADC
+  scan on each rank, each rank refining its own candidates against its
+  own raw rows.
 * **Merge is a k-way top-k** over one (nq, k) allgather pair
   (:func:`_merge_across_shards`; two-stage across hosts on a two-level
   communicator).
 
-The distributed build (:func:`_train_coarse_distributed`, the engine's
-assignment, :func:`_exchange_and_assemble`) runs as per-rank bodies of
-``comms.run``: a collective training subsample, replicated k-means,
-host O(n_lists) bookkeeping, device-side routing of every row to its
-list's owner, and a bounded-round ``alltoall`` with positional scatter
-into the slabs. :func:`reshard_index`, :func:`replicate_index`,
-:func:`place_index` and :func:`recover_rank` move a built index between
-rank counts, replica layouts and devices on the host.
+The distributed builds (:func:`_train_coarse_distributed`, the engine's
+per-rank assignment or encode, :func:`_exchange_and_assemble`) run as
+per-rank bodies of ``comms.run``: a collective training subsample,
+replicated k-means (and PQ codebooks), host O(n_lists) bookkeeping,
+device-side routing of every row to its list's owner, and a
+bounded-round ``alltoall`` with positional scatter into the slabs.
+:func:`reshard_index`, :func:`replicate_index`, :func:`place_index` and
+:func:`recover_rank` move a built index between rank counts, replica
+layouts and devices on the host.
+
+The mutation tier (:mod:`.mnmg_mutation`) rides every engine's rank
+body: ``mutation=`` folds a per-rank tombstone mask into the shard's
+scan and merges an exact scan of the rank's delta segments
+(:func:`_merge_local_delta`) before the cross-shard merge.
 
 An index's sharded fields (``_SHARDED_FIELDS``) carry a leading axis
 over the ranks: every rank on the host (numpy), every local rank once
@@ -47,15 +57,42 @@ from raft_tpu_torch import errors
 from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
 from raft_tpu_torch.comms.multihost import (
     comms_levels,
+    hier_axes,
     hierarchical_merge_select_k,
     host_aware_offset,
 )
-from raft_tpu_torch.spatial.ann.common import CoarseIndex, build_coarse_index
+from raft_tpu_torch.resilience.degraded import (
+    PartialSearchResult,
+    mask_invalid_rows,
+    probe_coverage,
+    resolve_shard_mask,
+    sanitize_query_rows,
+)
+from raft_tpu_torch.resilience.replica import resolve_route
+from raft_tpu_torch.spatial.ann import ivf_pq
+from raft_tpu_torch.spatial.ann.common import (
+    CoarseIndex,
+    ListStorage,
+    build_coarse_index,
+    coarse_probe,
+    n_super_probes,
+    resolve_qcap_arg,
+    static_qcap,
+    two_level_probe,
+)
+from raft_tpu_torch.spatial.ann.ivf_pq import (
+    IVFPQIndex,
+    IVFPQParams,
+    _encode_rows,
+    _train_pq_codebooks,
+)
 from raft_tpu_torch.spatial.selection import merge_parts_select_k
 
 __all__ = [
-    "attach_coarse_index", "expand_probe_set", "place_index",
-    "recover_rank", "replicate_index", "reshard_index", "shard_rows",
+    "MnmgIVFPQIndex", "attach_coarse_index", "expand_probe_set",
+    "mnmg_ivf_pq_build", "mnmg_ivf_pq_build_distributed",
+    "mnmg_ivf_pq_search", "place_index", "recover_rank",
+    "replicate_index", "reshard_index", "shard_rows",
 ]
 
 # query-block size of the two-level probe's candidate rerank
@@ -124,6 +161,107 @@ def _place_sharded(comms, v):
         blocks.append(_tensor(b, dev) if isinstance(b, np.ndarray)
                       else b.to(dev))
     return _sharded(comms, blocks)
+
+
+# ------------------------------------------------------ the PQ index
+@dataclasses.dataclass
+class MnmgIVFPQIndex:
+    """List-sharded IVF-PQ index over a communicator's ranks (the
+    reference's field names and order, so the archive and the placement
+    machinery apply unchanged). Sharded fields carry a leading axis over
+    the ranks; the quantizers and the ownership maps replicate.
+    ``sorted_ids`` hold GLOBAL row ids, so per-rank results merge without
+    translation. Shards serve the grouped (list-major) search only."""
+
+    centroids: typing.Any       # (n_lists_g, d) replicated
+    codebooks: typing.Any       # (M, 2^bits, ds) replicated
+    owner: typing.Any           # (n_lists_g,) int32 — owning rank per list
+    local_id: typing.Any        # (n_lists_g,) int32 — list id on its owner
+    local_cents: typing.Any     # (P, nl_pad, d) — per-rank centroid slab
+    codes_sorted: typing.Any    # (P, n_pad + 1, M) uint8
+    vectors_sorted: typing.Any  # (P, n_pad + 1, d) raw rows | None
+    sorted_ids: typing.Any      # (P, n_pad) int32 GLOBAL row ids
+    list_offsets: typing.Any    # (P, nl_pad + 1) int32
+    list_sizes: typing.Any      # (P, nl_pad) int32
+    pq_dim: int
+    pq_bits: int
+    n_pad: int
+    nl_pad: int
+    max_list: int
+    n_rows: int
+    # R-way striped replica layout: each rank's slab holds `replication`
+    # segments of nl_pad/replication lists — segment 0 its own primary
+    # shard, segment j the shard (rank - j*replica_offset) % P
+    replication: int = 1
+    replica_offset: int = 1
+    # optional two-level coarse quantizer over the GLOBAL probe set
+    coarse: typing.Optional[CoarseIndex] = None
+    _placed: typing.Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # each local rank's shard as an IVFPQIndex view of its slabs (their
+    # kernel-engine code copies are kept with them)
+    _shards: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def shard(self, i: int) -> IVFPQIndex:
+        """Local rank ``i``'s shard as a single-device
+        :class:`~raft_tpu_torch.spatial.ann.ivf_pq.IVFPQIndex` (views of
+        the slabs, the codebooks on the shard's device; made on first
+        use and kept)."""
+        view = self._shards.get(i)
+        if view is None:
+            sids = self.sorted_ids[i]
+            dev = sids.device
+            storage = ListStorage(
+                sorted_ids=sids,
+                list_offsets=self.list_offsets[i],
+                # the grouped search reads no list_index; its row count
+                # is the list count
+                list_index=torch.zeros((self.nl_pad, 1), dtype=torch.int32,
+                                       device=dev),
+                list_sizes=self.list_sizes[i],
+                n=self.n_pad,
+                max_list=self.max_list,
+            )
+            vecs = (None if self.vectors_sorted is None
+                    else self.vectors_sorted[i])
+            view = IVFPQIndex(self.local_cents[i],
+                              _on(self.codebooks, dev), self.codes_sorted[i],
+                              storage, vecs, self.pq_dim, self.pq_bits)
+            self._shards[i] = view
+        return view
+
+    def warmup(self, comms, nq: int, *, k: int = 10, n_probes: int = 8,
+               qcap=None, list_block: int = 8, refine_ratio: float = 2.0,
+               exact_selection: bool = True,
+               approx_recall_target: float = 0.95,
+               donate_queries: bool = False, shard_mask=None,
+               failover=None, overprobe: float = 2.0,
+               merge_ways: typing.Optional[int] = None,
+               use_kernel: typing.Optional[bool] = None, mutation=None,
+               wire: str = "bf16") -> int:
+        """Dispatch one all-zeros (nq, d) batch through
+        :func:`mnmg_ivf_pq_search` (building the kernels and each shard's
+        code copy on first use) and return the shape-only qcap
+        (:func:`~raft_tpu_torch.spatial.ann.common.static_qcap`) to pass
+        on every serving dispatch of this batch size.
+        ``shard_mask=True`` warms the degraded variant. The JAX package's
+        ``audit=`` (its jaxpr program auditor) has no counterpart here."""
+        qc = static_qcap(qcap, nq, n_probes, int(self.centroids.shape[0]))
+        dev = comms.rank_device(comms.local_ranks[0])
+        q0 = torch.zeros((nq, int(self.centroids.shape[1])),
+                         dtype=torch.float32, device=dev)
+        mnmg_ivf_pq_search(
+            comms, self, q0, k, n_probes=n_probes, qcap=qc,
+            list_block=list_block, refine_ratio=refine_ratio,
+            exact_selection=exact_selection,
+            approx_recall_target=approx_recall_target,
+            donate_queries=donate_queries, shard_mask=shard_mask,
+            failover=failover, overprobe=overprobe, merge_ways=merge_ways,
+            use_kernel=use_kernel, mutation=mutation, wire=wire)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return qc
 
 
 # ------------------------------------------------------- host bookkeeping
@@ -435,6 +573,137 @@ def _exchange_and_assemble(comms, x, n_valid, lbl_g, C, cents, cap: int,
         "max_list": max_list,
     }
     return maps, slabs
+
+
+def mnmg_ivf_pq_build(comms, x,
+                      params: IVFPQParams = IVFPQParams()) -> MnmgIVFPQIndex:
+    """One-host convenience wrapper: row-shard ``x`` over the ranks (one
+    shard at a time, :func:`shard_rows`) and run the per-rank distributed
+    PQ build."""
+    x = np.asarray(x)
+    errors.expects(
+        x.ndim == 2 and x.shape[0] >= 2,
+        "x: expected a (n >= 2, d) matrix, got shape %s", tuple(x.shape),
+    )
+    if x.dtype == np.float64:
+        x = x.astype(np.float32)    # as the JAX package stores f64 input
+    xg, n_valid = shard_rows(comms, x)
+    return mnmg_ivf_pq_build_distributed(comms, xg, params, n_valid=n_valid)
+
+
+def mnmg_ivf_pq_build_distributed(
+    comms, x, params: IVFPQParams = IVFPQParams(), *, n_valid=None,
+) -> MnmgIVFPQIndex:
+    """Build a list-sharded IVF-PQ index from PER-RANK row shards: ``x``
+    the local ranks' (n_loc, d) blocks (a (P_local, n_loc, d) tensor or a
+    list), ``n_valid`` (P,) the valid rows of every rank (default all);
+    shard row (r, j) gets global id ``sum(n_valid[:r]) + j``.
+
+    1. **Subsample + train (replicated):** the collective training
+       subsample (:func:`_train_coarse_distributed`), coarse k-means and
+       the PQ codebooks on it, identically on every rank.
+    2. **Per-rank blocked encode:** each rank labels and PQ-encodes its
+       rows against the replicated quantizers in ``encode_block``-row
+       blocks (:func:`_encode_ranks`); the list counts come back from one
+       allgather.
+    3-4. **List split, LPT routing, row exchange and slab assembly**
+       (:func:`_exchange_and_assemble`), the codes as the exchange
+       payload beside the raw rows when ``store_raw``.
+
+    ``max_list_cap=None`` means AUTO here (``max(256, 2 * n /
+    n_lists)``); pass 0 to disable."""
+    nloc, d = _check_row_shards(comms, x)
+    Pn = comms.size
+    M = params.pq_dim
+    errors.expects(d % M == 0, "d=%d not divisible by pq_dim=%d", d, M)
+    errors.expects(
+        1 <= params.pq_bits <= 8,
+        "pq_bits=%d out of range [1, 8] — codes are stored as uint8",
+        params.pq_bits,
+    )
+    ds = d // M
+    n_codes = 1 << params.pq_bits
+    if n_valid is None:
+        n_valid = np.full(Pn, nloc, np.int32)
+    n_valid = np.asarray(n_valid, np.int32)
+    errors.expects(n_valid.shape == (Pn,),
+                   "n_valid: expected (%d,), got %s", Pn,
+                   tuple(n_valid.shape))
+    n = int(n_valid.sum())
+    errors.check_k(params.n_lists, n, "n_lists vs dataset rows")
+    errors.expects(
+        n >= n_codes,
+        "n=%d rows cannot train %d-entry PQ codebooks (pq_bits=%d); lower "
+        "pq_bits", n, n_codes, params.pq_bits,
+    )
+    nl = params.n_lists
+
+    # phase 1: collective subsample -> replicated quantizers
+    xt, coarse = _train_coarse_distributed(
+        comms, x, n_valid, n, nl, params.train_size, params.kmeans_n_iters,
+        params.kmeans_init, params.seed)
+    codebooks = _train_pq_codebooks(xt, coarse, params, ds, n_codes)
+    cents = coarse.centroids
+    # phase 2: per-rank blocked encode + global list sizes
+    lbl_g, codes_g, C = _encode_ranks(comms, x, n_valid, cents, codebooks,
+                                      nl, M, params.encode_block)
+    cap = (params.max_list_cap if params.max_list_cap is not None
+           else max(256, 2 * _cdiv_host(n, nl)))
+    maps, slabs = _exchange_and_assemble(
+        comms, x, n_valid, lbl_g, C, cents, cap,
+        store_vectors=params.store_raw, codes_g=codes_g, M=M)
+    host = MnmgIVFPQIndex(
+        centroids=maps["cents_np"],
+        codebooks=np.asarray(_np(codebooks), np.float32),
+        owner=maps["owner"],
+        local_id=maps["local_id"],
+        local_cents=maps["lcents_sh"],
+        codes_sorted=slabs["codes"],
+        vectors_sorted=slabs.get("vecs"),
+        sorted_ids=slabs["sids"],
+        list_offsets=maps["offs_sh"],
+        list_sizes=maps["szs_sh"],
+        pq_dim=M,
+        pq_bits=params.pq_bits,
+        n_pad=maps["n_pad"],
+        nl_pad=maps["nl_pad"],
+        max_list=maps["max_list"],
+        n_rows=n,
+    )
+    if len(comms.local_ranks) != comms.size:
+        host._placed = tuple(comms.local_ranks)
+    return place_index(comms, host)
+
+
+def _encode_ranks(comms, x, n_valid, cents, codebooks, nl: int, M: int,
+                  block: int):
+    """Phase 2 of the PQ distributed build: each rank labels and encodes
+    its rows in ``block``-row blocks (``ivf_pq._encode_rows``: nearest
+    centroid, then each subspace's nearest codebook entry, ties to the
+    lowest), and one allgather of the local bincounts. Returns (labels,
+    the local ranks' (n_loc,) int32 blocks; codes, their (n_loc, M)
+    uint8 blocks; C (P, nl) int32 replicated count matrix)."""
+    nloc, d = _check_row_shards(comms, x)
+    n_valid = np.asarray(n_valid, np.int32)
+    B = max(1, min(nloc, int(block)))
+    ds = d // M
+
+    def enc_body(ax, xb, cents_in, cbs_in):
+        dev = xb.device
+        c = _on(torch.as_tensor(cents_in), dev).float()
+        cb = _on(torch.as_tensor(cbs_in), dev).float()
+        parts = [_encode_rows(xb[s:s + B].float(), c, cb, M, ds)
+                 for s in range(0, nloc, B)]
+        lbl = torch.cat([p[0] for p in parts]).to(torch.int32)
+        codes = torch.cat([p[1] for p in parts])
+        valid = (torch.arange(nloc, device=dev)
+                 < int(n_valid[ax.get_rank()]))
+        key = torch.where(valid, lbl.to(torch.int64), nl)
+        cnt = torch.bincount(key, minlength=nl + 1)[:nl].to(torch.int32)
+        return lbl, codes, ax.allgather(cnt)
+
+    return comms.run(enc_body, sharded=(x,), replicated=(cents, codebooks),
+                     out=("stacked", "stacked", "replicated"))
 
 
 # ------------------------------------------------- layouts and placement
@@ -778,6 +1047,144 @@ def _merge_across_shards(ax, hier, vals, gids, k, merge_ways, wire):
     return md, torch.where(torch.isfinite(md), mi, -1)
 
 
+def _merge_local_delta(qf, vals, gids, dvl, dil, k, rank, nl_pad,
+                       replication, replica_offset, n_ranks, alive, route):
+    """The mutation tier's shard-local tail (every engine): exactly score
+    this rank's delta segments against the queries and fold their top-k
+    into the rank's (nq, k) candidates BEFORE the cross-shard merge.
+
+    ``dvl`` / ``dil`` are the rank's flattened (nl_pad * cap, d) /
+    (nl_pad * cap,) delta slabs. The serve rule is the main scan's: a
+    delta entry is scanned only by the rank whose slab SEGMENT serves its
+    logical shard (no route: segment 0, the primaries), so replicated
+    delta copies never appear twice in the merge, and a failover route
+    moves delta serving to the replica with the same runtime operand.
+    The scan and fold are the single-device tier's
+    :func:`~raft_tpu_torch.spatial.ann.mutation.delta_merge_topk`."""
+    from raft_tpu_torch.spatial.ann.mutation import delta_merge_topk
+
+    DL = dil.shape[0]
+    cap = DL // nl_pad
+    nlp_base = nl_pad // replication
+    seg = (torch.arange(DL, dtype=torch.int64, device=dil.device)
+           // cap) // nlp_base
+    if route is not None:
+        shard_of = (rank - seg * replica_offset) % n_ranks
+        serve = (route.long()[shard_of] == seg) & (alive[rank] > 0)
+    else:
+        serve = seg == 0
+    return delta_merge_topk(qf, vals, gids, dvl, dil, serve & (dil >= 0), k)
+
+
+def _rank_body(ax, scan, dev, q, cents, owner, local_id, sup_c, mem_i, cpad,
+               alive, route, mut, *, k, n_probes, nl_pad, use_coarse,
+               overprobe, merge_ways, replication, replica_offset,
+               use_kernel, hier, wire):
+    """The per-rank search body of every sharded engine: the replicated
+    probe (the two-level probe when a coarse quantizer is attached), the
+    owned probes kept (the sentinel list ``nl_pad - 1``, which has no
+    rows, takes the rest; under ``route`` the rank holding a shard's
+    serving copy serves it from that segment), the engine's own scan of
+    this rank's shard (``scan(qf, probes, row_mask)``), the mutation
+    tail (``mut``: this rank's row mask and delta slabs), and the
+    cross-shard merge. With ``alive`` the degraded variant: a down rank
+    contributes +inf, bad query rows are neutralized, coverage is
+    reported."""
+    rank = ax.get_rank()
+    n_ranks = ax.get_size()
+    degraded = alive is not None
+    qf = _on(q, dev).float()
+    cents, owner, local_id = (_on(t, dev) for t in (cents, owner, local_id))
+    row_valid = None
+    if degraded:
+        alive, route = _on(alive, dev), _on(route, dev)
+        qf, row_valid = sanitize_query_rows(qf)
+    # replicated compute: identical global probes on every rank
+    if use_coarse:
+        probes_g, _ = two_level_probe(
+            qf, _on(sup_c, dev), _on(mem_i, dev), _on(cpad, dev),
+            owner.shape[0], n_probes,
+            n_super_probes(n_probes, sup_c.shape[0], overprobe),
+            _PROBE_BLOCK_Q, use_kernel=use_kernel)
+    else:
+        probes_g, _ = coarse_probe(qf, cents, n_probes)      # (nq, p)
+    probe_owner = owner.long()[probes_g]                     # (nq, p)
+    lid = local_id.long()[probes_g]
+    sentinel = nl_pad - 1
+    if degraded:
+        # route[s] names the copy serving logical shard s: the rank
+        # holding that copy serves the probe from its segment j
+        j = route.long()[torch.clamp(probe_owner, 0, n_ranks - 1)]
+        serving = torch.where(
+            (probe_owner >= 0) & (j >= 0),
+            (probe_owner + torch.clamp(j, min=0) * replica_offset)
+            % n_ranks, -1)
+        own = serving == rank
+        nlp_base = nl_pad // replication
+        lp = torch.where(own, torch.clamp(j, min=0) * nlp_base + lid,
+                         sentinel)
+    else:
+        serving = probe_owner
+        lp = torch.where(probe_owner == rank, lid, sentinel)
+    vals, gids = scan(qf, lp, None if mut is None else mut[0])
+    if mut is not None:
+        vals, gids = _merge_local_delta(
+            qf, vals, gids, mut[1], mut[2], k, rank, nl_pad, replication,
+            replica_offset, n_ranks, alive, route)
+    if degraded:
+        # a down rank contributes +inf distances to the merge
+        vals = torch.where(alive[rank] > 0, vals, float("inf"))
+    md, mi = _merge_across_shards(ax, hier, vals, gids, k, merge_ways,
+                                  wire)
+    if degraded:
+        # a failed-over shard on a live replica counts covered
+        cov = probe_coverage(serving, alive, row_valid)
+        md, mi = mask_invalid_rows(md, mi, row_valid)
+        return md, mi, cov, row_valid
+    return md, mi
+
+
+def _mutation_operands(mutation, index, n_local: int):
+    """A search's ``mutation=`` (None, an
+    :class:`~.mnmg_mutation.MnmgMutationState`, or the
+    :class:`~.mnmg_mutation.MnmgMutableIndex` wrapper) as the rank body's
+    three sharded operands — ``(row_mask (P, n_pad + 1), delta_vecs (P,
+    nl_pad * cap, d), delta_ids (P, nl_pad * cap))`` over the local
+    ranks — or None. Shapes are checked against the index layout, so a
+    state made for another geometry cannot splice rows into the wrong
+    slots."""
+    from raft_tpu_torch.comms.mnmg_mutation import (
+        MnmgMutableIndex, MnmgMutationState,
+    )
+
+    if mutation is None:
+        return None
+    state = (mutation.state if isinstance(mutation, MnmgMutableIndex)
+             else mutation)
+    errors.expects(
+        isinstance(state, MnmgMutationState),
+        "mutation=: expected an MnmgMutationState or MnmgMutableIndex, "
+        "got %s", type(mutation).__name__,
+    )
+    rm, dv, di = state.row_mask, state.delta_vecs, state.delta_ids
+    errors.expects(
+        len(rm) == n_local
+        and tuple(rm[0].shape) == (index.n_pad + 1,),
+        "mutation state row_mask (%d x %s) does not match the index "
+        "layout (%d x %s)", len(rm), tuple(rm[0].shape), n_local,
+        (index.n_pad + 1,),
+    )
+    errors.expects(
+        len(dv) == n_local and len(di) == n_local and dv[0].dim() == 2
+        and dv[0].shape[0] % index.nl_pad == 0
+        and tuple(di[0].shape) == (dv[0].shape[0],),
+        "mutation state delta slabs (%s / %s) do not match the index "
+        "layout (nl_pad=%d)", tuple(dv[0].shape), tuple(di[0].shape),
+        index.nl_pad,
+    )
+    return rm, dv, di
+
+
 def _coarse_probe_operands(index, d, dev):
     """The three replicated CoarseIndex operands of the search
     (placeholders when the index carries no coarse quantizer)."""
@@ -870,3 +1277,159 @@ def attach_coarse_index(index, *, n_super=None, member_cap=None,
     out = dataclasses.replace(index, coarse=coarse)
     out._placed = getattr(index, "_placed", None)
     return out
+
+
+# ------------------------------------------------------ the PQ search
+def mnmg_ivf_pq_search(
+    comms, index: MnmgIVFPQIndex, queries, k: int, *,
+    n_probes: int = 8, qcap: typing.Union[int, str, None] = None,
+    list_block: int = 8, refine_ratio: float = 2.0,
+    exact_selection: bool = True, approx_recall_target: float = 0.95,
+    qcap_max_drop_frac: typing.Optional[float] = None,
+    donate_queries: bool = False, shard_mask=None, failover=None,
+    overprobe: float = 2.0, merge_ways: typing.Optional[int] = None,
+    use_kernel: typing.Optional[bool] = None, mutation=None,
+    wire: str = "bf16",
+):
+    """Distributed grouped ADC search over a list-sharded IVF-PQ index.
+    Returns (exact-refined squared L2 distances, GLOBAL row ids), both
+    (nq, k) on the first local rank's device. Each probed list is
+    searched by exactly one rank with the single-device grouped search,
+    and each rank refines its own top candidates against its own raw
+    rows, so recall matches the single-device search on the same lists.
+
+    ``qcap`` as in the single-device grouped search (None: sized from
+    the global probe map; ``"throughput"``; an int — serving passes the
+    value :meth:`MnmgIVFPQIndex.warmup` returned). ``shard_mask``
+    selects the degraded variant and a
+    :class:`~raft_tpu_torch.resilience.PartialSearchResult`;
+    ``failover`` (with ``shard_mask``) serves a down rank's shards from
+    live replicas of an R-way replicated index with no coverage loss.
+    ``overprobe``, ``merge_ways`` and ``wire`` as in
+    :func:`~.mnmg_ivf_flat.mnmg_ivf_flat_search`. ``use_kernel`` picks
+    each shard's ADC engine as
+    :func:`~raft_tpu_torch.spatial.ann.ivf_pq._resolve_adc_engine` does
+    (None: the CUDA ADC kernel on a Hopper card when refinement is
+    active). ``mutation`` (an
+    :class:`~.mnmg_mutation.MnmgMutationState` or
+    :class:`~.mnmg_mutation.MnmgMutableIndex`) folds the per-rank
+    tombstones into each shard's scan and merges an exact scan of the
+    rank's delta segments before the cross-shard merge.
+
+    ``exact_selection`` and ``approx_recall_target``: the JAX package's
+    approximate selection is exact off the TPU, and exact here either
+    way (the target is range-checked only). ``donate_queries`` is
+    accepted and does nothing: the port does not alias the batch."""
+    body, sharded, replicated, degraded = _prepare_pq_search(
+        comms, index, queries, k, n_probes=n_probes, qcap=qcap,
+        list_block=list_block, refine_ratio=refine_ratio,
+        exact_selection=exact_selection,
+        approx_recall_target=approx_recall_target,
+        qcap_max_drop_frac=qcap_max_drop_frac, shard_mask=shard_mask,
+        failover=failover, overprobe=overprobe, merge_ways=merge_ways,
+        use_kernel=use_kernel, mutation=mutation, wire=wire)
+    if not degraded:
+        return comms.run(body, sharded=sharded, replicated=replicated)
+    md, mi, cov, rv = comms.run(body, sharded=sharded, replicated=replicated)
+    return PartialSearchResult(distances=md, ids=mi, coverage=cov,
+                               row_valid=rv)
+
+
+def _check_placed(comms, index):
+    """The local ranks and the first one's device, after checking that
+    ``index`` is placed on this communicator's ranks."""
+    local = tuple(comms.local_ranks)
+    errors.expects(
+        isinstance(index.centroids, torch.Tensor)
+        and getattr(index, "_placed", None) in (None, local)
+        and len(index.sorted_ids) == len(local),
+        "the index is not placed on this communicator's ranks "
+        "(place_index(comms, index))",
+    )
+    return local, comms.rank_device(local[0])
+
+
+def _degraded_operands(comms, index, shard_mask, failover, dev0):
+    """(alive, route) runtime operands of the degraded variant (None,
+    None without ``shard_mask``)."""
+    errors.expects(
+        failover is None or shard_mask is not None,
+        "failover= requires shard_mask= (the degraded variant carries the "
+        "routing operand)",
+    )
+    if shard_mask is None:
+        return None, None
+    alive = torch.as_tensor(resolve_shard_mask(shard_mask, comms.size),
+                            device=dev0)
+    route = torch.as_tensor(
+        resolve_route(failover, comms.size, int(index.replication),
+                      int(index.replica_offset)), device=dev0)
+    return alive, route
+
+
+def _prepare_pq_search(comms, index, queries, k, *, n_probes, qcap,
+                       list_block, refine_ratio, exact_selection,
+                       approx_recall_target, qcap_max_drop_frac,
+                       shard_mask, failover, overprobe, merge_ways,
+                       use_kernel, mutation, wire):
+    """The non-dispatching front half of :func:`mnmg_ivf_pq_search`:
+    validation, qcap and engine resolution, and the rank body's operands.
+    Returns ``(body, sharded, replicated, degraded)``."""
+    local, dev0 = _check_placed(comms, index)
+    q = torch.as_tensor(queries, device=dev0)
+    if q.dtype == torch.float64:
+        q = q.float()
+    errors.check_matrix(q, "queries")
+    errors.check_same_cols(q, index.centroids, "queries", "index")
+    errors.expects(
+        k <= n_probes * index.max_list,
+        "k=%d exceeds the candidate pool (n_probes*max_list=%d)",
+        k, n_probes * index.max_list,
+    )
+    errors.expects(
+        0.0 < approx_recall_target <= 1.0,
+        "approx_recall_target=%s out of range (0, 1]", approx_recall_target,
+    )
+    nl_g = int(index.centroids.shape[0])
+    n_hosts, inner_width = comms_levels(comms)
+    _check_probe_args(index, nl_g, overprobe, merge_ways, inner_width, wire)
+    qcap, _ = resolve_qcap_arg(
+        qcap, q, index.centroids, nl_g, n_probes,
+        max_drop_frac=qcap_max_drop_frac, coarse=index.coarse,
+        overprobe=overprobe)
+    list_block = max(1, min(list_block, index.nl_pad))
+    d = int(index.centroids.shape[1])
+    shards = [index.shard(i) for i in range(len(local))]
+    refine = index.vectors_sorted is not None and refine_ratio > 1.0
+    engines = {s.device: ivf_pq._resolve_adc_engine(
+        use_kernel, refine, index.pq_dim, index.pq_bits, qcap, s.device)
+        for s in shards}
+    alive, route = _degraded_operands(comms, index, shard_mask, failover,
+                                      dev0)
+    mut = _mutation_operands(mutation, index, len(local))
+    sup_c, mem_i, cpad = _coarse_probe_operands(index, d, dev0)
+    statics = dict(
+        k=k, n_probes=n_probes, nl_pad=int(index.nl_pad),
+        use_coarse=index.coarse is not None, overprobe=float(overprobe),
+        merge_ways=None if merge_ways is None else int(merge_ways),
+        replication=int(index.replication),
+        replica_offset=int(index.replica_offset), hier=hier_axes(comms),
+        wire=wire if n_hosts > 1 else None,
+    )
+
+    def body(ax, shard, *ops):
+        m, ops = (ops[:3], ops[3:]) if mut is not None else (None, ops)
+        engine = engines[shard.device]
+
+        def scan(qf, lp, row_mask):
+            return ivf_pq._pq_grouped_impl(
+                shard, qf, k, n_probes, qcap, list_block, refine_ratio,
+                probes=lp, exact_selection=exact_selection,
+                use_kernel=engine, row_mask=row_mask)
+
+        return _rank_body(ax, scan, shard.device, *ops, m,
+                          use_kernel=engine, **statics)
+
+    replicated = (q, index.centroids, index.owner, index.local_id, sup_c,
+                  mem_i, cpad, alive, route)
+    return body, (shards,) + tuple(mut or ()), replicated, alive is not None

@@ -42,36 +42,28 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.cluster.kmeans import kmeans_predict
 from raft_tpu_torch.comms.mnmg_ivf import (
-    _PROBE_BLOCK_Q,
     _cdiv_host,
+    _check_placed,
     _check_probe_args,
     _check_row_shards,
     _coarse_probe_operands,
+    _degraded_operands,
     _exchange_and_assemble,
-    _merge_across_shards,
+    _mutation_operands,
     _on,
+    _rank_body,
     _train_coarse_distributed,
     place_index,
     shard_rows,
 )
 from raft_tpu_torch.comms.multihost import comms_levels, hier_axes
-from raft_tpu_torch.resilience.degraded import (
-    PartialSearchResult,
-    mask_invalid_rows,
-    probe_coverage,
-    resolve_shard_mask,
-    sanitize_query_rows,
-)
-from raft_tpu_torch.resilience.replica import resolve_route
+from raft_tpu_torch.resilience.degraded import PartialSearchResult
 from raft_tpu_torch.spatial.ann import ivf_flat, ivf_sq
 from raft_tpu_torch.spatial.ann.common import (
     CoarseIndex,
     ListStorage,
-    coarse_probe,
-    n_super_probes,
     resolve_qcap_arg,
     static_qcap,
-    two_level_probe,
 )
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex, IVFFlatParams
 from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQParams, sq_encode
@@ -283,71 +275,31 @@ def _assign_lists(comms, x, n_valid, cents, nl: int):
                      out=("stacked", "replicated"))
 
 
-def _rank_search(ax, shard, q, cents, owner, local_id, sup_c, mem_i, cpad,
-                 alive, route, *, k, n_probes, qcap, list_block, nl_pad,
+def _rank_search(ax, shard, *ops, k, n_probes, qcap, list_block, nl_pad,
                  use_coarse, overprobe, merge_ways, replication,
                  replica_offset, use_kernel, rerank_ratio, hier, wire,
-                 dequant=None):
-    """The per-rank search body: probe (replicated compute), keep the
-    owned probes (the sentinel list ``nl_pad - 1`` takes the rest), the
-    unchanged single-device grouped search on this rank's shard (its SQ
-    mode with ``dequant``), and the cross-shard merge; with ``alive`` the
-    degraded variant (a down rank
-    contributes +inf, ``route`` picks each shard's serving copy, bad
-    query rows are neutralized, coverage reported)."""
+                 mutated=False, dequant=None):
+    """The flat family's rank body: :func:`~.mnmg_ivf._rank_body` with
+    the unchanged single-device grouped search on this rank's shard as
+    its scan (its SQ mode with ``dequant``). ``ops`` are the mutation
+    blocks (row mask, delta rows, delta ids) when ``mutated``, then the
+    replicated operands."""
     dev = shard.device
-    rank = ax.get_rank()
-    n_ranks = ax.get_size()
-    degraded = alive is not None
-    qf = _on(q, dev).float()
-    cents, owner, local_id = (_on(t, dev) for t in (cents, owner, local_id))
-    row_valid = None
-    if degraded:
-        alive, route = _on(alive, dev), _on(route, dev)
-        qf, row_valid = sanitize_query_rows(qf)
-    # replicated compute: identical global probes on every rank
-    if use_coarse:
-        probes_g, _ = two_level_probe(
-            qf, _on(sup_c, dev), _on(mem_i, dev), _on(cpad, dev),
-            owner.shape[0], n_probes,
-            n_super_probes(n_probes, sup_c.shape[0], overprobe),
-            _PROBE_BLOCK_Q, use_kernel=use_kernel)
-    else:
-        probes_g, _ = coarse_probe(qf, cents, n_probes)      # (nq, p)
-    probe_owner = owner.long()[probes_g]                     # (nq, p)
-    lid = local_id.long()[probes_g]
-    sentinel = nl_pad - 1
-    if degraded:
-        # route[s] names the copy serving logical shard s: the rank
-        # holding that copy serves the probe from its segment j
-        j = route.long()[torch.clamp(probe_owner, 0, n_ranks - 1)]
-        serving = torch.where(
-            (probe_owner >= 0) & (j >= 0),
-            (probe_owner + torch.clamp(j, min=0) * replica_offset)
-            % n_ranks, -1)
-        own = serving == rank
-        nlp_base = nl_pad // replication
-        lp = torch.where(own, torch.clamp(j, min=0) * nlp_base + lid,
-                         sentinel)
-    else:
-        serving = probe_owner
-        lp = torch.where(probe_owner == rank, lid, sentinel)
+    mut, ops = (ops[:3], ops[3:]) if mutated else (None, ops)
     if dequant is not None:
         dequant = (_on(dequant[0], dev), _on(dequant[1], dev))
-    vals, gids = ivf_flat._grouped_impl(
-        shard, qf, k, n_probes, qcap, list_block, probes=lp,
-        use_kernel=use_kernel, rerank_ratio=rerank_ratio, dequant=dequant)
-    if degraded:
-        # a down rank contributes +inf distances to the merge
-        vals = torch.where(alive[rank] > 0, vals, float("inf"))
-    md, mi = _merge_across_shards(ax, hier, vals, gids, k, merge_ways,
-                                  wire)
-    if degraded:
-        # a failed-over shard on a live replica counts covered
-        cov = probe_coverage(serving, alive, row_valid)
-        md, mi = mask_invalid_rows(md, mi, row_valid)
-        return md, mi, cov, row_valid
-    return md, mi
+
+    def scan(qf, lp, row_mask):
+        return ivf_flat._grouped_impl(
+            shard, qf, k, n_probes, qcap, list_block, probes=lp,
+            use_kernel=use_kernel, rerank_ratio=rerank_ratio,
+            dequant=dequant, row_mask=row_mask)
+
+    return _rank_body(ax, scan, dev, *ops, mut, k=k, n_probes=n_probes,
+                      nl_pad=nl_pad, use_coarse=use_coarse,
+                      overprobe=overprobe, merge_ways=merge_ways,
+                      replication=replication, replica_offset=replica_offset,
+                      use_kernel=use_kernel, hier=hier, wire=wire)
 
 
 def mnmg_ivf_flat_search(
@@ -382,8 +334,11 @@ def mnmg_ivf_flat_search(
     deployment's shard count; ``wire`` picks the cross-host wire format
     on a two-level communicator. ``use_kernel`` picks each shard's scan
     engine as :func:`~raft_tpu_torch.spatial.ann.ivf_flat._resolve_scan_engine`
-    does (None: the CUDA kernel on a Hopper card). ``mutation`` (the
-    sharded mutation tier) is not ported yet and raises."""
+    does (None: the CUDA kernel on a Hopper card). ``mutation`` (an
+    :class:`~.mnmg_mutation.MnmgMutationState` or
+    :class:`~.mnmg_mutation.MnmgMutableIndex`) folds the per-rank
+    tombstones into each shard's scan and merges an exact scan of the
+    rank's delta segments before the cross-shard merge."""
     out = _flat_family_search(
         comms, index, queries, k, sq=False, n_probes=n_probes, qcap=qcap,
         list_block=list_block, qcap_max_drop_frac=qcap_max_drop_frac,
@@ -422,20 +377,7 @@ def _prepare_flat_family(comms, index, queries, k, *, sq, n_probes, qcap,
     """The non-dispatching front half of :func:`_flat_family_search`:
     validation, qcap and engine resolution, and the rank body's operands.
     Returns ``(body, sharded, replicated, degraded)``."""
-    errors.expects(
-        mutation is None,
-        "mutation=: the sharded mutation tier (comms/mnmg_mutation.py) is "
-        "not ported yet; search a MutableIndex on one device instead",
-    )
-    local = tuple(comms.local_ranks)
-    dev0 = comms.rank_device(local[0])
-    errors.expects(
-        isinstance(index.centroids, torch.Tensor)
-        and getattr(index, "_placed", None) in (None, local)
-        and len(index.sorted_ids) == len(local),
-        "the index is not placed on this communicator's ranks "
-        "(place_index(comms, index))",
-    )
+    local, dev0 = _check_placed(comms, index)
     q = torch.as_tensor(queries, device=dev0)
     if q.dtype == torch.float64:
         q = q.float()
@@ -468,19 +410,9 @@ def _prepare_flat_family(comms, index, queries, k, *, sq, n_probes, qcap,
     dequant = ((_on(torch.as_tensor(index.vmin), dev0).float(),
                 _on(torch.as_tensor(index.vscale), dev0).float())
                if sq else None)
-    degraded = shard_mask is not None
-    errors.expects(
-        failover is None or degraded,
-        "failover= requires shard_mask= (the degraded variant carries the "
-        "routing operand)",
-    )
-    alive = route = None
-    if degraded:
-        alive = torch.as_tensor(resolve_shard_mask(shard_mask, comms.size),
-                                device=dev0)
-        route = torch.as_tensor(
-            resolve_route(failover, comms.size, int(index.replication),
-                          int(index.replica_offset)), device=dev0)
+    alive, route = _degraded_operands(comms, index, shard_mask, failover,
+                                      dev0)
+    mut = _mutation_operands(mutation, index, len(local))
     sup_c, mem_i, cpad = _coarse_probe_operands(index, d, dev0)
     statics = dict(
         k=k, n_probes=n_probes, qcap=qcap, list_block=list_block,
@@ -490,7 +422,7 @@ def _prepare_flat_family(comms, index, queries, k, *, sq, n_probes, qcap,
         replication=int(index.replication),
         replica_offset=int(index.replica_offset),
         rerank_ratio=float(rerank_ratio), hier=hier_axes(comms),
-        wire=wire if n_hosts > 1 else None,
+        wire=wire if n_hosts > 1 else None, mutated=mut is not None,
     )
 
     def body(ax, shard, *ops):
@@ -500,7 +432,7 @@ def _prepare_flat_family(comms, index, queries, k, *, sq, n_probes, qcap,
 
     replicated = (q, index.centroids, index.owner, index.local_id, sup_c,
                   mem_i, cpad, alive, route)
-    return body, (shards,), replicated, degraded
+    return body, (shards,) + tuple(mut or ()), replicated, alive is not None
 
 
 # ---------------------------------------------------------------- IVF-SQ

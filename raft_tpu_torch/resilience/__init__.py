@@ -22,9 +22,12 @@
   :func:`resolve_route`, :func:`popularity_replication`, and the
   per-shard and per-list load feed (:func:`record_list_load` /
   :func:`measured_list_load` and their per-shard counterparts, the cold
-  tier's promotion signal).
-
-The self-healing supervisor is not ported yet.
+  tier's promotion signal);
+* self-healing (:mod:`.supervisor`): :class:`ServingSupervisor`, the
+  background detect → reroute → resync → reintegrate loop over a fixed
+  placement, driven by a :class:`HealthMonitor` and actuating
+  :class:`HealActions` through the resumable QUARANTINED → RECOVERING →
+  RESYNCING → WARMING → SERVING machine.
 """
 
 from raft_tpu_torch.resilience.admission import (
@@ -50,6 +53,16 @@ from raft_tpu_torch.resilience.health import (
     ShardHealth,
     health_check,
 )
+from raft_tpu_torch.resilience.supervisor import (
+    STATE_QUARANTINED,
+    STATE_RECOVERING,
+    STATE_RESYNCING,
+    STATE_SERVING,
+    STATE_WARMING,
+    HealActions,
+    ServingSupervisor,
+    SupervisorStats,
+)
 from raft_tpu_torch.resilience.replica import (
     FailoverPlan,
     ReplicaPlacement,
@@ -62,10 +75,16 @@ from raft_tpu_torch.resilience.replica import (
 )
 
 __all__ = [
+    "STATE_QUARANTINED",
+    "STATE_RECOVERING",
+    "STATE_RESYNCING",
+    "STATE_SERVING",
+    "STATE_WARMING",
     "AdmissionController",
     "AdmissionStats",
     "Deadline",
     "FailoverPlan",
+    "HealActions",
     "HealthMonitor",
     "HealthProbe",
     "HealthReport",
@@ -73,7 +92,9 @@ __all__ = [
     "PartialSearchResult",
     "ReplicaPlacement",
     "RetryPolicy",
+    "ServingSupervisor",
     "ShardHealth",
+    "SupervisorStats",
     "dispatch_hedged",
     "dispatch_with_deadline",
     "health_check",

@@ -26,6 +26,7 @@ from raft_tpu_torch.spatial.ann.interop import (
     load_ivf_sq,
     load_index,
     mnmg_index_from_arrays,
+    mnmg_mutation_state_from_arrays,
     mutable_index_from_arrays,
     save_index,
 )

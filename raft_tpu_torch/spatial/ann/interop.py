@@ -15,15 +15,20 @@
   index's under ``index.``, ``delta.vecs`` / ``ids`` / ``live`` /
   ``counts`` with the ``delta.cap`` int, ``row_mask`` and ``id_to_pos``,
   and the host-side ``epoch`` the archive does not keep.
-* :func:`mnmg_index_from_arrays` takes a JAX ``MnmgIVFFlatIndex``'s
-  or ``MnmgIVFSQIndex``'s leaves (its field names, the coarse
-  quantizer's under ``coarse.``) and statics, and returns the port's
-  sharded index on the host or, with ``comms``, placed on its ranks.
+* :func:`mnmg_index_from_arrays` takes a JAX ``MnmgIVFFlatIndex``'s,
+  ``MnmgIVFSQIndex``'s or ``MnmgIVFPQIndex``'s leaves (its field names,
+  the coarse quantizer's under ``coarse.``) and statics, and returns the
+  port's sharded index on the host or, with ``comms``, placed on its
+  ranks one rank's slab at a time.
+* :func:`mnmg_mutation_state_from_arrays` takes a JAX
+  ``MnmgMutationState``'s ``row_mask`` / ``delta_vecs`` / ``delta_ids``
+  / ``delta_counts`` and returns the port's state, on the host or placed
+  on a communicator's ranks.
 * :func:`save_index` writes the repo's npz index format (the JAX
   package's ``spatial/ann/serialize.py``) with numpy alone, for the
   ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``,
-  ``"mutable_ivf"``, ``"mnmg_ivf_flat"`` and ``"mnmg_ivf_sq"`` kinds:
-  the
+  ``"mutable_ivf"``, ``"mnmg_ivf_flat"``, ``"mnmg_ivf_sq"`` and
+  ``"mnmg_ivf_pq"`` kinds: the
   ``__header__`` JSON (type, the lowest format version that holds the
   payload, the static fields, the per-array CRC32/shape/dtype manifest),
   one key per leaf under the reference's field names, bf16 arrays as
@@ -57,7 +62,8 @@ __all__ = [
     "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
     "ivf_sq_index_from_arrays", "load_graph", "load_index",
     "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
-    "mnmg_index_from_arrays", "mutable_index_from_arrays", "save_index",
+    "mnmg_index_from_arrays", "mnmg_mutation_state_from_arrays",
+    "mutable_index_from_arrays", "save_index",
 ]
 
 # 1: no integrity manifest (loads unverified); 2: the manifest; 3-5: the
@@ -87,15 +93,22 @@ _MNMG_ARRAYS = {
     "mnmg_ivf_sq": ("centroids", "owner", "local_id", "local_cents",
                     "codes_sorted", "vmin", "vscale", "sorted_ids",
                     "list_offsets", "list_sizes"),
+    "mnmg_ivf_pq": ("centroids", "codebooks", "owner", "local_id",
+                    "local_cents", "codes_sorted", "vectors_sorted",
+                    "sorted_ids", "list_offsets", "list_sizes"),
 }
 _MNMG_STATICS = {
     "mnmg_ivf_flat": ("n_pad", "nl_pad", "max_list", "n_rows", "metric",
                       "replication", "replica_offset"),
     "mnmg_ivf_sq": ("n_pad", "nl_pad", "max_list", "n_rows", "replication",
                     "replica_offset"),
+    "mnmg_ivf_pq": ("pq_dim", "pq_bits", "n_pad", "nl_pad", "max_list",
+                    "n_rows", "replication", "replica_offset"),
 }
-_ALL_MNMG_STATICS = ("n_pad", "nl_pad", "max_list", "n_rows", "metric",
-                     "replication", "replica_offset")
+# a store_raw=False PQ index has no raw slab
+_MNMG_OPTIONAL = frozenset({"vectors_sorted"})
+_ALL_MNMG_STATICS = ("pq_dim", "pq_bits", "n_pad", "nl_pad", "max_list",
+                     "n_rows", "metric", "replication", "replica_offset")
 _COARSE_STATICS = ("coarse.n_cents", "coarse.n_super", "coarse.max_members",
                    "coarse.build_args")
 # the wrapped index's nested type name -> its kind
@@ -304,47 +317,62 @@ def mutable_index_from_arrays(arrays: dict, kind: str, *, metric=None,
 
 def mnmg_index_from_arrays(arrays: dict, comms=None):
     """Build the port's sharded index — a
-    :class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`, or a
+    :class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`, a
     :class:`~raft_tpu_torch.comms.MnmgIVFSQIndex` when the arrays hold
-    ``codes_sorted`` — from a JAX sharded index's leaves and statics,
-    keyed by its field names (``centroids``, ``owner``, ``local_id``,
-    the per-rank ``local_cents`` / ``vectors_sorted`` or
+    ``vmin``, or a :class:`~raft_tpu_torch.comms.MnmgIVFPQIndex` when
+    they hold ``codebooks`` — from a JAX sharded index's leaves and
+    statics, keyed by its field names (``centroids``, ``owner``,
+    ``local_id``, the per-rank ``local_cents`` / ``vectors_sorted`` /
     ``codes_sorted`` / ``sorted_ids`` / ``list_offsets`` /
-    ``list_sizes`` slabs, SQ's ``vmin`` / ``vscale``, ``n_pad``,
-    ``nl_pad``, ``max_list``, ``n_rows``, the flat kind's ``metric``,
-    and optionally ``replication``, ``replica_offset`` and a
-    ``coarse.`` quantizer). Shapes are checked against the statics.
-    Returns the host index (numpy slabs) or, with ``comms``, the index
-    placed on its ranks (:func:`~raft_tpu_torch.comms.place_index`,
-    which re-partitions an index of another rank count)."""
-    from raft_tpu_torch.comms.mnmg_ivf import place_index
+    ``list_sizes`` slabs, SQ's ``vmin`` / ``vscale``, PQ's ``codebooks``,
+    ``pq_dim`` and ``pq_bits``, ``n_pad``, ``nl_pad``, ``max_list``,
+    ``n_rows``, the flat kind's ``metric``, and optionally
+    ``replication``, ``replica_offset`` and a ``coarse.`` quantizer; a
+    PQ index built with ``store_raw=False`` has no ``vectors_sorted``).
+    Shapes are checked against the statics. Returns the host index
+    (numpy slabs) or, with ``comms``, the index placed on its ranks
+    (:func:`~raft_tpu_torch.comms.place_index`, one rank's slab at a
+    time, re-partitioning an index of another rank count)."""
+    from raft_tpu_torch.comms.mnmg_ivf import MnmgIVFPQIndex, place_index
     from raft_tpu_torch.comms.mnmg_ivf_flat import (
         MnmgIVFFlatIndex,
         MnmgIVFSQIndex,
     )
 
-    kind = ("mnmg_ivf_sq" if arrays.get("codes_sorted") is not None
+    kind = ("mnmg_ivf_pq" if arrays.get("codebooks") is not None
+            else "mnmg_ivf_sq" if arrays.get("vmin") is not None
             else "mnmg_ivf_flat")
     names, statics = _MNMG_ARRAYS[kind], _MNMG_STATICS[kind]
-    for key in names + statics[:4]:
-        errors.expects(key in arrays, "%s arrays: missing %r", kind, key)
-    a = {key: np.asarray(arrays[key]) for key in names}
+    n_required = 6 if kind == "mnmg_ivf_pq" else 4
+    for key in names + statics[:n_required]:
+        errors.expects(key in arrays or key in _MNMG_OPTIONAL,
+                       "%s arrays: missing %r", kind, key)
+    a = {key: (None if arrays.get(key) is None
+               else np.asarray(arrays[key])) for key in names}
     st = {key: arrays.get(key, 1) for key in statics}
     n_pad, nl_pad = int(st["n_pad"]), int(st["nl_pad"])
     nl_g, d = a["centroids"].shape
     P = a["sorted_ids"].shape[0]
-    slab = "codes_sorted" if kind == "mnmg_ivf_sq" else "vectors_sorted"
+    slab = {"mnmg_ivf_sq": "codes_sorted",
+            "mnmg_ivf_flat": "vectors_sorted"}.get(kind)
     want = {
         "owner": (nl_g,), "local_id": (nl_g,),
-        "local_cents": (P, nl_pad, d), slab: (P, n_pad + 1, d),
-        "sorted_ids": (P, n_pad), "list_offsets": (P, nl_pad + 1),
-        "list_sizes": (P, nl_pad), "vmin": (d,), "vscale": (d,),
+        "local_cents": (P, nl_pad, d), "sorted_ids": (P, n_pad),
+        "list_offsets": (P, nl_pad + 1), "list_sizes": (P, nl_pad),
+        "vmin": (d,), "vscale": (d,),
     }
+    if slab is not None:
+        want[slab] = (P, n_pad + 1, d)
+    else:
+        m, bits = int(st["pq_dim"]), int(st["pq_bits"])
+        want.update(codebooks=(m, 1 << bits, d // m),
+                    codes_sorted=(P, n_pad + 1, m),
+                    vectors_sorted=(P, n_pad + 1, d))
     for key, shape in want.items():
         errors.expects(
-            key not in a or a[key].shape == shape,
+            a.get(key) is None or a[key].shape == shape,
             "%s arrays: %s has shape %s, expected %s", kind, key,
-            a.get(key, np.empty(0)).shape, shape,
+            None if a.get(key) is None else a[key].shape, shape,
         )
     coarse = None
     if arrays.get("coarse.super_cents") is not None:
@@ -352,11 +380,41 @@ def mnmg_index_from_arrays(arrays: dict, comms=None):
     kw = dict(n_pad=n_pad, nl_pad=nl_pad, max_list=int(st["max_list"]),
               n_rows=int(st["n_rows"]), replication=int(st["replication"]),
               replica_offset=int(st["replica_offset"]), coarse=coarse)
-    if kind == "mnmg_ivf_sq":
+    if kind == "mnmg_ivf_pq":
+        host = MnmgIVFPQIndex(**a, pq_dim=int(st["pq_dim"]),
+                              pq_bits=int(st["pq_bits"]), **kw)
+    elif kind == "mnmg_ivf_sq":
         host = MnmgIVFSQIndex(**a, **kw)
     else:
         host = MnmgIVFFlatIndex(**a, metric=str(st["metric"]), **kw)
     return host if comms is None else place_index(comms, host)
+
+
+def mnmg_mutation_state_from_arrays(arrays: dict, comms=None):
+    """The port's :class:`~raft_tpu_torch.comms.mnmg_mutation.MnmgMutationState`
+    from a JAX sharded mutation state's four slabs as numpy arrays:
+    ``row_mask`` (P, n_pad + 1), ``delta_vecs`` (P, nl_pad * cap, d),
+    ``delta_ids`` (P, nl_pad * cap) and ``delta_counts`` (P, nl_pad);
+    ``cap`` follows from the shapes. Returns the state on the host or,
+    with ``comms``, placed on its ranks (wrap it with the index it was
+    made for in a ``MnmgMutableIndex``)."""
+    from raft_tpu_torch.comms.mnmg_ivf import _place_sharded
+    from raft_tpu_torch.comms.mnmg_mutation import MnmgMutationState
+
+    a = {key: np.asarray(arrays[key]) for key in (
+        "row_mask", "delta_vecs", "delta_ids", "delta_counts")}
+    P, nlp = a["delta_counts"].shape
+    DL = a["delta_ids"].shape[1] if a["delta_ids"].ndim == 2 else -1
+    errors.expects(
+        a["row_mask"].ndim == 2 and a["row_mask"].shape[0] == P
+        and a["delta_ids"].shape == (P, DL) and DL % nlp == 0
+        and a["delta_vecs"].shape[:2] == (P, DL),
+        "mnmg mutation arrays: inconsistent shapes %s",
+        {key: v.shape for key, v in a.items()},
+    )
+    kw = {key: v if comms is None else _place_sharded(comms, v)
+          for key, v in a.items()}
+    return MnmgMutationState(**kw, cap=DL // nlp)
 
 
 # ---------------------------------------------------------------- writer
@@ -385,6 +443,7 @@ _VERSION_OF = {GraphIndex: 5, MutableIndex: 4}
 
 def _register_sharded() -> None:
     # lazy: the comms package imports this module's package
+    from raft_tpu_torch.comms.mnmg_ivf import MnmgIVFPQIndex
     from raft_tpu_torch.comms.mnmg_ivf_flat import (
         MnmgIVFFlatIndex,
         MnmgIVFSQIndex,
@@ -394,7 +453,8 @@ def _register_sharded() -> None:
         for cls, kind, tail in (
                 (MnmgIVFFlatIndex, "mnmg_ivf_flat", ("coarse",)),
                 (MnmgIVFSQIndex, "mnmg_ivf_sq",
-                 ("vectors_sorted", "coarse"))):
+                 ("vectors_sorted", "coarse")),
+                (MnmgIVFPQIndex, "mnmg_ivf_pq", ("coarse",))):
             _FIELDS[cls] = _MNMG_ARRAYS[kind] + _MNMG_STATICS[kind] + tail
             _KIND_OF[cls] = kind
 
@@ -433,9 +493,10 @@ def _flatten(obj, prefix: str, arrays: dict, static: dict) -> None:
 
 def save_index(index, path) -> None:
     """Write an IVF-Flat, IVF-SQ, IVF-PQ, graph, mutable IVF
-    (:class:`~.mutation.MutableIndex`) or sharded IVF-Flat / IVF-SQ
-    (:class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`,
-    :class:`~raft_tpu_torch.comms.MnmgIVFSQIndex`, every rank's slab)
+    (:class:`~.mutation.MutableIndex`) or sharded IVF-Flat / IVF-SQ /
+    IVF-PQ (:class:`~raft_tpu_torch.comms.MnmgIVFFlatIndex`,
+    :class:`~raft_tpu_torch.comms.MnmgIVFSQIndex`,
+    :class:`~raft_tpu_torch.comms.MnmgIVFPQIndex`, every rank's slab)
     index to ``path`` in the reference's npz format, readable by the JAX
     package's ``load_index``: the header carries the kind, the lowest
     format version that holds the payload (5 for a graph, 4 for a
@@ -598,6 +659,7 @@ _FROM_ARRAYS = {
     # the sharded kinds are placed by a communicator, not on a device
     "mnmg_ivf_flat": None,
     "mnmg_ivf_sq": None,
+    "mnmg_ivf_pq": None,
 }
 
 
@@ -613,7 +675,8 @@ def load_index(path, device=None, comms=None):
     ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``, ``"mutable_ivf"`` — a
     :class:`~.mutation.MutableIndex` at epoch 0 with an empty dirty
     set, as the JAX package loads it — ``"mnmg_ivf_flat"`` and
-    ``"mnmg_ivf_sq"``), written by either package's ``save_index``,
+    ``"mnmg_ivf_sq"`` and ``"mnmg_ivf_pq"``), written by either
+    package's ``save_index``,
     verifying every array against the CRC32 manifest (a version 1
     archive has none), onto ``device`` (CUDA by default). A sharded
     index loads onto the host, or with ``comms`` placed on its ranks

@@ -2,7 +2,8 @@
 
     python3 -m raft_tpu_torch.tools.profile_grouped
         [--kind flat|sq|pq|graph|coarse|mutable|sharded] [--beam B]
-        [--ranks P] [--rendezvous-pairs N] [--seed N] [--out DIR]
+        [--engine flat|pq] [--ranks P] [--rendezvous-pairs N] [--seed N]
+        [--out DIR]
 
 Builds the index of ``chip_smoke.py``'s path of that kind:
 
@@ -27,7 +28,11 @@ Builds the index of ``chip_smoke.py``'s path of that kind:
 * ``sharded``: the ``flat`` rows in a sharded IVF-Flat index
   (``raft_tpu_torch.comms``) over ``--ranks`` in-process ranks on the
   one card (default 8, ``chip_smoke.py``'s sharded phase), 1024 lists,
-  8 probes; buckets 8 and 4096 at their warmed qcap. With
+  8 probes; buckets 8 and 4096 at their warmed qcap. With ``--engine
+  pq`` the sharded IVF-PQ index of ``chip_smoke.py``'s sharded PQ step
+  instead: the ``pq`` rows and configuration over the ranks, bucket 8 at
+  its warmed qcap and the 4,096-query batch at ``qcap="throughput"``
+  (each rank launches the ADC kernel on its shard). With
   ``--rendezvous-pairs N`` it also times, per bucket, N pairs of 5
   searches alternating the in-process ranks' two rendezvous: taking
   turns (``Comms.run``'s) and all at once (every rank thread runs, a
@@ -142,7 +147,8 @@ def _clustered(rng, n, n_centers, spread):
             + rng.standard_normal((n, DIM), dtype=np.float32))
 
 
-def build(kind: str, rng, beam: int = 32, ranks: int = 8):
+def build(kind: str, rng, beam: int = 32, ranks: int = 8,
+          engine: str = "flat"):
     """(rows, index, search(q, arg), [(bucket, arg)]) of the path of
     ``kind``: the arg is the qcap of an IVF search, the warmed iteration
     count of a graph search and the engine of a coarse probe (the index
@@ -152,7 +158,7 @@ def build(kind: str, rng, beam: int = 32, ranks: int = 8):
     if kind == "mutable":
         return _build_mutable(rng)
     if kind == "sharded":
-        return _build_sharded(rng, ranks)
+        return _build_sharded(rng, ranks, engine)
     if kind == "graph":
         x = _clustered(rng, 500_000, 1000, 10.0)
         index = graph_build(x, GraphParams(degree=16, intermediate_degree=32,
@@ -216,16 +222,32 @@ def _build_mutable(rng):
     return x, index, search, plan
 
 
-def _build_sharded(rng, ranks: int):
+def _build_sharded(rng, ranks: int, engine: str = "flat"):
     from raft_tpu_torch.comms import (
         build_comms,
         mnmg_ivf_flat_build,
         mnmg_ivf_flat_search,
+        mnmg_ivf_pq_build,
+        mnmg_ivf_pq_search,
     )
 
-    x = _clustered(rng, 1_000_000, 2000, None)
     dev = torch.device("cuda", torch.cuda.current_device())
     comms = build_comms([dev] * ranks)
+    if engine == "pq":
+        x = _clustered(rng, 500_000, 1000, 10.0)
+        index = mnmg_ivf_pq_build(comms, x, IVFPQParams(
+            n_lists=2048, pq_dim=24, kmeans_n_iters=10,
+            kmeans_init="random", max_list_cap=512))
+
+        def search(q, qcap):
+            return mnmg_ivf_pq_search(comms, index, q, K, n_probes=16,
+                                      qcap=qcap, refine_ratio=4.0)
+        plan = [(8, index.warmup(comms, 8, k=K, n_probes=16,
+                                 refine_ratio=4.0)),
+                (4096, index.warmup(comms, 4096, k=K, n_probes=16,
+                                    qcap="throughput", refine_ratio=4.0))]
+        return x, index, search, plan
+    x = _clustered(rng, 1_000_000, 2000, None)
     index = mnmg_ivf_flat_build(comms, x, IVFFlatParams(
         n_lists=1024, kmeans_n_iters=10, kmeans_init="random"))
 
@@ -358,6 +380,8 @@ def main(argv=None) -> int:
                                        "coarse", "mutable", "sharded"),
                     default="flat")
     ap.add_argument("--beam", type=int, default=32)
+    ap.add_argument("--engine", choices=("flat", "pq"), default="flat",
+                    help="the sharded index's engine (--kind sharded)")
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--rendezvous-pairs", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -368,7 +392,8 @@ def main(argv=None) -> int:
         args.out.mkdir(parents=True, exist_ok=True)
 
     rng = np.random.default_rng(args.seed)
-    x, index, search, plan = build(args.kind, rng, args.beam, args.ranks)
+    x, index, search, plan = build(args.kind, rng, args.beam, args.ranks,
+                                   args.engine)
     dev = getattr(index, "device", None) or torch.device("cuda")
     arg_name = {"graph": "iters", "coarse": "engine"}.get(args.kind,
                                                           "qcap")
@@ -380,8 +405,11 @@ def main(argv=None) -> int:
         wall, busy, top = trace_calls(
             lambda: search(q, qcap), ITERS,
             None if args.out is None
-            else args.out / f"trace_{args.kind}_{nq}_{qcap}.json")
-        print(f"[{card}] {args.kind} bucket {nq} ({arg_name} {qcap}): "
+            else args.out / f"trace_{args.kind}_{args.engine}_{nq}_"
+            f"{qcap}.json")
+        what = (f"{args.kind} {args.engine}" if args.kind == "sharded"
+                else args.kind)
+        print(f"[{card}] {what} bucket {nq} ({arg_name} {qcap}): "
               f"{wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
               f"{1 - busy / wall:.1%}", flush=True)
         for name, ms, n in top:

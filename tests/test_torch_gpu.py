@@ -1117,3 +1117,81 @@ def test_sharded_search_p8_equals_p1_on_card():
 
     with pytest.raises(RuntimeError, match="rank 6"):
         c8.run(body, sharded=(torch.ones(8, 4, device=dev),))
+
+
+@pytest.mark.gpu
+def test_sharded_pq_search_p8_equals_p1_on_card():
+    """The sharded IVF-PQ engine at P = 8 ranks on one card against the
+    same index resharded to P = 1: the ADC kernel (#4) launched once a
+    rank on a batch within one LUT chunk, no engine fallback, the
+    sentinel list (every unowned probe slot, no rows) read as empty.
+    Each rank refines its own top candidates, so at refine 4 the P = 8
+    pools are a superset of P = 1's (distances never worse); at a
+    saturated pool both refine every probed row: distances bitwise, ids
+    equal up to ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernel is built for sm_90a")
+    from raft_tpu_torch.comms import (
+        build_comms,
+        mnmg_ivf_pq_build,
+        mnmg_ivf_pq_search,
+        place_index,
+    )
+    from raft_tpu_torch.spatial.ann import IVFPQParams, ivf_pq
+    from raft_tpu_torch.spatial.ann import pq_kernel as tpk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(-10, 10, (64, 32)).astype(np.float32)
+    x = (centers[rng.integers(0, 64, 40_000)]
+         + rng.standard_normal((40_000, 32), dtype=np.float32))
+    q = torch.as_tensor(
+        x[rng.integers(0, 40_000, 512)]
+        + 0.3 * rng.standard_normal((512, 32), dtype=np.float32),
+        device=dev)
+    c8, c1 = build_comms([dev] * 8), build_comms([dev])
+    idx8 = mnmg_ivf_pq_build(c8, x, IVFPQParams(
+        n_lists=128, pq_dim=8, kmeans_n_iters=5, kmeans_init="random",
+        max_list_cap=512))
+    idx1 = place_index(c1, idx8)
+    ivf_pq.ENGINE_FALLBACKS = 0
+    calls = []
+    orig = tpk.pq_adc_lists
+
+    def keep(luts, lut_map, codes, origin, bounds, l_pad, out=None):
+        res = orig(luts, lut_map, codes, origin, bounds, l_pad, out=out)
+        calls.append((lut_map, bounds, res))
+        return res
+
+    tpk.pq_adc_lists = keep
+    try:
+        before = tpk.LAUNCHES
+        d8, i8 = mnmg_ivf_pq_search(c8, idx8, q, 10, n_probes=16,
+                                    refine_ratio=4.0, qcap="throughput")
+        launches = tpk.LAUNCHES - before
+    finally:
+        tpk.pq_adc_lists = orig
+    d1, i1 = mnmg_ivf_pq_search(c1, idx1, q, 10, n_probes=16,
+                                refine_ratio=4.0, qcap="throughput")
+    torch.cuda.synchronize()
+    assert launches == 8 and len(calls) == 8
+    assert ivf_pq.ENGINE_FALLBACKS == 0
+    sentinel = idx8.nl_pad - 1
+    for lut_map, bounds, res in calls:
+        assert int(bounds[sentinel, 1] - bounds[sentinel, 0]) == 0
+        assert bool((lut_map[sentinel] >= 0).any())
+        assert bool((res[sentinel] >= tpk.BIG).all())
+    assert bool((d8 <= d1).all())
+    rr = 16 * idx8.max_list / 10 + 1.0
+    d8, i8 = mnmg_ivf_pq_search(c8, idx8, q[:128], 10, n_probes=16,
+                                refine_ratio=rr, qcap=128)
+    d1, i1 = mnmg_ivf_pq_search(c1, idx1, q[:128], 10, n_probes=16,
+                                refine_ratio=rr, qcap=128)
+    assert torch.equal(d8, d1)
+    d, a, b = (t.cpu().numpy() for t in (d8, i8, i1))
+    for r in range(d.shape[0]):
+        runs = np.split(np.arange(10), np.flatnonzero(np.diff(d[r])) + 1)
+        for run in runs[:-1]:
+            assert set(a[r, run]) == set(b[r, run]), r

@@ -438,8 +438,38 @@ def test_coarse_quantizer_attached(jc, tc, dataset, jidx, engine):
 
 
 def test_mutation_argument_names_the_slice(tc, dataset, tidx):
+    """``mutation=`` with a wrapped state (the sharded mutation tier)
+    answers as ``mnmg_mutable_search`` does, on both engines: an upserted
+    row its own top-1 at distance 0, a deleted row gone; an object that
+    is no mutation state is refused."""
+    from raft_tpu_torch.comms import (
+        mnmg_delete,
+        mnmg_mutable_search,
+        mnmg_upsert,
+        wrap_mnmg_mutable,
+    )
+
+    x, q = dataset
+    mw = wrap_mnmg_mutable(tc, tidx, delta_cap=4)
+    mw, acc = mnmg_upsert(tc, mw, q[:3] + 100.0,
+                          np.arange(50000, 50003, dtype=np.int32))
+    assert acc.all()
+    _, before = tsearch(tc, tidx, q)
+    mw, found = mnmg_delete(tc, mw, before[:2, 0].numpy())
+    assert found.all()
+    qq = np.concatenate([q, q[:3] + 100.0])
+    for engine in (False, True):
+        d, i = tsearch(tc, tidx, qq, mutation=mw, use_kernel=engine)
+        d2, i2 = mnmg_mutable_search(tc, mw, torch.as_tensor(qq), K,
+                                     n_probes=N_PROBES, qcap=qq.shape[0],
+                                     use_kernel=engine)
+        assert torch.equal(d, d2) and torch.equal(i, i2)
+        np.testing.assert_array_equal(i[-3:, 0].numpy(),
+                                      np.arange(50000, 50003))
+        assert (d[-3:, 0] == 0).all()
+        assert not np.isin(i.numpy(), before[:2, 0].numpy()).any()
     with pytest.raises(ValueError, match="mutation"):
-        tsearch(tc, tidx, dataset[1], mutation=object())
+        tsearch(tc, tidx, q, mutation=object())
 
 
 def test_gaussian_blobs_within_tolerance(jc, tc):
