@@ -1320,6 +1320,19 @@ def mutation_phase(args, card, dev, index, qcaps, x):
         nums["upsert_256_ms"] = 1e3 * (time.perf_counter() - t0)
         check(acc.all() and m.epoch == 1, f"upsert acked {acc.sum()} of "
               f"{MUT_INGEST} rows")
+        # the same rows in 2 x 128: the same state (routing goes through
+        # the index's canonical table, whatever the GEMM's rounding)
+        half = MUT_INGEST // 2
+        m2, acc2 = mut.upsert(m0, fresh[:half], fresh_ids[:half])
+        m2, acc3 = mut.upsert(m2, fresh[half:], fresh_ids[half:])
+        check(acc2.all() and acc3.all() and all(
+            torch.equal(getattr(m.delta, f), getattr(m2.delta, f))
+            for f in ("vecs", "ids", "live", "counts"))
+            and torch.equal(m.row_mask, m2.row_mask),
+            "upserts in 2 x 128 left another state than one batch of 256")
+        del m2
+        nums["routing_witness"], nums["routed_apart"] = routing_witness(
+            index.centroids, fresh, half, card, "single-device")
         fresh_t = torch.as_tensor(fresh, device=dev)
         for engine in (None, False):
             d, i = search(m, fresh_t, engine)
@@ -1403,7 +1416,7 @@ def mutation_phase(args, card, dev, index, qcaps, x):
                 for b in BUCKETS:
                     search(m, qb[:b])
                 mut._upsert_impl(index.centroids, m.delta, m.row_mask,
-                                 m.id_to_pos, fresh_t, ing_ids)
+                                 m.id_to_pos, fresh_t, ing_ids, m.canon)
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
         syncs = collections.Counter(
@@ -1591,11 +1604,13 @@ def mutation_phase(args, card, dev, index, qcaps, x):
     return nums
 
 
-def mutable_quantized(kind, index, x, qb, dev):
-    """The mutation tier on a quantized index: upsert 256 rows, delete
-    10%, a 4,096 batch on both engines (no deleted id), the fresh rows
-    found as their own top-1, one compaction. Returns its numbers and
-    the kernel-engine searches it ran."""
+def mutable_quantized(kind, index, x, qb, dev, card):
+    """The mutation tier on a quantized index: upsert 256 rows, in one
+    batch and in 2 x 128 to the same state (the C3 check, with
+    :func:`routing_witness`, where capped lists split), delete 10%, a
+    4,096 batch on both engines (no deleted id), the fresh rows found as
+    their own top-1, one compaction. Returns its numbers and the
+    kernel-engine searches it ran."""
     from raft_tpu_torch.spatial.ann import mutation as mut
 
     rng = np.random.default_rng(17)
@@ -1606,11 +1621,25 @@ def mutable_quantized(kind, index, x, qb, dev):
                                   qcap="throughput", use_kernel=engine, **kw)
 
     nums, n_kernel = {}, 0
-    m = mut.wrap_mutable(index, delta_cap=MUT_CAP)
+    m0 = mut.wrap_mutable(index, delta_cap=MUT_CAP)
     fresh = dyadic_rows(x, rng, MUT_INGEST)
     fresh_ids = np.arange(QZ_ROWS, QZ_ROWS + MUT_INGEST, dtype=np.int32)
-    m, acc = mut.upsert(m, fresh, fresh_ids)
+    m, acc = mut.upsert(m0, fresh, fresh_ids)
     check(acc.all(), f"{kind}: upsert acked {acc.sum()} of {MUT_INGEST}")
+    # the same rows in 2 x 128 on this index, whose capped lists were
+    # split into pieces sharing their parent's centroid: the same state
+    half = MUT_INGEST // 2
+    m2, acc2 = mut.upsert(m0, fresh[:half], fresh_ids[:half])
+    m2, acc3 = mut.upsert(m2, fresh[half:], fresh_ids[half:])
+    check(acc2.all() and acc3.all() and all(
+        torch.equal(getattr(m.delta, f), getattr(m2.delta, f))
+        for f in ("vecs", "ids", "live", "counts"))
+        and torch.equal(m.row_mask, m2.row_mask),
+        f"{kind}: upserts in 2 x 128 left another state than one batch "
+        "of 256")
+    del m0, m2
+    nums["routing_witness"], nums["routed_apart"] = routing_witness(
+        index.centroids, fresh, half, card, f"single-device {kind}")
     dead = rng.choice(QZ_ROWS, QZ_ROWS // 10, replace=False).astype(np.int32)
     for s in range(0, dead.shape[0], MUT_DELETE_BATCH):
         m, found = mut.delete(m, dead[s:s + MUT_DELETE_BATCH])
@@ -2690,20 +2719,29 @@ def mutable_round(comms, index, x, qb, qcap, rng, what, card, dev, hold,
     return nums
 
 
-def routing_witness(index, rows, split, card):
-    """Each row's nearest list as ``mnmg_upsert`` routes it
-    (``fused_l2_nn``) with the rows in one batch and in two batches split
-    at ``split``. Logs every row routed differently with both lists' f32
-    distances as ``fused_l2_nn`` forms them (its GEMM block) at each
-    batch size, and in f64. Returns those rows' records."""
+def routing_witness(centroids, rows, split, card, what):
+    """Each row's list with the rows in one batch and in two batches
+    split at ``split``, as the upserts route it: the nearest centroid
+    (``fused_l2_nn``), then the index's ``canonical_lists`` table (the
+    lowest list sharing that centroid row). Logs how many rows the raw
+    GEMM puts in another list (split pieces share a centroid, and the
+    GEMM may round their distances apart at one batch size and not at
+    another), with each such row's f32 distances as ``fused_l2_nn``
+    forms them (its GEMM block) at each batch size and in f64, and how
+    many the canonical table routes apart (the check: 0). Returns
+    (raw records, rows routed apart)."""
+    from raft_tpu_torch.cluster.kmeans import canonical_lists
+
     fl = importlib.import_module("raft_tpu_torch.distance.fused_l2_nn")
-    cents = torch.as_tensor(index.centroids).float()
+    cents = torch.as_tensor(centroids).float()
+    canon = canonical_lists(cents)
     x = torch.as_tensor(rows, device=cents.device).float()
     yn = (cents * cents).sum(1)
     bn = fl._choose_block(cents.shape[0])
     whole = fl.fused_l2_nn(x, cents)[1]
     parts = torch.cat([fl.fused_l2_nn(x[:split], cents)[1],
                        fl.fused_l2_nn(x[split:], cents)[1]])
+    apart = int((canon[whole.long()] != canon[parts.long()]).sum())
 
     def d2(xb, r, lst):
         g = xb @ cents[lst // bn * bn:lst // bn * bn + bn].T
@@ -2715,16 +2753,23 @@ def routing_witness(index, rows, split, card):
         a, b = int(whole[r]), int(parts[r])
         xb, rb = (x[:split], r) if r < split else (x[split:], r - split)
         rec = {"row": r, "list_whole": a, "list_split": b,
+               "canonical": [int(canon[a]), int(canon[b])],
                "f32_whole": [d2(x, r, a), d2(x, r, b)],
                "f32_split": [d2(xb, rb, a), d2(xb, rb, b)],
                "f64": [float(((x[r].double() - cents[c].double()) ** 2)
                              .sum()) for c in (a, b)]}
         out.append(rec)
-        log(f"[{card}] upsert routing witness: " + json.dumps(rec))
-    log(f"[{card}] upsert routing: {len(out)} of {x.shape[0]} rows go to "
-        f"another list in batches of {split} than in one batch of "
-        f"{x.shape[0]}")
-    return out
+        log(f"[{card}] {what} raw GEMM routing witness: " + json.dumps(rec))
+    n_dup = int((canon != torch.arange(canon.shape[0],
+                                       device=canon.device)).sum())
+    log(f"[{card}] {what} upsert routing: the raw GEMM puts {len(out)} of "
+        f"{x.shape[0]} rows in another list in batches of {split} than in "
+        f"one batch of {x.shape[0]}; through the canonical table "
+        f"({n_dup} of {canon.shape[0]} centroids duplicate a lower one) "
+        f"{apart} rows are routed apart")
+    check(apart == 0, f"{what}: {apart} upserts routed to another list at "
+          f"batch {split} than at {x.shape[0]}")
+    return out, apart
 
 
 def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
@@ -2774,17 +2819,16 @@ def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
     sync(dev)
     t0 = time.perf_counter()
     mw0 = wrap_mnmg_mutable(comms, rep, delta_cap=MUT_CAP)
-    # the healthy twin: every write on every holder, in the same batches
-    # as the live path (upserts route by kmeans_predict, whose GEMM may
-    # round a near tie differently at another batch size)
-    ref, acc = mnmg_upsert(comms, mw0, fresh[:half], fresh_ids[:half])
-    ref, acc2 = mnmg_upsert(comms, ref, fresh[half:], fresh_ids[half:])
+    # the healthy twin: every write on every holder, the upserts in one
+    # batch of 256 (the live path writes 2 x 128; the routing through the
+    # canonical table makes the batching invisible)
+    ref, acc = mnmg_upsert(comms, mw0, fresh, fresh_ids)
     ref, found = mnmg_delete(comms, ref, dead)
-    check(acc.all() and acc2.all() and found.all(),
-          "the healthy twin's writes")
+    check(acc.all() and found.all(), "the healthy twin's writes")
     sync(dev)
     nums["twin_writes_s"] = time.perf_counter() - t0
-    nums["routing_witness"] = routing_witness(rep, fresh, half, card)
+    nums["routing_witness"], nums["routed_apart"] = routing_witness(
+        rep.centroids, fresh, half, card, "sharded")
     # rank SHARD_DOWN fails after half the upserts
     health = ShardHealth(SHARD_P, telemetry=False)
     t0 = time.perf_counter()
@@ -2936,6 +2980,444 @@ def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
     check(fk.LAUNCHES > 0 and ivf_flat.ENGINE_FALLBACKS == 0,
           f"sharded mutation: {fk.LAUNCHES} flat-scan launches, "
           f"{ivf_flat.ENGINE_FALLBACKS} fallbacks")
+    return nums
+
+
+# ---------------------------------------------------------------------------
+# The library's public surface: approx_knn_*, the pylibraft facade, random
+# ball cover
+# ---------------------------------------------------------------------------
+
+RBC_ROWS, RBC_HUBS, RBC_QUERIES, RBC_PROBES = 1_000_000, 1000, 4096, 16
+RBC_FULL_Q = 256           # queries probing every ball
+RBC_SAMPLE = 65_536        # rows of the all-kNN index
+LIB_BF_QUERIES = 512       # the facade's brute-force batch
+LIB_PAIRWISE = (4096, 65_536)
+LIB_MASK_ROWS = 131_072    # two of fused_l2_nn's 65,536-row blocks
+
+
+def ids_up_to_ties(d_ref, i_ref, i_got, tol):
+    """Queries where an id the reference ranks below its k-th distance
+    by more than ``tol`` (a (nq, 1) or scalar margin on the same scale)
+    is missing from ``i_got``'s row: 0 when the answers agree up to
+    ties."""
+    inner = d_ref < d_ref[:, -1:] - tol
+    present = (i_ref[:, :, None] == i_got[:, None, :]).any(-1)
+    return int((inner & ~present).any(1).sum())
+
+
+def geo_rows(rng, n, n_hubs, noise):
+    """(lat, lon) radian rows clustered around ``n_hubs`` world hubs
+    (tests/test_ann.py's ``geo_dataset`` recipe), latitudes clipped."""
+    hubs = np.deg2rad(rng.uniform([-60, -170], [70, 170],
+                                  size=(n_hubs, 2))).astype(np.float32)
+    pts = hubs[rng.integers(0, n_hubs, n)] + rng.normal(
+        0, noise, (n, 2)).astype(np.float32)
+    pts[:, 0] = np.clip(pts[:, 0], -np.pi / 2, np.pi / 2)
+    return pts
+
+
+def ball_cover_step(args, card, dev):
+    """Random ball cover at a size its users run (cuML's
+    NearestNeighbors(algorithm="rbc") serves 2-D geospatial and 3-D
+    data): 1,000,000 haversine rows around 1,000 hubs and 1,000,000 x 3
+    l2 rows around 1,000 hubs, sqrt(n) = 1,000 landmarks each, 4,096
+    queries at k = 10 and 16 probes; every certified query equal to its
+    exact oracle; 256 l2 queries probing every ball, all certified;
+    ``rbc_all_knn_query`` on a 65,536-row sample. Returns the numbers."""
+    from raft_tpu_torch.spatial.ann import (
+        rbc_all_knn_query, rbc_build_index, rbc_knn_query,
+    )
+    from raft_tpu_torch.spatial.knn import haversine_knn
+
+    rng = np.random.default_rng(args.seed + 77)
+    nums = {}
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    # haversine
+    x = torch.as_tensor(geo_rows(rng, RBC_ROWS, RBC_HUBS, 0.02), device=dev)
+    q = x[torch.as_tensor(rng.integers(0, RBC_ROWS, RBC_QUERIES),
+                          device=dev)]
+    q = q + torch.as_tensor(rng.normal(0, 0.01, (RBC_QUERIES, 2)),
+                            device=dev).float()
+    q[:, 0] = q[:, 0].clamp(-np.pi / 2, np.pi / 2)
+    idx, nums["haversine_build_s"] = timed(
+        lambda: rbc_build_index(x, metric="haversine", seed=args.seed))
+    n_land = idx.landmarks.shape[0]
+    check(n_land == int(np.sqrt(RBC_ROWS)), f"{n_land} landmarks")
+    rbc_knn_query(idx, q[:64], K, n_probes=RBC_PROBES)     # first call
+    (d, i, ex), t = timed(lambda: rbc_knn_query(idx, q, K,
+                                                n_probes=RBC_PROBES))
+    nums["haversine_batch_ms"] = 1e3 * t
+    (od, oi), t = timed(lambda: haversine_knn(x, q, K))
+    nums["haversine_oracle_ms"] = 1e3 * t
+    exn = ex
+    nums["haversine_certified"] = float(exn.float().mean())
+    err = ((d[exn] - od[exn]).abs() / od[exn].clamp_min(1e-30)).max()
+    nums["haversine_max_rel_err"] = float(err) if exn.any() else 0.0
+    bad = ids_up_to_ties(od[exn], oi[exn], i[exn], 1e-5 * od[exn][:, -1:])
+    log(f"[{card}] ball cover haversine: {RBC_ROWS} rows, {n_land} "
+        f"landmarks, max_list {idx.storage.max_list}; build "
+        f"{nums['haversine_build_s']:.2f} s, {RBC_QUERIES}-query batch at "
+        f"{RBC_PROBES} probes {nums['haversine_batch_ms']:.1f} ms "
+        f"(haversine_knn oracle {nums['haversine_oracle_ms']:.1f} ms); "
+        f"certified {nums['haversine_certified']:.4f}, certified queries' "
+        f"max relative error {nums['haversine_max_rel_err']:.3g}, {bad} "
+        "with ids beyond ties")
+    check(nums["haversine_max_rel_err"] <= 1e-5 and bad == 0,
+          "ball cover haversine: a certified query differs from the oracle")
+    del x, q, idx, d, i, ex, od, oi
+
+    # l2 over 3-d rows
+    hubs = rng.uniform(-10, 10, (RBC_HUBS, 3)).astype(np.float32)
+    xh = hubs[rng.integers(0, RBC_HUBS, RBC_ROWS)] + rng.normal(
+        0, 0.3, (RBC_ROWS, 3)).astype(np.float32)
+    x = torch.as_tensor(xh, device=dev)
+    q = x[torch.as_tensor(rng.integers(0, RBC_ROWS, RBC_QUERIES),
+                          device=dev)]
+    q = q + torch.as_tensor(rng.normal(0, 0.1, (RBC_QUERIES, 3)),
+                            device=dev).float()
+    idx, nums["l2_build_s"] = timed(
+        lambda: rbc_build_index(x, seed=args.seed))
+    n_land = idx.landmarks.shape[0]
+    rbc_knn_query(idx, q[:64], K, n_probes=RBC_PROBES)
+    (d, i, ex), t = timed(lambda: rbc_knn_query(idx, q, K,
+                                                n_probes=RBC_PROBES))
+    nums["l2_batch_ms"] = 1e3 * t
+    oi = exact_knn(x, q, K)
+    od2 = ((x[oi].double() - q[:, None, :].double()) ** 2).sum(-1)
+    # the gram form's f32 error scale of each query
+    tol = 1e-6 * ((q * q).sum(1, keepdim=True).double()
+                  + float((x * x).sum(1).max()))
+    nums["l2_certified"] = float(ex.float().mean())
+    diff = ((d.double() ** 2 - od2).abs() - tol)[ex]
+    bad = ids_up_to_ties(od2[ex], oi[ex], i[ex], tol[ex])
+    nums["l2_max_excess"] = float(diff.max()) if ex.any() else 0.0
+    log(f"[{card}] ball cover l2: {RBC_ROWS} x 3 rows, {n_land} landmarks, "
+        f"max_list {idx.storage.max_list}; build {nums['l2_build_s']:.2f} s, "
+        f"{RBC_QUERIES}-query batch at {RBC_PROBES} probes "
+        f"{nums['l2_batch_ms']:.1f} ms; certified {nums['l2_certified']:.4f}"
+        f", certified queries' squared distances within 1e-6 (|q|^2 + "
+        f"max|x|^2) of the f64 oracle ({nums['l2_max_excess']:.3g} past), "
+        f"{bad} with ids beyond ties")
+    check(nums["l2_max_excess"] <= 0 and bad == 0,
+          "ball cover l2: a certified query differs from the oracle")
+
+    # every ball probed: all certified, every neighbour found
+    qf = q[:RBC_FULL_Q]
+    (d, i, ex), t = timed(lambda: rbc_knn_query(idx, qf, K,
+                                                n_probes=n_land))
+    nums["l2_full_probe_ms"] = 1e3 * t
+    nums["l2_full_recall"] = recall(i, oi[:RBC_FULL_Q])
+    bad = ids_up_to_ties(od2[:RBC_FULL_Q], oi[:RBC_FULL_Q], i,
+                         tol[:RBC_FULL_Q])
+    log(f"[{card}] ball cover l2, {RBC_FULL_Q} queries probing all "
+        f"{n_land} balls: {nums['l2_full_probe_ms']:.1f} ms (query blocks "
+        f"bound the candidate gather), certified {int(ex.sum())} of "
+        f"{RBC_FULL_Q}, recall@10 {nums['l2_full_recall']:.4f} ({bad} "
+        "queries with ids beyond ties)")
+    check(bool(ex.all()) and bad == 0,
+          "ball cover l2 with every ball probed: not all certified exact")
+    del d, i, ex, oi, od2
+
+    # all-kNN over a sample index. A row within 1e-3 (squared) of another
+    # is left out of the sample: the f32 gram form cannot order such a
+    # pair against a row's own zero distance (its error is ~1e-4 here)
+    pick = x[torch.as_tensor(np.sort(rng.choice(
+        RBC_ROWS, RBC_SAMPLE + RBC_SAMPLE // 8, replace=False)), device=dev)]
+    nn = exact_knn(pick, pick, 2)
+    sep = ((pick[nn].double() - pick[:, None, :].double()) ** 2).sum(-1)
+    sep = torch.where(nn == torch.arange(pick.shape[0], device=dev)[:, None],
+                      float("inf"), sep).min(1).values
+    far = torch.nonzero(sep >= 1e-3).flatten()
+    check(far.numel() >= RBC_SAMPLE, f"only {far.numel()} separated rows")
+    nums["all_knn_dropped"] = pick.shape[0] - far.numel()
+    sample = pick[far[:RBC_SAMPLE]]
+    del pick, nn, sep, far
+    small, nums["all_knn_build_s"] = timed(
+        lambda: rbc_build_index(sample, seed=args.seed))
+    (d, i, ex), t = timed(lambda: rbc_all_knn_query(small, 4,
+                                                    n_probes=RBC_PROBES))
+    nums["all_knn_ms"] = 1e3 * t
+    self_first = bool(torch.equal(
+        i[:, 0].long(), torch.arange(RBC_SAMPLE, device=dev)))
+    log(f"[{card}] ball cover all-kNN over {RBC_SAMPLE} sampled rows "
+        f"({nums['all_knn_dropped']} of the draw within 1e-3 of another "
+        f"left out): build "
+        f"{nums['all_knn_build_s']:.2f} s, query {nums['all_knn_ms']:.1f} "
+        f"ms, certified {float(ex.float().mean()):.4f}, every row its own "
+        f"first neighbour: {self_first}")
+    check(self_first, "rbc_all_knn_query: a row's first neighbour is "
+          "not itself")
+    return nums
+
+
+def library_phase(args, card, dev, index, qcaps, x):
+    """The library's public entry surface over the IVF-Flat cell's data:
+    ``approx_knn_build_index`` / ``approx_knn_search`` (auto at 4,096 ->
+    the grouped kernel engine, 8 -> per query, throughput at 512), each
+    answer bitwise the direct call's, recall within 0.005 of the served
+    index's; the ``pylibraft`` facade on a CUDA ``Handle``
+    (``neighbors.ivf_flat`` against the direct calls, ``brute_force.knn``
+    over the 1M rows on the fused kernels bitwise ``brute_force_knn``,
+    ``cluster.fit`` / ``predict`` / ``cluster_cost``, ``KMeans`` with
+    ``transform``, ``distance.pairwise_distance`` with numpy and CUDA
+    ``out=``, ``fused_l2_nn_argmin`` and a ``mask_op`` across a 65,536-row
+    block); then random ball cover (:func:`ball_cover_step`). #2, #6 and
+    #7 are counted over the phase, and every call held against its plain
+    version (those launches taken back out). Returns the numbers."""
+    from raft_tpu_torch import pylibraft
+    from raft_tpu_torch.distance import fused_l2_nn
+    from raft_tpu_torch.spatial import brute_force_knn
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, approx_knn_build_index, approx_knn_search,
+        ivf_flat_search, ivf_flat_search_grouped,
+    )
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import ivf_flat
+
+    rng = np.random.default_rng(args.seed + 61)
+    nums = {"card": card}
+    params = IVFFlatParams(n_lists=N_LISTS, kmeans_n_iters=10,
+                           kmeans_init="random")
+    xd = torch.as_tensor(x, device=dev)
+    qb = torch.as_tensor(
+        x[rng.integers(0, N_ROWS, max(BUCKETS))]
+        + 0.3 * rng.standard_normal((max(BUCKETS), DIM), dtype=np.float32),
+        device=dev)
+    true = exact_knn(xd, qb, K)
+
+    def same(a, b, what):
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"{what}: not bitwise the direct call")
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    # the path's launches: those of the approx_knn_* and facade calls
+    # alone, not of the direct calls they are compared with
+    path = {"flat_scan_lists": 0, "chunk_mins": 0, "rescore_scores": 0}
+
+    def counted(fn):
+        """``timed(fn)``, its #2 / #6 / #7 launches added to ``path``.
+        Returns (out, seconds, launches of this call by kernel)."""
+        b0, z0 = fk.LAUNCHES, dict(fz.LAUNCHES)
+        out, t = timed(fn)
+        n = {"flat_scan_lists": fk.LAUNCHES - b0,
+             "chunk_mins": fz.LAUNCHES["chunk_mins"] - z0["chunk_mins"],
+             "rescore_scores": (fz.LAUNCHES["rescore_scores"]
+                                - z0["rescore_scores"])}
+        for key, v in n.items():
+            path[key] += v
+        return out, t, n
+
+    fk.LAUNCHES = 0
+    ivf_flat.ENGINE_FALLBACKS = 0
+    for key in fz.LAUNCHES:
+        fz.LAUNCHES[key] = 0
+    keep, fkeep = [], {}
+    with scan_calls(keep) as shapes, fused_calls(fkeep) as fshapes:
+        # approx_knn_* on the IVF-Flat cell
+        built, nums["approx_build_s"], _ = counted(
+            lambda: approx_knn_build_index(x, params, device=dev))
+        check(built.device.type == dev.type, f"approx build on {built.device}")
+        nbig = max(BUCKETS)
+        for nq, mode, grouped in ((nbig, "auto", True),
+                                  (8, "auto", False),
+                                  (512, "throughput", True)):
+            q = qb[:nq]
+            got, t, n = counted(lambda: approx_knn_search(built, q, K,
+                                                          n_probes=N_PROBES,
+                                                          mode=mode))
+            n = n["flat_scan_lists"]
+            direct = ivf_flat_search_grouped if grouped else ivf_flat_search
+            same(got, direct(built, q, K, n_probes=N_PROBES),
+                 f"approx_knn_search {mode} at {nq}")
+            check(n == (1 if grouped else 0),
+                  f"approx_knn_search {mode} at {nq}: {n} flat-scan "
+                  "launches")
+            nums[f"approx_{mode}_{nq}_ms"] = 1e3 * t
+            if nq == nbig:
+                nums["approx_recall"] = recall(got[1], true)
+        _, served_ids = ivf_flat_search_grouped(
+            index, qb, K, n_probes=N_PROBES, qcap=qcaps[max(BUCKETS)])
+        nums["served_recall"] = recall(served_ids, true)
+        _, t = timed(lambda: ivf_flat_search_grouped(built, qb, K,
+                                                     n_probes=N_PROBES))
+        nums["direct_grouped_ms"] = 1e3 * t
+        log(f"[{card}] approx_knn_build_index: {N_ROWS} x {DIM} in "
+            f"{nums['approx_build_s']:.2f} s; approx_knn_search bitwise the "
+            f"direct calls (auto {nbig} -> grouped "
+            f"{nums[f'approx_auto_{nbig}_ms']:.2f} ms against the direct "
+            f"call's {nums['direct_grouped_ms']:.2f} ms, auto 8 -> per query "
+            f"{nums['approx_auto_8_ms']:.2f} ms, throughput 512 "
+            f"{nums['approx_throughput_512_ms']:.2f} ms); recall@10 "
+            f"{nums['approx_recall']:.4f} against the served index's "
+            f"{nums['served_recall']:.4f}")
+        check(abs(nums["approx_recall"] - nums["served_recall"]) <= 0.005,
+              "approx build's recall is not within 0.005 of the served "
+              "index's")
+
+        # the pylibraft facade on a CUDA handle
+        h = pylibraft.Handle(device=dev)
+        nb = pylibraft.neighbors
+        fidx, nums["facade_build_s"], _ = counted(
+            lambda: nb.ivf_flat.build(x, params, handle=h))
+        q64 = qb[:64].cpu().numpy()
+        got, _, _ = counted(lambda: nb.ivf_flat.search(
+            fidx, q64, K, n_probes=N_PROBES, handle=h))
+        same(got, ivf_flat_search(fidx, qb[:64], K, n_probes=N_PROBES),
+             "pylibraft ivf_flat.search")
+        qbf = qb[:LIB_BF_QUERIES]
+        # the expanded l2 (brute_force_knn's default) takes the fused
+        # kernels; the facade's own default, "l2", is the unexpanded scan
+        got, t, bf_launches = counted(lambda: nb.brute_force.knn(
+            x, qbf, K, metric="l2_sqrt_expanded", handle=h))
+        nums["facade_bf_ms"] = 1e3 * t
+        same(got, brute_force_knn(xd, qbf, K, metric="l2_sqrt_expanded"),
+             "pylibraft brute_force.knn")
+        nums["facade_bf_recall"] = recall(got[1], true[:LIB_BF_QUERIES])
+        # phase 2's kernel reads 128-wide chunks of rows whose width is a
+        # multiple of 128 (the JAX package's rule too); at width 96 the
+        # rescore gathers. The same call over 1M rows of SIFT's width 128
+        # runs both kernels.
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 62)
+        c128 = 2.0 * torch.randn((2000, 128), generator=gen, device=dev)
+        x128 = c128[torch.randint(0, 2000, (N_ROWS,), generator=gen,
+                                  device=dev)]
+        x128 += torch.randn(x128.shape, generator=gen, device=dev)
+        q128 = x128[:LIB_BF_QUERIES] + 0.3 * torch.randn(
+            (LIB_BF_QUERIES, 128), generator=gen, device=dev)
+        got, t, bf128 = counted(lambda: nb.brute_force.knn(
+            x128, q128, K, metric="l2_sqrt_expanded", handle=h))
+        nums["facade_bf128_ms"] = 1e3 * t
+        same(got, brute_force_knn(x128, q128, K,
+                                  metric="l2_sqrt_expanded"),
+             "pylibraft brute_force.knn at width 128")
+        nums["facade_bf128_recall"] = recall(got[1], exact_knn(x128, q128,
+                                                               K))
+        del x128, c128
+        check(bf_launches["chunk_mins"] > 0 and bf128["chunk_mins"] > 0
+              and bf128["rescore_scores"] > 0,
+              f"pylibraft brute_force.knn did not take the fused kernels: "
+              f"width {DIM} {bf_launches}, width 128 {bf128}")
+        log(f"[{card}] pylibraft: ivf_flat.build {nums['facade_build_s']:.2f}"
+            f" s, ivf_flat.search bitwise the direct call; brute_force.knn "
+            f"at {LIB_BF_QUERIES} queries, bitwise brute_force_knn: over "
+            f"{N_ROWS} x {DIM} {nums['facade_bf_ms']:.2f} ms ({bf_launches}"
+            f", the rescore gathered), recall@10 "
+            f"{nums['facade_bf_recall']:.4f}; over {N_ROWS} x 128 "
+            f"{nums['facade_bf128_ms']:.2f} ms ({bf128}), recall@10 "
+            f"{nums['facade_bf128_recall']:.4f}")
+        check(min(nums["facade_bf_recall"], nums["facade_bf128_recall"])
+              >= 0.999, "brute-force recall below 0.999")
+
+    # the kernel calls of the phase (the direct calls' too) against their
+    # plain versions; only the path's launches go into the kernels line
+    nums["launches"] = path["flat_scan_lists"]
+    nums["fused_launches"] = {k: path[k]
+                              for k in ("chunk_mins", "rescore_scores")}
+    check(ivf_flat.ENGINE_FALLBACKS == 0,
+          f"{ivf_flat.ENGINE_FALLBACKS} library searches left the kernel")
+    phase_all = {"flat_scan_lists": fk.LAUNCHES, **fz.LAUNCHES}
+    nums["max_abs_err"] = max(compare_lists_to_plain(c) for c in keep)
+    ferr = {"chunk_mins": 0.0, "rescore_scores": 0.0}
+    for key, call in fkeep.items():
+        if key[0] == "chunk_mins":
+            ferr["chunk_mins"] = max(ferr["chunk_mins"],
+                                     compare_chunk_mins(*call))
+        elif key[0] == "rescore_scores" and isinstance(key, tuple):
+            ferr["rescore_scores"] = max(ferr["rescore_scores"],
+                                         compare_rescore(*call))
+    nums["fused_max_abs_err"] = ferr
+    log(f"[{card}] library phase kernels: the path's approx_knn_* and "
+        f"facade calls launched {path} (the phase with its direct "
+        f"reference calls {phase_all}); flat_scan_lists by (Q, Lpad) "
+        f"{dict(shapes)}, each within 1e-5 x (qn + yn) of the plain "
+        f"version (max {nums['max_abs_err']:.3g}); fused by shape "
+        f"{ {k: dict(v) for k, v in fshapes.items()} }, within the f32 "
+        f"summation bound (max {ferr})")
+    check(path["flat_scan_lists"] > 0,
+          "the library path never launched flat_scan_lists")
+    del keep, fkeep, built, fidx
+
+    # clustering and distances through the facade (no kernel of the port)
+    cl = pylibraft.cluster
+    (cents, labels, inertia, n_iter), nums["cluster_fit_s"] = timed(
+        lambda: cl.fit(x, N_LISTS, max_iter=10, handle=h))
+    pred = cl.predict(x, cents, handle=h)
+    cost = cl.cluster_cost(x, cents, handle=h)
+    minv, _ = fused_l2_nn(xd, cents)
+    check(torch.equal(pred, labels) and torch.equal(cost, minv.sum()),
+          "cluster.predict / cluster_cost disagree with fit / fused_l2_nn")
+    log(f"[{card}] pylibraft cluster.fit: {N_LISTS} clusters, {n_iter} "
+        f"iterations in {nums['cluster_fit_s']:.2f} s, inertia "
+        f"{float(inertia):.6g}; predict equals the fit's labels, "
+        "cluster_cost the sum of fused_l2_nn's minima")
+    from raft_tpu_torch.cluster import KMeans
+
+    km, nums["kmeans_fit_s"] = timed(
+        lambda: KMeans(n_clusters=N_LISTS, max_iter=10).fit(xd))
+    tr = km.transform(qb)
+    kp = km.predict(qb)
+    at = tr.gather(1, kp.long()[:, None])[:, 0]
+    check(bool((at <= tr.min(1).values * (1 + 1e-5) + 1e-5).all()),
+          "KMeans.transform's argmin is not predict's label up to ties")
+    nums["kmeans_transform_agree"] = float(
+        (tr.argmin(1) == kp.long()).float().mean())
+    log(f"[{card}] KMeans(n_clusters={N_LISTS}, max_iter=10).fit "
+        f"{nums['kmeans_fit_s']:.2f} s; transform {tuple(tr.shape)}, its "
+        f"argmin equals predict on {nums['kmeans_transform_agree']:.4f} of "
+        "the rows, the rest at ties")
+    del km, tr
+
+    ds = pylibraft.distance
+    m_, n_ = LIB_PAIRWISE
+    xq, yq = qb[:m_], xd[:n_]
+    out_np = np.zeros((m_, n_), np.float32)
+    dmat, t = timed(lambda: ds.pairwise_distance(xq, yq, out_np, handle=h))
+    nums["pairwise_ms"] = 1e3 * t
+    out_t = torch.empty((m_, n_), device=dev)
+    d2 = ds.pairwise_distance(xq, yq, out_t, handle=h)
+    check(torch.equal(out_t, dmat) and torch.equal(d2, dmat)
+          and np.array_equal(out_np, dmat.cpu().numpy()),
+          "pairwise_distance out= (numpy / CUDA tensor) not written")
+    del out_np, out_t, d2, dmat
+    am = ds.fused_l2_nn_argmin(qb, xd, handle=h)
+    check(torch.equal(am, fused_l2_nn(qb, xd)[1]),
+          "fused_l2_nn_argmin against fused_l2_nn")
+    colour_r = torch.as_tensor(rng.integers(0, 3, LIB_MASK_ROWS), device=dev)
+    colour_c = torch.as_tensor(rng.integers(0, 3, N_LISTS), device=dev)
+    xm = xd[:LIB_MASK_ROWS]
+    mv, mi = fused_l2_nn(xm, cents, mask_op=lambda r, c: (
+        colour_r[r] != colour_c[c]))
+    blk = importlib.import_module(
+        "raft_tpu_torch.distance.fused_l2_nn")._ROW_BLOCK
+    lo, hi = blk - 500, blk + 500
+    sv, si = fused_l2_nn(xm[lo:hi], cents, mask_op=lambda r, c: (
+        colour_r[r + lo] != colour_c[c]))
+    check(torch.equal(mv[lo:hi], sv) and torch.equal(mi[lo:hi], si)
+          and bool((colour_c[mi.long()] != colour_r).all()),
+          "fused_l2_nn's mask_op across the 65,536-row block boundary")
+    log(f"[{card}] pylibraft distance: pairwise_distance {m_} x {n_} "
+        f"{nums['pairwise_ms']:.1f} ms (out= numpy and CUDA tensor "
+        "written), fused_l2_nn_argmin equal to fused_l2_nn's ids, a "
+        "same-colour mask_op across the 65,536-row block boundary equal to "
+        "the rows searched alone")
+    del xm, mv, mi, cents, labels, xd
+
+    nums["ball_cover"] = ball_cover_step(args, card, dev)
     return nums
 
 
@@ -3620,7 +4102,7 @@ def quantized_phase(kind, args, card, dev, data):
     # the mutation tier on this index, its counters at 0 just before it
     sk.LAUNCHES = 0
     ivf_sq.ENGINE_FALLBACKS = 0
-    mnums, n_kernel = mutable_quantized("sq", index, x, qb, dev)
+    mnums, n_kernel = mutable_quantized("sq", index, x, qb, dev, card)
     mnums.update(launches=sk.LAUNCHES, kernel_searches=n_kernel,
                  engine_fallbacks=ivf_sq.ENGINE_FALLBACKS)
     log(f"[{card}] sq mutation: " + json.dumps(mnums))
@@ -3634,6 +4116,24 @@ def quantized_phase(kind, args, card, dev, data):
     check((sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS) == before,
           f"the SQ tier launched sq_scan_lists or fell back: {before} -> "
           f"{(sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS)}")
+    # approx_knn_search on this index takes the per-query path at any
+    # batch size (the JAX package's dispatch table: IVF-SQ has no
+    # throughput path), so it launches no SQ scan
+    from raft_tpu_torch.spatial.ann import approx_knn_search, ivf_sq_search
+
+    sync(dev)
+    t0 = time.perf_counter()
+    got = approx_knn_search(index, qb, K, n_probes=QZ_PROBES)
+    sync(dev)
+    tnums["approx_4096_ms"] = 1e3 * (time.perf_counter() - t0)
+    want = ivf_sq_search(index, qb, K, n_probes=QZ_PROBES)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and (sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS) == before,
+          "approx_knn_search on IVF-SQ: not the per-query search's answer, "
+          "or it launched sq_scan_lists")
+    log(f"[{card}] approx_knn_search on IVF-SQ at {qb.shape[0]} queries: "
+        f"the per-query path ({tnums['approx_4096_ms']:.1f} ms), bitwise "
+        "ivf_sq_search, 0 sq_scan_lists launches")
     return {
         "name": fn_name,
         "route": "cuda",
@@ -3950,7 +4450,7 @@ def pq_phase(args, card, dev, data):
     # the mutation tier on this index, its counters at 0 just before it
     pk.LAUNCHES = 0
     ivf_pq.ENGINE_FALLBACKS = 0
-    mnums, n_kernel = mutable_quantized("pq", index, x, qb, dev)
+    mnums, n_kernel = mutable_quantized("pq", index, x, qb, dev, card)
     mnums.update(launches=pk.LAUNCHES, kernel_searches=n_kernel,
                  engine_fallbacks=ivf_pq.ENGINE_FALLBACKS)
     log(f"[{card}] pq mutation: " + json.dumps(mnums))
@@ -3958,6 +4458,35 @@ def pq_phase(args, card, dev, data):
           f"pq mutation: {pk.LAUNCHES} pq_adc_lists launches for "
           f"{n_kernel} kernel-engine searches, fallbacks "
           f"{ivf_pq.ENGINE_FALLBACKS}")
+    # approx_knn_search on this index, its counter at 0 just before it:
+    # the grouped path, #4 held bitwise against its plain version
+    from raft_tpu_torch.spatial.ann import approx_knn_search
+
+    pk.LAUNCHES = 0
+    ivf_pq.ENGINE_FALLBACKS = 0
+    akeep = []
+    # the entry point's defaults: mode "auto" at 4,096 queries takes the
+    # grouped path, whose qcap=None sizes qcap from this batch's probes
+    kw = dict(n_probes=QZ_PROBES, refine_ratio=PQ_REFINE)
+    with kernel_calls(pk, "pq_adc_lists", key, akeep):
+        sync(dev)
+        t0 = time.perf_counter()
+        got = approx_knn_search(index, qb, K, **kw)
+        sync(dev)
+        approx_ms = 1e3 * (time.perf_counter() - t0)
+    approx_launches = pk.LAUNCHES
+    want = ivf_pq.ivf_pq_search_grouped(index, qb, K, **kw)
+    check(approx_launches > 0 and ivf_pq.ENGINE_FALLBACKS == 0
+          and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"approx_knn_search on IVF-PQ: {approx_launches} pq_adc_lists "
+          f"launches, {ivf_pq.ENGINE_FALLBACKS} fallbacks, or not bitwise "
+          "ivf_pq_search_grouped")
+    errs += [bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain, call,
+                     "pq_adc_lists of approx_knn_search") for call in akeep]
+    log(f"[{card}] approx_knn_search on IVF-PQ at {qb.shape[0]} queries: "
+        f"{approx_ms:.2f} ms, {approx_launches} pq_adc_lists launches (each "
+        "bitwise its plain version), answers bitwise ivf_pq_search_grouped")
+    del akeep
     # the sharded IVF-PQ step, its counters at 0 just before it
     t0 = time.perf_counter()
     snums = sharded_pq_step(args, card, dev, data, index)
@@ -3968,9 +4497,10 @@ def pq_phase(args, card, dev, data):
         "source": "raft_tpu_torch/csrc/pq_scan.cu",
         "replaces": "raft_tpu/spatial/ann/pq_kernel.py:107",
         "entry": "pq_adc_lists",
-        "launches": launches + snums["launches"],
+        "launches": launches + snums["launches"] + approx_launches,
         "launches_by_shape": {"x".join(map(str, k)): n
                               for k, n in shapes.items()},
+        "approx": {"ms": approx_ms, "launches": approx_launches},
         "max_abs_err": max(errs),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -5499,8 +6029,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     flat["coarse_probe"] = coarse_phase(args, card, dev, served[0],
                                         served[2])
-    del served
     log(f"coarse-probe phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    library = library_phase(args, card, dev, *served)
+    flat["library"] = library
+    flat["launches"] += library["launches"]
+    del served
+    log(f"library phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)
@@ -5515,6 +6050,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
+    # the library phase's facade brute force launched #6 and #7 too
+    for entry in kernels:
+        if entry["name"] in ("chunk_mins", "rescore_scores"):
+            entry["launches"] += library["fused_launches"][entry["name"]]
+            entry["library_max_abs_err"] = \
+                library["fused_max_abs_err"].get(entry["name"])
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     check(len(kernels) == 8 and all(keys <= set(k) for k in kernels),

@@ -8,6 +8,61 @@ here imports JAX or the JAX package.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
+
+The submodules, and ``Resources`` / ``DeviceResources`` /
+``get_default_resources`` / ``logger``, load on first access, so
+``import raft_tpu_torch`` imports no torch (the WAL's kill-9 child,
+``python -m raft_tpu_torch.testing.crash``, starts without it).
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "Resources",
+    "DeviceResources",
+    "get_default_resources",
+    "logger",
+    "errors",
+    "analysis",
+    "cache",
+    "cluster",
+    "comms",
+    "core",
+    "distance",
+    "durability",
+    "obs",
+    "pylibraft",
+    "resilience",
+    "serving",
+    "sparse",
+    "spatial",
+    "testing",
+    "tier",
+    "tools",
+    "utils",
+    "__version__",
+]
+
+_SUBMODULES = {
+    "analysis", "cache", "cluster", "comms", "core", "distance",
+    "durability", "errors", "obs", "pylibraft", "resilience", "serving",
+    "sparse", "spatial", "testing", "tier", "tools", "utils",
+}
+
+_CORE = {
+    "Resources": "raft_tpu_torch.core.resources",
+    "DeviceResources": "raft_tpu_torch.core.resources",
+    "get_default_resources": "raft_tpu_torch.core.resources",
+}
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
+    if name in _CORE:
+        return getattr(importlib.import_module(_CORE[name]), name)
+    if name == "logger":
+        return importlib.import_module(f"{__name__}.core.logger")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -7,7 +7,9 @@ one ``nvcc`` process each, into ``build/raft_tpu_torch/<hash>/`` under
 the checkout; the hash covers every source, header and flag, so an
 edited source rebuilds and an unchanged one is reused. Only the sources
 in this package are ever compiled. A failed build raises with nvcc's
-stderr.
+stderr. :func:`set_build_root` moves the root (``core.resources
+.enable_compilation_cache`` points it at a cache directory of the
+caller's).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_all", "load"]
+__all__ = ["NVCC_FLAGS", "build_all", "load", "set_build_root"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -33,6 +35,16 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+# the directory the hashed build directories go under
+_ROOT = [_BUILD_ROOT]
+
+
+def set_build_root(path=None) -> None:
+    """Build (and look for built libraries) under ``path`` from now on;
+    None restores the default under the checkout. Libraries already
+    loaded stay loaded."""
+    with _LOCK:
+        _ROOT[0] = _BUILD_ROOT if path is None else Path(path)
 
 
 def _nvcc() -> str:
@@ -58,7 +70,7 @@ def _build_dir() -> Path:
     for p in sorted(_CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return _BUILD_ROOT / h.hexdigest()[:16]
+    return _ROOT[0] / h.hexdigest()[:16]
 
 
 def build_all() -> Path:

@@ -19,7 +19,12 @@ quantizer.
 
 :func:`kmeans_fit_batched` fits B independent problems of one shape (the
 IVF-PQ codebooks, one per subspace) as a loop of the same Lloyd runs;
-:func:`kmeans_predict` assigns rows to their nearest centroid.
+:func:`kmeans_predict` assigns rows to their nearest centroid, and
+:func:`canonical_lists` maps each centroid to the lowest index holding the
+same row, the routing table of the mutation tier (below).
+:func:`kmeans_transform` gives every row's distance to every centroid,
+:func:`kmeans` is the reference's signature (codes, residual, n_iter), and
+:class:`KMeans` a small estimator over them.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from raft_tpu_torch import errors
@@ -35,7 +41,8 @@ from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
 
 __all__ = [
     "KMeansParams", "KMeansOutput", "kmeans_plus_plus_init", "kmeans_fit",
-    "kmeans_fit_batched", "kmeans_predict",
+    "kmeans_fit_batched", "kmeans_predict", "canonical_lists",
+    "kmeans_transform", "kmeans", "KMeans",
 ]
 
 
@@ -229,3 +236,77 @@ def kmeans_predict(x, centroids):
     the lowest centroid index (:func:`fused_l2_nn`, full f32)."""
     _, labels = fused_l2_nn(x, centroids)
     return labels
+
+
+def canonical_lists(centroids) -> torch.Tensor:
+    """(n_lists,) int64 on the centroids' device: for each centroid row,
+    the lowest index holding a bitwise identical f32 row.
+
+    A list split past its cap keeps its parent's centroid for every
+    piece (``common.split_oversized_lists``), and the reference routes a
+    row to the nearest centroid with ties to the lowest index. Identical
+    centroid rows tie exactly on the CPU, but a GEMM on the card may
+    round their distances a few ulp apart, differently at different
+    batch sizes. Routing as ``canonical_lists(c)[kmeans_predict(x, c)]``
+    gives the reference's list whatever the rounding. One host copy of
+    the centroids: compute it once per index, not per write."""
+    c = torch.as_tensor(centroids)
+    rows = np.ascontiguousarray(
+        c.detach().float().cpu().numpy()).view(np.uint32)
+    _, first, inverse = np.unique(rows, axis=0, return_index=True,
+                                  return_inverse=True)
+    return torch.as_tensor(first[inverse.reshape(-1)].astype(np.int64),
+                           device=c.device)
+
+
+def kmeans_transform(x, centroids, *, sqrt: bool = True):
+    """Distances to every centroid (reference computeDistances:86): the
+    ``l2_sqrt_expanded`` (``sqrt``) or ``l2_expanded`` pairwise matrix."""
+    from raft_tpu_torch.distance.pairwise import pairwise_distance
+
+    metric = "l2_sqrt_expanded" if sqrt else "l2_expanded"
+    return pairwise_distance(x, centroids, metric)
+
+
+def kmeans(x, k: int, tol: float = 1e-4, max_iter: int = 300, seed: int = 0,
+           *, device=None):
+    """The reference's spectral-flavour entry
+    ``raft::cluster::kmeans(handle, n, d, k, tol, maxiter, obs, ...)``
+    (cluster/kmeans.cuh:49): returns (codes, residual, n_iter)."""
+    out = kmeans_fit(
+        x, KMeansParams(n_clusters=k, tol=tol, max_iter=max_iter, seed=seed),
+        device=device,
+    )
+    return out.labels, out.inertia, out.n_iter
+
+
+class KMeans:
+    """Small estimator facade over the functional API. ``device``: where
+    array (not tensor) input to :meth:`fit` goes (CUDA by default)."""
+
+    def __init__(self, n_clusters: int = 8, *, device=None, **kw):
+        self.params = KMeansParams(n_clusters=n_clusters, **kw)
+        self.device = device
+        self.output: Optional[KMeansOutput] = None
+
+    def fit(self, x):
+        self.output = kmeans_fit(x, self.params, device=self.device)
+        return self
+
+    @property
+    def cluster_centers_(self):
+        return self.output.centroids
+
+    @property
+    def labels_(self):
+        return self.output.labels
+
+    @property
+    def inertia_(self):
+        return self.output.inertia
+
+    def predict(self, x):
+        return kmeans_predict(x, self.output.centroids)
+
+    def transform(self, x):
+        return kmeans_transform(x, self.output.centroids)

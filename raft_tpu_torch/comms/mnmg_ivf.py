@@ -1402,7 +1402,7 @@ def _prepare_pq_search(comms, index, queries, k, *, n_probes, qcap,
     shards = [index.shard(i) for i in range(len(local))]
     refine = index.vectors_sorted is not None and refine_ratio > 1.0
     engines = {s.device: ivf_pq._resolve_adc_engine(
-        use_kernel, refine, index.pq_dim, index.pq_bits, qcap, s.device)
+        use_kernel, refine, index.pq_dim, index.pq_bits, s.device)
         for s in shards}
     alive, route = _degraded_operands(comms, index, shard_mask, failover,
                                       dev0)

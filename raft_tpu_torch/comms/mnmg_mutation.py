@@ -4,8 +4,10 @@ subsystem (single-device tier: :mod:`raft_tpu_torch.spatial.ann.mutation`).
 
 Write path (control plane, host-routed like the builds): an upsert is
 assigned to its nearest global centroid (``kmeans_predict``, ties to the
-lowest), and the row is appended to the owning shard's delta segment on
-EVERY holder rank of that shard
+lowest: the pieces of a split list share their parent's centroid, and
+``canonical_lists`` sends the row to the lowest of them whatever the
+GEMM's rounding), and the row is appended to the owning shard's delta
+segment on EVERY holder rank of that shard
 (:class:`~raft_tpu_torch.resilience.ReplicaPlacement` — the striped
 layout the slabs replicate under). A write is ACKNOWLEDGED only when
 every LIVE holder recorded it, so an acknowledged upsert survives the
@@ -52,7 +54,7 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.analysis.threads import runtime as lockcheck
-from raft_tpu_torch.cluster.kmeans import kmeans_predict
+from raft_tpu_torch.cluster.kmeans import canonical_lists, kmeans_predict
 from raft_tpu_torch.comms.mnmg_ivf import _np, _place_sharded, _tensor
 from raft_tpu_torch.durability import wal as _wal
 from raft_tpu_torch.resilience.degraded import resolve_shard_mask
@@ -107,6 +109,17 @@ class MnmgMutableIndex:
         # (ids sorted, their ranks, their slab positions) over every
         # replica copy of the main slabs, built on first use
         self._id_loc: typing.Optional[tuple] = None
+        # the write path's routing table (canonical_lists of the global
+        # centroids, on the host), built on first use
+        self._canon: typing.Optional[np.ndarray] = None
+
+    def canon(self) -> np.ndarray:
+        """(n_lists,) int64: each global centroid's lowest duplicate —
+        the list every write routes to (derived, never serialized)."""
+        if self._canon is None:
+            self._canon = canonical_lists(
+                torch.as_tensor(self.index.centroids)).cpu().numpy()
+        return self._canon
 
     @property
     def placement(self) -> ReplicaPlacement:
@@ -155,6 +168,7 @@ def _with_state(mindex: MnmgMutableIndex,
                 state: MnmgMutationState) -> MnmgMutableIndex:
     out = MnmgMutableIndex(index=mindex.index, state=state)
     out._id_loc = mindex._id_loc            # main slabs unchanged
+    out._canon = mindex._canon              # and so are the centroids
     return out
 
 
@@ -213,13 +227,15 @@ def _pull_state(state: MnmgMutationState):
         state.delta_counts))
 
 
-def _nearest_lists(index, vecs: np.ndarray) -> np.ndarray:
-    """Each row's nearest global centroid (ties to the lowest), on the
-    centroids' device."""
+def _nearest_lists(index, vecs: np.ndarray, canon: np.ndarray) -> np.ndarray:
+    """Each row's nearest global centroid, on the centroids' device,
+    mapped through ``canon`` (:meth:`MnmgMutableIndex.canon`) to the
+    lowest list sharing that centroid: ties to the lowest index, as the
+    reference routes."""
     cents = torch.as_tensor(index.centroids)
     lbl = kmeans_predict(_tensor(np.asarray(vecs, np.float32), cents.device),
                          cents.float())
-    return lbl.cpu().numpy().astype(np.int64)
+    return canon[lbl.cpu().numpy().astype(np.int64)]
 
 
 def mnmg_upsert(comms, mindex: MnmgMutableIndex, vectors, ids, *,
@@ -254,7 +270,7 @@ def mnmg_upsert(comms, mindex: MnmgMutableIndex, vectors, ids, *,
     cap = mindex.state.cap
     owner = _np(index.owner)
     local_id = _np(index.local_id)
-    lbl = _nearest_lists(index, vecs)
+    lbl = _nearest_lists(index, vecs, mindex.canon())
     own = owner[lbl]
     lid = local_id[lbl]
     valid = (ids_np >= 0) & (own >= 0)
@@ -417,13 +433,15 @@ def _rank_wal_dir(root, rank: int) -> str:
     return os.path.join(root, f"rank-{rank:02d}")
 
 
-def _row_holders(index, placement, vecs: np.ndarray) -> np.ndarray:
+def _row_holders(index, placement, vecs: np.ndarray,
+                 canon: np.ndarray) -> np.ndarray:
     """(B, R) holder ranks per row (owner first, then replicas; -1 for an
-    unowned centroid) — the durability quorum's membership."""
+    unowned centroid) — the durability quorum's membership. ``canon``:
+    the routing table (:meth:`MnmgMutableIndex.canon`)."""
     R, off = placement.replication, placement.offset
     Pn = _n_index_ranks(index)
     own = _np(index.owner)[_nearest_lists(
-        index, np.asarray(vecs, np.float32))]
+        index, np.asarray(vecs, np.float32), canon)]
     holders = np.full((vecs.shape[0], R), -1, np.int64)
     for j in range(R):
         holders[:, j] = np.where(own >= 0, (own + j * off) % Pn, -1)
@@ -524,7 +542,8 @@ class MnmgDurableIngest:
             True if alive is None else alive, Pn))
         with self._lock:
             holders = _row_holders(self._mindex.index,
-                                   self._mindex.placement, vecs)
+                                   self._mindex.placement, vecs,
+                                   self._mindex.canon())
             involved = {int(r) for r in np.unique(holders)
                         if r >= 0 and alive_np[int(r)]}
             lsn = self._next_lsn

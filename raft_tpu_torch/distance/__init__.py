@@ -9,7 +9,7 @@ from raft_tpu_torch.distance.distance_type import (
     DistanceType,
     resolve_metric,
 )
-from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn
+from raft_tpu_torch.distance.fused_l2_nn import fused_l2_nn, fused_l2_nn_argmin
 from raft_tpu_torch.distance.pairwise import (
     distance,
     haversine_distance,
@@ -28,4 +28,5 @@ __all__ = [
     "haversine_distance",
     "row_norm_sq",
     "fused_l2_nn",
+    "fused_l2_nn_argmin",
 ]

@@ -85,7 +85,7 @@ def mixed_ingest_row(idx, qb, *, k: int = 10, n_probes: int = 16,
     def run_ingest(vb):
         nd, nrm, acc, _, _ = _upsert_impl(
             idx.centroids, cell["delta"], cell["rm"], mw.id_to_pos, vb,
-            ing_ids)
+            ing_ids, mw.canon)
         cell["delta"], cell["rm"] = nd, nrm
         return acc
 
@@ -102,7 +102,7 @@ def mixed_ingest_row(idx, qb, *, k: int = 10, n_probes: int = 16,
     def run_mixed(qq):
         nd, nrm, _, _, _ = _upsert_impl(
             idx.centroids, cell["delta"], cell["rm"], mw.id_to_pos,
-            _ingest_rows(qq, ingest_batch), ing_ids)
+            _ingest_rows(qq, ingest_batch), ing_ids, mw.canon)
         cell["delta"], cell["rm"] = nd, nrm
         cur = _with(mw, delta=nd, row_mask=nrm)
         return mutable_search(cur, qq, k, n_probes=n_probes, qcap=qcap)

@@ -1,8 +1,19 @@
 """Approximate nearest-neighbour indexes of the port: IVF-Flat, IVF-SQ
 and IVF-PQ on one sorted-by-list storage layout with their mutation
-tier (upsert, delete, compaction, delta checkpoints), and the
-fixed-degree graph index with its beam search."""
+tier (upsert, delete, compaction, delta checkpoints), the
+fixed-degree graph index with its beam search, random ball cover, and
+the generic ``approx_knn_*`` entry points."""
 
+from raft_tpu_torch.spatial.ann.approx import (
+    approx_knn_build_index,
+    approx_knn_search,
+)
+from raft_tpu_torch.spatial.ann.ball_cover import (
+    BallCoverIndex,
+    rbc_all_knn_query,
+    rbc_build_index,
+    rbc_knn_query,
+)
 from raft_tpu_torch.spatial.ann.common import ListStorage, build_list_storage
 from raft_tpu_torch.spatial.ann.graph import (
     GraphIndex,
@@ -15,6 +26,7 @@ from raft_tpu_torch.spatial.ann.graph import (
     graph_search,
 )
 from raft_tpu_torch.spatial.ann.interop import (
+    ball_cover_index_from_arrays,
     coarse_index_from_arrays,
     graph_index_from_arrays,
     ivf_flat_index_from_arrays,
@@ -71,6 +83,9 @@ from raft_tpu_torch.spatial.ann.ivf_sq import (
 )
 
 __all__ = [
+    "approx_knn_build_index", "approx_knn_search",
+    "BallCoverIndex", "ball_cover_index_from_arrays", "rbc_all_knn_query",
+    "rbc_build_index", "rbc_knn_query",
     "ListStorage", "build_list_storage",
     "GraphIndex", "GraphParams", "GraphStorage", "graph_build",
     "graph_delete", "graph_index_from_arrays", "graph_live_mask",

@@ -10,6 +10,9 @@
   ``data_padded``, ``storage.adjacency`` and ``storage.entries``.
 * :func:`coarse_index_from_arrays` takes a JAX ``CoarseIndex``'s
   leaves under the archive's ``coarse.`` field names.
+* :func:`ball_cover_index_from_arrays` takes a JAX ``BallCoverIndex``'s
+  ``landmarks``, ``radii``, ``data_sorted``, ``storage.*`` leaves and
+  ``metric`` (ball cover has no archive kind in either package).
 * :func:`mutable_index_from_arrays` takes a JAX ``MutableIndex``'s
   leaves as the v4 ``mutable_ivf`` archive keys them: the wrapped
   index's under ``index.``, ``delta.vecs`` / ``ids`` / ``live`` /
@@ -50,6 +53,7 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.device import resolve_device
+from raft_tpu_torch.spatial.ann.ball_cover import BallCoverIndex
 from raft_tpu_torch.spatial.ann.common import CoarseIndex, ListStorage
 from raft_tpu_torch.spatial.ann.graph import GraphIndex, GraphStorage
 from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
@@ -58,7 +62,8 @@ from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
 from raft_tpu_torch.spatial.ann.mutation import DeltaStore, MutableIndex
 
 __all__ = [
-    "coarse_index_from_arrays", "graph_index_from_arrays",
+    "ball_cover_index_from_arrays", "coarse_index_from_arrays",
+    "graph_index_from_arrays",
     "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
     "ivf_sq_index_from_arrays", "load_graph", "load_index",
     "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
@@ -177,6 +182,31 @@ def ivf_flat_index_from_arrays(arrays: dict, metric: str,
     storage = _storage("ivf_flat", arrays, put)
     return IVFFlatIndex(put("centroids"), put("data_sorted"), storage,
                         metric)
+
+
+def ball_cover_index_from_arrays(arrays: dict, metric=None,
+                                 device=None) -> BallCoverIndex:
+    """Build a :class:`~.ball_cover.BallCoverIndex` on ``device`` (CUDA
+    by default) from the JAX index's ``landmarks``, ``radii``,
+    ``data_sorted`` and ``storage.*`` leaves; ``metric`` defaults to
+    ``arrays["metric"]`` (else "l2"). Shapes are checked against each
+    other."""
+    put = _placer(arrays, device)
+    for key in ("landmarks", "radii", "data_sorted"):
+        errors.expects(key in arrays, "ball_cover arrays: missing %r", key)
+    metric = arrays.get("metric", "l2") if metric is None else metric
+    errors.expects(metric in ("l2", "haversine"),
+                   "ball_cover arrays: metric must be 'l2' or 'haversine', "
+                   "got %r", metric)
+    n_land = arrays["landmarks"].shape[0]
+    errors.expects(tuple(arrays["radii"].shape) == (n_land,),
+                   "ball_cover arrays: radii has shape %s, expected %s",
+                   tuple(arrays["radii"].shape), (n_land,))
+    # the landmarks are the lists' centroids of the shared layout
+    storage = _storage("ball_cover",
+                       {**arrays, "centroids": arrays["landmarks"]}, put)
+    return BallCoverIndex(put("landmarks"), put("radii"),
+                          put("data_sorted"), storage, metric)
 
 
 def ivf_sq_index_from_arrays(arrays: dict, device=None) -> IVFSQIndex:

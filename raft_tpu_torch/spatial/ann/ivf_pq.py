@@ -407,8 +407,7 @@ def ivf_pq_search(
 
 
 def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
-                        pq_bits: int, qcap: int,
-                        device: torch.device) -> bool:
+                        pq_bits: int, device: torch.device) -> bool:
     """Resolve the ``use_kernel`` knob of the grouped PQ search.
 
     ``None``: the CUDA ADC kernel on a capability-9.0 CUDA device when
@@ -423,10 +422,9 @@ def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
     if use_kernel is None:
         if device.type != "cuda" or not refine_active:
             return False
-        if not pq_kernel.pq_adc_supported(pq_dim, pq_bits, qcap):
-            reason = (f"pq_dim={pq_dim} pq_bits={pq_bits} qcap={qcap} does "
-                      "not fit the ADC kernel's shared memory or window "
-                      "plan")
+        if not pq_kernel.pq_adc_supported(pq_dim, pq_bits):
+            reason = (f"pq_dim={pq_dim} pq_bits={pq_bits} does not fit "
+                      "the ADC kernel's uint8 codes or shared memory")
         elif not hopper_device(device):
             reason = f"{device} is not a capability-9.0 (Hopper) card"
         else:
@@ -444,11 +442,11 @@ def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
             "build the refine pool, not per-row ADC distances",
         )
         errors.expects(
-            pq_kernel.pq_adc_supported(pq_dim, pq_bits, qcap),
-            "use_kernel=True unsupported at pq_dim=%d pq_bits=%d qcap=%d "
-            "(one query's LUT and a code tile exceed a block's shared "
-            "memory, or the window plan does not fit); use the one-hot "
-            "engine (use_kernel=False)", pq_dim, pq_bits, qcap,
+            pq_kernel.pq_adc_supported(pq_dim, pq_bits),
+            "use_kernel=True unsupported at pq_dim=%d pq_bits=%d (codes "
+            "wider than uint8, or one query's LUT and a code tile exceed "
+            "a block's shared memory); use the one-hot engine "
+            "(use_kernel=False)", pq_dim, pq_bits,
         )
         errors.expects(
             device.type == "cpu" or hopper_device(device),
@@ -641,14 +639,9 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         return vals, memp
 
     if use_kernel:
-        # the JAX window rule fixes l_pad (and with it the sub-chunk
-        # windows and the pool clamp); the kernel takes qcap rows as-is
-        l_tile = pq_kernel.plan_l_tile(
-            m * kc, scan_core.pad_queries(qcap),
-            l_tile=scan_core.round_up(L, scan_core.LANE),
-            profile=scan_core.tile_profile(qcap),
-        )
-        l_pad = scan_core.round_up(L, l_tile)
+        # the window length fixes the sub-chunk windows and the pool
+        # clamp; the kernel takes qcap rows as-is
+        l_pad = pq_kernel.window_l_pad(m * kc, qcap, L)
         width = l_pad // scan_core.SUBCHUNK
         # n + 1 code rows (sentinel last), zero-padded to one full window
         rows_pad = max(index.codes_sorted.shape[0], l_pad)
@@ -784,7 +777,7 @@ def ivf_pq_search_grouped(
     list_block = max(1, min(list_block, n_lists))
     use_kernel = _resolve_adc_engine(
         use_kernel, _refine_active(index, refine_dataset, refine_ratio),
-        index.pq_dim, index.pq_bits, qcap, index.device,
+        index.pq_dim, index.pq_bits, index.device,
     )
     return _pq_grouped_impl(
         index, q, k, n_probes, qcap, list_block, refine_ratio,

@@ -46,6 +46,7 @@ from raft_tpu_torch import errors
 from raft_tpu_torch.analysis.threads import runtime as lockcheck
 from raft_tpu_torch.cluster.kmeans import (
     KMeansParams,
+    canonical_lists,
     kmeans_fit,
     kmeans_predict,
 )
@@ -176,14 +177,23 @@ class MutableIndex:
     ``index=`` telemetry label), ``epoch`` (bumped by every applied
     upsert/delete batch and by compaction: the result cache's
     invalidation input) and the bounded epoch journal read by
-    :func:`lists_changed_since` — is never serialized."""
+    :func:`lists_changed_since` — is never serialized.
+
+    ``canon``: the routing table of every write,
+    :func:`~raft_tpu_torch.cluster.kmeans.canonical_lists` of the
+    centroids — derived once when the index is formed (carried by
+    ``dataclasses.replace``) and never serialized."""
 
     index: typing.Union[IVFFlatIndex, IVFPQIndex, IVFSQIndex]
     delta: DeltaStore
     row_mask: torch.Tensor   # (n + 1,) int8 live mask
     id_to_pos: torch.Tensor  # (id_span,) int32, -1 = absent
+    canon: typing.Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def __post_init__(self):
+        if self.canon is None:
+            self.canon = canonical_lists(self.index.centroids)
         self.dirty_lists: set = set()
         self.name: str = "mutable"
         self.epoch: int = 0
@@ -360,9 +370,12 @@ def _member(values, pool):
     return sp[pos] == values
 
 
-def _upsert_impl(centroids, delta, row_mask, id_to_pos, vecs, ids):
+def _upsert_impl(centroids, delta, row_mask, id_to_pos, vecs, ids, canon):
     """Upsert a (B, d) batch on the device, with no host sync: assign each
-    row to its nearest centroid, decide acceptance first, then — for
+    row to its nearest centroid (``canon``, the index's
+    :func:`~raft_tpu_torch.cluster.kmeans.canonical_lists` table, sends
+    it to the lowest list sharing that centroid), decide acceptance
+    first, then — for
     accepted rows only — tombstone the previous copy (main slab through
     ``id_to_pos``, delta by id match) and append into the lists' delta
     segments. A rejected row is a strict no-op: its previous copy keeps
@@ -374,7 +387,7 @@ def _upsert_impl(centroids, delta, row_mask, id_to_pos, vecs, ids):
     dev = centroids.device
     b = ids.shape[0]
     d = delta.vecs.shape[2]
-    lbl = kmeans_predict(vecs.float(), centroids).long()
+    lbl = canon[kmeans_predict(vecs.float(), centroids).long()]
 
     # 1) acceptance: slot = current count + within-batch rank among
     # same-list rows (stable sort + searchsorted), capped by the capacity
@@ -481,7 +494,7 @@ def upsert(mindex: MutableIndex, vectors, ids):
     t0 = time.perf_counter()
     delta, row_mask, accepted, lbl, dirty_sup = _upsert_impl(
         mindex.index.centroids, mindex.delta, mindex.row_mask,
-        mindex.id_to_pos, vecs, idarr,
+        mindex.id_to_pos, vecs, idarr, mindex.canon,
     )
     # the ack: one copy of accepted, labels, the main-slab lists of the
     # accepted ids and the superseded lists
@@ -660,7 +673,7 @@ def mutable_search(
         refine_active = (index.vectors_sorted is not None
                          and refine_ratio > 1.0)
         uk = _resolve_adc_engine(use_kernel, refine_active, index.pq_dim,
-                                 index.pq_bits, qc, index.device)
+                                 index.pq_bits, index.device)
     elif engine == "sq":
         uk = _resolve_sq_engine(use_kernel, d, qc, index.device)
     else:
@@ -696,7 +709,7 @@ def mutable_warmup(mindex: MutableIndex, nq: int, *, k: int = 10,
         z = torch.zeros((ingest_batch, d), dtype=torch.float32, device=dev)
         neg = torch.full((ingest_batch,), -1, dtype=torch.int32, device=dev)
         _upsert_impl(index.centroids, mindex.delta, mindex.row_mask,
-                     mindex.id_to_pos, z, neg)
+                     mindex.id_to_pos, z, neg, mindex.canon)
         _delete_impl(mindex.delta, mindex.row_mask, mindex.id_to_pos, neg)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -891,11 +904,16 @@ def compact(
         stats["refreshed"] = False
 
     nl = cents_new.shape[0]
+    # route to the lowest list sharing a centroid, as the upserts do (a
+    # piece's residual codes are its parent's: the rows are equal)
+    canon = (mindex.canon if cents_new is cents_old
+             else canonical_lists(cents_new))
     if engine == "pq":
         m = index.pq_dim
         lbl, codes = _encode_rows(x, cents_new, index.codebooks, m, d // m)
     else:
         lbl = kmeans_predict(x, cents_new)
+    lbl = canon[lbl.long()]
     st, order_np, n_real = _padded_storage(
         lbl.cpu().numpy(), gids.cpu().numpy(), nl, list_bucket, row_bucket,
         dev)

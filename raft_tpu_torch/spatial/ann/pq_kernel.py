@@ -47,7 +47,7 @@ from raft_tpu_torch.spatial.ann.scan_core import (
 __all__ = [
     "BIG", "LAUNCHES", "SUBCHUNK", "plan_l_tile", "pq_adc_lists",
     "pq_adc_lists_plain", "pq_adc_subchunk_min", "pq_adc_subchunk_min_plain",
-    "pq_adc_supported",
+    "pq_adc_supported", "window_l_pad",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
@@ -98,19 +98,29 @@ def plan_l_tile(mk: int, q_pad: int, l_tile=None, profile="throughput"):
     )
 
 
-def pq_adc_supported(pq_dim: int, pq_bits: int, qcap: int) -> bool:
-    """Whether the kernel engine applies: uint8 codes (``pq_bits <= 8``),
-    one query's LUT and a code tile fit a block's shared memory (the
-    kernel tiles the query axis itself), and the window rule yields a
-    plan from which the grouped search derives ``l_pad``."""
-    if not (1 <= pq_bits <= 8) or pq_dim < 1:
-        return False
-    if _slots(1, pq_dim, 1 << pq_bits) < 1:
-        return False
-    return plan_l_tile(
-        pq_dim * (1 << pq_bits), pad_queries(qcap),
+def pq_adc_supported(pq_dim: int, pq_bits: int) -> bool:
+    """Whether the kernel engine applies: uint8 codes (``pq_bits <= 8``)
+    and one query's LUT row beside a code tile fit a block's shared
+    memory. The kernel tiles the query axis itself, staging at most
+    :data:`_MAX_SLOTS` LUT rows a block, so no qcap bounds it — unlike
+    the JAX rule, whose window holds every slot's LUT row at once
+    (:func:`window_l_pad`)."""
+    return (1 <= pq_bits <= 8 and pq_dim >= 1
+            and _slots(1, pq_dim, 1 << pq_bits) >= 1)
+
+
+def window_l_pad(mk: int, qcap: int, max_list: int) -> int:
+    """The kernel engine's window length ``l_pad``: ``max_list`` rounded
+    up to the JAX window rule's tile (:func:`plan_l_tile`) at ``qcap``,
+    or to one lane where that rule has no plan — its byte model counts
+    the LUT rows of all ``qcap`` slots in one TPU window, which bounds
+    the TPU kernel and not this one."""
+    l_tile = plan_l_tile(
+        mk, pad_queries(qcap),
+        l_tile=round_up(max_list, scan_core.LANE),
         profile=scan_core.tile_profile(qcap),
-    ) is not None
+    )
+    return round_up(max_list, l_tile or scan_core.LANE)
 
 
 def pq_adc_subchunk_min_plain(luts, codes_t, bounds):

@@ -1195,3 +1195,115 @@ def test_sharded_pq_search_p8_equals_p1_on_card():
         runs = np.split(np.arange(10), np.flatnonzero(np.diff(d[r])) + 1)
         for run in runs[:-1]:
             assert set(a[r, run]) == set(b[r, run]), r
+
+
+def _hopper():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    return torch.device("cuda")
+
+
+def _ties_ok(d_ref, i_ref, i_got, tol):
+    """Every id the reference ranks below its k-th distance by more than
+    ``tol`` is in the other answer's row."""
+    inner = d_ref < d_ref[:, -1:] - tol
+    present = (i_ref[:, :, None] == i_got[:, None, :]).any(-1)
+    return bool((present | ~inner).all())
+
+
+@pytest.mark.gpu
+def test_approx_knn_search_on_card_equals_cpu():
+    """approx_knn_search on the card (the grouped kernel engine at 1,040
+    queries, the per-query path at 24) against the same index searched
+    on the CPU: distances within the f32 gram bound, ids up to ties."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, approx_knn_build_index, approx_knn_search,
+    )
+
+    dev = _hopper()
+    rng = np.random.default_rng(5)
+    x = (rng.integers(-20, 20, (20, 32))[rng.integers(0, 20, 20000)]
+         + rng.integers(-3, 4, (20000, 32))).astype(np.float32)
+    q = (x[rng.integers(0, 20000, 1040)]
+         + rng.integers(-2, 3, (1040, 32))).astype(np.float32)
+    cpu = approx_knn_build_index(x, IVFFlatParams(n_lists=64,
+                                                  kmeans_n_iters=4),
+                                 device="cpu")
+    card = dataclasses.replace(
+        cpu, centroids=cpu.centroids.to(dev),
+        data_sorted=cpu.data_sorted.to(dev),
+        storage=dataclasses.replace(cpu.storage, **{
+            f: getattr(cpu.storage, f).to(dev) for f in (
+                "sorted_ids", "list_offsets", "list_index", "list_sizes")}))
+    for nq in (24, 1040):
+        dc, ic = approx_knn_search(cpu, torch.as_tensor(q[:nq]), 10,
+                                   n_probes=8)
+        dg, ig = approx_knn_search(card, torch.as_tensor(q[:nq], device=dev),
+                                   10, n_probes=8)
+        # integer rows: every squared distance is exact on both devices
+        assert torch.equal(dg.cpu(), dc)
+        assert _ties_ok(dc, ic, ig.cpu(), 0.5)
+
+
+@pytest.mark.gpu
+def test_rbc_knn_query_on_card_equals_cpu():
+    """rbc_knn_query on the card against the same index on the CPU, both
+    metrics: distances within 1e-5 relative, ids up to ties, the
+    certificates equal but at ulp-scale margins."""
+    from raft_tpu_torch.spatial.ann import rbc_build_index, rbc_knn_query
+    from raft_tpu_torch.spatial.ann.ball_cover import _assemble
+
+    dev = _hopper()
+    rng = np.random.default_rng(6)
+    hubs = np.deg2rad(rng.uniform([-60, -170], [70, 170], (50, 2)))
+    geo = (hubs[rng.integers(0, 50, 20000)]
+           + rng.normal(0, 0.02, (20000, 2))).astype(np.float32)
+    l2 = (rng.integers(-30, 30, (50, 3))[rng.integers(0, 50, 20000)]
+          + rng.integers(-4, 5, (20000, 3))).astype(np.float32)
+    for metric, x in (("haversine", geo), ("l2", l2)):
+        cpu = rbc_build_index(x, metric=metric, seed=1, device="cpu")
+        lab = torch.empty(cpu.storage.n, dtype=torch.int64)
+        lab[cpu.storage.sorted_ids.long()] = torch.repeat_interleave(
+            torch.arange(cpu.landmarks.shape[0]), cpu.storage.list_sizes)
+        card = _assemble(torch.as_tensor(x, device=dev),
+                         cpu.landmarks.to(dev), lab.to(dev), metric)
+        q = x[rng.integers(0, 20000, 512)]
+        dc, ic, ec = rbc_knn_query(cpu, q, 10, n_probes=8)
+        dg, ig, eg = rbc_knn_query(card, torch.as_tensor(q, device=dev),
+                                   10, n_probes=8)
+        torch.testing.assert_close(dg.cpu(), dc, rtol=1e-5, atol=1e-6)
+        assert _ties_ok(dc, ic, ig.cpu(), 1e-5 * dc[:, -1:] + 1e-6)
+        assert (eg.cpu() != ec).float().mean() <= 0.01
+
+
+@pytest.mark.gpu
+def test_upsert_routing_is_batch_independent_on_card():
+    """A list split past its cap shares its centroid with its pieces; on
+    the card the GEMM may round the tie apart by batch size, and the
+    routing table must hide it: 256 upserts in one batch and in 2 x 128
+    leave the same state."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, ivf_flat_build, upsert, wrap_mutable,
+    )
+
+    dev = _hopper()
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((200, 96)).astype(np.float32)[
+        rng.integers(0, 200, 100000)] * 2.0
+        + rng.standard_normal((100000, 96)).astype(np.float32))
+    index = ivf_flat_build(x, IVFFlatParams(n_lists=128, kmeans_n_iters=4,
+                                            max_list_cap=400), device=dev)
+    assert index.centroids.shape[0] > 128
+    m0 = wrap_mutable(index, delta_cap=64)
+    rows = x[rng.integers(0, 100000, 256)] + 0.01 * rng.standard_normal(
+        (256, 96)).astype(np.float32)
+    ids = np.arange(200000, 200256, dtype=np.int32)
+    one, a = upsert(m0, rows, ids)
+    two, b = upsert(m0, rows[:128], ids[:128])
+    two, c = upsert(two, rows[128:], ids[128:])
+    assert a.all() and b.all() and c.all()
+    for f in ("vecs", "ids", "live", "counts"):
+        assert torch.equal(getattr(one.delta, f), getattr(two.delta, f))
+    assert torch.equal(one.row_mask, two.row_mask)

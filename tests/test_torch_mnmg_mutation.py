@@ -55,6 +55,7 @@ from tests.test_torch_ivf_flat import (
     _assert_ids_equal_up_to_ties,
     _int_dataset,
 )
+from tests.test_torch_mutation import _highest_duplicate, _ties_to_highest
 
 torch.set_num_threads(1)
 
@@ -420,7 +421,8 @@ def _durable_script(pkg, comms, index, fresh, root):
     ing = mod.MnmgDurableIngest(comms, mw, root, flush_interval_s=0.0005)
     ids = np.arange(8200, 8206, dtype=np.int32)
     out = {"acked1": ing.upsert(fresh[:6], ids), "fr1": ing.frontiers()}
-    holders = mod._row_holders(mw.index, mw.placement, fresh[:6])
+    canon = (mw.canon(),) if pkg == "torch" else ()
+    holders = mod._row_holders(mw.index, mw.placement, fresh[:6], *canon)
     dead = sorted({int(r) for r in np.unique(holders) if r >= 0})[0]
     ing._wals[dead].close()
     out["acked2"] = ing.upsert(fresh[:6] + 1.0, ids)
@@ -471,3 +473,56 @@ def test_durable_delete_below_quorum_and_validation(tc, pair, fresh,
     ing.close()
     with pytest.raises(terrors.RaftLogicError):
         tmm.MnmgDurableIngest(tc, mw, str(tmp_path / "x"), quorum=5)
+
+
+# ------------------------------------------- routing across split lists
+@pytest.fixture(scope="module")
+def split_pair(jc, tc, dataset):
+    """(JAX, port) replicated sharded IVF-Flat indexes whose lists split
+    past a cap of 100 rows: the pieces hold their parent's centroid."""
+    x, _ = dataset
+    j = jmf.mnmg_ivf_flat_build(
+        jc, x, JIVFFlatParams(n_lists=16, kmeans_n_iters=3,
+                              kmeans_init="random", seed=2,
+                              max_list_cap=100),
+        metric="sqeuclidean")
+    j = dataclasses.replace(j, centroids=jnp.round(j.centroids),
+                            local_cents=jnp.round(j.local_cents))
+    j = j_place(jc, j, replication=2)
+    return j, mnmg_index_from_arrays(_leaves(j), comms=tc)
+
+
+def test_split_list_routing_ignores_tie_rounding(monkeypatch, jc, tc,
+                                                 dataset, split_pair):
+    """With the port's ``kmeans_predict`` sending ties to the HIGHEST
+    duplicate centroid (the card's rounding, simulated), ``mnmg_upsert``
+    and the durable ingest's holder map still route each row to the
+    lowest list sharing its centroid: per-rank state and acks equal
+    JAX's bitwise."""
+    j, t = split_pair
+    x, _ = dataset
+    cents = np.array(j.centroids)
+    hi = _highest_duplicate(cents)
+    assert cents.shape[0] > 16 and (hi != np.arange(len(hi))).any()
+    orig = tmm.kmeans_predict
+    _ties_to_highest(monkeypatch, tmm)
+    rng = np.random.default_rng(12)
+    rows = (x[rng.integers(0, x.shape[0], 64)]
+            + rng.integers(-2, 3, (64, x.shape[1]))).astype(np.float32)
+    lbl = orig(torch.as_tensor(rows), torch.as_tensor(cents)).numpy()
+    assert (hi[lbl] != lbl).sum() >= 4
+    ids = np.arange(9500, 9564, dtype=np.int32)
+    out = {}
+    for pkg, comms, index, mod in (("jax", jc, j, jmm),
+                                   ("torch", tc, t, tmm)):
+        mw = mod.wrap_mnmg_mutable(comms, index, delta_cap=CAP)
+        mw, a1 = mod.mnmg_upsert(comms, mw, rows[:40], ids[:40])
+        mw, a2 = mod.mnmg_upsert(comms, mw, rows[40:], ids[40:])
+        # the port's holder map goes through the wrapper's table, as the
+        # durable ingest's does
+        canon = (mw.canon(),) if pkg == "torch" else ()
+        holders = mod._row_holders(index, mw.placement, rows, *canon)
+        out[pkg] = (mw, np.asarray(a1), np.asarray(a2), holders)
+    assert_state_equal(out["jax"][0], out["torch"][0])
+    for a, b in zip(out["jax"][1:], out["torch"][1:]):
+        np.testing.assert_array_equal(b, a)

@@ -462,10 +462,117 @@ def test_upsert_impl_is_the_acked_path_without_the_ack(dataset,
     acked, acc = tmut.upsert(tm, vecs, ids)
     delta, rm, acc2, _, _ = tmut._upsert_impl(
         tm.index.centroids, tm.delta, tm.row_mask, tm.id_to_pos,
-        torch.as_tensor(vecs), torch.as_tensor(ids))
+        torch.as_tensor(vecs), torch.as_tensor(ids), tm.canon)
     np.testing.assert_array_equal(acc2.numpy(), acc)
     for f in ("vecs", "ids", "live", "counts"):
         assert torch.equal(getattr(delta, f), getattr(acked.delta, f))
     assert torch.equal(rm, acked.row_mask)
     # the input state is untouched (functional updates)
     assert int(tm.delta.counts.sum()) == 0 and bool((tm.row_mask > 0).all())
+
+
+# ------------------------------------------- routing across split lists
+SPLIT_CAP = 40
+
+
+def _split_jax_index(kind, x):
+    """A JAX index whose lists split past ``SPLIT_CAP`` rows: every piece
+    holds its parent's centroid row (ids >= N_LISTS)."""
+    if kind == "pq":
+        j = j_ivf_pq_build(x, JIVFPQParams(
+            n_lists=N_LISTS, pq_dim=4, pq_bits=4, kmeans_n_iters=3,
+            kmeans_init="random", max_list_cap=SPLIT_CAP))
+        return dataclasses.replace(j, centroids=jnp.round(j.centroids),
+                                   codebooks=jnp.round(j.codebooks))
+    j = j_ivf_flat_build(x, JIVFFlatParams(
+        n_lists=N_LISTS, kmeans_n_iters=3, kmeans_init="random",
+        max_list_cap=SPLIT_CAP), metric="sqeuclidean")
+    return dataclasses.replace(j, centroids=jnp.round(j.centroids))
+
+
+def _highest_duplicate(cents):
+    """Each centroid row's highest index holding the same row."""
+    c = np.asarray(cents, np.float32)
+    same = (c[:, None, :] == c[None, :, :]).all(-1)
+    return np.array([np.nonzero(row)[0].max() for row in same])
+
+
+def _ties_to_highest(monkeypatch, module):
+    """Make ``module.kmeans_predict`` send every row whose nearest
+    centroid is duplicated to the highest duplicate — what the card's
+    GEMM rounding can do at some batch sizes."""
+    orig = module.kmeans_predict
+
+    def predict(x, centroids):
+        lbl = orig(x, centroids)
+        hi = torch.as_tensor(_highest_duplicate(centroids.cpu().numpy()),
+                             device=lbl.device)
+        return hi[lbl.long()].to(lbl.dtype)
+
+    monkeypatch.setattr(module, "kmeans_predict", predict)
+
+
+def test_canonical_lists_maps_duplicates_to_the_lowest():
+    from raft_tpu_torch.cluster.kmeans import canonical_lists
+
+    c = torch.tensor([[1.0, 2.0], [3.0, 4.0], [1.0, 2.0], [0.0, -0.0],
+                      [3.0, 4.0], [0.0, 0.0], [1.0, 2.0], [5.0, 5.0]])
+    got = canonical_lists(c)
+    # -0.0 and 0.0 are different bits: rows 3 and 5 stay apart
+    assert got.tolist() == [0, 1, 0, 3, 1, 5, 0, 7]
+    assert got.dtype == torch.int64 and got.device == c.device
+    nodup = torch.arange(12.0).reshape(6, 2)
+    assert canonical_lists(nodup).tolist() == list(range(6))
+
+
+def test_mutable_index_carries_its_routing_table(dataset):
+    """The table is made once when a MutableIndex is formed (wrap, carry,
+    compaction), rides every write's state, and is never archived."""
+    x, _ = dataset
+    jidx = _split_jax_index("flat", x)
+    cents = np.asarray(jidx.centroids)
+    lowest = [int(np.nonzero((cents == r).all(1))[0].min()) for r in cents]
+    tm = _carry(jmut.wrap_mutable(jidx, delta_cap=8))
+    assert tm.canon.tolist() == lowest
+    assert tmut.wrap_mutable(tm.index).canon.tolist() == lowest
+    up, _ = tmut.upsert(tm, x[:3] + 1.0, np.arange(3) + 9000)
+    assert up.canon is tm.canon
+    from raft_tpu_torch.spatial.ann import interop
+
+    assert "canon" not in interop._FIELDS[tmut.MutableIndex]
+
+
+@pytest.mark.parametrize("kind", ["flat", "pq"])
+def test_split_list_routing_ignores_tie_rounding(monkeypatch, dataset,
+                                                 kind):
+    """With ``kmeans_predict`` sending ties to the HIGHEST duplicate
+    centroid, upserts (and the compaction's re-route) still land where
+    the reference puts them, the lowest list sharing the centroid: the
+    delta segments, masks and compacted storage equal JAX's bitwise."""
+    x, _ = dataset
+    jidx = _split_jax_index(kind, x)
+    cents = np.asarray(jidx.centroids)
+    hi = _highest_duplicate(cents)
+    assert cents.shape[0] > N_LISTS and (hi != np.arange(len(hi))).any()
+    jm = jmut.wrap_mutable(jidx, delta_cap=32)
+    tm = _carry(jm)
+    _ties_to_highest(monkeypatch, tmut)
+    rng = np.random.default_rng(8)
+    vecs = (x[rng.integers(0, x.shape[0], 48)]
+            + rng.integers(-2, 3, (48, D))).astype(np.float32)
+    ids = np.arange(7000, 7048, dtype=np.int32)
+    # the patched predict really moves some of these rows
+    lbl = np.asarray(tmut.kmeans_predict(torch.as_tensor(vecs),
+                                         tm.index.centroids))
+    assert (lbl != np.asarray(jmut.kmeans_predict(vecs, cents))).sum() >= 4
+    jm, tm = _run_writes(jm, tm, [
+        ("upsert", (vecs[:24], ids[:24])),
+        ("upsert", (vecs[24:], ids[24:])),
+        ("delete", (ids[::5],)),
+    ])
+    jc, _ = jmut.compact(jm)
+    tc, _ = tmut.compact(tm)
+    want, got = _jax_arrays(jc.index), _port_arrays(tc.index)
+    for key, v in want.items():
+        np.testing.assert_array_equal(got[key], v, key)
+    _assert_state(jc, tc)

@@ -153,20 +153,32 @@ def test_plan_supported_and_query_tiles():
     from raft_tpu.spatial.ann import scan_core as jsc
 
     for mk in (64, 6144, 96 * 256):
-        for qcap in (1, 8, 24, 512):
+        for qcap in (1, 8, 24, 512, 1024):
             q_pad = jsc.pad_queries(qcap)
             for L in (57, 512, 3000):
                 cap = -(-L // 128) * 128
+                lt = jpq.plan_l_tile(mk, q_pad, l_tile=cap,
+                                     profile=jsc.tile_profile(qcap))
                 assert tpq.plan_l_tile(mk, q_pad, l_tile=cap,
-                                       profile=jsc.tile_profile(qcap)) == \
-                    jpq.plan_l_tile(mk, q_pad, l_tile=cap,
-                                    profile=jsc.tile_profile(qcap))
+                                       profile=jsc.tile_profile(qcap)) == lt
+                # the JAX rule's window where it plans, one lane where not
+                assert tpq.window_l_pad(mk, qcap, L) == \
+                    -(-L // (lt or 128)) * (lt or 128)
+    # the kernel's own rule: uint8 codes and one LUT row in shared memory,
+    # whatever the qcap; it holds wherever the JAX rule does
     for m, bits in ((24, 8), (4, 4), (96, 8), (4096, 8)):
+        assert tpq.pq_adc_supported(m, bits) == (
+            tpq._slots(1, m, 1 << bits) >= 1)
         for qcap in (8, 24, 512):
-            assert tpq.pq_adc_supported(m, bits, qcap) == (
+            assert tpq.pq_adc_supported(m, bits) or not \
                 jpq.pq_adc_supported(m, bits, qcap)
-                and tpq._slots(1, m, 1 << bits) >= 1)
-    assert not tpq.pq_adc_supported(24, 9, 8)
+    assert not tpq.pq_adc_supported(24, 9)
+    assert not tpq.pq_adc_supported(4096, 8)
+    # the slice's configuration at the auto qcap of a clustered 4,096
+    # batch: the JAX window rule has no plan, the kernel serves it
+    assert not jpq.pq_adc_supported(24, 8, 1024)
+    assert tpq.pq_adc_supported(24, 8)
+    assert tpq.window_l_pad(24 * 256, 1024, 512) == 512
     # the slice's configuration: 8 slots' LUT rows of 12 KB fit beside a
     # code tile; fewer slots where Q is smaller or the rows are wider
     assert tpq._slots(24, 24, 256) == 8
@@ -394,6 +406,28 @@ def test_emptied_lists_saturated_parity(dataset, jax_index, kernel):
     _assert_ids_equal_up_to_ties(d0, i0, i1.numpy())
 
 
+def test_kernel_engine_past_the_window_plan(dataset, jax_index, index,
+                                           monkeypatch):
+    """A qcap at which the JAX window rule has no plan (its budget cut
+    here so that qcap=64 does not fit): the kernel engine still runs,
+    on a one-lane window, and a saturated pool gives the JAX kernel
+    engine's results (planned at the full budget)."""
+    from raft_tpu_torch.spatial.ann import scan_core as tsc
+
+    _, q = dataset
+    p = 4
+    mk = index.pq_dim * (1 << index.pq_bits)
+    monkeypatch.setattr(tsc, "WINDOW_BUDGET",
+                        tpq._step_bytes(mk, tsc.pad_queries(64), 128) - 1)
+    assert tpq.plan_l_tile(mk, tsc.pad_queries(64)) is None
+    kw = dict(n_probes=p, refine_ratio=_saturating(index.storage, p, K_NN),
+              qcap=64, exact_selection=True)
+    d0, i0 = j_grouped(jax_index, q, K_NN, use_pallas=True, **kw)
+    d1, i1 = ivf_pq_search_grouped(index, q, K_NN, use_kernel=True, **kw)
+    np.testing.assert_array_equal(d1.numpy(), np.asarray(d0))
+    _assert_ids_equal_up_to_ties(d0, i0, i1.numpy())
+
+
 def test_per_query_search_parity(dataset, jax_index, index):
     """The per-query ADC search with a saturated refine pool."""
     _, q = dataset
@@ -567,24 +601,27 @@ def test_blocked_build_trains_on_a_subsample(blob_case):
     assert _recall(ids.numpy(), true) > 0.5
 
 
-def test_engine_resolver_raises_and_counts(caplog):
-    assert _resolve_adc_engine(None, True, 24, 8, 48, CPU) is False
-    assert _resolve_adc_engine(True, True, 24, 8, 48, CPU) is True
-    assert _resolve_adc_engine(False, True, 24, 8, 48, CPU) is False
+def test_engine_resolver_raises_and_counts(caplog, monkeypatch):
+    assert _resolve_adc_engine(None, True, 24, 8, CPU) is False
+    assert _resolve_adc_engine(True, True, 24, 8, CPU) is True
+    assert _resolve_adc_engine(False, True, 24, 8, CPU) is False
     with pytest.raises(ValueError, match="refine tail"):
-        _resolve_adc_engine(True, False, 24, 8, 48, CPU)
+        _resolve_adc_engine(True, False, 24, 8, CPU)
     with pytest.raises(ValueError, match="unsupported"):
-        _resolve_adc_engine(True, True, 4096, 8, 512, CPU)
+        _resolve_adc_engine(True, True, 4096, 8, CPU)
     cuda = torch.device("cuda")
     before = tivf_pq.ENGINE_FALLBACKS
     # unrefined: the one-hot engine by rule, not counted
-    assert _resolve_adc_engine(None, False, 24, 8, 48, cuda) is False
+    assert _resolve_adc_engine(None, False, 24, 8, cuda) is False
+    assert tivf_pq.ENGINE_FALLBACKS == before
+    # a refined search on a Hopper card takes the kernel, not counted
+    monkeypatch.setattr(tivf_pq, "hopper_device", lambda dev: True)
+    assert _resolve_adc_engine(None, True, 24, 8, cuda) is True
     assert tivf_pq.ENGINE_FALLBACKS == before
     tivf_pq._fallback_reasons_warned.clear()
     with caplog.at_level("WARNING", logger="raft_tpu_torch"):
         for _ in range(2):
-            assert _resolve_adc_engine(None, True, 4096, 8, 512,
-                                       cuda) is False
+            assert _resolve_adc_engine(None, True, 4096, 8, cuda) is False
     assert tivf_pq.ENGINE_FALLBACKS == before + 2
     assert len([r for r in caplog.records
                 if "IVF-PQ" in r.getMessage()]) == 1
