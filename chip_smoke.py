@@ -36,6 +36,15 @@ to 0 just before it and read just after:
   FLOP ratio, both engines' recall against the flat probe, the kernel
   engine's 16,384-query batch against the legacy engine, the flat scan
   kernel on both of its stages, and the three probes' times;
+* single linkage (``sparse.hierarchy.single_linkage``, the RAFT call
+  behind cuML's single-linkage AgglomerativeClustering) over 262,144 x
+  128 rows around 512 centres: the k = 16 kNN graph on the fused kernels,
+  the Borůvka MST and the connect-components rounds on the card, the
+  dendrogram on the native host library; labels against the centres and
+  against the same call on the scan-path graph; then spectral
+  partitioning over 131,072 x 128 rows around 8 centres
+  (``fit_embedding``, ``partition``: purity, and Lanczos against the
+  dense Laplacian's eigenvalues on a 4,096-row subsample);
 * IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
@@ -190,12 +199,25 @@ def phase_device():
 
 
 def phase_build():
-    from raft_tpu_torch import _build
+    from raft_tpu_torch import _build, native
     from raft_tpu_torch.spatial.ann import flat_kernel
 
+    # the native host library (g++) builds beside the nvcc processes
+    host = {}
+
+    def host_build():
+        t = time.perf_counter()
+        host["ok"] = native.available()
+        host["s"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=host_build)
+    host_thread.start()
     t0 = time.perf_counter()
     out_dir = _build.build_all()
     build_s = time.perf_counter() - t0
+    host_thread.join()
+    check(host["ok"], "the native host library (raft_tpu_torch/native) did "
+          "not build")
     from raft_tpu_torch.spatial.ann import pq_kernel
 
     lib = flat_kernel._lib()
@@ -216,7 +238,8 @@ def phase_build():
               for q in (1, 3, 8, 24) for m, k in ((PQ_DIM, 1 << PQ_BITS),
                                                   (96, 256), (5, 7))),
           "the ADC wrapper's shared-memory model disagrees with the kernel's")
-    log(f"build: csrc/*.cu -> {out_dir} in {build_s:.2f} s")
+    log(f"build: csrc/*.cu -> {out_dir} in {build_s:.2f} s; native/src/"
+        f"host_algos.cpp -> {native.lib_path()} in {host['s']:.2f} s")
 
 
 def _int_inputs(gen, lb, q, d, l_pad, dev):
@@ -3421,6 +3444,298 @@ def library_phase(args, card, dev, index, qcaps, x):
     return nums
 
 
+# ---------------------------------------------------------------------------
+# Single linkage and spectral partitioning (sparse/hierarchy.py, spectral/)
+# ---------------------------------------------------------------------------
+
+# single linkage as cuML's AgglomerativeClustering(linkage="single",
+# connectivity="knn") takes it from RAFT: SIFT's width, 262,144 rows
+# around 512 well-separated centres (uniform in [-10, 10]^128, unit
+# Gaussian noise), k = 16 (raft_tpu/sparse/hierarchy.py:176), 512 clusters
+LINK_ROWS, LINK_DIM, LINK_CENTRES, LINK_K = 262_144, 128, 512, 16
+# spectral partitioning: 131,072 x 128 rows around 8 centres 8 sigma apart
+# in random directions, scaled by 0.01 (the Laplacian's spectrum O(10));
+# at this spread the k = 16 graph is one component (PERF.md §4;
+# raft_tpu_torch/tools/sweep_spectral.py's corpus)
+SPEC_ROWS, SPEC_CENTRES, SPEC_SEP, SPEC_SCALE = 131_072, 8, 8.0, 0.01
+SPEC_SUB = 4096            # rows of the dense-eigh check
+
+
+def labels_match(got, truth):
+    """Whether two labelings are equal up to a permutation of the ids."""
+    got, truth = got.long(), truth.long()
+    pairs = torch.unique(got * (int(truth.max()) + 1) + truth).numel()
+    return pairs == torch.unique(got).numel() == torch.unique(truth).numel()
+
+
+def reset_fused_counts():
+    from raft_tpu_torch import native
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial import knn as bfk
+
+    for key in fz.LAUNCHES:
+        fz.LAUNCHES[key] = 0
+    bfk.SCAN_FALLBACKS = 0
+    fz.RESCORE_GATHER_CALLS = 0
+    native.NATIVE_FALLBACKS = 0
+
+
+def check_fused_path(what, launches):
+    """The path's #6 and #7 launches, and no route that hides the card."""
+    from raft_tpu_torch import native
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial import knn as bfk
+
+    check(launches["chunk_mins"] > 0 and launches["rescore_scores"] > 0,
+          f"{what}: the kNN graph did not launch both fused kernels "
+          f"({launches})")
+    check(bfk.SCAN_FALLBACKS == 0,
+          f"{what}: {bfk.SCAN_FALLBACKS} partitions left the fused kernels")
+    check(fz.RESCORE_GATHER_CALLS == 0,
+          f"{what}: {fz.RESCORE_GATHER_CALLS} calls took the gather rescore")
+    check(native.NATIVE_FALLBACKS == 0,
+          f"{what}: {native.NATIVE_FALLBACKS} host routes left the native "
+          "library")
+
+
+def compare_fused_calls(calls):
+    """Every kept #6 / #7 call against its plain version; returns the max
+    |kernel - plain| of each."""
+    errs = {"chunk_mins": 0.0, "rescore_scores": 0.0}
+    for name, call in calls:
+        fn = compare_chunk_mins if name == "chunk_mins" else compare_rescore
+        errs[name] = max(errs[name], fn(*call))
+    return errs
+
+
+def timed_s(fn, dev):
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def linkage_phase(args, card, dev):
+    """Single linkage (``sparse.hierarchy.single_linkage``) over 262,144 x
+    128 rows around 512 centres: the kNN graph on the fused kernels (16
+    query blocks, #6 and #7), the Borůvka MST and the connect-components
+    rounds on the card, the dendrogram on the native host library. The
+    labels must equal the centres up to a permutation, and the same call
+    with the graph on the scan path must agree (labels, MST weight within
+    1e-5 relative); every #6 / #7 call of the path is held against its
+    plain version. Then :func:`spectral_step`. Returns the numbers."""
+    from raft_tpu_torch.sparse import knn_graph
+    from raft_tpu_torch.sparse.hierarchy import single_linkage
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.tools.sweep_spectral import purity
+
+    nums = {"card": card}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    centres = 20.0 * torch.rand((LINK_CENTRES, LINK_DIM), generator=gen,
+                                device=dev) - 10.0
+    truth = torch.randint(0, LINK_CENTRES, (LINK_ROWS,), generator=gen,
+                          device=dev)
+    x = centres[truth] + torch.randn((LINK_ROWS, LINK_DIM), generator=gen,
+                                     device=dev)
+    del centres
+
+    # the main path, with every counter at 0 just before it
+    reset_fused_counts()
+    keep, calls, stats = {}, [], {}
+    with fused_calls(keep, calls) as shapes:
+        res = single_linkage(x, n_clusters=LINK_CENTRES, k=LINK_K,
+                             stats=stats)
+    launches = {k: fz.LAUNCHES[k] for k in ("chunk_mins", "rescore_scores")}
+    check_fused_path("single linkage", launches)
+    check(res.labels.device.type == dev.type,
+          f"linkage labels on {res.labels.device}")
+    check(labels_match(res.labels, truth),
+          "single linkage's labels are not the generating centres up to a "
+          "permutation")
+    nums.update(
+        fused_launches=launches,
+        launches_by_shape={k: {"x".join(map(str, s)): v for s, v in c.items()}
+                           for k, c in shapes.items()},
+        knn_graph_s=stats["knn_graph_s"], mst_s=stats["mst_s"],
+        dendrogram_s=stats["dendrogram_s"], total_s=stats["total_s"],
+        mst_solves=len(stats["mst"]),
+        mst_rounds=[m["rounds"] for m in stats["mst"]],
+        mst_syncs=[m["syncs"] for m in stats["mst"]],
+        mst_solve_s=[m["seconds"] for m in stats["mst"]],
+        connect_s=stats["connect_s"],
+        connect_rounds=stats["connect_rounds"],
+        component_syncs=stats["component_syncs"],
+        mst_weight=float(res.deltas.sum()),
+        forest_weight=stats["forest_weight"],
+        stitch_edges=LINK_ROWS - 1 - stats["forest_edges"],
+        purity=purity(res.labels, truth))
+    nums["knn_share"] = nums["knn_graph_s"] / nums["total_s"]
+    log(f"[{card}] single_linkage {LINK_ROWS} x {LINK_DIM}, k {LINK_K}, "
+        f"{LINK_CENTRES} clusters: kNN graph {nums['knn_graph_s']:.2f} s "
+        f"({nums['knn_share']:.1%} of {nums['total_s']:.2f} s; #6 / #7 "
+        f"launches {launches}), MST + connect {nums['mst_s']:.2f} s "
+        f"({nums['mst_solves']} Borůvka solves, rounds {nums['mst_rounds']}, "
+        f"host syncs {nums['mst_syncs']} = {sum(nums['mst_syncs'])}, "
+        f"seconds {[round(v, 3) for v in nums['mst_solve_s']]}; "
+        f"{nums['connect_rounds']} connect_components rounds, seconds "
+        f"{[round(v, 3) for v in nums['connect_s']]}, "
+        f"{nums['component_syncs']} component-count syncs), dendrogram "
+        f"{nums['dendrogram_s']:.3f} s; MST weight {nums['mst_weight']:.9g} "
+        f"with its {nums['stitch_edges']} stitching edges at d² or 2 d² "
+        f"(ROADMAP C4), the kNN graph's own forest "
+        f"{nums['forest_weight']:.9g}; labels equal the centres up to a permutation (purity "
+        f"{nums['purity']})")
+
+    # the same call with the graph on the scan path
+    before = dict(fz.LAUNCHES)
+    scan_stats = {}
+    scan_graph, nums["scan_knn_graph_s"] = timed_s(
+        lambda: knn_graph(x, LINK_K, use_fused=False), dev)
+    scan, scan_call_s = timed_s(lambda: single_linkage(
+        x, n_clusters=LINK_CENTRES, graph=scan_graph, stats=scan_stats), dev)
+    nums["scan_total_s"] = nums["scan_knn_graph_s"] + scan_call_s
+    check(fz.LAUNCHES == before, "the scan-path linkage launched a fused "
+          "kernel")
+    nums["scan_mst_weight"] = float(scan.deltas.sum())
+    nums["scan_forest_weight"] = scan_stats["forest_weight"]
+    rel = abs(nums["scan_mst_weight"] - nums["mst_weight"]) / nums[
+        "mst_weight"]
+    rel_forest = abs(nums["scan_forest_weight"] - nums["forest_weight"]) / (
+        nums["forest_weight"])
+    nums.update(scan_weight_rel=rel, scan_forest_rel=rel_forest)
+    check(labels_match(scan.labels, res.labels),
+          "fused and scan-path graphs give different labels")
+    check(rel <= 1e-5 and rel_forest <= 1e-5,
+          f"fused and scan-path MST weights {rel:.3g} apart (forests "
+          f"{rel_forest:.3g})")
+    log(f"[{card}] the scan-path graph: kNN graph "
+        f"{nums['scan_knn_graph_s']:.2f} s, total "
+        f"{nums['scan_total_s']:.2f} s, labels equal the fused path's up to "
+        f"a permutation, MST weight {nums['scan_mst_weight']:.9g} "
+        f"({rel:.3g} relative), forest {nums['scan_forest_weight']:.9g} "
+        f"({rel_forest:.3g} relative)")
+    del scan_graph
+    del scan, res, x, truth
+
+    nums["max_abs_err"] = compare_fused_calls(calls)
+    log(f"[{card}] linkage path's {len(calls)} fused calls each within the "
+        f"f32 summation bound of the plain version (max |kernel - plain| "
+        f"{nums['max_abs_err']})")
+    del keep, calls
+
+    nums["spectral"] = spectral_step(args, card, dev)
+    for key, v in nums["spectral"]["fused_launches"].items():
+        nums["fused_launches"][key] += v
+    for key, v in nums["spectral"]["max_abs_err"].items():
+        nums["max_abs_err"][key] = max(nums["max_abs_err"][key], v)
+    return nums
+
+
+def spectral_step(args, card, dev):
+    """Spectral partitioning over 131,072 x 128 rows around 8 centres:
+    the k = 16 kNN graph on the fused kernels (8 query blocks), one
+    component, ``fit_embedding`` and ``partition`` (Lanczos over the CSR
+    Laplacian, then k-means) with purity >= 0.95 against the centres;
+    on a 4,096-row subsample the 8 smallest Lanczos eigenvalues equal the
+    dense Laplacian's (f64 ``eigvalsh``) within 1e-4 relative, 1e-5
+    absolute. Returns the numbers."""
+    from raft_tpu_torch.linalg import lanczos_smallest_eigenvectors
+    from raft_tpu_torch.sparse import csr_from_coo, knn_graph
+    from raft_tpu_torch.sparse.connect import get_n_components
+    from raft_tpu_torch.sparse.linalg import fit_embedding
+    from raft_tpu_torch.sparse.mst import boruvka_mst
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spectral import (
+        ClusterSolverConfig, EigenSolverConfig, LaplacianMatrix,
+        analyze_partition, partition,
+    )
+    from raft_tpu_torch.tools.sweep_spectral import corpus, purity
+
+    nums = {}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 72)
+    x, truth = corpus(SPEC_ROWS, SPEC_SEP, gen, dev, centres=SPEC_CENTRES,
+                      dim=LINK_DIM, scale=SPEC_SCALE)
+
+    reset_fused_counts()
+    calls = []
+    with fused_calls({}, calls):
+        graph, nums["knn_graph_s"] = timed_s(lambda: knn_graph(x, LINK_K),
+                                             dev)
+    launches = {k: fz.LAUNCHES[k] for k in ("chunk_mins", "rescore_scores")}
+    check_fused_path("spectral", launches)
+    nums["fused_launches"] = launches
+    n_comp = int(get_n_components(boruvka_mst(graph).color))
+    check(n_comp == 1, f"the spectral corpus's k = {LINK_K} graph has "
+          f"{n_comp} components")
+    csr = csr_from_coo(graph)
+    valid = graph.valid_mask()
+    cross = (truth[graph.rows[valid].long()]
+             != truth[graph.cols[valid].long()]).float().mean().item()
+
+    info_e = {}
+    emb, nums["fit_embedding_s"] = timed_s(
+        lambda: fit_embedding(csr, SPEC_CENTRES, info=info_e), dev)
+    check(tuple(emb.shape) == (SPEC_ROWS, SPEC_CENTRES)
+          and bool(torch.isfinite(emb).all()),
+          f"fit_embedding gave {tuple(emb.shape)} or non-finite values")
+    info_p = {}
+    res, nums["partition_s"] = timed_s(lambda: partition(
+        csr, EigenSolverConfig(n_eig_vecs=SPEC_CENTRES),
+        ClusterSolverConfig(n_clusters=SPEC_CENTRES), info=info_p), dev)
+    nums["purity"] = purity(res.labels, truth)
+    cut, cost = analyze_partition(csr, res.labels, SPEC_CENTRES)
+    nums.update(
+        components=n_comp, cross_edge_share=cross,
+        embedding_restarts=info_e["restarts"],
+        embedding_residuals=info_e["residuals"].tolist(),
+        partition_restarts=info_p["restarts"],
+        partition_residuals=info_p["residuals"].tolist(),
+        eigenvalues=res.eigenvalues.tolist(), kmeans_iters=res.kmeans_iters,
+        edge_cut=float(cut), cost=float(cost))
+    log(f"[{card}] spectral {SPEC_ROWS} x {LINK_DIM}, {SPEC_CENTRES} "
+        f"centres: kNN graph {nums['knn_graph_s']:.2f} s (#6 / #7 "
+        f"{launches}), one component, cross-centre edges "
+        f"{cross:.4%}; fit_embedding {nums['fit_embedding_s']:.2f} s "
+        f"({info_e['restarts']} restarts, max residual "
+        f"{max(nums['embedding_residuals']):.3g}); partition "
+        f"{nums['partition_s']:.2f} s ({info_p['restarts']} restarts, max "
+        f"residual {max(nums['partition_residuals']):.3g}, eigenvalues "
+        f"{nums['eigenvalues']}, {res.kmeans_iters} k-means iterations): "
+        f"purity {nums['purity']:.6f}, edge cut {nums['edge_cut']:.6g}, "
+        f"cost {nums['cost']:.6g}")
+    check(nums["purity"] >= 0.95,
+          f"spectral purity {nums['purity']:.4f} below 0.95")
+    del emb, res, csr, graph
+
+    # the subsample: Lanczos against the dense Laplacian's eigenvalues
+    pick = torch.randperm(SPEC_ROWS, generator=torch.Generator().manual_seed(
+        args.seed + 73))[:SPEC_SUB].to(dev)
+    sub = csr_from_coo(knn_graph(x[pick], LINK_K))
+    lap = LaplacianMatrix(sub)
+    w, _, resid, restarts = lanczos_smallest_eigenvectors(
+        lap.matvec, SPEC_SUB, SPEC_CENTRES, tol=1e-6, max_iter=4000,
+        return_info=True, device=dev)
+    a = sub.to_dense().double()
+    want = torch.linalg.eigvalsh(torch.diag(a.sum(1)) - a)[:SPEC_CENTRES]
+    err = (w.double() - want).abs()
+    nums.update(sub_restarts=restarts, sub_eigenvalues=w.tolist(),
+                sub_dense_eigenvalues=want.tolist(),
+                sub_max_err=float(err.max()))
+    log(f"[{card}] spectral subsample {SPEC_SUB} rows: Lanczos "
+        f"({restarts} restarts) {nums['sub_eigenvalues']} against f64 "
+        f"eigvalsh {nums['sub_dense_eigenvalues']}, max |diff| "
+        f"{nums['sub_max_err']:.3g}")
+    check(bool((err <= torch.clamp_min(1e-4 * want.abs(), 1e-5)).all()),
+          "the subsample's Lanczos eigenvalues are not within 1e-4 "
+          "relative (1e-5 absolute) of the dense Laplacian's")
+    nums["max_abs_err"] = compare_fused_calls(calls)
+    log(f"[{card}] spectral path's {len(calls)} fused calls each within the "
+        f"f32 summation bound of the plain version (max |kernel - plain| "
+        f"{nums['max_abs_err']})")
+    return nums
+
+
 HEAL_WATCHDOG_S = 300      # the self-heal phase's stall limit
 
 
@@ -5496,12 +5811,13 @@ def check_fused_kernels(seed):
 
 
 @contextlib.contextmanager
-def fused_calls(keep):
+def fused_calls(keep, calls=None):
     """Count the calls of the chunk_mins and rescore_scores wrappers by
     shape and keep the last call's inputs of each shape in ``keep`` (a
     served batch, not a warmup's zero queries); ``keep["rescore_scores"]``
     also holds the last rescore call of each shape and index partition.
-    The wrappers still run (and count their launches) as before."""
+    ``calls``, a list, also receives every call as (name, inputs). The
+    wrappers still run (and count their launches) as before."""
     from raft_tpu_torch.spatial import fused_knn as fz
 
     wrappers = (fz.chunk_mins, fz.rescore_scores)
@@ -5513,6 +5829,8 @@ def fused_calls(keep):
                str(cd)[6:])
         shapes["chunk_mins"][key] += 1
         keep["chunk_mins", key] = (q, y, yn, npad, cd)
+        if calls is not None:
+            calls.append(("chunk_mins", (q, y, yn, npad, cd)))
         return wrappers[0](q, y, yn, npad, cd)
 
     def rescore_scores(q, cids, y):
@@ -5522,6 +5840,8 @@ def fused_calls(keep):
         keep["rescore_scores", key] = (q, cids, y)
         keep.setdefault("rescore_scores", {})[key + (y.data_ptr(),)] = (
             q, cids, y)
+        if calls is not None:
+            calls.append(("rescore_scores", (q, cids, y)))
         return wrappers[1](q, cids, y)
 
     fz.chunk_mins, fz.rescore_scores = chunk_mins, rescore_scores
@@ -6037,6 +6357,9 @@ def main(argv=None) -> int:
     del served
     log(f"library phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    linkage = linkage_phase(args, card, dev)
+    log(f"linkage phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)
     # the sharded phase's SQ step launched #3 too
@@ -6050,12 +6373,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
-    # the library phase's facade brute force launched #6 and #7 too
+    # the library phase's facade brute force and the linkage phase's kNN
+    # graphs launched #6 and #7 too
     for entry in kernels:
         if entry["name"] in ("chunk_mins", "rescore_scores"):
-            entry["launches"] += library["fused_launches"][entry["name"]]
+            entry["launches"] += (library["fused_launches"][entry["name"]]
+                                  + linkage["fused_launches"][entry["name"]])
             entry["library_max_abs_err"] = \
                 library["fused_max_abs_err"].get(entry["name"])
+            entry["linkage_launches"] = linkage["fused_launches"][
+                entry["name"]]
+            entry["linkage_max_abs_err"] = linkage["max_abs_err"][
+                entry["name"]]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     check(len(kernels) == 8 and all(keys <= set(k) for k in kernels),

@@ -32,12 +32,15 @@ __all__ = [
     "core",
     "distance",
     "durability",
+    "linalg",
+    "native",
     "obs",
     "pylibraft",
     "resilience",
     "serving",
     "sparse",
     "spatial",
+    "spectral",
     "testing",
     "tier",
     "tools",
@@ -47,8 +50,9 @@ __all__ = [
 
 _SUBMODULES = {
     "analysis", "cache", "cluster", "comms", "core", "distance",
-    "durability", "errors", "obs", "pylibraft", "resilience", "serving",
-    "sparse", "spatial", "testing", "tier", "tools", "utils",
+    "durability", "errors", "linalg", "native", "obs", "pylibraft",
+    "resilience", "serving", "sparse", "spatial", "spectral", "testing",
+    "tier", "tools", "utils",
 }
 
 _CORE = {

@@ -13,6 +13,8 @@ row's neighbours do not depend on the block it is searched in.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from raft_tpu_torch.core.device import as_tensor, call_device
@@ -27,7 +29,8 @@ BLOCK_Q = 16384
 
 
 def knn_graph(x, k: int, *, metric="l2_sqrt_expanded",
-              symmetrize: bool = True, device=None) -> COO:
+              symmetrize: bool = True, use_fused: Optional[bool] = None,
+              device=None) -> COO:
     """The kNN graph of dense rows ``x`` (n, d): edges (i -> j) for each
     of i's k nearest neighbours other than itself, row-sorted.
     ``symmetrize`` mirrors the edges (A ∪ Aᵀ, values combined by max).
@@ -35,12 +38,15 @@ def knn_graph(x, k: int, *, metric="l2_sqrt_expanded",
     Column 0 of each row's k+1 neighbours is dropped on the assumption
     that a row's nearest neighbour is itself, as the JAX package does: a
     row whose nearest is another (a duplicate row) keeps an edge to
-    itself. Runs on ``device`` when given, else on ``x``'s device if it
-    is a tensor, else on CUDA (raising without it)."""
+    itself. ``use_fused`` is ``brute_force_knn``'s (None: its routing
+    rule; False pins the scan path). Runs on ``device`` when given, else
+    on ``x``'s device if it is a tensor, else on CUDA (raising without
+    it)."""
     dev = call_device(x, device=device)
     x = as_tensor(x, dev)
     n = x.shape[0]
-    parts = [brute_force_knn(x, x[s:s + BLOCK_Q], k + 1, metric=metric)
+    parts = [brute_force_knn(x, x[s:s + BLOCK_Q], k + 1, metric=metric,
+                             use_fused=use_fused)
              for s in range(0, n, BLOCK_Q)]
     dists = torch.cat([p[0] for p in parts])[:, 1:]
     idxs = torch.cat([p[1] for p in parts])[:, 1:]

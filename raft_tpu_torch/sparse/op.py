@@ -1,8 +1,8 @@
 """Sparse structural ops of the port — the counterpart of
 ``raft_tpu/sparse/op.py`` (reference cpp/include/raft/sparse/op/:
-sort.cuh coo_sort:41, reduce.cuh max_duplicates:72), the part the
-kNN-graph build uses: ``coo_sort``, ``max_duplicates`` and
-``sum_duplicates``.
+sort.cuh coo_sort:41, filter.cuh coo_remove_scalar:46, reduce.cuh
+max_duplicates:72, slice.cuh csr_row_slice_*:40-65, row_op.cuh
+csr_row_op:39).
 
 Every op keeps the static capacity; dropped entries move to the padded
 tail (a stable sort on the drop flag, as the JAX package compacts).
@@ -10,11 +10,14 @@ tail (a stable sort on the drop flag, as the JAX package compacts).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from raft_tpu_torch.sparse.coo import COO
+from raft_tpu_torch.sparse.coo import COO, CSR
 
-__all__ = ["coo_sort", "max_duplicates", "sum_duplicates"]
+__all__ = ["coo_sort", "coo_remove_scalar", "coo_remove_zeros",
+           "max_duplicates", "sum_duplicates", "csr_row_slice", "csr_row_op"]
 
 
 def _reorder(coo: COO, order) -> COO:
@@ -51,6 +54,15 @@ def _compact(coo: COO, keep) -> COO:
     mask = torch.arange(coo.capacity, device=keep.device) < nnz
     return COO(_where0(mask, out.rows), _where0(mask, out.cols),
                _where0(mask, out.vals), nnz, coo.shape)
+
+
+def coo_remove_scalar(coo: COO, scalar) -> COO:
+    """Drop the entries equal to ``scalar`` (reference op/filter.cuh:46)."""
+    return _compact(coo, coo.vals != scalar)
+
+
+def coo_remove_zeros(coo: COO) -> COO:
+    return coo_remove_scalar(coo, 0)
 
 
 def _lowest(dtype):
@@ -103,3 +115,31 @@ def sum_duplicates(coo: COO) -> COO:
     """Sum duplicates (the canonicalisation of ``coo_symmetrize``'s
     ``"sum"`` mode)."""
     return _dedupe(coo, "sum")
+
+
+def csr_row_slice(csr: CSR, start: int, stop: int) -> CSR:
+    """Rows [start, stop) (reference op/slice.cuh:40-65
+    csr_row_slice_indptr + csr_row_slice_populate). The capacity stays;
+    entries outside the slice move to the padded tail."""
+    lo = csr.indptr[start]
+    hi = csr.indptr[stop]
+    pos = torch.arange(csr.capacity, device=csr.indices.device)
+    keep = (pos >= lo) & (pos < hi)
+    order = _stable_argsort((~keep).to(torch.uint8))
+    nnz = (hi - lo).to(torch.int32)
+    mask = pos < nnz
+    return CSR((csr.indptr[start:stop + 1] - lo).to(torch.int32),
+               _where0(mask, csr.indices[order]),
+               _where0(mask, csr.data[order]), nnz,
+               (stop - start, csr.shape[1]))
+
+
+def csr_row_op(csr: CSR, fn: Callable) -> CSR:
+    """``fn(row_ids, data) -> data`` over the entries (reference
+    op/row_op.cuh:39 csr_row_op); padding entries come out 0. The
+    padding's row ids are clamped to m - 1 here (the JAX package passes
+    m, which its gathers clamp), so ``fn`` may index per-row tensors."""
+    rows = torch.clamp_max(csr.row_ids(), csr.shape[0] - 1)
+    return CSR(csr.indptr, csr.indices,
+               _where0(csr.valid_mask(), fn(rows, csr.data)), csr.nnz,
+               csr.shape)

@@ -1307,3 +1307,182 @@ def test_upsert_routing_is_batch_independent_on_card():
     for f in ("vecs", "ids", "live", "counts"):
         assert torch.equal(getattr(one.delta, f), getattr(two.delta, f))
     assert torch.equal(one.row_mask, two.row_mask)
+
+
+@pytest.mark.gpu
+def test_native_host_library_builds_and_loads(monkeypatch):
+    """The native host library builds with g++ under the build root, the
+    host dendrogram takes it (no fallback counted), and its children,
+    deltas and sizes equal the numpy route's."""
+    from raft_tpu_torch import native
+    from raft_tpu_torch.sparse import hierarchy
+
+    _cuda()
+    assert native.available(), "the native host library did not build"
+    assert native.lib_path().is_file()
+    rng = np.random.default_rng(8)
+    n = 500
+    src = np.arange(1, n, dtype=np.int32)
+    dst = np.array([rng.integers(0, i) for i in range(1, n)], np.int32)
+    w = np.sort(rng.random(n - 1).astype(np.float32))
+    before = native.NATIVE_FALLBACKS
+    monkeypatch.setattr(native, "NATIVE_FALLBACKS", before)
+    got = hierarchy.build_dendrogram_host(src, dst, w, n)
+    assert native.NATIVE_FALLBACKS == before
+    monkeypatch.setattr(native, "available", lambda: False)
+    want = hierarchy.build_dendrogram_host(src, dst, w, n)
+    assert native.NATIVE_FALLBACKS == before + 1
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_knn_graph_fused_against_scan_on_card():
+    """knn_graph at 65,536 rows of width 128 on the fused kernels (#6,
+    #7) against its scan-path graph: on integer rows every distance is
+    exact, so each row's neighbour distances are equal (ids may differ
+    only inside a tie); the MST of the fused graph on the card equals the
+    CPU's bitwise, and single linkage on the card gives the CPU's labels
+    up to a permutation and its merge distances."""
+    from raft_tpu_torch.sparse import knn_graph
+    from raft_tpu_torch.sparse.hierarchy import single_linkage
+    from raft_tpu_torch.sparse.mst import boruvka_mst
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial import knn as bfk
+
+    dev = _hopper()
+    rng = np.random.default_rng(9)
+    n, d, k = 65536, 128, 16
+    x = (rng.integers(-40, 40, (64, d))[np.repeat(np.arange(64), n // 64)]
+         + rng.integers(-3, 4, (n, d))).astype(np.float32)
+    xd = torch.as_tensor(x, device=dev)
+    before = dict(fz.LAUNCHES)
+    bfk.SCAN_FALLBACKS = 0
+    fused = knn_graph(xd, k, symmetrize=False)
+    assert fz.LAUNCHES["chunk_mins"] > before["chunk_mins"]
+    assert fz.LAUNCHES["rescore_scores"] > before["rescore_scores"]
+    assert bfk.SCAN_FALLBACKS == 0
+    scan = knn_graph(xd, k, symmetrize=False, use_fused=False)
+    assert torch.equal(fused.rows, scan.rows)
+    assert torch.equal(fused.vals.reshape(n, k).sort(1).values,
+                       scan.vals.reshape(n, k).sort(1).values)
+    sym = knn_graph(xd, k)
+    card = boruvka_mst(sym)
+    cpu = boruvka_mst(dataclasses.replace(
+        sym, rows=sym.rows.cpu(), cols=sym.cols.cpu(), vals=sym.vals.cpu(),
+        nnz=sym.nnz.cpu()))
+    for f in ("src", "dst", "weight", "n_edges", "color"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    sub = x[::16]
+    a = single_linkage(torch.as_tensor(sub, device=dev), n_clusters=64)
+    b = single_linkage(torch.as_tensor(sub), n_clusters=64)
+    assert a.labels.device.type == "cuda"
+    pairs = set(zip(a.labels.cpu().tolist(), b.labels.tolist()))
+    assert len(pairs) == 64
+    np.testing.assert_array_equal(np.sort(a.deltas), np.sort(b.deltas))
+
+
+@pytest.mark.gpu
+def test_lanczos_and_partition_on_card_equal_cpu():
+    """Lanczos on a CSR Laplacian on the card against the CPU (same v0):
+    eigenvalues within 1e-4 relative, 1e-5 absolute; spmv bitwise on an
+    integer graph. Then ``partition`` of four blocks on the card and on
+    the CPU: on each, every eigenvalue within its Ritz residual plus the
+    solver's f32 floor, 10 eps x the spectral scale (``lanczos_solver``'s
+    docstring; ~5e-5 here), of the dense Laplacian's f64 ``eigvalsh``,
+    and labels the blocks up to a permutation (the k-means draws differ
+    by device)."""
+    import scipy.sparse as sp
+
+    from raft_tpu_torch.linalg.lanczos import lanczos_solver
+    from raft_tpu_torch.sparse import csr_from_scipy
+    from raft_tpu_torch.sparse.linalg import spmv
+    from raft_tpu_torch.spectral import (
+        ClusterSolverConfig, EigenSolverConfig, partition,
+    )
+
+    dev = _cuda()
+    n = 20000
+    rng = np.random.default_rng(10)
+    r = np.arange(n)
+    ij = np.concatenate([np.stack([r, (r + 1) % n]),
+                         rng.integers(0, n, (2, n // 2))], axis=1)
+    a = sp.coo_matrix((np.ones(ij.shape[1]), (ij[0], ij[1])), (n, n))
+    a = ((a + a.T) > 0).astype(np.float32)
+    lap = (sp.diags(np.asarray(a.sum(1)).ravel()) - a).tocsr()
+    cc = csr_from_scipy(lap, device="cpu")
+    cg = csr_from_scipy(lap, device=dev)
+    v = torch.as_tensor(rng.integers(-3, 4, n).astype(np.float32))
+    assert torch.equal(spmv(cg, v.to(dev)).cpu(), spmv(cc, v))
+    v0 = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+    wc, _ = lanczos_solver(lambda u: spmv(cc, u), n, 4, ncv=48, tol=1e-6,
+                           v0=v0)
+    wg, _ = lanczos_solver(lambda u: spmv(cg, u), n, 4, ncv=48, tol=1e-6,
+                           v0=v0.to(dev))
+    assert wg.device.type == "cuda"
+    torch.testing.assert_close(wg.cpu(), wc, rtol=1e-4, atol=1e-5)
+
+    # four blocks of 1,000 rows, 12 random neighbours a row inside its
+    # block, 40 bridges between blocks
+    nb, per = 4, 1000
+    block = np.repeat(np.arange(nb), per)
+    src = np.repeat(np.arange(nb * per), 12)
+    dst = block[src] * per + rng.integers(0, per, src.shape[0])
+    bridges = rng.integers(0, nb * per, (2, 40))
+    ij = np.concatenate([np.stack([src, dst]), bridges], axis=1)
+    g = sp.coo_matrix((np.ones(ij.shape[1]), (ij[0], ij[1])),
+                      (nb * per, nb * per))
+    g = ((g + g.T) > 0).astype(np.float32)
+    g.setdiag(0)
+    g.eliminate_zeros()
+    eig, clu = EigenSolverConfig(n_eig_vecs=nb), ClusterSolverConfig(
+        n_clusters=nb)
+    info_card, info_cpu = {}, {}
+    on_card = partition(csr_from_scipy(g, device=dev), eig, clu,
+                        info=info_card)
+    on_cpu = partition(csr_from_scipy(g, device="cpu"), eig, clu,
+                       info=info_cpu)
+    assert on_card.labels.device.type == "cuda"
+    dense = g.toarray().astype(np.float64)
+    spectrum = np.linalg.eigvalsh(np.diag(dense.sum(1)) - dense)
+    want = spectrum[:nb]
+    floor = 10 * np.finfo(np.float32).eps * spectrum[-1]
+    for res, info in ((on_card, info_card), (on_cpu, info_cpu)):
+        got = res.eigenvalues.cpu().double().numpy()
+        bound = info["residuals"].cpu().double().numpy() + floor
+        assert (np.abs(got - want) <= bound).all(), (got, want, bound)
+        labels = res.labels.cpu()
+        assert len(set(zip(block.tolist(), labels.tolist()))) == nb
+
+
+@pytest.mark.gpu
+def test_spmv_spmm_repeat_bitwise_on_card():
+    """``spmv`` / ``spmm`` on float inputs give the same bits on every
+    call on the card (each row summed in its entries' order), and agree
+    with the CPU within f32 summation error."""
+    import scipy.sparse as sp
+
+    from raft_tpu_torch.sparse import csr_from_scipy
+    from raft_tpu_torch.sparse.linalg import spmm, spmv
+
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    n = 131072
+    rows = np.repeat(np.arange(n), 32)
+    a = sp.csr_matrix((rng.standard_normal(rows.shape[0]).astype(np.float32),
+                       (rows, rng.integers(0, n, rows.shape[0]))), (n, n))
+    cg = csr_from_scipy(a, device=dev)
+    v = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                        device=dev)
+    xm = torch.as_tensor(rng.standard_normal((n, 8)).astype(np.float32),
+                         device=dev)
+    y, ym = spmv(cg, v), spmm(cg, xm)
+    for _ in range(20):
+        assert torch.equal(spmv(cg, v), y)
+        assert torch.equal(spmm(cg, xm), ym)
+    cc = csr_from_scipy(a, device="cpu")
+    torch.testing.assert_close(y.cpu(), spmv(cc, v.cpu()), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(ym.cpu(), spmm(cc, xm.cpu()), rtol=1e-5,
+                               atol=1e-5)
