@@ -12,7 +12,8 @@ to 0 just before it and read just after:
   width) built with 1024 lists, warmed per serving bucket, serving ~200
   requests through the bucketed micro-batcher and the grouped search,
   with recall@10 of both scan engines against exact brute force; then
-  the open-loop ``ServingExecutor`` over that index; then the mutation
+  the open-loop ``ServingExecutor`` over that index (with one
+  ``ProfileTrigger`` capture under load); then the mutation
   tier over it (upsert -> visible, 10% tombstones, recall on the
   survivors on both engines, the mixed-ingest row, compaction and a
   background compaction under searches, a cached answer gone stale
@@ -41,10 +42,20 @@ to 0 just before it and read just after:
   128 rows around 512 centres: the k = 16 kNN graph on the fused kernels,
   the Borůvka MST and the connect-components rounds on the card, the
   dendrogram on the native host library; labels against the centres and
-  against the same call on the scan-path graph; then spectral
-  partitioning over 131,072 x 128 rows around 8 centres
-  (``fit_embedding``, ``partition``: purity, and Lanczos against the
-  dense Laplacian's eigenvalues on a 4,096-row subsample);
+  against the same call on the scan-path graph, the stitching edges in
+  the graph's metric and each pair entered once, an 8-cluster cut
+  against a host f64 oracle; then spectral partitioning over 131,072 x
+  128 rows around 8 centres (``fit_embedding``, ``partition``: purity,
+  and Lanczos against the dense Laplacian's eigenvalues on a 4,096-row
+  subsample);
+* the toolkit, which reaches no kernel: sparse kNN at
+  bench/bench_sparse.py's cell (20,000 x 2,000 x 100,000, k = 10) on the
+  CSR colblock route, the prebuilt index and its ``precision="default"``
+  route against scipy's f64 product, with auto -> dense and l1 cases;
+  ``make_blobs`` at bench/common.py's recipe and the distributions'
+  moments; the stats on the linkage and spectral results; the auction
+  at 1,024 and 16 x 256 against scipy; labels and matrix helpers
+  against numpy;
 * IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
@@ -939,6 +950,135 @@ def traced_point(dispatch, pool, rate_rps, n_requests, seed, dev):
     return wall, busy, ex.stats()
 
 
+class MergedE2E:
+    """An executor's end-to-end latency over every bucket, as one
+    histogram for ``ProfileTrigger``: ``counts_snapshot`` sums its
+    buckets' ``serving_stage_ms{stage="e2e"}`` series."""
+
+    def __init__(self, registry, executor, buckets):
+        self.name = f"{executor}_e2e"
+        self._hists = [registry.histogram(
+            "serving_stage_ms", executor=executor, stage="e2e", bucket=b)
+            for b in buckets]
+
+    def counts_snapshot(self):
+        return tuple(sum(c) for c in zip(*(h.counts_snapshot()
+                                           for h in self._hists)))
+
+
+TRIGGER_CHECK_S = 0.02     # the drain cadence the trigger is checked at
+TRIGGER_RUN_S = 1.0        # seconds of traffic a round of the run sends
+TRIGGER_MAX_RUNS = 8
+TRIGGER_AFTER = 25         # checks after the capture that end the run
+
+
+def trigger_point(dispatch, pool, rate_rps, threshold_ms, seed, dev, card):
+    """A ``ProfileTrigger`` on the executor's end-to-end latency: an
+    executor at ``rate_rps`` requests/s in rounds of TRIGGER_RUN_S until
+    TRIGGER_AFTER checks followed the capture, ``check()`` every
+    TRIGGER_CHECK_S, ``threshold_ms`` under the measured p50, 2
+    consecutive windows, a 0.5 s capture, at most one.
+    Exactly one capture must fire under load, its Chrome trace must hold
+    CUDA events of ``flat_lists_kernel``, and the storm bound must hold
+    through later breached windows. Returns the numbers."""
+    import glob
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch.obs import MetricRegistry, ProfileTrigger
+    from raft_tpu_torch.serving import ServingExecutor
+    from raft_tpu_torch.testing.load import poisson_arrivals, replay
+
+    reg = MetricRegistry()
+    e2e = MergedE2E(reg, "trigger", BUCKETS)
+    log_dir = tempfile.mkdtemp(prefix="profile_trigger_")
+    trig = ProfileTrigger(e2e, threshold_ms=threshold_ms, log_dir=log_dir,
+                          consecutive=2, capture_s=0.5, max_captures=1,
+                          registry=reg)
+    checks = []
+    done, enough = threading.Event(), threading.Event()
+    n_requests = max(128, int(TRIGGER_RUN_S * rate_rps))
+    sched = poisson_arrivals(rate_rps, n_requests, seed=seed,
+                             sizes=EXEC_REQUEST_SIZE)
+    rng = np.random.default_rng(seed)
+    client_error, sent = [], [0]
+
+    def client(ex):
+        # rounds of TRIGGER_RUN_S of traffic until the checks after the
+        # capture are enough (the capture and its trace's export take
+        # a while), at most TRIGGER_MAX_RUNS
+        try:
+            for _ in range(TRIGGER_MAX_RUNS):
+                futs, _, _ = replay(sched, lambda i, m: ex.submit(
+                    pool[rng.integers(0, pool.shape[0], m)]),
+                    clock=time.perf_counter)
+                for f in futs:
+                    f.result(timeout=120)
+                sent[0] += len(futs)
+                if enough.is_set():
+                    break
+        except Exception as e:  # noqa: BLE001 — reported below
+            client_error.append(repr(e))
+        finally:
+            done.set()
+
+    # the checks (and so the capture) run on this thread: the profiler
+    # starts where the process registered it; the traffic comes from
+    # another
+    with ServingExecutor(dispatch, BUCKETS, dim=DIM, device=dev,
+                         registry=reg, name="trigger") as ex:
+        th = threading.Thread(target=client, args=(ex,),
+                              name="trigger-client")
+        t0 = time.perf_counter()
+        th.start()
+        fire_t = None
+        while not done.wait(TRIGGER_CHECK_S):
+            t = time.perf_counter()
+            fired = trig.check()
+            checks.append((t, fired, trig._breaches, time.perf_counter()))
+            if fired is not None:
+                fire_t = t
+            elif fire_t is not None and sum(
+                    1 for c in checks if c[0] > fire_t) >= TRIGGER_AFTER:
+                enough.set()
+        wall = time.perf_counter() - t0
+        th.join(120)
+    errors_seen = client_error
+    check(not errors_seen, f"the triggered run's client raised {errors_seen}")
+    fired = [(t, p, t1 - t) for t, p, _, t1 in checks if p is not None]
+    check(len(fired) == 1 and trig.captures == 1,
+          f"{len(fired)} profile captures under load (want exactly 1)")
+    after = [b for t, p, b, _ in checks if t > fired[0][0]]
+    files = glob.glob(os.path.join(log_dir, "trace_*.json"))
+    check(len(files) == 1, f"{len(files)} Chrome traces written")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flat = [e for e in kernels if "flat_lists_kernel" in e.get("name", "")]
+    check(flat, "the captured trace holds no flat_lists_kernel event")
+    # the storm bound: later windows breached again, and nothing fired
+    rebreached = max(after) if after else 0
+    shutil.rmtree(log_dir, ignore_errors=True)
+    nums = dict(threshold_ms=threshold_ms, checks=len(checks),
+                capture_at_s=fired[0][0] - t0, capture_s=fired[0][2],
+                wall_s=wall,
+                trace_kernel_events=len(kernels),
+                flat_lists_events=len(flat), checks_after=len(after),
+                max_breaches_after=rebreached, requests=sent[0])
+    log(f"[{card}] ProfileTrigger on the executor's e2e latency (threshold "
+        f"{threshold_ms:.3f} ms, under the p50; 2 windows of "
+        f"{1e3 * TRIGGER_CHECK_S:.0f} ms): one capture at "
+        f"{nums['capture_at_s']:.3f} s, taking {nums['capture_s']:.3f} s "
+        f"with the trace's export, of a {wall:.2f} s run "
+        f"({sent[0]} requests), its Chrome trace {len(kernels)} CUDA "
+        f"kernel events, {len(flat)} of flat_lists_kernel; {len(after)} "
+        f"later checks, up to {rebreached} consecutive breached windows "
+        "again, no second capture")
+    check(rebreached >= 2, "no later window breached twice: the storm "
+          "bound was not exercised")
+    return nums
+
+
 def executor_phase(args, card, dev, index, qcaps, x):
     """The open-loop ServingExecutor over the main path's index: the
     open-loop row (saturation, p50/p99 at fractions of it, sheds, stage
@@ -1109,6 +1249,9 @@ def executor_phase(args, card, dev, index, qcaps, x):
         f"{st.completed} requests in {st.batches} batches (pad_fraction "
         f"{st.pad_fraction:.3f}), wall {1e3 * wall:.1f} ms, device busy "
         f"{1e3 * busy:.1f} ms, idle {1 - busy / wall:.1%}")
+
+    trigger_point(lambda b, **_: search(b), pool, rate,
+                  0.5 * row["p50_ms_95"], args.seed + 96, dev, card)
 
     result_cache_pass(card, dev, search, pool)
 
@@ -3516,15 +3659,18 @@ def timed_s(fn, dev):
     return out, time.perf_counter() - t0
 
 
-def linkage_phase(args, card, dev):
+def linkage_phase(args, card, dev, feed):
     """Single linkage (``sparse.hierarchy.single_linkage``) over 262,144 x
     128 rows around 512 centres: the kNN graph on the fused kernels (16
     query blocks, #6 and #7), the Borůvka MST and the connect-components
     rounds on the card, the dendrogram on the native host library. The
-    labels must equal the centres up to a permutation, and the same call
-    with the graph on the scan path must agree (labels, MST weight within
-    1e-5 relative); every #6 / #7 call of the path is held against its
-    plain version. Then :func:`spectral_step`. Returns the numbers."""
+    labels must equal the centres up to a permutation, the stitching
+    must hold (:func:`stitch_checks`: ROADMAP C4's repair and an 8-cluster
+    cut against a host oracle), and the same call with the graph on the
+    scan path must agree (labels, MST weight within 1e-5 relative);
+    every #6 / #7 call of the path is held against its plain version.
+    Then :func:`spectral_step`. Returns the numbers; ``feed`` receives
+    the labels and rows :func:`toolkit_phase` reads."""
     from raft_tpu_torch.sparse import knn_graph
     from raft_tpu_torch.sparse.hierarchy import single_linkage
     from raft_tpu_torch.spatial import fused_knn as fz
@@ -3582,10 +3728,12 @@ def linkage_phase(args, card, dev):
         f"{[round(v, 3) for v in nums['connect_s']]}, "
         f"{nums['component_syncs']} component-count syncs), dendrogram "
         f"{nums['dendrogram_s']:.3f} s; MST weight {nums['mst_weight']:.9g} "
-        f"with its {nums['stitch_edges']} stitching edges at d² or 2 d² "
-        f"(ROADMAP C4), the kNN graph's own forest "
+        f"with its {nums['stitch_edges']} stitching edges in the graph's "
+        f"metric, the kNN graph's own forest "
         f"{nums['forest_weight']:.9g}; labels equal the centres up to a permutation (purity "
         f"{nums['purity']})")
+    nums["stitching"] = stitch_checks(x, res, stats, card)
+    feed.update(link_labels=res.labels, link_truth=truth)
 
     # the same call with the graph on the scan path
     before = dict(fz.LAUNCHES)
@@ -3624,7 +3772,7 @@ def linkage_phase(args, card, dev):
         f"{nums['max_abs_err']})")
     del keep, calls
 
-    nums["spectral"] = spectral_step(args, card, dev)
+    nums["spectral"] = spectral_step(args, card, dev, feed)
     for key, v in nums["spectral"]["fused_launches"].items():
         nums["fused_launches"][key] += v
     for key, v in nums["spectral"]["max_abs_err"].items():
@@ -3632,7 +3780,103 @@ def linkage_phase(args, card, dev):
     return nums
 
 
-def spectral_step(args, card, dev):
+def stitch_checks(x, res, stats, card):
+    """ROADMAP C4's repair on the card. The connect rounds stay 3 and
+    their round-1 pairs those of ``connect_components`` on the kNN
+    forest's colours; no pair enters the graph twice; each stitching edge
+    carries its pair's distance (within 1e-5 relative of the f64 host
+    distance); the MST is the kNN forest plus the stitching edges. Then
+    the dendrogram cut into 8 clusters (merges above the kNN graph's
+    components) against a numpy f64 oracle of the same cut on the same
+    MST edges. Returns the numbers."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from raft_tpu_torch.sparse.connect import connect_components
+    from raft_tpu_torch.sparse.hierarchy import extract_flattened_clusters
+
+    n = x.shape[0]
+    rounds = stats["connect_rounds"]
+    check(rounds == 3, f"{rounds} connect rounds, not 3")
+    pairs = [(min(a, b), max(a, b)) for rows, cols, _, _ in stats["stitches"]
+             for a, b in zip(rows.tolist(), cols.tolist())]
+    repeats = [r for _, _, _, r in stats["stitches"]]
+    check(len(pairs) == len(set(pairs)),
+          f"{len(pairs) - len(set(pairs))} stitching pairs entered twice")
+    # round 1 again, from the forest's colours: the same pairs
+    fc = torch.as_tensor(stats["forest_color"], device=x.device)
+    extra = connect_components(x, fc)
+    k1 = int(extra.nnz)
+    raw = {(min(a, b), max(a, b)) for a, b in zip(
+        extra.rows[:k1].tolist(), extra.cols[:k1].tolist())}
+    rows1, cols1, _, _ = stats["stitches"][0]
+    check(raw == {(min(a, b), max(a, b)) for a, b in zip(rows1.tolist(),
+                                                         cols1.tolist())},
+          "round 1's stitching pairs are not connect_components' pairs")
+    check(k1 - len(raw) == repeats[0],
+          f"round 1: {k1} edges, {len(raw)} pairs, {repeats[0]} repeats")
+
+    src, dst, w = stats["mst_edges"]
+    forest = stats["forest_color"]
+    cross = forest[src] != forest[dst]
+    n_cross = int(cross.sum())
+    check(n_cross == n - 1 - stats["forest_edges"],
+          f"{n_cross} MST edges cross the kNN forest's components, not "
+          f"{n - 1 - stats['forest_edges']}")
+    # every stitching edge (entered and in the MST) against f64
+    s_rows = np.concatenate([r for r, _, _, _ in stats["stitches"]])
+    s_cols = np.concatenate([c for _, c, _, _ in stats["stitches"]])
+    s_w = np.concatenate([v for _, _, v, _ in stats["stitches"]])
+    xh = x.cpu().double()
+
+    def f64_dist(a, b):
+        a, b = torch.as_tensor(a).long(), torch.as_tensor(b).long()
+        return torch.sqrt(((xh[a] - xh[b]) ** 2).sum(1)).numpy()
+
+    rel = np.abs(s_w - f64_dist(s_rows, s_cols)) / f64_dist(s_rows, s_cols)
+    rel_mst = np.abs(w[cross] - f64_dist(src[cross], dst[cross])) / \
+        f64_dist(src[cross], dst[cross])
+    check(rel.max() <= 1e-5 and rel_mst.max() <= 1e-5,
+          f"a stitching edge {max(rel.max(), rel_mst.max()):.3g} from its "
+          "pair's f64 distance")
+    stitch_w = float(w[cross].astype(np.float64).sum())
+    mst_w = float(res.deltas.astype(np.float64).sum())
+    gap = abs(mst_w - (stats["forest_weight"] + stitch_w)) / mst_w
+    check(gap <= 1e-9, f"the MST weight {mst_w:.9g} is not the forest plus "
+          f"the stitching edges ({gap:.3g} apart)")
+
+    # the cut into 8 clusters against the f64 oracle on the same edges
+    cut = 8
+    labels = extract_flattened_clusters(res.children, n, cut)
+    order = np.argsort(w.astype(np.float64), kind="stable")
+    keep = order[:n - cut]
+    g = coo_matrix((np.ones(keep.shape[0]), (src[keep], dst[keep])),
+                   shape=(n, n))
+    n_comp, oracle = connected_components(g, directed=False)
+    top = np.sort(w.astype(np.float64))[::-1][:cut]
+    check(n_comp == cut and labels_match(torch.as_tensor(labels),
+                                         torch.as_tensor(oracle)),
+          f"the {cut}-cluster cut is not the f64 oracle's ({n_comp} "
+          "components)")
+    out = dict(connect_rounds=rounds, stitch_pairs=len(pairs),
+               repeats_dropped=repeats, stitch_weight=stitch_w,
+               stitch_mean=stitch_w / max(n_cross, 1),
+               stitch_max_rel=float(max(rel.max(), rel_mst.max())),
+               cut_heights=top.tolist(),
+               cut_sizes=sorted(np.bincount(labels).tolist()))
+    log(f"[{card}] C4 on the card: {rounds} connect rounds, {len(pairs)} "
+        f"stitching pairs each entered once ({repeats} repeats dropped; "
+        f"round 1's pairs are connect_components' on the forest), "
+        f"{n_cross} in the MST at mean {out['stitch_mean']:.4f}, each "
+        f"within {out['stitch_max_rel']:.3g} of its f64 distance; MST "
+        f"{mst_w:.9g} = forest {stats['forest_weight']:.9g} + stitches "
+        f"{stitch_w:.9g}; the {cut}-cluster cut (heights "
+        f"{[round(float(v), 4) for v in top]}, sizes {out['cut_sizes']}) equals "
+        "the f64 oracle's")
+    return out
+
+
+def spectral_step(args, card, dev, feed):
     """Spectral partitioning over 131,072 x 128 rows around 8 centres:
     the k = 16 kNN graph on the fused kernels (8 query blocks), one
     component, ``fit_embedding`` and ``partition`` (Lanczos over the CSR
@@ -3706,6 +3950,7 @@ def spectral_step(args, card, dev):
         f"cost {nums['cost']:.6g}")
     check(nums["purity"] >= 0.95,
           f"spectral purity {nums['purity']:.4f} below 0.95")
+    feed.update(spec_x=x, spec_labels=res.labels, spec_truth=truth)
     del emb, res, csr, graph
 
     # the subsample: Lanczos against the dense Laplacian's eigenvalues
@@ -3733,6 +3978,545 @@ def spectral_step(args, card, dev):
     log(f"[{card}] spectral path's {len(calls)} fused calls each within the "
         f"f32 summation bound of the plain version (max |kernel - plain| "
         f"{nums['max_abs_err']})")
+    return nums
+
+
+# ---------------------------------------------------------------------------
+# The toolkit: sparse distances and kNN, random/, stats/, lap/, label/,
+# matrix/ (none reaches a kernel)
+# ---------------------------------------------------------------------------
+
+# bench/bench_sparse.py:36-58's card cell: 20,000 index rows, 2,000
+# queries, 100,000 columns, ~100 nonzeros a row (scipy.sparse.random,
+# values uniform in [0, 1)), k = 10, sqeuclidean, the prebuilt index at
+# column blocks of 4,096
+SP_ROWS, SP_QUERIES, SP_DIM, SP_NNZ, SP_K = 20_000, 2_000, 100_000, 100, 10
+SP_COL_BLOCK = 4096
+SP_SAMPLE = 256            # queries held against the scipy f64 oracle
+SP_ITERS = 8               # warmed calls timed a route (bench_fn's 8)
+SP_DENSE_DIM = 2048        # auto -> dense at the same rows
+SP_L1_DIM, SP_L1_NNZ = 256, 16   # the unexpanded metric at a cut width
+# random/: bench/common.py:262-267's make_blobs recipe
+BLOB_ROWS, BLOB_DIM, BLOB_CENTRES = 1_000_000, 128, 1000
+MVG_POINTS, MVG_DIM = 1_000_000, 64
+DRAWS = 10_000_000
+Z_BOUND = 6.0              # |z| of a moment over DRAWS (p ~ 2e-9 a test)
+TRUST_ROWS, TRUST_DIM, TRUST_SUB = 16_384, 16, 2048
+LAP_N, LAP_BATCH, LAP_BATCH_N = 1024, 16, 256
+LABELS_N, MATRIX_N = 1_000_000, 4096
+
+
+def sparse_rand(rng, m, d, nnz):
+    import scipy.sparse as ss
+
+    return ss.random(m, d, density=nnz / d, format="csr", dtype=np.float32,
+                     random_state=rng,
+                     data_rvs=lambda k: rng.random(k).astype(np.float32))
+
+
+def sparse_oracle(qry, idx, metric):
+    """The f64 distances of ``qry``'s rows to every index row on the host:
+    squared L2 from scipy's CSR products, l1 from dense f64 rows."""
+    from scipy.spatial.distance import cdist
+
+    q64, i64 = qry.astype(np.float64), idx.astype(np.float64)
+    if metric == "l1":
+        return cdist(q64.toarray(), i64.toarray(), "cityblock")
+    return np.maximum(np.asarray(q64.multiply(q64).sum(1))
+                      + np.asarray(i64.multiply(i64).sum(1)).T
+                      - 2.0 * (q64 @ i64.T).toarray(), 0.0)
+
+
+def hold_sparse(what, d, ids, full, k, tol):
+    """Distances against the f64 oracle within ``tol`` (relative to the
+    row's scale), and ids up to ties: each id's oracle distance within
+    ``tol`` of its own and of the oracle's k-th."""
+    d, ids = d.cpu().numpy().astype(np.float64), ids.cpu().numpy()
+    want = np.sort(full, 1)[:, :k]
+    scale = np.maximum(np.abs(want).max(1, keepdims=True), 1.0)
+    err = np.abs(d - want) / scale
+    got = np.take_along_axis(full, ids.astype(np.int64), 1)
+    err_ids = np.abs(got - d) / scale
+    check(err.max() <= tol and err_ids.max() <= tol,
+          f"{what}: distances {err.max():.3g} / ids {err_ids.max():.3g} "
+          f"from the f64 oracle (tolerance {tol})")
+    return float(max(err.max(), err_ids.max()))
+
+
+def timed_calls(fn, dev, iters):
+    """Host ms of each of ``iters`` warmed calls, synchronized."""
+    fn()
+    sync(dev)
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def sparse_step(args, card, dev):
+    """Sparse kNN at bench/bench_sparse.py's cell on three routes (the
+    CSR colblock route, the prebuilt index, the prebuilt route at
+    ``precision="default"``, which must be bitwise the f32 route): 256
+    sampled queries against scipy's f64 CSR product within 1e-5 of the
+    row's scale (the f32 expanded form's error), ids up to ties, a repeat
+    call bitwise, host syncs a call, 8 warmed calls timed. Then auto ->
+    dense at width 2,048 and l1 at width 256 against the same oracle."""
+    from raft_tpu_torch.sparse import csr_from_scipy
+    from raft_tpu_torch.sparse import distance as sd
+
+    rng = np.random.default_rng(args.seed)
+    idx = sparse_rand(rng, SP_ROWS, SP_DIM, SP_NNZ)
+    qry = sparse_rand(rng, SP_QUERIES, SP_DIM, SP_NNZ)
+    index, queries = csr_from_scipy(idx, device=dev), csr_from_scipy(
+        qry, device=dev)
+    t0 = time.perf_counter()
+    layout = sd.sparse_colblock_index_build(idx, SP_COL_BLOCK, device=dev)
+    build_s = time.perf_counter() - t0
+    pick = np.sort(rng.choice(SP_QUERIES, SP_SAMPLE, replace=False))
+    full = sparse_oracle(qry[pick], idx, "sqeuclidean")
+    routes = {
+        "csr_colblock": lambda: sd.sparse_brute_force_knn(
+            index, queries, SP_K, metric="sqeuclidean", strategy="colblock"),
+        "prebuilt": lambda: sd.sparse_brute_force_knn(
+            layout, queries, SP_K, metric="sqeuclidean"),
+        "prebuilt_default": lambda: sd.sparse_brute_force_knn(
+            layout, queries, SP_K, metric="sqeuclidean",
+            precision="default"),
+    }
+    nums = {"build_s": build_s, "nnz": int(idx.nnz + qry.nnz)}
+    answers = {}
+    for name, fn in routes.items():
+        before = sd.HOST_SYNCS
+        d, i = fn()
+        syncs = sd.HOST_SYNCS - before
+        d2, i2 = fn()
+        check(torch.equal(d, d2) and torch.equal(i, i2),
+              f"sparse {name}: a repeat call gave other bits")
+        err = hold_sparse(f"sparse {name}", d[pick], i[pick], full, SP_K,
+                          1e-5)
+        ms = timed_calls(fn, dev, SP_ITERS)
+        answers[name] = (d, i)
+        nums[name] = dict(ms=ms, ms_median=float(np.median(ms)),
+                          host_syncs=syncs, max_rel_err=err)
+        log(f"[{card}] sparse kNN {SP_ROWS} x {SP_QUERIES} x {SP_DIM}, k "
+            f"{SP_K}, {name}: {np.median(ms):.2f} ms a call ({SP_ITERS} "
+            f"warmed calls {[round(v, 2) for v in ms]}), {syncs} host sync a "
+            f"call, {SP_SAMPLE} queries within {err:.3g} of scipy's f64 "
+            "product, ids up to ties, a repeat bitwise")
+    check(all(nums[n]["host_syncs"] == 1 for n in routes),
+          f"sparse host syncs a call {[nums[n]['host_syncs'] for n in routes]}")
+    d0, i0 = answers["prebuilt"]
+    check(torch.equal(d0, answers["prebuilt_default"][0])
+          and torch.equal(i0, answers["prebuilt_default"][1]),
+          "precision='default' is not bitwise the f32 prebuilt route (R3)")
+    del answers, index, layout
+
+    # auto -> dense at width 2,048, and l1 at a cut width
+    for what, dim, nnz, metric in (("auto dense", SP_DENSE_DIM, SP_NNZ,
+                                    "sqeuclidean"),
+                                   ("l1", SP_L1_DIM, SP_L1_NNZ, "l1")):
+        idx = sparse_rand(rng, SP_ROWS, dim, nnz)
+        qry = sparse_rand(rng, SP_QUERIES, dim, nnz)
+        index = csr_from_scipy(idx, device=dev)
+        queries = csr_from_scipy(qry, device=dev)
+        before = sd.HOST_SYNCS
+        d, i = sd.sparse_brute_force_knn(index, queries, SP_K, metric=metric)
+        check(sd.HOST_SYNCS == before, f"sparse {what} took the colblock "
+              "route")
+        err = hold_sparse(f"sparse {what}", d[pick], i[pick],
+                          sparse_oracle(qry[pick], idx, metric), SP_K, 1e-5)
+        ms = timed_calls(lambda: sd.sparse_brute_force_knn(
+            index, queries, SP_K, metric=metric), dev, 3)
+        nums[what] = dict(dim=dim, ms=ms, max_rel_err=err)
+        log(f"[{card}] sparse kNN {what} at width {dim} ({metric}, "
+            f"~{nnz} nonzeros a row): {np.median(ms):.2f} ms a call, no "
+            f"host sync, within {err:.3g} of the f64 oracle")
+    return nums
+
+
+def z_of(mean, want_mean, want_var, n):
+    return abs(mean - want_mean) / math.sqrt(want_var / n)
+
+
+def random_step(args, card, dev):
+    """make_blobs at bench/common.py's recipe (round-robin counts exact,
+    each cluster's mean within Z_BOUND of its centre, its pooled std
+    within Z_BOUND of 1.0), multi_variable_gaussian's sample covariance
+    against ``cov`` (each entry within Z_BOUND standard errors), 10**7
+    draws of each distribution (the mean within Z_BOUND, the variance
+    within 1%), permute and sample_without_replacement."""
+    from raft_tpu_torch import random as rr
+
+    nums = {}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    twin = torch.Generator(device=dev)
+    twin.set_state(gen.get_state())
+    (x, labels), s = timed_s(lambda: rr.make_blobs(
+        BLOB_ROWS, BLOB_DIM, n_clusters=BLOB_CENTRES, cluster_std=1.0,
+        generator=gen, device=dev), dev)
+    # the centres are make_blobs' first draw
+    centres = -10.0 + 20.0 * torch.rand((BLOB_CENTRES, BLOB_DIM),
+                                        generator=twin, device=dev)
+    counts = torch.bincount(labels.long(), minlength=BLOB_CENTRES)
+    check(bool((counts == BLOB_ROWS // BLOB_CENTRES).all()),
+          "make_blobs' round-robin counts are not exact")
+    lab = labels.long()
+    sums = torch.zeros((BLOB_CENTRES, BLOB_DIM), dtype=torch.float64,
+                       device=dev).index_add_(0, lab, x.double())
+    means = sums / counts[:, None]
+    m = BLOB_ROWS // BLOB_CENTRES
+    z_mean = float(((means - centres.double()).abs() * math.sqrt(m)).max())
+    dev2 = torch.zeros(BLOB_CENTRES, dtype=torch.float64,
+                       device=dev).index_add_(
+        0, lab, ((x.double() - means[lab]) ** 2).sum(1))
+    std = torch.sqrt(dev2 / ((m - 1) * BLOB_DIM))
+    z_std = float(((std - 1.0).abs() * math.sqrt(2 * (m - 1) * BLOB_DIM))
+                  .max())
+    check(z_mean <= Z_BOUND and z_std <= Z_BOUND,
+          f"make_blobs: cluster means z {z_mean:.2f}, stds z {z_std:.2f}")
+    nums.update(make_blobs_s=s, blob_mean_z=z_mean, blob_std_z=z_std)
+    del x, labels, sums, means, dev2
+    log(f"[{card}] make_blobs {BLOB_ROWS} x {BLOB_DIM}, {BLOB_CENTRES} "
+        f"centres: {1e3 * s:.2f} ms, round-robin counts exact, the largest "
+        f"|z| of a cluster mean {z_mean:.2f} and of a cluster std "
+        f"{z_std:.2f} (bound {Z_BOUND})")
+
+    a = torch.randn((MVG_DIM, MVG_DIM), generator=gen, device=dev,
+                    dtype=torch.float64) / 8
+    cov = (a @ a.T + 0.5 * torch.eye(MVG_DIM, dtype=torch.float64,
+                                     device=dev)).float()
+    mu = torch.linspace(-1, 1, MVG_DIM, device=dev)
+    pts, s = timed_s(lambda: rr.multi_variable_gaussian(
+        None, MVG_POINTS, mu, cov, generator=gen), dev)
+    c64, pd = cov.double(), pts.double()
+    emp = torch.cov(pd)
+    se = torch.sqrt((torch.outer(c64.diag(), c64.diag()) + c64 ** 2)
+                    / MVG_POINTS)
+    z_cov = float(((emp - c64).abs() / se).max())
+    z_mu = float(((pd.mean(1) - mu.double()).abs()
+                  / torch.sqrt(c64.diag() / MVG_POINTS)).max())
+    check(z_cov <= Z_BOUND and z_mu <= Z_BOUND,
+          f"multi_variable_gaussian: covariance z {z_cov:.2f}, mean z "
+          f"{z_mu:.2f}")
+    nums.update(mvg_s=s, mvg_cov_z=z_cov, mvg_mean_z=z_mu)
+    log(f"[{card}] multi_variable_gaussian {MVG_POINTS} points of width "
+        f"{MVG_DIM}: {1e3 * s:.2f} ms, sample covariance within |z| "
+        f"{z_cov:.2f} of cov, mean within {z_mu:.2f}")
+    del pts, pd
+
+    g = math.pi ** 2
+    cases = {   # name: (draw, mean, variance)
+        "uniform": (lambda st, dv: rr.uniform(st, DRAWS, -2.0, 4.0,
+                                              device=dv), 1.0, 3.0),
+        "normal": (lambda st, dv: rr.normal(st, DRAWS, 1.5, 2.0,
+                                            device=dv), 1.5, 4.0),
+        "lognormal": (lambda st, dv: rr.lognormal(st, DRAWS, 0.0, 0.5,
+                                                  device=dv),
+                      math.exp(0.125),
+                      (math.exp(0.25) - 1) * math.exp(0.25)),
+        "exponential": (lambda st, dv: rr.exponential(st, DRAWS, 2.0,
+                                                      device=dv), 0.5, 0.25),
+        "rayleigh": (lambda st, dv: rr.rayleigh(st, DRAWS, 1.5, device=dv),
+                     1.5 * math.sqrt(math.pi / 2),
+                     (4 - math.pi) / 2 * 2.25),
+        "laplace": (lambda st, dv: rr.laplace(st, DRAWS, 0.5, 1.0,
+                                              device=dv), 0.5, 2.0),
+        "logistic": (lambda st, dv: rr.logistic(st, DRAWS, 0.5, 1.0,
+                                                device=dv), 0.5, g / 3),
+        "gumbel": (lambda st, dv: rr.gumbel(st, DRAWS, 0.0, 1.0, device=dv),
+                   0.5772156649, g / 6),
+        "bernoulli": (lambda st, dv: rr.bernoulli(
+            st, DRAWS, 0.3, dtype=torch.float32, device=dv), 0.3, 0.21),
+        "scaled_bernoulli": (lambda st, dv: rr.scaled_bernoulli(
+            st, DRAWS, 0.25, 2.0, device=dv), 1.0, 3.0),
+        "uniform_int": (lambda st, dv: rr.uniform_int(st, DRAWS, 3, 9,
+                                                      device=dv), 5.5,
+                        35 / 12),
+        "normal_int": (lambda st, dv: rr.normal_int(st, DRAWS, 5.0, 2.0,
+                                                    device=dv), 5.0,
+                       4.0 + 1 / 12),
+        "discrete": (lambda st, dv: rr.discrete(st, DRAWS, [0.1, 0.6, 0.3],
+                                                device=dv), 1.2, 0.36),
+        "custom_distribution": (lambda st, dv: rr.custom_distribution(
+            st, DRAWS, lambda u: -torch.log1p(-u), device=dv), 1.0, 1.0),
+        "normal_table": (lambda st, dv: rr.normal_table(
+            st, DRAWS // 2, [0.0, 3.0], [1.0, 1.0], device=dv).reshape(-1),
+            1.5, 1.0 + 2.25),
+    }
+    state = rr.RngState(args.seed + 11)
+    worst = {}
+    t0 = time.perf_counter()
+    for name, (draw, want_m, want_v) in cases.items():
+        v = draw(state, dev).double()
+        check(v.device.type == dev.type and v.numel() == DRAWS,
+              f"{name}: {v.numel()} draws on {v.device}")
+        mean, var = float(v.mean()), float(v.var())
+        z = z_of(mean, want_m, want_v, DRAWS)
+        check(z <= Z_BOUND and abs(var / want_v - 1) <= 0.01,
+              f"{name}: mean {mean:.6g} (z {z:.2f}), variance {var:.6g} "
+              f"against {want_v:.6g}")
+        worst[name] = round(z, 3)
+    perm, _ = rr.permute(state, DRAWS, device=dev)
+    check(torch.equal(torch.sort(perm).values,
+                      torch.arange(DRAWS, device=dev)),
+          "permute is not a permutation")
+    ids, _ = rr.sample_without_replacement(state, DRAWS // 10, DRAWS,
+                                           device=dev)
+    check(torch.unique(ids).numel() == DRAWS // 10,
+          "sample_without_replacement repeated an id")
+    again = rr.normal(rr.RngState(args.seed + 11), DRAWS, 1.5, 2.0,
+                      device=dev)
+    check(torch.equal(again, rr.normal(rr.RngState(args.seed + 11), DRAWS,
+                                       1.5, 2.0, device=dev)),
+          "the same RngState gave other bits")
+    sync(dev)
+    nums.update(draws_s=time.perf_counter() - t0, mean_z=worst)
+    log(f"[{card}] {DRAWS} draws of each of {len(cases)} distributions in "
+        f"{nums['draws_s']:.2f} s: mean |z| {worst} (bound {Z_BOUND}), "
+        "variances within 1%; permute a permutation, "
+        "sample_without_replacement distinct, the same state the same bits")
+    return nums
+
+
+def silhouette_f64(x, labels, k):
+    """The mean silhouette in f64 on the host (numpy)."""
+    from scipy.spatial.distance import cdist
+
+    x = x.astype(np.float64)
+    d = cdist(x, x)
+    oh = np.eye(k)[labels]
+    sums = d @ oh
+    counts = oh.sum(0)
+    own = counts[labels]
+    a = np.where(own > 1, sums[np.arange(len(x)), labels]
+                 / np.maximum(own - 1, 1), 0.0)
+    other = np.where((np.arange(k)[None, :] == labels[:, None])
+                     | (counts[None, :] == 0), np.inf,
+                     sums / np.maximum(counts, 1)[None, :])
+    b = other.min(1)
+    return float(np.where(own > 1, (b - a) / np.maximum(a, b), 0.0).mean())
+
+
+def trust_f64(x, emb, k):
+    """Trustworthiness in f64 on the host (numpy)."""
+    from scipy.spatial.distance import cdist
+
+    n = x.shape[0]
+    order = np.argsort(cdist(x.astype(np.float64), x.astype(np.float64)),
+                       1, kind="stable")
+    ranks = np.empty((n, n), np.int64)
+    np.put_along_axis(ranks, order, np.arange(n)[None, :].repeat(n, 0), 1)
+    nn = np.argsort(cdist(emb.astype(np.float64), emb.astype(np.float64)),
+                    1, kind="stable")[:, 1:k + 1]
+    pen = np.maximum(np.take_along_axis(ranks, nn, 1) - k, 0).sum()
+    return 1.0 - 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)) * pen
+
+
+def stats_step(args, card, dev, feed):
+    """ARI, v-measure and homogeneity of single linkage's labels against
+    the centres (1.0); the batched silhouette over the spectral rows and
+    labels, and on a 4,096-row subsample against silhouette_score and a
+    numpy f64 oracle; trustworthiness of a fixed random projection to 16
+    dimensions of 16,384 rows, and on a 2,048-row subsample against a
+    numpy f64 oracle. Each timed."""
+    from raft_tpu_torch import stats as ts
+
+    nums = {}
+    lab, truth = feed["link_labels"], feed["link_truth"]
+    k = int(truth.max()) + 1
+    for name in ("adjusted_rand_index", "v_measure", "homogeneity_score"):
+        v, s = timed_s(lambda: getattr(ts, name)(truth, lab.long(), k), dev)
+        check(abs(float(v) - 1.0) <= 1e-5,
+              f"{name} of single linkage's labels {float(v):.7f}, not 1")
+        nums[name] = dict(value=float(v), s=s)
+    x, sl = feed["spec_x"], feed["spec_labels"].long()
+    kk = int(sl.max()) + 1
+    v, s = timed_s(lambda: ts.batched_silhouette_score(x, sl, kk), dev)
+    nums["batched_silhouette"] = dict(value=float(v), s=s)
+    pick = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
+        args.seed + 21))[:SPEC_SUB].to(dev)
+    xs, ls = x[pick], sl[pick]
+    sub_b = float(ts.batched_silhouette_score(xs, ls, kk, batch_size=1024))
+    sub_w = float(ts.silhouette_score(xs, ls, kk))
+    sub_64 = silhouette_f64(xs.cpu().numpy(), ls.cpu().numpy(), kk)
+    check(abs(sub_b - sub_w) <= 1e-5 and abs(sub_b - sub_64) <= 1e-4,
+          f"silhouette on the subsample: batched {sub_b:.7f}, whole "
+          f"{sub_w:.7f}, f64 {sub_64:.7f}")
+    nums["silhouette_sub"] = dict(batched=sub_b, whole=sub_w, f64=sub_64)
+    log(f"[{card}] stats: ARI / v-measure / homogeneity of single linkage "
+        f"against the centres {[nums[n]['value'] for n in ('adjusted_rand_index', 'v_measure', 'homogeneity_score')]} "
+        f"({[round(1e3 * nums[n]['s'], 2) for n in ('adjusted_rand_index', 'v_measure', 'homogeneity_score')]} ms); "
+        f"batched silhouette over {x.shape[0]} x {x.shape[1]} rows, {kk} "
+        f"labels: {nums['batched_silhouette']['value']:.6f} in {s:.3f} s; "
+        f"on {SPEC_SUB} rows batched {sub_b:.7f}, whole {sub_w:.7f}, f64 "
+        f"{sub_64:.7f}")
+
+    rows = x[:TRUST_ROWS]
+    proj = torch.randn((x.shape[1], TRUST_DIM), generator=torch.Generator(
+        ).manual_seed(args.seed + 22)).to(dev)
+    emb = rows @ proj
+    v, s = timed_s(lambda: ts.trustworthiness_score(rows, emb, 5), dev)
+    check(0.0 < float(v) <= 1.0, f"trustworthiness {float(v)}")
+    sub = float(ts.trustworthiness_score(rows[:TRUST_SUB], emb[:TRUST_SUB],
+                                         5))
+    sub_64 = trust_f64(rows[:TRUST_SUB].cpu().numpy(),
+                       emb[:TRUST_SUB].cpu().numpy(), 5)
+    check(abs(sub - sub_64) <= 1e-4,
+          f"trustworthiness on {TRUST_SUB} rows {sub:.7f} against f64 "
+          f"{sub_64:.7f}")
+    nums["trustworthiness"] = dict(value=float(v), s=s, sub=sub,
+                                   sub_f64=sub_64)
+    log(f"[{card}] trustworthiness of a projection to {TRUST_DIM} of "
+        f"{TRUST_ROWS} rows: {float(v):.6f} in {s:.3f} s; on {TRUST_SUB} "
+        f"rows {sub:.7f} against f64 {sub_64:.7f}")
+    return nums
+
+
+def lap_step(args, card, dev):
+    """solve_lap on a 1,024 x 1,024 integer cost matrix in [0, 1000] (as
+    f64: the f32 auction stalls once the prices' spacing passes the last
+    epsilon, ROADMAP C5): the objective equals scipy's exactly and the
+    assignment is a permutation; solve_lap_batched on 16 x 256 x 256
+    bitwise 16 single solves. Rounds, host syncs and seconds."""
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch.lap import solve_lap, solve_lap_batched
+
+    rng = np.random.default_rng(args.seed + 30)
+    cost = rng.integers(0, 1001, (LAP_N, LAP_N)).astype(np.float64)
+    info = {}
+    (rows, total), s = timed_s(lambda: solve_lap(
+        torch.as_tensor(cost, device=dev), info=info), dev)
+    r, c = linear_sum_assignment(cost)
+    check(float(total) == cost[r, c].sum(),
+          f"LAP objective {float(total)} against scipy's {cost[r, c].sum()}")
+    check(torch.equal(torch.sort(rows).values.cpu(),
+                      torch.arange(LAP_N, dtype=torch.int32)),
+          "the LAP assignment is not a permutation")
+    costs = rng.integers(0, 1001, (LAP_BATCH, LAP_BATCH_N, LAP_BATCH_N)
+                         ).astype(np.float64)
+    binfo = {}
+    (brows, bobj), bs = timed_s(lambda: solve_lap_batched(
+        torch.as_tensor(costs, device=dev), info=binfo), dev)
+    for b in range(LAP_BATCH):
+        r1, o1 = solve_lap(torch.as_tensor(costs[b], device=dev))
+        check(torch.equal(r1, brows[b]) and torch.equal(o1, bobj[b]),
+              f"batched LAP problem {b} differs from its single solve")
+        rb, cb = linear_sum_assignment(costs[b])
+        check(float(o1) == costs[b][rb, cb].sum(),
+              f"LAP problem {b}: objective against scipy")
+    nums = dict(n=LAP_N, rounds=info["rounds"], syncs=info["syncs"], s=s,
+                objective=float(total), batch_rounds=binfo["rounds"],
+                batch_syncs=binfo["syncs"], batch_s=bs)
+    log(f"[{card}] LAP {LAP_N} x {LAP_N} (f64, integer costs in [0, 1000]): "
+        f"objective {float(total):.0f} = scipy's, {info['rounds']} auction "
+        f"rounds, {info['syncs']} host syncs, {s:.3f} s; batched "
+        f"{LAP_BATCH} x {LAP_BATCH_N}: {binfo['rounds']} rounds, "
+        f"{binfo['syncs']} syncs, {bs:.3f} s, bitwise the single solves")
+    return nums
+
+
+def label_matrix_step(args, card, dev):
+    """make_monotonic / get_unique_labels / merge_labels over 1,000,000
+    labels against numpy (merge_labels against the connected components
+    of the labelings' bipartite graph: each point takes its component's
+    least index), then the matrix helpers on a 4,096² matrix against
+    numpy."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from raft_tpu_torch import label as tl
+    from raft_tpu_torch import matrix as tm
+
+    rng = np.random.default_rng(args.seed + 40)
+    n = LABELS_N
+    lab = rng.integers(-5000, 5000, n).astype(np.int32)
+    tlab = torch.as_tensor(lab, device=dev)
+    uniq = np.unique(lab)
+    (got_u, n_u), s_u = timed_s(lambda: tl.get_unique_labels(tlab), dev)
+    check(int(n_u) == len(uniq) and np.array_equal(
+        got_u[:len(uniq)].cpu().numpy(), uniq), "get_unique_labels")
+    mono, s_m = timed_s(lambda: tl.make_monotonic(tlab), dev)
+    check(np.array_equal(mono.cpu().numpy(),
+                         np.unique(lab, return_inverse=True)[1]),
+          "make_monotonic")
+    a = rng.integers(0, n // 2, n)
+    b = rng.integers(0, n // 2, n)
+    mask = rng.random(n) < 0.5
+    merged, s_g = timed_s(lambda: tl.merge_labels(
+        torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev),
+        torch.as_tensor(mask, device=dev)), dev)
+    pts = np.arange(n)
+    g = coo_matrix((np.ones(n + int(mask.sum())),
+                    (np.concatenate([pts, pts[mask]]),
+                     np.concatenate([n + a, n + n // 2 + b[mask]]))),
+                   shape=(2 * n, 2 * n))
+    _, comp = connected_components(g, directed=False)
+    least = np.full(2 * n, n, np.int64)
+    np.minimum.at(least, comp[:n], pts)
+    check(np.array_equal(merged.cpu().numpy(), least[comp[:n]]),
+          "merge_labels against the components' least indices")
+    nums = dict(unique_s=s_u, monotonic_s=s_m, merge_s=s_g,
+                n_unique=int(n_u),
+                merged_groups=int(np.unique(least[comp[:n]]).size))
+
+    m = rng.integers(-50, 51, (MATRIX_N, MATRIX_N)).astype(np.float32)
+    tmx = torch.as_tensor(m, device=dev)
+    idx = rng.integers(0, MATRIX_N, 4096)
+    t0 = time.perf_counter()
+    pairs = {
+        "copy_rows": (tm.copy_rows(tmx, torch.as_tensor(idx, device=dev)),
+                      m[idx]),
+        "slice_matrix": (tm.slice_matrix(tmx, 5, 7, 3000, 4000),
+                         m[5:3000, 7:4000]),
+        "col_reverse": (tm.col_reverse(tmx), m[:, ::-1]),
+        "row_reverse": (tm.row_reverse(tmx), m[::-1]),
+        "get_diagonal": (tm.get_diagonal(tmx), np.diagonal(m)),
+        "argmax": (tm.argmax(tmx), m.argmax(1)),
+        "argmin_cols": (tm.argmin(tmx, 0), m.argmin(0)),
+        "copy_upper_triangular": (tm.copy_upper_triangular(tmx), np.triu(m)),
+        "seq_root": (tm.seq_root(tmx, 2.0, True),
+                     np.sqrt(np.maximum(m * 2.0, 0))),
+        "zero_small_values": (tm.zero_small_values(tmx, 3.0),
+                              np.where(np.abs(m) <= 3.0, 0, m)),
+    }
+    vals, order = tm.sort_cols_per_row(tmx)
+    want_order = np.argsort(m, 1, kind="stable")
+    pairs["sort_cols_per_row"] = (order, want_order)
+    pairs["sort_cols_per_row values"] = (vals, np.take_along_axis(
+        m, want_order, 1))
+    sync(dev)
+    nums["matrix_s"] = time.perf_counter() - t0
+    for name, (got, want) in pairs.items():
+        check(np.array_equal(got.cpu().numpy(), want), f"matrix {name}")
+    log(f"[{card}] labels over {n}: get_unique_labels {1e3 * s_u:.2f} ms, "
+        f"make_monotonic {1e3 * s_m:.2f} ms, merge_labels {1e3 * s_g:.2f} "
+        f"ms ({nums['merged_groups']} groups), each equal to numpy; "
+        f"{len(pairs)} matrix helpers on {MATRIX_N}² in "
+        f"{nums['matrix_s']:.3f} s, each equal to numpy")
+    return nums
+
+
+def toolkit_phase(args, card, dev, feed):
+    """The toolkit modules on the card, none of which reaches a
+    kernel: :func:`sparse_step`, :func:`random_step`, :func:`stats_step`
+    (fed by the linkage phase's labels and the spectral rows),
+    :func:`lap_step` and :func:`label_matrix_step`. Raises on any failed
+    check; returns the numbers."""
+    nums = {"card": card}
+    for name, fn in (("sparse", lambda: sparse_step(args, card, dev)),
+                     ("random", lambda: random_step(args, card, dev)),
+                     ("stats", lambda: stats_step(args, card, dev, feed)),
+                     ("lap", lambda: lap_step(args, card, dev)),
+                     ("label_matrix", lambda: label_matrix_step(
+                         args, card, dev))):
+        t0 = time.perf_counter()
+        nums[name] = fn()
+        nums[name]["step_s"] = time.perf_counter() - t0
+        log(f"toolkit {name}: {nums[name]['step_s']:.1f} s")
     return nums
 
 
@@ -6357,8 +7141,13 @@ def main(argv=None) -> int:
     del served
     log(f"library phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    linkage = linkage_phase(args, card, dev)
+    feed = {}
+    linkage = linkage_phase(args, card, dev, feed)
     log(f"linkage phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    toolkit_phase(args, card, dev, feed)
+    del feed
+    log(f"toolkit phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     data = ann_data(args.seed, dev)
     kernels += quantized_phases(args, card, dev, data)

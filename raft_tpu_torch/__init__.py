@@ -32,15 +32,20 @@ __all__ = [
     "core",
     "distance",
     "durability",
+    "label",
+    "lap",
     "linalg",
+    "matrix",
     "native",
     "obs",
     "pylibraft",
+    "random",
     "resilience",
     "serving",
     "sparse",
     "spatial",
     "spectral",
+    "stats",
     "testing",
     "tier",
     "tools",
@@ -50,9 +55,9 @@ __all__ = [
 
 _SUBMODULES = {
     "analysis", "cache", "cluster", "comms", "core", "distance",
-    "durability", "errors", "linalg", "native", "obs", "pylibraft",
-    "resilience", "serving", "sparse", "spatial", "spectral", "testing",
-    "tier", "tools", "utils",
+    "durability", "errors", "label", "lap", "linalg", "matrix", "native",
+    "obs", "pylibraft", "random", "resilience", "serving", "sparse",
+    "spatial", "spectral", "stats", "testing", "tier", "tools", "utils",
 }
 
 _CORE = {

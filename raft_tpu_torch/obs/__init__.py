@@ -1,5 +1,6 @@
 """Runtime observability for the serving tier — the port of
-``raft_tpu/obs``: metrics and the flight recorder.
+``raft_tpu/obs``: metrics, the flight recorder and the SLO-triggered
+profile capture.
 
 * :mod:`raft_tpu_torch.obs.metrics` — the process-wide
   :class:`MetricRegistry` of counters, gauges, and log2 latency
@@ -11,11 +12,14 @@
   :class:`FlightRecorder` of per-request span events
   (submit→pack→dispatch→hedge→demux), dumped as JSONL on failure
   paths.
-
-The JAX package's SLO-triggered profile capture (``ProfileTrigger``) is
-not ported yet.
+* :mod:`raft_tpu_torch.obs.capture` — the :class:`ProfileTrigger`: when
+  a watched latency histogram's windowed quantile stays over its
+  threshold for N consecutive checks, one bounded ``torch.profiler``
+  capture (a Chrome trace with the card's kernels), bounded against
+  storms by ``max_captures`` and ``cooldown_s``.
 """
 
+from raft_tpu_torch.obs.capture import ProfileTrigger
 from raft_tpu_torch.obs.flight import FlightRecorder
 from raft_tpu_torch.obs.metrics import (
     Counter,
@@ -34,6 +38,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "FlightRecorder",
+    "ProfileTrigger",
     "default_registry",
     "enabled",
     "set_enabled",

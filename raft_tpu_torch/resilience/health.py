@@ -161,7 +161,7 @@ class HealthMonitor:
     (thread-safe): the ONE debounce spelling shared by the
     serving supervisor and
     manual health loops, with the same discipline as the SLO profile
-    trigger of the JAX package's ``obs/capture.py``: ``consecutive`` contradicting
+    trigger (:mod:`raft_tpu_torch.obs.capture`): ``consecutive`` contradicting
     observations confirm a transition, and ``cooldown_s`` of hysteresis
     after each confirmed flip bounds how often a rank may change state
     no matter how hard the probe oscillates.

@@ -23,6 +23,8 @@ import torch
 
 from raft_tpu_torch import errors, native
 from raft_tpu_torch.core.device import as_tensor, call_device
+from raft_tpu_torch.distance.distance_type import DistanceType, resolve_metric
+from raft_tpu_torch.distance.pairwise import pairwise_distance, sqrt_f64
 from raft_tpu_torch.sparse.connect import connect_components, get_n_components
 from raft_tpu_torch.sparse.coo import COO
 from raft_tpu_torch.sparse.knn_graph import knn_graph
@@ -55,29 +57,79 @@ def _clock(dev: torch.device, timed: bool) -> float:
     return time.perf_counter()
 
 
-def build_sorted_mst(x, graph: COO, *, max_iter: int = 32,
-                     stats: Optional[dict] = None):
+# the squared and the rooted L2 metrics, whose stitching weights come
+# straight from connect_components' squared distances
+_L2_SQUARED = (DistanceType.L2Expanded, DistanceType.L2Unexpanded)
+_L2_ROOTED = (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded)
+# pairs a block of the non-L2 stitching weights carries
+_PAIR_BLOCK = 256
+
+
+def stitch_weights(x, rows, cols, sq_dist, metric):
+    """The stitching edges' weights in the graph's metric: the squared
+    L2 distance ``sq_dist`` as it is for the squared metrics, its root
+    (taken in f64, as ``fused_l2_nn(sqrt=True)`` takes it) for the
+    rooted ones, else ``metric`` on each pair's two rows through
+    :func:`~raft_tpu_torch.distance.pairwise.pairwise_distance` (the
+    diagonals of blocks of pairs)."""
+    metric = resolve_metric(metric)
+    if metric in _L2_SQUARED:
+        return sq_dist
+    if metric in _L2_ROOTED:
+        return sqrt_f64(torch.clamp_min(sq_dist, 0.0))
+    a, b = x[rows.long()], x[cols.long()]
+    return torch.cat([
+        torch.diagonal(pairwise_distance(a[s:s + _PAIR_BLOCK],
+                                         b[s:s + _PAIR_BLOCK], metric))
+        for s in range(0, rows.shape[0], _PAIR_BLOCK)]).to(sq_dist.dtype)
+
+
+def first_of_pairs(rows, cols, valid, n: int):
+    """Which entries are the first of their undirected (min, max) pair
+    among the valid ones: a stable sort of the pair keys and a mask of
+    repeats, on the device (no host sync)."""
+    r, c = rows.long(), cols.long()
+    key = torch.where(valid, torch.minimum(r, c) * n + torch.maximum(r, c),
+                      torch.full_like(r, -1))
+    skey, order = torch.sort(key, stable=True)
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    keep = torch.zeros_like(first)
+    keep[order] = first
+    return keep & valid
+
+
+def build_sorted_mst(x, graph: COO, *, metric="l2_sqrt_expanded",
+                     max_iter: int = 32, stats: Optional[dict] = None):
     """The MST with the connect-components fixup loop (reference
     hierarchy/detail/mst.cuh build_sorted_mst: solve; while the forest
     has more than one component, add each component's nearest
     cross-component edge, mirrored, and solve again). Returns numpy
     (src, dst, weight), stably sorted by weight.
 
-    As in the JAX package the added edges go through ``sum_duplicates``,
-    so an edge that two components both pick (and that is therefore
-    added twice in each direction) carries twice its distance.
+    The stitching edges are weighted in ``metric``, the graph's (see
+    :func:`stitch_weights`), and an undirected edge that two components
+    both pick enters the graph once in each direction, so the merge
+    order is scipy's single-linkage order. (The JAX package adds
+    ``connect_components``' squared distances and sums a twice-picked
+    edge with its mirror.) The edges themselves are
+    ``connect_components``', unchanged.
 
     ``stats``, a dict, receives ``mst`` (each solve's
     :func:`~raft_tpu_torch.sparse.mst.boruvka_mst` stats and seconds),
     ``connect_s`` (each round's ``connect_components`` seconds; with
     ``stats`` the device is synchronized around each step),
     ``connect_rounds`` and ``component_syncs`` (the host reads of the
-    component count, one a round), and ``forest_edges`` /
-    ``forest_weight``, the first solve's forest: the graph's own edges,
-    without the stitching ones."""
+    component count, one a round), ``forest_edges`` /
+    ``forest_weight`` / ``forest_color``, the first solve's forest: the
+    graph's own edges, without the stitching ones, ``stitches``, each
+    round's edges as numpy ``(rows, cols, weights, repeats)``: the edges
+    entered, and how many entries picked a pair again, and
+    ``mst_edges``, the returned (src, dst, weight)."""
     dev = graph.rows.device
     x = as_tensor(x, dev)
-    solves, connect_s = [], []
+    n = graph.shape[0]
+    solves, connect_s, stitches = [], [], []
 
     def clock():
         return _clock(dev, stats is not None)
@@ -95,16 +147,27 @@ def build_sorted_mst(x, graph: COO, *, max_iter: int = 32,
         # the graph's own spanning forest, before any stitching edge
         n_forest = int(mst.n_edges)
         stats.update(forest_edges=n_forest, forest_weight=float(
-            mst.weight[:n_forest].double().sum()))
+            mst.weight[:n_forest].double().sum()),
+            forest_color=mst.color.cpu().numpy())
     it = 0
     count_syncs = 1
-    while int(get_n_components(mst.color)) > 1 and it < max_iter:
+    n_comp = int(get_n_components(mst.color))
+    while n_comp > 1 and it < max_iter:
         t0 = clock()
         extra = connect_components(x, mst.color)
         connect_s.append(clock() - t0)
-        # the extra edges and their mirrors into the graph
-        valid = torch.cat([graph.valid_mask(), extra.valid_mask(),
-                           extra.valid_mask()])
+        # one edge a colour: the first n_comp entries hold them all
+        e_rows, e_cols = extra.rows[:n_comp], extra.cols[:n_comp]
+        keep = first_of_pairs(e_rows, e_cols,
+                              extra.valid_mask()[:n_comp], n)
+        w = stitch_weights(x, e_rows, e_cols, extra.vals[:n_comp], metric)
+        if stats is not None:
+            k = keep.cpu().numpy()
+            stitches.append((e_rows.cpu().numpy()[k], e_cols.cpu().numpy()[k],
+                             w.cpu().numpy()[k],
+                             int(extra.nnz) - int(k.sum())))
+        # the kept edges and their mirrors into the graph
+        valid = torch.cat([graph.valid_mask(), keep, keep])
         order = torch.sort((~valid).to(torch.uint8), stable=True)[1]
 
         def merged(*parts):
@@ -112,23 +175,26 @@ def build_sorted_mst(x, graph: COO, *, max_iter: int = 32,
             return torch.where(valid, cat, torch.zeros_like(cat))[order]
 
         graph = sum_duplicates(COO(
-            merged(graph.rows, extra.rows, extra.cols),
-            merged(graph.cols, extra.cols, extra.rows),
-            merged(graph.vals, extra.vals, extra.vals),
-            (graph.nnz + 2 * extra.nnz).to(torch.int32), graph.shape))
+            merged(graph.rows, e_rows, e_cols),
+            merged(graph.cols, e_cols, e_rows),
+            merged(graph.vals, w, w),
+            (graph.nnz + 2 * keep.sum()).to(torch.int32), graph.shape))
         mst = solve(graph)
         it += 1
         count_syncs += 1
+        n_comp = int(get_n_components(mst.color))
 
     k = int(mst.n_edges)
     src = mst.src[:k].cpu().numpy()
     dst = mst.dst[:k].cpu().numpy()
     w = mst.weight[:k].cpu().numpy()
     order = np.argsort(w, kind="stable")
+    out = src[order], dst[order], w[order]
     if stats is not None:
         stats.update(mst=solves, connect_s=connect_s, connect_rounds=it,
-                     component_syncs=count_syncs)
-    return src[order], dst[order], w[order]
+                     component_syncs=count_syncs, stitches=stitches,
+                     mst_edges=out)
+    return out
 
 
 def _fallback() -> None:
@@ -218,9 +284,11 @@ def single_linkage(x, n_clusters: int = 2, *, graph: Optional[COO] = None,
                    stats: Optional[dict] = None,
                    device=None) -> LinkageResult:
     """The pipeline (reference single_linkage.cuh:54): kNN distance graph
-    -> sorted MST (+ stitching) -> host dendrogram -> flat labels.
+    -> sorted MST (+ stitching in ``metric``) -> host dendrogram -> flat
+    labels, merged in scipy's single-linkage order.
 
-    ``graph`` replaces the kNN graph. Runs on
+    ``graph`` replaces the kNN graph; its values are distances in
+    ``metric``. Runs on
     ``device`` when given, else on ``x``'s device if it is a tensor,
     else on CUDA (raising without it). ``stats``, a dict, receives the
     seconds of each stage (``knn_graph_s``, ``mst_s``, ``dendrogram_s``,
@@ -237,7 +305,7 @@ def single_linkage(x, n_clusters: int = 2, *, graph: Optional[COO] = None,
     if graph is None:
         graph = knn_graph(x, min(k, n - 1), metric=metric)
     t1 = _clock(dev, timed)
-    src, dst, w = build_sorted_mst(x, graph, stats=stats)
+    src, dst, w = build_sorted_mst(x, graph, metric=metric, stats=stats)
     t2 = time.perf_counter()
     children, deltas, sizes = build_dendrogram_host(src, dst, w, n)
     labels = extract_flattened_clusters(children, n, n_clusters)

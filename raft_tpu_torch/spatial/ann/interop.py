@@ -27,11 +27,14 @@
   ``MnmgMutationState``'s ``row_mask`` / ``delta_vecs`` / ``delta_ids``
   / ``delta_counts`` and returns the port's state, on the host or placed
   on a communicator's ranks.
+* :func:`sparse_colblock_index_from_arrays` takes a JAX
+  ``SparseColBlockIndex``'s leaves (``rows``, ``lcols``, ``vals``,
+  ``counts``, ``rb_off`` and its statics).
 * :func:`save_index` writes the repo's npz index format (the JAX
   package's ``spatial/ann/serialize.py``) with numpy alone, for the
   ``"ivf_flat"``, ``"ivf_sq"``, ``"ivf_pq"``, ``"graph"``,
-  ``"mutable_ivf"``, ``"mnmg_ivf_flat"``, ``"mnmg_ivf_sq"`` and
-  ``"mnmg_ivf_pq"`` kinds: the
+  ``"mutable_ivf"``, ``"sparse_colblock"``, ``"mnmg_ivf_flat"``,
+  ``"mnmg_ivf_sq"`` and ``"mnmg_ivf_pq"`` kinds: the
   ``__header__`` JSON (type, the lowest format version that holds the
   payload, the static fields, the per-array CRC32/shape/dtype manifest),
   one key per leaf under the reference's field names, bf16 arrays as
@@ -60,15 +63,17 @@ from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex
 from raft_tpu_torch.spatial.ann.ivf_pq import IVFPQIndex
 from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex
 from raft_tpu_torch.spatial.ann.mutation import DeltaStore, MutableIndex
+from raft_tpu_torch.sparse.distance import SparseColBlockIndex
 
 __all__ = [
     "ball_cover_index_from_arrays", "coarse_index_from_arrays",
     "graph_index_from_arrays",
     "ivf_flat_index_from_arrays", "ivf_pq_index_from_arrays",
     "ivf_sq_index_from_arrays", "load_graph", "load_index",
-    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq",
+    "load_ivf_flat", "load_ivf_pq", "load_ivf_sq", "load_sparse_colblock",
     "mnmg_index_from_arrays", "mnmg_mutation_state_from_arrays",
     "mutable_index_from_arrays", "save_index",
+    "sparse_colblock_index_from_arrays",
 ]
 
 # 1: no integrity manifest (loads unverified); 2: the manifest; 3-5: the
@@ -84,6 +89,10 @@ _KIND_ARRAYS = {
     "ivf_pq": ("codebooks", "codes_sorted", "vectors_sorted"),
 }
 _GRAPH_ARRAYS = ("data_padded", "storage.adjacency", "storage.entries")
+# the prebuilt sparse index (raft_tpu/sparse/distance.py), in the JAX
+# field order
+_COLBLOCK_ARRAYS = ("rows", "lcols", "vals", "counts", "rb_off")
+_COLBLOCK_STATICS = ("shape", "col_block", "row_block", "cap_cell")
 _COARSE_ARRAYS = ("coarse.super_cents", "coarse.member_ids",
                   "coarse.cents_padded")
 # the mutation state of a mutable_ivf archive, beside the wrapped index's
@@ -268,6 +277,37 @@ def graph_index_from_arrays(arrays: dict, metric: str,
     storage = GraphStorage(put("storage.adjacency").to(torch.int32),
                            put("storage.entries").to(torch.int32))
     return GraphIndex(put("data_padded").float(), storage, metric)
+
+
+def sparse_colblock_index_from_arrays(arrays: dict,
+                                      device=None) -> SparseColBlockIndex:
+    """Build the port's prebuilt sparse index
+    (:class:`~raft_tpu_torch.sparse.distance.SparseColBlockIndex`) on
+    ``device`` (CUDA by default) from a JAX ``SparseColBlockIndex``'s
+    leaves: the int32 ``rows`` / ``lcols``, the f32 ``vals``, ``counts``
+    and ``rb_off``, with the ``shape``, ``col_block``, ``row_block`` and
+    ``cap_cell`` statics."""
+    put = _placer(arrays, device)
+    for key in _COLBLOCK_ARRAYS + _COLBLOCK_STATICS:
+        errors.expects(key in arrays, "sparse_colblock arrays: missing %r",
+                       key)
+    ncb = arrays["rows"].shape[0]
+    errors.expects(
+        arrays["lcols"].shape == arrays["rows"].shape
+        == arrays["vals"].shape and arrays["counts"].shape == (ncb,)
+        and arrays["rb_off"].shape[0] == ncb,
+        "sparse_colblock arrays: rows %s, lcols %s, vals %s, counts %s and "
+        "rb_off %s do not fit together",
+        *(tuple(arrays[key].shape) for key in _COLBLOCK_ARRAYS),
+    )
+    return SparseColBlockIndex(
+        put("rows").to(torch.int32), put("lcols").to(torch.int32),
+        put("vals").float(), put("counts").to(torch.int32),
+        put("rb_off").to(torch.int32),
+        tuple(int(v) for v in arrays["shape"]), int(arrays["col_block"]),
+        int(arrays["row_block"]), int(arrays["cap_cell"]),
+        rb_off_host=np.asarray(arrays["rb_off"], np.int32),
+        counts_host=np.asarray(arrays["counts"], np.int32))
 
 
 def coarse_index_from_arrays(arrays: dict, device=None) -> CoarseIndex:
@@ -463,10 +503,12 @@ _FIELDS = {
     DeltaStore: ("vecs", "ids", "live", "counts", "cap"),
     CoarseIndex: ("super_cents", "member_ids", "cents_padded", "n_cents",
                   "n_super", "max_members", "build_args"),
+    SparseColBlockIndex: _COLBLOCK_ARRAYS + _COLBLOCK_STATICS,
 }
 _KIND_OF = {IVFFlatIndex: "ivf_flat", IVFSQIndex: "ivf_sq",
             IVFPQIndex: "ivf_pq", GraphIndex: "graph",
-            MutableIndex: "mutable_ivf"}
+            MutableIndex: "mutable_ivf",
+            SparseColBlockIndex: "sparse_colblock"}
 # the lowest format version holding each kind (2 for the frozen IVF kinds)
 _VERSION_OF = {GraphIndex: 5, MutableIndex: 4}
 
@@ -638,6 +680,8 @@ def _load_archive(path, kind=None):
                     else header.get("integrity") or {})
         if kind == "graph":
             keys = _GRAPH_ARRAYS
+        elif kind == "sparse_colblock":
+            keys = _COLBLOCK_ARRAYS
         elif kind in _MNMG_ARRAYS:
             keys = _MNMG_ARRAYS[kind] + (
                 _COARSE_ARRAYS if static.get("coarse") is not None else ())
@@ -667,7 +711,8 @@ def _load_archive(path, kind=None):
                 arr.view(np.int16)).view(torch.bfloat16)
     for key in ("storage.n", "storage.max_list", "index.storage.n",
                 "index.storage.max_list", "delta.cap") + (
-                    _ALL_MNMG_STATICS + _COARSE_STATICS):
+                    _ALL_MNMG_STATICS + _COARSE_STATICS) + (
+                    _COLBLOCK_STATICS if kind == "sparse_colblock" else ()):
         if key in static:
             arrays[key] = static[key]
     return arrays, static, kind
@@ -686,6 +731,8 @@ _FROM_ARRAYS = {
         a, st["__wrapped_kind__"], metric=st.get("index.metric"),
         pq_dim=st.get("index.pq_dim"), pq_bits=st.get("index.pq_bits"),
         device=dev),
+    "sparse_colblock": lambda a, st, dev: sparse_colblock_index_from_arrays(
+        a, dev),
     # the sharded kinds are placed by a communicator, not on a device
     "mnmg_ivf_flat": None,
     "mnmg_ivf_sq": None,
@@ -735,6 +782,14 @@ def load_ivf_pq(path, device=None) -> IVFPQIndex:
     archive has no ``vectors_sorted``; search it with
     ``refine_dataset=``."""
     return _load(path, "ivf_pq", device)
+
+
+def load_sparse_colblock(path, device=None) -> SparseColBlockIndex:
+    """Load a ``"sparse_colblock"`` archive (a prebuilt sparse kNN
+    index) written by ``save_index`` (either package's), verifying every
+    array against the CRC32 manifest, onto ``device`` (CUDA by
+    default)."""
+    return _load(path, "sparse_colblock", device)
 
 
 def load_graph(path, device=None) -> GraphIndex:

@@ -1486,3 +1486,197 @@ def test_spmv_spmm_repeat_bitwise_on_card():
                                atol=1e-5)
     torch.testing.assert_close(ym.cpu(), spmm(cc, xm.cpu()), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- C4, sparse kNN, ProfileTrigger, random, stats,
+# label, LAP, matrix ---------------------------------------------------------
+
+@pytest.mark.gpu
+def test_linkage_stitching_in_scipy_order_on_card():
+    """ROADMAP C4's witnesses on the card: merges at 1, 1, 1, 10, 12 and
+    {24, 25} cut off at 2 clusters; 0.2, 0.25, 0.3 below distance 1."""
+    from raft_tpu_torch.sparse.hierarchy import single_linkage
+
+    dev = _cuda()
+    x = torch.tensor([[0.0], [1], [11], [12], [24], [25]], device=dev)
+    res = single_linkage(x, n_clusters=2, k=1)
+    assert res.deltas.tolist() == [1, 1, 1, 10, 12]
+    lab = res.labels.cpu().tolist()
+    assert len(set(lab[:4])) == 1 and lab[4] == lab[5] != lab[0]
+    x = torch.tensor([[0.0], [0.25], [0.55], [0.75]], device=dev)
+    np.testing.assert_allclose(single_linkage(x, n_clusters=2, k=1).deltas,
+                               [0.2, 0.25, 0.3], rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_sparse_knn_routes_on_card():
+    """The CSR colblock route, the prebuilt route and the dense route on
+    the card against the CPU: on integer entries every squared distance
+    is exact, so distances are bitwise and ids equal up to ties; each
+    colblock call makes one host read; a repeat call gives the same
+    bits."""
+    import scipy.sparse as ss
+
+    from raft_tpu_torch.sparse import csr_from_scipy
+    from raft_tpu_torch.sparse import distance as td
+
+    dev = _cuda()
+    rng = np.random.default_rng(16)
+
+    def rand(m, d, nnz):
+        return ss.random(m, d, density=nnz / d, format="csr",
+                         dtype=np.float32, random_state=rng,
+                         data_rvs=lambda k: rng.integers(1, 5, k).astype(
+                             np.float32))
+
+    idx, qry = rand(3000, 50_000, 40), rand(300, 50_000, 40)
+    layout = td.sparse_colblock_index_build(idx, col_block=4096,
+                                            row_block=1024, device=dev)
+    layout_cpu = td.sparse_colblock_index_build(idx, col_block=4096,
+                                                row_block=1024, device="cpu")
+    qd, qc = csr_from_scipy(qry, device=dev), csr_from_scipy(qry,
+                                                             device="cpu")
+    idd, idc = csr_from_scipy(idx, device=dev), csr_from_scipy(idx,
+                                                               device="cpu")
+    for route in ("prebuilt", "colblock"):
+        a, b = (layout, layout_cpu) if route == "prebuilt" else (idd, idc)
+        before = td.HOST_SYNCS
+        dg, ig = td.sparse_brute_force_knn(a, qd, 10, metric="sqeuclidean",
+                                           strategy="colblock")
+        assert td.HOST_SYNCS == before + 1, route
+        dc, ic = td.sparse_brute_force_knn(b, qc, 10, metric="sqeuclidean",
+                                           strategy="colblock")
+        assert dg.device.type == "cuda"
+        assert torch.equal(dg.cpu(), dc), route
+        diff = ig.cpu() != ic
+        assert torch.equal(dg.cpu()[diff], dc[diff]), route
+        d2, i2 = td.sparse_brute_force_knn(a, qd, 10, metric="sqeuclidean",
+                                           strategy="colblock")
+        assert torch.equal(d2, dg) and torch.equal(i2, ig), route
+    # auto -> dense at width 2,048: no host read
+    small = csr_from_scipy(rand(2000, 2048, 40), device=dev)
+    sq = csr_from_scipy(rand(100, 2048, 40), device=dev)
+    before = td.HOST_SYNCS
+    dg, _ = td.sparse_brute_force_knn(small, sq, 5, metric="l1")
+    assert td.HOST_SYNCS == before
+    assert dg.shape == (100, 5) and bool(torch.isfinite(dg).all())
+
+
+@pytest.mark.gpu
+def test_profile_trigger_captures_cuda_kernels(tmp_path):
+    """One real capture on the card: the Chrome trace holds the CUDA
+    kernels run during the window."""
+    import glob
+    import json
+
+    from raft_tpu_torch.obs import MetricRegistry, ProfileTrigger
+
+    dev = _cuda()
+    reg = MetricRegistry()
+    h = reg.histogram("e2e_ms")
+    trig = ProfileTrigger(h, threshold_ms=1.0, log_dir=str(tmp_path),
+                          consecutive=1, capture_s=0.05, registry=reg)
+    x = torch.randn(1024, 1024, device=dev)
+
+    def busy(_s):
+        for _ in range(5):
+            x @ x
+        torch.cuda.synchronize()
+
+    trig._sleep = busy
+    h.observe(5.0)
+    assert trig.check() == str(tmp_path)
+    files = glob.glob(str(tmp_path / "trace_*.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.gpu
+def test_random_on_card():
+    """The same state gives the same bits on the card; make_blobs'
+    round-robin counts are exact and its clusters sit at their centres;
+    permute is a permutation."""
+    from raft_tpu_torch import random as rr
+
+    dev = _cuda()
+    a = rr.normal(rr.RngState(3), (1 << 20,), device=dev)
+    b = rr.normal(rr.RngState(3), (1 << 20,), device=dev)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert abs(float(a.mean())) < 0.01 and abs(float(a.std()) - 1) < 0.01
+    data, labels = rr.make_blobs(100_000, 16, n_clusters=10,
+                                 state=rr.RngState(0), cluster_std=0.5,
+                                 device=dev)
+    counts = torch.bincount(labels.long())
+    assert counts.tolist() == [10_000] * 10
+    perm, _ = rr.permute(rr.RngState(1), 50_000, device=dev)
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(50_000, device=dev))
+
+
+@pytest.mark.gpu
+def test_stats_on_card_equal_cpu():
+    """Contingency bitwise; ARI, v-measure, silhouette (batched and
+    whole) and trustworthiness on the card against the CPU within f32
+    summation error (trustworthiness equal on integer rows)."""
+    from raft_tpu_torch import stats as ts
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    truth = torch.as_tensor(rng.integers(0, 8, 3000))
+    pred = torch.where(torch.as_tensor(rng.random(3000) < 0.2),
+                       torch.as_tensor(rng.integers(0, 8, 3000)), truth)
+    assert torch.equal(ts.contingency_matrix(truth.to(dev), pred.to(dev),
+                                             8).cpu(),
+                       ts.contingency_matrix(truth, pred, 8))
+    for name in ("adjusted_rand_index", "v_measure"):
+        g = getattr(ts, name)(truth.to(dev), pred.to(dev), 8)
+        c = getattr(ts, name)(truth, pred, 8)
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-6)
+    x = torch.as_tensor(rng.integers(-6, 7, (3000, 8)).astype(np.float32))
+    x[truth == 1] += 20
+    s_g = ts.batched_silhouette_score(x.to(dev), truth.to(dev), 8,
+                                      batch_size=1024)
+    s_c = ts.silhouette_score(x, truth, 8)
+    torch.testing.assert_close(s_g.cpu(), s_c, rtol=1e-5, atol=1e-6)
+    emb = x[:, :3]
+    assert float(ts.trustworthiness_score(x.to(dev), emb.to(dev), 5,
+                                          "sqeuclidean")) == float(
+        ts.trustworthiness_score(x, emb, 5, "sqeuclidean"))
+
+
+@pytest.mark.gpu
+def test_lap_label_matrix_on_card():
+    """The auction on the card in f64: the objective equals scipy's
+    exactly, the batch equals its single solves bitwise, and equals the
+    CPU's solves; labels and matrix helpers bitwise the CPU's."""
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch import label as tl
+    from raft_tpu_torch import lap as tlap
+    from raft_tpu_torch import matrix as tm
+
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    costs = rng.integers(0, 1001, (4, 128, 128)).astype(np.float64)
+    rows, objs = tlap.solve_lap_batched(torch.as_tensor(costs, device=dev))
+    for b in range(4):
+        r1, o1 = tlap.solve_lap(torch.as_tensor(costs[b], device=dev))
+        assert torch.equal(r1, rows[b]) and torch.equal(o1, objs[b])
+        r, c = linear_sum_assignment(costs[b])
+        assert float(o1) == costs[b][r, c].sum()
+        rc, oc = tlap.solve_lap(torch.as_tensor(costs[b]))
+        assert torch.equal(rc, r1.cpu()) and float(oc) == float(o1)
+    labels = torch.as_tensor(rng.integers(0, 5000, 200_000))
+    b = torch.as_tensor(rng.integers(0, 5000, 200_000))
+    assert torch.equal(tl.make_monotonic(labels.to(dev)).cpu(),
+                       tl.make_monotonic(labels))
+    assert torch.equal(tl.merge_labels(labels.to(dev), b.to(dev)).cpu(),
+                       tl.merge_labels(labels, b))
+    m = torch.as_tensor(rng.integers(-3, 4, (512, 512)).astype(np.float32))
+    for fn in (tm.sort_cols_per_row, tm.argmax, tm.argmin):
+        got, want = fn(m.to(dev)), fn(m)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.cpu(), w), fn.__name__

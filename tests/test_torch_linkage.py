@@ -7,8 +7,8 @@ Inputs come from numpy seeds; graphs are JAX ``COO``s carried across
 with ``coo_from_arrays``. Tolerances, and why:
 
 * ``boruvka_mst`` (edges, weights, colours, ``n_edges``),
-  ``connect_components``, ``build_sorted_mst`` and the dendrogram are
-  bitwise equal: every step is a min-scatter, a sort or a copy, and the
+  ``connect_components``, the first solve of ``build_sorted_mst`` and the
+  dendrogram are bitwise equal: every step is a min-scatter, a sort or a copy, and the
   one arithmetic step (``fused_l2_nn``'s squared distances) is exact on
   integer-valued rows;
 * ``single_linkage`` end to end on an integer grid: children, sizes and
@@ -16,6 +16,10 @@ with ``coo_from_arrays``. Tolerances, and why:
   graph's l2 roots are taken through f64 in the port and in f32 by XLA
   on the CPU (ROADMAP R4); with the JAX graph carried across, deltas
   bitwise too;
+* once the fixup stitches components, the port weights its edges in the
+  graph's metric and enters a pair two components pick once (ROADMAP
+  C4, repaired in the port only): stitched trees are held to scipy's
+  MST weight and merge order, not to the JAX package's;
 * native against JAX's native and against the numpy routes: equal.
 """
 
@@ -155,63 +159,198 @@ def test_connect_components_ties_pick_the_lowest_row():
 
 # -- build_sorted_mst ----------------------------------------------------------
 
+def _euclidean_mst_weight(x):
+    """The weight of the minimum spanning tree over the f64 Euclidean
+    distances of all pairs (Prim's; scipy's csgraph would read a
+    repeated row's 0 as no edge)."""
+    from scipy.spatial.distance import cdist
+
+    d = cdist(x.astype(np.float64), x.astype(np.float64))
+    best = d[0].copy()
+    done = np.zeros(len(x), bool)
+    done[0] = True
+    total = 0.0
+    for _ in range(len(x) - 1):
+        j = int(np.argmin(np.where(done, np.inf, best)))
+        total += best[j]
+        done[j] = True
+        best = np.minimum(best, d[j])
+    return total
+
+
 @pytest.mark.parametrize("sizes,k", [((15, 15), 3), ((20, 9, 14, 30), 4)])
 def test_build_sorted_mst_disconnected_bitwise(sizes, k):
-    """A kNN graph of far blobs has one component a blob: the fixup
-    loop stitches them, in both packages alike."""
+    """A kNN graph of far blobs has one component a blob. The first
+    solve's forest is JAX's, bitwise; the fixup loop then stitches the
+    blobs into the Euclidean MST of all rows (scipy's weight), since
+    the graph holds the Euclidean MST inside each blob."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components, minimum_spanning_tree
+
     rng = np.random.default_rng(sum(sizes))
     x = _blobs(rng, sizes)
     jg = j_knn_graph(x, k)
-    want = jh.build_sorted_mst(x, jg)
+
+    # the oracle is sound: one component a blob, each blob's MST inside
+    nnz = int(jg.nnz)
+    r, c = np.asarray(jg.rows)[:nnz], np.asarray(jg.cols)[:nnz]
+    exact = np.sqrt(((x[r].astype(np.float64) - x[c]) ** 2).sum(1))
+    g = coo_matrix((exact + 1e-300, (r, c)), shape=(len(x), len(x))).tocsr()
+    n_comp, comp = connected_components(g, directed=False)
+    blob = np.repeat(np.arange(len(sizes)), sizes)
+    assert n_comp == len(sizes) and len(set(zip(comp, blob))) == len(sizes)
+    for b in range(len(sizes)):
+        sel = np.flatnonzero(blob == b)
+        np.testing.assert_allclose(
+            minimum_spanning_tree(g[sel][:, sel]).sum(),
+            _euclidean_mst_weight(x[sel]), rtol=1e-12)
+
     stats = {}
     got = th.build_sorted_mst(torch.as_tensor(x), _carry(jg), stats=stats)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, np.asarray(w))
+    forest = j_mst(jg)
+    _same_mst(boruvka_mst(_carry(jg)), forest)
+    np.testing.assert_array_equal(stats["forest_color"],
+                                  np.asarray(forest.color))
+    assert stats["forest_edges"] == int(forest.n_edges)
+    assert stats["forest_weight"] == float(
+        np.asarray(forest.weight)[:int(forest.n_edges)].astype(
+            np.float64).sum())
     assert len(got[0]) == len(x) - 1
+    np.testing.assert_allclose(float(got[2].astype(np.float64).sum()),
+                               _euclidean_mst_weight(x), rtol=1e-6)
     assert stats["connect_rounds"] >= 1
     assert stats["component_syncs"] == stats["connect_rounds"] + 1
     assert len(stats["mst"]) == stats["connect_rounds"] + 1
+    # every stitching pair entered once
+    pairs = [tuple(sorted(p)) for rows, cols, _, _ in stats["stitches"]
+             for p in zip(rows.tolist(), cols.tolist())]
+    assert len(pairs) == len(set(pairs))
 
 
 def test_stitched_edges_carry_twice_the_squared_distance():
-    """The fixup's edges are fused_l2_nn's SQUARED distances, and an
-    edge both components pick is summed with its mirror by
-    sum_duplicates: 2 d². Both packages (ROADMAP C4)."""
+    """ROADMAP C4's second effect, repaired in the port: the edge 1-2
+    that both components pick enters once, at its plain distance 9 (the
+    JAX package keeps fused_l2_nn's squared distance, summed with its
+    mirror by sum_duplicates: 2 x 81)."""
+    from scipy.cluster.hierarchy import linkage
+
     x = np.array([[0, 0], [1, 0], [10, 0], [11, 0]], np.float32)
     jg = j_knn_graph(x, 1)
-    src, dst, w = th.build_sorted_mst(torch.as_tensor(x), _carry(jg))
-    jsrc, jdst, jw = jh.build_sorted_mst(x, jg)
-    np.testing.assert_array_equal(w, np.asarray(jw))
-    assert list(w) == [1.0, 1.0, 2.0 * 81.0]
+    stats = {}
+    src, dst, w = th.build_sorted_mst(torch.as_tensor(x), _carry(jg),
+                                      stats=stats)
+    assert list(w) == [1.0, 1.0, 9.0]
+    assert sorted((int(src[2]), int(dst[2]))) == [1, 2]
+    (rows, cols, ws, repeats), = stats["stitches"]
+    assert (len(rows), repeats) == (1, 1) and list(ws) == [9.0]
+    np.testing.assert_array_equal(linkage(x.astype(np.float64),
+                                          "single")[:, 2], w)
+    jw = jh.build_sorted_mst(x, jg)[2]
+    assert list(np.asarray(jw)) == [1.0, 1.0, 2.0 * 81.0]
+
+
+def _scipy_single(x, n_clusters, metric="euclidean"):
+    from scipy.cluster.hierarchy import fcluster, linkage
+
+    ref = linkage(x.astype(np.float64), "single", metric=metric)
+    return ref, fcluster(ref, n_clusters, "maxclust")
+
+
+def _same_partition(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return len(set(zip(a.tolist(), b.tolist()))) == len(set(a.tolist())) \
+        == len(set(b.tolist()))
 
 
 def test_stitching_merges_out_of_order_below_unit_distance():
-    """The witness of ROADMAP C4: below distance 1 a stitching edge's
-    2 d² is smaller than d, so it merges before a shorter kNN edge.
-    Rows at 0, 0.25, 0.55, 0.75: the 1-NN graph is {0, 1} and {2, 3}
-    (edges 0.25 and 0.2), the stitch is 1-2 at d = 0.3, entered as
-    2 x 0.09. scipy merges at 0.2, 0.25, 0.3; both packages merge 1-2
-    first (0.18) and cut {0} from {1, 2, 3}. The packages agree with
-    each other; the repair makes the merge order scipy's."""
-    from scipy.cluster.hierarchy import fcluster, linkage
-
+    """ROADMAP C4's first effect, repaired in the port: rows at 0, 0.25,
+    0.55, 0.75. The 1-NN graph is {0, 1} and {2, 3} (edges 0.25 and
+    0.2), the stitch is 1-2 at d = 0.3. scipy merges at 0.2, 0.25, 0.3
+    and cuts {2, 3} from {0, 1}; so does the port. (The JAX package
+    enters the stitch as 2 x 0.09 and merges it first.)"""
     x = np.array([[0.0], [0.25], [0.55], [0.75]], np.float32)
-    want = jh.single_linkage(x, n_clusters=2, k=1)
     got = th.single_linkage(x, n_clusters=2, k=1, device="cpu")
-    np.testing.assert_array_equal(got.children, want.children)
-    np.testing.assert_allclose(got.deltas, want.deltas, rtol=1e-6)
-    np.testing.assert_array_equal(got.labels.numpy(),
-                                  np.asarray(want.labels))
-
-    ref = linkage(x.astype(np.float64), "single")
+    ref, ref_labels = _scipy_single(x, 2)
     np.testing.assert_allclose(ref[:, 2], [0.2, 0.25, 0.3], rtol=1e-6)
-    np.testing.assert_allclose(got.deltas, [0.18, 0.2, 0.25], rtol=1e-5)
-    assert sorted(got.children[0]) == [1, 2]
-    assert sorted(ref[0, :2].astype(int)) == [2, 3]
-    ref_labels = fcluster(ref, 2, "maxclust")
-    assert ref_labels[0] == ref_labels[1] != ref_labels[2]
+    np.testing.assert_allclose(got.deltas, ref[:, 2], rtol=1e-6)
+    np.testing.assert_array_equal(np.sort(got.children, 1),
+                                  np.sort(ref[:, :2].astype(int), 1))
+    assert _same_partition(got.labels.numpy(), ref_labels)
     labels = got.labels.numpy()
-    assert labels[1] == labels[2] == labels[3] != labels[0]
+    assert labels[0] == labels[1] != labels[2] == labels[3]
+    want = jh.single_linkage(x, n_clusters=2, k=1)
+    np.testing.assert_allclose(want.deltas, [0.18, 0.2, 0.25], rtol=1e-5)
+
+
+def test_stitch_picked_twice_merges_in_scipy_order():
+    """ROADMAP C4's witness at any distance: 1-D rows 0, 1, 11, 12, 24,
+    25 with k = 1. Both components {0, 1} and {11, 12} pick 1-11 (10);
+    {24, 25} picks 12-24 (12). scipy merges at 1, 1, 1, 10, 12 and at 2
+    clusters cuts off {24, 25}; the JAX package merges at 1, 1, 1, 144,
+    200 and cuts off {0, 1}."""
+    x = np.array([[0], [1], [11], [12], [24], [25]], np.float32)
+    got = th.single_linkage(x, n_clusters=2, k=1, device="cpu")
+    ref, ref_labels = _scipy_single(x, 2)
+    np.testing.assert_array_equal(ref[:, 2], [1, 1, 1, 10, 12])
+    np.testing.assert_array_equal(got.deltas, ref[:, 2])
+    np.testing.assert_array_equal(got.sizes, ref[:, 3])
+    assert _same_partition(got.labels.numpy(), ref_labels)
+    labels = got.labels.numpy()
+    assert len(set(labels[:4])) == 1 and labels[4] == labels[5] != labels[0]
+    want = jh.single_linkage(x, n_clusters=2, k=1)
+    np.testing.assert_array_equal(want.deltas, [1, 1, 1, 144, 200])
+
+
+@pytest.mark.parametrize("metric,scipy_metric", [
+    ("l1", "cityblock"), ("linf", "chebyshev"), ("sqeuclidean", None)])
+def test_stitching_in_a_non_l2_metric(metric, scipy_metric):
+    """The stitching edges take the graph's metric: l1 and linf through
+    pairwise_distance on each pair's rows, squared L2 as
+    connect_components gives it. On 1-D rows the L2-nearest pair across
+    components is the nearest in every one of these metrics, so the
+    port's merges are scipy's."""
+    x = np.array([[0], [2], [3], [17], [19], [40], [41], [47]], np.float32)
+    stats = {}
+    got = th.single_linkage(x, n_clusters=3, k=1, metric=metric,
+                            stats=stats, device="cpu")
+    assert stats["connect_rounds"] >= 1
+    if scipy_metric is None:
+        ref, ref_labels = _scipy_single(x, 3, "sqeuclidean")
+    else:
+        ref, ref_labels = _scipy_single(x, 3, scipy_metric)
+    np.testing.assert_allclose(got.deltas, ref[:, 2], rtol=1e-6)
+    assert _same_partition(got.labels.numpy(), ref_labels)
+
+
+def test_stitch_weights_against_pairwise():
+    """stitch_weights on rows of width 5: every metric's weight equals
+    pairwise_distance on the pair's rows; the rooted L2 metrics take the
+    f64 root of the squared distance given."""
+    from raft_tpu_torch.distance.pairwise import pairwise_distance
+
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.random((600, 5)).astype(np.float32))
+    rows = torch.as_tensor(rng.integers(0, 600, 300), dtype=torch.int32)
+    cols = torch.as_tensor(rng.integers(0, 600, 300), dtype=torch.int32)
+    sq = ((x[rows.long()] - x[cols.long()]) ** 2).sum(1)
+    for metric in ("l1", "canberra", "cosine", "linf"):
+        got = th.stitch_weights(x, rows, cols, sq, metric)
+        want = torch.stack([pairwise_distance(
+            x[r:r + 1], x[c:c + 1], metric)[0, 0]
+            for r, c in zip(rows.long(), cols.long())])
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(th.stitch_weights(x, rows, cols, sq,
+                                         "l2_sqrt_expanded"),
+                       torch.sqrt(sq.double()).float())
+    assert th.stitch_weights(x, rows, cols, sq, "sqeuclidean") is sq
+
+
+def test_first_of_pairs_masks_repeats():
+    rows = torch.tensor([1, 11, 12, 3, 7, 0], dtype=torch.int32)
+    cols = torch.tensor([11, 1, 24, 3, 2, 0], dtype=torch.int32)
+    valid = torch.tensor([True, True, True, True, True, False])
+    keep = th.first_of_pairs(rows, cols, valid, 30)
+    assert keep.tolist() == [True, False, True, True, True, False]
 
 
 # -- the native library --------------------------------------------------------
@@ -319,6 +458,29 @@ def grid():
     return _blobs(rng, (500, 300, 450, 350, 400), d=3, spread=6, offset=40)
 
 
+def _hold_linkage(got, want, x, n_clusters, n_comp, ulps):
+    """The merges inside the kNN graph's ``n_comp`` components (the first
+    n - n_comp) against JAX's (deltas within ``ulps``), the stitched
+    ones against scipy's single-linkage heights; labels JAX's where the
+    cut stays inside the components, else scipy's partition."""
+    inner = len(x) - n_comp
+    np.testing.assert_array_equal(got.children[:inner],
+                                  want.children[:inner])
+    np.testing.assert_array_equal(got.sizes[:inner], want.sizes[:inner])
+    np.testing.assert_array_max_ulp(got.deltas[:inner].astype(np.float32),
+                                    want.deltas[:inner].astype(np.float32),
+                                    ulps)
+    ref, ref_labels = _scipy_single(x, n_clusters)
+    np.testing.assert_allclose(got.deltas[inner:], ref[inner:, 2],
+                               rtol=1e-6)
+    np.testing.assert_array_equal(got.sizes[inner:], ref[inner:, 3])
+    if n_clusters >= n_comp:
+        np.testing.assert_array_equal(got.labels.numpy(),
+                                      np.asarray(want.labels))
+    else:
+        assert _same_partition(got.labels.numpy(), ref_labels)
+
+
 @pytest.mark.parametrize("n_clusters", [2, 5, 17])
 def test_single_linkage_end_to_end(grid, n_clusters):
     want = jh.single_linkage(grid, n_clusters=n_clusters, k=8)
@@ -326,12 +488,9 @@ def test_single_linkage_end_to_end(grid, n_clusters):
     got = th.single_linkage(torch.as_tensor(grid), n_clusters=n_clusters,
                             k=8, stats=stats)
     assert got.labels.device == CPU and got.n_clusters == n_clusters
-    np.testing.assert_array_equal(got.labels.numpy(),
-                                  np.asarray(want.labels))
-    np.testing.assert_array_equal(got.children, want.children)
-    np.testing.assert_array_equal(got.sizes, want.sizes)
-    np.testing.assert_array_max_ulp(got.deltas.astype(np.float32),
-                                    want.deltas.astype(np.float32), 1)
+    n_comp = len(grid) - stats["forest_edges"]
+    assert n_comp == 5 and stats["connect_rounds"] >= 1
+    _hold_linkage(got, want, grid, n_clusters, n_comp, 1)
     for key in ("knn_graph_s", "mst_s", "dendrogram_s", "total_s",
                 "connect_rounds"):
         assert key in stats
@@ -344,13 +503,11 @@ def test_single_linkage_end_to_end(grid, n_clusters):
 
 def test_single_linkage_on_the_jax_graph_bitwise(grid):
     jg = j_knn_graph(grid, 8)
-    want = jh.single_linkage(grid, n_clusters=5, graph=jg)
-    got = th.single_linkage(torch.as_tensor(grid), n_clusters=5,
-                            graph=_carry(jg))
-    np.testing.assert_array_equal(got.labels.numpy(),
-                                  np.asarray(want.labels))
-    for f in ("children", "deltas", "sizes"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for n_clusters in (5, 2):
+        want = jh.single_linkage(grid, n_clusters=n_clusters, graph=jg)
+        got = th.single_linkage(torch.as_tensor(grid),
+                                n_clusters=n_clusters, graph=_carry(jg))
+        _hold_linkage(got, want, grid, n_clusters, 5, 0)
 
 
 def test_single_linkage_golden_chain():

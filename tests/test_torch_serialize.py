@@ -305,7 +305,7 @@ def test_future_version_and_unported_kinds_raise(archives, tmp_path):
     for change, names in (({"version": 99}, "99"),
                           ({"type": "mutable_ivf", "version": 4},
                            "mutable_ivf"),
-                          ({"type": "sparse_colblock"}, "sparse_colblock")):
+                          ({"type": "ball_cover"}, "ball_cover")):
         header = dict(_header(tpath), **change)
         p = tmp_path / "x.npz"
         with open(p, "wb") as f:

@@ -136,10 +136,8 @@ def test_sparse_exports():
     import raft_tpu.sparse as jsparse
 
     missing = set(jsparse.__all__) - set(tsparse.__all__)
-    # sparse distances are the next slice's
-    assert missing == {"densify_rows", "sparse_pairwise_distance",
-                       "sparse_brute_force_knn", "SparseColBlockIndex",
-                       "sparse_colblock_index_build"}
+    # every name, the sparse distances' included
+    assert missing == set()
 
 
 # -- structural ops ------------------------------------------------------------
