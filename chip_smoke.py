@@ -54,8 +54,8 @@ to 0 just before it and read just after:
   route against scipy's f64 product, with auto -> dense and l1 cases;
   ``make_blobs`` at bench/common.py's recipe and the distributions'
   moments; the stats on the linkage and spectral results; the auction
-  at 1,024 and 16 x 256 against scipy; labels and matrix helpers
-  against numpy;
+  at 1,024 (f64 and f32) and 16 x 256 against scipy; labels and matrix
+  helpers against numpy;
 * IVF-SQ and IVF-PQ (bench.py's extra_sq_scan_kernel and extra_ivf_pq
   configurations) over 500,000 rows of width 96 around 1,000 centres:
   build, warm, serve ~100 requests each, and a 4,096-query batch on both
@@ -75,7 +75,13 @@ to 0 just before it and read just after:
   10,000-query batch with f32 and bf16 phase 1, the scan path on 1,000
   of those queries, and 2,000,000 x 768 bf16 rows in two partitions
   (the width of the 10M x 768 regime, depth cut for the time limit),
-  with recall@10 and distances against an exact oracle.
+  with recall@10 and distances against an exact oracle;
+* last, after every timed phase, the concurrency auditor: the static
+  pass (``raft_tpu_torch.analysis``, both tiers) over the port and this
+  script, which must find nothing, then the runtime lock tracer on with
+  the port's pinned order over a ``ServingExecutor`` on the card whose
+  submits race ``close()``, a WAL ingest round and the supervisor's
+  kill -> heal cycle, ending in ``assert_clean()``.
 
 Any failed check raises, and the script exits non-zero. The last two
 lines of stdout are the ``kernels`` JSON line (one object for each of the
@@ -92,7 +98,9 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import faulthandler
 import importlib
+import io
 import json
 import math
 import os
@@ -680,7 +688,8 @@ def serve_requests(search, rows, rng, n_requests, dim, n_index, card, what):
         batch, pending = pack_requests(pending, buckets, dim)
         t0 = time.perf_counter()
         d, ids = search(batch.queries, batch.bucket)
-        d, ids = d.cpu(), ids.cpu()           # waits for the device
+        # closed loop: a batch's latency ends at its host copy
+        d, ids = d.cpu(), ids.cpu()  # jaxlint: disable=sync-in-hot-path
         lat[batch.bucket].append(1e3 * (time.perf_counter() - t0))
         for req, start in batch.entries:
             served[id(req.queries)] = (d[start:start + req.n_rows],
@@ -1961,7 +1970,6 @@ def tier_phase(args, card, dev, index, qcaps, x):
     tier and none lost from the resident arm. Runs under a stall
     watchdog. Returns the phase's entry under the flat scan's ``tier``
     key."""
-    import faulthandler
     import tempfile
 
     from raft_tpu_torch import _build
@@ -4376,11 +4384,12 @@ def stats_step(args, card, dev, feed):
 
 
 def lap_step(args, card, dev):
-    """solve_lap on a 1,024 x 1,024 integer cost matrix in [0, 1000] (as
-    f64: the f32 auction stalls once the prices' spacing passes the last
-    epsilon, ROADMAP C5): the objective equals scipy's exactly and the
-    assignment is a permutation; solve_lap_batched on 16 x 256 x 256
-    bitwise 16 single solves. Rounds, host syncs and seconds."""
+    """solve_lap on a 1,024 x 1,024 integer cost matrix in [0, 1000], as
+    f64 and as f32 (whose auction stalled before each phase's epsilon was
+    floored at the prices' spacing): each objective equals scipy's
+    exactly and each assignment is a permutation; solve_lap_batched on 16
+    x 256 x 256 (f64) bitwise 16 single solves. Rounds, host syncs and
+    seconds."""
     from scipy.optimize import linear_sum_assignment
 
     from raft_tpu_torch.lap import solve_lap, solve_lap_batched
@@ -4396,6 +4405,17 @@ def lap_step(args, card, dev):
     check(torch.equal(torch.sort(rows).values.cpu(),
                       torch.arange(LAP_N, dtype=torch.int32)),
           "the LAP assignment is not a permutation")
+    info32 = {}
+    (rows32, total32), s32 = timed_s(lambda: solve_lap(
+        torch.as_tensor(cost, dtype=torch.float32, device=dev),
+        info=info32), dev)
+    check(total32.dtype == torch.float32
+          and float(total32) == cost[r, c].sum(),
+          f"f32 LAP objective {float(total32)} against scipy's "
+          f"{cost[r, c].sum()}")
+    check(torch.equal(torch.sort(rows32).values.cpu(),
+                      torch.arange(LAP_N, dtype=torch.int32)),
+          "the f32 LAP assignment is not a permutation")
     costs = rng.integers(0, 1001, (LAP_BATCH, LAP_BATCH_N, LAP_BATCH_N)
                          ).astype(np.float64)
     binfo = {}
@@ -4410,10 +4430,13 @@ def lap_step(args, card, dev):
               f"LAP problem {b}: objective against scipy")
     nums = dict(n=LAP_N, rounds=info["rounds"], syncs=info["syncs"], s=s,
                 objective=float(total), batch_rounds=binfo["rounds"],
-                batch_syncs=binfo["syncs"], batch_s=bs)
+                batch_syncs=binfo["syncs"], batch_s=bs,
+                f32_rounds=info32["rounds"], f32_s=s32)
     log(f"[{card}] LAP {LAP_N} x {LAP_N} (f64, integer costs in [0, 1000]): "
         f"objective {float(total):.0f} = scipy's, {info['rounds']} auction "
-        f"rounds, {info['syncs']} host syncs, {s:.3f} s; batched "
+        f"rounds, {info['syncs']} host syncs, {s:.3f} s; f32: objective "
+        f"{float(total32):.0f} = scipy's, {info32['rounds']} rounds, "
+        f"{info32['syncs']} host syncs, {s32:.3f} s; batched "
         f"{LAP_BATCH} x {LAP_BATCH_N}: {binfo['rounds']} rounds, "
         f"{binfo['syncs']} syncs, {bs:.3f} s, bitwise the single solves")
     return nums
@@ -4534,8 +4557,6 @@ def self_heal_phase(args, card, dev, x):
     flaps rank 1's probe. #2's launches are counted over the phase, and
     every one of its calls is held against the plain version afterwards
     (at the shapes the rows gave it: bucket 8, the replicated slabs)."""
-    import faulthandler
-
     from raft_tpu_torch.comms import build_comms
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
     from raft_tpu_torch.testing.heal_rows import self_heal_row
@@ -7100,10 +7121,232 @@ def brute_force_phase(args, card, dev):
     return out
 
 
+# the concurrency auditor on the card: an IVF-Flat index of its own
+# (200,000 rows of width 96, 256 lists), requests of 1-64 rows from 32
+# templates (so the result cache hits), four submitters racing close()
+LC_ROWS, LC_LISTS, LC_TEMPLATES = 200_000, 256, 32
+LC_SUBMITTERS, LC_PER_SUBMITTER, LC_CLOSE_AFTER = 4, 100, 250
+LC_INGEST_ROUNDS, LC_INGEST_ROWS = 8, 64
+
+
+def static_pass(card):
+    """``python -m raft_tpu_torch.analysis`` and its ``--threads`` tier
+    over the port and this script, in process: both must find nothing,
+    and the lock-order graph must be the pinned order, cycle-free."""
+    from raft_tpu_torch.analysis import main as analysis_main
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    targets = [os.path.join(root, "raft_tpu_torch"),
+               os.path.join(root, "chip_smoke.py")]
+    out = {}
+    for tier, flags in (("lint", []), ("threads", ["--threads"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = analysis_main([*flags, "--format", "json", *targets])
+        out[tier] = json.loads(buf.getvalue())
+        found = [f"{f['path']}:{f['line']}: [{f['rule']}] {f['message']}"
+                 for f in out[tier]["findings"]]
+        check(rc == 0 and not found,
+              f"static pass ({tier}): rc {rc}, findings:\n"
+              + "\n".join(found))
+    log(f"[{card}] static pass: {out['lint']['checked_files']} files, "
+        f"0 lint findings ({out['lint']['suppressed']} suppressed), "
+        f"0 thread findings ({out['threads']['suppressed']} suppressed), "
+        f"{len(out['threads']['edges'])} lock-order edges, no drift, "
+        "no cycle")
+    return out
+
+
+def lockcheck_phase(args, card, dev):
+    """The concurrency auditor on the card, after every timed point: a
+    lock made while the tracer is on stays traced, so nothing this phase
+    builds reaches a timed phase. The static pass (0 findings), then the
+    runtime tracer on with the port's pinned order
+    (``raft_tpu_torch/analysis/lock_order.json``) over: a few hundred
+    requests through a ``ServingExecutor`` on the card (admission, flight
+    recorder, result cache), their submits racing ``close()``; a
+    durable-ingest round (upserts and deletes through ``DurableIngest``
+    over a WAL, its group commit flushing beside them); and the
+    supervisor's kill -> reroute -> heal cycle at P = 8. Then
+    ``assert_clean()``, and one line with the observed edges and the
+    hold outliers."""
+    import tempfile
+
+    from raft_tpu_torch import errors
+    from raft_tpu_torch.analysis import threads as lockcheck
+    from raft_tpu_torch.comms import build_comms
+    from raft_tpu_torch.durability import wal
+    from raft_tpu_torch.obs import MetricRegistry
+    from raft_tpu_torch.obs.flight import FlightRecorder
+    from raft_tpu_torch.resilience import AdmissionController
+    from raft_tpu_torch.serving import ResultCache, ServingExecutor
+    from raft_tpu_torch.spatial.ann import mutation as mut
+    from raft_tpu_torch.spatial.ann.ivf_flat import (
+        IVFFlatParams, ivf_flat_build, ivf_flat_search_grouped,
+    )
+    from raft_tpu_torch.testing.heal_rows import self_heal_row
+
+    static = static_pass(card)
+    rng = np.random.default_rng(args.seed + 90)
+    x = clustered_rows(rng, LC_ROWS, DIM)
+    t0 = time.perf_counter()
+    index = ivf_flat_build(x, IVFFlatParams(
+        n_lists=LC_LISTS, kmeans_n_iters=5, kmeans_init="random",
+    ), device=dev)
+    qcaps = {b: index.warmup(b, k=K, n_probes=N_PROBES) for b in BUCKETS}
+    sync(dev)
+    log(f"[{card}] lock tracer: index {LC_ROWS} x {DIM}, {LC_LISTS} lists, "
+        f"built and warmed in {time.perf_counter() - t0:.2f} s")
+    templates = (x[rng.integers(0, LC_ROWS, LC_TEMPLATES)]
+                 + 0.3 * rng.standard_normal((LC_TEMPLATES, DIM),
+                                             dtype=np.float32))
+
+    prev = lockcheck.set_enabled(True)
+    lockcheck.clear()
+    check(lockcheck.load_pinned_order(),
+          "the port's pinned lock order did not load")
+    t0 = time.perf_counter()
+    try:
+        # 1. the executor, its submits racing close()
+        ex = ServingExecutor(
+            lambda b, **_: ivf_flat_search_grouped(
+                index, b, K, n_probes=N_PROBES, qcap=qcaps[b.shape[0]]),
+            BUCKETS, dim=DIM, device=dev, flush_age_s=0.002,
+            max_in_flight=4,
+            admission=AdmissionController(max_concurrent=4, max_queue=256),
+            flight=FlightRecorder(capacity=256, name="lockcheck"),
+            result_cache=ResultCache(K, device=dev,
+                                     registry=MetricRegistry()),
+            registry=MetricRegistry(), name="lockcheck")
+        check(isinstance(ex._lock, lockcheck.TracedLock),
+              "the executor's lock is not traced")
+        counts = collections.Counter()
+        accepted = []
+        res_lock = threading.Lock()
+
+        def submitter(seed):
+            srng = np.random.default_rng(seed)
+            for _ in range(LC_PER_SUBMITTER):
+                m = int(srng.integers(1, 65))
+                rows = templates[srng.integers(0, LC_TEMPLATES, m)]
+                try:
+                    fut = ex.submit(rows)
+                except errors.RaftLogicError:
+                    with res_lock:
+                        counts["closed"] += 1
+                    return
+                except errors.RaftOverloadError:
+                    with res_lock:
+                        counts["shed"] += 1
+                    continue
+                with res_lock:
+                    accepted.append((m, fut))
+
+        threads = [threading.Thread(target=submitter,
+                                    args=(args.seed + 91 + i,),
+                                    name=f"lockcheck-submitter-{i}")
+                   for i in range(LC_SUBMITTERS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while (len(accepted) < LC_CLOSE_AFTER
+               and any(t.is_alive() for t in threads)
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        ex.close(timeout_s=120)
+        for t in threads:
+            t.join(60)
+        check(not any(t.is_alive() for t in threads),
+              "a submitter wedged against close()")
+        check(not ex._batcher.is_alive() and not ex._drainer.is_alive(),
+              "an executor loop outlived close()")
+        for m, fut in accepted:
+            check(fut.done(), "an accepted request never resolved")
+            if fut.exception() is not None:
+                counts["failed"] += 1
+                continue
+            d, i = (np.asarray(torch.as_tensor(a).cpu()) for a in
+                    fut.result())
+            check(d.shape == i.shape == (m, K) and np.isfinite(d).all()
+                  and ((i >= 0) & (i < LC_ROWS)).all(),
+                  f"a traced answer of shape {d.shape} is not finite ids")
+            counts["answered"] += 1
+        check(counts["answered"] >= LC_CLOSE_AFTER // 2,
+              f"only {counts['answered']} traced requests answered")
+        try:
+            ex.submit(templates[:1])
+            check(False, "a submit after close() was accepted")
+        except errors.RaftLogicError:
+            pass
+        # 2. a durable-ingest round through the WAL
+        with tempfile.TemporaryDirectory() as tmp:
+            w = wal.WalWriter(os.path.join(tmp, "wal"),
+                              flush_interval_s=0.0005)
+            ing = wal.DurableIngest(mut.wrap_mutable(index, delta_cap=32),
+                                    w)
+            check(isinstance(ing._lock, lockcheck.TracedLock),
+                  "the ingest lock is not traced")
+            for r in range(LC_INGEST_ROUNDS):
+                src = rng.integers(0, LC_ROWS, LC_INGEST_ROWS)
+                ids = (LC_ROWS + r * LC_INGEST_ROWS
+                       + np.arange(LC_INGEST_ROWS, dtype=np.int32))
+                check(bool(np.asarray(ing.upsert(
+                    x[src] + 0.01, ids.astype(np.int32))).all()),
+                      f"ingest round {r}: an upsert was refused")
+                check(bool(np.asarray(ing.delete(
+                    np.asarray([r], np.int32))).all()),
+                      f"ingest round {r}: a delete missed")
+            ing.close()
+            counts["ingest_lsn"] = int(ing.applied_lsn)
+        # 3. the supervisor's kill -> reroute -> heal cycle
+        cuda0 = (torch.device("cuda", torch.cuda.current_device())
+                 if dev.type == "cuda" else dev)
+        row = self_heal_row(build_comms([cuda0] * SHARD_P), x, templates,
+                            k=K, n_probes=16, kill_at_s=0.2,
+                            heal_at_s=0.9, duration_s=1.6,
+                            seed=args.seed + 92)
+        check("error" not in row and row["failed_requests"] == 0
+              and row["supervisor_heals_ok"] >= 1 and row["all_serving"],
+              f"traced heal: {row}")
+        # every nested acquisition off the pinned order, or under a lock
+        # at a dispatch, is a violation; an observed edge is a blessed one
+        lockcheck.assert_clean()
+        edges = lockcheck.observed_edges()
+        outliers = lockcheck.hold_outliers()
+    finally:
+        lockcheck.set_enabled(prev)
+    n_edges = sum(len(b) for b in edges.values())
+    worst = collections.Counter(o.lock for o in outliers)
+    line = {
+        "static_findings": len(static["lint"]["findings"])
+        + len(static["threads"]["findings"]),
+        "pinned_edges": len(static["threads"]["edges"]),
+        "violations": len(lockcheck.violations()),
+        "observed_edges": n_edges,
+        "edges": sorted(f"{a} -> {b}" for a, bs in edges.items()
+                        for b in bs),
+        "hold_outliers": len(outliers),
+        "hold_outlier_ms_max": max((o.held_ms for o in outliers),
+                                   default=0.0),
+        "hold_outlier_locks": dict(worst),
+        "answered": counts["answered"], "closed": counts["closed"],
+        "shed": counts["shed"], "failed": counts["failed"],
+        "ingest_lsn": counts["ingest_lsn"],
+        "heals_ok": row["supervisor_heals_ok"],
+        "traced_s": round(time.perf_counter() - t0, 3),
+    }
+    log(f"[{card}] lock tracer: " + json.dumps(line))
+    lockcheck.clear()
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    # a crash in native code (the kernel libraries, the host library, the
+    # profiler) prints every thread's stack before the process dies
+    faulthandler.enable(all_threads=True)
 
     card = phase_device()
     dev = torch.device("cuda")
@@ -7162,6 +7405,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lockcheck_phase(args, card, dev)
+    log(f"lock-tracer phase: {time.perf_counter() - t0:.1f} s")
     # the library phase's facade brute force and the linkage phase's kNN
     # graphs launched #6 and #7 too
     for entry in kernels:

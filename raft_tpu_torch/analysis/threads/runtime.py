@@ -11,8 +11,9 @@ same claims under real thread interleavings. With
 
 * keeps a per-thread stack of held locks,
 * asserts every acquisition against the pinned partial order in
-  ``ci/checks/lock_order.json`` (an acquisition whose REVERSE path is
-  blessed is an inversion; an edge the graph has never seen is drift),
+  ``raft_tpu_torch/analysis/lock_order.json`` (an acquisition whose
+  REVERSE path is blessed is an inversion; an edge the graph has never
+  seen is drift),
 * records lock-hold-time outliers into the
   ``lock_hold_ms{lock=...}`` histogram of the process registry
   (:mod:`raft_tpu_torch.obs.metrics`), and
@@ -57,13 +58,10 @@ __all__ = [
     "clear", "assert_clean",
 ]
 
-#: where the blessed partial order lives (written by the JAX package's
-#: ``python -m raft_tpu.analysis --threads --write-lock-order``); the
-#: port keeps the reference's lock names, so one file covers both
-DEFAULT_LOCK_ORDER = (
-    Path(__file__).resolve().parents[3] / "ci" / "checks"
-    / "lock_order.json"
-)
+#: where the port's blessed partial order lives (written from the port's
+#: own source by ``python -m raft_tpu_torch.analysis --threads
+#: --write-lock-order raft_tpu_torch``)
+DEFAULT_LOCK_ORDER = Path(__file__).resolve().parents[1] / "lock_order.json"
 
 
 def _env_enabled() -> bool:
@@ -139,7 +137,7 @@ def pinned_order() -> Dict[str, Set[str]]:
 
 
 def load_pinned_order(path: Optional[Path] = None) -> bool:
-    """Load ``ci/checks/lock_order.json`` (or ``path``); returns
+    """Load the port's ``lock_order.json`` (or ``path``); returns
     whether a file was found. Missing file pins the EMPTY order — every
     nested acquisition then reports as drift, which is the correct
     failure mode for a repo that lost its contract file."""

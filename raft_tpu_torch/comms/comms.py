@@ -422,7 +422,8 @@ class _Turns:
 
     def _runnable(self, k: int) -> bool:
         rec = self.waits[k]
-        return not self.done[k] and (rec is None or rec.complete)
+        # every caller (pass_turn, await_turn) holds self.lock
+        return not self.done[k] and (rec is None or rec.complete)  # jaxlint: disable=unguarded-shared-state
 
     def pass_turn(self, r: int) -> None:
         """Hand the turn on from rank ``r`` (the lock held)."""

@@ -28,6 +28,17 @@ import torch
 
 from raft_tpu_torch.core import logger
 
+# Kineto tears CUPTI down at the end of each capture only when
+# TEARDOWN_CUPTI is "1". Without it, a capture stopped while other threads
+# allocate pinned memory and launch (a ProfileTrigger firing under load)
+# segfaulted the process now and then on an H100 (torch 2.11, CUDA 12.8),
+# and a later capture could miss the card's kernels; with it from the
+# process's first capture on, none did. Turned on only after a first
+# capture, captures hung or lost their kernels there, so it is set when
+# this module is imported, before any capture the port makes. A value the
+# caller set is kept.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
 # the global range-enable gate (the NVTX_ENABLED analog): a list cell so
 # every reader shares it by reference
 _ENV_DEFAULT: bool = (

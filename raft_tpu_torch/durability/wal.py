@@ -688,6 +688,11 @@ class DurableIngest:
     def __init__(self, mindex, wal: WalWriter, *,
                  applied_lsn: typing.Optional[int] = None):
         self._lock = lockcheck.make_lock("DurableIngest._lock")
+        # the mutation tier's metric series of this index, made here:
+        # the first upsert or delete would make them under self._lock,
+        # an acquisition (-> mutation._mseries_lock) no path of the
+        # pinned lock order takes
+        _mutation()._mseries(mindex.name)
         self._mindex = mindex
         self._wal = wal
         self._applied_lsn = int(

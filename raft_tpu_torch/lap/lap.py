@@ -14,7 +14,10 @@ while the others go on (``vmap``'s semantics of a batched while loop).
 
 f32 costs compute in f32, as on the JAX package's CPU; f64 costs compute
 in f64 (the reference's double instantiation, which the JAX package
-reaches only under x64).
+reaches only under x64). Unlike the JAX package, each phase's epsilon is
+at least the cost type's spacing at the largest price the phase can
+reach (:func:`_eps_floor`), so an f32 auction ends where the JAX one
+stalls.
 """
 
 from __future__ import annotations
@@ -96,6 +99,23 @@ def _phase_eps(benefits):
     return eps0[:, None] * factor[:, None] ** steps[None, :]
 
 
+def _eps_floor(eps, prices, reach):
+    """A phase's epsilon (B, 1), raised where it is below the spacing of
+    the cost type at the largest price the phase can reach: the largest
+    price at its start plus ``reach``, twice the benefit spread. (A bid
+    leaves its row's value at the column at its best other value less
+    epsilon, so no price passes that of a column still unassigned, which
+    no bid of the phase has moved, by more than the spread and epsilon.)
+    A bid then always moves its price; an epsilon below that spacing
+    leaves a tied column's price where it was, and its two rows evict
+    each other for ever (f32 costs of the scale of 1,000). Computed on
+    the device, with no host sync. f64 spacings at such scales stay far
+    below the schedule, which then stays as it was."""
+    top = torch.amax(prices.abs(), 1, keepdim=True) + reach
+    spacing = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    return torch.maximum(eps, spacing)
+
+
 class _Rounds:
     """A batch's auction rounds on state tensors updated in place: each
     round moves the problems that still have an unassigned row (the
@@ -157,9 +177,14 @@ def _solve(cost, maximize: bool, info: Optional[dict]):
     epss = _phase_eps(benefits)
     rounds_ = _Rounds(benefits, torch.zeros((bsz, n), dtype=cost.dtype,
                                             device=cost.device))
+    flat = benefits.reshape(bsz, -1)
+    reach = 2.0 * (torch.amax(flat, 1, keepdim=True)
+                   - torch.amin(flat, 1, keepdim=True))
     rounds = syncs = 0
     for ph in range(_N_PHASES):
-        rounds_.phase(epss[:, ph:ph + 1])    # the prices persist
+        # the prices persist
+        rounds_.phase(_eps_floor(epss[:, ph:ph + 1], rounds_.state.prices,
+                                 reach))
         while True:
             syncs += 1
             if not bool(torch.any(rounds_.active)):

@@ -159,7 +159,6 @@ class FlightRecorder:
     def __repr__(self) -> str:
         with self._lock:
             n = len(self._ring)
-        # repr races are benign: len() of a grow-only list
-        nd = len(self.dumps_written)
+            nd = len(self.dumps_written)
         return (f"FlightRecorder(name={self.name!r}, events={n}/"
                 f"{self.capacity}, dumps={nd})")

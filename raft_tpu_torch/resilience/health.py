@@ -74,13 +74,13 @@ class ShardHealth:
     def n_ranks(self) -> int:
         # .shape is immutable metadata of an array that is only ever
         # mutated in place, never rebound — safe to read unlocked
-        return self._up.shape[0]
+        return self._up.shape[0]  # jaxlint: disable=unguarded-shared-state
 
     def _check_rank(self, rank: int) -> None:
         errors.expects(   # .shape reads: immutable metadata, see n_ranks
-            0 <= rank < self._up.shape[0],
+            0 <= rank < self._up.shape[0],  # jaxlint: disable=unguarded-shared-state
             "ShardHealth: rank %d out of range [0, %d)",
-            rank, self._up.shape[0],
+            rank, self._up.shape[0],  # jaxlint: disable=unguarded-shared-state
         )
 
     def mark_down(self, rank: int) -> None:
@@ -198,7 +198,7 @@ class HealthMonitor:
     @property
     def n_ranks(self) -> int:
         # immutable array metadata, see ShardHealth.n_ranks
-        return self._confirmed.shape[0]
+        return self._confirmed.shape[0]  # jaxlint: disable=unguarded-shared-state
 
     def _check_rank(self, rank: int) -> None:
         errors.expects(   # .shape reads: immutable metadata

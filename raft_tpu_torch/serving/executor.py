@@ -630,8 +630,8 @@ class ServingExecutor:
                     # a (P,) routing array at flip time — not the
                     # per-batch hot path
                     fields[f"{key}_route"] = (
-                        route.tolist() if isinstance(route, torch.Tensor)
-                        else np.asarray(route).tolist())
+                        route.tolist() if isinstance(route, torch.Tensor)  # jaxlint: disable=sync-in-hot-path
+                        else np.asarray(route).tolist())  # jaxlint: disable=sync-in-hot-path
             self.flight.record("runtime_update", **fields)
 
     def _hist(self, stage_name: str, bucket: int) -> obs_metrics.Histogram:

@@ -334,7 +334,8 @@ def open_loop_row(make_run: Callable, qall, *, buckets=(128, 1024),
             seed + 1)
         row[f"gen_lag_ms_{tag}"] = round(lag * 1e3, 3)
         if lat_ms:
-            lat = np.asarray(lat_ms)
+            # the point's host latency list, after its run — no device
+            lat = np.asarray(lat_ms)  # jaxlint: disable=sync-in-hot-path
             row[f"p50_ms_{tag}"] = round(float(np.percentile(lat, 50)), 3)
             row[f"p99_ms_{tag}"] = round(float(np.percentile(lat, 99)), 3)
             row[f"achieved_qps_{tag}"] = round(qps, 1)

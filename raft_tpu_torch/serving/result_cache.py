@@ -204,10 +204,11 @@ def semantic_recall(queries, search_fn, signer: CentroidSigner,
             for b in members:
                 if a == b:
                     continue
-                mine = set(ids[a].tolist()) - {-1}
+                # host numpy on an eager audit — not the serving loop
+                mine = set(ids[a].tolist()) - {-1}  # jaxlint: disable=sync-in-hot-path
                 if not mine:
                     continue
-                served = set(ids[b].tolist())
+                served = set(ids[b].tolist())  # jaxlint: disable=sync-in-hot-path
                 recalls.append(len(mine & served) / len(mine))
     return float(np.mean(recalls)) if recalls else None
 

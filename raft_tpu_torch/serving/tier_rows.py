@@ -228,8 +228,9 @@ def cold_tier_row(index, qall, *, k: int, n_probes: int,
                 row[f"tier_hit_rate_{tag}"] = round(
                     hits / (hits + misses), 3)
             if lat_ms:
+                # the point's host latency list, after its run
                 row[f"p99_ms_{tag}"] = round(
-                    float(np.percentile(np.asarray(lat_ms), 99)), 3)
+                    float(np.percentile(np.asarray(lat_ms), 99)), 3)  # jaxlint: disable=sync-in-hot-path
 
         send = store.stats()
         dh = send.probe_hits - s0.probe_hits

@@ -83,7 +83,7 @@ class ScriptedHealth:
     @property
     def n_ranks(self) -> int:
         # immutable array metadata (see ShardHealth.n_ranks)
-        return self._up.shape[0]
+        return self._up.shape[0]  # jaxlint: disable=unguarded-shared-state
 
     def set(self, rank: int, up: bool) -> None:
         errors.expects(0 <= rank < self.n_ranks,

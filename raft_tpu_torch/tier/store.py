@@ -343,8 +343,10 @@ class TieredListStore:
 
     @property
     def host_bytes(self) -> int:
-        """Bytes of the cold tier's host snapshot (rows and ids)."""
-        return _nbytes(self._data_host) + _nbytes(self._sids_host)
+        """Bytes of the cold tier's host snapshot (rows and ids), of one
+        consistent snapshot (``refresh_host`` swaps both under _lock)."""
+        with self._lock:
+            return _nbytes(self._data_host) + _nbytes(self._sids_host)
 
     # -- serving ---------------------------------------------------------
     def stage(self, queries: np.ndarray) -> StagedQueries:

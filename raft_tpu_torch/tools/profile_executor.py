@@ -72,7 +72,8 @@ def cache_calls(card, pool, reqs, dev):
         d = np.sort(rng.random((r.shape[0], K)).astype(np.float32), 1)
         i = rng.integers(0, 10 ** 6, (r.shape[0], K)).astype(np.int32)
         t0 = time.perf_counter()
-        got = cache.lookup(r, epoch=0)
+        # a frozen cache: nothing mutates it, so epoch 0 is the contract
+        got = cache.lookup(r, epoch=0)  # jaxlint: disable=stale-epoch-read
         t1 = time.perf_counter()
         cache.insert(r, d, i, epoch=0)
         t2 = time.perf_counter()
@@ -81,7 +82,7 @@ def cache_calls(card, pool, reqs, dev):
         ins.append(1e3 * (t2 - t1))
     for r in reqs:
         t0 = time.perf_counter()
-        cache.lookup(r, epoch=0)
+        cache.lookup(r, epoch=0)  # jaxlint: disable=stale-epoch-read
         hit.append(1e3 * (time.perf_counter() - t0))
     print(f"[{card}] result cache on {dev.type}, no executor: lookup "
           f"(miss) p50 {_p(miss, 50):.3f} / p99 {_p(miss, 99):.3f} ms, "

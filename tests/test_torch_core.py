@@ -226,6 +226,19 @@ class TestAnnotate:
         files = list(tmp_path.glob("trace_*.json"))
         assert len(files) == 1 and "traced range" in files[0].read_text()
 
+    @pytest.mark.parametrize("preset", [None, "0"])
+    def test_import_asks_for_cupti_teardown(self, monkeypatch, preset):
+        """Importing the module asks Kineto to tear CUPTI down at each
+        capture's end (a stop under live launches is safe only so, and
+        only when it holds from the process's first capture on), unless
+        the caller set TEARDOWN_CUPTI, whose value is kept."""
+        monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+        prog = ("import importlib, os\n"
+                "importlib.import_module('raft_tpu_torch.core.annotate')\n"
+                "print(os.environ.get('TEARDOWN_CUPTI'))")
+        env = {} if preset is None else {"TEARDOWN_CUPTI": preset}
+        assert _run(prog, env) == (preset or "1")
+
     def test_env_switch(self):
         prog = ("import importlib\n"
                 "a = importlib.import_module('raft_tpu_torch.core.annotate')\n"

@@ -8,14 +8,17 @@ Tolerances, and why:
 * labels, matrix helpers: bitwise (integer work, gathers, copies, the
   same f32 elementwise ops);
 * the auction: ``_auction_round`` is held to the JAX round op for op,
-  bitwise, on the same state. Whole solves are bitwise (assignments,
-  prices through the phases, objectives) once both packages run the
-  same epsilon schedule: the schedule's f32 ``exp`` / ``log`` are XLA's
+  bitwise, on the same state. Whole solves are bitwise (assignments and
+  objectives; the prices too until the port's epsilon floor, below,
+  rises above the schedule) once both packages run the same epsilon
+  schedule: the schedule's f32 ``exp`` / ``log`` are XLA's
   CPU approximations in the JAX package, torch's here, which differ in
   the last bit on some inputs, so the tests hand the port JAX's
   schedule. With its own schedule the port's assignments equal JAX's on
   integer costs with a unique optimum, and its objectives scipy's
-  exactly;
+  exactly; f32 integer costs in [0, 1000] at 64 and 1,024, where the
+  JAX package's auction stalls, end at scipy's objective exactly (the
+  port floors each phase's epsilon at the prices' spacing);
 * float costs (``tests/test_label_lap_cache_spectral.py``'s cases):
   objectives within 1e-3 of the brute-force optimum, as there.
 """
@@ -221,6 +224,36 @@ def test_solve_lap_f64_computes_in_f64():
     r, c = linear_sum_assignment(cost)
     assert float(total) == cost[r, c].sum()
     assert sorted(rows.tolist()) == list(range(64))
+
+
+@pytest.mark.parametrize("n,cap", [(64, 5_000), (1024, 40_000)])
+def test_solve_lap_f32_ends_at_scale(monkeypatch, n, cap):
+    """f32 integer costs in [0, 1000], where the prices' spacing passes
+    the schedule's last epsilons (at 64, seed 0, the JAX package's solve
+    stalls in phase 8): the port's floored epsilon ends the auction,
+    under a round cap that raises rather than hangs, with scipy's
+    objective."""
+    from scipy.optimize import linear_sum_assignment
+
+    run = tlap._Rounds.run
+    done = [0]
+
+    def capped(self):
+        done[0] += 1
+        if done[0] > cap:
+            raise RuntimeError(f"the auction passed {cap} rounds")
+        run(self)
+
+    monkeypatch.setattr(tlap._Rounds, "run", capped)
+    cost = np.random.default_rng(0).integers(0, 1001, (n, n)).astype(
+        np.float32)
+    info = {}
+    rows, total = tlap.solve_lap(torch.as_tensor(cost), info=info)
+    assert total.dtype == torch.float32
+    assert sorted(rows.tolist()) == list(range(n))
+    r, c = linear_sum_assignment(cost)
+    assert float(total) == cost[r, c].sum()
+    assert info["syncs"] == info["rounds"] + 10 == done[0] + 10
 
 
 def _brute(cost):
