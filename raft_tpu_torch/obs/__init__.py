@@ -28,7 +28,6 @@ from raft_tpu_torch.obs.metrics import (
     MetricRegistry,
     default_registry,
     enabled,
-    program_census,
     set_enabled,
 )
 
@@ -42,5 +41,4 @@ __all__ = [
     "default_registry",
     "enabled",
     "set_enabled",
-    "program_census",
 ]

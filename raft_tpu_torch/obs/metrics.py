@@ -7,7 +7,7 @@ The reference library's observability surface stops at NVTX ranges
 captured by hand, but a serving tier at the ROADMAP's design point
 (millions of users, bounded p99) needs numbers it can read while
 serving — live shed rates, per-stage latency quantiles, delta fill,
-compiled-program counts. This module is that layer
+dropped probe pairs. This module is that layer
 (docs/observability.md):
 
 * :class:`MetricRegistry` — the process-wide home of every series.
@@ -33,11 +33,10 @@ compiled-program counts. This module is that layer
   or dump it), and :meth:`MetricRegistry.start_emitter` (a daemon
   thread appending one JSON line per interval — the poor host's
   time-series database).
-* :func:`program_census` — the LIVE retrace gauge: reads
-  ``fn._cache_size()`` off entry points that keep a program cache into
-  ``compiled_programs{entry=...}`` gauges (entries without one are
-  skipped), so a program count becomes a runtime metric an alert can
-  watch.
+* :meth:`Counter.inc_deferred` — a count that is still on the device
+  (the IVF searches' dropped (query, probe) pairs,
+  :mod:`raft_tpu_torch.spatial.ann.search_obs`), folded into the
+  counter when it is read, so recording it adds no host sync.
 
 Everything honors the global enable gate: ``RAFT_TPU_OBS=off`` (or
 ``0``/``false``) in the environment, or :func:`set_enabled`, turns
@@ -45,7 +44,8 @@ every ``inc``/``set``/``observe``/``record`` into an attribute-load +
 return — measured as ``obs_overhead_pct`` in the open-loop row
 (:mod:`raft_tpu_torch.serving.open_loop`).
 
-Every recorder call is host-side: thread loops, demux tails.
+Every recorder call runs on the host and waits for no device: thread
+loops, demux tails, the searches' counts.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from raft_tpu_torch import errors
 __all__ = [
     "MetricRegistry", "Counter", "Gauge", "Histogram",
     "default_registry", "enabled", "set_enabled",
-    "quantile_from_counts", "merged_quantile", "program_census",
+    "quantile_from_counts", "merged_quantile",
 ]
 
 
@@ -127,15 +127,17 @@ class _Instrument:
 
 
 class Counter(_Instrument):
-    """A monotonic event count. ``inc(n)`` is the only writer."""
+    """A monotonic event count. ``inc(n)`` adds a host count;
+    ``inc_deferred(t)`` adds one still on a device."""
 
-    __slots__ = ("_value",)
+    __slots__ = ("_value", "_pending")
 
     kind = "counter"
 
     def __init__(self, name, labels):
         super().__init__(name, labels)
         self._value = 0
+        self._pending: Dict[Any, Any] = {}     # device -> summed count
 
     def inc(self, n: int = 1) -> None:
         if not _ENABLED[0]:
@@ -143,9 +145,27 @@ class Counter(_Instrument):
         with self._lock:
             self._value += n
 
+    def inc_deferred(self, n) -> None:
+        """Add a count that is still on its device (a 0-d integer
+        tensor): it stays there, summed per device, and is folded into
+        :attr:`value` when the value is read, so the caller adds no host
+        sync."""
+        if not _ENABLED[0]:
+            return
+        key = getattr(n, "device", None)
+        with self._lock:
+            acc = self._pending.get(key)
+            self._pending[key] = n if acc is None else acc + n
+
     @property
     def value(self) -> int:
         with self._lock:
+            pending, self._pending = self._pending, {}
+        # read the device counts outside the lock: each read waits for
+        # its device
+        folded = sum(int(n) for n in pending.values())
+        with self._lock:
+            self._value += folded
             return self._value
 
 
@@ -572,27 +592,3 @@ def default_registry() -> MetricRegistry:
     """The process-wide registry every instrumented subsystem records
     into unless handed another one."""
     return _DEFAULT
-
-
-def program_census(entries: Mapping[str, Any], *,
-                   registry: Optional[MetricRegistry] = None,
-                   name: str = "compiled_programs") -> Dict[str, int]:
-    """The LIVE retrace gauge: read each entry point's compiled-program
-    count (``fn._cache_size()``) into
-    ``compiled_programs{entry=...}`` gauges. Returns the census dict.
-
-    Run it after warmup to pin the baseline, then periodically under
-    traffic: a census that GROWS between reads is a retrace on the hot
-    path — the zero-retrace contract violated at runtime, visible
-    without a trace audit. Entries without a ``_cache_size`` attribute
-    (plain closures) are skipped, not errors."""
-    reg = default_registry() if registry is None else registry
-    out: Dict[str, int] = {}
-    for entry, fn in entries.items():
-        size_fn = getattr(fn, "_cache_size", None)
-        if size_fn is None:
-            continue
-        n = int(size_fn())
-        out[entry] = n
-        reg.gauge(name, entry=entry).set(n)
-    return out

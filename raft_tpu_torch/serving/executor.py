@@ -65,6 +65,7 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.analysis.threads import runtime as lockcheck
 from raft_tpu_torch.core import tree as _tree
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import resolve_device
 from raft_tpu_torch.core.interruptible import Interruptible
 from raft_tpu_torch.obs import crash as obs_crash
@@ -86,12 +87,14 @@ __all__ = ["ServingExecutor", "ExecutorStats", "STAGES"]
 # ``serving_stage_ms{executor,stage,bucket}`` histogram recorded from
 # timestamps the executor already takes (docs/observability.md "Stage
 # timing"): queue_wait (submit → packed), batch_build (pack + pad),
-# staging (pinned copy + enqueued host→device copy), dispatch_ready
+# staging (pinned copy + enqueued host→device copy), dispatch (the
+# batcher thread's host time in the dispatch closure and the enqueued
+# copy back, inside a ``serve.dispatch`` range), dispatch_ready
 # (dispatch → the drain loop sees the batch's event done — the polling
 # gives it for free, no synchronize), demux (reading the pinned results
 # + per-request slicing), e2e (submit → future resolved)
-STAGES = ("queue_wait", "batch_build", "staging", "dispatch_ready",
-          "demux", "e2e")
+STAGES = ("queue_wait", "batch_build", "staging", "dispatch",
+          "dispatch_ready", "demux", "e2e")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -803,13 +806,16 @@ class ServingExecutor:
                 staged, pinned = self._stage_batch(batch.queries)
                 t0 = self._clock()
                 lockcheck.note_dispatch("ServingExecutor._dispatch")
-                out = self._to_host(self._dispatch(staged, **runtime),
-                                    pinned)
+                with annotate("serve.dispatch"):
+                    out = self._to_host(self._dispatch(staged, **runtime),
+                                        pinned)
+                t1 = self._clock()
             # staging is the host-side cost of the pinned copy and the
             # enqueued transfer — the transfer itself overlaps compute
             # (that's the point); a blocking stage override shows up here
             self._hist("staging", batch.bucket).observe(
                 (t0 - t_s0) * 1e3)
+            self._hist("dispatch", batch.bucket).observe((t1 - t0) * 1e3)
             if self.flight is not None:
                 self.flight.record(
                     "dispatch", batch_id=batch.batch_id,

@@ -27,7 +27,9 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import errors
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import as_tensor, call_device, full_f32
+from raft_tpu_torch.spatial.ann import search_obs
 from raft_tpu_torch.spatial.ann.scan_core import BIG, SUBCHUNK
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
@@ -606,20 +608,29 @@ def _eager_probe(q, centroids, n_probes: int, coarse=None,
     the coarse index exists to avoid, and the drop stats should describe
     the probe map served), else the flat scan."""
     qf = q.float()
-    if coarse is not None:
-        probes, _ = two_level_probe(
-            qf, coarse.super_cents, coarse.member_ids, coarse.cents_padded,
-            coarse.n_cents, n_probes,
-            n_super_probes(n_probes, coarse.n_super, overprobe),
-        )
+    with annotate("ivf.probe"):
+        if coarse is not None:
+            probes, _ = two_level_probe(
+                qf, coarse.super_cents, coarse.member_ids,
+                coarse.cents_padded, coarse.n_cents, n_probes,
+                n_super_probes(n_probes, coarse.n_super, overprobe),
+            )
+            return probes
+        probes, _ = coarse_probe(qf, centroids, n_probes)
         return probes
-    probes, _ = coarse_probe(qf, centroids, n_probes)
-    return probes
+
+
+def _probes_on_host(probes, engine: str):
+    """The eager probe map read to the host once, for the qcap sizing and
+    audit (:func:`probe_drop_stats` on a device tensor reads it again at
+    every call): a host sync of the search, counted at site ``qcap``."""
+    with search_obs.host_sync(engine, "qcap"):
+        return probes.cpu().numpy()
 
 
 def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
                      max_drop_frac=None, coarse=None,
-                     overprobe: float = 2.0):
+                     overprobe: float = 2.0, engine: str = "ivf"):
     """qcap argument of the grouped searches: ``None`` -> the recall-safe
     auto path (:func:`auto_qcap`), ``"throughput"`` ->
     :func:`throughput_qcap` (its first call per signature and index
@@ -627,7 +638,8 @@ def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
     every call and falls back to the auto cap above that fraction), an
     int -> as-is. ``coarse`` / ``overprobe``: the eager probes of the
     auto and audit paths go through the two-level probe
-    (:func:`_eager_probe`). Returns (qcap, probes_or_none)."""
+    (:func:`_eager_probe`); ``engine`` labels their host sync
+    (:mod:`.search_obs`). Returns (qcap, probes_or_none)."""
     if qcap == "throughput":
         nq = q.shape[0]
         qc = throughput_qcap(nq, n_probes, n_lists)
@@ -636,10 +648,11 @@ def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
                                                                sig):
             return qc, None
         probes = _eager_probe(q, centroids, n_probes, coarse, overprobe)
-        stats = probe_drop_stats(probes, n_lists, qc)
+        probes_np = _probes_on_host(probes, engine)
+        stats = probe_drop_stats(probes_np, n_lists, qc)
         _THROUGHPUT_AUDITED.add(centroids, sig)
         if max_drop_frac is not None and stats["frac"] > max_drop_frac:
-            qc2 = resolve_qcap(probes, n_lists, nq, n_probes,
+            qc2 = resolve_qcap(probes_np, n_lists, nq, n_probes,
                                max_drop_frac=max_drop_frac)
             logger.warning(
                 "qcap='throughput' (=%d) would drop %.2f%% of probe "
@@ -660,7 +673,7 @@ def resolve_qcap_arg(qcap, q, centroids, n_lists: int, n_probes: int,
         return qc, probes
     if qcap is None:
         return auto_qcap(q, centroids, n_lists, n_probes, coarse=coarse,
-                         overprobe=overprobe)
+                         overprobe=overprobe, engine=engine)
     errors.expects(
         isinstance(qcap, (int, np.integer)) and not isinstance(qcap, bool),
         "qcap must be an int, None, or 'throughput'; got %r", qcap,
@@ -703,12 +716,14 @@ def resolve_qcap(probes, n_lists: int, nq: int, n_probes: int,
 
 
 def auto_qcap(q, centroids, n_lists: int, n_probes: int, coarse=None,
-              overprobe: float = 2.0):
+              overprobe: float = 2.0, engine: str = "ivf"):
     """qcap=None path: probe eagerly (two-level when ``coarse`` is given,
-    :func:`_eager_probe`), size qcap from the actual map, and hand the
-    probes back for reuse. Returns (qcap, probes)."""
+    :func:`_eager_probe`), size qcap from the actual map, read to the
+    host once, and hand the probes back for reuse. Returns (qcap,
+    probes)."""
     probes = _eager_probe(q, centroids, n_probes, coarse, overprobe)
-    return resolve_qcap(probes, n_lists, q.shape[0], n_probes), probes
+    return (resolve_qcap(_probes_on_host(probes, engine), n_lists,
+                         q.shape[0], n_probes), probes)
 
 
 def static_qcap(qcap, nq: int, n_probes: int, n_lists: int) -> int:

@@ -21,8 +21,9 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import full_f32, hopper_device, resolve_device
-from raft_tpu_torch.spatial.ann import flat_kernel, scan_core, sq_kernel
+from raft_tpu_torch.spatial.ann import flat_kernel, scan_core, search_obs, sq_kernel
 from raft_tpu_torch.spatial.ann.common import (
     RERANK_BLOCK_BYTES,
     ListStorage,
@@ -114,11 +115,12 @@ class IVFFlatIndex:
         qc = static_qcap(qcap, nq, n_probes, self.centroids.shape[0])
         q0 = torch.zeros((nq, self.centroids.shape[1]), dtype=torch.float32,
                          device=self.device)
-        ivf_flat_search_grouped(
-            self, q0, k, n_probes=n_probes, qcap=qc,
-            list_block=list_block, stream_partials=stream_partials,
-            use_kernel=use_kernel, rerank_ratio=rerank_ratio,
-        )
+        with search_obs.uncounted():
+            ivf_flat_search_grouped(
+                self, q0, k, n_probes=n_probes, qcap=qc,
+                list_block=list_block, stream_partials=stream_partials,
+                use_kernel=use_kernel, rerank_ratio=rerank_ratio,
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return qc
@@ -273,10 +275,14 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         return sq_decode(rows_f32, dequant[0], dequant[1])
 
     if probes is None:
-        probes, _ = coarse_probe(qf, index.centroids, p)     # (nq, p)
-    qmat, rmat, l_flat, slot = invert_probe_map_ranked(probes, n_lists,
-                                                       qcap)
-    qmat_l = qmat.long()
+        with annotate("ivf.probe"):
+            probes, _ = coarse_probe(qf, index.centroids, p)  # (nq, p)
+    with annotate("ivf.invert"):
+        qmat, rmat, l_flat, slot = invert_probe_map_ranked(probes, n_lists,
+                                                           qcap)
+        qmat_l = qmat.long()
+    search_obs.count_pairs("ivf_flat" if dequant is None else "ivf_sq",
+                           slot, qcap)
 
     q_pad = torch.cat([qf, torch.zeros((1, d), dtype=f32, device=dev)])
     qn_pad = torch.cat([torch.sum(qf * qf, dim=1),
@@ -355,40 +361,43 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
         # ~2 GB; the kernel path pools values only
         per_entry = 4 if use_kernel else 8
         stream_partials = n_lists * qcap * width * per_entry > (1 << 31)
-    if stream_partials:
-        # scatter each list block's partials straight into the
-        # query-major (nq, p, width) pool; sentinel slots drop
-        pv = torch.full((nq, p, width), float("inf"), dtype=f32, device=dev)
-        pm = None if use_kernel else torch.full(
-            (nq, p, k), storage.n, dtype=torch.int64, device=dev)
-        for lblk in lids:
-            out = scan_fn(lblk)
-            if use_kernel:
-                scatter_pairs(pv, qmat[lblk], rmat[lblk], out, nq, p)
-            else:
-                scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
-                scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
-        pv = pv.reshape(nq, p * width)
-        if pm is not None:
-            pm = pm.reshape(nq, p * k)
-    elif use_kernel:
-        vals = scan_fn(slice(None))              # one launch for the batch
-        pv = regroup_values(vals, l_flat, slot, nq, p, qcap)
-        pm = None
-    else:
-        outs = [scan_fn(lblk) for lblk in lids]
-        vals = torch.cat([o[0] for o in outs])[:n_lists]
-        mem = torch.cat([o[1] for o in outs])[:n_lists]
-        pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
+    with annotate("ivf.scan"):
+        if stream_partials:
+            # scatter each list block's partials straight into the
+            # query-major (nq, p, width) pool; sentinel slots drop
+            pv = torch.full((nq, p, width), float("inf"), dtype=f32, device=dev)
+            pm = None if use_kernel else torch.full(
+                (nq, p, k), storage.n, dtype=torch.int64, device=dev)
+            for lblk in lids:
+                out = scan_fn(lblk)
+                if use_kernel:
+                    scatter_pairs(pv, qmat[lblk], rmat[lblk], out, nq, p)
+                else:
+                    scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
+                    scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
+            pv = pv.reshape(nq, p * width)
+            if pm is not None:
+                pm = pm.reshape(nq, p * k)
+        elif use_kernel:
+            vals = scan_fn(slice(None))              # one launch for the batch
+            pv = regroup_values(vals, l_flat, slot, nq, p, qcap)
+            pm = None
+        else:
+            outs = [scan_fn(lblk) for lblk in lids]
+            vals = torch.cat([o[0] for o in outs])[:n_lists]
+            mem = torch.cat([o[1] for o in outs])[:n_lists]
+            pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
 
     if use_kernel:
         # rescore the rows of the top-c sub-chunks in exact f32; clamp c
         # to the pool width last
         c = min(p * width, max(k, int(math.ceil(rerank_ratio * k))))
-        rpos, validf = subchunk_pool_rows(pv, c, probes, storage, rows_pad,
-                                          l_pad, width)
-        if row_mask is not None:
-            validf = validf & (row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
+        with annotate("ivf.pool"):
+            rpos, validf = subchunk_pool_rows(pv, c, probes, storage,
+                                              rows_pad, l_pad, width)
+            if row_mask is not None:
+                validf = validf & (
+                    row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
 
         def rerank_blk(args):
             qb, rp, vl = args
@@ -398,15 +407,18 @@ def _grouped_impl(index, q, k, n_probes, qcap, list_block, probes=None,
             return select_candidates(storage, rp, exact, k)
 
         blk_q = max(8, min(nq, RERANK_BLOCK_BYTES // (c * sub * d * 4)))
-        return map_query_blocks(rerank_blk, (qf, rpos, validf), blk_q)
+        with annotate("ivf.rerank"):
+            return map_query_blocks(rerank_blk, (qf, rpos, validf), blk_q)
 
-    fvals, fpos = top_k_smallest(pv, k)
-    fmem = torch.gather(pm, 1, fpos)
-    ids = storage.sorted_ids[torch.clamp(fmem, 0, storage.n - 1)]
-    ids = torch.where(torch.isfinite(fvals), ids, -1).to(torch.int32)
+    with annotate("ivf.pool"):
+        fvals, fpos = top_k_smallest(pv, k)
+        fmem = torch.gather(pm, 1, fpos)
+        ids = storage.sorted_ids[torch.clamp(fmem, 0, storage.n - 1)]
+        ids = torch.where(torch.isfinite(fvals), ids, -1).to(torch.int32)
     return fvals, ids
 
 
+@search_obs.entry("ivf_flat")
 def ivf_flat_search_grouped(
     index: IVFFlatIndex, queries, k: int, *, n_probes: int = 8,
     qcap: typing.Union[int, str, None] = None, list_block: int = 32,
@@ -457,7 +469,7 @@ def ivf_flat_search_grouped(
     n_lists = storage.list_index.shape[0]
     qcap, probes = resolve_qcap_arg(
         qcap, q, index.centroids, n_lists, n_probes,
-        max_drop_frac=qcap_max_drop_frac,
+        max_drop_frac=qcap_max_drop_frac, engine="ivf_flat",
     )
     list_block = max(1, min(list_block, n_lists))
     use_kernel = _resolve_scan_engine(

@@ -45,8 +45,9 @@ from raft_tpu_torch.cluster.kmeans import (
     kmeans_fit_batched,
     kmeans_predict,
 )
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import full_f32, hopper_device, resolve_device
-from raft_tpu_torch.spatial.ann import pq_kernel, scan_core
+from raft_tpu_torch.spatial.ann import pq_kernel, scan_core, search_obs
 from raft_tpu_torch.spatial.ann.common import (
     ListStorage,
     build_list_storage,
@@ -147,13 +148,15 @@ class IVFPQIndex:
         qc = static_qcap(qcap, nq, n_probes, self.centroids.shape[0])
         q0 = torch.zeros((nq, self.centroids.shape[1]), dtype=torch.float32,
                          device=self.device)
-        ivf_pq_search_grouped(
-            self, q0, k, n_probes=n_probes, qcap=qc,
-            list_block=list_block, refine_ratio=refine_ratio,
-            refine_dataset=refine_dataset, exact_selection=exact_selection,
-            approx_recall_target=approx_recall_target,
-            stream_partials=stream_partials, use_kernel=use_kernel,
-        )
+        with search_obs.uncounted():
+            ivf_pq_search_grouped(
+                self, q0, k, n_probes=n_probes, qcap=qc,
+                list_block=list_block, refine_ratio=refine_ratio,
+                refine_dataset=refine_dataset,
+                exact_selection=exact_selection,
+                approx_recall_target=approx_recall_target,
+                stream_partials=stream_partials, use_kernel=use_kernel,
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return qc
@@ -523,38 +526,53 @@ def _pq_kernel_pool(pair_luts, scan, probes, pmap, width: int,
     l_flat = probes.reshape(-1).long()
     live = qmat < nq
     if not stream and nq * p <= max_pairs:
-        luts = pair_luts(l_flat, torch.arange(nq * p, device=dev) // p)
-        lut_map = torch.where(live, qmat * p + rmat, -1).to(torch.int32)
-        return regroup_values(scan(luts, lut_map, 0, n_lists), l_flat,
-                              slot, nq, p, qcap)
-    pair = torch.nonzero(live.reshape(-1)).squeeze(1)          # list-major
+        with annotate("ivf.lut"):
+            luts = pair_luts(l_flat, torch.arange(nq * p, device=dev) // p)
+        with annotate("ivf.scan"):
+            lut_map = torch.where(live, qmat * p + rmat, -1).to(torch.int32)
+            return regroup_values(scan(luts, lut_map, 0, n_lists), l_flat,
+                                  slot, nq, p, qcap)
+    with search_obs.host_sync("ivf_pq", "live_pairs"):
+        pair = torch.nonzero(live.reshape(-1)).squeeze(1)      # list-major
     pair_lists = pair // qcap
     pair_qids = qmat.reshape(-1)[pair].long()
     gmap = torch.full((n_lists * qcap,), -1, dtype=torch.int32, device=dev)
     gmap[pair] = torch.arange(pair.numel(), dtype=torch.int32, device=dev)
     gmap = gmap.reshape(n_lists, qcap)
-    cum = torch.cumsum(live.sum(1), 0).cpu().numpy()
+    cum = torch.cumsum(live.sum(1), 0)
+    with search_obs.host_sync("ivf_pq", "chunk_plan"):
+        cum = cum.cpu().numpy()
     if stream:
         pv = torch.full((nq, p, width), float("inf"), dtype=torch.float32,
                         device=dev)
     else:
         vals = torch.empty((n_lists, qcap, width), dtype=torch.float32,
                            device=dev)
-    for a, b in _lut_chunks(cum, max_pairs, max_lists):
-        p0, p1 = (int(cum[a - 1]) if a else 0), int(cum[b - 1])
-        if p0 == p1:
-            continue
-        luts = pair_luts(pair_lists[p0:p1], pair_qids[p0:p1])
-        gm = gmap[a:b]
-        lut_map = torch.where(gm >= 0, gm - p0, gm)
+
+    def pooled():
         if stream:
-            scatter_pairs(pv, qmat[a:b], rmat[a:b],
-                          scan(luts, lut_map, a, b), nq, p)
-        else:
-            scan(luts, lut_map, a, b, out=vals[a:b])
-    if stream:
-        return pv.reshape(nq, p * width)
-    return regroup_values(vals, l_flat, slot, nq, p, qcap)
+            return pv.reshape(nq, p * width)
+        return regroup_values(vals, l_flat, slot, nq, p, qcap)
+
+    # a chunk without a live pair is skipped: nothing reads its lists
+    chunks = [(a, b) for a, b in _lut_chunks(cum, max_pairs, max_lists)
+              if cum[b - 1] > (cum[a - 1] if a else 0)]
+    for i, (a, b) in enumerate(chunks):
+        p0, p1 = (int(cum[a - 1]) if a else 0), int(cum[b - 1])
+        with annotate("ivf.lut"):
+            luts = pair_luts(pair_lists[p0:p1], pair_qids[p0:p1])
+        with annotate("ivf.scan"):
+            gm = gmap[a:b]
+            lut_map = torch.where(gm >= 0, gm - p0, gm)
+            if stream:
+                scatter_pairs(pv, qmat[a:b], rmat[a:b],
+                              scan(luts, lut_map, a, b), nq, p)
+            else:
+                scan(luts, lut_map, a, b, out=vals[a:b])
+            if i == len(chunks) - 1:
+                # the last chunk's scan range holds the regroup
+                return pooled()
+    return pooled()
 
 
 @full_f32
@@ -585,10 +603,13 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
     inf = float("inf")  # a Python scalar: no host-to-device copy
 
     if probes is None:
-        probes, _ = coarse_probe(qf, cents, p)                 # (nq, p)
-    qmat, rmat, l_flat, slot = invert_probe_map_ranked(probes, n_lists,
-                                                       qcap)
-    qmat_l = qmat.long()
+        with annotate("ivf.probe"):
+            probes, _ = coarse_probe(qf, cents, p)             # (nq, p)
+    with annotate("ivf.invert"):
+        qmat, rmat, l_flat, slot = invert_probe_map_ranked(probes, n_lists,
+                                                           qcap)
+        qmat_l = qmat.long()
+    search_obs.count_pairs("ivf_pq", slot, qcap)
     q_pad = torch.cat([qf, torch.zeros((1, d), dtype=f32, device=dev)])
     # per-(list, query) partial width: must cover the refine pool, not
     # just k (a query's home list can hold most of its top-c candidates)
@@ -608,11 +629,12 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         (LB, qcap, M, K))."""
         lb = lblk.shape[0]
         qids = qmat_l[lblk]                                    # (LB, qcap)
-        res = (q_pad[qids] - cents[lblk][:, None, :]).reshape(
-            lb, qcap, m, ds)
-        dots = torch.einsum("bqmd,mkd->bqmk", res, cb)
-        res_n = torch.sum(res * res, dim=3)                    # (LB, qcap, M)
-        return qids, res_n[..., None] + cb_n[None, None] - 2.0 * dots
+        with annotate("ivf.lut"):
+            res = (q_pad[qids] - cents[lblk][:, None, :]).reshape(
+                lb, qcap, m, ds)
+            dots = torch.einsum("bqmd,mkd->bqmk", res, cb)
+            res_n = torch.sum(res * res, dim=3)                # (LB, qcap, M)
+            return qids, res_n[..., None] + cb_n[None, None] - 2.0 * dots
 
     def block_fn(lblk):                                        # (LB,) list ids
         lb = lblk.shape[0]
@@ -679,37 +701,41 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
             # stream once materialized (n_lists, qcap, width) partials
             # pass ~2 GB
             stream_partials = n_lists * qcap * width * 8 > (1 << 31)
-        if stream_partials:
-            # scatter each list block's partials straight into the
-            # query-major (nq, p, width) pool; sentinel slots drop
-            pv = torch.full((nq, p, width), float("inf"), dtype=f32,
-                            device=dev)
-            pm = torch.full((nq, p, width), storage.n, dtype=torch.int64,
-                            device=dev)
-            for lblk in lids:
-                out = block_fn(lblk)
-                scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
-                scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
-            pv = pv.reshape(nq, p * width)
-            pm = pm.reshape(nq, p * width)
-        else:
-            outs = [block_fn(lblk) for lblk in lids]
-            vals = torch.cat([o[0] for o in outs])[:n_lists]
-            mem = torch.cat([o[1] for o in outs])[:n_lists]
-            pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
+        with annotate("ivf.scan"):
+            if stream_partials:
+                # scatter each list block's partials straight into the
+                # query-major (nq, p, width) pool; sentinel slots drop
+                pv = torch.full((nq, p, width), float("inf"), dtype=f32,
+                                device=dev)
+                pm = torch.full((nq, p, width), storage.n, dtype=torch.int64,
+                                device=dev)
+                for lblk in lids:
+                    out = block_fn(lblk)
+                    scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
+                    scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
+                pv = pv.reshape(nq, p * width)
+                pm = pm.reshape(nq, p * width)
+            else:
+                outs = [block_fn(lblk) for lblk in lids]
+                vals = torch.cat([o[0] for o in outs])[:n_lists]
+                mem = torch.cat([o[1] for o in outs])[:n_lists]
+                pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
 
     if not refine:
-        return select_candidates(storage, pm, pv, k)
+        with annotate("ivf.pool"):
+            return select_candidates(storage, pm, pv, k)
 
     if use_kernel:
         # refine the rows of the top-c sub-chunks (a superset of the
         # one-hot engine's top-c ADC rows) in exact f32; clamp c to the
         # pool width last
         c = min(p * width, max(k, int(math.ceil(refine_ratio * k))))
-        rpos, validf = subchunk_pool_rows(pv, c, probes, storage, rows_pad,
-                                          l_pad, width)
-        if row_mask is not None:
-            validf = validf & (row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
+        with annotate("ivf.pool"):
+            rpos, validf = subchunk_pool_rows(pv, c, probes, storage,
+                                              rows_pad, l_pad, width)
+            if row_mask is not None:
+                validf = validf & (
+                    row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
 
         def refine_blk(args):
             qb, rp, vl = args
@@ -720,18 +746,22 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
 
         blk_q = max(8, min(nq, _REFINE_BLOCK_BYTES
                            // (c * scan_core.SUBCHUNK * d * 4)))
-        return map_query_blocks(refine_blk, (qf, rpos, validf), blk_q)
+        with annotate("ivf.rerank"):
+            return map_query_blocks(refine_blk, (qf, rpos, validf), blk_q)
 
     # exact refinement: top-c of the pooled ADC candidates, f32 rescore
     c = max(k, min(int(math.ceil(refine_ratio * k)), p * kk))
-    nadc, cpos = top_k_smallest(pv, c)                         # (nq, c)
-    rpos = torch.gather(pm, 1, cpos)
-    raw = _gather_refine_rows(index, refine_dataset, rpos)
-    exact = score_l2_candidates(
-        qf, raw, torch.isfinite(nadc) & (rpos < storage.n))
-    return select_candidates(storage, rpos, exact, k)
+    with annotate("ivf.pool"):
+        nadc, cpos = top_k_smallest(pv, c)                     # (nq, c)
+        rpos = torch.gather(pm, 1, cpos)
+    with annotate("ivf.rerank"):
+        raw = _gather_refine_rows(index, refine_dataset, rpos)
+        exact = score_l2_candidates(
+            qf, raw, torch.isfinite(nadc) & (rpos < storage.n))
+        return select_candidates(storage, rpos, exact, k)
 
 
+@search_obs.entry("ivf_pq")
 def ivf_pq_search_grouped(
     index: IVFPQIndex, queries, k: int, *, n_probes: int = 8,
     qcap: typing.Union[int, str, None] = None, list_block: int = 8,
@@ -772,7 +802,7 @@ def ivf_pq_search_grouped(
     n_lists = index.centroids.shape[0]
     qcap, probes = resolve_qcap_arg(
         qcap, q, index.centroids, n_lists, n_probes,
-        max_drop_frac=qcap_max_drop_frac,
+        max_drop_frac=qcap_max_drop_frac, engine="ivf_pq",
     )
     list_block = max(1, min(list_block, n_lists))
     use_kernel = _resolve_adc_engine(

@@ -1,0 +1,112 @@
+"""What the IVF searches record about themselves: phase ranges and
+counters.
+
+The ranges go through :mod:`raft_tpu_torch.core.annotate`, the port's one
+range layer: emitted while its gate is open or a ``torch.profiler``
+capture runs, nothing but a flag check otherwise. Both grouped searches
+(:func:`~.ivf_flat.ivf_flat_search_grouped`,
+:func:`~.ivf_pq.ivf_pq_search_grouped`) and both scan engines (the CUDA
+kernels and the legacy plain-PyTorch scan) use the same names:
+
+* ``ivf_flat.search`` / ``ivf_pq.search`` — the public entry, the whole
+  call;
+* ``ivf.probe`` — the coarse probe (gram and sort), or the eager probe
+  of an auto-sized ``qcap``;
+* ``ivf.invert`` — :func:`~.common.invert_probe_map_ranked`;
+* ``ivf.lut`` — each ADC table build (IVF-PQ: one a LUT chunk on the
+  kernel engine, one a list block inside ``ivf.scan`` on the legacy
+  engine);
+* ``ivf.scan`` — the scan launches and their regroup or scatter into
+  the query-major pool (IVF-PQ's kernel engine: one a LUT chunk, the
+  last holding the regroup);
+* ``ivf.pool`` — the top of the pool: :func:`~.common.subchunk_pool_rows`,
+  or the legacy engine's top-k over the pooled partials;
+* ``ivf.rerank`` — the exact f32 rescoring of the pool's rows;
+* ``ivf.sync`` — each device-to-host read inside a search.
+
+The counters live in :func:`raft_tpu_torch.obs.metrics.default_registry`,
+and ``RAFT_TPU_OBS`` gates them as it gates every series:
+
+* ``ivf_search_calls_total{engine}`` — calls of a public grouped search,
+  always recorded;
+* ``ivf_search_host_syncs_total{engine,site}`` — device-to-host reads
+  inside a search, always recorded; each is an ``ivf.sync`` range;
+* ``ivf_search_pairs_total{engine}`` and
+  ``ivf_search_pairs_dropped_total{engine}`` — the (query, probe) pairs
+  of a search and those past ``qcap`` (``slot >= qcap``), counted only
+  while ranges are emitted and never for a warm-up batch
+  (:func:`uncounted`). The dropped count is a device-side sum folded
+  into the counter when it is read: the search adds no host sync, and
+  with no range emitted no device work either.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from typing import Callable, Iterator
+
+from raft_tpu_torch.core.annotate import annotate, ranges_on
+from raft_tpu_torch.obs import metrics as _metrics
+
+__all__ = ["count_pairs", "entry", "host_sync", "uncounted"]
+
+# counter handles by (name, labels): made in the registry once
+_handles: dict = {}
+# a thread's warm-up in progress (its pairs are not counted)
+_local = threading.local()
+
+
+def _counter(name: str, **labels) -> _metrics.Counter:
+    key = (name, tuple(sorted(labels.items())))
+    c = _handles.get(key)
+    if c is None:
+        c = _handles[key] = _metrics.default_registry().counter(name, **labels)
+    return c
+
+
+def entry(engine: str) -> Callable:
+    """Decorate a public grouped search of ``engine``: count each call
+    and hold the ``<engine>.search`` range around it."""
+    name = f"{engine}.search"
+
+    def wrap(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def search(*args, **kwargs):
+            _counter("ivf_search_calls_total", engine=engine).inc()
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return search
+    return wrap
+
+
+def host_sync(engine: str, site: str):
+    """Count one device-to-host read at ``site`` and return the
+    ``ivf.sync`` range to hold around it."""
+    _counter("ivf_search_host_syncs_total", engine=engine, site=site).inc()
+    return annotate("ivf.sync")
+
+
+def count_pairs(engine: str, slot, qcap: int) -> None:
+    """While ranges are emitted and outside a warm-up, count a search's
+    (query, probe) pairs and, as a device-side sum, those whose slot
+    (:func:`~.common.invert_probe_map_ranked`) is past ``qcap``."""
+    if getattr(_local, "warmup", False) or not ranges_on():
+        return
+    _counter("ivf_search_pairs_total", engine=engine).inc(slot.numel())
+    _counter("ivf_search_pairs_dropped_total", engine=engine).inc_deferred(
+        (slot >= qcap).sum())
+
+
+@contextlib.contextmanager
+def uncounted() -> Iterator[None]:
+    """Hold around a warm-up search on this thread: its pairs are not
+    counted (an all-zeros batch probes the same lists from every query,
+    and would read as a flood of drops)."""
+    prev = getattr(_local, "warmup", False)
+    _local.warmup = True
+    try:
+        yield
+    finally:
+        _local.warmup = prev
