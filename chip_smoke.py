@@ -397,6 +397,27 @@ def path_batches(mod, impl, keep):
         setattr(mod, impl, real)
 
 
+@contextlib.contextmanager
+def impl_calls(mod, impl, keep):
+    """Record every call of ``mod.impl`` (a grouped-search body, either
+    engine): its arguments, keyword arguments and the slice of ``keep``
+    (filled by :func:`kernel_calls`) that it added."""
+    real = getattr(mod, impl)
+    calls = []
+
+    def recording(*args, **kw):
+        start = len(keep)
+        out = real(*args, **kw)
+        calls.append((args, kw, keep[start:]))
+        return out
+
+    setattr(mod, impl, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, impl, real)
+
+
 def batch_per_key(batches, key):
     """One recorded batch for each ``key(nq, calls)``: the last one with
     a nonzero query (a served or measured batch), else the warmup's
@@ -5453,6 +5474,111 @@ def time_pq_batch(calls):
     return ms, plain_ms, gathered_ms, library_ms
 
 
+def einsum_lut_rows(queries, cents, cb, cb_n, lists, qids):
+    """The f32 PyTorch chain the LUT kernel replaced (an einsum, the
+    norms, the sum, the difference, the bf16 cast): the yardstick of
+    ``pq_lut_step``, which the port never calls."""
+    m, _, ds = cb.shape
+    res = (queries[qids] - cents[lists]).reshape(-1, m, ds)
+    dots = torch.einsum("pmd,mkd->pmk", res, cb)
+    res_n = torch.sum(res * res, dim=2)
+    return (res_n[..., None] + cb_n[None] - 2.0 * dots).flatten(1).to(
+        torch.bfloat16)
+
+
+def pq_lut_step(card, dev, seed):
+    """The ADC table build (``pq_kernel.pq_lut_rows``) on the card:
+    bitwise its plain version at the DEEP-10M cell's LUT chunk (10,922
+    pairs of 10,000 queries over 4,096 lists, M 24, K 256, ds 4) and at
+    odd shapes (the register path's ds 3 and 8, and ds 12 and K 7 off
+    it), then timed at the chunk beside its bound (the bf16 rows written
+    once, the distinct query and centroid rows, the codebooks and ids
+    read once), the plain version and the einsum chain it replaced. The
+    inputs stay in L2 across launches, as across a search's chunks."""
+    from raft_tpu_torch.spatial.ann import ivf_pq
+    from raft_tpu_torch.spatial.ann import pq_kernel as pk
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def case(n_pairs, m, k, ds, nq, n_lists):
+        d = m * ds
+        queries = torch.randn((nq + 1, d), generator=gen, device=dev)
+        queries[nq] = 0.0
+        cents = torch.randn((n_lists, d), generator=gen, device=dev)
+        cb = torch.randn((m, k, ds), generator=gen, device=dev)
+        lists = torch.randint(0, n_lists, (n_pairs,), generator=gen,
+                              device=dev)
+        qids = torch.randint(0, nq + 1, (n_pairs,), generator=gen,
+                             device=dev)
+        return queries, cents, cb, (cb * cb).sum(2), lists, qids
+
+    k_codes = 1 << PQ_BITS
+    mk = PQ_DIM * k_codes
+    chunk = ivf_pq._max_lut_pairs(mk)
+    shapes = ((chunk, PQ_DIM, k_codes, DIM // PQ_DIM, 10_000, 4096),
+              (7, 3, 16, 3, 5, 6), (7, 2, 256, 8, 5, 6),
+              (37, 5, 16, 12, 9, 4), (41, 3, 7, 3, 9, 4))
+    errs = []
+    for shp in shapes:
+        args = case(*shp)
+        before = pk.LUT_LAUNCHES
+        errs.append(bitwise(pk.pq_lut_rows, pk.pq_lut_rows_plain, args,
+                            f"pq_lut_rows (P, M, K, ds) {shp[:4]}"))
+        check(pk.LUT_LAUNCHES == before + 1,
+              f"pq_lut_rows {shp[:4]}: {pk.LUT_LAUNCHES - before} launches")
+    log("kernel check pq_lut_rows: bitwise the plain version at (P, M, K, "
+        "ds) " + ", ".join(str(s[:4]) for s in shapes))
+    args = case(*shapes[0])
+    queries, cents, cb, cb_n, lists, qids = args
+    ms = cuda_time_ms(pk.pq_lut_rows, [args])
+    plain_ms = cuda_time_ms(pk.pq_lut_rows_plain, [args], iters=5, warm=1)
+    library_ms = cuda_time_ms(einsum_lut_rows, [args], iters=5, warm=1)
+    d = queries.shape[1]
+    nbytes = (chunk * mk * 2 + 4 * d * (int(torch.unique(qids).numel())
+                                        + int(torch.unique(lists).numel()))
+              + 4 * (cb.numel() + cb_n.numel()) + 16 * chunk)
+    ds = d // PQ_DIM
+    bound_ms, bound_by = bound(nbytes, chunk * mk * (2.0 * ds + 2)
+                               + chunk * PQ_DIM * 2.0 * ds,
+                               FP32_FLOP_PER_S)
+    log(f"[{card}] pq_lut_rows at (P, M*K, ds) ({chunk}, {mk}, {ds}): "
+        f"kernel {ms:.4f} ms ({bound_ms / ms:.1%} of the bound), bound "
+        f"{bound_ms:.5f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), plain "
+        f"{plain_ms:.4f} ms, einsum chain {library_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [chunk, mk, ds], "max_abs_err": max(errs)}
+
+
+def lut_call_counts(searches, batches):
+    """Check the ``pq_lut_rows`` calls of each grouped PQ search (from
+    :func:`impl_calls`) against what its engine should make, and return
+    (kernel-engine LUT chunks, one-hot list blocks). The kernel engine's
+    calls take the queries (nq rows), one a LUT chunk, as many as the
+    search's ADC launches (its batch in ``batches``, from
+    :func:`path_batches`); the one-hot engine's take them with the pad
+    row (nq + 1 rows), one a list block of list_block * qcap pairs."""
+    chunks = blocks = 0
+    kernel_searches = iter(batches)
+    for args, kw, calls in searches:
+        nq, qcap, list_block = args[1].shape[0], args[4], args[5]
+        n_lists = args[0].centroids.shape[0]
+        onehot = [c for c in calls if c[0].shape[0] == nq + 1]
+        kern = [c for c in calls if c[0].shape[0] == nq]
+        adc = next(kernel_searches)[1] if kw.get("use_kernel") else []
+        check(len(onehot) + len(kern) == len(calls)
+              and (not onehot or not kern) and len(kern) == len(adc)
+              and len(onehot) in (0, -(-n_lists // list_block))
+              and all(c[4].shape[0] == list_block * qcap for c in onehot)
+              and all(c[4].shape[0] > 0 for c in calls),
+              f"pq search of {nq}: {len(kern)} LUT chunks for {len(adc)} "
+              f"ADC launches, {len(onehot)} one-hot LUT blocks for "
+              f"{n_lists} lists in blocks of {list_block}")
+        chunks += len(kern)
+        blocks += len(onehot)
+    return chunks, blocks
+
+
 def pq_phase(args, card, dev, data):
     """The IVF-PQ path and its ADC kernel; returns the kernel's entry of
     the ``kernels`` line."""
@@ -5487,6 +5613,7 @@ def pq_phase(args, card, dev, data):
         "at (8, 24, 6144, 512), (3, 13, 160, 136) and (2, 13, 24576, "
         "264); pq_adc_lists bitwise at (M, K) (24, 256), (5, 7), (96, 256), "
         "Q 1/8/24/65, dead slots, empty/full/tail windows")
+    lut = pq_lut_step(card, dev, args.seed)
 
     def key(a):
         # (query slots, M*K, Lpad) of one launch
@@ -5497,15 +5624,36 @@ def pq_phase(args, card, dev, data):
     rng = np.random.default_rng(args.seed + 3)
     qb = torch.as_tensor(q_np, device=dev)
     pk.LAUNCHES = 0
+    pk.LUT_LAUNCHES = 0
     ivf_pq.ENGINE_FALLBACKS = 0
-    keep = []
+    keep, lut_keep = [], []
     with kernel_calls(pk, "pq_adc_lists", key, keep) as shapes, \
-            path_batches(ivf_pq, "_pq_grouped_impl", keep) as batches:
+            path_batches(ivf_pq, "_pq_grouped_impl", keep) as batches, \
+            kernel_calls(pk, "pq_lut_rows", lambda a: a[4].shape[0],
+                         lut_keep), \
+            impl_calls(ivf_pq, "_pq_grouped_impl", lut_keep) as searches:
         index, _ = quantized_path("pq", x, qb, true, rng, card, dev)
     launches = pk.LAUNCHES
+    lut_launches = pk.LUT_LAUNCHES
+    lut["launches"] = lut_launches
     log(f"pq path: pq_adc_lists launched {launches} times, by (Q, M*K, "
-        f"Lpad): {dict(shapes)}; ENGINE_FALLBACKS {ivf_pq.ENGINE_FALLBACKS}")
+        f"Lpad): {dict(shapes)}; pq_lut_rows {lut_launches} times; "
+        f"ENGINE_FALLBACKS {ivf_pq.ENGINE_FALLBACKS}")
     check(launches > 0, "the pq path never launched the ADC kernel")
+
+    chunks, blocks = lut_call_counts(searches, batches)
+    check(lut_launches == chunks + blocks == len(lut_keep)
+          and chunks == launches,
+          f"{lut_launches} LUT launches for {chunks} kernel-engine chunks "
+          f"({launches} ADC launches) and {blocks} one-hot list blocks")
+    # the LUT kernel against its plain version on every call of the path
+    errs += [bitwise(pk.pq_lut_rows, pk.pq_lut_rows_plain, call,
+                     "pq_lut_rows on path inputs") for call in lut_keep]
+    log(f"kernel check on the pq path: {len(searches)} searches, "
+        f"pq_lut_rows launched once for each of {chunks} kernel-engine "
+        f"chunks and {blocks} one-hot list blocks, every call bitwise "
+        "equal to the plain version")
+    del lut_keep, searches
     check(ivf_pq.ENGINE_FALLBACKS == 0,
           f"{ivf_pq.ENGINE_FALLBACKS} pq searches left the kernel")
 
@@ -5635,6 +5783,7 @@ def pq_phase(args, card, dev, data):
         "card": card,
         "mutation": mnums,
         "sharded": snums,
+        "lut": lut,
     }
 
 

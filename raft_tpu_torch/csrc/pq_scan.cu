@@ -1,4 +1,7 @@
-// IVF-PQ ADC sub-chunk-min scan for Hopper (sm_90a).
+// IVF-PQ on Hopper (sm_90a): the ADC sub-chunk-min scan (#4) and, below it,
+// the live-pair ADC table build that feeds it. One library, loaded once.
+//
+// ---- The ADC scan ----
 //
 // Replaces the TPU kernel pq_adc_subchunk_min
 // (raft_tpu/spatial/ann/pq_kernel.py:107), which runs through the shared
@@ -43,6 +46,8 @@
 // nvcc -Xptxas -v (sm_90a, CUDA 12.8): 32 registers, no spills; 104,576
 // bytes of dynamic shared memory at S = 8, M = 24, K = 256 (two blocks an
 // SM).
+
+#include <algorithm>
 
 #include "scan_core.cuh"
 
@@ -181,6 +186,207 @@ pq_lists_kernel(const __nv_bfloat16* __restrict__ luts,
   }
 }
 
+// ---- The live-pair ADC table build ----
+//
+// Replaces no TPU kernel: the JAX package builds its LUTs in jnp and XLA
+// fuses them. Here the plain PyTorch chain (an einsum, then f32 passes for
+// the norms, the sum, the difference and the bf16 cast) wrote ~67 GB a
+// 10,000-query DEEP-10M batch at M*K = 24 x 256 to keep the 3.93 GB of bf16
+// rows the scan reads; this kernel writes each bf16 row once and nothing
+// else.
+//
+// For pair i (list l = pair_lists[i], query q = pair_qids[i]), subspace m
+// (columns m*ds .. m*ds+ds-1) and codebook entry k:
+//   r_j = Q[q, m*ds+j] - C[l, m*ds+j]
+//   n   = r_0*r_0, then n = n + r_j*r_j    (j = 1 .. ds-1, ascending)
+//   g   = r_0*B[m,k,0], then g = g + r_j*B[m,k,j]   (ascending)
+//   out[i, m*K+k] = bf16_rn((n + B_n[m,k]) - 2*g)
+// every product and sum one rounded f32 operation (__fmul_rn / __fadd_rn /
+// __fsub_rn, no FMA contraction). The plain PyTorch version
+// (pq_kernel.pq_lut_rows_plain) computes in the same order with separate
+// tensor ops, so the two agree bitwise on any input.
+//
+// What bounds it on the H100: the 2*M*K bytes written per pair (134 MB for
+// a chunk of 10,922 pairs at M*K = 6,144: 0.040 ms at 3.35 TB/s). The
+// inputs (queries, centroids, codebooks) are a few MB and stay in L2; the
+// arithmetic is ~2*ds+3 f32 operations an entry, under the write time.
+//
+// Design: a block owns a run of whole subspaces (grid y) and walks tiles of
+// up to kLutMaxPairs pairs (grid x is one wave of resident blocks, so no
+// partial last wave idles the card: with the streaming stores, 0.0821 ->
+// 0.0612 ms at the chunk shape on the H100, 50% -> 68% of the bound). Each thread owns 8 consecutive k of
+// one subspace and holds those codebook entries and norms in registers
+// for every tile. For each tile the block stages the pairs' residuals and
+// per-subspace norms in shared memory (one thread per (pair, subspace), so
+// each norm is summed once), then each thread emits one 16-byte streaming
+// store of 8 bf16 entries per pair, neighbouring threads on neighbouring
+// addresses: a warp writes 512 contiguous bytes of a row per pair. That
+// path takes K % 8 == 0 and ds <= 8 (the DEEP cells run K = 256, ds = 4);
+// any other shape runs a plain kernel of one thread per entry, same order,
+// same result.
+// nvcc -Xptxas -v (sm_90a, CUDA 12.8): lut_rows_kernel<4> 76 registers, no
+// spills, 1,280 bytes of dynamic shared memory at M = 24, K = 256 (three
+// blocks an SM); <1>..<8> 48..122 registers; lut_rows_any_kernel 32.
+
+constexpr int kLutThreads = 256;        // threads per block at most
+constexpr int kLutMaxPairs = 8;         // pairs per tile at most
+constexpr int kLutMaxDs = 8;            // widest subspace held in registers
+constexpr int kLutStageBytes = 24576;   // staged residuals and norms a block
+
+template <int DS>
+__global__ void __launch_bounds__(kLutThreads)
+lut_rows_kernel(const float* __restrict__ queries,
+                const float* __restrict__ cents, const float* __restrict__ cb,
+                const float* __restrict__ cb_n,
+                const int64_t* __restrict__ pair_lists,
+                const int64_t* __restrict__ pair_qids,
+                __nv_bfloat16* __restrict__ out, int n_pairs, int d,
+                int m_dim, int k_dim, int m_per_block, int pairs_per_tile) {
+  extern __shared__ __align__(16) float lsm[];
+  float* sres = lsm;                                      // [TP][MB][DS]
+  float* snorm = lsm + pairs_per_tile * m_per_block * DS;  // [TP][MB]
+  const int g8 = k_dim / 8;            // threads per subspace
+  const int m0 = blockIdx.y * m_per_block;
+  const int mb = min(m_per_block, m_dim - m0);
+  const int n_tiles = (n_pairs + pairs_per_tile - 1) / pairs_per_tile;
+  const int t = threadIdx.x;
+
+  // this thread's 8 codebook entries and norms, held for every tile
+  const int ml = t / g8;
+  const int m = m0 + ml;
+  const int k0 = (t - ml * g8) * 8;
+  const bool active = ml < mb;
+  float b[8][DS], bn[8];
+  if (active) {
+    const float* bsrc = cb + ((long long)m * k_dim + k0) * DS;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+#pragma unroll
+      for (int j = 0; j < DS; ++j) b[e][j] = bsrc[e * DS + j];
+      bn[e] = cb_n[(long long)m * k_dim + k0 + e];
+    }
+  }
+
+  const long long pitch = (long long)m_dim * k_dim;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long p0 = (long long)tile * pairs_per_tile;
+    const int tp = (int)min((long long)pairs_per_tile, n_pairs - p0);
+    __syncthreads();  // the previous tile's residuals are read
+    for (int i = t; i < tp * mb; i += blockDim.x) {
+      const int p = i / mb, ms = i - p * mb;
+      const float* qv = queries + pair_qids[p0 + p] * d + (m0 + ms) * DS;
+      const float* cv = cents + pair_lists[p0 + p] * d + (m0 + ms) * DS;
+      float* rv = sres + (p * m_per_block + ms) * DS;
+      float n = 0.f;
+#pragma unroll
+      for (int j = 0; j < DS; ++j) {
+        const float r = __fsub_rn(qv[j], cv[j]);
+        rv[j] = r;
+        n = j == 0 ? __fmul_rn(r, r) : __fadd_rn(n, __fmul_rn(r, r));
+      }
+      snorm[p * m_per_block + ms] = n;
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    __nv_bfloat16* orow = out + p0 * pitch + (long long)m * k_dim + k0;
+    for (int p = 0; p < tp; ++p) {
+      const float* rv = sres + (p * m_per_block + ml) * DS;
+      float r[DS];
+#pragma unroll
+      for (int j = 0; j < DS; ++j) r[j] = rv[j];
+      const float n = snorm[p * m_per_block + ml];
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float g = __fmul_rn(r[0], b[e + h][0]);
+#pragma unroll
+          for (int j = 1; j < DS; ++j) {
+            g = __fadd_rn(g, __fmul_rn(r[j], b[e + h][j]));
+          }
+          v[h] = __fsub_rn(__fadd_rn(n, bn[e + h]), __fmul_rn(2.f, g));
+        }
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(v[0], v[1]);
+        w[e / 2] = *reinterpret_cast<const uint32_t*>(&pr);
+      }
+      // a streaming store: the rows are written once and read once, by
+      // the scan, from device memory (a chunk's rows outgrow L2)
+      __stcs(reinterpret_cast<uint4*>(orow + p * pitch),
+             make_uint4(w[0], w[1], w[2], w[3]));
+    }
+  }
+}
+
+// Any K and ds: one thread per entry, the same order.
+__global__ void __launch_bounds__(kLutThreads)
+lut_rows_any_kernel(const float* __restrict__ queries,
+                    const float* __restrict__ cents,
+                    const float* __restrict__ cb,
+                    const float* __restrict__ cb_n,
+                    const int64_t* __restrict__ pair_lists,
+                    const int64_t* __restrict__ pair_qids,
+                    __nv_bfloat16* __restrict__ out, long long n_entries,
+                    int d, int m_dim, int k_dim, int ds) {
+  const long long mk = (long long)m_dim * k_dim;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < n_entries; e += (long long)gridDim.x * blockDim.x) {
+    const long long i = e / mk;
+    const int c = (int)(e - i * mk);
+    const int m = c / k_dim;
+    const float* qv = queries + pair_qids[i] * d + m * ds;
+    const float* cv = cents + pair_lists[i] * d + m * ds;
+    const float* bv = cb + (long long)c * ds;
+    float n = 0.f, g = 0.f;
+    for (int j = 0; j < ds; ++j) {
+      const float r = __fsub_rn(qv[j], cv[j]);
+      const float rr = __fmul_rn(r, r), rb = __fmul_rn(r, bv[j]);
+      n = j == 0 ? rr : __fadd_rn(n, rr);
+      g = j == 0 ? rb : __fadd_rn(g, rb);
+    }
+    out[e] = __float2bfloat16_rn(__fsub_rn(__fadd_rn(n, cb_n[c]),
+                                           __fmul_rn(2.f, g)));
+  }
+}
+
+template <int DS>
+cudaError_t launch_lut_rows(const float* queries, const float* cents,
+                            const float* cb, const float* cb_n,
+                            const int64_t* pair_lists,
+                            const int64_t* pair_qids, __nv_bfloat16* out,
+                            int n_pairs, int d, int m_dim, int k_dim,
+                            cudaStream_t stream) {
+  const int g8 = k_dim / 8;
+  const int mb = std::min(m_dim, kLutThreads / g8);
+  const int tp = std::max(1, std::min(kLutMaxPairs,
+                                      kLutStageBytes / (mb * (DS + 1) * 4)));
+  const int threads = mb * g8;
+  const size_t smem = (size_t)tp * mb * (DS + 1) * sizeof(float);
+  const int col_tiles = (m_dim + mb - 1) / mb;
+  if (col_tiles > scan_core::kMaxGridYZ) return cudaErrorInvalidConfiguration;
+  // one wave of resident blocks walks the pair tiles: a block loads its
+  // codebook entries once, and no partial last wave idles the card
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lut_rows_kernel<DS>, threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n_pairs + tp - 1) / tp;
+  const int wave = std::max(1, sms * per_sm / col_tiles);
+  const dim3 grid(std::min(n_tiles, wave), col_tiles);
+  lut_rows_kernel<DS><<<grid, threads, smem, stream>>>(
+      queries, cents, cb, cb_n, pair_lists, pair_qids, out, n_pairs, d,
+      m_dim, k_dim, mb, tp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -238,6 +444,47 @@ int raft_pq_adc_lists(const void* luts, const void* lut_map,
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(origins),
       static_cast<const int32_t*>(bounds), static_cast<float*>(out), q_slots,
       n_luts, m_dim, k_dim, l_pad, slots);
+  return (int)cudaGetLastError();
+}
+
+// Launch the ADC table build on `stream`; returns cudaGetLastError() after
+// the launch (0 = ok). queries (*, d), cents (*, d), cb (m_dim, k_dim, ds)
+// and cb_n (m_dim, k_dim) f32 contiguous; pair_lists and pair_qids
+// (n_pairs,) int64, every id a row of cents / queries; out (n_pairs,
+// m_dim * k_dim) bf16 contiguous. d == m_dim * ds, k_dim <= 256.
+int raft_pq_lut_rows(const void* queries, const void* cents, const void* cb,
+                     const void* cb_n, const void* pair_lists,
+                     const void* pair_qids, void* out, int n_pairs, int d,
+                     int m_dim, int k_dim, int ds, void* stream) {
+  if (n_pairs < 1 || m_dim < 1 || k_dim < 1 || k_dim > 256 || ds < 1 ||
+      d != m_dim * ds) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* q = static_cast<const float*>(queries);
+  const auto* c = static_cast<const float*>(cents);
+  const auto* b = static_cast<const float*>(cb);
+  const auto* bn = static_cast<const float*>(cb_n);
+  const auto* pl = static_cast<const int64_t*>(pair_lists);
+  const auto* pq = static_cast<const int64_t*>(pair_qids);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto st = (cudaStream_t)stream;
+  if (k_dim % 8 == 0 && ds <= kLutMaxDs &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+    switch (ds) {
+#define RAFT_LUT_CASE(n)                                                  \
+  case n:                                                                 \
+    return (int)launch_lut_rows<n>(q, c, b, bn, pl, pq, o, n_pairs, d,    \
+                                   m_dim, k_dim, st);
+      RAFT_LUT_CASE(1) RAFT_LUT_CASE(2) RAFT_LUT_CASE(3) RAFT_LUT_CASE(4)
+      RAFT_LUT_CASE(5) RAFT_LUT_CASE(6) RAFT_LUT_CASE(7) RAFT_LUT_CASE(8)
+#undef RAFT_LUT_CASE
+    }
+  }
+  const long long n_entries = (long long)n_pairs * m_dim * k_dim;
+  const long long blocks =
+      std::min<long long>((n_entries + kLutThreads - 1) / kLutThreads, 1 << 20);
+  lut_rows_any_kernel<<<(unsigned)blocks, kLutThreads, 0, st>>>(
+      q, c, b, bn, pl, pq, o, n_entries, d, m_dim, k_dim, ds);
   return (int)cudaGetLastError();
 }
 

@@ -18,7 +18,9 @@ The grouped (list-major) search has two ADC engines: the hand-written
 CUDA sub-chunk-min scan (:mod:`.pq_kernel`, a gather from a LUT held in
 shared memory) feeding the exact refine tail, and the legacy one-hot
 engine (the LUT contracted with a one-hot expansion of the codes, as the
-JAX package's XLA path spells it).
+JAX package's XLA path spells it). Both build their bf16 tables with
+:func:`~.pq_kernel.pq_lut_rows`: a CUDA kernel on a CUDA device (which
+has to be a Hopper card), its plain version on the CPU.
 
 Selection: the JAX package's ``lax.approx_min_k`` stages are exact off
 the TPU, and here they are the exact, stable
@@ -419,9 +421,11 @@ def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
     the one-hot engine — the rule, as in the JAX package, not a
     fallback; a refined CUDA search the kernel cannot serve runs the
     one-hot engine too, counted in ``ENGINE_FALLBACKS`` and warned about
-    once per reason. ``True``: the kernel path, raising with the reason
-    when it cannot run (on a CPU index the kernel path's scan runs its
-    plain version). ``False``: the one-hot engine."""
+    once per reason (its tables still come from the LUT kernel, so on a
+    card that is not Hopper the search raises there). ``True``: the
+    kernel path, raising with the reason when it cannot run (on a CPU
+    index the kernel path's scan runs its plain version). ``False``: the
+    one-hot engine."""
     if use_kernel is None:
         if device.type != "cuda" or not refine_active:
             return False
@@ -463,29 +467,15 @@ def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
 _REFINE_BLOCK_BYTES = 256 << 20
 
 
-# f32 LUT bytes of one chunk of live (list, slot) pairs on the kernel path
-# (its transients, the einsum's products and the sums, take a few times
-# that); one ADC launch covers each chunk
+# LUT bytes of one chunk of live (list, slot) pairs on the kernel path,
+# counted at 4 bytes an entry though the rows are bf16; one LUT launch and
+# one ADC launch cover each chunk
 _LUT_BLOCK_BYTES = 256 << 20
 
 
-def _pair_luts(qf, cents, cb, cb_n, m: int, pair_lists, pair_qids):
-    """bf16 ADC tables (P, M*K) of live (list, query) pairs: each query's
-    residual against its list's centroid, scored against every codebook
-    entry, residual-norm term included — the arithmetic of
-    ``_pq_grouped_impl``'s ``block_luts``, row for row, without the dead
-    slots."""
-    ds = qf.shape[1] // m
-    res = (qf[pair_qids] - cents[pair_lists]).reshape(-1, m, ds)
-    dots = torch.einsum("pmd,mkd->pmk", res, cb)
-    res_n = torch.sum(res * res, dim=2)                        # (P, M)
-    lut = res_n[..., None] + cb_n[None] - 2.0 * dots
-    return lut.flatten(1).to(torch.bfloat16)
-
-
 def _max_lut_pairs(mk: int) -> int:
-    """The live pairs of one LUT chunk: (M*K)-wide f32 rows under
-    :data:`_LUT_BLOCK_BYTES`."""
+    """The live pairs of one LUT chunk: rows of M*K entries at 4 bytes
+    each under :data:`_LUT_BLOCK_BYTES`."""
     return max(1, _LUT_BLOCK_BYTES // (4 * mk))
 
 
@@ -508,9 +498,9 @@ def _pq_kernel_pool(pair_luts, scan, probes, pmap, width: int,
     """The ADC kernel engine's (nq, p * width) pool of sub-chunk minima.
 
     ``pair_luts(pair_lists, pair_qids)`` builds LUT rows
-    (:func:`_pair_luts`); ``scan(luts, lut_map, a, b, out=None)`` is one
-    :func:`~.pq_kernel.pq_adc_lists` launch over lists [a, b), code rows
-    read in place; ``pmap`` is the (qmat, rmat, slot) of
+    (:func:`~.pq_kernel.pq_lut_rows`); ``scan(luts, lut_map, a, b,
+    out=None)`` is one :func:`~.pq_kernel.pq_adc_lists` launch over lists
+    [a, b), code rows read in place; ``pmap`` is the (qmat, rmat, slot) of
     :func:`invert_probe_map_ranked`. When the batch's nq * p pairs fit
     ``max_pairs``, one launch covers every list, its LUT rows in
     (query, probe) order, with no host sync. Otherwise (or with
@@ -594,11 +584,10 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
     nq, d = q.shape
     p = n_probes
     m = index.pq_dim
-    ds = d // m
     kc = 1 << index.pq_bits
     f32 = torch.float32
-    qf = q.float()
-    cents = index.centroids.float()
+    qf = q.float().contiguous()
+    cents = index.centroids.float().contiguous()
     cb, cb_n = _finite_codebooks(index)
     inf = float("inf")  # a Python scalar: no host-to-device copy
 
@@ -624,17 +613,16 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         slot's query residual against THIS list's centroid, scored
         against every codebook entry, residual-norm term included, so
         summed entries are complete squared distances. The one-hot
-        engine's LUT (the kernel engine builds the same rows for live
-        pairs only, :func:`_pair_luts`). Returns (qids (LB, qcap), lut
-        (LB, qcap, M, K))."""
+        engine's LUT, rounded to bf16 and widened to f32; the kernel
+        engine builds the same rows for live pairs only. Returns (qids
+        (LB, qcap), lut (LB, qcap, M*K))."""
         lb = lblk.shape[0]
         qids = qmat_l[lblk]                                    # (LB, qcap)
         with annotate("ivf.lut"):
-            res = (q_pad[qids] - cents[lblk][:, None, :]).reshape(
-                lb, qcap, m, ds)
-            dots = torch.einsum("bqmd,mkd->bqmk", res, cb)
-            res_n = torch.sum(res * res, dim=3)                # (LB, qcap, M)
-            return qids, res_n[..., None] + cb_n[None, None] - 2.0 * dots
+            lut = pq_kernel.pq_lut_rows(q_pad, cents, cb, cb_n,
+                                        lblk.repeat_interleave(qcap),
+                                        qids.flatten())
+            return qids, lut.float().reshape(lb, qcap, m * kc)
 
     def block_fn(lblk):                                        # (LB,) list ids
         lb = lblk.shape[0]
@@ -652,8 +640,7 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
         # accumulation
         onehot = torch.zeros((lb, L, m, kc), dtype=f32, device=dev)
         onehot.scatter_(3, codes[..., None], 1.0)
-        lut_b = lut.reshape(lb, qcap, m * kc).to(torch.bfloat16).float()
-        d2 = torch.bmm(lut_b, onehot.reshape(lb, L, m * kc).transpose(1, 2))
+        d2 = torch.bmm(lut, onehot.reshape(lb, L, m * kc).transpose(1, 2))
         invalid = (qids >= nq)[:, :, None] | (~in_list)[:, None, :]
         d2 = torch.where(invalid, inf, d2)
         vals, sel = top_k_smallest(d2, kk)                     # (LB, qcap, kk)
@@ -678,7 +665,8 @@ def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
             stream_partials = n_lists * qcap * width * 4 > (1 << 31)
 
         def pair_luts(pair_lists, pair_qids):
-            return _pair_luts(qf, cents, cb, cb_n, m, pair_lists, pair_qids)
+            return pq_kernel.pq_lut_rows(qf, cents, cb, cb_n, pair_lists,
+                                         pair_qids)
 
         def scan(luts, lut_map, a, b, out=None):
             return pq_kernel.pq_adc_lists(

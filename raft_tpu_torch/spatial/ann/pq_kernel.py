@@ -27,6 +27,12 @@ Tensors on the CPU go to the plain versions
 (:func:`pq_adc_lists_plain`, :func:`pq_adc_subchunk_min_plain`),
 tensors on a CUDA device go to the kernel — or the wrapper raises.
 :data:`LAUNCHES` counts kernel launches of both entries.
+
+The tables the scan reads come from a second kernel of the same library,
+:func:`pq_lut_rows`: the bf16 ADC rows of live (list, query) pairs, each
+written once (plain version :func:`pq_lut_rows_plain`, launches counted
+in :data:`LUT_LAUNCHES`). It replaces no TPU kernel: the JAX package
+builds its LUTs in ``jnp``.
 """
 
 from __future__ import annotations
@@ -45,13 +51,16 @@ from raft_tpu_torch.spatial.ann.scan_core import (
 )
 
 __all__ = [
-    "BIG", "LAUNCHES", "SUBCHUNK", "plan_l_tile", "pq_adc_lists",
-    "pq_adc_lists_plain", "pq_adc_subchunk_min", "pq_adc_subchunk_min_plain",
-    "pq_adc_supported", "window_l_pad",
+    "BIG", "LAUNCHES", "LUT_LAUNCHES", "SUBCHUNK", "plan_l_tile",
+    "pq_adc_lists", "pq_adc_lists_plain", "pq_adc_subchunk_min",
+    "pq_adc_subchunk_min_plain", "pq_adc_supported", "pq_lut_rows",
+    "pq_lut_rows_plain", "window_l_pad",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
 LAUNCHES = 0
+# LUT-build kernel launches, likewise
+LUT_LAUNCHES = 0
 
 _ROW_TILE = 256          # csrc/pq_scan.cu kPqRowTile
 _MAX_SLOTS = 8           # csrc/pq_scan.cu kPqMaxSlots
@@ -317,6 +326,112 @@ def _launch(name, luts, lut_map, codes, origins, bounds, l_pad, out):
     return out
 
 
+def pq_lut_rows_plain(queries, centroids, codebooks, cb_norms, pair_lists,
+                      pair_qids):
+    """Plain PyTorch version of :func:`pq_lut_rows`, in the kernel's
+    order: one rounded f32 operation a tensor op (never ``einsum`` or
+    ``sum``, whose order is not fixed), the residual's norm and its dot
+    with each codebook entry accumulated over ascending ``j``."""
+    m_dim, k_dim, ds = codebooks.shape
+    res = (queries[pair_qids] - centroids[pair_lists]).reshape(-1, m_dim, ds)
+    n = res[:, :, 0] * res[:, :, 0]
+    g = res[:, :, None, 0] * codebooks[:, :, 0]
+    for j in range(1, ds):
+        n = n + res[:, :, j] * res[:, :, j]
+        g = g + res[:, :, None, j] * codebooks[:, :, j]
+    lut = (n[:, :, None] + cb_norms) - 2.0 * g
+    return lut.reshape(-1, m_dim * k_dim).to(torch.bfloat16)
+
+
+def _check_lut_rows(name, queries, centroids, codebooks, cb_norms,
+                    pair_lists, pair_qids):
+    if (queries.dim() != 2 or centroids.dim() != 2 or codebooks.dim() != 3
+            or cb_norms.dim() != 2 or pair_lists.dim() != 1
+            or pair_qids.dim() != 1):
+        raise ValueError(
+            f"{name}: expected queries (nq, d), centroids (lists, d), "
+            "codebooks (M, K, ds), cb_norms (M, K) and pair ids (P,), got "
+            f"{tuple(queries.shape)}, {tuple(centroids.shape)}, "
+            f"{tuple(codebooks.shape)}, {tuple(cb_norms.shape)}, "
+            f"{tuple(pair_lists.shape)} and {tuple(pair_qids.shape)}"
+        )
+    f32, i64 = torch.float32, torch.int64
+    if (any(t.dtype != f32 for t in (queries, centroids, codebooks, cb_norms))
+            or pair_lists.dtype != i64 or pair_qids.dtype != i64):
+        raise ValueError(
+            f"{name}: queries, centroids, codebooks and cb_norms must be "
+            f"float32 and the pair ids int64, got {queries.dtype}, "
+            f"{centroids.dtype}, {codebooks.dtype}, {cb_norms.dtype}, "
+            f"{pair_lists.dtype} and {pair_qids.dtype}"
+        )
+    m_dim, k_dim, ds = codebooks.shape
+    d = queries.shape[1]
+    if (min(m_dim, k_dim, ds) < 1 or d != m_dim * ds
+            or centroids.shape[1] != d
+            or tuple(cb_norms.shape) != (m_dim, k_dim)
+            or pair_lists.shape != pair_qids.shape):
+        raise ValueError(
+            f"{name}: widths do not match: queries {tuple(queries.shape)}, "
+            f"centroids {tuple(centroids.shape)}, codebooks "
+            f"{tuple(codebooks.shape)} (d must be M*ds), cb_norms "
+            f"{tuple(cb_norms.shape)}, pair ids {tuple(pair_lists.shape)} "
+            f"and {tuple(pair_qids.shape)}"
+        )
+    if k_dim > 256:
+        raise ValueError(f"{name}: K={k_dim} exceeds uint8 codes")
+    ts = (queries, centroids, codebooks, cb_norms, pair_lists, pair_qids)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: every operand must be contiguous")
+    scan_core.check_same_device(name, *ts)
+
+
+def pq_lut_rows(queries, centroids, codebooks, cb_norms, pair_lists,
+                pair_qids):
+    """The bf16 ADC tables (P, M·K) of P (list, query) pairs -> each
+    row written once.
+
+    Row i is query ``pair_qids[i]``'s residual against centroid
+    ``pair_lists[i]``, scored against every codebook entry with the
+    residual's norm added, so summed entries are complete squared
+    distances: ``bf16((n + cb_norms[m, k]) − 2·g)`` with ``n`` the
+    residual's squared norm in subspace m and ``g`` its dot with
+    ``codebooks[m, k]``, both accumulated over ascending ``j``, every
+    operation one rounded f32 op (``csrc/pq_scan.cu`` states the order).
+    ``queries`` (nq, d), ``centroids`` (lists, d), ``codebooks`` (M, K,
+    ds) and ``cb_norms`` (M, K) are contiguous f32 with d = M·ds and K
+    <= 256; the ids are int64 rows of centroids and queries (the caller
+    keeps them in range). CPU tensors run the plain version; CUDA tensors
+    run the kernel. No pair: an empty table, no launch."""
+    name = "pq_lut_rows"
+    _check_lut_rows(name, queries, centroids, codebooks, cb_norms,
+                    pair_lists, pair_qids)
+    dev = queries.device
+    if dev.type == "cpu":
+        return pq_lut_rows_plain(queries, centroids, codebooks, cb_norms,
+                                 pair_lists, pair_qids)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    m_dim, k_dim, ds = codebooks.shape
+    n_pairs = pair_lists.shape[0]
+    out = torch.empty((n_pairs, m_dim * k_dim), dtype=torch.bfloat16,
+                      device=dev)
+    if n_pairs == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.raft_pq_lut_rows(
+            queries.data_ptr(), centroids.data_ptr(), codebooks.data_ptr(),
+            cb_norms.data_ptr(), pair_lists.data_ptr(), pair_qids.data_ptr(),
+            out.data_ptr(), n_pairs, queries.shape[1], m_dim, k_dim, ds,
+            stream,
+        )
+    scan_core.raise_on_error(err, name, lib)
+    global LUT_LAUNCHES
+    LUT_LAUNCHES += 1
+    return out
+
+
 def _lib():
     from raft_tpu_torch import _build
 
@@ -333,4 +448,7 @@ def _lib():
         lib.raft_pq_lists_slots.restype = i
         lib.raft_pq_lists_smem_bytes.argtypes = [i, i, i]
         lib.raft_pq_lists_smem_bytes.restype = ctypes.c_longlong
+        lib.raft_pq_lut_rows.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                         p]
+        lib.raft_pq_lut_rows.restype = i
     return lib

@@ -604,6 +604,102 @@ def test_pq_adc_lists_kernel_matches_plain_version():
                 assert torch.equal(out, got)
 
 
+def _lut_case(rng, n_pairs, m, k, ds, nq, n_lists, dev):
+    """Gaussian queries (the last row the zero pad row), centroids and
+    codebooks on ``dev``; pair ids that repeat and name the pad row."""
+    d = m * ds
+    queries = torch.as_tensor(rng.standard_normal((nq + 1, d)),
+                              dtype=torch.float32, device=dev)
+    queries[nq] = 0.0
+    cents = torch.as_tensor(rng.standard_normal((n_lists, d)),
+                            dtype=torch.float32, device=dev)
+    cb = torch.as_tensor(rng.standard_normal((m, k, ds)),
+                         dtype=torch.float32, device=dev)
+    lists = torch.as_tensor(rng.integers(0, n_lists, n_pairs), device=dev)
+    qids = torch.as_tensor(rng.integers(0, nq + 1, n_pairs), device=dev)
+    return queries, cents, cb, (cb * cb).sum(2), lists, qids
+
+
+@pytest.mark.gpu
+def test_pq_lut_rows_kernel_matches_plain_version():
+    """On a Hopper card: the ADC table build against its plain version,
+    bitwise on Gaussian inputs (both compute in one fixed f32 order), at
+    the DEEP-10M cell's LUT chunk (10,922 pairs, M 24, K 256, ds 4), at
+    the CPU test's shapes (ds 1/3/4/8, K 16/256, one pair and a ragged
+    count), and at shapes off the register path (ds 9 and 12, K 7); no
+    launch for no pair."""
+    from raft_tpu_torch.spatial.ann import pq_kernel as tpq
+
+    dev = _hopper()
+    rng = np.random.default_rng(22)
+    shapes = [(10_922, 24, 256, 4, 10_000, 4096)]
+    shapes += [(p, 3 if k == 16 else 2, k, ds, 5, 6)
+               for ds in (1, 3, 4, 8) for k in (16, 256) for p in (1, 7)]
+    shapes += [(37, 5, 16, 12, 9, 4), (41, 3, 7, 3, 9, 4),
+               (29, 2, 256, 9, 9, 4), (1000, 600, 8, 8, 9, 4)]
+    for n_pairs, m, k, ds, nq, n_lists in shapes:
+        args = _lut_case(rng, n_pairs, m, k, ds, nq, n_lists, dev)
+        before = tpq.LUT_LAUNCHES
+        got = tpq.pq_lut_rows(*args)
+        assert tpq.LUT_LAUNCHES == before + 1
+        want = tpq.pq_lut_rows_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (n_pairs, m * k) and got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
+            (n_pairs, m, k, ds)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    before = tpq.LUT_LAUNCHES
+    got = tpq.pq_lut_rows(*args[:4], none, none)
+    assert got.shape == (0, m * k) and tpq.LUT_LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_pq_grouped_search_builds_one_lut_a_chunk(monkeypatch):
+    """A grouped PQ search at the DEEP-10M cell's parameters (4,096
+    lists, M 24, K 256, 32 probes, refine 4, 10,000 queries at the
+    warm-up's qcap) over 200,000 mixture rows: one LUT launch for each
+    LUT chunk with a live pair, as many as ADC launches, and no engine
+    fallback."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFPQParams, ivf_pq, ivf_pq_build, ivf_pq_search_grouped,
+        pq_kernel as tpq,
+    )
+
+    dev = _hopper()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    centres = 2.0 * torch.randn((64, 96), generator=gen, device=dev)
+
+    def rows(n):
+        pick = torch.randint(0, 64, (n,), generator=gen, device=dev)
+        return centres[pick] + torch.randn((n, 96), generator=gen,
+                                           device=dev)
+
+    x, q = rows(200_000), rows(10_000)
+    index = ivf_pq_build(x, IVFPQParams(
+        n_lists=4096, pq_dim=24, pq_bits=8, kmeans_n_iters=4,
+        pq_kmeans_n_iters=4, kmeans_init="random"), device=dev)
+    kw = dict(n_probes=32, refine_ratio=4.0)
+    qcap = index.warmup(10_000, k=10, **kw)
+    chunks = []
+    real = ivf_pq._lut_chunks
+
+    def kept(cum, *a):
+        out = real(cum, *a)
+        chunks.extend(c for c in out
+                      if cum[c[1] - 1] > (cum[c[0] - 1] if c[0] else 0))
+        return out
+
+    monkeypatch.setattr(ivf_pq, "_lut_chunks", kept)
+    ivf_pq.ENGINE_FALLBACKS = 0
+    lut0, adc0 = tpq.LUT_LAUNCHES, tpq.LAUNCHES
+    ivf_pq_search_grouped(index, q, 10, qcap=qcap, **kw)
+    torch.cuda.synchronize()
+    n = tpq.LUT_LAUNCHES - lut0
+    assert n == len(chunks) == tpq.LAUNCHES - adc0
+    assert n >= -(-10_000 * 32 // ivf_pq._max_lut_pairs(24 * 256))
+    assert ivf_pq.ENGINE_FALLBACKS == 0
+
+
 @pytest.mark.gpu
 def test_sq_scan_lists_kernel_matches_plain_version():
     """On a Hopper card: the one-launch IVF-SQ list scan against its

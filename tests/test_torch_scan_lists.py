@@ -426,15 +426,20 @@ def pq_index():
 
 
 def _block_luts(q_pad, qmat_l, cents, cb, cb_n, lblk, m):
-    # _pq_grouped_impl's block_luts, line for line
+    """The one-hot engine's block of ADC rows, (LB, qcap, M, K) f32 before
+    the bf16 cast, in the order the LUT kernel fixes: one rounded f32 op
+    a tensor op, the norm and the dot over ascending j."""
     qcap = qmat_l.shape[1]
     ds = q_pad.shape[1] // m
     lb = lblk.shape[0]
     qids = qmat_l[lblk]
     res = (q_pad[qids] - cents[lblk][:, None, :]).reshape(lb, qcap, m, ds)
-    dots = torch.einsum("bqmd,mkd->bqmk", res, cb)
-    res_n = torch.sum(res * res, dim=3)
-    return qids, res_n[..., None] + cb_n[None, None] - 2.0 * dots
+    res_n = res[..., 0] * res[..., 0]
+    dots = res[..., None, 0] * cb[..., 0]
+    for j in range(1, ds):
+        res_n = res_n + res[..., j] * res[..., j]
+        dots = dots + res[..., None, j] * cb[..., j]
+    return qids, (res_n[..., None] + cb_n) - 2.0 * dots
 
 
 def _gathered_pq_lists(luts, lut_map, codes, origins, bounds, l_pad,
@@ -454,6 +459,9 @@ def _gathered_pq_lists(luts, lut_map, codes, origins, bounds, l_pad,
 
 
 def test_pair_luts_equal_block_luts_rows_bitwise(pq_index):
+    """The kernel engine's live-pair rows equal the one-hot engine's
+    block rows bit for bit, and both equal the order written out over
+    the block (:func:`_block_luts`)."""
     index, q = pq_index
     rng = np.random.default_rng(5)
     qf = torch.as_tensor(q) + torch.as_tensor(
@@ -466,10 +474,13 @@ def test_pair_luts_equal_block_luts_rows_bitwise(pq_index):
     q_pad = torch.cat([qf, torch.zeros((1, qf.shape[1]))])
     lblk = torch.arange(n_lists)
     _, lut = _block_luts(q_pad, qmat, cents, cb, cb_n, lblk, index.pq_dim)
+    block = tpq.pq_lut_rows(q_pad, cents, cb, cb_n,
+                            lblk.repeat_interleave(qcap), qmat.flatten())
+    assert torch.equal(
+        block, lut.reshape(n_lists * qcap, -1).to(torch.bfloat16))
     live = qmat < nq
     pl, ps = torch.nonzero(live, as_tuple=True)
-    got = tivf_pq._pair_luts(qf, cents, cb, cb_n, index.pq_dim, pl,
-                             qmat[pl, ps])
+    got = tpq.pq_lut_rows(qf, cents, cb, cb_n, pl, qmat[pl, ps])
     want = lut[pl, ps].reshape(pl.shape[0], -1).to(torch.bfloat16)
     assert torch.equal(got, want)
 
@@ -492,8 +503,8 @@ def test_pair_luts_of_no_pair_is_an_empty_table(pq_index):
     index, q = pq_index
     cb, cb_n = tivf_pq._finite_codebooks(index)
     none = torch.zeros(0, dtype=torch.int64)
-    got = tivf_pq._pair_luts(torch.as_tensor(q), index.centroids.float(), cb,
-                             cb_n, index.pq_dim, none, none)
+    got = tpq.pq_lut_rows(torch.as_tensor(q), index.centroids.float(), cb,
+                          cb_n, none, none)
     assert tuple(got.shape) == (0, cb.shape[0] * cb.shape[1])
     assert got.dtype == torch.bfloat16
 
