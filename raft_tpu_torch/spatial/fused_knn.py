@@ -22,7 +22,9 @@ each on the H100). Each has a wrapper here that checks its operands,
 runs the plain PyTorch version on CPU tensors and launches the kernel on
 CUDA tensors (or raises), and counts its launches in :data:`LAUNCHES`.
 The JAX ``interpret=`` knob has no counterpart: the tensors' device picks
-the plain version or the kernel.
+the plain version or the kernel. A search holds the ``knn.chunk_mins``,
+``knn.select`` and ``knn.rescore`` ranges around its phases and counts
+its rescore route (:mod:`~raft_tpu_torch.spatial.knn_obs`).
 
 Shape rules kept so that results match the JAX package: ``_plan_blocks``
 fixes ``npad`` and with it the chunk count, which gates ``c`` and the
@@ -39,11 +41,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import (
     as_tensor, call_device, full_f32, resolve_device,
 )
 from raft_tpu_torch.distance.distance_type import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import relu0, sqrt_f64
+from raft_tpu_torch.spatial import knn_obs
 from raft_tpu_torch.spatial.selection import merge_topk, top_k_smallest
 
 __all__ = [
@@ -407,10 +411,10 @@ def _fused_l2_knn_impl(queries, index, k: int, metric: DistanceType, *,
     q = queries.float().contiguous()
     y = index
     npad = _round_up(n, bn)
-    yn = (index_norms.float() if index_norms is not None
-          else _row_norms(y))
-
-    cmins = chunk_mins(q, y, yn, npad, compute_dtype)     # (m, nC)
+    with annotate("knn.chunk_mins"):
+        yn = (index_norms.float() if index_norms is not None
+              else _row_norms(y))
+        cmins = chunk_mins(q, y, yn, npad, compute_dtype)  # (m, nC)
 
     # top-c chunks per query, c = k + extra_chunks (the margin covers
     # phase-1 rounding near the boundary), then an exact rescore
@@ -421,24 +425,31 @@ def _fused_l2_knn_impl(queries, index, k: int, metric: DistanceType, *,
     qn = torch.sum(q * q, dim=-1)
     if gather_rows is None and cpad <= n_c and d % _CHUNK == 0:
         # the rescore kernel: each candidate chunk read in place
-        _, cids = top_k_smallest(cmins, cpad)             # (m, cpad)
-        cids32 = cids.to(torch.int32)
+        knn_obs.count("knn_rescore_calls_total", "kernel")
+        with annotate("knn.select"):
+            _, cids = top_k_smallest(cmins, cpad)         # (m, cpad)
+            cids32 = cids.to(torch.int32)
         # the kernel launches at most one block per (query, slot) pair
         blk = max(1, grid_limit // cpad)
-        scores = torch.cat([
-            rescore_scores(q[s:s + blk], cids32[s:s + blk], y)
-            for s in range(0, m, blk)
-        ])                                                # (m, cpad*128)
-        d2 = qn[:, None] + scores
-        col = (cids[:, :, None] * _CHUNK + off).reshape(m, cpad * _CHUNK)
-        d2 = torch.where(col >= n, torch.full_like(d2, BIG), d2)
-        vals, pos = top_k_smallest(d2, k)
-        return _finish(vals, torch.gather(col, 1, pos), metric)
+        with annotate("knn.rescore"):
+            scores = torch.cat([
+                rescore_scores(q[s:s + blk], cids32[s:s + blk], y)
+                for s in range(0, m, blk)
+            ])                                            # (m, cpad*128)
+        with annotate("knn.select"):
+            d2 = qn[:, None] + scores
+            col = (cids[:, :, None] * _CHUNK + off).reshape(m, cpad * _CHUNK)
+            d2 = torch.where(col >= n, torch.full_like(d2, BIG), d2)
+            vals, pos = top_k_smallest(d2, k)
+            ids = torch.gather(col, 1, pos)
+        return _finish(vals, ids, metric)
 
     # torch gather of the candidate rows: qn + yn - 2 dots over c chunks
+    knn_obs.count("knn_rescore_calls_total", "gather")
     if dev.type == "cuda":
         RESCORE_GATHER_CALLS += 1
-    _, cids = top_k_smallest(cmins, c)                    # (m, c)
+    with annotate("knn.select"):
+        _, cids = top_k_smallest(cmins, c)                # (m, c)
     # bf16 compute with bf16 storage feeds the dot bf16 queries, as the
     # JAX package does to keep the gathered block in bf16
     bf16_mode = (_compute_dtype(compute_dtype) == torch.bfloat16
@@ -448,21 +459,23 @@ def _fused_l2_knn_impl(queries, index, k: int, metric: DistanceType, *,
     for s in range(0, m, bq2):
         cb = cids[s:s + bq2]
         b = cb.shape[0]
-        rows = (cb[:, :, None] * _CHUNK + off).reshape(b, c * _CHUNK)
-        valid = rows < n
-        safe = rows.clamp(max=n - 1)
-        yv = y[safe].float()                              # (b, c*128, d)
-        ynv = torch.where(valid, yn[safe], big)
-        qb = q[s:s + bq2]
-        if bf16_mode:
-            qb = qb.to(torch.bfloat16).float()
-        dots = torch.bmm(yv, qb[:, :, None])[:, :, 0]
-        dots = torch.where(valid, dots, torch.zeros_like(dots))
-        d2 = qn[s:s + bq2, None] + ynv - 2.0 * dots
-        v, pos = top_k_smallest(d2, k)
-        which = torch.gather(cb, 1, pos // _CHUNK)
-        vals_out.append(v)
-        idx_out.append(which * _CHUNK + pos % _CHUNK)
+        with annotate("knn.rescore"):
+            rows = (cb[:, :, None] * _CHUNK + off).reshape(b, c * _CHUNK)
+            valid = rows < n
+            safe = rows.clamp(max=n - 1)
+            yv = y[safe].float()                          # (b, c*128, d)
+            ynv = torch.where(valid, yn[safe], big)
+            qb = q[s:s + bq2]
+            if bf16_mode:
+                qb = qb.to(torch.bfloat16).float()
+            dots = torch.bmm(yv, qb[:, :, None])[:, :, 0]
+            dots = torch.where(valid, dots, torch.zeros_like(dots))
+            d2 = qn[s:s + bq2, None] + ynv - 2.0 * dots
+        with annotate("knn.select"):
+            v, pos = top_k_smallest(d2, k)
+            which = torch.gather(cb, 1, pos // _CHUNK)
+            vals_out.append(v)
+            idx_out.append(which * _CHUNK + pos % _CHUNK)
     return _finish(torch.cat(vals_out), torch.cat(idx_out), metric)
 
 

@@ -14,7 +14,9 @@ Two paths per index partition:
   running merge, so the (m, n) distance matrix never exists.
 
 Partitions are searched one by one and merged with their id
-translations (:func:`knn_merge_parts`).
+translations (:func:`knn_merge_parts`). Each call holds the
+``knn.search`` range and counts its partitions by route
+(:mod:`~raft_tpu_torch.spatial.knn_obs`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from raft_tpu_torch import errors
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import as_tensor, call_device, hopper_device
 from raft_tpu_torch.distance.distance_type import (
     EXPANDED_METRICS, DistanceType, resolve_metric,
@@ -32,6 +35,7 @@ from raft_tpu_torch.distance.distance_type import (
 from raft_tpu_torch.distance.pairwise import (
     _expanded_impl, _unexpanded_impl, haversine_distance,
 )
+from raft_tpu_torch.spatial import knn_obs
 from raft_tpu_torch.spatial.fused_knn import (
     fused_grid_ok, fused_knn_supported, fused_l2_knn,
 )
@@ -137,6 +141,7 @@ def _note_scan_fallback(m: int, n: int, d: int) -> None:
             "partitions", m, n, d)
 
 
+@knn_obs.entry
 def brute_force_knn(index: Union[torch.Tensor, List], queries, k: int, *,
                     metric="l2_sqrt_expanded", p: float = 2.0,
                     translations: Optional[Sequence[int]] = None,
@@ -241,6 +246,7 @@ def brute_force_knn(index: Union[torch.Tensor, List], queries, k: int, *,
 
     def _search_part(pt, fused, norms):
         if fused:
+            knn_obs.count("knn_search_calls_total", "fused")
             kw = {}
             if compute_dtype is not None:
                 kw["compute_dtype"] = compute_dtype
@@ -248,8 +254,10 @@ def brute_force_knn(index: Union[torch.Tensor, List], queries, k: int, *,
                 kw["extra_chunks"] = extra_chunks
             return fused_l2_knn(queries, pt, k, metric=metric,
                                 index_norms=norms, **kw)
-        return _knn_single_part(queries, pt, k, metric, p, block_n,
-                                block_q)
+        knn_obs.count("knn_search_calls_total", "scan")
+        with annotate("knn.scan"):
+            return _knn_single_part(queries, pt, k, metric, p, block_n,
+                                    block_q)
 
     results = [_search_part(pt, f, nr)
                for pt, f, nr in zip(parts, routes, norms_list)]
