@@ -85,7 +85,8 @@ to 0 just before it and read just after:
 
 Any failed check raises, and the script exits non-zero. The last two
 lines of stdout are the ``kernels`` JSON line (one object for each of the
-eight TPU kernels) and the ``{"ok": true, ...}`` device line.
+eight TPU kernels, and one for ``top_k_smallest``'s selection kernel) and
+the ``{"ok": true, ...}`` device line.
 
 Imports neither JAX nor the JAX package. Needs one CUDA device of
 compute capability 9.0; without one it exits non-zero and prints no
@@ -843,9 +844,12 @@ def ivf_flat_phase(args, card, dev):
     ivf_flat.ENGINE_FALLBACKS = 0
     keep = []
     with scan_calls(keep) as shapes, \
-            path_batches(ivf_flat, "_grouped_impl", keep) as batches:
+            path_batches(ivf_flat, "_grouped_impl", keep) as batches, \
+            select_k_path() as selected:
         served = main_path(args.seed, card, dev)
     launches = fk.LAUNCHES
+    select_k = select_k_path_entry(selected, "IVF-Flat main path", card)
+    del selected
     log(f"main path: flat_scan_lists launched {launches} times, by "
         f"(Q, Lpad): {dict(shapes)}")
     check(launches > 0, "the main path never launched the kernel")
@@ -919,6 +923,7 @@ def ivf_flat_phase(args, card, dev):
         "gathered": {"ms": ref[0], "plain_ms": ref[1], "library_ms": ref[2],
                      "bound_ms": ref_bound[0], "bound_by": ref_bound[1],
                      "max_abs_err": ref_err, "shape": [32, 64, DIM, 3072]},
+        "select_k_path": select_k,
     }
 
 
@@ -5550,6 +5555,208 @@ def pq_lut_step(card, dev, seed):
             "shape": [chunk, mk, ds], "max_abs_err": max(errs)}
 
 
+# top_k_smallest's kernel at the cells' shapes: (rows, n, k) of the IVF
+# pool (32 probes x 448 sub-chunks, c = 40), the coarse probe (4,096
+# lists), and the brute force's two selections at SIFT-1M's shape
+SELECT_K_SHAPES = ((10_000, 14_336, 40), (10_000, 4096, 32),
+                   (10_000, 7824, 48), (10_000, 6144, 10))
+
+
+def select_k_rows(kind, rows, n, gen, dev):
+    """(rows, n) f32 rows of one kind: distance-like (positive, 5% BIG),
+    tie-heavy (four values), or special values (-0.0 and 0.0, both
+    infinities, both NaN signs, BIG, ties)."""
+    big = 1e30
+    if kind == "distance":
+        x = torch.rand((rows, n), generator=gen, device=dev) * 400 + 100
+        return torch.where(torch.rand((rows, n), generator=gen, device=dev)
+                           < 0.05, big, x)
+    if kind == "ties":
+        return torch.randint(0, 4, (rows, n), generator=gen,
+                             device=dev).float()
+    neg_nan = torch.tensor([0xffc00000 - 2 ** 32], dtype=torch.int32)
+    special = torch.cat([
+        torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, big, 1.0,
+                      1.0]), neg_nan.view(torch.float32)]).to(dev)
+    return special[torch.randint(0, special.numel(), (rows, n),
+                                 generator=gen, device=dev)]
+
+
+def time_select_k(x, k):
+    """(ms, plain_ms, library_ms, bound_ms, bound_by) of the selection
+    kernel at ``x``'s shape, over copies that overflow the L2: the
+    kernel, the sort route, ``torch.topk`` (which the port never calls),
+    and the byte bound (each entry read once, k values and indices
+    written)."""
+    from raft_tpu_torch.spatial import selection as tsel
+
+    n = x.shape[-1]
+    rows = x.numel() // n
+    sets = input_copies(x.contiguous())
+    ms = cuda_time_ms(lambda t: tsel.top_k_smallest_kernel(t, k), sets)
+    plain_ms = cuda_time_ms(lambda t: tsel.top_k_smallest_plain(t, k), sets,
+                            iters=10, warm=2)
+    library_ms = cuda_time_ms(
+        lambda t: torch.topk(t, k, largest=False, sorted=True), sets,
+        iters=10, warm=2)
+    bound_ms, bound_by = bound(rows * n * 4 + rows * k * 12, 0.0,
+                               FP32_FLOP_PER_S)
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def select_k_step(card, dev, seed):
+    """``top_k_smallest``'s selection kernel on the card at the cells'
+    shapes, which the smoke's paths are too small to give it: bitwise the
+    stable-sort route (values' bits and indices, and twice alike) on
+    distance-like, tie-heavy and special-value rows, then timed
+    (:func:`time_select_k`) on distance-like rows."""
+    from raft_tpu_torch.spatial import selection as tsel
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for rows, n, k in SELECT_K_SHAPES:
+        for kind in ("distance", "ties", "special"):
+            x = select_k_rows(kind, rows, n, gen, dev)
+            before = tsel.SELECT_K_LAUNCHES
+            v, i = tsel.top_k_smallest(x, k)
+            v2, i2 = tsel.top_k_smallest(x, k)
+            wv, wi = tsel.top_k_smallest_plain(x, k)
+            torch.cuda.synchronize()
+            check(tsel.SELECT_K_LAUNCHES == before + 2,
+                  f"top_k_smallest {(rows, n, k)} left the kernel")
+            bits = [t.view(torch.int32) for t in (v, v2, wv)]
+            check(torch.equal(i, wi) and torch.equal(i2, wi)
+                  and torch.equal(bits[0], bits[2])
+                  and torch.equal(bits[1], bits[2]),
+                  f"select_k {(rows, n, k)} {kind}: differs from the sort")
+    log("kernel check select_k: bitwise the stable sort, twice alike, at "
+        f"(rows, n, k) {SELECT_K_SHAPES} on distance, tie and special rows")
+    out = []
+    for rows, n, k in SELECT_K_SHAPES:
+        ms, plain_ms, library_ms, bound_ms, bound_by = time_select_k(
+            select_k_rows("distance", rows, n, gen, dev), k)
+        log(f"[{card}] select_k at (rows, n, k) {(rows, n, k)}: kernel "
+            f"{ms:.4f} ms ({bound_ms / ms:.1%} of the bound), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), sort {plain_ms:.4f} ms, "
+            f"torch.topk {library_ms:.4f} ms")
+        out.append({"shape": [rows, n, k], "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+    return out
+
+
+@contextlib.contextmanager
+def select_k_path():
+    """``top_k_smallest`` on a main path: ``SELECT_K_LAUNCHES`` at 0 just
+    before it, the route of each call counted, and each kernel launch
+    held bitwise (values' bits and indices) against
+    ``top_k_smallest_plain`` on its own input as it runs, the mismatches
+    summed on the card and read once after the path (so the path's times
+    include the sorts). The input of the last launch of each (rows, n, k)
+    is kept for :func:`select_k_path_entry`."""
+    from raft_tpu_torch.spatial import selection as tsel
+
+    fits, launch = tsel.select_k_kernel_fits, tsel.top_k_smallest_kernel
+    seen = {"routes": collections.Counter(), "sorted": collections.Counter(),
+            "shapes": collections.Counter(), "last": {}, "mismatches": 0}
+
+    def routing(x, k):
+        kernel = fits(x, k)
+        seen["routes"]["kernel" if kernel else "sort"] += 1
+        if not kernel:
+            seen["sorted"][x.device.type, str(x.dtype), tuple(x.shape),
+                           k] += 1
+        return kernel
+
+    def recording(x, k):
+        v, i = launch(x, k)
+        wv, wi = tsel.top_k_smallest_plain(x, k)
+        seen["mismatches"] = seen["mismatches"] + (i != wi).sum() + (
+            v.view(torch.int32) != wv.view(torch.int32)).sum()
+        key = (x.numel() // x.shape[-1], x.shape[-1], k)
+        seen["shapes"][key] += 1
+        seen["last"][key] = x
+        return v, i
+
+    tsel.SELECT_K_LAUNCHES = 0
+    tsel.select_k_kernel_fits = routing
+    tsel.top_k_smallest_kernel = recording
+    try:
+        yield seen
+    finally:
+        tsel.select_k_kernel_fits = fits
+        tsel.top_k_smallest_kernel = launch
+
+
+def select_k_path_entry(seen, what, card):
+    """Check what :func:`select_k_path` saw on a path: the kernel's
+    launch count equals the calls routed to it and the launches it
+    recorded, and no launch differed from the plain version. Then time
+    the kernel (:func:`time_select_k`) at every (rows, n, k) the path gave
+    it, on the input of its last launch there. Returns the launches and
+    the timings by shape."""
+    from raft_tpu_torch.spatial import selection as tsel
+
+    launches = tsel.SELECT_K_LAUNCHES
+    shapes, routes = seen["shapes"], seen["routes"]
+    check(launches > 0 and launches == routes["kernel"]
+          == sum(shapes.values()),
+          f"{what}: {launches} select_k launches, {routes['kernel']} calls "
+          f"routed to the kernel, {sum(shapes.values())} recorded")
+    mismatches = int(seen["mismatches"])
+    check(mismatches == 0, f"{what}: {mismatches} selected entries differ "
+          "from top_k_smallest_plain")
+    log(f"{what}: top_k_smallest launched the selection kernel {launches} "
+        f"times, each bitwise the plain version, by (rows, n, k) "
+        f"{dict(shapes)}; {routes['sort']} calls took the sort, by "
+        f"(device, dtype, shape, k) {dict(seen['sorted'])}")
+    timed = []
+    for key in sorted(shapes):
+        ms, plain_ms, library_ms, bound_ms, bound_by = time_select_k(
+            seen["last"][key], key[2])
+        log(f"[{card}] select_k on the {what} at (rows, n, k) {key}, "
+            f"{shapes[key]} launches: kernel {ms:.4f} ms ({bound_ms / ms:.1%} "
+            f"of the bound), bound {bound_ms:.5f} ms ({bound_by}), sort "
+            f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms")
+        timed.append({"shape": list(key), "launches": shapes[key], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    return {"launches": launches, "sort_calls": routes["sort"],
+            "by_shape": timed}
+
+
+def select_k_entry(paths, cells, card):
+    """The ``kernels`` entry of the selection kernel: its launches on the
+    IVF-Flat, IVF-PQ and brute-force main paths (``paths``, by the entry
+    that carried them), its times at the shape they launched most, every
+    path shape's times, and the cells' shapes (``cells``, from
+    :func:`select_k_step`)."""
+    check(set(paths) == {"flat_scan_subchunk_min", "pq_adc_subchunk_min",
+                         "chunk_mins"},
+          f"select_k paths from {sorted(paths)}")
+    launched = collections.Counter()
+    timed = {}
+    for path in paths.values():
+        for t in path["by_shape"]:
+            launched[tuple(t["shape"])] += t["launches"]
+            timed.setdefault(tuple(t["shape"]), t)
+    top = timed[launched.most_common(1)[0][0]]
+    return {
+        "name": "select_k", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/select_k.cu",
+        "replaces": "none (lax.top_k, which XLA lowers)",
+        "entry": "top_k_smallest",
+        "launches": sum(p["launches"] for p in paths.values()),
+        "paths": {"ivf_flat": paths["flat_scan_subchunk_min"],
+                  "ivf_pq": paths["pq_adc_subchunk_min"],
+                  "brute_force": paths["chunk_mins"]},
+        "max_abs_err": 0.0,
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "shape": top["shape"],
+        "cells": cells, "card": card,
+    }
+
+
 def lut_call_counts(searches, batches):
     """Check the ``pq_lut_rows`` calls of each grouped PQ search (from
     :func:`impl_calls`) against what its engine should make, and return
@@ -5631,9 +5838,12 @@ def pq_phase(args, card, dev, data):
             path_batches(ivf_pq, "_pq_grouped_impl", keep) as batches, \
             kernel_calls(pk, "pq_lut_rows", lambda a: a[4].shape[0],
                          lut_keep), \
-            impl_calls(ivf_pq, "_pq_grouped_impl", lut_keep) as searches:
+            impl_calls(ivf_pq, "_pq_grouped_impl", lut_keep) as searches, \
+            select_k_path() as selected:
         index, _ = quantized_path("pq", x, qb, true, rng, card, dev)
     launches = pk.LAUNCHES
+    select_k = select_k_path_entry(selected, "IVF-PQ main path", card)
+    del selected
     lut_launches = pk.LUT_LAUNCHES
     lut["launches"] = lut_launches
     log(f"pq path: pq_adc_lists launched {launches} times, by (Q, M*K, "
@@ -5784,6 +5994,7 @@ def pq_phase(args, card, dev, data):
         "mutation": mnums,
         "sharded": snums,
         "lut": lut,
+        "select_k_path": select_k,
     }
 
 
@@ -7079,10 +7290,12 @@ def brute_force_phase(args, card, dev):
     bfk.SCAN_FALLBACKS = 0
     fz.RESCORE_GATHER_CALLS = 0
     keep, kept = {}, {}
-    with fused_calls(keep) as shapes:
+    with fused_calls(keep) as shapes, select_k_path() as selected:
         sift_path(args.seed, card, dev, kept)
         wide_path(args.seed, card, dev, kept)
     launches = dict(fz.LAUNCHES)
+    select_k = select_k_path_entry(selected, "brute-force path", card)
+    del selected
     log(f"brute-force path: launches {launches}, by shape "
         f"{ {k: dict(v) for k, v in shapes.items()} }")
     for name, n in launches.items():
@@ -7267,6 +7480,7 @@ def brute_force_phase(args, card, dev):
         "bytes_ms": bytes_ms, "block_floor_ms": floor_ms,
         "library_ms": None, "shape": [sift_grid], "card": card,
     })
+    out[0]["select_k_path"] = select_k
     return out
 
 
@@ -7555,6 +7769,12 @@ def main(argv=None) -> int:
     kernels += brute_force_phase(args, card, dev)
     log(f"brute-force phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    cells = select_k_step(card, dev, args.seed)
+    log(f"select_k step: {time.perf_counter() - t0:.1f} s")
+    kernels.append(select_k_entry(
+        {e["name"]: e.pop("select_k_path") for e in kernels
+         if "select_k_path" in e}, cells, card))
+    t0 = time.perf_counter()
     lockcheck_phase(args, card, dev)
     log(f"lock-tracer phase: {time.perf_counter() - t0:.1f} s")
     # the library phase's facade brute force and the linkage phase's kNN
@@ -7571,8 +7791,8 @@ def main(argv=None) -> int:
                 entry["name"]]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    check(len(kernels) == 8 and all(keys <= set(k) for k in kernels),
-          "the kernels line needs all eight kernels with every key")
+    check(len(kernels) == 9 and all(keys <= set(k) for k in kernels),
+          "the kernels line needs all nine kernels with every key")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,10 @@ batch for all the queries probing it, at most ``qcap`` of them.
 Selection ties: ``lax.top_k`` in the JAX package returns equal values
 lowest index first. ``torch.topk`` does not promise that, so every
 selection here goes through
-:func:`~raft_tpu_torch.spatial.selection.top_k_smallest`, a stable sort —
-with integer-exact data, ties are common and a different tie order would
-pick different probes and different candidates, not just reorder them.
+:func:`~raft_tpu_torch.spatial.selection.top_k_smallest`, which keeps a
+stable sort's order — with integer-exact data, ties are common and a
+different tie order would pick different probes and different
+candidates, not just reorder them.
 """
 
 from __future__ import annotations

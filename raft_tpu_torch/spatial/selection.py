@@ -12,22 +12,62 @@ algorithm) is stable too but compares ``-0.0`` equal to ``0.0`` and puts
 every NaN last, which is what ``torch.sort(stable=True)`` does, so
 ``SORT`` uses that. ``APPROX`` (``lax.approx_min_k``) is exact here, as
 it is in the JAX package off the TPU.
+
+On the card, :func:`top_k_smallest` runs a hand-written selection,
+:func:`top_k_smallest_kernel` (``raft_tpu_torch/csrc/select_k.cu``; its
+source note says what bounds it and what the design does about that),
+wherever the input's shape allows: a CUDA float32 tensor with
+``1 <= k <= min(n, SELECT_K_MAX_K)`` and rows of ``n <= SELECT_K_MAX_ROW``
+entries (:func:`select_k_kernel_fits`; both limits are read from the
+kernel's source). It returns the stable sort's result bit for bit.
+Everything else (CPU tensors, other dtypes, larger k, longer rows) takes
+the plain version, :func:`top_k_smallest_plain`. :data:`SELECT_K_LAUNCHES`
+counts the kernel's launches, and the counter
+``select_k_calls_total{route="kernel"|"sort"}`` of
+:func:`raft_tpu_torch.obs.metrics.default_registry` counts the calls by
+the route the same test chose (``RAFT_TPU_OBS`` gates it as it gates
+every series).
 """
 
 from __future__ import annotations
 
+import ctypes
 import enum
+import functools
+import re
+from pathlib import Path
 from typing import Tuple
 
 import torch
 
 from raft_tpu_torch import errors
+from raft_tpu_torch.obs import metrics as _metrics
 
 __all__ = [
-    "SelectKAlgo", "chunk_min_select_k", "merge_parts_provenance_select_k",
+    "SELECT_K_LAUNCHES", "SELECT_K_MAX_K", "SELECT_K_MAX_ROW", "SelectKAlgo",
+    "chunk_min_select_k", "merge_parts_provenance_select_k",
     "merge_parts_select_k", "merge_topk", "select_k", "select_k_blocked",
-    "top_k_smallest",
+    "select_k_kernel_fits", "top_k_smallest", "top_k_smallest_kernel",
+    "top_k_smallest_plain",
 ]
+
+
+def _kernel_limits():
+    """(kMaxK, kMaxRow) as ``csrc/select_k.cu`` defines them: the
+    survivors it sorts, and the keys of a row it holds in shared
+    memory."""
+    src = (Path(__file__).resolve().parents[1] / "csrc"
+           / "select_k.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("kMaxK", "kMaxRow"))
+
+
+SELECT_K_MAX_K, SELECT_K_MAX_ROW = _kernel_limits()
+# kernel launches since import (or since a caller reset it to 0)
+SELECT_K_LAUNCHES = 0
+# the route counter's handles, by "the kernel is the route"
+_ROUTES = {}
 
 _INT_OF = {
     torch.float16: torch.int16, torch.bfloat16: torch.int16,
@@ -55,16 +95,88 @@ def _total_order_key(x):
     return bits ^ ((bits >> (8 * bits.element_size() - 1)) & mask)
 
 
-def top_k_smallest(x, k: int):
-    """The ``k`` smallest values along the last axis and their int64
-    indices, ascending, equal values lowest index first: what
-    ``lax.top_k(-x, k)`` selects, with the sign undone."""
+def top_k_smallest_plain(x, k: int):
+    """Plain version of :func:`top_k_smallest`: a stable sort of the
+    total-order keys (of the values themselves for integer dtypes), its
+    first ``k`` indices, and the values gathered at them."""
     if x.dtype in _INT_OF:
         _, idx = torch.sort(_total_order_key(x), dim=-1, stable=True)
         idx = idx[..., :k]
         return torch.gather(x, -1, idx), idx
     vals, idx = torch.sort(x, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def select_k_kernel_fits(x, k: int) -> bool:
+    """Does ``top_k_smallest(x, k)`` take the kernel? A CUDA float32
+    tensor of at least one row, ``1 <= k <= min(n, SELECT_K_MAX_K)`` and
+    ``n <= SELECT_K_MAX_ROW`` for its last-axis length ``n``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() < 1:
+        return False
+    n = x.shape[-1]
+    rows = x.numel() // n if n else 0
+    return (1 <= k <= min(n, SELECT_K_MAX_K) and n <= SELECT_K_MAX_ROW
+            and 1 <= rows < 2 ** 31)
+
+
+def top_k_smallest(x, k: int):
+    """The ``k`` smallest values along the last axis and their int64
+    indices, ascending, equal values lowest index first: what
+    ``lax.top_k(-x, k)`` selects, with the sign undone. Leading axes are
+    batch axes. The kernel where :func:`select_k_kernel_fits`, else
+    :func:`top_k_smallest_plain`; both give the same bits."""
+    kernel = select_k_kernel_fits(x, k)
+    counter = _ROUTES.get(kernel)
+    if counter is None:
+        counter = _ROUTES[kernel] = _metrics.default_registry().counter(
+            "select_k_calls_total", route="kernel" if kernel else "sort")
+    counter.inc()
+    if kernel:
+        return top_k_smallest_kernel(x, k)
+    return top_k_smallest_plain(x, k)
+
+
+def top_k_smallest_kernel(x, k: int):
+    """:func:`top_k_smallest` by one launch of the selection kernel, for
+    an ``x`` that :func:`select_k_kernel_fits`; counts the launch in
+    :data:`SELECT_K_LAUNCHES`."""
+    n = x.shape[-1]
+    xc = x.contiguous()
+    vals = torch.empty(x.shape[:-1] + (k,), dtype=torch.float32,
+                       device=x.device)
+    idx = torch.empty(x.shape[:-1] + (k,), dtype=torch.int64,
+                      device=x.device)
+    lib = _select_k_lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (xc.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            xc.numel() // n, n, k, stream)
+    if torch.cuda.current_device() == x.device.index:
+        err = lib.raft_select_k(*args)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.raft_select_k(*args)
+    if err:
+        raise RuntimeError(
+            f"top_k_smallest: kernel launch failed: CUDA error {err} "
+            f"({lib.raft_select_k_error_string(err).decode()})")
+    global SELECT_K_LAUNCHES
+    SELECT_K_LAUNCHES += 1
+    return vals, idx
+
+
+@functools.cache
+def _select_k_lib():
+    from raft_tpu_torch import _build
+
+    lib = _build.load("select_k")
+    fn = lib.raft_select_k
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, p]
+        fn.restype = i
+        lib.raft_select_k_error_string.argtypes = [i]
+        lib.raft_select_k_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _select(x, k: int, select_min: bool):

@@ -1776,3 +1776,112 @@ def test_lap_label_matrix_on_card():
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             assert torch.equal(g.cpu(), w), fn.__name__
+
+
+# top_k_smallest's selection kernel at the cells' shapes: the IVF pool of
+# 32 probes x 448 sub-chunks with c = 40, the coarse probe over 4,096
+# lists, and the brute force's two selections at SIFT-1M's shape
+_SELECT_K_SHAPES = ((10_000, 14_336, 40), (10_000, 4096, 32),
+                    (10_000, 7824, 48), (10_000, 6144, 10))
+
+
+_INT_BITS = {torch.float16: torch.int16, torch.float32: torch.int32,
+             torch.float64: torch.int64}
+
+
+def _select_k_rows(kind, rows, n, gen, dev):
+    """Rows of one kind: distance-like (positive, a share of them BIG),
+    tie-heavy (four distinct values), or the special values (-0.0 and
+    0.0, both infinities, both NaN signs, BIG) among a few ties."""
+    from raft_tpu_torch.spatial.fused_knn import BIG
+
+    if kind == "distance":
+        x = torch.rand((rows, n), generator=gen, device=dev) * 400 + 100
+        return torch.where(torch.rand((rows, n), generator=gen, device=dev)
+                           < 0.05, BIG, x)
+    if kind == "ties":
+        return torch.randint(0, 4, (rows, n), generator=gen,
+                             device=dev).float()
+    neg_nan = torch.tensor([0xffc00000 - 2 ** 32], dtype=torch.int32)
+    special = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                            float("nan"), BIG, 1.0, 1.0], device=dev)
+    special = torch.cat([special, neg_nan.view(torch.float32).to(dev)])
+    pick = torch.randint(0, special.numel(), (rows, n), generator=gen,
+                         device=dev)
+    return special[pick]
+
+
+def _assert_select_k_bitwise(x, k):
+    from raft_tpu_torch.spatial import selection as tsel
+
+    before = tsel.SELECT_K_LAUNCHES
+    vals, idx = tsel.top_k_smallest(x, k)
+    assert tsel.SELECT_K_LAUNCHES == before + 1
+    want_v, want_i = tsel.top_k_smallest_plain(x, k)
+    again_v, again_i = tsel.top_k_smallest(x, k)
+    torch.cuda.synchronize()
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int64
+    assert torch.equal(idx, want_i), tuple(x.shape)
+    assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(again_i, idx)
+    assert torch.equal(again_v.view(torch.int32), vals.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _SELECT_K_SHAPES)
+def test_select_k_kernel_bitwise_the_sort_at_cell_shapes(shape):
+    """On a Hopper card: the selection kernel against the stable-sort
+    route at a cell's shape, on distance-like, tie-heavy and special-value
+    rows (values' bits and indices), and twice over the same input."""
+    dev = _hopper()
+    rows, n, k = shape
+    gen = torch.Generator(device=dev).manual_seed(n + k)
+    for kind in ("distance", "ties", "special"):
+        _assert_select_k_bitwise(_select_k_rows(kind, rows, n, gen, dev), k)
+
+
+@pytest.mark.gpu
+def test_select_k_kernel_edges_and_routes_on_card():
+    """On a Hopper card: odd row lengths, k = 1 and k = n, the cap on k
+    and on the row length, rows off 16-byte alignment, leading batch axes
+    and a strided view all take the kernel and equal the sort bit for
+    bit; past the caps and in other dtypes the sort runs, counted."""
+    from raft_tpu_torch.obs import metrics
+    from raft_tpu_torch.spatial import selection as tsel
+
+    dev = _hopper()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cap_n, cap_k = tsel.SELECT_K_MAX_ROW, tsel.SELECT_K_MAX_K
+    for rows, n, k in ((3, 1, 1), (5, 7, 7), (9, 200, 200), (33, 4095, 1),
+                       (17, 14_337, 40), (8, 300, 256), (4, cap_n, cap_k),
+                       (3, cap_n, 1)):
+        for kind in ("distance", "ties", "special"):
+            _assert_select_k_bitwise(_select_k_rows(kind, rows, n, gen, dev),
+                                     k)
+    flat = _select_k_rows("ties", 1, 65 * 64 + 1, gen, dev)[0]
+    _assert_select_k_bitwise(flat[1:].view(65, 64), 9)      # misaligned rows
+    batch = _select_k_rows("special", 6 * 11, 96, gen, dev)
+    _assert_select_k_bitwise(batch.view(6, 11, 96), 10)     # (LB, qcap, L)
+    _assert_select_k_bitwise(batch.view(6, 11, 96)[:, :, ::2], 5)
+    _assert_select_k_bitwise(batch.t().contiguous().t(), 12)
+
+    def sorts():
+        return sum(c.value for c in metrics.default_registry().series(
+            "select_k_calls_total") if c.labels == {"route": "sort"})
+
+    prev = metrics.set_enabled(True)
+    try:
+        before, sorted_before = tsel.SELECT_K_LAUNCHES, sorts()
+        x = _select_k_rows("special", 4, 300, gen, dev)
+        for arg, k in ((x, cap_k + 1), (x.double(), 5), (x.half(), 5),
+                       (torch.randint(-9, 9, (4, 300), device=dev), 5),
+                       (_select_k_rows("ties", 2, cap_n + 1, gen, dev), 5)):
+            v, i = tsel.top_k_smallest(arg, k)
+            wv, wi = tsel.top_k_smallest_plain(arg, k)
+            bits = _INT_BITS.get(arg.dtype, arg.dtype)
+            assert torch.equal(i, wi)
+            assert torch.equal(v.view(bits), wv.view(bits))
+        assert tsel.SELECT_K_LAUNCHES == before
+        assert sorts() == sorted_before + 5
+    finally:
+        metrics.set_enabled(prev)

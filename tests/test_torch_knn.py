@@ -95,6 +95,51 @@ def test_top_k_smallest_is_lax_top_k_order():
     np.testing.assert_array_equal(i.numpy(), _np(ni)[:, :4])
 
 
+_NEG_NAN = np.array([0xffc00000], np.uint32).view(np.float32)[0]
+# every special value, BIG (the searches' sentinel) among them, and a tie
+_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, _NEG_NAN, 1e30,
+                      -1e30, 1.0, 1.0], np.float32)
+
+
+def _select_rows(kind, shape, rng):
+    if kind == "ties":
+        return rng.integers(0, 3, shape).astype(np.float32)
+    if kind == "specials":
+        return rng.choice(_SPECIALS, shape)
+    if kind == "special_row":           # each special value, shuffled
+        return _SPECIALS[[6, 4, 1, 8, 0, 2, 5, 3, 7, 9, 1, 0]][None, :]
+    x = rng.random(shape).astype(np.float32) * 400 + 100
+    return np.where(rng.random(shape) < 0.1, np.float32(1e30), x)
+
+
+@pytest.mark.parametrize("kind,shape,k,dtype", [
+    (kind, shape, k, np.float32)
+    for kind in ("ties", "specials", "distance")
+    for shape, k in (((5, 37), 1), ((5, 37), 37), ((3, 300), 40),
+                     ((4, 6, 50), 10), ((2, 3, 4, 9), 9), ((1, 1), 1))
+] + [("special_row", None, 12, np.float32)] + [
+    ("ties", (6, 70), 12, np.int32), ("ties", (6, 70), 12, np.int64),
+    ("specials", (6, 70), 12, np.float64),
+    ("specials", (6, 70), 12, np.float16),
+])
+def test_top_k_smallest_total_order_is_lax_top_k(kind, shape, k, dtype):
+    """More rows for the test above: tie-heavy, special-value and
+    distance-like rows at k = 1, k = n, a middle k and leading batch axes,
+    and integer, f64 and f16 rows (the sort's other routes): the indices
+    lax.top_k(-x) selects, each with its value's own bits."""
+    rng = np.random.default_rng(sum(shape or ()) + k)
+    with np.errstate(over="ignore"):            # BIG is inf in f16
+        x = _select_rows(kind, shape, rng).astype(dtype)
+    # lax.top_k over f32 (x64 is off): exact for f16 and for these f64
+    xj = x if np.dtype(dtype).kind == "i" else x.astype(np.float32)
+    _, ni = lax.top_k(-jnp.asarray(xj), k)
+    v, i = tsel.top_k_smallest(torch.as_tensor(x), k)
+    np.testing.assert_array_equal(i.numpy(), _np(ni))
+    want = np.take_along_axis(x, _np(ni).astype(np.int64), -1)
+    np.testing.assert_array_equal(v.numpy().view(np.uint8),
+                                  want.view(np.uint8))
+
+
 @pytest.mark.parametrize("algo", [SelectKAlgo.TOPK, SelectKAlgo.SORT,
                                   SelectKAlgo.CHUNK_MIN, SelectKAlgo.APPROX])
 @pytest.mark.parametrize("select_min", [True, False])
