@@ -376,47 +376,66 @@ def kernel_calls(mod, name, key, keep=None):
         setattr(mod, name, wrapper)
 
 
-@contextlib.contextmanager
-def path_batches(mod, impl, keep):
-    """Record the kernel-engine batches of ``mod.impl`` (a grouped-search
-    body): for each, its queries and the calls it launched, the slice of
-    ``keep`` (filled by :func:`kernel_calls`) that it added."""
-    real = getattr(mod, impl)
-    batches = []
+def engine_fallbacks(name, reset=False):
+    """The grouped searches of engine ``name`` (``ivf_flat``, ``ivf_sq``,
+    ``ivf_pq``) that the engine rule sent off the kernel
+    (``grouped.ENGINE_FALLBACKS``), zeroed first with ``reset``."""
+    from raft_tpu_torch.spatial.ann import grouped
 
-    def recording(*args, **kw):
-        start = len(keep)
-        out = real(*args, **kw)
-        if kw.get("use_kernel"):
-            batches.append((args[1], keep[start:]))
-        return out
-
-    setattr(mod, impl, recording)
-    try:
-        yield batches
-    finally:
-        setattr(mod, impl, real)
+    if reset:
+        grouped.ENGINE_FALLBACKS[name] = 0
+    return grouped.ENGINE_FALLBACKS[name]
 
 
 @contextlib.contextmanager
-def impl_calls(mod, impl, keep):
-    """Record every call of ``mod.impl`` (a grouped-search body, either
-    engine): its arguments, keyword arguments and the slice of ``keep``
-    (filled by :func:`kernel_calls`) that it added."""
-    real = getattr(mod, impl)
+def body_calls(admit, record, keep=()):
+    """Record every call of the one grouped-search body
+    (``grouped.search``) whose engine and keyword arguments ``admit(
+    engine, kw)`` takes, as ``record(args, kw, added, launches)``: its
+    arguments, keyword arguments, the slice of ``keep`` (filled by
+    :func:`kernel_calls`) that it added, and the flat-scan launches it
+    made."""
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+    from raft_tpu_torch.spatial.ann import grouped
+
+    real = grouped.search
     calls = []
 
     def recording(*args, **kw):
-        start = len(keep)
+        start, before = len(keep), fk.LAUNCHES
         out = real(*args, **kw)
-        calls.append((args, kw, keep[start:]))
+        if admit(args[0], kw):
+            calls.append(record(args, kw, keep[start:],
+                                fk.LAUNCHES - before))
         return out
 
-    setattr(mod, impl, recording)
+    grouped.search = recording
     try:
         yield calls
     finally:
-        setattr(mod, impl, real)
+        grouped.search = real
+
+
+@contextlib.contextmanager
+def path_batches(name, keep):
+    """Record the kernel-engine batches of the grouped body on engine
+    ``name``: for each, its queries and the calls it launched, the slice
+    of ``keep`` (filled by :func:`kernel_calls`) that it added."""
+    with body_calls(lambda e, kw: e.name == name and e.kernel,
+                    lambda args, kw, added, n: (args[1], added),
+                    keep) as batches:
+        yield batches
+
+
+@contextlib.contextmanager
+def impl_calls(name, keep):
+    """Record every call of the grouped body on engine ``name`` (either
+    form): its arguments, keyword arguments and the slice of ``keep``
+    (filled by :func:`kernel_calls`) that it added."""
+    with body_calls(lambda e, kw: e.name == name,
+                    lambda args, kw, added, n: (args, kw, added),
+                    keep) as calls:
+        yield calls
 
 
 def batch_per_key(batches, key):
@@ -838,13 +857,12 @@ def ivf_flat_phase(args, card, dev):
 
     # the main path, with every launch counter at 0 just before it; each
     # kernel-engine batch and the calls it launched are kept
-    from raft_tpu_torch.spatial.ann import ivf_flat
 
     fk.LAUNCHES = 0
-    ivf_flat.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_flat", reset=True)
     keep = []
     with scan_calls(keep) as shapes, \
-            path_batches(ivf_flat, "_grouped_impl", keep) as batches, \
+            path_batches("ivf_flat", keep) as batches, \
             select_k_path() as selected:
         served = main_path(args.seed, card, dev)
     launches = fk.LAUNCHES
@@ -853,8 +871,8 @@ def ivf_flat_phase(args, card, dev):
     log(f"main path: flat_scan_lists launched {launches} times, by "
         f"(Q, Lpad): {dict(shapes)}")
     check(launches > 0, "the main path never launched the kernel")
-    check(ivf_flat.ENGINE_FALLBACKS == 0,
-          f"{ivf_flat.ENGINE_FALLBACKS} main-path searches left the kernel")
+    check(engine_fallbacks("ivf_flat") == 0,
+          f"{engine_fallbacks("ivf_flat")} main-path searches left the kernel")
     per_batch = collections.Counter(len(c) for _, c in batches)
     log(f"main path: {len(batches)} kernel-engine batches, flat-scan "
         f"launches per batch {dict(per_batch)}")
@@ -1125,7 +1143,7 @@ def executor_phase(args, card, dev, index, qcaps, x):
     from raft_tpu_torch.serving import STAGES
     from raft_tpu_torch.serving.open_loop import open_loop_row
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.spatial.ann import ivf_flat, ivf_flat_search_grouped
+    from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
 
     rng = np.random.default_rng(args.seed + 8)
     pool = (x[rng.integers(0, N_ROWS, 8192)]
@@ -1173,7 +1191,7 @@ def executor_phase(args, card, dev, index, qcaps, x):
             recorded[at, rows[0].tobytes()] = (rows, fut)
 
     fk.LAUNCHES = 0
-    ivf_flat.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_flat", reset=True)
     keep = ExecutorCalls(EXEC_KEPT)
     t0 = time.perf_counter()
     with scan_calls(keep), warnings.catch_warnings(record=True) as warned:
@@ -1234,8 +1252,8 @@ def executor_phase(args, card, dev, index, qcaps, x):
         "direct searches")
     check(launches == calls["executor"] + calls["direct"],
           "flat_scan_lists launches != searches")
-    check(ivf_flat.ENGINE_FALLBACKS == 0,
-          f"{ivf_flat.ENGINE_FALLBACKS} executor searches left the kernel")
+    check(engine_fallbacks("ivf_flat") == 0,
+          f"{engine_fallbacks("ivf_flat")} executor searches left the kernel")
     torch.cuda.synchronize()
     check(len(keep) == EXEC_KEPT, f"kept {len(keep)} executor launches")
     max_err = max(compare_lists_to_plain(call) for call in keep)
@@ -1409,26 +1427,14 @@ MUTATION_SCRIPT = {}
 
 
 @contextlib.contextmanager
-def engine_batches(mod, impl="_grouped_impl"):
-    """Record, for every kernel-engine call of ``mod.impl`` (a grouped
-    scan body as ``mod`` sees it), the flat-scan launches it made."""
-    from raft_tpu_torch.spatial.ann import flat_kernel as fk
-
-    real = getattr(mod, impl)
-    launches = []
-
-    def recording(*args, **kw):
-        before = fk.LAUNCHES
-        out = real(*args, **kw)
-        if kw.get("use_kernel"):
-            launches.append(fk.LAUNCHES - before)
-        return out
-
-    setattr(mod, impl, recording)
-    try:
+def engine_batches(masked):
+    """Record, for every IVF-Flat kernel-engine call of the grouped body
+    with a tombstone mask (``masked``: the mutable searches) or without
+    one (the frozen index's), the flat-scan launches it made."""
+    with body_calls(lambda e, kw: (e.name == "ivf_flat" and e.kernel and (
+            kw.get("row_mask") is not None) == masked),
+            lambda args, kw, added, n: n) as launches:
         yield launches
-    finally:
-        setattr(mod, impl, real)
 
 
 def dyadic_rows(x, rng, m):
@@ -1475,7 +1481,7 @@ def mutation_phase(args, card, dev, index, qcaps, x):
         durable_ingest_row, mixed_ingest_row,
     )
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.spatial.ann import interop, ivf_flat
+    from raft_tpu_torch.spatial.ann import interop
     from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
     from raft_tpu_torch.spatial.ann import mutation as mut
     from raft_tpu_torch.testing.crash import run_crash_ingest_cycle
@@ -1498,9 +1504,9 @@ def mutation_phase(args, card, dev, index, qcaps, x):
         return 1e3 * (time.perf_counter() - t0) / n, out
 
     fk.LAUNCHES = 0
-    ivf_flat.ENGINE_FALLBACKS = 0
-    with engine_batches(mut) as mut_calls, \
-            engine_batches(ivf_flat) as frozen_calls:
+    engine_fallbacks("ivf_flat", reset=True)
+    with engine_batches(True) as mut_calls, \
+            engine_batches(False) as frozen_calls:
         t0 = time.perf_counter()
         m0 = mut.wrap_mutable(index, delta_cap=MUT_CAP)
         for b in BUCKETS:
@@ -1796,8 +1802,8 @@ def mutation_phase(args, card, dev, index, qcaps, x):
           f"flat_scan_lists launched {launches} times for "
           f"{len(mut_calls)} mutable and {len(frozen_calls)} frozen "
           "kernel-engine searches")
-    check(ivf_flat.ENGINE_FALLBACKS == 0,
-          f"{ivf_flat.ENGINE_FALLBACKS} mutation-phase searches left the "
+    check(engine_fallbacks("ivf_flat") == 0,
+          f"{engine_fallbacks("ivf_flat")} mutation-phase searches left the "
           "kernel")
     nums.update(launches=launches, mutable_searches=len(mut_calls),
                 frozen_searches=len(frozen_calls), engine_fallbacks=0)
@@ -1940,25 +1946,11 @@ def no_host_sync(what):
 @contextlib.contextmanager
 def tier_calls():
     """Record every grouped-scan call the tier makes (its searches and
-    the guardrail's full-path arm): its engine and the flat-scan
-    launches it made."""
-    from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.tier import store as ts
-
-    real = ts._grouped_impl
-    calls = []
-
-    def recording(*args, **kw):
-        before = fk.LAUNCHES
-        out = real(*args, **kw)
-        calls.append((bool(kw.get("use_kernel")), fk.LAUNCHES - before))
-        return out
-
-    ts._grouped_impl = recording
-    try:
+    the guardrail's full-path arm, the calls with a row mask): its
+    engine's form and the flat-scan launches it made."""
+    with body_calls(lambda e, kw: kw.get("row_mask") is not None,
+                    lambda args, kw, added, n: (args[0].kernel, n)) as calls:
         yield calls
-    finally:
-        ts._grouped_impl = real
 
 
 def working_set(store, rows, n_probes):
@@ -2003,7 +1995,6 @@ def tier_phase(args, card, dev, index, qcaps, x):
     from raft_tpu_torch.obs import MetricRegistry
     from raft_tpu_torch.serving.tier_rows import cold_tier_row
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.spatial.ann import ivf_flat
     from raft_tpu_torch.spatial.ann import ivf_flat_search_grouped
     from raft_tpu_torch.spatial.ann import mutation as mut
     from raft_tpu_torch.spatial.ann.common import coarse_probe
@@ -2065,8 +2056,8 @@ def tier_phase(args, card, dev, index, qcaps, x):
             sync(dev)
 
         fk.LAUNCHES = 0
-        ivf_flat.ENGINE_FALLBACKS = 0
-        with engine_batches(ivf_flat) as resident, tier_calls() as tcalls:
+        engine_fallbacks("ivf_flat", reset=True)
+        with engine_batches(False) as resident, tier_calls() as tcalls:
             # -- geometry ----------------------------------------------
             t0 = time.perf_counter()
             reg = MetricRegistry()
@@ -2380,8 +2371,8 @@ def tier_phase(args, card, dev, index, qcaps, x):
               f"flat_scan_lists launched {launches} times for "
               f"{len(resident)} resident kernel-engine batches "
               f"{collections.Counter(resident)}")
-        check(ivf_flat.ENGINE_FALLBACKS == 0,
-              f"{ivf_flat.ENGINE_FALLBACKS} tier-phase searches left the "
+        check(engine_fallbacks("ivf_flat") == 0,
+              f"{engine_fallbacks("ivf_flat")} tier-phase searches left the "
               "kernel")
         check(set(_build._LIBS) == libs, "the tier phase built an extension")
         nums.update(launches=launches, resident_batches=len(resident),
@@ -2437,7 +2428,7 @@ def sharded_phase(args, card, dev, index, qcaps, x):
     )
     from raft_tpu_torch.serving import ServingExecutor
     from raft_tpu_torch.spatial.ann import (
-        IVFFlatParams, ivf_flat, ivf_flat_search_grouped, ivf_sq, save_index,
+        IVFFlatParams, ivf_flat_search_grouped, save_index,
     )
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
     from raft_tpu_torch.spatial.ann import sq_kernel as sk
@@ -2483,7 +2474,7 @@ def sharded_phase(args, card, dev, index, qcaps, x):
 
         # the sharded path, with the launch counters at 0 just before it
         fk.LAUNCHES = 0
-        ivf_flat.ENGINE_FALLBACKS = 0
+        engine_fallbacks("ivf_flat", reset=True)
 
         # 2. the build at P = 8
         sync(dev)
@@ -2594,8 +2585,8 @@ def sharded_phase(args, card, dev, index, qcaps, x):
             check(n_launch == (SHARD_P if engine is None else 0),
                   f"{n_launch} flat-scan launches for the every-list "
                   f"probe ({name})")
-        check(ivf_flat.ENGINE_FALLBACKS == 0,
-              f"{ivf_flat.ENGINE_FALLBACKS} sharded searches left the "
+        check(engine_fallbacks("ivf_flat") == 0,
+              f"{engine_fallbacks("ivf_flat")} sharded searches left the "
               "kernel")
 
         # 4. P = 8 against P = 1 and NCCL at world size 1
@@ -2780,7 +2771,7 @@ def sharded_phase(args, card, dev, index, qcaps, x):
 
         # 8. the IVF-SQ sibling over the same rows: #3 on each shard
         sk.LAUNCHES = 0
-        ivf_sq.ENGINE_FALLBACKS = 0
+        engine_fallbacks("ivf_sq", reset=True)
         sync(dev)
         t0 = time.perf_counter()
         sq = mnmg_ivf_sq_build(comms, x, IVFSQParams(n_lists=N_LISTS,
@@ -2816,8 +2807,8 @@ def sharded_phase(args, card, dev, index, qcaps, x):
               f"sharded SQ kernel engine below legacy: {nums}")
         check(1 <= sq_per_batch <= SHARD_P,
               f"{sq_per_batch} SQ-scan launches for one batch")
-        check(ivf_sq.ENGINE_FALLBACKS == 0,
-              f"{ivf_sq.ENGINE_FALLBACKS} sharded SQ searches left the "
+        check(engine_fallbacks("ivf_sq") == 0,
+              f"{engine_fallbacks("ivf_sq")} sharded SQ searches left the "
               "kernel")
         before = sk.LAUNCHES
         nums["sq_mutation"] = mutable_round(
@@ -2825,7 +2816,7 @@ def sharded_phase(args, card, dev, index, qcaps, x):
             (sk, "sq_scan_lists", compare_lists_to_plain))
         nums["sq_mutation"]["launches"] = sk.LAUNCHES - before
         nums["sq_launches"] = sk.LAUNCHES
-        check(ivf_sq.ENGINE_FALLBACKS == 0 and sk.LAUNCHES > before,
+        check(engine_fallbacks("ivf_sq") == 0 and sk.LAUNCHES > before,
               "the sharded SQ mutation round left the kernel")
         del sq
 
@@ -2994,7 +2985,7 @@ def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
         FailoverPlan, ReplicaPlacement, ShardHealth,
     )
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.spatial.ann import ivf_flat, save_index
+    from raft_tpu_torch.spatial.ann import save_index
 
     S = MUTATION_SCRIPT
     check(S, "the sharded mutation step needs the mutation phase's script")
@@ -3015,7 +3006,7 @@ def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
         return mnmg_mutable_search(comms, m, q, K, n_probes=N_PROBES, **kw)
 
     fk.LAUNCHES = 0
-    ivf_flat.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_flat", reset=True)
     sync(dev)
     t0 = time.perf_counter()
     mw0 = wrap_mnmg_mutable(comms, rep, delta_cap=MUT_CAP)
@@ -3176,10 +3167,10 @@ def sharded_mutation_step(args, card, dev, comms, rep, qcap, tmpdir):
         f"acked; mnmg_recover replayed 24 in {nums['mnmg_recover_s']:.2f} s "
         "onto a fresh wrap, state bitwise")
     nums["launches"] = fk.LAUNCHES
-    nums["engine_fallbacks"] = ivf_flat.ENGINE_FALLBACKS
-    check(fk.LAUNCHES > 0 and ivf_flat.ENGINE_FALLBACKS == 0,
+    nums["engine_fallbacks"] = engine_fallbacks("ivf_flat")
+    check(fk.LAUNCHES > 0 and engine_fallbacks("ivf_flat") == 0,
           f"sharded mutation: {fk.LAUNCHES} flat-scan launches, "
-          f"{ivf_flat.ENGINE_FALLBACKS} fallbacks")
+          f"{engine_fallbacks("ivf_flat")} fallbacks")
     return nums
 
 
@@ -3381,7 +3372,6 @@ def library_phase(args, card, dev, index, qcaps, x):
         ivf_flat_search, ivf_flat_search_grouped,
     )
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
-    from raft_tpu_torch.spatial.ann import ivf_flat
 
     rng = np.random.default_rng(args.seed + 61)
     nums = {"card": card}
@@ -3423,7 +3413,7 @@ def library_phase(args, card, dev, index, qcaps, x):
         return out, t, n
 
     fk.LAUNCHES = 0
-    ivf_flat.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_flat", reset=True)
     for key in fz.LAUNCHES:
         fz.LAUNCHES[key] = 0
     keep, fkeep = [], {}
@@ -3528,8 +3518,8 @@ def library_phase(args, card, dev, index, qcaps, x):
     nums["launches"] = path["flat_scan_lists"]
     nums["fused_launches"] = {k: path[k]
                               for k in ("chunk_mins", "rescore_scores")}
-    check(ivf_flat.ENGINE_FALLBACKS == 0,
-          f"{ivf_flat.ENGINE_FALLBACKS} library searches left the kernel")
+    check(engine_fallbacks("ivf_flat") == 0,
+          f"{engine_fallbacks("ivf_flat")} library searches left the kernel")
     phase_all = {"flat_scan_lists": fk.LAUNCHES, **fz.LAUNCHES}
     nums["max_abs_err"] = max(compare_lists_to_plain(c) for c in keep)
     ferr = {"chunk_mins": 0.0, "rescore_scores": 0.0}
@@ -4738,6 +4728,7 @@ def coarse_phase(args, card, dev, index, x):
     super) pair dropped), the flat-scan kernel's launches on both stages
     held against its plain versions, and the three probes' times. Returns
     the numbers for the flat scan's entry of the ``kernels`` line."""
+    from raft_tpu_torch.spatial.ann import coarse as tco
     from raft_tpu_torch.spatial.ann import common as cm
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
@@ -4755,7 +4746,7 @@ def coarse_phase(args, card, dev, index, x):
 
     # the default geometry, audited and not gated (see COARSE_SUPERS)
     default = cm.build_coarse_index(cents)
-    rec_default = [cm.coarse_probe_recall(
+    rec_default = [tco.coarse_probe_recall(
         qb[:COARSE_AUDIT], cents, default, COARSE_PROBES,
         overprobe=COARSE_OVERPROBE, use_kernel=k) for k in (False, True)]
     flops_default = cm.probe_flop_accounting(
@@ -4783,7 +4774,7 @@ def coarse_phase(args, card, dev, index, x):
         f"ratio {flops['ratio']:.2f} (flat {flops['flat']:.0f}, two-level "
         f"{flops['two_level']:.0f} a query)")
     check(flops["ratio"] >= 4.0, f"probe FLOP ratio {flops['ratio']} < 4")
-    check(cm.two_level_probe_kernel_supported(
+    check(tco.two_level_probe_kernel_supported(
         DIM, COARSE_QUERIES, COARSE_PROBES, ns, mm, S),
         "the kernel engine does not apply at the deployment geometry")
     args_c = (coarse.super_cents, coarse.member_ids, coarse.cents_padded,
@@ -4792,7 +4783,7 @@ def coarse_phase(args, card, dev, index, x):
     # the probe's path, with the counts at 0 just before it: the kernel
     # engine's recall audit and its 16,384-query batch
     fk.LAUNCHES = 0
-    cm.COARSE_ENGINE_FALLBACKS = 0
+    tco.COARSE_ENGINE_FALLBACKS = 0
     keep1, keep2 = [], []
     with kernel_calls(fk, "flat_scan_subchunk_min",
                       lambda a: (a[0].shape[1], a[1].shape[2]),
@@ -4800,32 +4791,32 @@ def coarse_phase(args, card, dev, index, x):
             kernel_calls(fk, "flat_scan_lists",
                          lambda a: (a[1].shape[0], a[1].shape[1], a[5]),
                          keep2) as shapes2:
-        rec_k = cm.coarse_probe_recall(
+        rec_k = tco.coarse_probe_recall(
             qb[:COARSE_AUDIT], cents, coarse, COARSE_PROBES,
             overprobe=COARSE_OVERPROBE, use_kernel=True)
-        pk, dk = cm.two_level_probe(qb, *args_c, use_kernel=True)
+        pk, dk = tco.two_level_probe(qb, *args_c, use_kernel=True)
         sync(dev)
     launches = fk.LAUNCHES
     log(f"coarse probe path: flat-scan launches {launches}: stage 1 "
         f"(flat_scan_subchunk_min) by (queries, supers padded) "
         f"{dict(shapes1)}, stage 2 (flat_scan_lists) by (supers, qcap, "
         f"Lpad) {dict(shapes2)}; COARSE_ENGINE_FALLBACKS "
-        f"{cm.COARSE_ENGINE_FALLBACKS}")
-    check(cm.COARSE_ENGINE_FALLBACKS == 0,
-          f"{cm.COARSE_ENGINE_FALLBACKS} kernel-engine probes ran legacy")
+        f"{tco.COARSE_ENGINE_FALLBACKS}")
+    check(tco.COARSE_ENGINE_FALLBACKS == 0,
+          f"{tco.COARSE_ENGINE_FALLBACKS} kernel-engine probes ran legacy")
     check(sum(shapes1.values()) == 2 and sum(shapes2.values()) == 2
           and launches == 4,
           f"{launches} flat-scan launches for 2 probes (one a stage "
           "expected)")
 
-    rec_l = cm.coarse_probe_recall(
+    rec_l = tco.coarse_probe_recall(
         qb[:COARSE_AUDIT], cents, coarse, COARSE_PROBES,
         overprobe=COARSE_OVERPROBE)
     log(f"[{card}] coarse_probe_recall on {COARSE_AUDIT} queries: kernel "
         f"engine {rec_k:.4f}, legacy {rec_l:.4f}")
     check(min(rec_k, rec_l) >= 0.99,
           f"two-level probe recall {rec_k} / {rec_l} < 0.99")
-    pl, dl = cm.two_level_probe(qb, *args_c)
+    pl, dl = tco.two_level_probe(qb, *args_c)
 
     # the first launch at each shape against its plain version
     err = 0.0
@@ -4847,7 +4838,7 @@ def coarse_phase(args, card, dev, index, x):
     # super) pairs it kept, up to member ties, on every query; (3) on
     # the queries with no dropped pair and equal super sets they equal
     # legacy's up to member ties.
-    sup_k = cm._super_scan_kernel(qb, coarse.super_cents, S, 256)
+    sup_k = tco._super_scan_kernel(qb, coarse.super_cents, S, 256)
     qcap = keep2[-1][1].shape[1]
     slot = cm.invert_probe_map_ranked(sup_k, ns, qcap)[3]
     keep_pairs = (slot < qcap).reshape(COARSE_QUERIES, S)
@@ -4902,9 +4893,9 @@ def coarse_phase(args, card, dev, index, x):
         "flat": cuda_time_ms(lambda: cm.coarse_probe(qb, cents,
                                                      COARSE_PROBES),
                              [()], iters=3, warm=1),
-        "legacy": cuda_time_ms(lambda: cm.two_level_probe(qb, *args_c),
+        "legacy": cuda_time_ms(lambda: tco.two_level_probe(qb, *args_c),
                                [()], iters=3, warm=1),
-        "kernel": cuda_time_ms(lambda: cm.two_level_probe(
+        "kernel": cuda_time_ms(lambda: tco.two_level_probe(
             qb, *args_c, use_kernel=True), [()], iters=5, warm=1),
     }
     log(f"[{card}] {COARSE_QUERIES}-query probe ms: flat coarse_probe "
@@ -5154,7 +5145,6 @@ def compare_sq_to_plain(args):
 def quantized_phase(kind, args, card, dev, data):
     """The IVF-SQ path ("sq") and its scan kernel; returns the kernel's
     entry of the ``kernels`` line. (IVF-PQ is :func:`pq_phase`.)"""
-    from raft_tpu_torch.spatial.ann import ivf_sq
     from raft_tpu_torch.spatial.ann import sq_kernel as sk
 
     check(kind == "sq", f"quantized_phase runs IVF-SQ, not {kind}")
@@ -5193,17 +5183,17 @@ def quantized_phase(kind, args, card, dev, data):
     rng = np.random.default_rng(args.seed + 2)
     qb = torch.as_tensor(q_np, device=dev)
     sk.LAUNCHES = 0
-    ivf_sq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_sq", reset=True)
     keep = []
     with kernel_calls(sk, "sq_scan_lists", key, keep) as shapes, \
-            path_batches(ivf_sq, "_grouped_impl", keep) as batches:
+            path_batches("ivf_sq", keep) as batches:
         index, _ = quantized_path(kind, x, qb, true, rng, card, dev)
     launches = sk.LAUNCHES
     log(f"sq path: sq_scan_lists launched {launches} times, by (Q, Lpad): "
-        f"{dict(shapes)}; ENGINE_FALLBACKS {ivf_sq.ENGINE_FALLBACKS}")
+        f"{dict(shapes)}; ENGINE_FALLBACKS {engine_fallbacks("ivf_sq")}")
     check(launches > 0, "the sq path never launched sq_scan_lists")
-    check(ivf_sq.ENGINE_FALLBACKS == 0,
-          f"{ivf_sq.ENGINE_FALLBACKS} sq searches left the kernel")
+    check(engine_fallbacks("ivf_sq") == 0,
+          f"{engine_fallbacks("ivf_sq")} sq searches left the kernel")
     per_batch = collections.Counter(len(c) for _, c in batches)
     log(f"sq path: {len(batches)} kernel-engine batches, sq_scan_lists "
         f"launches per batch {dict(per_batch)} (68 per batch before)")
@@ -5247,21 +5237,21 @@ def quantized_phase(kind, args, card, dev, data):
 
     # the mutation tier on this index, its counters at 0 just before it
     sk.LAUNCHES = 0
-    ivf_sq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_sq", reset=True)
     mnums, n_kernel = mutable_quantized("sq", index, x, qb, dev, card)
     mnums.update(launches=sk.LAUNCHES, kernel_searches=n_kernel,
-                 engine_fallbacks=ivf_sq.ENGINE_FALLBACKS)
+                 engine_fallbacks=engine_fallbacks("ivf_sq"))
     log(f"[{card}] sq mutation: " + json.dumps(mnums))
-    check(sk.LAUNCHES == n_kernel and ivf_sq.ENGINE_FALLBACKS == 0,
+    check(sk.LAUNCHES == n_kernel and engine_fallbacks("ivf_sq") == 0,
           f"sq mutation: {sk.LAUNCHES} sq_scan_lists launches for "
           f"{n_kernel} kernel-engine searches, fallbacks "
-          f"{ivf_sq.ENGINE_FALLBACKS}")
+          f"{engine_fallbacks("ivf_sq")}")
     # the cold tier over this index, on its pinned legacy engine
-    before = (sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS)
+    before = (sk.LAUNCHES, engine_fallbacks("ivf_sq"))
     tnums = sq_tier(index, qb, card, dev)
-    check((sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS) == before,
+    check((sk.LAUNCHES, engine_fallbacks("ivf_sq")) == before,
           f"the SQ tier launched sq_scan_lists or fell back: {before} -> "
-          f"{(sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS)}")
+          f"{(sk.LAUNCHES, engine_fallbacks("ivf_sq"))}")
     # approx_knn_search on this index takes the per-query path at any
     # batch size (the JAX package's dispatch table: IVF-SQ has no
     # throughput path), so it launches no SQ scan
@@ -5274,7 +5264,7 @@ def quantized_phase(kind, args, card, dev, data):
     tnums["approx_4096_ms"] = 1e3 * (time.perf_counter() - t0)
     want = ivf_sq_search(index, qb, K, n_probes=QZ_PROBES)
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-          and (sk.LAUNCHES, ivf_sq.ENGINE_FALLBACKS) == before,
+          and (sk.LAUNCHES, engine_fallbacks("ivf_sq")) == before,
           "approx_knn_search on IVF-SQ: not the per-query search's answer, "
           "or it launched sq_scan_lists")
     log(f"[{card}] approx_knn_search on IVF-SQ at {qb.shape[0]} queries: "
@@ -5772,7 +5762,7 @@ def lut_call_counts(searches, batches):
         n_lists = args[0].centroids.shape[0]
         onehot = [c for c in calls if c[0].shape[0] == nq + 1]
         kern = [c for c in calls if c[0].shape[0] == nq]
-        adc = next(kernel_searches)[1] if kw.get("use_kernel") else []
+        adc = next(kernel_searches)[1] if args[0].kernel else []
         check(len(onehot) + len(kern) == len(calls)
               and (not onehot or not kern) and len(kern) == len(adc)
               and len(onehot) in (0, -(-n_lists // list_block))
@@ -5832,13 +5822,13 @@ def pq_phase(args, card, dev, data):
     qb = torch.as_tensor(q_np, device=dev)
     pk.LAUNCHES = 0
     pk.LUT_LAUNCHES = 0
-    ivf_pq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_pq", reset=True)
     keep, lut_keep = [], []
     with kernel_calls(pk, "pq_adc_lists", key, keep) as shapes, \
-            path_batches(ivf_pq, "_pq_grouped_impl", keep) as batches, \
+            path_batches("ivf_pq", keep) as batches, \
             kernel_calls(pk, "pq_lut_rows", lambda a: a[4].shape[0],
                          lut_keep), \
-            impl_calls(ivf_pq, "_pq_grouped_impl", lut_keep) as searches, \
+            impl_calls("ivf_pq", lut_keep) as searches, \
             select_k_path() as selected:
         index, _ = quantized_path("pq", x, qb, true, rng, card, dev)
     launches = pk.LAUNCHES
@@ -5848,7 +5838,7 @@ def pq_phase(args, card, dev, data):
     lut["launches"] = lut_launches
     log(f"pq path: pq_adc_lists launched {launches} times, by (Q, M*K, "
         f"Lpad): {dict(shapes)}; pq_lut_rows {lut_launches} times; "
-        f"ENGINE_FALLBACKS {ivf_pq.ENGINE_FALLBACKS}")
+        f"ENGINE_FALLBACKS {engine_fallbacks("ivf_pq")}")
     check(launches > 0, "the pq path never launched the ADC kernel")
 
     chunks, blocks = lut_call_counts(searches, batches)
@@ -5864,8 +5854,8 @@ def pq_phase(args, card, dev, data):
         f"chunks and {blocks} one-hot list blocks, every call bitwise "
         "equal to the plain version")
     del lut_keep, searches
-    check(ivf_pq.ENGINE_FALLBACKS == 0,
-          f"{ivf_pq.ENGINE_FALLBACKS} pq searches left the kernel")
+    check(engine_fallbacks("ivf_pq") == 0,
+          f"{engine_fallbacks("ivf_pq")} pq searches left the kernel")
 
     # launches per batch: one where the batch's nq * p pairs fit one LUT
     # chunk, else one per chunk of lists under the pair budget, each with
@@ -5927,21 +5917,21 @@ def pq_phase(args, card, dev, data):
 
     # the mutation tier on this index, its counters at 0 just before it
     pk.LAUNCHES = 0
-    ivf_pq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_pq", reset=True)
     mnums, n_kernel = mutable_quantized("pq", index, x, qb, dev, card)
     mnums.update(launches=pk.LAUNCHES, kernel_searches=n_kernel,
-                 engine_fallbacks=ivf_pq.ENGINE_FALLBACKS)
+                 engine_fallbacks=engine_fallbacks("ivf_pq"))
     log(f"[{card}] pq mutation: " + json.dumps(mnums))
-    check(pk.LAUNCHES >= n_kernel and ivf_pq.ENGINE_FALLBACKS == 0,
+    check(pk.LAUNCHES >= n_kernel and engine_fallbacks("ivf_pq") == 0,
           f"pq mutation: {pk.LAUNCHES} pq_adc_lists launches for "
           f"{n_kernel} kernel-engine searches, fallbacks "
-          f"{ivf_pq.ENGINE_FALLBACKS}")
+          f"{engine_fallbacks("ivf_pq")}")
     # approx_knn_search on this index, its counter at 0 just before it:
     # the grouped path, #4 held bitwise against its plain version
     from raft_tpu_torch.spatial.ann import approx_knn_search
 
     pk.LAUNCHES = 0
-    ivf_pq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_pq", reset=True)
     akeep = []
     # the entry point's defaults: mode "auto" at 4,096 queries takes the
     # grouped path, whose qcap=None sizes qcap from this batch's probes
@@ -5954,10 +5944,10 @@ def pq_phase(args, card, dev, data):
         approx_ms = 1e3 * (time.perf_counter() - t0)
     approx_launches = pk.LAUNCHES
     want = ivf_pq.ivf_pq_search_grouped(index, qb, K, **kw)
-    check(approx_launches > 0 and ivf_pq.ENGINE_FALLBACKS == 0
+    check(approx_launches > 0 and engine_fallbacks("ivf_pq") == 0
           and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           f"approx_knn_search on IVF-PQ: {approx_launches} pq_adc_lists "
-          f"launches, {ivf_pq.ENGINE_FALLBACKS} fallbacks, or not bitwise "
+          f"launches, {engine_fallbacks("ivf_pq")} fallbacks, or not bitwise "
           "ivf_pq_search_grouped")
     errs += [bitwise(pk.pq_adc_lists, pk.pq_adc_lists_plain, call,
                      "pq_adc_lists of approx_knn_search") for call in akeep]
@@ -6026,7 +6016,7 @@ def sharded_pq_step(args, card, dev, data, index):
     )
     from raft_tpu_torch.serving import ServingExecutor
     from raft_tpu_torch.spatial.ann import (
-        IVFPQParams, ivf_pq, ivf_pq_search_grouped, save_index,
+        IVFPQParams, ivf_pq_search_grouped, save_index,
     )
     from raft_tpu_torch.spatial.ann import pq_kernel as pk
     from raft_tpu_torch.spatial.ann.common import coarse_probe
@@ -6053,7 +6043,7 @@ def sharded_pq_step(args, card, dev, data, index):
         return (a[1].shape[1], a[0].shape[1], a[5])
 
     pk.LAUNCHES = 0
-    ivf_pq.ENGINE_FALLBACKS = 0
+    engine_fallbacks("ivf_pq", reset=True)
     with kernel_calls(pk, "pq_adc_lists", key) as shapes:
         sync(dev)
         t0 = time.perf_counter()
@@ -6285,9 +6275,9 @@ def sharded_pq_step(args, card, dev, data, index):
     nums["launches"] = pk.LAUNCHES
     nums["launches_by_shape"] = {"x".join(map(str, k)): n
                                  for k, n in shapes.items()}
-    nums["engine_fallbacks"] = ivf_pq.ENGINE_FALLBACKS
-    check(ivf_pq.ENGINE_FALLBACKS == 0,
-          f"{ivf_pq.ENGINE_FALLBACKS} sharded PQ searches left the kernel")
+    nums["engine_fallbacks"] = engine_fallbacks("ivf_pq")
+    check(engine_fallbacks("ivf_pq") == 0,
+          f"{engine_fallbacks("ivf_pq")} sharded PQ searches left the kernel")
     check(nums["mutation"]["launches"] > 0,
           "the sharded PQ mutation round never launched #4")
 

@@ -15,9 +15,9 @@ quantizer:
 * **Queries replicate; lists never move.** Every rank probes the global
   centroid set, keeps the probes it owns (the sentinel list takes the
   rest) and runs the unchanged single-device grouped search on its
-  shard (:func:`_rank_body`, shared by every engine): for IVF-PQ
-  ``ivf_pq._pq_grouped_impl``, whose kernel engine launches the ADC
-  scan on each rank, each rank refining its own candidates against its
+  shard (:func:`_rank_body`, shared by every engine): for IVF-PQ the
+  grouped body over ``ivf_pq.PQEngine``, whose kernel form launches the
+  ADC scan on each rank, each rank refining its own candidates against its
   own raw rows.
 * **Merge is a k-way top-k** over one (nq, k) allgather pair
   (:func:`_merge_across_shards`; two-stage across hosts on a two-level
@@ -69,7 +69,8 @@ from raft_tpu_torch.resilience.degraded import (
     sanitize_query_rows,
 )
 from raft_tpu_torch.resilience.replica import resolve_route
-from raft_tpu_torch.spatial.ann import ivf_pq
+from raft_tpu_torch.spatial.ann import grouped, ivf_pq
+from raft_tpu_torch.spatial.ann.coarse import two_level_probe
 from raft_tpu_torch.spatial.ann.common import (
     CoarseIndex,
     ListStorage,
@@ -78,7 +79,6 @@ from raft_tpu_torch.spatial.ann.common import (
     n_super_probes,
     resolve_qcap_arg,
     static_qcap,
-    two_level_probe,
 )
 from raft_tpu_torch.spatial.ann.ivf_pq import (
     IVFPQIndex,
@@ -1307,11 +1307,10 @@ def mnmg_ivf_pq_search(
     live replicas of an R-way replicated index with no coverage loss.
     ``overprobe``, ``merge_ways`` and ``wire`` as in
     :func:`~.mnmg_ivf_flat.mnmg_ivf_flat_search`. ``use_kernel`` picks
-    each shard's ADC engine as
-    :func:`~raft_tpu_torch.spatial.ann.ivf_pq._resolve_adc_engine` does
-    (None: the CUDA ADC kernel on a Hopper card when refinement is
-    active). ``mutation`` (an
-    :class:`~.mnmg_mutation.MnmgMutationState` or
+    each shard's ADC engine by
+    :func:`~raft_tpu_torch.spatial.ann.grouped.resolve_kernel` (None: the
+    CUDA ADC kernel on a Hopper card when refinement is active).
+    ``mutation`` (an :class:`~.mnmg_mutation.MnmgMutationState` or
     :class:`~.mnmg_mutation.MnmgMutableIndex`) folds the per-rank
     tombstones into each shard's scan and merges an exact scan of the
     rank's delta segments before the cross-shard merge.
@@ -1323,7 +1322,6 @@ def mnmg_ivf_pq_search(
     body, sharded, replicated, degraded = _prepare_pq_search(
         comms, index, queries, k, n_probes=n_probes, qcap=qcap,
         list_block=list_block, refine_ratio=refine_ratio,
-        exact_selection=exact_selection,
         approx_recall_target=approx_recall_target,
         qcap_max_drop_frac=qcap_max_drop_frac, shard_mask=shard_mask,
         failover=failover, overprobe=overprobe, merge_ways=merge_ways,
@@ -1368,7 +1366,7 @@ def _degraded_operands(comms, index, shard_mask, failover, dev0):
 
 
 def _prepare_pq_search(comms, index, queries, k, *, n_probes, qcap,
-                       list_block, refine_ratio, exact_selection,
+                       list_block, refine_ratio,
                        approx_recall_target, qcap_max_drop_frac,
                        shard_mask, failover, overprobe, merge_ways,
                        use_kernel, mutation, wire):
@@ -1401,9 +1399,9 @@ def _prepare_pq_search(comms, index, queries, k, *, n_probes, qcap,
     d = int(index.centroids.shape[1])
     shards = [index.shard(i) for i in range(len(local))]
     refine = index.vectors_sorted is not None and refine_ratio > 1.0
-    engines = {s.device: ivf_pq._resolve_adc_engine(
-        use_kernel, refine, index.pq_dim, index.pq_bits, s.device)
-        for s in shards}
+    engines = {s.device: grouped.resolve_kernel(
+        use_kernel, ivf_pq.PQEngine, s.device, index.pq_dim, index.pq_bits,
+        refine=refine) for s in shards}
     alive, route = _degraded_operands(comms, index, shard_mask, failover,
                                       dev0)
     mut = _mutation_operands(mutation, index, len(local))
@@ -1419,16 +1417,15 @@ def _prepare_pq_search(comms, index, queries, k, *, n_probes, qcap,
 
     def body(ax, shard, *ops):
         m, ops = (ops[:3], ops[3:]) if mut is not None else (None, ops)
-        engine = engines[shard.device]
+        kernel = engines[shard.device]
+        engine = ivf_pq.PQEngine(shard, kernel, refine_ratio)
 
         def scan(qf, lp, row_mask):
-            return ivf_pq._pq_grouped_impl(
-                shard, qf, k, n_probes, qcap, list_block, refine_ratio,
-                probes=lp, exact_selection=exact_selection,
-                use_kernel=engine, row_mask=row_mask)
+            return grouped.search(engine, qf, k, n_probes, qcap, list_block,
+                                  probes=lp, row_mask=row_mask)
 
         return _rank_body(ax, scan, shard.device, *ops, m,
-                          use_kernel=engine, **statics)
+                          use_kernel=kernel, **statics)
 
     replicated = (q, index.centroids, index.owner, index.local_id, sup_c,
                   mem_i, cpad, alive, route)

@@ -13,7 +13,7 @@ shared shard machinery (:mod:`.mnmg_ivf`):
   centroids, keeps its owned probes (the sentinel list ``nl_pad - 1``,
   which has no rows, takes the rest) and runs the unchanged
   single-device grouped search
-  (:func:`raft_tpu_torch.spatial.ann.ivf_flat._grouped_impl`) on its
+  (:func:`raft_tpu_torch.spatial.ann.grouped.search`) on its
   shard — with the kernel engine, one launch of the flat-scan kernel a
   batch on each rank.
 * **Merge is a k-way top-k** over one (nq, k) allgather pair; the
@@ -58,7 +58,7 @@ from raft_tpu_torch.comms.mnmg_ivf import (
 )
 from raft_tpu_torch.comms.multihost import comms_levels, hier_axes
 from raft_tpu_torch.resilience.degraded import PartialSearchResult
-from raft_tpu_torch.spatial.ann import ivf_flat, ivf_sq
+from raft_tpu_torch.spatial.ann import grouped, ivf_flat, ivf_sq
 from raft_tpu_torch.spatial.ann.common import (
     CoarseIndex,
     ListStorage,
@@ -289,11 +289,18 @@ def _rank_search(ax, shard, *ops, k, n_probes, qcap, list_block, nl_pad,
     if dequant is not None:
         dequant = (_on(dequant[0], dev), _on(dequant[1], dev))
 
+    if dequant is None:
+        engine = grouped.FlatEngine(shard.centroids, shard.storage,
+                                    shard.data_sorted, use_kernel,
+                                    rerank_ratio, shard.scan_rows)
+    else:
+        engine = ivf_sq.SQEngine(shard.centroids, shard.storage,
+                                 shard.data_sorted, *dequant, use_kernel,
+                                 rerank_ratio, shard.scan_rows)
+
     def scan(qf, lp, row_mask):
-        return ivf_flat._grouped_impl(
-            shard, qf, k, n_probes, qcap, list_block, probes=lp,
-            use_kernel=use_kernel, rerank_ratio=rerank_ratio,
-            dequant=dequant, row_mask=row_mask)
+        return grouped.search(engine, qf, k, n_probes, qcap, list_block,
+                              probes=lp, row_mask=row_mask)
 
     return _rank_body(ax, scan, dev, *ops, mut, k=k, n_probes=n_probes,
                       nl_pad=nl_pad, use_coarse=use_coarse,
@@ -333,8 +340,8 @@ def mnmg_ivf_flat_search(
     carries a coarse quantizer; ``merge_ways`` pads the merge to a
     deployment's shard count; ``wire`` picks the cross-host wire format
     on a two-level communicator. ``use_kernel`` picks each shard's scan
-    engine as :func:`~raft_tpu_torch.spatial.ann.ivf_flat._resolve_scan_engine`
-    does (None: the CUDA kernel on a Hopper card). ``mutation`` (an
+    engine by :func:`~raft_tpu_torch.spatial.ann.grouped.resolve_kernel`
+    (None: the CUDA kernel on a Hopper card). ``mutation`` (an
     :class:`~.mnmg_mutation.MnmgMutationState` or
     :class:`~.mnmg_mutation.MnmgMutableIndex`) folds the per-rank
     tombstones into each shard's scan and merges an exact scan of the
@@ -403,9 +410,9 @@ def _prepare_flat_family(comms, index, queries, k, *, sq, n_probes, qcap,
     list_block = max(1, min(list_block, index.nl_pad))
     d = int(index.centroids.shape[1])
     shards = [index.shard(i) for i in range(len(local))]
-    resolve = (ivf_sq._resolve_sq_engine if sq
-               else ivf_flat._resolve_scan_engine)
-    engines = {s.device: resolve(use_kernel, d, qcap, s.device)
+    cls = ivf_sq.SQEngine if sq else grouped.FlatEngine
+    engines = {s.device: grouped.resolve_kernel(use_kernel, cls, s.device,
+                                                d, qcap)
                for s in shards}
     dequant = ((_on(torch.as_tensor(index.vmin), dev0).float(),
                 _on(torch.as_tensor(index.vscale), dev0).float())
@@ -578,9 +585,9 @@ def mnmg_ivf_sq_search(
     the SQ mode of the one rank body of :func:`mnmg_ivf_flat_search`,
     with the same knobs and contracts. Returns (squared L2 distances
     over the dequantized rows, GLOBAL row ids), both (nq, k);
-    ``use_kernel`` picks each shard's engine as
-    :func:`~raft_tpu_torch.spatial.ann.ivf_sq._resolve_sq_engine` does
-    (None: the CUDA int8 dequant + scan kernel on a Hopper card)."""
+    ``use_kernel`` picks each shard's engine by
+    :func:`~raft_tpu_torch.spatial.ann.grouped.resolve_kernel` (None: the
+    CUDA int8 dequant + scan kernel on a Hopper card)."""
     return _flat_family_search(
         comms, index, queries, k, sq=True, n_probes=n_probes, qcap=qcap,
         list_block=list_block, qcap_max_drop_frac=qcap_max_drop_frac,

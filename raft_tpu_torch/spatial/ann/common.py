@@ -35,25 +35,20 @@ from raft_tpu_torch.spatial.ann.scan_core import BIG, SUBCHUNK
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
-    "COARSE_ENGINE_FALLBACKS", "CoarseIndex", "ListStorage", "auto_qcap",
-    "build_coarse_index", "build_list_storage", "check_candidate_pool",
-    "coarse_index_from_labels", "coarse_probe", "coarse_probe_recall",
-    "default_coarse_geometry", "default_qcap", "n_super_probes",
-    "probe_flop_accounting", "rerank_members", "two_level_probe",
-    "two_level_probe_kernel_supported",
+    "CoarseIndex", "ListStorage", "as_queries", "auto_qcap",
+    "build_coarse_index",
+    "build_list_storage", "check_candidate_pool", "coarse_index_from_labels",
+    "coarse_probe", "default_coarse_geometry", "default_qcap",
+    "n_super_probes", "probe_flop_accounting", "rerank_members",
+    "two_level_probe_plain",
     "invert_probe_map", "invert_probe_map_ranked", "map_query_blocks",
     "probe_drop_stats", "regroup_pairs", "regroup_values", "resolve_qcap",
     "resolve_qcap_arg", "scatter_pairs", "score_l2_candidates",
     "select_candidates", "split_oversized_lists", "static_qcap",
-    "subchunk_pool_rows", "throughput_qcap", "warn_engine_fallback",
+    "subchunk_pool_rows", "throughput_qcap",
 ]
 
 logger = logging.getLogger("raft_tpu_torch")
-
-# the kernel engines' exact-rerank candidate gather per query block, at
-# most (bytes)
-RERANK_BLOCK_BYTES = 256 << 20
-
 
 @dataclasses.dataclass
 class ListStorage:
@@ -77,11 +72,12 @@ class CoarseIndex:
     """Two-level coarse quantizer over a centroid set: the n_cents
     centroids clustered into ~sqrt(n_cents) super-centroids, each super
     cluster's member centroids stored as one padded block (members first,
-    sentinel id ``n_cents`` after them). :func:`two_level_probe` scores
-    queries against the supers, then reranks only the best supers'
-    members in exact f32 — ~5x fewer centroid-scoring FLOPs than the flat
-    scan at 65k centroids (:func:`probe_flop_accounting`), with recall
-    held by ``overprobe`` and audited by :func:`coarse_probe_recall`."""
+    sentinel id ``n_cents`` after them). :func:`~.coarse.two_level_probe`
+    scores queries against the supers, then reranks only the best
+    supers' members in exact f32 — ~5x fewer centroid-scoring FLOPs than
+    the flat scan at 65k centroids (:func:`probe_flop_accounting`), with
+    recall held by ``overprobe`` and audited by
+    :func:`~.coarse.coarse_probe_recall`."""
 
     super_cents: torch.Tensor   # (n_super, d) f32
     member_ids: torch.Tensor    # (n_super, max_members) int32, sentinel n_cents
@@ -191,41 +187,18 @@ def coarse_index_from_labels(cents, labels, supers, member_cap,
     )
 
 
-def two_level_probe(qf, super_cents, member_ids, cents_padded,
-                    n_cents: int, n_probes: int, n_sup_probes: int,
-                    block_q: int = 256, precision=None,
-                    use_kernel: bool = False):
-    """Sub-linear coarse probe: score queries against the super
-    centroids, take the top ``n_sup_probes`` super clusters' member
-    blocks, and rerank only those candidate centroids in exact f32.
+def two_level_probe_plain(qf, super_cents, member_ids, cents_padded,
+                          n_cents: int, n_probes: int, n_sup_probes: int,
+                          block_q: int = 256):
+    """The legacy engine of the two-level probe
+    (:func:`~.coarse.two_level_probe`): per ``block_q`` queries, score
+    them against the super centroids, gather the top ``n_sup_probes``
+    supers' member blocks and rerank only those centroids in exact f32.
     Returns (probes (nq, p) int64, d2 (nq, p) f32 squared distances,
     best first; ties lowest id first) — a drop-in for
-    :func:`coarse_probe` at a fraction of its FLOPs.
-
-    Legacy engine (``use_kernel=False``, the default): per ``block_q``
-    queries, the super probe, a gather of the member blocks and the
-    exact rerank. ``use_kernel=True``: both stages on the flat scan
-    kernel (:func:`_two_level_probe_kernel`); equal probes to the legacy
-    engine's whenever its shape-only qcap (:func:`_probe_qcap`) drops no
-    (query, super) pair. Where :func:`two_level_probe_kernel_supported`
-    rejects the geometry, ``use_kernel=True`` serves the legacy engine,
-    counted in ``COARSE_ENGINE_FALLBACKS`` and warned about once. A
-    pinned ``precision`` (any value but None) also selects the legacy
-    engine, as in the JAX package; every product here is full f32
-    either way."""
-    dev = super_cents.device
-    qf = as_tensor(qf, dev).float()
-    ns, mm, d = cents_padded.shape
-    S = max(1, min(int(n_sup_probes), ns))
-    if use_kernel and precision is None:
-        if two_level_probe_kernel_supported(d, qf.shape[0], n_probes, ns,
-                                            mm, S, block_q):
-            return _two_level_probe_kernel(
-                qf, super_cents, member_ids, cents_padded, n_cents,
-                n_probes, S, block_q)
-        _note_coarse_fallback(
-            f"d={d} nq={qf.shape[0]} n_probes={n_probes} n_super={ns} "
-            f"max_members={mm} S={S} block_q={block_q}")
+    :func:`coarse_probe` at a fraction of its FLOPs."""
+    qf = as_tensor(qf, super_cents.device).float()
+    S = max(1, min(int(n_sup_probes), cents_padded.shape[0]))
 
     def blk(qb):
         sup, _ = coarse_probe(qb, super_cents, S)             # (bq, S)
@@ -256,162 +229,6 @@ def rerank_members(qf, sup, member_ids, cents_padded, n_cents: int,
     vals, pos = top_k_smallest(d2, n_probes)
     probes = torch.gather(cand_ids, 1, pos).long()
     return vals, torch.where(torch.isfinite(vals), probes, 0)
-
-
-# two-level probes with use_kernel=True that the geometry sent to the
-# legacy engine (two_level_probe_kernel_supported was False)
-COARSE_ENGINE_FALLBACKS = 0
-_coarse_fallbacks_warned: set = set()
-
-
-def _note_coarse_fallback(geometry: str) -> None:
-    global COARSE_ENGINE_FALLBACKS
-    COARSE_ENGINE_FALLBACKS += 1
-    if geometry not in _coarse_fallbacks_warned:
-        _coarse_fallbacks_warned.add(geometry)
-        logger.warning(
-            "two_level_probe(use_kernel=True) runs the legacy engine: the "
-            "flat scan kernel does not fit the geometry %s", geometry)
-
-
-def _probe_qcap(nq: int, n_sup_probes: int, n_super: int) -> int:
-    """Queries per super of the kernel engine's grouped member stage: 4x
-    the mean per-super occupancy (twice the grouped searches' default:
-    the probe has no per-call audit), 8-aligned, at most nq. Slots fill
-    in probe-rank order, so a super that still overflows drops each
-    query's last-ranked supers first; audit a skewed workload with
-    :func:`coarse_probe_recall` (``use_kernel=True``)."""
-    return min(nq, 2 * default_qcap(nq, n_sup_probes, n_super))
-
-
-def two_level_probe_kernel_supported(d: int, nq: int, n_probes: int,
-                                     n_super: int, max_members: int,
-                                     n_sup_probes: int,
-                                     block_q: int = 256) -> bool:
-    """Whether the kernel engine of :func:`two_level_probe` applies: both
-    stages' query counts fit the flat scan (``flat_scan_supported``), and
-    the member pool can fill a top-``n_probes`` row."""
-    if d < 1 or n_super < 1 or max_members < 1:
-        return False
-    from raft_tpu_torch.spatial.ann.flat_kernel import flat_scan_supported
-
-    s1_block = min(block_q, max(nq, 1))
-    return (
-        n_probes <= n_sup_probes * max_members
-        and flat_scan_supported(d, s1_block)
-        and flat_scan_supported(d, _probe_qcap(nq, n_sup_probes, n_super))
-    )
-
-
-def _super_scan_kernel(qf, super_cents, S: int, block_q: int):
-    """Stage 1 of the kernel engine: the top ``S`` supers of each query
-    (nq, S) int64. One launch of the flat scan kernel
-    (``flat_scan_subchunk_min``) over the whole batch gives each query's
-    8-row minima over the supers (bf16 operands, f32 sums); the rows of
-    its best ``min(width, 2S)`` granules are reranked in exact f32, in
-    query blocks of at least ``block_q`` whose gather stays under
-    ``RERANK_BLOCK_BYTES`` (a query's result does not depend on its
-    block). The window tile follows the JAX rule at the ``block_q``
-    block, so the granules match the blocked JAX stage."""
-    from raft_tpu_torch.spatial.ann import flat_kernel, scan_core
-
-    nq, d = qf.shape
-    ns = super_cents.shape[0]
-    sub = SUBCHUNK
-    sup_f = super_cents.float()
-    s1_block = min(block_q, max(nq, 1))
-    l_tile1 = flat_kernel.plan_l_tile(
-        d, scan_core.pad_queries(s1_block),
-        l_tile=scan_core.round_up(ns, scan_core.LANE),
-        profile=scan_core.tile_profile(s1_block),
-    )
-    ns_pad = scan_core.round_up(ns, l_tile1)
-    rows_bf16 = torch.nn.functional.pad(
-        sup_f, (0, 0, 0, ns_pad - ns)).to(torch.bfloat16)
-    bounds = torch.tensor([[0, ns]], dtype=torch.int32, device=qf.device)
-    mins = flat_kernel.flat_scan_subchunk_min(
-        qf.to(torch.bfloat16)[None], rows_bf16.T[None], bounds)[0]
-    c1 = min(ns_pad // sub, 2 * S)
-
-    def super_blk(args):
-        qb, mb = args
-        bq = qb.shape[0]
-        nv, cpos = top_k_smallest(mb, c1)
-        rows = (cpos[:, :, None] * sub
-                + torch.arange(sub, device=qb.device)).reshape(bq, c1 * sub)
-        live = (torch.isfinite(nv) & (nv < BIG))[:, :, None].expand(
-            bq, c1, sub).reshape(bq, c1 * sub)
-        cand = sup_f[torch.clamp(rows, max=ns - 1)]
-        exact = score_l2_candidates(qb, cand, (rows < ns) & live)
-        sv, spos = top_k_smallest(exact, S)
-        return sv, torch.clamp(torch.gather(rows, 1, spos), max=ns - 1)
-
-    blk = max(s1_block, RERANK_BLOCK_BYTES // (c1 * sub * d * 4))
-    return map_query_blocks(super_blk, (qf, mins), blk)[1]
-
-
-def _two_level_probe_kernel(qf, super_cents, member_ids, cents_padded,
-                            n_cents: int, n_probes: int, S: int,
-                            block_q: int):
-    """The kernel engine of :func:`two_level_probe` (the caller checked
-    :func:`two_level_probe_kernel_supported`). Stage 1:
-    :func:`_super_scan_kernel`. Stage 2: the IVF-Flat grouped search body
-    over a mini index whose lists are the supers and whose rows are the
-    padded member blocks (members first, so list s's rows are
-    ``[s*mm, s*mm + size_s)``), with the supers of stage 1 as its probes:
-    one ``flat_scan_lists`` launch, then the exact f32 rerank, whose
-    distances are the ones returned."""
-    from raft_tpu_torch.spatial.ann.ivf_flat import (
-        IVFFlatIndex, _grouped_impl,
-    )
-
-    nq = qf.shape[0]
-    ns, mm, d = cents_padded.shape
-    dev = qf.device
-    i32 = torch.int32
-    sup = _super_scan_kernel(qf, super_cents, S, block_q)
-    storage = ListStorage(
-        sorted_ids=member_ids.reshape(ns * mm).to(i32),
-        list_offsets=torch.arange(ns + 1, dtype=i32, device=dev) * mm,
-        # the grouped body reads only this tensor's leading axis
-        list_index=torch.zeros((ns, 1), dtype=i32, device=dev),
-        list_sizes=(member_ids < n_cents).sum(1).to(i32),
-        n=ns * mm,
-        max_list=mm,
-    )
-    # the member rows and the sentinel row the grouped body expects last
-    data_sorted = torch.nn.functional.pad(
-        cents_padded.reshape(ns * mm, d).float(), (0, 0, 0, 1))
-    mini = IVFFlatIndex(super_cents.float(), data_sorted, storage,
-                        "sqeuclidean")
-    d2, probes = _grouped_impl(
-        mini, qf, n_probes, S, _probe_qcap(nq, S, ns), max(1, min(8, ns)),
-        probes=sup, use_kernel=True, rerank_ratio=2.0,
-    )
-    # the legacy engine's clamp of a +inf slot's id
-    return torch.where(torch.isfinite(d2), probes.long(), 0), d2
-
-
-def coarse_probe_recall(queries, centroids, coarse: CoarseIndex,
-                        n_probes: int, *, overprobe: float = 2.0,
-                        block_q: int = 256,
-                        use_kernel: bool = False) -> float:
-    """The two-level probe's recall audit: the fraction of the flat
-    scan's probed lists that the two-level probe (the kernel engine with
-    ``use_kernel=True``) also probes on ``queries``. Workloads should
-    stay within 0.01 of the flat probe; raise ``overprobe`` when they do
-    not."""
-    dev = coarse.super_cents.device
-    qf = as_tensor(queries, dev).float()
-    flat, _ = coarse_probe(qf, as_tensor(centroids, dev).float(), n_probes)
-    S = n_super_probes(n_probes, coarse.n_super, overprobe)
-    two, _ = two_level_probe(
-        qf, coarse.super_cents, coarse.member_ids, coarse.cents_padded,
-        coarse.n_cents, n_probes, S, block_q, use_kernel=use_kernel,
-    )
-    a, b = flat.cpu().numpy(), two.cpu().numpy()
-    hits = sum(len(set(x.tolist()) & set(y.tolist())) for x, y in zip(a, b))
-    return hits / a.size
 
 
 def probe_flop_accounting(coarse: CoarseIndex, n_probes: int, *,
@@ -611,7 +428,7 @@ def _eager_probe(q, centroids, n_probes: int, coarse=None,
     qf = q.float()
     with annotate("ivf.probe"):
         if coarse is not None:
-            probes, _ = two_level_probe(
+            probes, _ = two_level_probe_plain(
                 qf, coarse.super_cents, coarse.member_ids,
                 coarse.cents_padded, coarse.n_cents, n_probes,
                 n_super_probes(n_probes, coarse.n_super, overprobe),
@@ -766,6 +583,15 @@ def subchunk_pool_rows(pv, c: int, probes, storage: ListStorage,
     return rows.reshape(nq, c * SUBCHUNK), valid.reshape(nq, c * SUBCHUNK)
 
 
+def as_queries(queries, centroids):
+    """``queries`` as an (nq, d) tensor on the index's device, checked
+    against the index's (n_lists, d) ``centroids``."""
+    q = torch.as_tensor(queries, device=centroids.device)
+    errors.check_matrix(q, "queries")
+    errors.check_same_cols(q, centroids, "queries", "index")
+    return q
+
+
 def check_candidate_pool(k: int, n_probes: int, storage: ListStorage):
     if k > n_probes * storage.max_list:
         raise ValueError(
@@ -822,16 +648,3 @@ def build_list_storage(assignments, n_lists: int, device) -> ListStorage:
         n,
         max_list,
     )
-
-
-def warn_engine_fallback(warned: set, engine: str, reason: str) -> None:
-    """Warn once per ``reason`` (tracked in the caller's ``warned`` set)
-    that a grouped ``engine`` search of a CUDA index left its CUDA kernel
-    for the legacy plain-PyTorch scan; the caller counts every such
-    search in its module's ``ENGINE_FALLBACKS``."""
-    if reason not in warned:
-        warned.add(reason)
-        logger.warning(
-            "%s grouped search of a CUDA index runs the legacy "
-            "plain-PyTorch scan, not the CUDA kernel: %s (use_kernel=False "
-            "chooses it without this warning)", engine, reason)

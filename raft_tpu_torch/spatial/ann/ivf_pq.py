@@ -14,11 +14,13 @@ then each candidate's score is the sum of its M table entries. With
 ``refine_ratio`` > 1 (and raw vectors stored, or a ``refine_dataset``)
 the best ADC candidates are rescored in exact f32 and re-selected.
 
-The grouped (list-major) search has two ADC engines: the hand-written
-CUDA sub-chunk-min scan (:mod:`.pq_kernel`, a gather from a LUT held in
-shared memory) feeding the exact refine tail, and the legacy one-hot
-engine (the LUT contracted with a one-hot expansion of the codes, as the
-JAX package's XLA path spells it). Both build their bf16 tables with
+The grouped (list-major) search is the one grouped body
+(:func:`.grouped.search`) over :class:`PQEngine`, whose two forms are the
+hand-written CUDA sub-chunk-min scan (:mod:`.pq_kernel`, a gather from a
+LUT held in shared memory) feeding the exact refine tail, and the legacy
+one-hot engine (the LUT contracted with a one-hot expansion of the
+codes, as the JAX package's XLA path spells it). Both build their bf16
+tables with
 :func:`~.pq_kernel.pq_lut_rows`: a CUDA kernel on a CUDA device (which
 has to be a Hopper card), its plain version on the CPU.
 
@@ -48,38 +50,27 @@ from raft_tpu_torch.cluster.kmeans import (
     kmeans_predict,
 )
 from raft_tpu_torch.core.annotate import annotate
-from raft_tpu_torch.core.device import full_f32, hopper_device, resolve_device
-from raft_tpu_torch.spatial.ann import pq_kernel, scan_core, search_obs
+from raft_tpu_torch.core.device import full_f32, resolve_device
+from raft_tpu_torch.spatial.ann import grouped, pq_kernel, search_obs
 from raft_tpu_torch.spatial.ann.common import (
     ListStorage,
+    as_queries,
     build_list_storage,
     check_candidate_pool,
     coarse_probe,
-    invert_probe_map_ranked,
     map_query_blocks,
-    regroup_pairs,
-    regroup_values,
     resolve_qcap_arg,
-    scatter_pairs,
     score_l2_candidates,
     select_candidates,
     split_oversized_lists,
     static_qcap,
-    subchunk_pool_rows,
-    warn_engine_fallback,
 )
 from raft_tpu_torch.spatial.selection import top_k_smallest
 
 __all__ = [
-    "IVFPQParams", "IVFPQIndex", "ivf_pq_build", "ivf_pq_search",
-    "ivf_pq_search_grouped",
+    "IVFPQParams", "IVFPQIndex", "PQEngine", "ivf_pq_build",
+    "ivf_pq_search", "ivf_pq_search_grouped",
 ]
-
-# grouped PQ searches of a CUDA index that use_kernel=None sent to the
-# one-hot engine although the refine tail was active, because the kernel
-# cannot serve them (an unrefined search runs the one-hot engine by rule)
-ENGINE_FALLBACKS = 0
-_fallback_reasons_warned: set = set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,14 +117,7 @@ class IVFPQIndex:
     def code_rows(self, n_rows: int) -> torch.Tensor:
         """``codes_sorted`` with zero rows appended up to ``n_rows`` (no
         copy when none are needed): made on first use, then kept."""
-        rows = self._code_rows.get(n_rows)
-        if rows is None:
-            rows = self.codes_sorted
-            if n_rows > rows.shape[0]:
-                rows = torch.nn.functional.pad(
-                    rows, (0, 0, 0, n_rows - rows.shape[0]))
-            self._code_rows[n_rows] = rows
-        return rows
+        return grouped.slab_rows(self.codes_sorted, n_rows, self._code_rows)
 
     def warmup(self, nq: int, *, k: int = 10, n_probes: int = 8,
                qcap=None, list_block: int = 8, refine_ratio: float = 2.0,
@@ -328,13 +312,6 @@ def ivf_pq_build(x, params: IVFPQParams = IVFPQParams(), *,
                       vectors_sorted, m, params.pq_bits)
 
 
-def _as_queries(index: IVFPQIndex, queries):
-    q = torch.as_tensor(queries, device=index.device)
-    errors.check_matrix(q, "queries")
-    errors.check_same_cols(q, index.centroids, "queries", "index")
-    return q
-
-
 def _refine_active(index: IVFPQIndex, refine_dataset,
                    refine_ratio: float) -> bool:
     return ((index.vectors_sorted is not None or refine_dataset is not None)
@@ -371,7 +348,7 @@ def ivf_pq_search(
     dataset of a ``store_raw=False`` index) rescores the top
     ``ceil(refine_ratio * k)`` ADC candidates in exact f32; otherwise the
     distances are the f32 ADC sums."""
-    q = _as_queries(index, queries)
+    q = as_queries(queries, index.centroids)
     d = q.shape[1]
     m = index.pq_dim
     ds = d // m
@@ -411,62 +388,6 @@ def ivf_pq_search(
     return map_query_blocks(one_block, q, block_q)
 
 
-def _resolve_adc_engine(use_kernel, refine_active: bool, pq_dim: int,
-                        pq_bits: int, device: torch.device) -> bool:
-    """Resolve the ``use_kernel`` knob of the grouped PQ search.
-
-    ``None``: the CUDA ADC kernel on a capability-9.0 CUDA device when
-    the exact refine tail is active and
-    :func:`~.pq_kernel.pq_adc_supported` holds. An unrefined search runs
-    the one-hot engine — the rule, as in the JAX package, not a
-    fallback; a refined CUDA search the kernel cannot serve runs the
-    one-hot engine too, counted in ``ENGINE_FALLBACKS`` and warned about
-    once per reason (its tables still come from the LUT kernel, so on a
-    card that is not Hopper the search raises there). ``True``: the
-    kernel path, raising with the reason when it cannot run (on a CPU
-    index the kernel path's scan runs its plain version). ``False``: the
-    one-hot engine."""
-    if use_kernel is None:
-        if device.type != "cuda" or not refine_active:
-            return False
-        if not pq_kernel.pq_adc_supported(pq_dim, pq_bits):
-            reason = (f"pq_dim={pq_dim} pq_bits={pq_bits} does not fit "
-                      "the ADC kernel's uint8 codes or shared memory")
-        elif not hopper_device(device):
-            reason = f"{device} is not a capability-9.0 (Hopper) card"
-        else:
-            return True
-        global ENGINE_FALLBACKS
-        ENGINE_FALLBACKS += 1
-        warn_engine_fallback(_fallback_reasons_warned, "IVF-PQ", reason)
-        return False
-    if use_kernel:
-        errors.expects(
-            refine_active,
-            "use_kernel=True requires the exact refine tail "
-            "(refine_ratio > 1 and stored raw vectors or a "
-            "refine_dataset): the kernel emits sub-chunk ADC minima to "
-            "build the refine pool, not per-row ADC distances",
-        )
-        errors.expects(
-            pq_kernel.pq_adc_supported(pq_dim, pq_bits),
-            "use_kernel=True unsupported at pq_dim=%d pq_bits=%d (codes "
-            "wider than uint8, or one query's LUT and a code tile exceed "
-            "a block's shared memory); use the one-hot engine "
-            "(use_kernel=False)", pq_dim, pq_bits,
-        )
-        errors.expects(
-            device.type == "cpu" or hopper_device(device),
-            "use_kernel=True needs a capability-9.0 (Hopper) CUDA device "
-            "for the sm_90a kernel; %s is not one", device,
-        )
-    return bool(use_kernel)
-
-
-# refine-pool gather budget per query block on the kernel path
-_REFINE_BLOCK_BYTES = 256 << 20
-
-
 # LUT bytes of one chunk of live (list, slot) pairs on the kernel path,
 # counted at 4 bytes an entry though the rows are bf16; one LUT launch and
 # one ADC launch cover each chunk
@@ -493,260 +414,134 @@ def _lut_chunks(cum, max_pairs: int, max_lists: int):
     return chunks
 
 
-def _pq_kernel_pool(pair_luts, scan, probes, pmap, width: int,
-                    max_pairs: int, max_lists: int, stream: bool):
-    """The ADC kernel engine's (nq, p * width) pool of sub-chunk minima.
+class PQEngine(grouped.Engine):
+    """The grouped engine of an :class:`IVFPQIndex` (the module's
+    docstring); ``ratio`` is the refine ratio. The kernel form needs the
+    refine tail (:func:`_refine_active`); without it the one-hot form
+    returns its ADC sums."""
 
-    ``pair_luts(pair_lists, pair_qids)`` builds LUT rows
-    (:func:`~.pq_kernel.pq_lut_rows`); ``scan(luts, lut_map, a, b,
-    out=None)`` is one :func:`~.pq_kernel.pq_adc_lists` launch over lists
-    [a, b), code rows read in place; ``pmap`` is the (qmat, rmat, slot) of
-    :func:`invert_probe_map_ranked`. When the batch's nq * p pairs fit
-    ``max_pairs``, one launch covers every list, its LUT rows in
-    (query, probe) order, with no host sync. Otherwise (or with
-    ``stream``) one host sync reads the live-pair counts that cut the
-    lists into chunks of at most ``max_lists`` lists and ``max_pairs``
-    live pairs; a chunk without a live pair is skipped, since nothing
-    reads its lists. ``stream`` scatters each chunk into the query-major
-    pool instead of materializing the (lists, qcap, width) minima."""
-    qmat, rmat, slot = pmap
-    n_lists, qcap = qmat.shape
-    nq, p = probes.shape
-    dev = qmat.device
-    l_flat = probes.reshape(-1).long()
-    live = qmat < nq
-    if not stream and nq * p <= max_pairs:
-        with annotate("ivf.lut"):
-            luts = pair_luts(l_flat, torch.arange(nq * p, device=dev) // p)
-        with annotate("ivf.scan"):
-            lut_map = torch.where(live, qmat * p + rmat, -1).to(torch.int32)
-            return regroup_values(scan(luts, lut_map, 0, n_lists), l_flat,
-                                  slot, nq, p, qcap)
-    with search_obs.host_sync("ivf_pq", "live_pairs"):
-        pair = torch.nonzero(live.reshape(-1)).squeeze(1)      # list-major
-    pair_lists = pair // qcap
-    pair_qids = qmat.reshape(-1)[pair].long()
-    gmap = torch.full((n_lists * qcap,), -1, dtype=torch.int32, device=dev)
-    gmap[pair] = torch.arange(pair.numel(), dtype=torch.int32, device=dev)
-    gmap = gmap.reshape(n_lists, qcap)
-    cum = torch.cumsum(live.sum(1), 0)
-    with search_obs.host_sync("ivf_pq", "chunk_plan"):
-        cum = cum.cpu().numpy()
-    if stream:
-        pv = torch.full((nq, p, width), float("inf"), dtype=torch.float32,
-                        device=dev)
-    else:
-        vals = torch.empty((n_lists, qcap, width), dtype=torch.float32,
-                           device=dev)
+    name, label = "ivf_pq", "IVF-PQ"
 
-    def pooled():
-        if stream:
-            return pv.reshape(nq, p * width)
-        return regroup_values(vals, l_flat, slot, nq, p, qcap)
+    def __init__(self, index: IVFPQIndex, kernel: bool = False,
+                 ratio: float = 2.0, refine_dataset=None):
+        super().__init__(index.centroids.float().contiguous(), index.storage,
+                         kernel, ratio)
+        self.index, self.refine_dataset = index, refine_dataset
+        self.rescore = _refine_active(index, refine_dataset, ratio)
+        self.mk = index.pq_dim << index.pq_bits
+        self.cb, self.cb_n = _finite_codebooks(index)
 
-    # a chunk without a live pair is skipped: nothing reads its lists
-    chunks = [(a, b) for a, b in _lut_chunks(cum, max_pairs, max_lists)
-              if cum[b - 1] > (cum[a - 1] if a else 0)]
-    for i, (a, b) in enumerate(chunks):
-        p0, p1 = (int(cum[a - 1]) if a else 0), int(cum[b - 1])
-        with annotate("ivf.lut"):
-            luts = pair_luts(pair_lists[p0:p1], pair_qids[p0:p1])
-        with annotate("ivf.scan"):
-            gm = gmap[a:b]
-            lut_map = torch.where(gm >= 0, gm - p0, gm)
-            if stream:
-                scatter_pairs(pv, qmat[a:b], rmat[a:b],
-                              scan(luts, lut_map, a, b), nq, p)
-            else:
-                scan(luts, lut_map, a, b, out=vals[a:b])
-            if i == len(chunks) - 1:
-                # the last chunk's scan range holds the regroup
-                return pooled()
-    return pooled()
+    @classmethod
+    def of(cls, index: IVFPQIndex, use_kernel, qcap=None,
+           ratio: float = 2.0, refine_dataset=None):
+        """The engine of ``index``, its form by the rule (``qcap`` does
+        not enter it)."""
+        kernel = grouped.resolve_kernel(
+            use_kernel, cls, index.device, index.pq_dim, index.pq_bits,
+            refine=_refine_active(index, refine_dataset, ratio))
+        return cls(index, kernel, ratio, refine_dataset)
 
+    @staticmethod
+    def fits(pq_dim: int, pq_bits: int):
+        return (
+            pq_kernel.pq_adc_supported(pq_dim, pq_bits),
+            f"pq_dim={pq_dim} pq_bits={pq_bits} does not fit the ADC "
+            "kernel's uint8 codes or shared memory",
+            f"use_kernel=True unsupported at pq_dim={pq_dim} "
+            f"pq_bits={pq_bits} (codes wider than uint8, or one query's LUT "
+            "and a code tile exceed a block's shared memory); use the "
+            "one-hot engine (use_kernel=False)",
+        )
 
-@full_f32
-def _pq_grouped_impl(index, q, k, n_probes, qcap, list_block, refine_ratio,
-                     refine_dataset=None, probes=None,
-                     exact_selection=False, stream_partials=None,
-                     use_kernel=False, row_mask=None):
-    # ``row_mask``: optional (n + 1,) live mask over slab positions (the
-    # mutation tier's tombstones), as in ivf_flat._grouped_impl: folded
-    # into the one-hot engine's row ranges, applied per row at the kernel
-    # engine's refine tail.
-    # ``exact_selection`` is accepted for parity: both of its settings
-    # select exactly here (lax.approx_min_k is exact off the TPU)
-    del exact_selection
-    storage = index.storage
-    dev = q.device
-    n_lists = index.centroids.shape[0]
-    L = storage.max_list
-    nq, d = q.shape
-    p = n_probes
-    m = index.pq_dim
-    kc = 1 << index.pq_bits
-    f32 = torch.float32
-    qf = q.float().contiguous()
-    cents = index.centroids.float().contiguous()
-    cb, cb_n = _finite_codebooks(index)
-    inf = float("inf")  # a Python scalar: no host-to-device copy
+    @property
+    def lut_stage(self):
+        return self.kernel
 
-    if probes is None:
-        with annotate("ivf.probe"):
-            probes, _ = coarse_probe(qf, cents, p)             # (nq, p)
-    with annotate("ivf.invert"):
-        qmat, rmat, l_flat, slot = invert_probe_map_ranked(probes, n_lists,
-                                                           qcap)
-        qmat_l = qmat.long()
-    search_obs.count_pairs("ivf_pq", slot, qcap)
-    q_pad = torch.cat([qf, torch.zeros((1, d), dtype=f32, device=dev)])
-    # per-(list, query) partial width: must cover the refine pool, not
-    # just k (a query's home list can hold most of its top-c candidates)
-    refine = _refine_active(index, refine_dataset, refine_ratio)
-    kk = min(max(k, int(math.ceil(refine_ratio * k)) if refine else k), L)
-    use_kernel = bool(use_kernel) and refine
-    offsets = storage.list_offsets.long()
-    sizes = storage.list_sizes.long()
-
-    def block_luts(lblk):
-        """Per-(list, query-slot) ADC tables of one list block — each
-        slot's query residual against THIS list's centroid, scored
-        against every codebook entry, residual-norm term included, so
-        summed entries are complete squared distances. The one-hot
-        engine's LUT, rounded to bf16 and widened to f32; the kernel
-        engine builds the same rows for live pairs only. Returns (qids
-        (LB, qcap), lut (LB, qcap, M*K))."""
-        lb = lblk.shape[0]
-        qids = qmat_l[lblk]                                    # (LB, qcap)
-        with annotate("ivf.lut"):
-            lut = pq_kernel.pq_lut_rows(q_pad, cents, cb, cb_n,
-                                        lblk.repeat_interleave(qcap),
-                                        qids.flatten())
-            return qids, lut.float().reshape(lb, qcap, m * kc)
-
-    def block_fn(lblk):                                        # (LB,) list ids
-        lb = lblk.shape[0]
-        qids, lut = block_luts(lblk)
-        offs = offsets[lblk]
-        szs = sizes[lblk]
-        o_c = torch.clamp(offs, max=storage.n + 1 - L)         # slice clamp
-        pos = o_c[:, None] + torch.arange(L, device=dev)[None, :]
-        codes = index.codes_sorted[pos].long()                 # (LB, L, M)
-        in_list = (pos >= offs[:, None]) & (pos < (offs + szs)[:, None])
-        if row_mask is not None:
-            in_list = in_list & (row_mask[pos] > 0)
-        # the one-hot engine: dist[b, q, l] = sum_m lut[b, q, m, codes]
-        # as a contraction of the bf16 LUT with the one-hot codes, f32
-        # accumulation
-        onehot = torch.zeros((lb, L, m, kc), dtype=f32, device=dev)
-        onehot.scatter_(3, codes[..., None], 1.0)
-        d2 = torch.bmm(lut, onehot.reshape(lb, L, m * kc).transpose(1, 2))
-        invalid = (qids >= nq)[:, :, None] | (~in_list)[:, None, :]
-        d2 = torch.where(invalid, inf, d2)
-        vals, sel = top_k_smallest(d2, kk)                     # (LB, qcap, kk)
-        memp = torch.gather(pos[:, None, :].expand(d2.shape), 2, sel)
-        return vals, memp
-
-    if use_kernel:
+    def window(self, b):
         # the window length fixes the sub-chunk windows and the pool
         # clamp; the kernel takes qcap rows as-is
-        l_pad = pq_kernel.window_l_pad(m * kc, qcap, L)
-        width = l_pad // scan_core.SUBCHUNK
+        l_pad = pq_kernel.window_l_pad(self.mk, b.qcap, self.storage.max_list)
         # n + 1 code rows (sentinel last), zero-padded to one full window
-        rows_pad = max(index.codes_sorted.shape[0], l_pad)
-        codes_src = index.code_rows(rows_pad)
-        # every list's window origin (the slice clamp) and its [lo, hi)
-        # relative to it: the kernel reads code rows in place from these
-        o_all = torch.clamp(offsets[:n_lists], max=rows_pad - l_pad)
-        lo_all = offsets[:n_lists] - o_all
-        win_origin = o_all.to(torch.int32)
-        win_bounds = torch.stack([lo_all, lo_all + sizes], 1).to(torch.int32)
-        if stream_partials is None:
-            stream_partials = n_lists * qcap * width * 4 > (1 << 31)
+        rows_pad = max(self.index.codes_sorted.shape[0], l_pad)
+        self._src = self.index.code_rows(rows_pad)
+        return l_pad, rows_pad
 
-        def pair_luts(pair_lists, pair_qids):
-            return pq_kernel.pq_lut_rows(qf, cents, cb, cb_n, pair_lists,
-                                         pair_qids)
+    def pieces(self, b, stream, list_block):
+        """The LUT chunk plan. When the batch's nq * p pairs fit one
+        chunk, one piece covers every list, its LUT rows in (query,
+        probe) order, with no host sync. Otherwise (or when streaming) one
+        host sync reads the live-pair counts that cut the lists into
+        chunks of at most ``list_block`` lists (streaming) and
+        :func:`_max_lut_pairs` live pairs; a chunk without a live pair is
+        skipped, since nothing reads its lists."""
+        qmat, qcap = b.qmat, b.qcap
+        n_lists = qmat.shape[0]
+        dev = qmat.device
+        max_pairs = _max_lut_pairs(self.mk)
+        self._live = qmat < b.nq
+        if not stream and b.nq * b.p <= max_pairs:
+            return [(slice(None), None)]
+        with search_obs.host_sync("ivf_pq", "live_pairs"):
+            pair = torch.nonzero(self._live.reshape(-1)).squeeze(1)
+        self._pair_lists = pair // qcap                      # list-major
+        self._pair_qids = qmat.reshape(-1)[pair].long()
+        gmap = torch.full((n_lists * qcap,), -1, dtype=torch.int32,
+                          device=dev)
+        gmap[pair] = torch.arange(pair.numel(), dtype=torch.int32, device=dev)
+        self._gmap = gmap.reshape(n_lists, qcap)
+        cum = torch.cumsum(self._live.sum(1), 0)
+        with search_obs.host_sync("ivf_pq", "chunk_plan"):
+            cum = cum.cpu().numpy()
+        # the chunks' lists and live-pair ranges [p0, p1)
+        spans = [(a, c, int(cum[a - 1]) if a else 0, int(cum[c - 1]))
+                 for a, c in _lut_chunks(cum, max_pairs,
+                                         list_block if stream else n_lists)]
+        return [(slice(a, c), (p0, p1)) for a, c, p0, p1 in spans if p1 > p0]
 
-        def scan(luts, lut_map, a, b, out=None):
-            return pq_kernel.pq_adc_lists(
-                luts, lut_map, codes_src, win_origin[a:b], win_bounds[a:b],
-                l_pad, out=out)
+    def tables(self, b, sel, ctx):
+        if ctx is None:
+            lists = b.l_flat
+            qids = torch.arange(b.nq * b.p, device=lists.device) // b.p
+        else:
+            lists = self._pair_lists[ctx[0]:ctx[1]]
+            qids = self._pair_qids[ctx[0]:ctx[1]]
+        return pq_kernel.pq_lut_rows(b.qf, self.centroids, self.cb, self.cb_n,
+                                     lists, qids)
 
-        pv = _pq_kernel_pool(
-            pair_luts, scan, probes, (qmat, rmat, slot), width,
-            _max_lut_pairs(m * kc),
-            list_block if stream_partials else n_lists, stream_partials)
-        pm = None
-    else:
-        width = kk
-        # pad the list axis to a multiple of list_block with clamped ids
-        # (the padded slots recompute the last list; nothing reads them)
-        nl_pad = -(-n_lists // list_block) * list_block
-        lids = torch.clamp(torch.arange(nl_pad, device=dev),
-                           max=n_lists - 1).reshape(-1, list_block)
-        if stream_partials is None:
-            # stream once materialized (n_lists, qcap, width) partials
-            # pass ~2 GB
-            stream_partials = n_lists * qcap * width * 8 > (1 << 31)
-        with annotate("ivf.scan"):
-            if stream_partials:
-                # scatter each list block's partials straight into the
-                # query-major (nq, p, width) pool; sentinel slots drop
-                pv = torch.full((nq, p, width), float("inf"), dtype=f32,
-                                device=dev)
-                pm = torch.full((nq, p, width), storage.n, dtype=torch.int64,
-                                device=dev)
-                for lblk in lids:
-                    out = block_fn(lblk)
-                    scatter_pairs(pv, qmat[lblk], rmat[lblk], out[0], nq, p)
-                    scatter_pairs(pm, qmat[lblk], rmat[lblk], out[1], nq, p)
-                pv = pv.reshape(nq, p * width)
-                pm = pm.reshape(nq, p * width)
-            else:
-                outs = [block_fn(lblk) for lblk in lids]
-                vals = torch.cat([o[0] for o in outs])[:n_lists]
-                mem = torch.cat([o[1] for o in outs])[:n_lists]
-                pv, pm = regroup_pairs(vals, mem, l_flat, slot, nq, p, qcap)
+    def scan(self, b, sel, ctx, luts, out=None):
+        if ctx is None:
+            lut_map = torch.where(self._live, b.qmat * b.p + b.rmat,
+                                  -1).to(torch.int32)
+        else:
+            gm = self._gmap[sel]
+            lut_map = torch.where(gm >= 0, gm - ctx[0], gm)
+        return pq_kernel.pq_adc_lists(
+            luts, lut_map, self._src, b.win_origin[sel], b.win_bounds[sel],
+            b.l_pad, out=out)
 
-    if not refine:
-        with annotate("ivf.pool"):
-            return select_candidates(storage, pm, pv, k)
+    def scores(self, b, lblk, qids, pos):
+        # per-(list, query-slot) ADC tables of the block: each slot's
+        # query residual against THIS list's centroid, scored against
+        # every codebook entry, residual-norm term included, so summed
+        # entries are complete squared distances (the kernel form builds
+        # the same rows for live pairs only)
+        lb, qcap = qids.shape
+        with annotate("ivf.lut"):
+            lut = pq_kernel.pq_lut_rows(
+                b.q_pad, self.centroids, self.cb, self.cb_n,
+                lblk.repeat_interleave(qcap), qids.flatten(),
+            ).float().reshape(lb, qcap, self.mk)
+        # dist[b, q, l] = sum_m lut[b, q, m, codes] as a contraction of the
+        # bf16 LUT with the one-hot codes, f32 accumulation
+        codes = self.index.codes_sorted[pos].long()          # (LB, L, M)
+        L, m = codes.shape[1:]
+        onehot = torch.zeros((lb, L, m, self.mk // m), dtype=torch.float32,
+                             device=codes.device)
+        onehot.scatter_(3, codes[..., None], 1.0)
+        return torch.bmm(lut, onehot.reshape(lb, L, self.mk).transpose(1, 2))
 
-    if use_kernel:
-        # refine the rows of the top-c sub-chunks (a superset of the
-        # one-hot engine's top-c ADC rows) in exact f32; clamp c to the
-        # pool width last
-        c = min(p * width, max(k, int(math.ceil(refine_ratio * k))))
-        with annotate("ivf.pool"):
-            rpos, validf = subchunk_pool_rows(pv, c, probes, storage,
-                                              rows_pad, l_pad, width)
-            if row_mask is not None:
-                validf = validf & (
-                    row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
-
-        def refine_blk(args):
-            qb, rp, vl = args
-            raw = _gather_refine_rows(index, refine_dataset,
-                                      torch.clamp(rp, 0, storage.n))
-            exact = score_l2_candidates(qb, raw, vl & (rp < storage.n))
-            return select_candidates(storage, rp, exact, k)
-
-        blk_q = max(8, min(nq, _REFINE_BLOCK_BYTES
-                           // (c * scan_core.SUBCHUNK * d * 4)))
-        with annotate("ivf.rerank"):
-            return map_query_blocks(refine_blk, (qf, rpos, validf), blk_q)
-
-    # exact refinement: top-c of the pooled ADC candidates, f32 rescore
-    c = max(k, min(int(math.ceil(refine_ratio * k)), p * kk))
-    with annotate("ivf.pool"):
-        nadc, cpos = top_k_smallest(pv, c)                     # (nq, c)
-        rpos = torch.gather(pm, 1, cpos)
-    with annotate("ivf.rerank"):
-        raw = _gather_refine_rows(index, refine_dataset, rpos)
-        exact = score_l2_candidates(
-            qf, raw, torch.isfinite(nadc) & (rpos < storage.n))
-        return select_candidates(storage, rpos, exact, k)
+    def rows(self, pos):
+        return _gather_refine_rows(self.index, self.refine_dataset, pos)
 
 
 @search_obs.entry("ivf_pq")
@@ -763,7 +558,7 @@ def ivf_pq_search_grouped(
     are read once per batch for all its probing queries (at most
     ``qcap``; ``qcap`` as in :func:`~.ivf_flat.ivf_flat_search_grouped`).
 
-    ``use_kernel`` (:func:`_resolve_adc_engine`): ``None`` runs the CUDA
+    ``use_kernel`` (:func:`~.grouped.resolve_kernel`): ``None`` runs the CUDA
     ADC sub-chunk-min kernel on a Hopper card when the exact refine tail
     is active and the kernel fits — only (qcap, l_pad/8) minima per list
     leave it, and the top ``ceil(refine_ratio*k)`` sub-chunks' rows are
@@ -781,7 +576,7 @@ def ivf_pq_search_grouped(
     ``store_raw=False`` index, for exact refinement.
     ``stream_partials``: stream list blocks through the query-major pool
     instead of materializing per-block partials (``None``: past ~2 GB)."""
-    q = _as_queries(index, queries)
+    q = as_queries(queries, index.centroids)
     check_candidate_pool(k, n_probes, index.storage)
     errors.expects(
         0.0 < approx_recall_target <= 1.0,
@@ -793,13 +588,7 @@ def ivf_pq_search_grouped(
         max_drop_frac=qcap_max_drop_frac, engine="ivf_pq",
     )
     list_block = max(1, min(list_block, n_lists))
-    use_kernel = _resolve_adc_engine(
-        use_kernel, _refine_active(index, refine_dataset, refine_ratio),
-        index.pq_dim, index.pq_bits, index.device,
-    )
-    return _pq_grouped_impl(
-        index, q, k, n_probes, qcap, list_block, refine_ratio,
-        refine_dataset=refine_dataset, probes=probes,
-        exact_selection=exact_selection, stream_partials=stream_partials,
-        use_kernel=use_kernel,
-    )
+    engine = PQEngine.of(index, use_kernel, qcap, refine_ratio,
+                         refine_dataset)
+    return grouped.search(engine, q, k, n_probes, qcap, list_block,
+                          probes=probes, stream_partials=stream_partials)

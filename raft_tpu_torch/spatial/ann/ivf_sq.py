@@ -4,11 +4,10 @@
 Rows are mapped to int8 per dimension by a global min/max affine map
 (the QT_8bit scheme); lists and search reuse the IVF-Flat machinery with
 the dequantization fused into the scan. The grouped search is the one
-grouped body of IVF-Flat (:func:`.ivf_flat._grouped_impl`) in its
-``dequant`` mode: the kernel engine scans the int8 codes in place, one
-launch per batch, with the hand-written CUDA dequant + sub-chunk-min scan
-(:mod:`.sq_kernel`; codes cross device memory at one byte per element),
-the legacy engine
+grouped body (:func:`.grouped.search`) over :class:`SQEngine`: its
+kernel form scans the int8 codes in place, one launch per batch, with
+the hand-written CUDA dequant + sub-chunk-min scan (:mod:`.sq_kernel`;
+codes cross device memory at one byte per element), its legacy form
 decodes the sliced rows to f32 first, and both rescore or score the rows
 they keep against f32-decoded values.
 """
@@ -23,10 +22,11 @@ import torch
 
 from raft_tpu_torch import errors
 from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
-from raft_tpu_torch.core.device import hopper_device, resolve_device
-from raft_tpu_torch.spatial.ann import sq_kernel
+from raft_tpu_torch.core.device import resolve_device
+from raft_tpu_torch.spatial.ann import grouped, sq_kernel
 from raft_tpu_torch.spatial.ann.common import (
     ListStorage,
+    as_queries,
     build_list_storage,
     check_candidate_pool,
     coarse_probe,
@@ -36,19 +36,12 @@ from raft_tpu_torch.spatial.ann.common import (
     select_candidates,
     split_oversized_lists,
     static_qcap,
-    warn_engine_fallback,
 )
-from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex, _grouped_impl
 
 __all__ = [
-    "IVFSQParams", "IVFSQIndex", "ivf_sq_build", "ivf_sq_search",
-    "ivf_sq_search_grouped", "sq_decode", "sq_encode",
+    "IVFSQParams", "IVFSQIndex", "SQEngine", "ivf_sq_build",
+    "ivf_sq_search", "ivf_sq_search_grouped", "sq_decode", "sq_encode",
 ]
-
-# grouped SQ searches of a CUDA index that use_kernel=None sent to the
-# legacy decode scan because the kernel cannot serve them
-ENGINE_FALLBACKS = 0
-_fallback_reasons_warned: set = set()
 
 
 def _per_dim(v, ndim: int):
@@ -96,18 +89,18 @@ class IVFSQIndex:
     vmin: torch.Tensor           # (d,) f32
     vscale: torch.Tensor         # (d,) f32
     storage: ListStorage
-    # the IVF-Flat view the grouped body scans (made once, so its cache
-    # of padded int8 slabs lives as long as the index)
-    _view: IVFFlatIndex = dataclasses.field(
-        init=False, repr=False, compare=False)
-
-    def __post_init__(self):
-        self._view = IVFFlatIndex(self.centroids, self.codes_sorted,
-                                  self.storage, "sqeuclidean")
+    # the kernel engine's zero-padded code slabs, by padded row count
+    _code_rows: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.centroids.device
+
+    def code_rows(self, n_rows: int) -> torch.Tensor:
+        """``codes_sorted`` with zero rows appended up to ``n_rows`` (no
+        copy when none are needed): made on first use, then kept."""
+        return grouped.slab_rows(self.codes_sorted, n_rows, self._code_rows)
 
     def warmup(self, nq: int, *, k: int = 10, n_probes: int = 8,
                qcap=None, list_block: int = 32, stream_partials=None,
@@ -172,60 +165,52 @@ def ivf_sq_build(x, params: IVFSQParams = IVFSQParams(), *,
     return IVFSQIndex(cents, codes_sorted, vmin, vscale, storage)
 
 
-def _resolve_sq_engine(use_kernel, d: int, qcap: int,
-                       device: torch.device) -> bool:
-    """Resolve the ``use_kernel`` knob of the grouped SQ search.
+class SQEngine(grouped.FlatEngine):
+    """int8 QT_8bit codes (n + 1, d), the sentinel last, with their
+    per-dimension pair ``vmin`` / ``vscale``: the kernel form reads the
+    codes in place (:func:`~.sq_kernel.sq_scan_lists`), the legacy form
+    and the rescore decode the rows they touch to f32
+    (:func:`sq_decode`)."""
 
-    ``None``: the CUDA dequant + scan kernel on a capability-9.0 CUDA
-    device whenever :func:`~.sq_kernel.sq_scan_supported` holds, the
-    legacy decode scan elsewhere; a CUDA index sent to the legacy scan
-    is counted in ``ENGINE_FALLBACKS`` and warned about once per reason.
-    ``True``: the kernel path, raising with the unmet requirement (on a
-    CPU index the kernel path's scan runs its plain version). ``False``:
-    the legacy decode scan."""
-    if use_kernel is None:
-        if device.type != "cuda":
-            return False
-        if not sq_kernel.sq_scan_supported(d, qcap):
-            reason = (f"d={d} qcap={qcap} does not fit the SQ kernel's "
-                      "shared-memory tiles")
-        elif not hopper_device(device):
-            reason = f"{device} is not a capability-9.0 (Hopper) card"
-        else:
-            return True
-        global ENGINE_FALLBACKS
-        ENGINE_FALLBACKS += 1
-        warn_engine_fallback(_fallback_reasons_warned, "IVF-SQ", reason)
-        return False
-    if use_kernel:
-        errors.expects(
+    name, label = "ivf_sq", "IVF-SQ"
+    kmod = sq_kernel
+
+    def __init__(self, centroids, storage, codes, vmin, vscale,
+                 kernel: bool = False, ratio: float = 4.0, slab=None):
+        super().__init__(centroids, storage, codes, kernel, ratio, slab)
+        self.vmin, self.vscale = vmin.float(), vscale.float()
+
+    @classmethod
+    def of(cls, index, use_kernel, qcap: int, ratio: float = 4.0):
+        """The engine of an :class:`IVFSQIndex`, its form by the rule."""
+        kernel = grouped.resolve_kernel(use_kernel, cls, index.device,
+                                        index.centroids.shape[1], qcap)
+        return cls(index.centroids, index.storage, index.codes_sorted,
+                   index.vmin, index.vscale, kernel, ratio, index.code_rows)
+
+    @staticmethod
+    def fits(d: int, qcap: int):
+        return (
             sq_kernel.sq_scan_supported(d, qcap),
-            "use_kernel=True unsupported at d=%d qcap=%d: "
+            f"d={d} qcap={qcap} does not fit the SQ kernel's shared-memory "
+            "tiles",
+            f"use_kernel=True unsupported at d={d} qcap={qcap}: "
             "sq_kernel.sq_scan_supported is False — the kernel's "
             "shared-memory tiles (the query tile, the dequantized slab "
             "tile, vmin and vscale) do not fit a block, or the window rule "
             "(sq_kernel.plan_l_tile) returned None even at the 128-row "
-            "floor; use the legacy decode scan (use_kernel=False)", d, qcap,
+            "floor; use the legacy decode scan (use_kernel=False)",
         )
-        errors.expects(
-            device.type == "cpu" or hopper_device(device),
-            "use_kernel=True needs a capability-9.0 (Hopper) CUDA device "
-            "for the sm_90a kernel; %s is not one", device,
-        )
-    return bool(use_kernel)
 
+    def scan(self, b, sel, ctx, luts, out=None):
+        # int8 zero pad rows decode to 128·vscale + vmin and lie outside
+        # every list's [lo, hi)
+        return sq_kernel.sq_scan_lists(
+            self._q, b.qmat[sel], self._src, b.win_origin[sel],
+            b.win_bounds[sel], b.l_pad, self.vmin, self.vscale)
 
-def _flat_view(index: IVFSQIndex) -> IVFFlatIndex:
-    """The IVF-Flat view of an SQ index that the one grouped body scans
-    with the ``dequant`` pair: ``data_sorted`` holds the int8 codes."""
-    return index._view
-
-
-def _as_queries(index: IVFSQIndex, queries):
-    q = torch.as_tensor(queries, device=index.device)
-    errors.check_matrix(q, "queries")
-    errors.check_same_cols(q, index.centroids, "queries", "index")
-    return q
+    def rows(self, pos):
+        return sq_decode(self.data[pos].float(), self.vmin, self.vscale)
 
 
 def ivf_sq_search_grouped(
@@ -236,12 +221,12 @@ def ivf_sq_search_grouped(
     use_kernel: typing.Optional[bool] = None,
     rerank_ratio: float = 4.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Throughput-mode (list-major) IVF-SQ search — the SQ mode of the
-    one grouped body shared with IVF-Flat. Returns (squared L2 distances
+    """Throughput-mode (list-major) IVF-SQ search — the one grouped body
+    over :class:`SQEngine`. Returns (squared L2 distances
     over the dequantized rows, row ids): the per-query
     :func:`ivf_sq_search` semantics at the grouped engine's throughput.
 
-    ``use_kernel`` (:func:`_resolve_sq_engine`): ``None`` runs the CUDA
+    ``use_kernel`` (:func:`~.grouped.resolve_kernel`): ``None`` runs the CUDA
     int8 dequant + sub-chunk-min kernel on a Hopper card when it fits —
     int8 slab tiles cross device memory at one byte per element, and the
     top ``ceil(rerank_ratio*k)`` sub-chunks' rows are rescored against
@@ -250,7 +235,7 @@ def ivf_sq_search_grouped(
     path and raises naming the unmet requirement. ``qcap``,
     ``stream_partials`` and ``rerank_ratio`` are as in
     :func:`~.ivf_flat.ivf_flat_search_grouped`."""
-    q = _as_queries(index, queries)
+    q = as_queries(queries, index.centroids)
     storage = index.storage
     if k > storage.max_list:
         # a single list cannot fill a per-list top-k row
@@ -268,15 +253,9 @@ def ivf_sq_search_grouped(
         max_drop_frac=qcap_max_drop_frac,
     )
     list_block = max(1, min(list_block, n_lists))
-    use_kernel = _resolve_sq_engine(
-        use_kernel, index.centroids.shape[1], qcap, index.device
-    )
-    return _grouped_impl(
-        _flat_view(index), q, k, n_probes, qcap, list_block, probes=probes,
-        stream_partials=stream_partials, use_kernel=use_kernel,
-        rerank_ratio=float(rerank_ratio),
-        dequant=(index.vmin.float(), index.vscale.float()),
-    )
+    return grouped.search(SQEngine.of(index, use_kernel, qcap, rerank_ratio),
+                          q, k, n_probes, qcap, list_block, probes=probes,
+                          stream_partials=stream_partials)
 
 
 def ivf_sq_search(
@@ -294,7 +273,7 @@ def ivf_sq_search(
         "whole list slabs, which only the list-major grouped search "
         "forms; use ivf_sq_search_grouped(use_kernel=True)",
     )
-    q = _as_queries(index, queries)
+    q = as_queries(queries, index.centroids)
     check_candidate_pool(k, n_probes, index.storage)
     storage = index.storage
 

@@ -7,11 +7,11 @@ upsert / delete / streaming ingest for the IVF engines.
   very next search: the delta is scanned densely (it is small by
   construction), so a fresh row is visible whatever the probe map.
 * **Tombstone deletion** — a ``(n + 1,)`` live mask over the main slab's
-  positions, folded into the grouped scans (``row_mask=`` of
-  ``ivf_flat._grouped_impl`` and ``ivf_pq._pq_grouped_impl``): a delete
-  flips one entry; the row scores +inf and never surfaces. The kernel
-  engines apply it per row at their exact rerank tail, outside the
-  kernel, as the JAX package does.
+  positions, folded into the grouped scans (``row_mask=`` of the one
+  grouped body, :func:`~.grouped.search`): a delete flips one entry;
+  the row scores +inf and never surfaces. The kernel engines apply it
+  per row at their exact rerank tail, outside the kernel, as the JAX
+  package does.
 * **Compaction** — :func:`compact` merges deltas and tombstones into
   fresh main slabs (optionally refreshing the centroids by k-means
   warm-started from the current ones, with the :func:`probe_overlap`
@@ -55,27 +55,22 @@ from raft_tpu_torch.obs import crash as obs_crash
 from raft_tpu_torch.obs import metrics as obs_metrics
 from raft_tpu_torch.spatial.ann.common import (
     ListStorage,
+    as_queries,
     build_list_storage,
     coarse_probe,
     map_query_blocks,
     static_qcap,
 )
-from raft_tpu_torch.spatial.ann.ivf_flat import (
-    IVFFlatIndex,
-    _grouped_impl,
-    _resolve_scan_engine,
-    _sqrt,
-)
+from raft_tpu_torch.spatial.ann import grouped
+from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex, _sqrt
 from raft_tpu_torch.spatial.ann.ivf_pq import (
     IVFPQIndex,
+    PQEngine,
     _encode_rows,
-    _pq_grouped_impl,
-    _resolve_adc_engine,
 )
 from raft_tpu_torch.spatial.ann.ivf_sq import (
     IVFSQIndex,
-    _flat_view,
-    _resolve_sq_engine,
+    SQEngine,
     sq_decode,
     sq_encode,
 )
@@ -597,25 +592,15 @@ def delta_merge_topk(qf, vals, ids, dvec, dids, valid, k: int):
     return map_query_blocks(block, (qf, vals, ids), block_q)
 
 
-def _mut_search_impl(index, delta, row_mask, q, k, n_probes, qcap,
-                     list_block, engine, refine_ratio, exact_selection,
-                     use_kernel):
+# the grouped engine of each kind of frozen index
+_ENGINES = {"flat": grouped.FlatEngine, "sq": SQEngine, "pq": PQEngine}
+
+
+def _mut_search_impl(engine, delta, row_mask, q, k, n_probes, qcap,
+                     list_block):
     qf = q.float()
-    if engine == "flat":
-        mv, mi = _grouped_impl(index, qf, k, n_probes, qcap, list_block,
-                               use_kernel=use_kernel, row_mask=row_mask)
-    elif engine == "sq":
-        mv, mi = _grouped_impl(
-            _flat_view(index), qf, k, n_probes, qcap, list_block,
-            use_kernel=use_kernel, row_mask=row_mask,
-            dequant=(index.vmin.float(), index.vscale.float()),
-        )
-    else:
-        mv, mi = _pq_grouped_impl(
-            index, qf, k, n_probes, qcap, list_block, refine_ratio,
-            exact_selection=exact_selection, use_kernel=use_kernel,
-            row_mask=row_mask,
-        )
+    mv, mi = grouped.search(engine, qf, k, n_probes, qcap, list_block,
+                            row_mask=row_mask)
     # dense exact scan of the delta segments: every fresh row is visible
     # whatever the probe map
     nl, cap, d = delta.vecs.shape
@@ -641,17 +626,15 @@ def mutable_search(
 
     ``qcap`` resolves from shapes only (:func:`~.common.static_qcap`), so
     a dispatch makes no host sync. ``use_kernel`` selects the scan engine
-    of all three kinds by their own rules (the JAX package's
-    ``use_pallas``): ``None`` runs the CUDA kernel on a Hopper card when
-    it fits (a CUDA index it cannot serve is counted in the kind's
-    ``ENGINE_FALLBACKS``), ``True`` launches it or raises, ``False`` pins
-    the legacy scan. The kernel engines apply the tombstones per row at
-    their exact rerank tail — a dead row can crowd a pool slot, never
-    surface."""
+    of all three kinds by the one rule (:func:`~.grouped.resolve_kernel`;
+    the JAX package's ``use_pallas``): ``None`` runs the CUDA kernel on a
+    Hopper card when it fits (a CUDA index it cannot serve is counted in
+    ``grouped.ENGINE_FALLBACKS`` under its kind), ``True`` launches it or
+    raises, ``False`` pins the legacy scan. The kernel engines apply the
+    tombstones per row at their exact rerank tail — a dead row can crowd
+    a pool slot, never surface."""
     index = mindex.index
-    q = torch.as_tensor(queries, device=index.device)
-    errors.check_matrix(q, "queries")
-    errors.check_same_cols(q, index.centroids, "queries", "index")
+    q = as_queries(queries, index.centroids)
     engine = mindex.engine
     storage = index.storage
     errors.expects(
@@ -664,23 +647,15 @@ def mutable_search(
         "approx_recall_target=%s out of range (0, 1]", approx_recall_target,
     )
     nl = index.centroids.shape[0]
-    d = index.centroids.shape[1]
     qc = static_qcap(qcap, q.shape[0], n_probes, nl)
     lb = list_block if list_block is not None else (8 if engine == "pq"
                                                    else 32)
     lb = max(1, min(lb, nl))
-    if engine == "pq":
-        refine_active = (index.vectors_sorted is not None
-                         and refine_ratio > 1.0)
-        uk = _resolve_adc_engine(use_kernel, refine_active, index.pq_dim,
-                                 index.pq_bits, index.device)
-    elif engine == "sq":
-        uk = _resolve_sq_engine(use_kernel, d, qc, index.device)
-    else:
-        uk = _resolve_scan_engine(use_kernel, d, qc, index.device)
+    # the flat and SQ kernels rerank at their default ratio
+    ratio = refine_ratio if engine == "pq" else 4.0
     vals, ids = _mut_search_impl(
-        index, mindex.delta, mindex.row_mask, q, k, n_probes, qc, lb,
-        engine, float(refine_ratio), exact_selection, uk,
+        _ENGINES[engine].of(index, use_kernel, qc, ratio), mindex.delta,
+        mindex.row_mask, q, k, n_probes, qc, lb,
     )
     if engine == "flat" and index.metric == "l2":
         vals = _sqrt(vals)

@@ -3,19 +3,21 @@ counters.
 
 The ranges go through :mod:`raft_tpu_torch.core.annotate`, the port's one
 range layer: emitted while its gate is open or a ``torch.profiler``
-capture runs, nothing but a flag check otherwise. Both grouped searches
-(:func:`~.ivf_flat.ivf_flat_search_grouped`,
-:func:`~.ivf_pq.ivf_pq_search_grouped`) and both scan engines (the CUDA
-kernels and the legacy plain-PyTorch scan) use the same names:
+capture runs, nothing but a flag check otherwise. The public grouped
+searches (:func:`~.ivf_flat.ivf_flat_search_grouped`,
+:func:`~.ivf_pq.ivf_pq_search_grouped`) hold the entry range; the one
+grouped body (:func:`~.grouped.search`) holds every phase range, for
+each engine (flat, SQ, PQ) in both forms (the CUDA kernel and the legacy
+plain-PyTorch scan), under the same names:
 
 * ``ivf_flat.search`` / ``ivf_pq.search`` — the public entry, the whole
   call;
 * ``ivf.probe`` — the coarse probe (gram and sort), or the eager probe
   of an auto-sized ``qcap``;
 * ``ivf.invert`` — :func:`~.common.invert_probe_map_ranked`;
-* ``ivf.lut`` — each ADC table build (IVF-PQ: one a LUT chunk on the
-  kernel engine, one a list block inside ``ivf.scan`` on the legacy
-  engine);
+* ``ivf.lut`` — each ADC table build (IVF-PQ: one a LUT chunk in the
+  kernel form, ``ivf_pq.PQEngine.pieces``; one a list block inside
+  ``ivf.scan`` in the legacy form);
 * ``ivf.scan`` — the scan launches and their regroup or scatter into
   the query-major pool (IVF-PQ's kernel engine: one a LUT chunk, the
   last holding the regroup);

@@ -101,7 +101,7 @@ def self_heal_row(comms, x, qall, *, k: int = 10, n_probes: int = 16,
         ServingSupervisor, ShardHealth,
     )
     from raft_tpu_torch.serving.executor import ServingExecutor
-    from raft_tpu_torch.spatial.ann import IVFFlatParams, ivf_flat, save_index
+    from raft_tpu_torch.spatial.ann import IVFFlatParams, grouped, save_index
     from raft_tpu_torch.testing import chaos, load
 
     row = {
@@ -260,7 +260,7 @@ def self_heal_row(comms, x, qall, *, k: int = 10, n_probes: int = 16,
             out["res"], out["stamps"], out["lag"] = load.replay(
                 arrivals, submit, clock=time.perf_counter)
 
-        fallbacks0 = ivf_flat.ENGINE_FALLBACKS
+        fallbacks0 = grouped.ENGINE_FALLBACKS["ivf_flat"]
 
         def n_confirms():
             return sum(1 for _, e, _ in sup.timeline()
@@ -278,7 +278,8 @@ def self_heal_row(comms, x, qall, *, k: int = 10, n_probes: int = 16,
                 deadline_s=1.0),
             chaos.BoundInvariant(
                 "no-engine-fallback",
-                lambda: ivf_flat.ENGINE_FALLBACKS - fallbacks0, 0),
+                lambda: grouped.ENGINE_FALLBACKS["ivf_flat"] - fallbacks0,
+                0),
         ]
         drv = threading.Thread(target=drive, daemon=True,
                                name="self-heal-load")

@@ -20,8 +20,8 @@ hot buffer — ``data_sorted`` is the hot slab, ``storage.sorted_ids`` the
 hot id map, ``list_offsets``/``list_sizes`` derived from the slot map
 (hot list ``l`` in slot ``s`` at offset ``s * max_list``; a cold list at
 the sentinel offset with size 0) — and runs the one grouped body
-(:func:`~raft_tpu_torch.spatial.ann.ivf_flat._grouped_impl`) on it with
-the legacy engine, as the JAX tier pins its XLA engine
+(:func:`~raft_tpu_torch.spatial.ann.grouped.search`) on it with the
+legacy engine, as the JAX tier pins its XLA engine
 (``use_pallas=False``). That is the reference's engine choice, not a
 fallback: ``ENGINE_FALLBACKS`` does not count it, and the tier has no
 engine knob. A flip of membership or tombstones changes tensor values
@@ -76,12 +76,10 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.analysis.threads import runtime as lockcheck
 from raft_tpu_torch.obs import metrics as obs_metrics
+from raft_tpu_torch.spatial.ann import grouped
 from raft_tpu_torch.spatial.ann.common import ListStorage, static_qcap
-from raft_tpu_torch.spatial.ann.ivf_flat import (
-    IVFFlatIndex,
-    _grouped_impl,
-    _sqrt,
-)
+from raft_tpu_torch.spatial.ann.ivf_flat import IVFFlatIndex, _sqrt
+from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex, SQEngine
 
 __all__ = ["StagedQueries", "TierRuntime", "TierStats", "TieredListStore"]
 
@@ -370,12 +368,13 @@ class TieredListStore:
                runtime: Optional[TierRuntime] = None,
                account: bool = True,
                fill: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Grouped search over the HOT tier — the unchanged
-        :func:`_grouped_impl` body on the hot-slot view, on the legacy
-        engine. Probes landing on cold lists contribute nothing (the
-        graceful degraded answer); when ``account`` they are counted,
-        fed into the per-list load signal, and (when ``fill`` and a
-        fetcher is attached) queued for async promotion.
+        """Grouped search over the HOT tier — the unchanged grouped body
+        (:func:`~raft_tpu_torch.spatial.ann.grouped.search`) on the
+        hot-slot view, on the legacy engine. Probes landing on cold
+        lists contribute nothing (the graceful degraded answer); when
+        ``account`` they are counted, fed into the per-list load signal,
+        and (when ``fill`` and a fetcher is attached) queued for async
+        promotion.
 
         ``queries``: host rows (numpy or a CPU tensor), a tensor on the
         store's device, or a :class:`StagedQueries` from :meth:`stage`.
@@ -420,10 +419,10 @@ class TieredListStore:
         _read_on_current_stream(snap)
         list_block = max(1, min(list_block, self._n_lists))
         lockcheck.note_dispatch("TieredListStore.search")
-        vals, ids = _grouped_impl(
-            snap.view, q, k, n_probes, qc, list_block,
-            stream_partials=stream_partials, row_mask=snap.row_mask,
-            use_kernel=False, dequant=snap.dequant,
+        vals, ids = grouped.search(
+            _legacy_engine(snap.view, snap.dequant), q, k, n_probes, qc,
+            list_block, stream_partials=stream_partials,
+            row_mask=snap.row_mask,
         )
         if self._metric == "l2":
             vals = _sqrt(vals)
@@ -678,10 +677,8 @@ class TieredListStore:
         lb = max(1, min(list_block, self._n_lists))
         with self._lock:
             full_mask = torch.as_tensor(self._mask_np, device=self._device)
-        _, full_ids = _grouped_impl(
-            base, q, k, n_probes, qc, lb, row_mask=full_mask,
-            use_kernel=False, dequant=dequant,
-        )
+        _, full_ids = grouped.search(_legacy_engine(base, dequant), q, k,
+                                     n_probes, qc, lb, row_mask=full_mask)
         r = _id_recall(tiered_ids.cpu().numpy(), full_ids.cpu().numpy())
         with self._lock:
             self.last_recall = r
@@ -874,15 +871,23 @@ def _nbytes(t: torch.Tensor) -> int:
     return int(t.numel() * t.element_size())
 
 
+def _legacy_engine(view: IVFFlatIndex, dequant):
+    """The tier's grouped engine over ``view``: the legacy form, on rows,
+    or on int8 codes with their ``dequant`` pair."""
+    if dequant is None:
+        return grouped.FlatEngine(view.centroids, view.storage,
+                                  view.data_sorted)
+    return SQEngine(view.centroids, view.storage, view.data_sorted, *dequant)
+
+
 def _resolve_base(index):
     """``(flat_view, dequant, origin)`` for an IVFFlatIndex or an
-    IVFSQIndex (tiered through its int8 code view — bytes quarter in
+    IVFSQIndex (tiered through an int8 code view — bytes quarter in
     both tiers and on the bus)."""
-    from raft_tpu_torch.spatial.ann.ivf_sq import IVFSQIndex, _flat_view
-
     if isinstance(index, IVFSQIndex):
-        return _flat_view(index), (index.vmin.float(),
-                                   index.vscale.float()), index
+        view = IVFFlatIndex(index.centroids, index.codes_sorted,
+                            index.storage, "sqeuclidean")
+        return view, (index.vmin.float(), index.vscale.float()), index
     errors.expects(
         isinstance(index, IVFFlatIndex),
         "TieredListStore: expected an IVFFlatIndex or IVFSQIndex, "

@@ -349,6 +349,7 @@ def compare_rendezvous(search, q, arg, pairs: int):
 
 
 def _build_coarse(rng):
+    from raft_tpu_torch.spatial.ann import coarse as tco
     from raft_tpu_torch.spatial.ann import common as cm
 
     x = _clustered(rng, 1_000_000, 2000, None)
@@ -368,8 +369,8 @@ def _build_coarse(rng):
     def search(q, engine):
         if engine == "flat":
             return cm.coarse_probe(q, cents, 16)
-        return cm.two_level_probe(q, *args_c,
-                                  use_kernel=engine == "kernel")
+        return tco.two_level_probe(q, *args_c,
+                                   use_kernel=engine == "kernel")
     return x, cents, search, [(16_384, e)
                               for e in ("flat", "legacy", "kernel")]
 

@@ -48,6 +48,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from raft_tpu_torch.cluster.kmeans import KMeansParams, kmeans_fit
+    from raft_tpu_torch.spatial.ann import coarse as tco
     from raft_tpu_torch.spatial.ann import common as cm
 
     if not torch.cuda.is_available():
@@ -110,12 +111,12 @@ def sweep(cm, q, cents, card, nb, ns, iters, overprobes, seed):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     for op in overprobes:
-        rec = {name: cm.coarse_probe_recall(
+        rec = {name: tco.coarse_probe_recall(
             q, cents, coarse, N_PROBES, overprobe=op, use_kernel=k)
             for name, k in (("legacy", False), ("kernel", True))}
         S = cm.n_super_probes(N_PROBES, coarse.n_super, op)
-        qcap = cm._probe_qcap(q.shape[0], S, coarse.n_super)
-        sup = cm._super_scan_kernel(q, coarse.super_cents, S, 256)
+        qcap = tco._probe_qcap(q.shape[0], S, coarse.n_super)
+        sup = tco._super_scan_kernel(q, coarse.super_cents, S, 256)
         slot = cm.invert_probe_map_ranked(sup, coarse.n_super, qcap)[3]
         drop = (slot >= qcap).reshape(q.shape[0], S)
         print(json.dumps({

@@ -1,8 +1,9 @@
 """The two-level coarse probe of the PyTorch port
 (``raft_tpu_torch/spatial/ann/common.py``: ``CoarseIndex``,
-``build_coarse_index``, ``two_level_probe`` on both engines,
-``coarse_probe_recall``, ``probe_flop_accounting`` and the ``coarse=``
-eager probes of the qcap resolution) against the JAX package, on the CPU.
+``build_coarse_index``, ``probe_flop_accounting`` and the ``coarse=``
+eager probes of the qcap resolution; ``.../coarse.py``:
+``two_level_probe`` on both engines and ``coarse_probe_recall``) against
+the JAX package, on the CPU.
 
 The same numpy inputs go to both packages. A JAX ``CoarseIndex`` is
 carried across with ``coarse_index_from_arrays``; the build is compared
@@ -27,6 +28,7 @@ from raft_tpu.cluster.kmeans import kmeans_fit as j_kmeans_fit
 from raft_tpu.serving.result_cache import CentroidSigner as JCentroidSigner
 from raft_tpu.spatial.ann import common as jc
 from raft_tpu_torch.serving.result_cache import CentroidSigner
+from raft_tpu_torch.spatial.ann import coarse as tco
 from raft_tpu_torch.spatial.ann import common as tc
 from raft_tpu_torch.spatial.ann import flat_kernel as tfk
 from raft_tpu_torch.spatial.ann import interop
@@ -205,7 +207,7 @@ class TestProbe:
         q = torch.as_tensor(rng.standard_normal((32, 16)),
                             dtype=torch.float32)
         flat, _ = tc.coarse_probe(q, torch.as_tensor(centroid_set), 8)
-        two, d2 = tc.two_level_probe(q, *_args(coarse), 8, coarse.n_super)
+        two, d2 = tco.two_level_probe(q, *_args(coarse), 8, coarse.n_super)
         assert np.array_equal(np.sort(flat.numpy(), 1),
                               np.sort(two.numpy(), 1))
         assert torch.isfinite(d2).all()
@@ -216,8 +218,8 @@ class TestProbe:
         rng = np.random.default_rng(4)
         q = rng.standard_normal((21, 16)).astype(np.float32)
         args = _args(coarse) + (6, coarse.n_super)
-        a, da = tc.two_level_probe(q, *args, 256, use_kernel=use_kernel)
-        b, db = tc.two_level_probe(q, *args, 4, use_kernel=use_kernel)
+        a, da = tco.two_level_probe(q, *args, 256, use_kernel=use_kernel)
+        b, db = tco.two_level_probe(q, *args, 4, use_kernel=use_kernel)
         # the CPU's f32 products may sum in another order at another
         # batch size, so distances agree to rounding
         assert torch.equal(a, b)
@@ -228,7 +230,7 @@ class TestProbe:
         q = rng.standard_normal((130, 16)).astype(np.float32)
         S = tc.n_super_probes(8, coarse.n_super, 2.0)
         jp, jd = jc.two_level_probe(q, *_args(jcoarse), 8, S)
-        tp, td = tc.two_level_probe(q, *_args(coarse), 8, S)
+        tp, td = tco.two_level_probe(q, *_args(coarse), 8, S)
         _assert_probes_equal_up_to_ties(jd, jp, tp.numpy())
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5,
                                    atol=1e-5)
@@ -247,8 +249,8 @@ class TestProbe:
             p, d = jc.two_level_probe(q, *_args(jci), 8, S, block_q,
                                       use_pallas=k, pallas_interpret=k)
             got["jax", k] = (np.asarray(p), np.asarray(d))
-            p, d = tc.two_level_probe(q, *_args(ci), 8, S, block_q,
-                                      use_kernel=k)
+            p, d = tco.two_level_probe(q, *_args(ci), 8, S, block_q,
+                                       use_kernel=k)
             got["torch", k] = (p.numpy(), d.numpy())
         ref_p, ref_d = got["jax", False]
         for key, (p, d) in got.items():
@@ -269,11 +271,11 @@ class TestProbe:
             (20, 12)).astype(np.float32)
         ci = tc.build_coarse_index(cents, seed=1, device="cpu")
         assert ci.n_super > tc.n_super_probes(8, ci.n_super)
-        assert tc.coarse_probe_recall(q, cents, ci, 8,
-                                      use_kernel=use_kernel) >= 0.95
+        assert tco.coarse_probe_recall(q, cents, ci, 8,
+                                       use_kernel=use_kernel) >= 0.95
         jci = jc.build_coarse_index(cents, seed=1)
-        assert tc.coarse_probe_recall(q, cents, _carry(jci), 8,
-                                      use_kernel=use_kernel) == \
+        assert tco.coarse_probe_recall(q, cents, _carry(jci), 8,
+                                       use_kernel=use_kernel) == \
             jc.coarse_probe_recall(q, cents, jci, 8)
 
     def test_flop_acceptance_at_deployment_geometry(self):
@@ -333,7 +335,7 @@ def test_auto_qcap_routes_through_two_level_probe(centroid_set, coarse,
     assert isinstance(qc, int) and qc == jqc
     assert seen and all(s == coarse.n_super for s in seen), seen
     _assert_probes_equal_up_to_ties(
-        tc.two_level_probe(q, *_args(coarse), 4, tc.n_super_probes(
+        tco.two_level_probe(q, *_args(coarse), 4, tc.n_super_probes(
             4, coarse.n_super))[1].numpy(), np.asarray(jprobes),
         probes.numpy())
     # an int qcap passes through with a coarse index too
@@ -375,13 +377,13 @@ class TestKernelizedProbe:
         rng = np.random.default_rng(5)
         q = rng.standard_normal((130, 16)).astype(np.float32)
         S = tc.n_super_probes(8, coarse.n_super, 2.0)
-        assert tc.two_level_probe_kernel_supported(
+        assert tco.two_level_probe_kernel_supported(
             16, 130, 8, coarse.n_super, coarse.max_members, S)
         assert jc.two_level_probe_kernel_supported(
             16, 130, 8, coarse.n_super, coarse.max_members, S)
-        p0, d0 = tc.two_level_probe(q, *_args(coarse), 8, S)
-        p1, d1 = tc.two_level_probe(q, *_args(coarse), 8, S,
-                                    use_kernel=True)
+        p0, d0 = tco.two_level_probe(q, *_args(coarse), 8, S)
+        p1, d1 = tco.two_level_probe(q, *_args(coarse), 8, S,
+                                     use_kernel=True)
         _assert_probes_equal_up_to_ties(d0.numpy(), p0.numpy(), p1.numpy())
         np.testing.assert_allclose(d1.numpy(), d0.numpy(), rtol=1e-5,
                                    atol=1e-4)
@@ -397,8 +399,8 @@ class TestKernelizedProbe:
         q = torch.as_tensor(rng.standard_normal((32, 16)),
                             dtype=torch.float32)
         flat, _ = tc.coarse_probe(q, torch.as_tensor(centroid_set), 8)
-        two, d2 = tc.two_level_probe(q, *_args(coarse), 8, coarse.n_super,
-                                     use_kernel=True)
+        two, d2 = tco.two_level_probe(q, *_args(coarse), 8, coarse.n_super,
+                                      use_kernel=True)
         assert np.array_equal(np.sort(flat.numpy(), 1),
                               np.sort(two.numpy(), 1))
         assert torch.isfinite(d2).all()
@@ -419,11 +421,11 @@ class TestKernelizedProbe:
         rng = np.random.default_rng(7)
         q = rng.standard_normal((70, 16)).astype(np.float32)
         S = tc.n_super_probes(4, coarse.n_super, 2.0)
-        tc.two_level_probe(q, *_args(coarse), 4, S, 16, use_kernel=True)
+        tco.two_level_probe(q, *_args(coarse), 4, S, 16, use_kernel=True)
         ns = coarse.n_super
         assert calls == [
             ("flat_scan_subchunk_min", (1, 70, 16), (1, 16, 128)),
-            ("flat_scan_lists", (71, 16), (ns, tc._probe_qcap(70, S, ns))),
+            ("flat_scan_lists", (71, 16), (ns, tco._probe_qcap(70, S, ns))),
         ], calls
 
     def test_unsupported_geometry_serves_legacy_and_is_counted(
@@ -432,22 +434,22 @@ class TestKernelizedProbe:
         stage-1 query block past the flat scan's window plan) serves the
         legacy engine, as the JAX package does, counted in
         COARSE_ENGINE_FALLBACKS and warned about once per geometry."""
-        assert not tc.two_level_probe_kernel_supported(
+        assert not tco.two_level_probe_kernel_supported(
             1 << 20, 32, 8, coarse.n_super, coarse.max_members, 16)
         nq = 20_000
         q = np.random.default_rng(8).standard_normal(
             (nq, 16)).astype(np.float32)
-        for mod in (tc, jc):
+        for mod in (tco, jc):
             assert not mod.two_level_probe_kernel_supported(
                 16, nq, 4, coarse.n_super, coarse.max_members, 2, nq)
-        before = tc.COARSE_ENGINE_FALLBACKS
+        before = tco.COARSE_ENGINE_FALLBACKS
         with caplog.at_level("WARNING", logger="raft_tpu_torch"):
-            outs = [tc.two_level_probe(q, *_args(coarse), 4, 2, nq,
-                                       use_kernel=True) for _ in range(2)]
-        assert tc.COARSE_ENGINE_FALLBACKS == before + 2
+            outs = [tco.two_level_probe(q, *_args(coarse), 4, 2, nq,
+                                        use_kernel=True) for _ in range(2)]
+        assert tco.COARSE_ENGINE_FALLBACKS == before + 2
         assert len([r for r in caplog.records
                     if "legacy engine" in r.getMessage()]) <= 1
-        p0, d0 = tc.two_level_probe(q, *_args(coarse), 4, 2, nq)
+        p0, d0 = tco.two_level_probe(q, *_args(coarse), 4, 2, nq)
         assert all(torch.equal(p, p0) and torch.equal(d, d0)
                    for p, d in outs)
         jp, jd = jc.two_level_probe(q, *_args(jcoarse), 4, 2, nq,
@@ -462,21 +464,21 @@ class TestKernelizedProbe:
         def boom(*a, **k):
             raise AssertionError("the kernel engine ran")
 
-        monkeypatch.setattr(tc, "_two_level_probe_kernel", boom)
-        before = tc.COARSE_ENGINE_FALLBACKS
+        monkeypatch.setattr(tco, "_two_level_probe_kernel", boom)
+        before = tco.COARSE_ENGINE_FALLBACKS
         q = np.random.default_rng(9).standard_normal(
             (8, 16)).astype(np.float32)
-        p, _ = tc.two_level_probe(q, *_args(coarse), 4, 8,
-                                  precision="highest", use_kernel=True)
-        assert torch.equal(p, tc.two_level_probe(q, *_args(coarse), 4,
-                                                 8)[0])
-        assert tc.COARSE_ENGINE_FALLBACKS == before
+        p, _ = tco.two_level_probe(q, *_args(coarse), 4, 8,
+                                   precision="highest", use_kernel=True)
+        assert torch.equal(p, tco.two_level_probe(q, *_args(coarse), 4,
+                                                  8)[0])
+        assert tco.COARSE_ENGINE_FALLBACKS == before
 
     def test_recall_audit_covers_kernelized_probe(self, coarse,
                                                   centroid_set):
         rng = np.random.default_rng(17)
         q = rng.standard_normal((96, 16)).astype(np.float32)
-        r_legacy = tc.coarse_probe_recall(q, centroid_set, coarse, 8)
-        r_kernel = tc.coarse_probe_recall(q, centroid_set, coarse, 8,
-                                          use_kernel=True)
+        r_legacy = tco.coarse_probe_recall(q, centroid_set, coarse, 8)
+        r_kernel = tco.coarse_probe_recall(q, centroid_set, coarse, 8,
+                                           use_kernel=True)
         assert abs(r_kernel - r_legacy) <= 0.01, (r_kernel, r_legacy)

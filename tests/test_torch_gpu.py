@@ -661,7 +661,7 @@ def test_pq_grouped_search_builds_one_lut_a_chunk(monkeypatch):
     LUT chunk with a live pair, as many as ADC launches, and no engine
     fallback."""
     from raft_tpu_torch.spatial.ann import (
-        IVFPQParams, ivf_pq, ivf_pq_build, ivf_pq_search_grouped,
+        IVFPQParams, grouped, ivf_pq, ivf_pq_build, ivf_pq_search_grouped,
         pq_kernel as tpq,
     )
 
@@ -690,14 +690,14 @@ def test_pq_grouped_search_builds_one_lut_a_chunk(monkeypatch):
         return out
 
     monkeypatch.setattr(ivf_pq, "_lut_chunks", kept)
-    ivf_pq.ENGINE_FALLBACKS = 0
+    grouped.ENGINE_FALLBACKS["ivf_pq"] = 0
     lut0, adc0 = tpq.LUT_LAUNCHES, tpq.LAUNCHES
     ivf_pq_search_grouped(index, q, 10, qcap=qcap, **kw)
     torch.cuda.synchronize()
     n = tpq.LUT_LAUNCHES - lut0
     assert n == len(chunks) == tpq.LAUNCHES - adc0
     assert n >= -(-10_000 * 32 // ivf_pq._max_lut_pairs(24 * 256))
-    assert ivf_pq.ENGINE_FALLBACKS == 0
+    assert grouped.ENGINE_FALLBACKS["ivf_pq"] == 0
 
 
 @pytest.mark.gpu
@@ -944,7 +944,7 @@ def test_two_level_probe_kernel_engine_on_the_card():
     versions on the CPU, the legacy engine on both, and the legacy
     member stage over the kernel engine's own supers: bitwise on
     integer-exact centroids, supers and queries."""
-    from raft_tpu_torch.spatial.ann import common as cm
+    from raft_tpu_torch.spatial.ann import coarse, common as cm
 
     dev = _hopper()
     rng = np.random.default_rng(3)
@@ -968,17 +968,17 @@ def test_two_level_probe_kernel_engine_on_the_card():
                 S)
 
     qt = torch.as_tensor(q, device=dev)
-    before, fb = tfk.LAUNCHES, cm.COARSE_ENGINE_FALLBACKS
-    pk, dk = cm.two_level_probe(qt, *args(card), use_kernel=True)
+    before, fb = tfk.LAUNCHES, coarse.COARSE_ENGINE_FALLBACKS
+    pk, dk = coarse.two_level_probe(qt, *args(card), use_kernel=True)
     torch.cuda.synchronize()
     assert tfk.LAUNCHES == before + 2
-    assert cm.COARSE_ENGINE_FALLBACKS == fb
-    pp, dp = cm.two_level_probe(q, *args(host), use_kernel=True)
+    assert coarse.COARSE_ENGINE_FALLBACKS == fb
+    pp, dp = coarse.two_level_probe(q, *args(host), use_kernel=True)
     assert torch.equal(dk.cpu(), dp) and torch.equal(pk.cpu(), pp)
-    pl, dl = cm.two_level_probe(qt, *args(card))
-    pl_h, dl_h = cm.two_level_probe(q, *args(host))
+    pl, dl = coarse.two_level_probe(qt, *args(card))
+    pl_h, dl_h = coarse.two_level_probe(q, *args(host))
     assert torch.equal(dl.cpu(), dl_h) and torch.equal(pl.cpu(), pl_h)
-    sup = cm._super_scan_kernel(qt, card.super_cents, S, 256)
+    sup = coarse._super_scan_kernel(qt, card.super_cents, S, 256)
     d_ref, _ = cm.rerank_members(qt, sup, card.member_ids,
                                  card.cents_padded, card.n_cents, 8)
     assert torch.equal(d_ref, dk)
@@ -1021,9 +1021,8 @@ def test_mutable_search_kernel_engines_on_the_card():
     every probed row exactly, its distances are never below the legacy
     engine's."""
     from raft_tpu_torch.spatial.ann import (
-        IVFFlatParams, IVFPQParams, IVFSQIndex, ivf_flat_build,
-        ivf_pq_build, ivf_pq as tpq_ivf, ivf_sq as tsq_ivf,
-        ivf_flat as tflat_ivf, mutation, pq_kernel, sq_kernel,
+        IVFFlatParams, IVFPQParams, IVFSQIndex, grouped, ivf_flat_build,
+        ivf_pq_build, mutation, pq_kernel, sq_kernel,
     )
 
     dev = _hopper()
@@ -1051,10 +1050,10 @@ def test_mutable_search_kernel_engines_on_the_card():
     up_ids = np.arange(50_000, 50_064, dtype=np.int32)
     dead = rng.choice(4000, 200, replace=False).astype(np.int32)
     dead = np.concatenate([dead, up_ids[:8]])
-    checks = ((flat, tfk, tflat_ivf, {}),
-              (sq, sq_kernel, tsq_ivf, {}),
-              (pq, pq_kernel, tpq_ivf, {"refine_ratio": 4.0}))
-    for index, kmod, imod, kw in checks:
+    checks = ((flat, tfk, "ivf_flat", {}),
+              (sq, sq_kernel, "ivf_sq", {}),
+              (pq, pq_kernel, "ivf_pq", {"refine_ratio": 4.0}))
+    for index, kmod, engine, kw in checks:
         states = {}
         for d in (cpu, dev):
             m = mutation.wrap_mutable(
@@ -1068,14 +1067,15 @@ def test_mutable_search_kernel_engines_on_the_card():
         out = {}
         for d, m in states.items():
             for kernel in (True, False):
-                before, fb = kmod.LAUNCHES, imod.ENGINE_FALLBACKS
+                before = kmod.LAUNCHES
+                fb = grouped.ENGINE_FALLBACKS[engine]
                 dist, ids = mutation.mutable_search(
                     m, torch.as_tensor(qs, device=d), 10, n_probes=8,
                     use_kernel=kernel, **kw)
                 if d == dev:
                     torch.cuda.synchronize()
                     assert kmod.LAUNCHES == before + (1 if kernel else 0)
-                    assert imod.ENGINE_FALLBACKS == fb
+                    assert grouped.ENGINE_FALLBACKS[engine] == fb
                 out[d.type, kernel] = (dist.cpu(), ids.cpu())
         for kernel in (True, False):
             a, b = out["cuda", kernel], out["cpu", kernel]
@@ -1170,7 +1170,7 @@ def test_sharded_search_p8_equals_p1_on_card():
         build_comms, mnmg_ivf_flat_build, mnmg_ivf_flat_search,
         place_index,
     )
-    from raft_tpu_torch.spatial.ann import IVFFlatParams, ivf_flat
+    from raft_tpu_torch.spatial.ann import IVFFlatParams, grouped
 
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(12)
@@ -1185,7 +1185,7 @@ def test_sharded_search_p8_equals_p1_on_card():
         n_lists=64, kmeans_n_iters=4, kmeans_init="random"),
         metric="sqeuclidean")
     idx1 = place_index(c1, idx8)
-    ivf_flat.ENGINE_FALLBACKS = 0
+    grouped.ENGINE_FALLBACKS["ivf_flat"] = 0
     side = torch.cuda.Stream(dev)
     with torch.cuda.stream(side):
         before = tfk.LAUNCHES
@@ -1196,7 +1196,7 @@ def test_sharded_search_p8_equals_p1_on_card():
                                       qcap=512)
     torch.cuda.synchronize()
     assert launches == 8
-    assert ivf_flat.ENGINE_FALLBACKS == 0
+    assert grouped.ENGINE_FALLBACKS["ivf_flat"] == 0
     assert torch.equal(d8, d1)
     # ids equal up to ties: equal-distance runs hold the same id set, but
     # the run the k-boundary cuts
@@ -1235,7 +1235,7 @@ def test_sharded_pq_search_p8_equals_p1_on_card():
         mnmg_ivf_pq_search,
         place_index,
     )
-    from raft_tpu_torch.spatial.ann import IVFPQParams, ivf_pq
+    from raft_tpu_torch.spatial.ann import IVFPQParams, grouped
     from raft_tpu_torch.spatial.ann import pq_kernel as tpk
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1252,7 +1252,7 @@ def test_sharded_pq_search_p8_equals_p1_on_card():
         n_lists=128, pq_dim=8, kmeans_n_iters=5, kmeans_init="random",
         max_list_cap=512))
     idx1 = place_index(c1, idx8)
-    ivf_pq.ENGINE_FALLBACKS = 0
+    grouped.ENGINE_FALLBACKS["ivf_pq"] = 0
     calls = []
     orig = tpk.pq_adc_lists
 
@@ -1273,7 +1273,7 @@ def test_sharded_pq_search_p8_equals_p1_on_card():
                                 refine_ratio=4.0, qcap="throughput")
     torch.cuda.synchronize()
     assert launches == 8 and len(calls) == 8
-    assert ivf_pq.ENGINE_FALLBACKS == 0
+    assert grouped.ENGINE_FALLBACKS["ivf_pq"] == 0
     sentinel = idx8.nl_pad - 1
     for lut_map, bounds, res in calls:
         assert int(bounds[sentinel, 1] - bounds[sentinel, 0]) == 0

@@ -46,7 +46,6 @@ from raft_tpu_torch.spatial.ann import (
 )
 from raft_tpu_torch.spatial.ann import common as tcommon
 from raft_tpu_torch.spatial.ann import flat_kernel as tfk
-from raft_tpu_torch.spatial.ann.ivf_flat import _resolve_scan_engine
 from tests.oracles import np_knn_ids
 
 torch.set_num_threads(1)
@@ -430,11 +429,6 @@ def test_corrupted_archive_raises(tmp_path, jax_indexes):
 def test_engine_resolution_and_unported_options(dataset, carried):
     _, q = dataset
     idx = carried["plain", "npz"]
-    assert _resolve_scan_engine(None, 16, 64, CPU) is False
-    assert _resolve_scan_engine(True, 16, 64, CPU) is True
-    assert _resolve_scan_engine(False, 16, 64, CPU) is False
-    with pytest.raises(ValueError, match="use_kernel=True unsupported"):
-        _resolve_scan_engine(True, 1 << 12, 64, CPU)
     with pytest.raises(ValueError, match="per-query"):
         ivf_flat_search_grouped(idx, q, idx.storage.max_list + 1,
                                 n_probes=4, use_kernel=True)
@@ -447,27 +441,6 @@ def test_engine_resolution_and_unported_options(dataset, carried):
     with pytest.raises(TypeError, match="row_mask"):
         ivf_flat_search_grouped(idx, q, 5, row_mask=torch.ones(3))
     assert tfk.LAUNCHES == 0
-
-
-def test_cuda_index_leaving_the_kernel_is_counted_and_warned(caplog):
-    """use_kernel=None on a CUDA index the kernel cannot serve runs the
-    legacy scan, counts it and warns once per reason; a CPU index or an
-    explicit False is not a fallback."""
-    from raft_tpu_torch.spatial.ann import ivf_flat as tivf
-
-    cuda = torch.device("cuda")
-    before = tivf.ENGINE_FALLBACKS
-    assert _resolve_scan_engine(None, 16, 64, CPU) is False
-    assert _resolve_scan_engine(False, 1 << 12, 64, cuda) is False
-    assert tivf.ENGINE_FALLBACKS == before
-    tivf._fallback_reasons_warned.discard(
-        "d=4096 qcap=64 does not fit the kernel's shared-memory tiles")
-    with caplog.at_level("WARNING", logger="raft_tpu_torch"):
-        for _ in range(3):
-            assert _resolve_scan_engine(None, 1 << 12, 64, cuda) is False
-    assert tivf.ENGINE_FALLBACKS == before + 3
-    warned = [r for r in caplog.records if "legacy" in r.getMessage()]
-    assert len(warned) == 1 and "d=4096" in warned[0].getMessage()
 
 
 def test_scan_rows_bf16_made_once_per_row_count(carried):
@@ -510,14 +483,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # the two-level probe on both engines and the writer, whose
         # imports happen at call time
         "import tempfile, numpy as np, torch\n"
-        "from raft_tpu_torch.spatial.ann import common as c\n"
+        "from raft_tpu_torch.spatial.ann import coarse, common as c\n"
         "from raft_tpu_torch.spatial.ann import IVFFlatParams, "
         "ivf_flat_build, load_index, save_index\n"
         "x = np.random.default_rng(0).standard_normal((64, 8))"
         ".astype('float32')\n"
         "ci = c.build_coarse_index(x, device='cpu')\n"
         "for k in (False, True):\n"
-        "    c.two_level_probe(x[:4], ci.super_cents, ci.member_ids, "
+        "    coarse.two_level_probe(x[:4], ci.super_cents, ci.member_ids, "
         "ci.cents_padded, ci.n_cents, 2, 4, use_kernel=k)\n"
         "idx = ivf_flat_build(x, IVFFlatParams(n_lists=4), device='cpu')\n"
         "from raft_tpu_torch.spatial.ann import mutation as m\n"

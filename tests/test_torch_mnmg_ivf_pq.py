@@ -58,7 +58,7 @@ from raft_tpu_torch.resilience import (
 )
 from raft_tpu_torch.spatial.ann import (
     IVFPQParams,
-    ivf_pq,
+    grouped,
     ivf_pq_build,
     ivf_pq_search_grouped,
     load_index,
@@ -552,11 +552,11 @@ def test_engine_resolution_per_shard(tc, dataset, tidx):
     not a fallback: ENGINE_FALLBACKS unchanged); use_kernel=True on an
     unrefined search raises."""
     _, q = dataset
-    before = ivf_pq.ENGINE_FALLBACKS
+    before = grouped.ENGINE_FALLBACKS["ivf_pq"]
     a = tsearch(tc, tidx, q)
     b = tsearch(tc, tidx, q, use_kernel=False)
     assert torch.equal(a[0], b[0])
-    assert ivf_pq.ENGINE_FALLBACKS == before
+    assert grouped.ENGINE_FALLBACKS["ivf_pq"] == before
     with pytest.raises(ValueError, match="refine"):
         tsearch(tc, tidx, q, use_kernel=True, refine_ratio=1.0)
 

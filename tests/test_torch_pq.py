@@ -47,9 +47,8 @@ from raft_tpu_torch.spatial.ann import (
     ivf_pq_search_grouped,
     load_ivf_pq,
 )
-from raft_tpu_torch.spatial.ann import ivf_pq as tivf_pq
 from raft_tpu_torch.spatial.ann import pq_kernel as tpq
-from raft_tpu_torch.spatial.ann.ivf_pq import _encode_rows, _resolve_adc_engine
+from raft_tpu_torch.spatial.ann.ivf_pq import _encode_rows
 from tests.oracles import np_knn_ids
 from tests.test_torch_ivf_flat import _assert_ids_equal_up_to_ties
 
@@ -599,32 +598,6 @@ def test_blocked_build_trains_on_a_subsample(blob_case):
     _, ids = ivf_pq_search_grouped(tidx, q, 10, n_probes=4,
                                    refine_ratio=4.0)
     assert _recall(ids.numpy(), true) > 0.5
-
-
-def test_engine_resolver_raises_and_counts(caplog, monkeypatch):
-    assert _resolve_adc_engine(None, True, 24, 8, CPU) is False
-    assert _resolve_adc_engine(True, True, 24, 8, CPU) is True
-    assert _resolve_adc_engine(False, True, 24, 8, CPU) is False
-    with pytest.raises(ValueError, match="refine tail"):
-        _resolve_adc_engine(True, False, 24, 8, CPU)
-    with pytest.raises(ValueError, match="unsupported"):
-        _resolve_adc_engine(True, True, 4096, 8, CPU)
-    cuda = torch.device("cuda")
-    before = tivf_pq.ENGINE_FALLBACKS
-    # unrefined: the one-hot engine by rule, not counted
-    assert _resolve_adc_engine(None, False, 24, 8, cuda) is False
-    assert tivf_pq.ENGINE_FALLBACKS == before
-    # a refined search on a Hopper card takes the kernel, not counted
-    monkeypatch.setattr(tivf_pq, "hopper_device", lambda dev: True)
-    assert _resolve_adc_engine(None, True, 24, 8, cuda) is True
-    assert tivf_pq.ENGINE_FALLBACKS == before
-    tivf_pq._fallback_reasons_warned.clear()
-    with caplog.at_level("WARNING", logger="raft_tpu_torch"):
-        for _ in range(2):
-            assert _resolve_adc_engine(None, True, 4096, 8, cuda) is False
-    assert tivf_pq.ENGINE_FALLBACKS == before + 2
-    assert len([r for r in caplog.records
-                if "IVF-PQ" in r.getMessage()]) == 1
 
 
 def test_corrupted_archive_raises(tmp_path, jax_index):

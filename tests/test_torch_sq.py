@@ -44,7 +44,6 @@ from raft_tpu_torch.spatial.ann import flat_kernel as tfk
 from raft_tpu_torch.spatial.ann import ivf_sq as tivf_sq
 from raft_tpu_torch.spatial.ann import scan_core as tsc
 from raft_tpu_torch.spatial.ann import sq_kernel as tsq
-from raft_tpu_torch.spatial.ann.ivf_sq import _resolve_sq_engine
 from tests.test_torch_ivf_flat import _assert_ids_equal_up_to_ties
 
 torch.set_num_threads(1)
@@ -355,7 +354,7 @@ def test_tiny_index_pads_codes_with_zeros(dataset):
     d1, i1 = ivf_sq_search_grouped(tidx, q, K_NN, use_kernel=True, **kw)
     np.testing.assert_array_equal(d1.numpy(), np.asarray(d0))
     _assert_ids_equal_up_to_ties(d0, i0, i1.numpy())
-    pad = tidx._view.scan_rows(128)
+    pad = tidx.code_rows(128)
     assert pad.dtype == torch.int8 and not pad[tidx.codes_sorted.shape[0]:].any()
 
 
@@ -425,31 +424,15 @@ def test_port_built_index_serves_with_both_engines():
         assert rec(ids.numpy()) >= r_jax - 0.02, kernel
 
 
-def test_engine_resolver_raises_and_counts(dataset, index, caplog):
+def test_engine_resolver_raises_and_counts(dataset, index):
+    """The entries' own raises; the engine rule's answers, messages and
+    counts are ``tests/test_torch_grouped.py``'s."""
     _, q = dataset
-    assert _resolve_sq_engine(None, 16, 64, CPU) is False
-    assert _resolve_sq_engine(True, 16, 64, CPU) is True
-    assert _resolve_sq_engine(False, 16, 64, CPU) is False
-    with pytest.raises(ValueError) as e:
-        _resolve_sq_engine(True, 1 << 20, 512, CPU)
-    assert "sq_scan_supported" in str(e.value)
-    assert "plan_l_tile" in str(e.value)
     with pytest.raises(ValueError, match="per-query"):
         ivf_sq_search_grouped(index, q, index.storage.max_list + 1,
                               n_probes=4, use_kernel=True)
     with pytest.raises(ValueError, match="grouped"):
         ivf_sq_search(index, q, K_NN, use_kernel=True)
-    # use_kernel=None on a CUDA index the kernel cannot serve: counted,
-    # warned once per reason (the check never touches the card)
-    cuda = torch.device("cuda")
-    before = tivf_sq.ENGINE_FALLBACKS
-    tivf_sq._fallback_reasons_warned.clear()
-    with caplog.at_level("WARNING", logger="raft_tpu_torch"):
-        for _ in range(2):
-            assert _resolve_sq_engine(None, 1 << 12, 64, cuda) is False
-    assert tivf_sq.ENGINE_FALLBACKS == before + 2
-    warned = [r for r in caplog.records if "IVF-SQ" in r.getMessage()]
-    assert len(warned) == 1
 
 
 def test_corrupted_archive_and_wrong_kind_raise(tmp_path, jax_index):
@@ -480,6 +463,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, jax_index):
 
 
 def test_replaced_index_gets_a_fresh_view(index):
+    """A replaced index's kernel slab is its own codes, not a cached
+    slab of the index it came from."""
     other = dataclasses.replace(index, codes_sorted=index.codes_sorted + 1)
-    assert other._view.data_sorted is other.codes_sorted
-    assert index._view.data_sorted is index.codes_sorted
+    n = index.codes_sorted.shape[0]
+    assert index.code_rows(n) is index.codes_sorted
+    assert other._code_rows == {}
+    assert other.code_rows(n) is other.codes_sorted

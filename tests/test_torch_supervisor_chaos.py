@@ -77,7 +77,7 @@ from raft_tpu_torch.resilience.health import HealthProbe, HealthReport
 from raft_tpu_torch.serving import ServingExecutor
 from raft_tpu_torch.spatial.ann import (
     IVFFlatParams,
-    ivf_flat,
+    grouped,
     ivf_flat_build,
     save_index,
 )
@@ -892,7 +892,7 @@ def test_scripted_chaos_schedule_end_to_end(comms8, dataset, replicated_r2,
     plan0 = FailoverPlan.load_balanced(placement, health)
     ref = run(torch.as_tensor(q), shard_mask=health.mask(), failover=plan0)
     iref, vref = ref.ids.numpy(), ref.distances.numpy()
-    fallbacks0 = ivf_flat.ENGINE_FALLBACKS
+    fallbacks0 = grouped.ENGINE_FALLBACKS["ivf_flat"]
     gate = chaos.StragglerGate(run, every=2, seconds=0.02)
     recorder = FlightRecorder(2048, name="torch-chaos")
     ex = ServingExecutor(
@@ -1000,7 +1000,7 @@ def test_scripted_chaos_schedule_end_to_end(comms8, dataset, replicated_r2,
             lambda: n_pushes() - monitor.transition_count, 0),
         chaos.BoundInvariant(
             "no-engine-fallback",
-            lambda: ivf_flat.ENGINE_FALLBACKS - fallbacks0, 0),
+            lambda: grouped.ENGINE_FALLBACKS["ivf_flat"] - fallbacks0, 0),
         chaos.FinalInvariant("zero-acked-writes-lost", no_acked_lost),
         chaos.FinalInvariant(
             "all-ranks-back-to-serving",
