@@ -6880,9 +6880,19 @@ def _tol(q, yn_max, d):
     return 2 * d * 2.0**-24 * (yn_max + 2 * qn * math.sqrt(yn_max))
 
 
+def chunk_mins_routes():
+    """``knn_chunk_mins_calls_total`` by route: the phase-1 kernels the
+    process has launched (``plain`` for CPU calls)."""
+    from raft_tpu_torch.obs import default_registry
+
+    return {c.labels["route"]: c.value for c in
+            default_registry().series("knn_chunk_mins_calls_total")}
+
+
 def compare_chunk_mins(q, y, yn, npad, cd):
     """chunk_mins kernel vs plain version within :func:`_tol` (f32 sums
-    in another order); returns max |kernel - plain|."""
+    in another order), on whichever route the shape takes
+    (``fused_knn.chunk_mins_route``); returns max |kernel - plain|."""
     from raft_tpu_torch.spatial import fused_knn as fz
 
     got = fz.chunk_mins(q, y, yn, npad, cd)
@@ -7256,6 +7266,7 @@ def rescore_bound(q, cids, y):
 def brute_force_phase(args, card, dev):
     """The brute-force kNN path and its three kernels; returns their
     entries of the ``kernels`` line."""
+    from raft_tpu_torch.obs import metrics as obs_metrics
     from raft_tpu_torch.spatial import fused_knn as fz
     from raft_tpu_torch.spatial import knn as bfk
 
@@ -7280,10 +7291,22 @@ def brute_force_phase(args, card, dev):
     bfk.SCAN_FALLBACKS = 0
     fz.RESCORE_GATHER_CALLS = 0
     keep, kept = {}, {}
+    routes0 = chunk_mins_routes()
     with fused_calls(keep) as shapes, select_k_path() as selected:
         sift_path(args.seed, card, dev, kept)
         wide_path(args.seed, card, dev, kept)
     launches = dict(fz.LAUNCHES)
+    routes = {r: v - routes0.get(r, 0)
+              for r, v in chunk_mins_routes().items()}
+    log(f"brute-force path: phase-1 launches by route {routes} (wgmma: "
+        f"d <= {fz.WGMMA_MAX_D} with bf16 compute; mma: wider; f32: f32 "
+        "compute)")
+    if obs_metrics.enabled():
+        check(sum(routes.values()) == launches["chunk_mins"],
+              f"phase-1 routes {routes} do not add up to "
+              f"{launches['chunk_mins']} launches")
+        check(routes.get("wgmma", 0) > 0 and routes.get("mma", 0) > 0,
+              f"the brute-force path missed a bf16 phase-1 route: {routes}")
     select_k = select_k_path_entry(selected, "brute-force path", card)
     del selected
     log(f"brute-force path: launches {launches}, by shape "
@@ -7296,17 +7319,23 @@ def brute_force_phase(args, card, dev):
           f"{fz.RESCORE_GATHER_CALLS} fused calls took the gather rescore")
 
     # the kernels against their plain versions on the path's own inputs:
-    # the first 256 queries, all chunks
+    # f32 compute on the first 256 queries; the SIFT wgmma route on every
+    # query, so each block's query ring wraps as on the main path; all
+    # chunks
     x, norms, qb = kept["sift"]
     errs = dict(gerrs)
-    for cd in (torch.float32, torch.bfloat16):
-        errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
-            qb[:256].contiguous(), x, norms, npad, cd))
+    errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
+        qb[:256].contiguous(), x, norms, npad, torch.float32))
+    errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
+        qb.contiguous(), x, norms, npad, torch.bfloat16))
     parts, wnorms, wq = kept["wide"]
     _, wbn = fz._plan_blocks(WIDE_QUERIES, WIDE_ROWS // 2, WIDE_DIM)
     wpad = -(-(WIDE_ROWS // 2) // wbn) * wbn
     errs["chunk_mins"] = max(errs["chunk_mins"], compare_chunk_mins(
         wq[:256].contiguous(), parts[0], wnorms[0], wpad, torch.bfloat16))
+    held = {d: fz.chunk_mins_route(d, torch.bfloat16)
+            for d in (SIFT_DIM, WIDE_DIM)}
+    log(f"chunk_mins held against plain on both bf16 routes: {held} (by d)")
     # every kept rescore call in full (each shape's last, each wide
     # partition's): a launch's pair groups depend on all of its queries
     for key, (q, cids, y) in keep["rescore_scores"].items():
@@ -7314,8 +7343,10 @@ def brute_force_phase(args, card, dev):
         errs["rescore_scores"] = max(errs["rescore_scores"], err)
         log(f"rescore_scores {key[:-1]} (index at {key[-1]:#x}) in full vs "
             f"plain: max |kernel - plain| {err}")
-    log(f"kernels vs plain on the path's inputs (chunk_mins: first 256 "
-        f"queries, all chunks; rescore_scores: every kept call in full): "
+    log(f"kernels vs plain on the path's inputs (chunk_mins: all "
+        f"{qb.shape[0]} SIFT queries on wgmma, the first 256 on the f32 and "
+        "768-wide routes, all chunks; rescore_scores: every kept call in "
+        "full): "
         f"max |kernel - plain| {errs}")
 
     out = []
@@ -7347,6 +7378,7 @@ def brute_force_phase(args, card, dev):
         klib, lib_name = time_chunk_mins_bf16_library(q, y, yn)
         kb, kby = chunk_mins_bound(*key[:3], npad_k, y.element_size(), key[4])
         bf16[label] = {"shape": list(key),
+                       "route": fz.chunk_mins_route(key[2], key[4]),
                        "launches": shapes["chunk_mins"][key], "ms": kms,
                        "plain_ms": kplain, "library_ms": klib,
                        "library_call": lib_name, "bound_ms": kb,

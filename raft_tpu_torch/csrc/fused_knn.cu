@@ -2,7 +2,8 @@
 // phase-2 chunk rescore, and the launch probe.
 //
 // Replaces the three TPU kernels of raft_tpu/spatial/fused_knn.py:
-//   chunk_mins_kernel  <- _chunk_mins / _chunkmin_kernel (:85 / :62)
+//   chunk_mins_kernel, chunk_mins_wg_kernel, chunk_mins_tc_kernel
+//                      <- _chunk_mins / _chunkmin_kernel (:85 / :62)
 //   rescore_kernel     <- _rescore_scores / _rescore_dma_kernel (:180 / :116)
 //   probe_copy_kernel  <- probe_grid_steps (:443)
 //
@@ -29,11 +30,49 @@
 // device memory about once and the queries stay in L2. This kernel serves
 // f32 compute only.
 //
-// Phase 1 with bf16 compute (chunk_mins_tc_kernel) runs on the tensor cores:
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, index rows on M,
-// queries on N, the feature axis on K, with the fragment and ldmatrix code
-// of flat_scan.cu. Its bound at the SIFT shape is 2.6 ms of bf16 tensor
-// work (2.56 TFLOP at 989 TFLOP/s); at 1,024 x 1M x 768 it is 1.6 ms.
+// Phase 1 with bf16 compute runs on the tensor cores. Its bound at the SIFT
+// shape is 2.6 ms of bf16 tensor work (2.56 TFLOP at 989 TFLOP/s); at
+// 1,024 x 1M x 768 it is 1.6 ms. Up to d = kWgMaxD (256) it runs
+// chunk_mins_wg_kernel on wgmma, the index tile resident; wider rows run
+// chunk_mins_tc_kernel on mma.sync (the rule is fused_knn.chunk_mins_route).
+//
+// chunk_mins_wg_kernel. Streaming the index past each 128-query tile, as
+// chunk_mins_tc_kernel does (and did at these widths), re-reads the whole
+// index once per tile (79 times at 10,000 queries: ~40 GB through L2 for an f32 index),
+// rounds every slice again, and mma.sync cannot reach the bf16 rate on
+// Hopper. This kernel turns the loop around:
+//   * A block owns 512 index rows (256 at d > 128): read once from device
+//     memory in their stored type, rounded with __float2bfloat16_rn and
+//     written in wgmma's 128-byte-swizzled K-major layout, 64-feature blocks
+//     zero-padded, so any d <= 256 and any alignment works. Rows past n are
+//     zero with norm BIG, so they score BIG without a mask; blocks wholly
+//     past n write BIG and leave.
+//   * The queries are rounded to bf16 once a call (wg_queries_kernel) into
+//     scratch laid out as the ring's stages (64-query tiles, pre-swizzled),
+//     2.6 MB at the SIFT shape, so L2 holds it; each block streams all of
+//     it: one producer thread keeps a bulk copy (TMA, cp.async.bulk) of a
+//     whole tile in flight per stage of an mbarrier ring (3-4 stages), and
+//     gives its registers to the consumers (setmaxnreg). The streamed
+//     operand's L2 traffic falls to (n / 512) x 2.6 MB, ~5 GB.
+//   * Two consumer warpgroups run wgmma m64nNk16 (queries on M, index rows
+//     on N, features on K, f32 sums in registers): at 512 rows each takes
+//     256 rows (two chunks, 128 sums a thread), at 256 rows 128. The k16
+//     loop is unrolled over every 64-feature block (zero features
+//     included): a loop with a run-time bound made ptxas serialise the
+//     wgmmas. They issue in turn (named barriers), so one's epilogue runs
+//     while the other's products hold the tensor cores.
+//   * The epilogue stays in registers: ynorm - 2 g in the plain version's
+//     order, each query's minimum over each chunk in the thread, then two
+//     shuffles across its quad, written straight to out[i, c]; no shared
+//     memory round trip and no block barrier a chunk.
+// What bounds it at the SIFT shape: the tensor cores (2.6 ms at the
+// published rate; the card runs it at 1.4-1.8 GHz under its 700 W limit);
+// the epilogue's ~2e10 FMA and min issue (~0.7 ms) overlaps them only in
+// part, and a block's 256 KB of f32 rows arrive before its first product.
+//
+// chunk_mins_tc_kernel (d > 256): mma.sync.aligned.m16n8k16.row.col.f32.
+// bf16.bf16.f32, index rows on M, queries on N, the feature axis on K,
+// with the fragment and ldmatrix code of flat_scan.cu.
 //   * Block tile: 128 queries x 128 index rows (one chunk), 8 warps as 2 row
 //     halves x 4 query quarters, each warp 64 rows x 32 queries (4 x 4
 //     mma tiles, 64 f32 sums a thread). A block walks 8 consecutive chunks
@@ -44,16 +83,13 @@
 //     registers in all, no spills), but at 128 x 128 x 32 the block reads
 //     16 KB (bf16) to 32 KB (f32 operands) a slice for 1 MFLOP, so L2
 //     bandwidth, not the tensor cores, bounds it.
-//   * Up to d = 320 the query tile is rounded to bf16 once and stays in
-//     shared memory for the block's 8 chunks, which halves the L2 traffic
-//     of an f32 batch; wider tiles stream like the index (kTcResidentMax).
-//   * The feature axis streams through two shared-memory stages of 32
-//     features (bf16 rows padded to 40 elements, 5 16-byte units, so
-//     ldmatrix reads them without bank conflicts). The slice after the
-//     current one is in flight during its mma: a bf16 index with d % 8 == 0
-//     is copied with 16-byte cp.async; f32 operands (an f32 index, streamed
-//     queries) are loaded into registers, rounded with __float2bfloat16_rn
-//     and stored into the other stage after the mma.
+//   * The feature axis of both operands streams through two shared-memory
+//     stages of 32 features (bf16 rows padded to 40 elements, 5 16-byte
+//     units, so ldmatrix reads them without bank conflicts). The slice after
+//     the current one is in flight during its mma: a bf16 index with
+//     d % 8 == 0 is copied with 16-byte cp.async; f32 operands (an f32
+//     index, the queries) are loaded into registers, rounded with
+//     __float2bfloat16_rn and stored into the other stage after the mma.
 //   * Epilogue per chunk: ynorm - 2 * dot in the plain version's order, the
 //     min of each query column over the warp's 64 rows by a butterfly over
 //     the 8 lanes that hold it, then across the two row halves in shared
@@ -130,7 +166,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // T: storage type of the index; kBf16: round both operands to bf16 (only
-// false is launched: bf16 compute runs chunk_mins_tc_kernel).
+// false is launched: bf16 compute runs chunk_mins_wg_kernel or
+// chunk_mins_tc_kernel).
 template <typename T, bool kBf16>
 __global__ void __launch_bounds__(kThreads1, 2)
 chunk_mins_kernel(const float* __restrict__ q, const T* __restrict__ y,
@@ -245,12 +282,6 @@ constexpr int kTcChunks = 8;       // chunks per block (one coalesced store)
 constexpr int kTcThreads = 256;    // 8 warps: 2 row halves x 4 query quarters
 constexpr int kTcStride = kTcK + 8;  // bf16 per shared row: 5 16-byte units
 constexpr int kTcUnits = kChunk * kTcK / 8 / kTcThreads;  // 8-element units a thread loads per operand
-// The most shared memory a block may take to keep its query tile resident:
-// two blocks an SM (228 KB, 1 KB reserved a block), so d <= 320. Past it
-// the query slices stream (H100, 700 W: at d = 768 one resident block an SM
-// ran 9.9 ms against 8.1 ms streamed; at d = 128 resident 14.5 ms against
-// 21.2 ms streamed; tools/time_chunk_mins.py).
-constexpr size_t kTcResidentMax = 115712;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -327,26 +358,14 @@ __device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
 }
 
 // Shared memory of chunk_mins_tc_kernel: two index stages, the row-half
-// minima and the block's chunk minima, then the query tile: resident
-// (kTcQ rows of tc_q_stride(d) bf16) or two stages like the index's.
+// minima and the block's chunk minima, then two query stages.
 constexpr size_t kTcBase = 2 * kChunk * kTcStride * 2 + 4 * 2 * kTcQ +
                            4 * kTcQ * kTcChunks;
-
-__host__ __device__ inline int tc_q_stride(int d) {
-  return (d + kTcK - 1) / kTcK * kTcK + 8;  // an odd number of 16-byte units
-}
-
-inline size_t tc_smem_bytes(int d, bool resident) {
-  return kTcBase + 2 * (size_t)kTcQ *
-                       (resident ? tc_q_stride(d) : 2 * kTcStride);
-}
+constexpr size_t kTcSmem = kTcBase + 2 * kTcQ * kTcStride * 2;
 
 // T: storage type of the index. kAsync: the index is bf16 with d % 8 == 0
-// and 16-byte aligned rows, copied into the stage with cp.async. kQRes:
-// the block's query tile is rounded to bf16 once and stays in shared
-// memory for all its chunks (only the index streams); otherwise the query
-// slices stream through two stages beside the index's.
-template <typename T, bool kAsync, bool kQRes>
+// and 16-byte aligned rows, copied into the stage with cp.async.
+template <typename T, bool kAsync>
 __global__ void __launch_bounds__(kTcThreads)
 chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
                      const float* __restrict__ ynorm, float* __restrict__ out,
@@ -358,7 +377,6 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
                                               2 * kChunk * kTcStride * 2);
   float* cmin = &red[2][0];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(tc_smem + kTcBase);
-  const int qst = kQRes ? tc_q_stride(d) : kTcStride;  // query row stride
 
   const long long grp = blockIdx.x / q_tiles;
   const int q0 = (int)(blockIdx.x - grp * q_tiles) * kTcQ;
@@ -381,21 +399,8 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
     // ldmatrix row addresses: A (16 rows x 16 k) from the index stage, B
     // (16 queries x 16 k, two n-tiles) from the query stage
     const int a_off = (wr * 64 + (lane & 15)) * kTcStride + (lane >> 4) * 8;
-    const int b_off = (wq * 32 + (lane & 7) + ((lane >> 4) << 3)) * qst +
+    const int b_off = (wq * 32 + (lane & 7) + ((lane >> 4) << 3)) * kTcStride +
                       ((lane >> 3) & 1) * 8;
-
-    if constexpr (kQRes) {  // the query tile, once (visible after the loop's first barrier)
-      const int groups = (qst - 8) / 8;
-      for (int u = t; u < kTcQ * groups; u += kTcThreads) {
-        const int r = u / groups;
-        const int k = 8 * (u - r * groups);
-        const int qq = q0 + r;
-        float v[8];
-        load8(qq < m ? q + (long long)qq * d + k : q, qq < m ? d - k : 0,
-              vec_q, v);
-        store8_bf16(&sq[r * qst + k], v);
-      }
-    }
 
     float pq[kTcUnits][8], py[kTcUnits][8];
     // global loads of step s into registers (the index too unless kAsync)
@@ -408,11 +413,9 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
         const int u = t + h * kTcThreads;
         const int r = u >> 2;
         const int k = k0 + 8 * (u & 3);
-        if constexpr (!kQRes) {
-          const int qq = q0 + r;
-          load8(qq < m ? q + (long long)qq * d + k : q, qq < m ? d - k : 0,
-                vec_q, pq[h]);
-        }
+        const int qq = q0 + r;
+        load8(qq < m ? q + (long long)qq * d + k : q, qq < m ? d - k : 0,
+              vec_q, pq[h]);
         if constexpr (!kAsync) {
           const long long row = r0 + r;
           load8(row < n ? y + row * d + k : y, row < n ? d - k : 0, vec_y,
@@ -444,7 +447,7 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
       for (int h = 0; h < kTcUnits; ++h) {
         const int u = t + h * kTcThreads;
         const int off = (u >> 2) * kTcStride + 8 * (u & 3);
-        if constexpr (!kQRes) store8_bf16(&sq[buf * kTcQ * kTcStride + off], pq[h]);
+        store8_bf16(&sq[buf * kTcQ * kTcStride + off], pq[h]);
         if constexpr (!kAsync) store8_bf16(&sy[buf][off], py[h]);
       }
     };
@@ -474,7 +477,7 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
       const int k0 = (s - cc * nks) * kTcK;
       const int ksteps = min(kTcK / 16, (d - k0 + 15) / 16);
       const __nv_bfloat16* ys = sy[buf];
-      const __nv_bfloat16* qs = kQRes ? sq + k0 : sq + buf * kTcQ * kTcStride;
+      const __nv_bfloat16* qs = sq + buf * kTcQ * kTcStride;
       for (int kk = 0; kk < ksteps; ++kk) {
         uint32_t a[4][4], b[2][4];
 #pragma unroll
@@ -482,7 +485,7 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
           ldmatrix_x4(a[i], ys + a_off + i * 16 * kTcStride + kk * 16);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj)
-          ldmatrix_x4(b[jj], qs + b_off + jj * 16 * qst + kk * 16);
+          ldmatrix_x4(b[jj], qs + b_off + jj * 16 * kTcStride + kk * 16);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -538,6 +541,379 @@ chunk_mins_tc_kernel(const float* __restrict__ q, const T* __restrict__ y,
     const int s = i / n_out, j = i - s * n_out;
     if (q0 + s < m) {
       out[(long long)(q0 + s) * n_chunks + c0 + j] = cmin[s * kTcChunks + j];
+    }
+  }
+}
+
+// ---- phase 1, bf16 compute, on wgmma: the index tile resident ----
+constexpr int kWgMaxD = 256;       // widest row the resident tile takes
+constexpr int kWgQ = 64;           // queries a ring stage (wgmma's M)
+constexpr int kWgThreads = 384;    // warpgroups 0, 1 consume; 2 produces
+constexpr int kWgProducer = 256;   // the thread that issues the copies
+constexpr int kSwRow = 128;        // bytes of a swizzled row: 64 bf16
+constexpr int kWgTurn = 1;         // named barriers 1, 2: a warpgroup's turn
+constexpr size_t kWgSmemCap = 232448;  // dynamic shared memory of a block
+
+// Byte offset of the 16-byte unit g (features 8g..8g+7) of row r in a tile
+// of `rows` rows: blocks of 64 features one after another, each `rows` x
+// 128 bytes, the unit's place in its row XORed with r % 8 (the 128-byte
+// swizzle that wgmma reads). Tiles start 1024-byte aligned.
+__device__ __forceinline__ uint32_t sw128(int r, int g, int rows) {
+  return (uint32_t)(g >> 3) * rows * kSwRow + r * kSwRow +
+         (((g & 7) ^ (r & 7)) << 4);
+}
+
+// 64-feature blocks of a row of width d, the last zero-padded.
+inline int wg_blocks(int d) {
+  return (d + 63) / 64;
+}
+
+// The shapes of a launch with kKb blocks a row (d <= 64 kKb).
+template <int kKb>
+struct WgShape {
+  static constexpr int kN = kKb <= 2 ? 256 : 128;  // rows a consumer warpgroup
+  static constexpr int kRows = 2 * kN;             // rows resident a block
+  // k16 steps a query tile: every block whole, so features past d (zero
+  // in both operands) are multiplied too and the loop is unrolled
+  static constexpr int kSteps = 4 * kKb;
+  static constexpr uint32_t kStage = kKb * kWgQ * kSwRow;  // a query tile
+  // alignment slack, the tile, its row norms; then stages and barriers
+  static constexpr size_t kFixed =
+      1024 + (size_t)kKb * kRows * kSwRow + 4 * kRows;
+  static constexpr int kStages =
+      (kWgSmemCap - kFixed) / (kStage + 16) < 4
+          ? (int)((kWgSmemCap - kFixed) / (kStage + 16)) : 4;
+  static constexpr size_t kSmem = kFixed + kStages * (kStage + 16);
+};
+
+// A wgmma descriptor of a K-major, 128-byte-swizzled operand at p: rows
+// 128 bytes apart, 8-row groups 1024 bytes apart. Adding b / 16 moves it
+// b bytes on (32 bytes is one k16 step inside a 64-feature block).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t a = smem_addr(b);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_addr(b))
+      : "memory");
+}
+
+// The bulk copy (TMA) of `bytes` contiguous bytes into shared memory,
+// completing on b, which expects them.
+__device__ __forceinline__ void tma_load(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* b) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(b)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(b))
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// acc (64 queries x N rows, f32) = a (64 x 16, the stage) * b (16 x N, the
+// tile) + acc, or without "+ acc" when scale_d is 0. Both operands are
+// K-major and 128-byte swizzled; the thread of lane l in warp w of the
+// warpgroup holds rows 16w + l / 4 (acc[4j], acc[4j + 1]) and 16w + l / 4 + 8
+// (acc[4j + 2], acc[4j + 3]) at columns 8j + 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The queries rounded to bf16 (nearest even) in the ring's layout: tiles
+// of kWgQ rows (the last padded with zero rows), each kb blocks of 64
+// features x kWgQ rows x 128 swizzled bytes, features past d zero. One
+// thread a 16-byte unit; a stage is then one contiguous bulk copy.
+__global__ void wg_queries_kernel(const float* __restrict__ q,
+                                  unsigned char* __restrict__ qs, int m,
+                                  int d, int kb, long long units,
+                                  bool vec_q) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= units) return;
+  const int groups = kb * 8;
+  const long long r = u / groups;
+  const int g = (int)(u - r * groups);
+  const int k = 8 * g;
+  float v[8];
+  load8(r < m ? q + r * d + k : q, r < m ? d - k : 0, vec_q, v);
+  store8_bf16(reinterpret_cast<__nv_bfloat16*>(
+                  qs + (r / kWgQ) * ((long long)kb * kWgQ * kSwRow) +
+                  sw128((int)(r % kWgQ), g, kWgQ)),
+              v);
+}
+
+// T: storage type of the index; kKb: 64-feature blocks of a row
+// (WgShape). A block holds kRows = 2 kN index rows, kN / 128 chunks a
+// consumer warpgroup: block b owns rows kRows b.. and chunk minima
+// out[:, kRows b / 128 ..]; it reads its rows once, then every query tile.
+template <typename T, int kKb>
+__global__ void __launch_bounds__(kWgThreads, 1)
+chunk_mins_wg_kernel(const unsigned char* __restrict__ qs,
+                     const T* __restrict__ y, const float* __restrict__ ynorm,
+                     float* __restrict__ out, int m, long long n, int d,
+                     long long n_chunks, bool vec_y) {
+  using Shape = WgShape<kKb>;
+  constexpr int kN = Shape::kN, kRows = Shape::kRows;
+  constexpr int kCpw = kN / kChunk;  // chunks a consumer warpgroup ends
+  constexpr int stages = Shape::kStages;
+  constexpr uint32_t stage_bytes = Shape::kStage;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* tile =
+      wg_smem + ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  unsigned char* ring = tile + (size_t)kKb * kRows * kSwRow;
+  float* yns = reinterpret_cast<float*>(ring + (size_t)stages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(yns + kRows);
+  uint64_t* empty = full + stages;
+
+  const int t = threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const long long c0 = row0 / kChunk;
+  const int q_tiles = (m + kWgQ - 1) / kWgQ;
+  if (row0 >= n) {  // every chunk of the tile lies past the index
+    const int nc = (int)min((long long)(kRows / kChunk), n_chunks - c0);
+    for (long long i = t; i < (long long)m * nc; i += kWgThreads) {
+      out[(i / nc) * n_chunks + c0 + i % nc] = kBig;
+    }
+    return;
+  }
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int i) {  // query tile i into its stage
+    const int s = i % stages;
+    tma_load(ring + (size_t)s * stage_bytes, qs + (size_t)i * stage_bytes,
+             stage_bytes, &full[s]);
+  };
+  if (t == kWgProducer) {  // the first tiles land while the rows convert
+    for (int i = 0; i < min(stages, q_tiles); ++i) issue(i);
+  }
+
+  // The index tile, read once in its stored type, rounded to bf16 and
+  // swizzled; rows past n are zero and score BIG through their norm.
+  constexpr int groups = kKb * 8;
+  constexpr int units = kRows * groups;
+  for (int u0 = t; u0 < units; u0 += 4 * kWgThreads) {
+    float v[4][8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {  // four units' loads in flight
+      const int u = u0 + h * kWgThreads;
+      const int r = u / groups, k = 8 * (u - r * groups);
+      const bool ok = u < units && row0 + r < n;
+      load8(ok ? y + (row0 + r) * d + k : y, ok ? d - k : 0, vec_y, v[h]);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int u = u0 + h * kWgThreads;
+      if (u < units) {
+        const int r = u / groups;
+        store8_bf16(reinterpret_cast<__nv_bfloat16*>(
+                        tile + sw128(r, u - r * groups, kRows)),
+                    v[h]);
+      }
+    }
+  }
+  for (int r = t; r < kRows; r += kWgThreads) {
+    yns[r] = row0 + r < n ? ynorm[row0 + r] : kBig;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int wg = t >> 7;
+  if (wg == 2) {  // the producer: keep the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (t == kWgProducer) {
+      for (int i = stages; i < q_tiles; ++i) {
+        mbar_wait(&empty[i % stages], ((i / stages) & 1) ^ 1);
+        issue(i);
+      }
+    }
+  } else {  // the consumers: warpgroup wg scores rows kN wg.. of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = (t >> 5) & 3, lane = t & 31, e = lane & 3;
+    const int qrow = 16 * warp + (lane >> 2);
+    const uint64_t da0 = sw128_desc(ring);
+    const uint64_t db = sw128_desc(tile + (size_t)wg * kN * kSwRow);
+    const float2* yn2 =
+        reinterpret_cast<const float2*>(yns + wg * kN) + e;
+    float acc[kN / 2];
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) acc[j] = 0.f;
+    // The two warpgroups issue in turn, so one's epilogue runs while the
+    // other's products hold the tensor cores.
+    if (wg == 1) named_arrive(kWgTurn, 256);
+    for (int i = 0; i < q_tiles; ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      named_sync(kWgTurn + wg, 256);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint64_t da = da0 + (((uint64_t)s * stage_bytes) >> 4);
+#pragma unroll
+      for (int kk = 0; kk < Shape::kSteps; ++kk) {
+        const uint32_t oa = (kk >> 2) * (kWgQ * kSwRow) + (kk & 3) * 32;
+        const uint32_t ob = (kk >> 2) * (kRows * kSwRow) + (kk & 3) * 32;
+        if constexpr (kN == 256) {
+          wgmma_n256(acc, da + (oa >> 4), db + (ob >> 4), kk > 0);
+        } else {
+          wgmma_n128(acc, da + (oa >> 4), db + (ob >> 4), kk > 0);
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (wg == 0 || i + 1 < q_tiles) named_arrive(kWgTurn + (wg ^ 1), 256);
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(&empty[s]);
+
+      // ynorm - 2 g in the plain version's order, each row's minimum over
+      // each chunk: the thread's 32 columns, then its quad
+      float mn[kCpw][2];
+#pragma unroll
+      for (int h = 0; h < kCpw; ++h) {
+        float a = __int_as_float(0x7f800000), b = a;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int j = 16 * h + jj;
+          const float2 yv = yn2[4 * j];
+          a = fminf(a, fmaf(-2.f, acc[4 * j], yv.x));
+          a = fminf(a, fmaf(-2.f, acc[4 * j + 1], yv.y));
+          b = fminf(b, fmaf(-2.f, acc[4 * j + 2], yv.x));
+          b = fminf(b, fmaf(-2.f, acc[4 * j + 3], yv.y));
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          a = fminf(a, __shfl_xor_sync(0xffffffffu, a, o));
+          b = fminf(b, __shfl_xor_sync(0xffffffffu, b, o));
+        }
+        mn[h][0] = a;
+        mn[h][1] = b;
+      }
+      // quad lane e writes chunk e % kCpw of row qrow + 8 (e / kCpw)
+      if (e < 2 * kCpw) {
+        float v = 0.f;
+#pragma unroll
+        for (int h = 0; h < kCpw; ++h)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            if (e == p * kCpw + h) v = mn[h][p];
+        const int qq = i * kWgQ + qrow + 8 * (e / kCpw);
+        const long long c = c0 + wg * kCpw + e % kCpw;
+        if (qq < m && c < n_chunks) out[(long long)qq * n_chunks + c] = v;
+      }
     }
   }
 }
@@ -859,13 +1235,16 @@ extern "C" {
 // q (m, d) f32; y (n, d) f32 (y_bf16 = 0) or bf16 (y_bf16 = 1); ynorm (n,)
 // f32; out (m, n_chunks) f32, n_chunks * 128 >= n. bf16_compute rounds both
 // operands to bf16 and runs chunk_mins_tc_kernel on the tensor cores: one
-// block per (128-query tile, 8 chunks), chunk-major. f32 compute runs
-// chunk_mins_kernel: one block per (128-query tile, chunk), chunk-major.
+// block per (128-query tile, 8 chunks), chunk-major. It takes only rows
+// wider than kWgMaxD: raft_fused_chunk_mins_wgmma takes the others. f32
+// compute runs chunk_mins_kernel: one block per (128-query tile, chunk),
+// chunk-major.
 int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
                           void* out, int m, long long n, int d,
                           long long n_chunks, int y_bf16, int bf16_compute,
                           void* stream) {
-  if (m < 1 || n < 1 || d < 1 || n_chunks * kChunk < n) {
+  if (m < 1 || n < 1 || d < 1 || n_chunks * kChunk < n ||
+      (bf16_compute && d <= kWgMaxD)) {
     return (int)cudaErrorInvalidValue;
   }
   const int q_tiles = (m + kQTile - 1) / kQTile;
@@ -879,31 +1258,23 @@ int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     const bool vec_q = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
     const bool aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0;
-    const bool resident = tc_smem_bytes(d, true) <= kTcResidentMax;
-    const size_t smem = tc_smem_bytes(d, resident);
     cudaError_t err = cudaSuccess;
-#define RAFT_TC_LAUNCH(T, A, R, VY)                                           \
+#define RAFT_TC_LAUNCH(T, A, VY)                                              \
   do {                                                                        \
-    err = cudaFuncSetAttribute(chunk_mins_tc_kernel<T, A, R>,                 \
+    err = cudaFuncSetAttribute(chunk_mins_tc_kernel<T, A>,                    \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-                               (int)smem);                                    \
+                               (int)kTcSmem);                                 \
     if (err != cudaSuccess) return (int)err;                                  \
-    chunk_mins_tc_kernel<T, A, R><<<(unsigned)blocks, kTcThreads, smem, s>>>( \
+    chunk_mins_tc_kernel<T, A><<<(unsigned)blocks, kTcThreads, kTcSmem, s>>>( \
         qf, static_cast<const T*>(y), yn, o, m, n, d, n_chunks, q_tiles,      \
         vec_q, VY);                                                           \
   } while (0)
-#define RAFT_TC_RES(T, A, VY)                \
-  do {                                       \
-    if (resident) RAFT_TC_LAUNCH(T, A, true, VY);  \
-    else RAFT_TC_LAUNCH(T, A, false, VY);    \
-  } while (0)
     if (y_bf16) {
-      if (d % 8 == 0 && aligned) RAFT_TC_RES(__nv_bfloat16, true, true);
-      else RAFT_TC_RES(__nv_bfloat16, false, false);
+      if (d % 8 == 0 && aligned) RAFT_TC_LAUNCH(__nv_bfloat16, true, true);
+      else RAFT_TC_LAUNCH(__nv_bfloat16, false, false);
     } else {
-      RAFT_TC_RES(float, false, d % 4 == 0 && aligned);
+      RAFT_TC_LAUNCH(float, false, d % 4 == 0 && aligned);
     }
-#undef RAFT_TC_RES
 #undef RAFT_TC_LAUNCH
     return (int)cudaGetLastError();
   }
@@ -919,6 +1290,70 @@ int raft_fused_chunk_mins(const void* q, const void* y, const void* ynorm,
         qf, static_cast<const float*>(y), yn, o, m, n, d, n_chunks, q_tiles);
   }
   return (int)cudaGetLastError();
+}
+
+// Phase 1 with bf16 compute on wgmma, for d <= kWgMaxD: the same operands
+// and output as raft_fused_chunk_mins, and `qs`, scratch of
+// raft_fused_chunk_mins_wgmma_scratch(m, d) bytes (16-byte aligned) that
+// takes the queries rounded to bf16. Two launches: the queries' rounding
+// (wg_queries_kernel), then one block per 2 kN index rows
+// (chunk_mins_wg_kernel).
+int raft_fused_chunk_mins_wgmma(const void* q, const void* y,
+                                const void* ynorm, void* out, void* qs,
+                                int m, long long n, int d,
+                                long long n_chunks, int y_bf16,
+                                void* stream) {
+  if (m < 1 || n < 1 || d < 1 || d > kWgMaxD || n_chunks * kChunk < n ||
+      reinterpret_cast<uintptr_t>(qs) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int kb = wg_blocks(d);
+  const long long units = (long long)((m + kWgQ - 1) / kWgQ) * kWgQ * kb * 8;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned char* qb = static_cast<unsigned char*>(qs);
+  const bool vec_q = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  wg_queries_kernel<<<(unsigned)((units + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(q), qb, m, d, kb, units, vec_q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const bool vy = d % (y_bf16 ? 8 : 4) == 0 && aligned;
+  const float* yn = static_cast<const float*>(ynorm);
+  float* o = static_cast<float*>(out);
+#define RAFT_WG_LAUNCH(T, KB)                                                 \
+  do {                                                                        \
+    using Shape = WgShape<KB>;                                                \
+    const long long blocks =                                                  \
+        (n_chunks * kChunk + Shape::kRows - 1) / Shape::kRows;                \
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;     \
+    err = cudaFuncSetAttribute(chunk_mins_wg_kernel<T, KB>,                   \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+                               (int)Shape::kSmem);                            \
+    if (err != cudaSuccess) return (int)err;                                  \
+    chunk_mins_wg_kernel<T, KB>                                               \
+        <<<(unsigned)blocks, kWgThreads, Shape::kSmem, s>>>(                  \
+            qb, static_cast<const T*>(y), yn, o, m, n, d, n_chunks, vy);      \
+  } while (0)
+#define RAFT_WG_BLOCKS(T)                  \
+  do {                                     \
+    switch (kb) {                          \
+      case 1: RAFT_WG_LAUNCH(T, 1); break; \
+      case 2: RAFT_WG_LAUNCH(T, 2); break; \
+      case 3: RAFT_WG_LAUNCH(T, 3); break; \
+      default: RAFT_WG_LAUNCH(T, 4);       \
+    }                                      \
+  } while (0)
+  if (y_bf16) RAFT_WG_BLOCKS(__nv_bfloat16);
+  else RAFT_WG_BLOCKS(float);
+#undef RAFT_WG_BLOCKS
+#undef RAFT_WG_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Bytes of the wgmma route's query scratch: ceil(m / 64) tiles of 64 rows
+// of 64 ceil(d / 64) bf16.
+long long raft_fused_chunk_mins_wgmma_scratch(int m, int d) {
+  return (long long)((m + kWgQ - 1) / kWgQ) * wg_blocks(d) * kWgQ * kSwRow;
 }
 
 // q (m, d) f32; cids (m, c) int32 chunk ids; y (n, d) f32 or bf16; out

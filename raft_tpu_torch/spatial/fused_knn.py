@@ -51,10 +51,10 @@ from raft_tpu_torch.spatial import knn_obs
 from raft_tpu_torch.spatial.selection import merge_topk, top_k_smallest
 
 __all__ = [
-    "BIG", "LAUNCHES", "RESCORE_GATHER_CALLS", "chunk_mins",
-    "chunk_mins_plain", "fused_grid_ok", "fused_knn_supported",
-    "fused_l2_knn", "probe_grid_steps", "rescore_scores",
-    "rescore_scores_plain",
+    "BIG", "LAUNCHES", "RESCORE_GATHER_CALLS", "WGMMA_MAX_D", "chunk_mins",
+    "chunk_mins_plain", "chunk_mins_route", "fused_grid_ok",
+    "fused_knn_supported", "fused_l2_knn", "probe_grid_steps",
+    "rescore_scores", "rescore_scores_plain",
 ]
 
 _CHUNK = 128      # rows per chunk: one phase-1 minimum each
@@ -62,6 +62,10 @@ BIG = 1e30        # finite score of a row past the index (never +inf)
 
 # the phase-1 kernel's queries per block (csrc/fused_knn.cu kQTile)
 _QTILE = 128
+
+# the widest row the wgmma phase-1 kernel keeps resident (csrc/fused_knn.cu
+# kWgMaxD)
+WGMMA_MAX_D = 256
 
 # Largest 1-D grid (blocks) of a capability-9.0 card: the phase-1 launch
 # is one block per (128-query tile, chunk) on a 1-D grid. See
@@ -128,6 +132,18 @@ def chunk_mins_plain(q, y, ynorm, npad: int,
     return out
 
 
+def chunk_mins_route(d: int, compute_dtype) -> str:
+    """The phase-1 kernel a CUDA call of width ``d`` takes, by the
+    compute type (f32 and bf16 storage route alike): ``"wgmma"`` (bf16
+    compute, ``d <= WGMMA_MAX_D``: the index tile resident in shared
+    memory, bf16 query tiles streamed, ``chunk_mins_wg_kernel``),
+    ``"mma"`` (bf16 compute at wider rows, ``chunk_mins_tc_kernel``) or
+    ``"f32"`` (f32 compute on the CUDA cores, ``chunk_mins_kernel``)."""
+    if _compute_dtype(compute_dtype) == torch.float32:
+        return "f32"
+    return "wgmma" if d <= WGMMA_MAX_D else "mma"
+
+
 def _check_index(name, y, d):
     if y.dim() != 2 or y.shape[1] != d:
         raise ValueError(
@@ -163,7 +179,11 @@ def chunk_mins(q, y, ynorm, npad: int, compute_dtype=torch.float32):
     squared row norms and ``npad`` (a multiple of 128, >= n) fixes the
     chunk count. ``compute_dtype=torch.bfloat16`` rounds both operands
     to bf16 first (f32 accumulation either way). CPU tensors run the
-    plain version; CUDA tensors run the kernel."""
+    plain version; CUDA tensors run the kernel of
+    :func:`chunk_mins_route` (the wgmma route first rounds the queries
+    into bf16 scratch, a launch of its own). Each call counts one
+    ``knn_chunk_mins_calls_total`` on its route (``"plain"`` on the
+    CPU)."""
     _check_queries("chunk_mins", q)
     m, d = q.shape
     _check_index("chunk_mins", y, d)
@@ -179,18 +199,30 @@ def chunk_mins(q, y, ynorm, npad: int, compute_dtype=torch.float32):
             f">= n (m={m}, n={n}, npad={npad})")
     dev = _check_devices("chunk_mins", q, y, ynorm)
     if dev.type == "cpu":
+        knn_obs.count("knn_chunk_mins_calls_total", "plain")
         return chunk_mins_plain(q, y, ynorm, npad, cd)
+    route = chunk_mins_route(d, cd)
+    knn_obs.count("knn_chunk_mins_calls_total", route)
     n_chunks = npad // _CHUNK
     q = q.contiguous()
     ynorm = ynorm.contiguous()
     out = torch.empty((m, n_chunks), dtype=torch.float32, device=dev)
+    y_bf16 = int(y.dtype == torch.bfloat16)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raft_fused_chunk_mins(
-            q.data_ptr(), y.data_ptr(), ynorm.data_ptr(), out.data_ptr(),
-            m, n, d, n_chunks, int(y.dtype == torch.bfloat16),
-            int(cd == torch.bfloat16), stream)
+        if route == "wgmma":
+            qs = torch.empty(lib.raft_fused_chunk_mins_wgmma_scratch(m, d),
+                             dtype=torch.uint8, device=dev)
+            err = lib.raft_fused_chunk_mins_wgmma(
+                q.data_ptr(), y.data_ptr(), ynorm.data_ptr(),
+                out.data_ptr(), qs.data_ptr(), m, n, d, n_chunks, y_bf16,
+                stream)
+        else:
+            err = lib.raft_fused_chunk_mins(
+                q.data_ptr(), y.data_ptr(), ynorm.data_ptr(),
+                out.data_ptr(), m, n, d, n_chunks, y_bf16,
+                int(route == "mma"), stream)
     _raise_on(lib, err, "chunk_mins")
     LAUNCHES["chunk_mins"] += 1
     return out
@@ -555,6 +587,11 @@ def _lib():
         lib.raft_fused_chunk_mins.argtypes = [p, p, p, p, i, ll, i, ll, i,
                                               i, p]
         lib.raft_fused_chunk_mins.restype = i
+        lib.raft_fused_chunk_mins_wgmma.argtypes = [p, p, p, p, p, i, ll, i,
+                                                    ll, i, p]
+        lib.raft_fused_chunk_mins_wgmma.restype = i
+        lib.raft_fused_chunk_mins_wgmma_scratch.argtypes = [i, i]
+        lib.raft_fused_chunk_mins_wgmma_scratch.restype = ll
         lib.raft_fused_rescore.argtypes = [p, p, p, p, p, i, ll, i, i, i,
                                            p]
         lib.raft_fused_rescore.restype = i

@@ -24,7 +24,11 @@ and ``RAFT_TPU_OBS`` gates them as it gates every series:
 * ``knn_search_calls_total{route="fused"|"scan"}`` — one a partition
   searched;
 * ``knn_rescore_calls_total{route="kernel"|"gather"}`` — one a fused
-  search, by the route of its exact rescore.
+  search, by the route of its exact rescore;
+* ``knn_chunk_mins_calls_total{route="wgmma"|"mma"|"f32"|"plain"}`` —
+  one a phase-1 call (``fused_knn.chunk_mins``), by the kernel it
+  launched (``fused_knn.chunk_mins_route``), or ``plain`` for the plain
+  version on CPU tensors.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Device time of brute-force phase 1 with bf16 compute at the smoke's two
-bf16 shapes, on one CUDA card, for the port in a given tree.
+bf16 shapes and the SIFT cell's shape at DEEP's width, on one CUDA card,
+for the port in a given tree.
 
     python3 raft_tpu_torch/tools/time_chunk_mins.py [--root DIR] [--seed N]
         [--shape M,N,D,STORAGE ...]
@@ -8,11 +9,14 @@ Imports ``raft_tpu_torch`` from ``DIR`` (default: the checkout holding
 this script), so one call can time two trees (a parent and a change) with
 the same script and inputs. Shapes, as ``chip_smoke.py``'s bf16 batches
 launch them: 10,000 queries x 1,000,000 x 128 f32 rows, and 1,024 queries
-x 1,000,000 x 768 bf16 rows (one partition of the wide batch), npad as
-``fused_l2_knn`` plans it (``--shape`` replaces them). Rows are clustered Gaussians made on the card
+x 1,000,000 x 768 bf16 rows (one partition of the wide batch); then
+10,000 x 1,000,000 x 96 f32 rows; npad as ``fused_l2_knn`` plans it
+(``--shape`` replaces them). Rows are clustered Gaussians made on the card
 from the seed. Each time is CUDA events over 20 warmed launches rotating
-over copies of the inputs that overflow the L2 cache. Prints one JSON
-line.
+over copies of the inputs that overflow the L2 cache. Each shape also
+names the kernel it took (``fused_knn.chunk_mins_route``; "mma" in a tree
+that has no route rule, where every bf16 call ran the mma.sync kernel).
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import sys
 from pathlib import Path
 
 SHAPES = ((10_000, 1_000_000, 128, "float32"),
-          (1_024, 1_000_000, 768, "bfloat16"))
+          (1_024, 1_000_000, 768, "bfloat16"),
+          (10_000, 1_000_000, 96, "float32"))
 
 
 def main(argv=None) -> int:
@@ -78,7 +83,10 @@ def main(argv=None) -> int:
             fz.chunk_mins(*sets[i % len(sets)], npad, torch.bfloat16)
         t1.record()
         torch.cuda.synchronize()
+        route = (fz.chunk_mins_route(d, torch.bfloat16)
+                 if hasattr(fz, "chunk_mins_route") else "mma")
         out["shapes"].append({"shape": [m, n, d, storage, "bfloat16"],
+                              "route": route,
                               "ms": t0.elapsed_time(t1) / iters})
         del sets
         torch.cuda.empty_cache()

@@ -83,6 +83,13 @@ _CHUNK_MINS_SHAPES = _FUSED_SHAPES + ((300, 3000, 768), (129, 5000, 20),
                                       (70, 3000, 1000))
 
 
+def _chunk_mins_routes():
+    from raft_tpu_torch.obs import default_registry
+
+    return {c.labels["route"]: c.value for c in
+            default_registry().series("knn_chunk_mins_calls_total")}
+
+
 def _tol(q, yn_max, d):
     # 2 d u (max |y|^2 + 2 |q| max |y|), u = 2^-24: the recursive-summation
     # bound of two f32 sums of d terms in different orders
@@ -96,11 +103,22 @@ def test_chunk_mins_kernel_matches_plain_version():
     version, bitwise on integer-exact inputs, for f32 and bf16 storage
     and both compute types (bf16 compute on the tensor cores), with whole
     padded chunks past n, d = 768, a ragged d and m off the query tile;
-    on Gaussian inputs with bf16 compute within the f32 summation bound."""
+    on Gaussian inputs with bf16 compute within the f32 summation bound.
+    Each call counts one on the route ``chunk_mins_route`` names: wgmma
+    up to WGMMA_MAX_D, mma past it (768, 1000), f32 for f32 compute."""
+    from raft_tpu_torch.obs import metrics as obs_metrics
     from raft_tpu_torch.spatial import fused_knn as tfk
 
     dev = _hopper()
     rng = np.random.default_rng(0)
+    prev = obs_metrics.set_enabled(True)
+    try:
+        _check_chunk_mins_shapes(tfk, dev, rng)
+    finally:
+        obs_metrics.set_enabled(prev)
+
+
+def _check_chunk_mins_shapes(tfk, dev, rng):
     for m, n, d in _CHUNK_MINS_SHAPES:
         q = torch.as_tensor(rng.integers(-8, 8, (m, d)), dtype=torch.float32,
                             device=dev)
@@ -111,8 +129,13 @@ def test_chunk_mins_kernel_matches_plain_version():
             yn = (yt.float() ** 2).sum(1)
             for cd in (torch.float32, torch.bfloat16):
                 before = tfk.LAUNCHES["chunk_mins"]
+                routes = _chunk_mins_routes()
                 got = tfk.chunk_mins(q, yt, yn, npad, cd)
                 assert tfk.LAUNCHES["chunk_mins"] == before + 1
+                route = tfk.chunk_mins_route(d, cd)
+                assert route == ("f32" if cd == torch.float32 else
+                                 "wgmma" if d <= 256 else "mma")
+                assert _chunk_mins_routes()[route] == routes.get(route, 0) + 1
                 want = tfk.chunk_mins_plain(q, yt, yn, npad, cd)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (m, n, d, yt.dtype, cd)
@@ -128,6 +151,68 @@ def test_chunk_mins_kernel_matches_plain_version():
             err = (got - want).abs()
             assert (err <= _tol(qg, yn.max().item(), d)).all(), (
                 m, n, d, yt.dtype, err.max().item())
+
+
+# (m, n): m off the 64-query tile (and 1), n off the chunk and off the
+# 512- and 256-row resident tiles, with whole padded tiles past n; m = 1000
+# is 16 query tiles, so every block's ring of 3-4 stages wraps 4-5 times
+_WGMMA_SHAPES = ((1, 3000), (65, 5000 + 77), (203, 9 * 512 + 129),
+                 (1000, 2 * 512 + 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 96, 100, 128, 160, 256])
+def test_chunk_mins_wgmma_route_matches_plain_version(d):
+    """On a Hopper card: bf16-compute phase 1 at widths up to WGMMA_MAX_D
+    (1 to 4 64-feature blocks, each a template of its own) takes the wgmma
+    kernel (the route counter says so, one call each) and matches its
+    plain version bitwise on integer-exact inputs and within the f32
+    summation bound on Gaussian ones, for f32 and bf16 storage, ragged m
+    and n. The mma.sync launcher refuses these widths."""
+    from raft_tpu_torch.obs import metrics as obs_metrics
+    from raft_tpu_torch.spatial import fused_knn as tfk
+
+    dev = _hopper()
+    assert tfk.chunk_mins_route(d, torch.bfloat16) == "wgmma"
+    rng = np.random.default_rng(d)
+    q = torch.zeros((64, d), device=dev)
+    out = torch.empty((64, 1), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = tfk._lib().raft_fused_chunk_mins(
+            q.data_ptr(), q.data_ptr(), out.data_ptr(), out.data_ptr(), 64,
+            64, d, 1, 0, 1, stream)
+    assert err == 1  # cudaErrorInvalidValue, before any launch
+    prev = obs_metrics.set_enabled(True)
+    try:
+        for m, n in _WGMMA_SHAPES:
+            npad = -(-n // 2048) * 2048
+            f32 = dict(dtype=torch.float32, device=dev)
+            ints = [torch.as_tensor(rng.integers(-8, 8, s), **f32)
+                    for s in ((m, d), (n, d))]
+            gauss = [torch.as_tensor(rng.standard_normal(s), **f32)
+                     for s in ((m, d), (n, d))]
+            for (q, y), exact in ((ints, True), (gauss, False)):
+                for yt in (y, y.to(torch.bfloat16)):
+                    yn = (yt.float() ** 2).sum(1)
+                    before = _chunk_mins_routes()
+                    got = tfk.chunk_mins(q, yt, yn, npad, torch.bfloat16)
+                    after = _chunk_mins_routes()
+                    assert after["wgmma"] == before.get("wgmma", 0) + 1
+                    assert after.get("mma", 0) == before.get("mma", 0)
+                    want = tfk.chunk_mins_plain(q, yt, yn, npad,
+                                                torch.bfloat16)
+                    torch.cuda.synchronize()
+                    key = (m, n, d, yt.dtype)
+                    if exact:
+                        assert torch.equal(got, want), key
+                    else:
+                        err = (got - want).abs()
+                        assert (err <= _tol(q, yn.max().item(), d)).all(), (
+                            key, err.max().item())
+                    assert (got[:, -(-n // 128):] == tfk.BIG).all(), key
+    finally:
+        obs_metrics.set_enabled(prev)
 
 
 @pytest.mark.gpu

@@ -426,6 +426,90 @@ def test_kernel_wrappers_check_operands():
                            y[:, :8])
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+_WG = tfk.WGMMA_MAX_D
+
+
+@pytest.mark.parametrize("d,compute,route", [
+    (1, _BF16, "wgmma"),
+    (64, _BF16, "wgmma"),                # one 64-feature block
+    (96, _BF16, "wgmma"),                # DEEP's width
+    (128, _BF16, "wgmma"),               # the SIFT cell
+    (160, _BF16, "wgmma"),               # three blocks
+    (_WG - 1, _BF16, "wgmma"),
+    (_WG, _BF16, "wgmma"),               # the limit
+    (_WG + 1, _BF16, "mma"),             # just past it
+    (768, _BF16, "mma"),                 # the smoke's wide partition
+    (4096, _BF16, "mma"),
+    (1, _F32, "f32"),
+    (128, _F32, "f32"),
+    (_WG, _F32, "f32"),
+    (_WG + 1, _F32, "f32"),
+    (128, "bfloat16", "wgmma"),          # dtype names, as chunk_mins takes
+    (768, "float32", "f32"),
+])
+def test_chunk_mins_route_rule(d, compute, route):
+    """The phase-1 route is a function of the width and the compute type:
+    bf16 compute takes wgmma up to WGMMA_MAX_D and mma.sync past it, f32
+    compute its own kernel at every width."""
+    assert tfk.chunk_mins_route(d, compute) == route
+
+
+def test_chunk_mins_route_limit_is_the_kernels():
+    """WGMMA_MAX_D mirrors the kernel's kWgMaxD, the widest row whose
+    resident tile and ring fit in shared memory."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tfk.__file__).resolve().parents[1] / "csrc" /
+           "fused_knn.cu").read_text()
+    found = re.findall(r"constexpr int kWgMaxD = (\d+);", src)
+    assert found == [str(tfk.WGMMA_MAX_D)]
+    assert tfk.WGMMA_MAX_D >= 256
+
+
+@pytest.mark.parametrize("compute", [torch.float16, torch.int8, "float64"])
+def test_chunk_mins_route_checks_compute_type(compute):
+    """The rule takes the compute types chunk_mins takes, and refuses the
+    others as chunk_mins does."""
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tfk.chunk_mins_route(128, compute)
+    q = torch.zeros((2, 128))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tfk.chunk_mins(q, q, torch.zeros(2), 128, compute)
+
+
+def test_chunk_mins_counts_calls_by_route():
+    """Every phase-1 call counts one ``knn_chunk_mins_calls_total`` on the
+    route it took: ``plain`` for CPU tensors, whatever the compute type
+    and width; the kernel routes only on a card; the obs gate stops it."""
+    from raft_tpu_torch.obs import default_registry
+    from raft_tpu_torch.obs import metrics as obs_metrics
+
+    def read():
+        return {c.labels["route"]: c.value for c in
+                default_registry().series("knn_chunk_mins_calls_total")}
+
+    rng = np.random.default_rng(4)
+    prev = obs_metrics.set_enabled(True)
+    try:
+        before = read()
+        for d, cd in ((20, _BF16), (300, _BF16), (20, _F32)):
+            q = torch.as_tensor(_ints(rng, 3, d))
+            y = torch.as_tensor(_ints(rng, 200, d))
+            tfk.chunk_mins(q, y, (y * y).sum(1), 256, cd)
+        after = read()
+        assert after["plain"] == before.get("plain", 0) + 3
+        assert set(after) <= {"plain", "wgmma", "mma", "f32"}
+        for route in ("wgmma", "mma", "f32"):
+            assert after.get(route, 0) == before.get(route, 0)
+        obs_metrics.set_enabled(False)
+        tfk.chunk_mins(q, y, (y * y).sum(1), 256, _BF16)
+        assert read() == after
+    finally:
+        obs_metrics.set_enabled(prev)
+
+
 def test_plan_and_supported_predicate_match_jax():
     L2, L1 = DistanceType.L2SqrtExpanded, DistanceType.L1
     for m in (1, 37, 128, 1000, 10000):
