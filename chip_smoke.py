@@ -98,6 +98,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import faulthandler
 import importlib
@@ -246,6 +247,18 @@ def phase_build():
               == flat_kernel._lists_smem_bytes(DIM, flat_kernel._q_tile(q))
               for q in (1, 8, 9, 24, 64, 65, 4096)),
           "the wrapper's shared-memory model disagrees with the kernel's")
+
+    def form(d, q):
+        q_tile, smem = ctypes.c_int(), ctypes.c_longlong()
+        wide = lib.raft_flat_scan_form(d, q, ctypes.byref(q_tile),
+                                       ctypes.byref(smem))
+        return bool(wide), q_tile.value, smem.value
+
+    check(all(form(d, q) == flat_kernel.scan_form(d, q)
+              for q in (1, 8, 9, 24, 64, 65, 632, 4096)
+              for d in (DIM, 20, 768, 960, 1536, 2048, 12000)),
+          "the wrapper's rule of the flat scan's form disagrees with the "
+          "kernel's")
     check(all(lib.raft_sq_scan_smem_bytes(d, flat_kernel._q_tile(q))
               == flat_kernel._sq_lists_smem_bytes(d, flat_kernel._q_tile(q))
               for q in (1, 8, 24, 64, 65) for d in (DIM, 20, 24)),
@@ -541,11 +554,12 @@ def check_lists_kernel(seed, dev):
     return err
 
 
-def compare_lists_to_plain(call):
+def compare_lists_to_plain(call, rel=1e-5):
     """A list scan (flat or SQ, :func:`lists_entry`) vs its plain version
-    on one batch's inputs: dead slots BIG in both, live ones within 1e-5
-    x (qn + yn) of each other (the tensor cores sum the dot in another
-    order). Returns max |kernel - plain| over live entries below BIG."""
+    on one batch's inputs: dead slots BIG in both, live ones within
+    ``rel`` x (qn + yn) of each other (the tensor cores sum the dot, and
+    the wide form the row norms, in another order). Returns max |kernel -
+    plain| over live entries below BIG."""
     from raft_tpu_torch.spatial.ann import flat_kernel as fk
 
     queries, qmat, rows, origins, bounds, l_pad = call[:6]
@@ -561,10 +575,10 @@ def compare_lists_to_plain(call):
     yn = (row_values(call, rows[win]) ** 2).sum(-1).reshape(
         qmat.shape[0], 1, -1, 8).amax(-1)
     err = (got - want).abs()
-    if not (err <= 1e-5 * (qn + yn)).all():
+    if not (err <= rel * (qn + yn)).all():
         raise AssertionError(
             f"chip_smoke: {fn.__name__} {tuple(qmat.shape)} x {l_pad}: off "
-            f"by {err.max().item()} > 1e-5 x (qn + yn)")
+            f"by {err.max().item()} > {rel:.3g} x (qn + yn)")
     valid = live[:, :, None] & (want < 1e30)
     return err[valid].max().item() if valid.any() else 0.0
 
@@ -943,6 +957,72 @@ def ivf_flat_phase(args, card, dev):
                      "max_abs_err": ref_err, "shape": [32, 64, DIM, 3072]},
         "select_k_path": select_k,
     }
+
+
+GIST_DIM, GIST_ROWS, GIST_LISTS, GIST_QUERIES = 960, 65_536, 64, 2048
+
+
+def wide_rows_phase(args, card, dev):
+    """IVF-Flat at GIST-1M's width (960) through the public entry with
+    ``use_kernel=None``: every search on the kernel engine's wide form of
+    the flat scan (no fallback, one launch a search, counted under
+    ``form="kernel"``), each launch held against the plain version
+    within the f32 summation bound, and the batch's recall against an
+    exact oracle no lower than the legacy engine's."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, ivf_flat_build, ivf_flat_search_grouped, search_obs,
+    )
+    from raft_tpu_torch.spatial.ann import flat_kernel as fk
+
+    rng = np.random.default_rng(args.seed + 960)
+    x = clustered_rows(rng, GIST_ROWS, GIST_DIM, n_centers=16)
+    q = torch.as_tensor(
+        x[rng.integers(0, GIST_ROWS, GIST_QUERIES)]
+        + rng.standard_normal((GIST_QUERIES, GIST_DIM), dtype=np.float32),
+        device=dev)
+    index = ivf_flat_build(x, IVFFlatParams(n_lists=GIST_LISTS, seed=0),
+                           device=dev)
+    xd = torch.as_tensor(x, device=dev)
+    true = exact_knn(xd, q, K)
+    before = fk.LAUNCHES
+    kernel0 = search_obs.scan_forms("ivf_flat", "kernel")
+    engine_fallbacks("ivf_flat", reset=True)
+    keep = []
+    with scan_calls(keep) as shapes:
+        qcap = index.warmup(GIST_QUERIES, k=K, n_probes=N_PROBES)
+        _, ids = ivf_flat_search_grouped(index, q, K, n_probes=N_PROBES,
+                                         qcap=qcap)
+    sync(dev)
+    launches = fk.LAUNCHES - before
+    forms = search_obs.scan_forms("ivf_flat", "kernel") - kernel0
+    wide, q_tile, smem = fk.scan_form(GIST_DIM, qcap)
+    log(f"[{card}] wide rows: {GIST_ROWS} x {GIST_DIM}, {GIST_LISTS} lists "
+        f"(max_list {index.storage.max_list}), qcap {qcap}: form "
+        f"{'wide' if wide else 'resident'} (query tile {q_tile}, {smem} B "
+        f"of shared memory), flat_scan_lists launched {launches} times by "
+        f"(Q, Lpad) {dict(shapes)}; {forms} searches counted as kernel")
+    check(wide, f"d={GIST_DIM} qcap {qcap} did not take the wide form")
+    check(launches == 2 and forms == 2 and len(keep) == 2,
+          f"{launches} launches, {forms} kernel searches for 2 searches")
+    check(engine_fallbacks("ivf_flat") == 0,
+          f"{engine_fallbacks('ivf_flat')} wide-row searches left the kernel")
+    rel = (4 * GIST_DIM + 8) * 2.0 ** -24
+    max_err = max(compare_lists_to_plain(call, rel) for call in keep)
+    ms = cuda_time_ms(lambda *a: fk.flat_scan_lists(*a), [keep[-1]],
+                      iters=10, warm=2)
+    _, ids_legacy = ivf_flat_search_grouped(index, q, K, n_probes=N_PROBES,
+                                            qcap=qcap, use_kernel=False)
+    r_kernel, r_legacy = recall(ids, true), recall(ids_legacy, true)
+    log(f"[{card}] wide rows: both launches within {rel:.3g} x (qn + yn) "
+        f"of the plain version (max |kernel - plain| {max_err:.3g}); the "
+        f"kernel {ms:.4f} ms at (lists, Q, d, Lpad) ({GIST_LISTS}, {qcap}, "
+        f"{GIST_DIM}, {keep[-1][5]}); recall@10 kernel {r_kernel:.4f}, "
+        f"legacy {r_legacy:.4f}")
+    check(r_kernel >= r_legacy - 0.005,
+          f"wide rows: kernel recall {r_kernel} below legacy {r_legacy}")
+    return {"launches": launches, "max_abs_err": max_err, "ms": ms,
+            "shape": [GIST_LISTS, qcap, GIST_DIM, keep[-1][5]],
+            "recall": [r_kernel, r_legacy]}
 
 
 # ---------------------------------------------------------------------------
@@ -7739,6 +7819,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     served, flat = ivf_flat_phase(args, card, dev)
     kernels = [flat]
+    flat["wide_rows"] = wide_rows_phase(args, card, dev)
+    flat["launches"] += flat["wide_rows"]["launches"]
     log(f"IVF-Flat phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     executor_phase(args, card, dev, *served)

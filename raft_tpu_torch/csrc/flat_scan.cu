@@ -49,6 +49,22 @@
 //     leave as one coalesced write per query slot.
 // Widths off the 16-byte grain (d % 8 != 0) load rows with plain loads.
 //
+// Wide rows (flat_lists_wide_kernel). Two whole-row stages beside the query
+// tile stop fitting 227 KB as rows widen: at d = 960 not even a query tile
+// of 8 fits, at d = 768 none past 16 slots. Where the resident form does
+// not fit (flat_wide: one rule of width and slots, no knob) the wide form
+// runs: the query tile stays resident at full width, as many slots as fit
+// up to 64 (64 at d <= 960, 48 at 1,536, 32 at 2,048); each 64-row tile
+// streams in slices of 256 features through two cp.async stages, and the
+// slices' products accumulate in the MMA fragments. The row norms come from
+// the tensor cores too: the diagonal of each warp's 16 x 16 Gram tile, two
+// MMAs a 16-wide step on the A fragment already loaded. Everything else is
+// the resident form's. Integer-exact inputs stay bitwise the plain version;
+// elsewhere the norms and the dot are summed in another order, within the
+// f32 summation bound. At the GIST-1M cell's launch (1024 lists, Q 632, d
+// 960, Lpad 2048) it runs at ~5% of its bound, the tensor cores' work (the
+// cell's scan is compute-heavy); a wgmma form is the next step (PERF.md).
+//
 // IVF-SQ (raft_sq_scan_lists) is the same kernel with an int8 row loader:
 // rows are the index's int8 codes, read in place at one byte per element
 // (the bytes the scan must move fall by half) and dequantized into the bf16
@@ -67,6 +83,8 @@
 // four blocks share an SM. The SQ loader: 40-72 registers, 4-12 bytes of
 // spills at NT 3, 7 and 8 with 16-byte copies (tools/inspect_build.py), one
 // more barrier (the stats), 70 KB at d = 96 and 64 slots (three blocks).
+// The wide form: 56-96 registers at NT 1-8, no spills, one barrier, 204 KB
+// at d = 960 and 64 slots (one block an SM).
 
 #include <type_traits>
 
@@ -112,6 +130,50 @@ __host__ __device__ inline size_t round16(size_t v) { return (v + 15) / 16 * 16;
 __host__ __device__ inline size_t sq_smem_bytes(int d, int q_tile) {
   return smem_bytes(d, q_tile) + round16(8 * (size_t)d) +
          2 * kTileRows * round16((size_t)d);
+}
+
+// The wide form (flat_lists_wide_kernel): rows stream in slices of
+// kSliceK features through kStages stages of 64 rows (double-buffered;
+// rows of an odd number of 16-byte units), beside the full-width query
+// tile.
+constexpr int kSliceK = 256;
+constexpr int kSliceStride = kSliceK + 8;
+constexpr int kStages = 2;
+
+__host__ __device__ inline size_t wide_smem_bytes(int d, int q_tile) {
+  // query tile and the ring (bf16), then the block's minima, the query
+  // norms (f32) and the slot ids
+  return 2 * (size_t)row_stride(d) * q_tile +
+         2 * (size_t)kStages * kTileRows * kSliceStride +
+         4 * ((size_t)q_tile * kGroupSubs + 2 * q_tile);
+}
+
+// The wide form's query tile cap at width d: the most slots, a multiple of
+// 8 up to 64, whose block fits (0 when not even 8 do).
+inline int wide_q_cap(int d) {
+  int cap = 8 * kMaxNT;
+  while (cap > 0 && wide_smem_bytes(d, cap) > kSmemLimit) cap -= 8;
+  return cap;
+}
+
+// Query slots per block for Q slots at most `cap` a block (a multiple of
+// 8): round_up(ceil(Q / tiles), 8) over the fewest tiles.
+inline int q_tile_capped(int q_slots, int cap) {
+  if (q_slots < 1 || cap < 8) return 0;
+  const int tiles = (q_slots + cap - 1) / cap;
+  return ((q_slots + tiles - 1) / tiles + 7) / 8 * 8;
+}
+
+// The form a flat scan at width d over Q slots launches: the resident
+// kernel wherever its whole-row stages fit beside the query tile, the
+// wide one otherwise. Sets the query tile and the shared memory.
+inline bool flat_wide(int d, int q_slots, int* q_tile, size_t* smem) {
+  *q_tile = q_tile_of(q_slots);
+  *smem = smem_bytes(d, *q_tile);
+  if (*smem <= kSmemLimit) return false;
+  *q_tile = q_tile_capped(q_slots, wide_q_cap(d));
+  *smem = wide_smem_bytes(d, *q_tile);
+  return true;
 }
 
 __device__ __forceinline__ __nv_bfloat16 dequant(int code, float vmin,
@@ -403,6 +465,240 @@ flat_lists_kernel(const __nv_bfloat16* __restrict__ queries,
   }
 }
 
+// The wide form of the flat scan: rows too wide for two whole-row stages
+// beside the query tile (at d = 960 not even a query tile of 8 fits). The
+// query tile stays resident at full width, as many slots as fit
+// (wide_q_cap); each 64-row tile streams through a ring of kStages stages
+// in slices of kSliceK features, one barrier a slice, and the slices'
+// partial products accumulate in the MMA fragments. A row's norm is the
+// diagonal of its warp's 16 x 16 Gram tile, two more MMAs a 16-wide step
+// from the A fragment already loaded, so no thread sums a row alone; a
+// query's norm is two threads' f32 sums over its halves, once a block.
+// The epilogue (the [lo, hi) mask, the 8-row minima), the grid, the early
+// exits and the output are the resident form's.
+template <int NT, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+flat_lists_wide_kernel(const __nv_bfloat16* __restrict__ queries,
+                       const int32_t* __restrict__ qmat,
+                       const __nv_bfloat16* __restrict__ rows,
+                       const int32_t* __restrict__ origins,
+                       const int32_t* __restrict__ bounds,
+                       float* __restrict__ out, int q_slots, int n_ids, int d,
+                       int l_pad) {
+  constexpr int QT = NT * 8;
+  constexpr int kStage = kTileRows * kSliceStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int st = row_stride(d);
+  const int kp = k_pad(d);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][st]
+  __nv_bfloat16* ring = sq + QT * st;             // [kStages][kTileRows][.]
+  float* smin = reinterpret_cast<float*>(ring + kStages * kStage);
+  float* sqn = smin + QT * kGroupSubs;            // [QT]
+  int* sid = reinterpret_cast<int*>(sqn + QT);    // [QT]
+
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.y * QT;
+  const int g0 = blockIdx.x * kGroupRows;
+  const int t = threadIdx.x;
+  const int nsc = l_pad / kSub;
+  const int sc0 = g0 / kSub;
+  const int n_sub = min(kGroupSubs, nsc - sc0);
+  const int lo = bounds[2 * b];
+  const int hi = bounds[2 * b + 1];
+  const int r_beg = max(lo, g0);
+  const int r_end = min(min(hi, l_pad), g0 + kGroupRows);
+
+  int live = 0;
+  if (t < QT) {
+    int id = -1;
+    if (q0 + t < q_slots) {
+      const int v = qmat[(long long)b * q_slots + q0 + t];
+      if (v >= 0 && v < n_ids) id = v;
+    }
+    sid[t] = id;
+    live = id >= 0;
+  }
+  if (!__syncthreads_or(live) || r_beg >= r_end) {
+    for (int i = t; i < QT * n_sub; i += kThreads) {
+      const int s = i / n_sub, j = i - s * n_sub;
+      if (q0 + s < q_slots) {
+        out[((long long)b * q_slots + q0 + s) * nsc + sc0 + j] = kBig;
+      }
+    }
+    return;
+  }
+
+  const long long org = origins[b];
+  const int tb = (r_beg - g0) / kTileRows;
+  const int te = (r_end - 1 - g0) / kTileRows + 1;
+  const int ns = (kp + kSliceK - 1) / kSliceK;    // slices a tile
+  const int n_steps = (te - tb) * ns;
+
+  // step i: slice i % ns of tile tb + i / ns into stage i % kStages; the
+  // K padding of a slice's last 16-wide step written zero
+  auto load_step = [&](int i) {
+    const int tt = tb + i / ns;
+    const int c0 = (i % ns) * kSliceK;
+    const int w = min(kSliceK, d - c0);
+    const int l0 = g0 + tt * kTileRows;
+    __nv_bfloat16* dst = ring + (i % kStages) * kStage;
+    const __nv_bfloat16* src = rows + (org + l0) * d + c0;
+    if constexpr (kVec) {
+      const int cpr = w / 8;
+      for (int j = t; j < kTileRows * cpr; j += kThreads) {
+        const int r = j / cpr, c = j - r * cpr;
+        if (l0 + r < l_pad) {
+          cp_async16(dst + r * kSliceStride + c * 8,
+                     src + (long long)r * d + c * 8);
+        }
+      }
+    } else {
+      for (int j = t; j < kTileRows * w; j += kThreads) {
+        const int r = j / w, c = j - r * w;
+        if (l0 + r < l_pad) dst[r * kSliceStride + c] = src[(long long)r * d + c];
+      }
+    }
+    const int z = min(kSliceK, kp - c0) - w;
+    for (int j = t; j < kTileRows * z; j += kThreads) {
+      const int r = j / z;
+      dst[r * kSliceStride + w + (j - r * z)] = __float2bfloat16_rn(0.f);
+    }
+  };
+
+  // query rows by id (dead slots zero, the K padding zero; 16-byte loads
+  // where rows allow), every minimum BIG until a live tile writes it, the
+  // ring's first stages in flight
+  if (d % 8 == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0) {
+    const int upr = kp / 8;
+    for (int i = t; i < QT * upr; i += kThreads) {
+      const int s = i / upr, c = (i - s * upr) * 8;
+      const int id = sid[s];
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (id >= 0 && c < d) {
+        v = *reinterpret_cast<const uint4*>(queries + (long long)id * d + c);
+      }
+      *reinterpret_cast<uint4*>(sq + s * st + c) = v;
+    }
+  } else {
+    for (int i = t; i < QT * kp; i += kThreads) {
+      const int s = i / kp, c = i - s * kp;
+      const int id = sid[s];
+      sq[s * st + c] = (id >= 0 && c < d) ? queries[(long long)id * d + c]
+                                          : __float2bfloat16_rn(0.f);
+    }
+  }
+  for (int i = t; i < QT * kGroupSubs; i += kThreads) smin[i] = kBig;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_steps) load_step(i);
+    cp_async_commit();
+  }
+  __syncthreads();
+  {
+    // slot t / 2, features [h * half, (h + 1) * half) with h = t % 2
+    const int s = t >> 1, h = t & 1, half = (d + 1) / 2;
+    float v = 0.f;
+    if (s < QT) {
+      for (int c = h * half; c < min(d, (h + 1) * half); ++c) {
+        const float x = __bfloat162float(sq[s * st + c]);
+        v = fmaf(x, x, v);
+      }
+    }
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    if (s < QT && h == 0) sqn[s] = v;
+  }
+
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int a_off = (warp * 16 + (lane & 15)) * kSliceStride + (lane >> 4) * 8;
+  const int b_off = (lane & 7) * st + ((lane >> 3) & 1) * 8;
+  // this warp's 16 rows as the B operand, two n-tiles of 8 (rows 0-7 and
+  // 8-15): the diagonal of their Gram tile is the row norms
+  const int n_off = (warp * 16 + (lane & 7)) * kSliceStride +
+                    ((lane >> 3) & 1) * 8;
+
+  float acc[NT][4];
+  float gram0[4], gram1[4];
+  for (int i = 0; i < n_steps; ++i) {
+    const int tt = tb + i / ns;
+    const int ks = i % ns;
+    const int c0 = ks * kSliceK;
+    if constexpr (kVec) cp_async_wait<kStages - 2>();
+    __syncthreads();  // step i landed; step i - 1's stage is free
+    if (i + kStages - 1 < n_steps) load_step(i + kStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* ys = ring + (i % kStages) * kStage;
+    if (ks == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gram0[e] = gram1[e] = 0.f;
+    }
+    // each 16-wide step's fragments first, then its MMAs
+    const int ksteps = (min(kSliceK, kp - c0) + 15) / 16;
+#pragma unroll
+    for (int kk = 0; kk < kSliceK / 16; ++kk) {
+      if (kk < ksteps) {
+        uint32_t a[4], y0[2], y1[2], bq[NT][2];
+        ldmatrix_x4(a, ys + a_off + kk * 16);
+        ldmatrix_x2(y0, ys + n_off + kk * 16);
+        ldmatrix_x2(y1, ys + n_off + 8 * kSliceStride + kk * 16);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          ldmatrix_x2(bq[j], sq + j * 8 * st + b_off + c0 + kk * 16);
+        }
+        mma_16816(gram0, a, y0);
+        mma_16816(gram1, a, y1);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_16816(acc[j], a, bq[j]);
+      }
+    }
+    if (ks < ns - 1) continue;
+
+    // row g's norm is column g of n-tile 0 (element g % 2 of lane
+    // 4g + g / 2), row g + 8's column g of n-tile 1 (element 2 + g % 2);
+    // selected, not indexed, so the fragments stay in registers
+    const int src = 4 * g + (g >> 1);
+    const float yna =
+        __shfl_sync(0xffffffffu, (g & 1) ? gram0[1] : gram0[0], src);
+    const float ynb =
+        __shfl_sync(0xffffffffu, (g & 1) ? gram1[3] : gram1[2], src);
+    const int ra = g0 + tt * kTileRows + warp * 16 + g;
+    const int rb = ra + 8;
+    const bool va = ra >= lo && ra < hi;
+    const bool vb = rb >= lo && rb < hi;
+    const int jl = (tt * kTileRows + warp * 16) / kSub;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int s = j * 8 + tq * 2 + e;
+        const float qn = sqn[s];
+        float da = va ? (qn + yna) - 2.f * acc[j][e] : kBig;
+        float db = vb ? (qn + ynb) - 2.f * acc[j][2 + e] : kBig;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          da = fminf(da, __shfl_xor_sync(0xffffffffu, da, o));
+          db = fminf(db, __shfl_xor_sync(0xffffffffu, db, o));
+        }
+        if (g == 0 && sid[s] >= 0) {
+          smin[s * kGroupSubs + jl] = da;
+          smin[s * kGroupSubs + jl + 1] = db;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < QT * n_sub; i += kThreads) {
+    const int s = i / n_sub, j = i - s * n_sub;
+    if (q0 + s < q_slots) {
+      out[((long long)b * q_slots + q0 + s) * nsc + sc0 + j] =
+          smin[s * kGroupSubs + j];
+    }
+  }
+}
+
 template <int NT, bool kVec, bool kInt8>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const void* queries, const void* qmat, const void* rows,
@@ -448,8 +744,54 @@ cudaError_t launch_nt(int nt, dim3 grid, size_t smem, cudaStream_t stream,
 #undef RAFT_FLAT_NT
 }
 
-// The launch both entries share: checks, grid, and the 16-byte-copy
-// choice (bf16 rows: d % 8 == 0; int8 codes: d % 16 == 0; aligned rows).
+template <int NT, bool kVec>
+cudaError_t launch_wide(dim3 grid, size_t smem, cudaStream_t stream,
+                        const void* queries, const void* qmat, const void* rows,
+                        const void* origins, const void* bounds, void* out,
+                        int q_slots, int n_ids, int d, int l_pad) {
+  auto kernel = flat_lists_wide_kernel<NT, kVec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(queries),
+      static_cast<const int32_t*>(qmat),
+      static_cast<const __nv_bfloat16*>(rows),
+      static_cast<const int32_t*>(origins), static_cast<const int32_t*>(bounds),
+      static_cast<float*>(out), q_slots, n_ids, d, l_pad);
+  return cudaGetLastError();
+}
+
+template <bool kVec>
+cudaError_t launch_wide_nt(int nt, dim3 grid, size_t smem,
+                           cudaStream_t stream, const void* queries,
+                           const void* qmat, const void* rows,
+                           const void* origins, const void* bounds, void* out,
+                           int q_slots, int n_ids, int d, int l_pad) {
+#define RAFT_FLAT_WIDE_NT(N)                                                 \
+  case N:                                                                   \
+    return launch_wide<N, kVec>(grid, smem, stream, queries, qmat, rows,    \
+                                origins, bounds, out, q_slots, n_ids, d,    \
+                                l_pad);
+  switch (nt) {
+    RAFT_FLAT_WIDE_NT(1)
+    RAFT_FLAT_WIDE_NT(2)
+    RAFT_FLAT_WIDE_NT(3)
+    RAFT_FLAT_WIDE_NT(4)
+    RAFT_FLAT_WIDE_NT(5)
+    RAFT_FLAT_WIDE_NT(6)
+    RAFT_FLAT_WIDE_NT(7)
+    RAFT_FLAT_WIDE_NT(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RAFT_FLAT_WIDE_NT
+}
+
+// The launch both entries share: checks, grid, the form (the flat scan's
+// wide form where its resident one does not fit, flat_wide; the SQ scan
+// has the resident form only) and the 16-byte-copy choice (bf16 rows:
+// d % 8 == 0; int8 codes: d % 16 == 0; aligned rows).
 template <bool kInt8>
 int launch_lists(const void* queries, const void* qmat, const void* rows,
                  const void* origins, const void* bounds, const void* params,
@@ -458,18 +800,27 @@ int launch_lists(const void* queries, const void* qmat, const void* rows,
   if (n_lists < 1 || q_slots < 1 || d < 1 || l_pad < kSub || l_pad % kSub) {
     return (int)cudaErrorInvalidValue;
   }
-  const int q_tile = q_tile_of(q_slots);
+  int q_tile = q_tile_of(q_slots);
+  size_t smem = sq_smem_bytes(d, q_tile);
+  const bool wide = !kInt8 && flat_wide(d, q_slots, &q_tile, &smem);
+  if (q_tile < 1 || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   const int q_tiles = (q_slots + q_tile - 1) / q_tile;
   if (n_lists > scan_core::kMaxGridYZ || q_tiles > scan_core::kMaxGridYZ) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const size_t smem = kInt8 ? sq_smem_bytes(d, q_tile) : smem_bytes(d, q_tile);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   const dim3 grid((l_pad + kGroupRows - 1) / kGroupRows, q_tiles, n_lists);
   const bool vec = d % (kInt8 ? 16 : 8) == 0 &&
                    reinterpret_cast<uintptr_t>(rows) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nt = q_tile / 8;
+  if (wide) {
+    return (int)(vec ? launch_wide_nt<true>(nt, grid, smem, s, queries, qmat,
+                                            rows, origins, bounds, out,
+                                            q_slots, n_ids, d, l_pad)
+                     : launch_wide_nt<false>(nt, grid, smem, s, queries, qmat,
+                                             rows, origins, bounds, out,
+                                             q_slots, n_ids, d, l_pad));
+  }
   return (int)(vec ? launch_nt<true, kInt8>(nt, grid, smem, s, queries, qmat,
                                             rows, origins, bounds, params, out,
                                             q_slots, n_ids, d, l_pad)
@@ -489,6 +840,15 @@ int raft_flat_scan_q_tile(int q_slots) { return q_tile_of(q_slots); }
 // of q_tile slots.
 long long raft_flat_scan_smem_bytes(int d, int q_tile) {
   return (long long)smem_bytes(d, q_tile);
+}
+
+// Whether the flat scan at width d over q_slots slots takes the wide form,
+// and its query slots per block and dynamic shared memory (flat_wide).
+int raft_flat_scan_form(int d, int q_slots, int* q_tile, long long* smem) {
+  size_t bytes = 0;
+  const int wide = flat_wide(d, q_slots, q_tile, &bytes);
+  *smem = (long long)bytes;
+  return wide;
 }
 
 // Dynamic shared memory one SQ block needs at width d and q_tile slots.

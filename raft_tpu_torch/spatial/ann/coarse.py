@@ -95,21 +95,31 @@ def _probe_qcap(nq: int, n_sup_probes: int, n_super: int) -> int:
     return min(nq, 2 * default_qcap(nq, n_sup_probes, n_super))
 
 
+def _stage_fits(d: int, q: int) -> bool:
+    """The flat scan serves ``q`` query slots at width ``d`` and the JAX
+    window rule has a plan there, as the JAX package's probe asks: stage
+    1 pads the supers to that plan's tile, so its granules match."""
+    return (flat_kernel.flat_scan_supported(d, q)
+            and flat_kernel.plan_l_tile(
+                d, scan_core.pad_queries(q),
+                profile=scan_core.tile_profile(q)) is not None)
+
+
 def two_level_probe_kernel_supported(d: int, nq: int, n_probes: int,
                                      n_super: int, max_members: int,
                                      n_sup_probes: int,
                                      block_q: int = 256) -> bool:
     """Whether the kernel engine of :func:`two_level_probe` applies: both
-    stages' query counts fit the flat scan (``flat_scan_supported``), and
-    the member pool can fill a top-``n_probes`` row."""
+    stages' query counts fit the flat scan and the JAX window rule
+    (:func:`_stage_fits`), and the member pool can fill a
+    top-``n_probes`` row."""
     if d < 1 or n_super < 1 or max_members < 1:
         return False
     s1_block = min(block_q, max(nq, 1))
     return (
         n_probes <= n_sup_probes * max_members
-        and flat_kernel.flat_scan_supported(d, s1_block)
-        and flat_kernel.flat_scan_supported(
-            d, _probe_qcap(nq, n_sup_probes, n_super))
+        and _stage_fits(d, s1_block)
+        and _stage_fits(d, _probe_qcap(nq, n_sup_probes, n_super))
     )
 
 

@@ -2,7 +2,12 @@
 ``flat_scan_subchunk_min`` (``raft_tpu/spatial/ann/flat_kernel.py:115``,
 driven by ``scan_core.subchunk_scan``). The CUDA kernel is
 ``raft_tpu_torch/csrc/flat_scan.cu`` (tensor cores); its source note says
-what bounds it on the H100 and what the design does about it.
+what bounds it on the H100 and what the design does about it. It has two
+forms, chosen by width alone (:func:`scan_form`): the resident form keeps
+two stages of whole rows beside the query tile; rows too wide for that
+(d = 960 at every query tile, d = 768 past 16 slots) take the wide form,
+which streams rows in 256-feature slices beside a resident query tile
+sized to fit.
 
 For each list b, query slot q and 8-row sub-chunk j:
 ``out[b, q, j] = min over r in 8j..8j+7 of (‖q‖² + ‖y_r‖²) − 2 q·y_r``
@@ -48,7 +53,7 @@ from raft_tpu_torch.spatial.ann.scan_core import (
 __all__ = [
     "BIG", "LAUNCHES", "SUBCHUNK", "flat_scan_lists", "flat_scan_lists_plain",
     "flat_scan_subchunk_min", "flat_scan_subchunk_min_plain",
-    "flat_scan_supported", "plan_l_tile",
+    "flat_scan_supported", "plan_l_tile", "scan_form", "window_l_pad",
 ]
 
 # kernel launches since import (or since a caller reset it to 0)
@@ -57,14 +62,24 @@ LAUNCHES = 0
 _MAX_Q_TILE = 64         # csrc/flat_scan.cu: 8 n-tiles of 8 query slots
 _GROUP_SUBS = 64         # sub-chunks per block (512 rows)
 _TILE_ROWS = 64          # rows per pipeline stage
+_SLICE_K = 256           # the wide form's features per stage
+_STAGES = 2              # the wide form's stages (double-buffered)
+
+
+def _q_tile_capped(q: int, cap: int) -> int:
+    """csrc/flat_scan.cu q_tile_capped(): the query slots of a block for
+    Q slots at most ``cap`` a block, round_up(ceil(Q / tiles), 8) over
+    the fewest tiles; 0 when ``cap`` is under 8."""
+    if q < 1 or cap < 8:
+        return 0
+    tiles = -(-q // cap)
+    return round_up(-(-q // tiles), 8)
 
 
 def _q_tile(q: int) -> int:
-    """csrc/flat_scan.cu raft_flat_scan_q_tile(): the query slots of a
-    block for Q slots, round_up(ceil(Q / tiles), 8) over the fewest
-    tiles of at most 64."""
-    tiles = -(-q // _MAX_Q_TILE)
-    return round_up(-(-q // tiles), 8)
+    """csrc/flat_scan.cu raft_flat_scan_q_tile(): the resident form's
+    query slots of a block, tiles of at most 64."""
+    return _q_tile_capped(q, _MAX_Q_TILE)
 
 
 def _lists_smem_bytes(d: int, q_tile: int) -> int:
@@ -74,6 +89,39 @@ def _lists_smem_bytes(d: int, q_tile: int) -> int:
     stride = round_up(d, 16) + 8
     return (2 * stride * (q_tile + 2 * _TILE_ROWS)
             + 4 * (q_tile * _GROUP_SUBS + q_tile + _TILE_ROWS + q_tile))
+
+
+def _wide_smem_bytes(d: int, q_tile: int) -> int:
+    # csrc/flat_scan.cu wide_smem_bytes(): the query tile (as the resident
+    # form's) and two 64-row stages of 256-feature slices padded to 264,
+    # then the block's minima, the query norms and the slot ids
+    return (2 * (round_up(d, 16) + 8) * q_tile
+            + 2 * _STAGES * _TILE_ROWS * (_SLICE_K + 8)
+            + 4 * (q_tile * _GROUP_SUBS + 2 * q_tile))
+
+
+def _wide_q_cap(d: int) -> int:
+    """csrc/flat_scan.cu wide_q_cap(): the wide form's most query slots a
+    block at width ``d`` (a multiple of 8 up to 64 whose block fits), 0
+    when not even 8 fit."""
+    cap = _MAX_Q_TILE
+    while cap > 0 and _wide_smem_bytes(d, cap) > scan_core.SMEM_LIMIT:
+        cap -= 8
+    return cap
+
+
+def scan_form(d: int, q: int):
+    """csrc/flat_scan.cu flat_wide(): ``(wide, q_tile, smem)`` of a flat
+    scan at width ``d`` over ``q`` query slots — the resident form
+    wherever its two whole-row stages fit beside the query tile, else
+    the wide form with its query tile sized to fit (``q_tile`` 0 when
+    no tile does)."""
+    q_tile = _q_tile(q)
+    smem = _lists_smem_bytes(d, q_tile)
+    if smem <= scan_core.SMEM_LIMIT:
+        return False, q_tile, smem
+    q_tile = _q_tile_capped(q, _wide_q_cap(d))
+    return True, q_tile, _wide_smem_bytes(d, q_tile)
 
 
 def _sq_lists_smem_bytes(d: int, q_tile: int) -> int:
@@ -98,16 +146,29 @@ def plan_l_tile(d: int, q_pad: int, l_tile=None, profile="throughput"):
 
 
 def flat_scan_supported(d: int, qcap: int) -> bool:
-    """Whether the kernel engine applies: one block's shared-memory
-    tiles fit at width ``d`` and the query tile of ``qcap`` slots, and
-    the window rule yields a plan for the grouped search to derive
-    ``l_pad``."""
-    if (d < 1 or _lists_smem_bytes(d, _q_tile(max(qcap, 1)))
-            > scan_core.SMEM_LIMIT):
+    """Whether the kernel engine applies: one block of the form the
+    kernel takes at width ``d`` over ``qcap`` slots (:func:`scan_form`)
+    fits a block's shared memory. The window needs no plan of the JAX
+    rule (:func:`window_l_pad`)."""
+    if d < 1:
         return False
-    return plan_l_tile(
-        d, pad_queries(qcap), profile=scan_core.tile_profile(qcap)
-    ) is not None
+    _, q_tile, smem = scan_form(d, max(qcap, 1))
+    return q_tile >= 1 and smem <= scan_core.SMEM_LIMIT
+
+
+def window_l_pad(d: int, qcap: int, max_list: int, plan=None) -> int:
+    """The kernel engine's window length ``l_pad``: ``max_list`` rounded
+    up to the JAX window rule's tile (``plan``: :func:`plan_l_tile`, or
+    the SQ scan's) at ``qcap``, or to the kernel's 64-row stage where
+    that rule has no plan — its byte model holds the whole ``qcap`` x
+    ``d`` query block in one TPU window, which bounds the TPU kernel and
+    not this one."""
+    l_tile = (plan or plan_l_tile)(
+        d, pad_queries(qcap),
+        l_tile=round_up(max_list, scan_core.LANE),
+        profile=scan_core.tile_profile(qcap),
+    )
+    return round_up(max_list, l_tile or _TILE_ROWS)
 
 
 @full_f32
@@ -252,9 +313,15 @@ def _launch(name, queries, qmat, rows, origins, bounds, l_pad, n_ids,
         raise ValueError(f"{name}: rows must be contiguous (row-major)")
     n_lists, q = qmat.shape
     d = rows.shape[1]
-    q_tile = _q_tile(q)
-    smem = (_lists_smem_bytes(d, q_tile) if params is None
-            else _sq_lists_smem_bytes(d, q_tile))
+    if params is None:
+        _, q_tile, smem = scan_form(d, q)
+        if q_tile < 1:
+            raise ValueError(
+                f"{name}: rows of width {d} leave no room for a query tile "
+                "in a block's shared memory")
+    else:
+        q_tile = _q_tile(q)
+        smem = _sq_lists_smem_bytes(d, q_tile)
     scan_core.check_launch(name, smem, rows, n_lists, q, q_tile=q_tile)
     queries = queries.contiguous()
     qmat = qmat.contiguous()
@@ -295,6 +362,8 @@ def _lib():
         lib.raft_flat_scan_smem_bytes.restype = ctypes.c_longlong
         lib.raft_flat_scan_q_tile.argtypes = [i]
         lib.raft_flat_scan_q_tile.restype = i
+        lib.raft_flat_scan_form.argtypes = [i, i, p, p]
+        lib.raft_flat_scan_form.restype = i
         lib.raft_sq_scan_lists.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                            i, p]
         lib.raft_sq_scan_lists.restype = i

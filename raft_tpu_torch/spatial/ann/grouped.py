@@ -16,6 +16,7 @@ is the one ``use_kernel`` rule of the three.
 
 from __future__ import annotations
 
+import collections.abc
 import functools
 import logging
 import math
@@ -25,7 +26,7 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import full_f32, hopper_device
-from raft_tpu_torch.spatial.ann import flat_kernel, scan_core, search_obs
+from raft_tpu_torch.spatial.ann import flat_kernel, search_obs
 from raft_tpu_torch.spatial.ann.common import (
     coarse_probe,
     invert_probe_map_ranked,
@@ -55,10 +56,41 @@ RERANK_BLOCK_BYTES = 256 << 20
 # stream through the query-major pool instead
 _STREAM_BYTES = 1 << 31
 
-# grouped searches of a CUDA index that use_kernel=None sent to the
-# legacy engine because its kernel cannot serve them, by engine (an
-# unrefined IVF-PQ search runs the legacy engine by rule, not counted)
-ENGINE_FALLBACKS = {"ivf_flat": 0, "ivf_sq": 0, "ivf_pq": 0}
+
+class _Fallbacks(collections.abc.Mapping):
+    """Grouped searches of a CUDA index that ``use_kernel=None`` sent to
+    the legacy engine because its kernel cannot serve them, by engine (an
+    unrefined IVF-PQ search runs the legacy engine by rule, not counted):
+    the ``reason="fallback"`` part of the legacy series of
+    ``ivf_search_scan_form_total`` (:mod:`.search_obs`), read from it and
+    never kept apart (``RAFT_TPU_OBS=off`` stops it with every series).
+    Setting an entry (a reset to 0) moves the point it is read from; the
+    counter never goes back."""
+
+    _names = ("ivf_flat", "ivf_sq", "ivf_pq")
+
+    def __init__(self):
+        self._base = dict.fromkeys(self._names, 0)
+
+    def _count(self, name):
+        if name not in self._names:
+            raise KeyError(name)
+        return search_obs.scan_forms(name, "legacy", "fallback")
+
+    def __getitem__(self, name):
+        return self._count(name) - self._base[name]
+
+    def __setitem__(self, name, value):
+        self._base[name] = self._count(name) - value
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __len__(self):
+        return len(self._names)
+
+
+ENGINE_FALLBACKS = _Fallbacks()
 # (engine, reason) pairs already warned about
 _fallback_reasons_warned: set = set()
 
@@ -76,16 +108,21 @@ def resolve_kernel(use_kernel, engine, device: torch.device, *shape,
     ``ENGINE_FALLBACKS[engine.name]`` and warned about once per reason.
     ``True``: the kernel form, raising with the unmet requirement (on a
     CPU index its scan runs its plain version). ``False``: the legacy
-    engine."""
+    engine. Every call counts the form it picks, and why, in
+    ``ivf_search_scan_form_total`` (:func:`.search_obs.scan_form`)."""
     if use_kernel is None:
         if device.type != "cuda" or not refine:
+            search_obs.scan_form(
+                engine.name, False,
+                "host" if device.type != "cuda" else "unrefined")
             return False
         ok, reason, _ = engine.fits(*shape)
         if ok:
             if hopper_device(device):
+                search_obs.scan_form(engine.name, True, "auto")
                 return True
             reason = f"{device} is not a capability-9.0 (Hopper) card"
-        ENGINE_FALLBACKS[engine.name] += 1
+        search_obs.scan_form(engine.name, False, "fallback")
         if (engine.name, reason) not in _fallback_reasons_warned:
             _fallback_reasons_warned.add((engine.name, reason))
             logger.warning(
@@ -109,6 +146,7 @@ def resolve_kernel(use_kernel, engine, device: torch.device, *shape,
             "use_kernel=True needs a capability-9.0 (Hopper) CUDA device "
             "for the sm_90a kernel; %s is not one", device,
         )
+    search_obs.scan_form(engine.name, bool(use_kernel), "pinned")
     return bool(use_kernel)
 
 
@@ -226,21 +264,17 @@ class FlatEngine(Engine):
             flat_kernel.flat_scan_supported(d, qcap),
             f"d={d} qcap={qcap} does not fit the kernel's shared-memory "
             "tiles",
-            f"use_kernel=True unsupported at d={d} qcap={qcap} (the "
-            "kernel's shared-memory tiles or the scan window plan do not "
-            "fit); use the legacy scan (use_kernel=False)",
+            f"use_kernel=True unsupported at d={d} qcap={qcap} (rows too "
+            "wide for even an 8-slot query tile beside the kernel's "
+            "row stages); use the legacy scan (use_kernel=False)",
         )
 
     def window(self, b):
-        # the JAX window rule fixes l_pad (and with it the sub-chunk
-        # windows and the pool clamp); the kernel takes qcap rows as-is
-        L = self.storage.max_list
-        l_tile = self.kmod.plan_l_tile(
-            self.data.shape[1], scan_core.pad_queries(b.qcap),
-            l_tile=scan_core.round_up(L, scan_core.LANE),
-            profile=scan_core.tile_profile(b.qcap),
-        )
-        l_pad = scan_core.round_up(L, l_tile)
+        # l_pad fixes the sub-chunk windows and the pool clamp; the kernel
+        # takes qcap rows as-is
+        l_pad = flat_kernel.window_l_pad(self.data.shape[1], b.qcap,
+                                         self.storage.max_list,
+                                         plan=self.kmod.plan_l_tile)
         # n + 1 rows (sentinel last), zero-padded to one full window
         rows_pad = max(self.data.shape[0], l_pad)
         self._src = self.slab(rows_pad)

@@ -33,6 +33,14 @@ and ``RAFT_TPU_OBS`` gates them as it gates every series:
   always recorded;
 * ``ivf_search_host_syncs_total{engine,site}`` — device-to-host reads
   inside a search, always recorded; each is an ``ivf.sync`` range;
+* ``ivf_search_scan_form_total{engine,form,reason}`` — each grouped
+  search's form as the engine rule (:func:`~.grouped.resolve_kernel`)
+  picks it, always recorded: ``form="kernel"`` (``reason`` ``auto``:
+  ``use_kernel=None``; ``pinned``: ``True``) or ``form="legacy"``
+  (``fallback``: a CUDA index whose kernel cannot serve the search under
+  ``None``, which ``grouped.ENGINE_FALLBACKS`` reads; ``pinned``:
+  ``False``; ``host``: a CPU index under ``None``; ``unrefined``: an
+  IVF-PQ search without the refine tail);
 * ``ivf_search_pairs_total{engine}`` and
   ``ivf_search_pairs_dropped_total{engine}`` — the (query, probe) pairs
   of a search and those past ``qcap`` (``slot >= qcap``), counted only
@@ -52,7 +60,10 @@ from typing import Callable, Iterator
 from raft_tpu_torch.core.annotate import annotate, ranges_on
 from raft_tpu_torch.obs import metrics as _metrics
 
-__all__ = ["count_pairs", "entry", "host_sync", "uncounted"]
+__all__ = ["count_pairs", "entry", "host_sync", "scan_form",
+           "scan_forms", "uncounted"]
+
+SCAN_FORMS = "ivf_search_scan_form_total"
 
 # counter handles by (name, labels): made in the registry once
 _handles: dict = {}
@@ -88,6 +99,22 @@ def host_sync(engine: str, site: str):
     ``ivf.sync`` range to hold around it."""
     _counter("ivf_search_host_syncs_total", engine=engine, site=site).inc()
     return annotate("ivf.sync")
+
+
+def scan_form(engine: str, kernel: bool, reason: str) -> None:
+    """Count one grouped search of ``engine`` in its form, for
+    ``reason``."""
+    _counter(SCAN_FORMS, engine=engine,
+             form="kernel" if kernel else "legacy", reason=reason).inc()
+
+
+def scan_forms(engine: str, form: str, reason=None) -> int:
+    """The grouped searches of ``engine`` counted in ``form`` (for
+    ``reason`` alone, when given)."""
+    return sum(c.value for c in _metrics.default_registry().series(SCAN_FORMS)
+               if c.labels.get("engine") == engine
+               and c.labels.get("form") == form
+               and reason in (None, c.labels.get("reason")))
 
 
 def count_pairs(engine: str, slot, qcap: int) -> None:

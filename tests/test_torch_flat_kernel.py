@@ -108,9 +108,11 @@ def test_supported_predicate_and_wrapper_checks():
     assert tfk.flat_scan_supported(96, 64)
     assert tfk.flat_scan_supported(96, 4096)
     assert not tfk.flat_scan_supported(0, 8)
-    # the kernel's shared-memory tiles bound d
+    # the wide form serves rows past the resident form's stages; an
+    # 8-slot query tile beside its ring bounds d
     assert tfk.flat_scan_supported(400, 8)
-    assert not tfk.flat_scan_supported(1000, 8)
+    assert tfk.flat_scan_supported(1000, 8)
+    assert not tfk.flat_scan_supported(1 << 14, 8)
     q = torch.zeros((1, 5, 16), dtype=torch.bfloat16)
     s = torch.zeros((1, 16, 136), dtype=torch.bfloat16)
     b = torch.zeros((1, 2), dtype=torch.int32)
@@ -135,3 +137,43 @@ def test_cpu_wrapper_runs_plain_version_without_counting():
     out = tfk.flat_scan_subchunk_min(q, s, b)
     assert torch.equal(out, tfk.flat_scan_subchunk_min_plain(q, s, b))
     assert tfk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("d", [768, 960, 1536])
+def test_wide_width_rule_holds_at_every_qcap(d):
+    """Past the resident form's whole-row stages the kernel takes the
+    wide form, whose query tile is sized to fit a block: supported at
+    every qcap the grouped search uses, and the window needs no plan of
+    the JAX rule (where that rule has none, l_pad is max_list rounded up
+    to the kernel's 64-row stage)."""
+    for qcap in (8, 64, 640, 4096):
+        assert tfk.flat_scan_supported(d, qcap), (d, qcap)
+        wide, q_tile, smem = tfk.scan_form(d, qcap)
+        resident = tfk._lists_smem_bytes(d, tfk._q_tile(qcap))
+        assert wide == (resident > tsc.SMEM_LIMIT), (d, qcap)
+        assert 8 <= q_tile <= 64 and q_tile % 8 == 0
+        assert smem <= tsc.SMEM_LIMIT
+        for L in (1, 300, 977, 3000):
+            l_pad = tfk.window_l_pad(d, qcap, L)
+            plan = tfk.plan_l_tile(d, tsc.pad_queries(qcap),
+                                   l_tile=tsc.round_up(L, tsc.LANE),
+                                   profile=tsc.tile_profile(qcap))
+            assert l_pad == tsc.round_up(L, plan or 64), (d, qcap, L)
+            assert l_pad >= L and l_pad % tsc.SUBCHUNK == 0
+    # d = 960 takes the wide form even at 8 slots; a query tile of 64
+    # where it fits beside the stages
+    assert tfk.scan_form(960, 8)[0] and tfk.scan_form(960, 632)[1] == 64
+
+
+@pytest.mark.parametrize("qcap", [1, 8, 64, 160, 632, 4096])
+def test_resident_route_and_window_at_96_are_unchanged(qcap):
+    """At d = 96 the resident form serves every qcap with its own query
+    tile, and l_pad is the JAX window rule's, as before the wide form."""
+    wide, q_tile, smem = tfk.scan_form(96, qcap)
+    assert not wide and q_tile == tfk._q_tile(qcap)
+    assert smem == tfk._lists_smem_bytes(96, q_tile)
+    for L in (1, 57, 1000, 3500, 6656):
+        want = tsc.round_up(L, jfk.plan_l_tile(
+            96, jsc.pad_queries(qcap), l_tile=-(-L // 128) * 128,
+            profile=jsc.tile_profile(qcap)))
+        assert tfk.window_l_pad(96, qcap, L) == want

@@ -651,6 +651,110 @@ def test_flat_scan_lists_kernel_matches_plain_version():
                 assert (err <= 1e-5 * (qn + yn)).all(), (d, q)
 
 
+def _f32_sum_tol(d, qn, yn):
+    # (4 d + 8) u (qn + yn), u = 2^-24: each side's qn, yn and 2 q.y are
+    # f32 sums of d terms within d u of their magnitudes in any order
+    # (|2 q.y| <= qn + yn), and two more rounded adds; twice that apart
+    return (4 * d + 8) * 2.0**-24 * (qn + yn)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [768, 960, 1001, 1536, 2048])
+def test_flat_scan_lists_wide_form_matches_plain_version(d):
+    """On a Hopper card: the wide form of the list scan (rows streamed in
+    256-feature slices) against the plain version — bitwise on
+    integer-exact inputs, within the f32 summation bound on Gaussian
+    ones — at query tiles of 8 (d >= 960), a full 64 (or the width's
+    cap) and a ragged last tile, with dead slots, empty and full ranges
+    and the clamped tail window; d = 1001 takes the plain loads and the
+    zeroed K padding. At d = 768 an 8-slot tile keeps the resident
+    form, which must agree too."""
+    dev = _hopper()
+    rng = np.random.default_rng(d)
+    n_lists, nq, l_pad = 9, 50, 1160
+    n_rows = 4 * l_pad + 3
+    origins, bounds = _list_windows(rng, n_lists, n_rows, l_pad, dev)
+    forms = set()
+    for integer in (True, False):
+        if integer:
+            qr = rng.integers(-64, 64, (nq + 1, d))
+            rows = rng.integers(-64, 64, (n_rows, d))
+        else:
+            qr = rng.standard_normal((nq + 1, d))
+            rows = rng.standard_normal((n_rows, d))
+        qr[nq] = 0
+        qt = torch.as_tensor(qr, dtype=torch.float32,
+                             device=dev).to(torch.bfloat16)
+        rt = torch.as_tensor(rows, dtype=torch.float32,
+                             device=dev).to(torch.bfloat16)
+        yn_rows = (rt.float() ** 2).sum(1)
+        for q in (8, 64, 65, 201):
+            wide, q_tile, _ = tfk.scan_form(d, q)
+            forms.add((q, wide, q_tile))
+            qmat = _list_slots(rng, n_lists, q, nq, nq, dev)
+            args = (qt, qmat, rt, origins, bounds, l_pad)
+            got = tfk.flat_scan_lists(*args)
+            want = tfk.flat_scan_lists_plain(*args)
+            torch.cuda.synchronize()
+            live = qmat < nq
+            assert (got[~live] == tfk.BIG).all(), (d, q)
+            assert (got[:2] == tfk.BIG).all() and (got[3] == tfk.BIG).all()
+            if integer:
+                assert torch.equal(got, want), (d, q)
+                continue
+            qn = (qt.float() ** 2).sum(1)[qmat.long()][:, :, None]
+            win = origins.long()[:, None] + torch.arange(l_pad, device=dev)
+            yn = yn_rows[win].reshape(n_lists, 1, -1, 8).amax(-1)
+            fin = got < tfk.BIG
+            assert torch.equal(fin, want < tfk.BIG), (d, q)
+            err = (got - want).abs()[fin]
+            assert (err <= _f32_sum_tol(d, qn, yn).expand_as(got)[fin]).all(), \
+                (d, q, float(err.max()))
+    # every width past the resident form's stages at 64 slots takes the
+    # wide form, and a ragged last tile exists at 65 and 201 slots
+    assert all(w for q, w, _ in forms if q >= 64), forms
+    assert all(-(-q // t) * t > q for q, _, t in forms if q in (65, 201))
+
+
+@pytest.mark.gpu
+def test_grouped_flat_search_at_960_takes_the_wide_kernel():
+    """On a Hopper card, ``use_kernel=None`` at d = 960 runs the kernel
+    engine (the wide form), counts its searches under ``form="kernel"``
+    and leaves ``ENGINE_FALLBACKS["ivf_flat"]`` where it was; it returns
+    the legacy engine's neighbours, their distances within the f32
+    summation bound (both engines rescore in f32, in other orders)."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, grouped, ivf_flat_build, ivf_flat_search_grouped,
+        search_obs)
+
+    dev = _hopper()
+    g = torch.Generator(device=dev).manual_seed(5)
+    centres = 3 * torch.randn((16, 960), generator=g, device=dev)
+    x = centres[torch.randint(0, 16, (8192,), generator=g, device=dev)]
+    x = x + torch.randn(x.shape, generator=g, device=dev)
+    q = x[:256] + 0.5 * torch.randn((256, 960), generator=g, device=dev)
+    index = ivf_flat_build(x, IVFFlatParams(n_lists=64, seed=0), device=dev)
+    fallbacks = grouped.ENGINE_FALLBACKS["ivf_flat"]
+    kernel0 = search_obs.scan_forms("ivf_flat", "kernel")
+    launches = tfk.LAUNCHES
+    qcap = index.warmup(256, k=10, n_probes=8)
+    dk, ik = ivf_flat_search_grouped(index, q, 10, n_probes=8, qcap=qcap)
+    assert tfk.LAUNCHES == launches + 2
+    assert search_obs.scan_forms("ivf_flat", "kernel") == kernel0 + 2
+    assert grouped.ENGINE_FALLBACKS["ivf_flat"] == fallbacks
+    assert tfk.scan_form(960, qcap)[0]
+    dl, il = ivf_flat_search_grouped(index, q, 10, n_probes=8, qcap=qcap,
+                                     use_kernel=False)
+    torch.cuda.synchronize()
+    assert grouped.ENGINE_FALLBACKS["ivf_flat"] == fallbacks
+    same = ik == il
+    assert same.float().mean() >= 0.99
+    qn = (q * q).sum(1)[:, None].expand_as(dk)
+    yn = (x * x).sum(1)[ik.clamp(min=0).long()]
+    gap = (dk.double() ** 2 - dl.double() ** 2).abs()
+    assert (gap <= _f32_sum_tol(960, qn, yn))[same].all()
+
+
 @pytest.mark.gpu
 def test_pq_adc_lists_kernel_matches_plain_version():
     """On a Hopper card: the one-launch ADC list scan against its plain
