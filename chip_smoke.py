@@ -877,11 +877,12 @@ def ivf_flat_phase(args, card, dev):
     keep = []
     with scan_calls(keep) as shapes, \
             path_batches("ivf_flat", keep) as batches, \
-            select_k_path() as selected:
+            select_k_path() as selected, rerank_path() as reranked:
         served = main_path(args.seed, card, dev)
     launches = fk.LAUNCHES
     select_k = select_k_path_entry(selected, "IVF-Flat main path", card)
-    del selected
+    reranks = rerank_path_entry(reranked, "IVF-Flat main path", card)
+    del selected, reranked
     log(f"main path: flat_scan_lists launched {launches} times, by "
         f"(Q, Lpad): {dict(shapes)}")
     check(launches > 0, "the main path never launched the kernel")
@@ -956,6 +957,7 @@ def ivf_flat_phase(args, card, dev):
                      "bound_ms": ref_bound[0], "bound_by": ref_bound[1],
                      "max_abs_err": ref_err, "shape": [32, 64, DIM, 3072]},
         "select_k_path": select_k,
+        "rerank_path": reranks,
     }
 
 
@@ -988,12 +990,14 @@ def wide_rows_phase(args, card, dev):
     kernel0 = search_obs.scan_forms("ivf_flat", "kernel")
     engine_fallbacks("ivf_flat", reset=True)
     keep = []
-    with scan_calls(keep) as shapes:
+    with scan_calls(keep) as shapes, rerank_path() as reranked:
         qcap = index.warmup(GIST_QUERIES, k=K, n_probes=N_PROBES)
         _, ids = ivf_flat_search_grouped(index, q, K, n_probes=N_PROBES,
                                          qcap=qcap)
     sync(dev)
     launches = fk.LAUNCHES - before
+    reranks = rerank_path_entry(reranked, "GIST-width path", card)
+    del reranked
     forms = search_obs.scan_forms("ivf_flat", "kernel") - kernel0
     wide, q_tile, smem = fk.scan_form(GIST_DIM, qcap)
     log(f"[{card}] wide rows: {GIST_ROWS} x {GIST_DIM}, {GIST_LISTS} lists "
@@ -1022,7 +1026,7 @@ def wide_rows_phase(args, card, dev):
           f"wide rows: kernel recall {r_kernel} below legacy {r_legacy}")
     return {"launches": launches, "max_abs_err": max_err, "ms": ms,
             "shape": [GIST_LISTS, qcap, GIST_DIM, keep[-1][5]],
-            "recall": [r_kernel, r_legacy]}
+            "recall": [r_kernel, r_legacy], "rerank_path": reranks}
 
 
 # ---------------------------------------------------------------------------
@@ -5266,9 +5270,13 @@ def quantized_phase(kind, args, card, dev, data):
     engine_fallbacks("ivf_sq", reset=True)
     keep = []
     with kernel_calls(sk, "sq_scan_lists", key, keep) as shapes, \
-            path_batches("ivf_sq", keep) as batches:
+            path_batches("ivf_sq", keep) as batches, \
+            rerank_path() as reranked:
         index, _ = quantized_path(kind, x, qb, true, rng, card, dev)
     launches = sk.LAUNCHES
+    reranks = rerank_path_entry(reranked, "IVF-SQ main path", card,
+                                kernel=False)
+    del reranked
     log(f"sq path: sq_scan_lists launched {launches} times, by (Q, Lpad): "
         f"{dict(shapes)}; ENGINE_FALLBACKS {engine_fallbacks("ivf_sq")}")
     check(launches > 0, "the sq path never launched sq_scan_lists")
@@ -5374,6 +5382,7 @@ def quantized_phase(kind, args, card, dev, data):
              "gathered_ms", "bound_live_ms"), v)) for k, v in timed.items()},
         "mutation": mnums,
         "tier": tnums,
+        "rerank_path": reranks,
     }
 
 
@@ -5714,6 +5723,268 @@ def select_k_step(card, dev, seed):
     return out
 
 
+# the exact rerank R at the cells' shapes: (queries, candidates, d, rows)
+# of the DEEP-10M cells (both rerank 10,000 x 40 sub-chunks of 8 rows
+# over 10M x 96 rows) and the GIST-1M cell (1M x 960)
+RERANK_SHAPES = ((10_000, 320, 96, 10_000_000),
+                 (10_000, 320, 960, 1_000_000))
+
+
+def rerank_gather_chain(qf, src, rpos, valid, n):
+    """What R replaced: the rows gathered in query blocks whose gather
+    stays under ``grouped.RERANK_BLOCK_BYTES``, each block scored by
+    ``score_l2_candidates`` (the gather route of ``grouped._rerank``
+    without its selection)."""
+    from raft_tpu_torch.spatial.ann import common as cm, grouped
+
+    nq, c = rpos.shape
+    rpos = rpos.long()
+    blk = max(8, min(nq, grouped.RERANK_BLOCK_BYTES // (c * qf.shape[1] * 4)))
+    return torch.cat([
+        cm.score_l2_candidates(qf[s:s + blk],
+                               src[torch.clamp(rpos[s:s + blk], 0, n)],
+                               valid[s:s + blk] & (rpos[s:s + blk] < n))
+        for s in range(0, nq, blk)])
+
+
+def time_rerank(args):
+    """R on ``args`` = (qf, src, rpos, valid), timed beside two byte
+    bounds: every valid candidate's row read once for each query that
+    holds it (as R reads them), and each distinct valid row read once
+    (what a rerank that shares a row among its queries must still read);
+    each with the queries, positions, mask and output. Also times the
+    plain version (the batch gathered) and the gather chain R replaced."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    qf, src, rpos, valid = args
+    nq, c = rpos.shape
+    n, d = src.shape[0] - 1, src.shape[1]
+    live_mask = valid & (rpos >= 0) & (rpos < n)
+    live = int(live_mask.sum())
+    distinct = int(torch.unique(rpos[live_mask]).numel())
+    rest = 4 * d * nq + nq * c * (8 + 1 + 4)
+    ms = cuda_time_ms(rr.rescore_rows_kernel, [args], iters=20, warm=3)
+    plain_ms = cuda_time_ms(rr.rescore_rows_plain, [args], iters=3, warm=1)
+    library_ms = cuda_time_ms(rerank_gather_chain, [args + (n,)], iters=3,
+                              warm=1)
+    bound_ms, bound_by = bound(4 * d * live + rest, 4.0 * d * live,
+                               FP32_FLOP_PER_S)
+    distinct_ms, distinct_by = bound(4 * d * distinct + rest,
+                                     4.0 * d * live, FP32_FLOP_PER_S)
+    return {"shape": [nq, c, d, n + 1], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "live_rows": live,
+            "distinct_rows": distinct, "bound_distinct_ms": distinct_ms,
+            "bound_distinct_by": distinct_by}
+
+
+def rerank_line(t):
+    """The log line's part of :func:`time_rerank`'s timing ``t``."""
+    ms, reads = t["ms"], t["live_rows"] / max(t["distinct_rows"], 1)
+    return (f"kernel {ms:.4f} ms ({t['bound_ms'] / ms:.1%} of the bound "
+            f"over every valid candidate, {t['bound_distinct_ms'] / ms:.1%} "
+            f"of the bound over the distinct rows), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['live_rows']} "
+            f"rows), distinct-row bound {t['bound_distinct_ms']:.4f} ms "
+            f"({t['bound_distinct_by']}, {t['distinct_rows']} rows, "
+            f"{reads:.2f} reads a row), "
+            f"plain {t['plain_ms']:.4f} ms, gather chain "
+            f"{t['library_ms']:.4f} ms")
+
+
+def rerank_step(card, dev, seed):
+    """R (``rerank.rescore_rows_kernel``) at the cells' shapes, which no
+    smoke path reaches: pools of 40 sub-chunks a query at random 8-aligned
+    slab positions (2% of the rows masked, the sentinel among them),
+    bitwise its plain version on integer-valued rows, then timed
+    (:func:`time_rerank`), then held to the plain version within the f32
+    summation bound on Gaussian rows."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for nq, c, d, n in RERANK_SHAPES:
+        src = torch.randint(-64, 64, (n + 1, d), generator=gen, device=dev,
+                            dtype=torch.int32).float()
+        src[n] = 0.0
+        qf = torch.randint(-64, 64, (nq, d), generator=gen, device=dev,
+                           dtype=torch.int32).float()
+        base = torch.randint(0, (n + 8) // 8, (nq, c // 8), generator=gen,
+                             device=dev) * 8
+        rpos = (base[:, :, None] + torch.arange(8, device=dev)).reshape(nq, c)
+        valid = torch.rand((nq, c), generator=gen, device=dev) >= 0.02
+        args = (qf, src, rpos, valid)
+        before = rr.RERANK_LAUNCHES
+        bitwise(rr.rescore_rows_kernel, rr.rescore_rows_plain, args,
+                f"rescore_rows_kernel (nq, C, d) {(nq, c, d)}")
+        check(rr.RERANK_LAUNCHES == before + 1,
+              f"rescore_rows_kernel {(nq, c, d)}: "
+              f"{rr.RERANK_LAUNCHES - before} launches")
+        timed = time_rerank(args)
+        src.normal_(generator=gen)
+        qf.normal_(generator=gen)
+        got = rr.rescore_rows_kernel(*args)
+        want = rr.rescore_rows_plain(*args)
+        yn = (src * src).sum(1)[torch.clamp(rpos, 0, n)]
+        tol = (4 * d + 8) * 2.0 ** -24 * ((qf * qf).sum(1)[:, None] + yn)
+        fin = torch.isfinite(want)
+        err = float((got - want).abs()[fin].max())
+        check(torch.equal(fin, torch.isfinite(got))
+              and bool(((got - want).abs() <= tol)[fin].all()),
+              f"rescore_rows_kernel {(nq, c, d)}: Gaussian rows off the "
+              f"plain version beyond the f32 summation bound (max {err})")
+        del src, got, want, yn, tol
+        log(f"[{card}] rescore_rows_kernel (R) at (nq, C, d) {(nq, c, d)} "
+            f"over {n + 1} rows, uniform pools: {rerank_line(timed)}; "
+            f"bitwise on integer rows, Gaussian max |diff| {err:.3g} within "
+            "the f32 summation bound")
+        out.append(dict(timed, gaussian_max_abs_err=err))
+    return out
+
+
+@contextlib.contextmanager
+def rerank_path():
+    """The exact rerank on a main path: ``RERANK_LAUNCHES`` at 0 just
+    before it, the route of each rerank counted (and, where it gathers,
+    its engine's source), and each launch of R held against
+    ``rescore_rows_plain`` on its own inputs as it runs: +inf exactly
+    where the plain version has it, elsewhere within the f32 summation
+    bound (4 d + 8) u (qn + yn). The mismatches and the largest
+    difference are kept on the card and read once after the path (so
+    the path's times include the plain version). The inputs of the last
+    launch of each (queries, candidates, d) are kept for
+    :func:`rerank_path_entry`."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    fits, launch = rr.rerank_kernel_fits, rr.rescore_rows_kernel
+    seen = {"routes": collections.Counter(),
+            "gathered": collections.Counter(),
+            "shapes": collections.Counter(), "last": {}, "norms": {},
+            "mismatches": 0, "max_err": 0.0, "launching": False}
+
+    def routing(qf, src):
+        kernel = fits(qf, src)
+        if seen["launching"]:
+            # the launch's own check of the rule, not a rerank
+            return kernel
+        seen["routes"]["kernel" if kernel else "gather"] += 1
+        if not kernel:
+            seen["gathered"]["no source" if src is None else (
+                f"{src.device.type} {src.dtype} {tuple(src.shape)}")] += 1
+        return kernel
+
+    def recording(qf, src, rpos, valid):
+        seen["launching"] = True
+        try:
+            got = launch(qf, src, rpos, valid)
+        finally:
+            seen["launching"] = False
+        shape = (*rpos.shape, src.shape[1])
+        seen["shapes"][shape] += 1
+        seen["last"][shape] = (qf, src, rpos, valid)
+        if not got.numel():
+            return got
+        want = rr.rescore_rows_plain(qf, src, rpos, valid)
+        # the rows' squared norms, once for each state of the rows
+        key = (src.data_ptr(), tuple(src.shape), src._version)
+        if key not in seen["norms"]:
+            seen["norms"] = {key: (src * src).sum(1)}
+        yn = seen["norms"][key][torch.clamp(rpos.long(), 0,
+                                            src.shape[0] - 1)]
+        tol = (4 * src.shape[1] + 8) * 2.0 ** -24 * (
+            (qf * qf).sum(1)[:, None] + yn)
+        fin = torch.isfinite(want)
+        diff = torch.where(fin, (got - want).abs(), 0.0)
+        seen["mismatches"] = seen["mismatches"] + (
+            torch.isfinite(got) != fin).sum() + (diff > tol).sum()
+        seen["max_err"] = torch.maximum(torch.as_tensor(seen["max_err"],
+                                                        device=got.device),
+                                        diff.max())
+        return got
+
+    rr.RERANK_LAUNCHES = 0
+    rr.rerank_kernel_fits = routing
+    rr.rescore_rows_kernel = recording
+    try:
+        yield seen
+    finally:
+        rr.rerank_kernel_fits = fits
+        rr.rescore_rows_kernel = launch
+        seen["norms"].clear()
+
+
+def rerank_path_entry(seen, what, card, kernel=True):
+    """Check what :func:`rerank_path` saw on a path. With ``kernel``: R's
+    launch count equals the reranks routed to it and the launches it
+    recorded, no rerank gathered, and no launch left the plain version's
+    bound; then R is timed (:func:`time_rerank`) on the path's widest
+    pool, the last launch at the most queries. Without it (an engine with
+    no f32 rows): every rerank gathered and R never launched. Returns the
+    counts, the largest difference measured and the timing."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    launches, routes, shapes = (rr.RERANK_LAUNCHES, seen["routes"],
+                                seen["shapes"])
+    recorded = sum(shapes.values())
+    if kernel:
+        check(launches > 0 and launches == routes["kernel"] == recorded
+              and routes["gather"] == 0,
+              f"{what}: {launches} R launches, {routes['kernel']} reranks "
+              f"routed to it, {recorded} recorded, {routes['gather']} "
+              f"gathered ({dict(seen['gathered'])})")
+    else:
+        check(launches == routes["kernel"] == recorded == 0
+              and routes["gather"] > 0,
+              f"{what}: {launches} R launches, {routes['kernel']} reranks "
+              f"routed to it, {routes['gather']} gathered")
+    mismatches = int(seen["mismatches"])
+    err = float(seen["max_err"])
+    check(mismatches == 0, f"{what}: {mismatches} R distances off "
+          "rescore_rows_plain beyond the f32 summation bound")
+    log(f"{what}: R launched {launches} times"
+        + (f", each within the f32 summation bound of rescore_rows_plain "
+           f"(max |kernel - plain| {err:.3g}), by (queries, C, d) "
+           f"{dict(shapes)}" if launches else "")
+        + f"; {routes['gather']} reranks gathered, by source "
+        f"{dict(seen['gathered'])}")
+    out = {"launches": launches, "kernel_calls": routes["kernel"],
+           "recorded": recorded, "gather_calls": routes["gather"],
+           "max_abs_err": err,
+           "by_shape": {"x".join(map(str, k)): v for k, v in shapes.items()}}
+    if kernel:
+        t = time_rerank(seen["last"][max(shapes)])
+        log(f"[{card}] rescore_rows_kernel on the {what}'s widest pool "
+            f"(nq, C, d) {tuple(t['shape'][:3])} over {t['shape'][3]} rows: "
+            f"{rerank_line(t)}")
+        out["timed"] = t
+    return out
+
+
+def rerank_entry(paths, cells, card):
+    """The ``kernels`` entry of R: its launches and the largest difference
+    from the plain version on each path checked by :func:`rerank_path`
+    (``paths``, by path), and its times at the cells' shapes (``cells``,
+    from :func:`rerank_step`; the entry's top level at GIST's)."""
+    check(set(paths) == {"ivf_flat", "gist_width", "ivf_sq", "ivf_pq"},
+          f"rerank paths {sorted(paths)}")
+    top = cells[-1]
+    return {
+        "name": "rescore_rows", "route": "cuda",
+        "source": "raft_tpu_torch/csrc/rerank.cu",
+        "replaces": "none (score_l2_candidates in jnp, fused by XLA)",
+        "entry": "rerank.rescore_rows_kernel",
+        "launches": sum(p["launches"] for p in paths.values()),
+        "paths": paths,
+        "max_abs_err": max([p["max_abs_err"] for p in paths.values()]
+                           + [c["gaussian_max_abs_err"] for c in cells]),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "bound_distinct_ms": top["bound_distinct_ms"],
+        "library_ms": top["library_ms"], "shape": top["shape"],
+        "cells": cells, "card": card,
+    }
+
+
 @contextlib.contextmanager
 def select_k_path():
     """``top_k_smallest`` on a main path: ``SELECT_K_LAUNCHES`` at 0 just
@@ -5909,11 +6180,12 @@ def pq_phase(args, card, dev, data):
             kernel_calls(pk, "pq_lut_rows", lambda a: a[4].shape[0],
                          lut_keep), \
             impl_calls("ivf_pq", lut_keep) as searches, \
-            select_k_path() as selected:
+            select_k_path() as selected, rerank_path() as reranked:
         index, _ = quantized_path("pq", x, qb, true, rng, card, dev)
     launches = pk.LAUNCHES
     select_k = select_k_path_entry(selected, "IVF-PQ main path", card)
-    del selected
+    reranks = rerank_path_entry(reranked, "IVF-PQ main path", card)
+    del selected, reranked
     lut_launches = pk.LUT_LAUNCHES
     lut["launches"] = lut_launches
     log(f"pq path: pq_adc_lists launched {launches} times, by (Q, M*K, "
@@ -6065,6 +6337,7 @@ def pq_phase(args, card, dev, data):
         "sharded": snums,
         "lut": lut,
         "select_k_path": select_k,
+        "rerank_path": reranks,
     }
 
 
@@ -7879,6 +8152,16 @@ def main(argv=None) -> int:
         {e["name"]: e.pop("select_k_path") for e in kernels
          if "select_k_path" in e}, cells, card))
     t0 = time.perf_counter()
+    cells = rerank_step(card, dev, args.seed)
+    log(f"rerank step: {time.perf_counter() - t0:.1f} s")
+    paths = {e["name"]: e.pop("rerank_path") for e in kernels
+             if "rerank_path" in e}
+    kernels.append(rerank_entry(
+        {"ivf_flat": paths["flat_scan_subchunk_min"],
+         "gist_width": flat["wide_rows"].pop("rerank_path"),
+         "ivf_sq": paths["sq_scan_subchunk_min"],
+         "ivf_pq": paths["pq_adc_subchunk_min"]}, cells, card))
+    t0 = time.perf_counter()
     lockcheck_phase(args, card, dev)
     log(f"lock-tracer phase: {time.perf_counter() - t0:.1f} s")
     # the library phase's facade brute force and the linkage phase's kNN
@@ -7895,8 +8178,8 @@ def main(argv=None) -> int:
                 entry["name"]]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    check(len(kernels) == 9 and all(keys <= set(k) for k in kernels),
-          "the kernels line needs all nine kernels with every key")
+    check(len(kernels) == 10 and all(keys <= set(k) for k in kernels),
+          "the kernels line needs all ten kernels with every key")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,13 @@ a query-major pool whose top is selected. The body owns the phases, their
 order and their ranges (:mod:`.search_obs`); an :class:`Engine` supplies
 what is its own. Its kernel form scans lists in place with a hand-written
 CUDA kernel (its plain version on the CPU) into 8-row sub-chunk minima,
-whose rows are rescored in exact f32; its legacy form scores rows in
-plain PyTorch. The engines: :class:`FlatEngine` (bf16 rows; the two-level
-coarse probe scans its member blocks with it), ``ivf_sq.SQEngine`` (int8
-codes) and ``ivf_pq.PQEngine`` (PQ codes and LUTs). :func:`resolve_kernel`
-is the one ``use_kernel`` rule of the three.
+whose rows are rescored in exact f32 (:func:`_rerank`: R, :mod:`.rerank`,
+reads them in place where the engine names its f32 rows); its legacy form
+scores rows in plain PyTorch. The engines: :class:`FlatEngine` (bf16
+rows; the two-level coarse probe scans its member blocks with it),
+``ivf_sq.SQEngine`` (int8 codes) and ``ivf_pq.PQEngine`` (PQ codes and
+LUTs). :func:`resolve_kernel` is the one ``use_kernel`` rule of the
+three.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from raft_tpu_torch import errors
 from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import full_f32, hopper_device
-from raft_tpu_torch.spatial.ann import flat_kernel, search_obs
+from raft_tpu_torch.spatial.ann import flat_kernel, rerank, search_obs
 from raft_tpu_torch.spatial.ann.common import (
     coarse_probe,
     invert_probe_map_ranked,
@@ -48,8 +50,8 @@ __all__ = [
 
 logger = logging.getLogger("raft_tpu_torch")
 
-# the kernel engines' exact-rescore candidate gather per query block, at
-# most (bytes)
+# the exact rescore's candidate gather per query block on the gather route
+# (:func:`_rerank`), at most (bytes)
 RERANK_BLOCK_BYTES = 256 << 20
 
 # partials past this many bytes, materialized as (n_lists, qcap, width),
@@ -211,7 +213,9 @@ class Engine:
     pos)`` (list block ``lblk``'s (LB, qcap, L) squared distances of its
     slots' queries ``qids`` to the rows at slab positions ``pos``, before
     masking); and ``rows(pos)``, the f32 rows at slab positions ``pos``
-    for the exact rescore."""
+    for the exact rescore. ``rerank_source()`` names the (n + 1, d) f32
+    rows the rescore may read in place instead (R, :mod:`.rerank`), or
+    None: the rows must be gathered through ``rows``."""
 
     name = label = ""     # search_obs / ENGINE_FALLBACKS key; in warnings
     rescore = False
@@ -231,6 +235,10 @@ class Engine:
 
     def tables(self, b: Batch, sel, ctx):
         """The piece's LUT rows (an engine with ``lut_stage``)."""
+        return None
+
+    def rerank_source(self):
+        """The rows the exact rescore may read in place, or None."""
         return None
 
 
@@ -295,6 +303,9 @@ class FlatEngine(Engine):
 
     def rows(self, pos):
         return self.data[pos].float()
+
+    def rerank_source(self):
+        return self.data
 
 
 def _list_blocks(b: Batch, list_block: int):
@@ -419,7 +430,6 @@ def search(engine: Engine, q, k: int, n_probes: int, qcap: int,
     storage = engine.storage
     n_lists = storage.list_index.shape[0]
     qf = q.float().contiguous()
-    nq, d = qf.shape
     if probes is None:
         with annotate("ivf.probe"):
             probes, _ = coarse_probe(qf, engine.centroids, n_probes)
@@ -463,15 +473,7 @@ def search(engine: Engine, q, k: int, n_probes: int, qcap: int,
                 valid = valid & (
                     row_mask[torch.clamp(rpos, 0, storage.n)] > 0)
 
-        def rescore_block(args):
-            qb, rp, vl = args
-            raw = engine.rows(torch.clamp(rp, 0, storage.n))
-            exact = score_l2_candidates(qb, raw, vl & (rp < storage.n))
-            return select_candidates(storage, rp, exact, k)
-
-        blk_q = max(8, min(nq, RERANK_BLOCK_BYTES // (c * SUBCHUNK * d * 4)))
-        with annotate("ivf.rerank"):
-            return map_query_blocks(rescore_block, (qf, rpos, valid), blk_q)
+        return _rerank(engine, qf, rpos, valid, k)
 
     pv, pm = _legacy_pool(engine, b, width, stream_partials, list_block,
                           row_mask)
@@ -483,7 +485,37 @@ def search(engine: Engine, q, k: int, n_probes: int, qcap: int,
     with annotate("ivf.pool"):
         top, cpos = top_k_smallest(pv, c)                    # (nq, c)
         rpos = torch.gather(pm, 1, cpos)
+    return _rerank(engine, qf, rpos, torch.isfinite(top), k)
+
+
+def _rerank(engine: Engine, qf, rpos, valid, k: int):
+    """The exact f32 rescore of the pool's candidates, the (nq, C) slab
+    positions ``rpos`` where ``valid``, and their top ``k``: one launch of
+    R over the engine's rows in place where
+    :func:`~.rerank.rerank_kernel_fits` holds for its ``rerank_source()``,
+    else the rows gathered (``engine.rows``) in query blocks whose gather
+    stays under ``RERANK_BLOCK_BYTES``. Each call is counted by its route
+    in ``ivf_rerank_calls_total`` (:func:`.search_obs.rerank`)."""
+    storage = engine.storage
+    src = engine.rerank_source()
+    kernel = rerank.rerank_kernel_fits(qf, src)
+    search_obs.rerank(engine.name, kernel)
     with annotate("ivf.rerank"):
-        exact = score_l2_candidates(
-            qf, engine.rows(rpos), torch.isfinite(top) & (rpos < storage.n))
-        return select_candidates(storage, rpos, exact, k)
+        if kernel:
+            errors.expects(
+                src.shape[0] == storage.n + 1,
+                "%s: rerank_source() has %d rows, not the %d of its "
+                "storage and the sentinel", engine.label, src.shape[0],
+                storage.n + 1)
+            exact = rerank.rescore_rows_kernel(qf, src, rpos, valid)
+            return select_candidates(storage, rpos, exact, k)
+
+        def block(args):
+            qb, rp, vl = args
+            raw = engine.rows(torch.clamp(rp, 0, storage.n))
+            exact = score_l2_candidates(qb, raw, vl & (rp < storage.n))
+            return select_candidates(storage, rp, exact, k)
+
+        nq, c = rpos.shape
+        blk_q = max(8, min(nq, RERANK_BLOCK_BYTES // (c * qf.shape[1] * 4)))
+        return map_query_blocks(block, (qf, rpos, valid), blk_q)

@@ -543,6 +543,11 @@ class PQEngine(grouped.Engine):
     def rows(self, pos):
         return _gather_refine_rows(self.index, self.refine_dataset, pos)
 
+    def rerank_source(self):
+        # the stored list-sorted rows; a caller's refine_dataset is by
+        # original id, so its rows are gathered
+        return self.index.vectors_sorted
+
 
 @search_obs.entry("ivf_pq")
 def ivf_pq_search_grouped(

@@ -212,6 +212,10 @@ class SQEngine(grouped.FlatEngine):
     def rows(self, pos):
         return sq_decode(self.data[pos].float(), self.vmin, self.vscale)
 
+    def rerank_source(self):
+        # int8 codes, decoded a row at a time: the rows are gathered
+        return None
+
 
 def ivf_sq_search_grouped(
     index: IVFSQIndex, queries, k: int, *, n_probes: int = 8,

@@ -41,6 +41,12 @@ and ``RAFT_TPU_OBS`` gates them as it gates every series:
   ``None``, which ``grouped.ENGINE_FALLBACKS`` reads; ``pinned``:
   ``False``; ``host``: a CPU index under ``None``; ``unrefined``: an
   IVF-PQ search without the refine tail);
+* ``ivf_rerank_calls_total{engine,route}`` — each exact rerank of a
+  grouped search by the route :func:`~.rerank.rerank_kernel_fits` picks,
+  always recorded: ``route="kernel"`` (R, one launch over the batch's
+  rows in place) or ``route="gather"`` (the rows gathered in query
+  blocks: the CPU, an engine without an f32 source, a shape R does not
+  take);
 * ``ivf_search_pairs_total{engine}`` and
   ``ivf_search_pairs_dropped_total{engine}`` — the (query, probe) pairs
   of a search and those past ``qcap`` (``slot >= qcap``), counted only
@@ -60,7 +66,7 @@ from typing import Callable, Iterator
 from raft_tpu_torch.core.annotate import annotate, ranges_on
 from raft_tpu_torch.obs import metrics as _metrics
 
-__all__ = ["count_pairs", "entry", "host_sync", "scan_form",
+__all__ = ["count_pairs", "entry", "host_sync", "rerank", "scan_form",
            "scan_forms", "uncounted"]
 
 SCAN_FORMS = "ivf_search_scan_form_total"
@@ -106,6 +112,12 @@ def scan_form(engine: str, kernel: bool, reason: str) -> None:
     ``reason``."""
     _counter(SCAN_FORMS, engine=engine,
              form="kernel" if kernel else "legacy", reason=reason).inc()
+
+
+def rerank(engine: str, kernel: bool) -> None:
+    """Count one exact rerank of ``engine`` on its route."""
+    _counter("ivf_rerank_calls_total", engine=engine,
+             route="kernel" if kernel else "gather").inc()
 
 
 def scan_forms(engine: str, form: str, reason=None) -> int:

@@ -9,6 +9,7 @@ JAX package, so it runs on a machine with the card alone:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -2074,3 +2075,195 @@ def test_select_k_kernel_edges_and_routes_on_card():
         assert sorts() == sorted_before + 5
     finally:
         metrics.set_enabled(prev)
+
+
+# R at the cells' widths (DEEP-10M 96, SIFT 128, GIST-1M 960) and one off
+# the 16-byte loads
+_RERANK_WIDTHS = (96, 128, 960, 97)
+
+
+def _rerank_pool(rng, n, nq, c, l_pad=64):
+    """(nq, c * 8) slab positions and their mask as the kernel engines'
+    pool gives them (``common.subchunk_pool_rows``): 8-row sub-chunks of
+    ragged lists' windows, clamped at the slab's end, so a window
+    overhangs into the next list or past the sentinel; a tenth of the
+    sub-chunks masked, a tenth of the rows tombstoned, and a few rows at
+    or past the sentinel marked valid (the rerank must still refuse
+    them)."""
+    cuts = np.sort(rng.choice(np.arange(1, n), 40, replace=False))
+    offsets = np.concatenate([[0], cuts, [n]])
+    sizes = np.diff(offsets)
+    # a slab padded a sub-chunk past the sentinel
+    rows_pad = max(n + 1, l_pad) + 8
+    lists = rng.integers(0, sizes.size, (nq, c))
+    chunks = rng.integers(0, l_pad // 8, (nq, c))
+    origin = np.minimum(offsets[lists], rows_pad - l_pad)
+    # the last list's window clamped at the slab's end, its last chunks
+    lists[0, :4] = sizes.size - 1
+    origin[0, :4] = rows_pad - l_pad
+    chunks[0, :4] = np.arange(l_pad // 8 - 4, l_pad // 8)
+    base = origin + 8 * chunks
+    rpos = base[:, :, None] + np.arange(8)
+    off = offsets[lists][:, :, None]
+    valid = ((rpos >= off) & (rpos < off + sizes[lists][:, :, None])
+             & (rng.random((nq, c, 1)) < 0.9)
+             & (rng.random((nq, c, 8)) < 0.9))
+    valid |= rpos >= n
+    return (torch.as_tensor(rpos.reshape(nq, c * 8)),
+            torch.as_tensor(valid.reshape(nq, c * 8)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", _RERANK_WIDTHS)
+def test_rerank_kernel_matches_plain_version(d):
+    """On a Hopper card: R (``rerank.rescore_rows_kernel``, one launch)
+    against its plain version (``score_l2_candidates`` over the gathered
+    rows) — bitwise on integer-valued rows, within the f32 summation
+    bound on Gaussian ones — with masked sub-chunks, windows overhanging
+    into the next list and past the sentinel, tombstoned rows,
+    valid-marked rows at or past the sentinel (+inf), a ragged last
+    candidate tile, rows off 16-byte alignment (the 4-byte loads) and a
+    batch of one."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    dev = _hopper()
+    rng = np.random.default_rng(d)
+    n, nq, c = 6000, 37, 40
+    rpos, valid = _rerank_pool(rng, n, nq, c)
+    rpos, valid = rpos.to(dev), valid.to(dev)
+    dead = ~valid | (rpos >= n)
+    assert dead.any() and (~dead).any() and (valid & (rpos >= n)).any()
+    for integer in (True, False):
+        if integer:
+            src = rng.integers(-64, 64, (n + 1, d))
+            q = rng.integers(-64, 64, (nq, d))
+        else:
+            src = rng.standard_normal((n + 1, d))
+            q = rng.standard_normal((nq, d))
+        src[n] = 0
+        st = torch.as_tensor(src, dtype=torch.float32, device=dev)
+        qt = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        before = rr.RERANK_LAUNCHES
+        got = rr.rescore_rows_kernel(qt, st, rpos, valid)
+        assert rr.RERANK_LAUNCHES == before + 1
+        want = rr.rescore_rows_plain(qt, st, rpos, valid)
+        torch.cuda.synchronize()
+        assert torch.isinf(got[dead]).all() and torch.isinf(want[dead]).all()
+        if not integer:
+            qn = (qt * qt).sum(1)[:, None]
+            yn = (st * st).sum(1)[torch.clamp(rpos, 0, n)]
+            err = (got - want).abs()[~dead]
+            assert (err <= _f32_sum_tol(d, qn, yn)[~dead]).all(), \
+                float(err.max())
+            continue
+        assert torch.equal(got, want), d
+        buf = torch.zeros((n + 1) * d + 1, device=dev)
+        skew = buf[1:].view(n + 1, d)
+        skew.copy_(st)
+        assert torch.equal(rr.rescore_rows_kernel(qt, skew, rpos, valid),
+                           want)
+        one = rr.rescore_rows_kernel(qt[3:4], st, rpos[3:4, :100],
+                                     valid[3:4, :100])
+        assert torch.equal(one, want[3:4, :100])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("less", [0, 1])
+def test_rerank_kernel_at_its_widest_rows(less):
+    """On a Hopper card: R at the widest rows the route admits
+    (``RERANK_MAX_D``, 16-byte loads, and one less, 4-byte loads), whose
+    query row and norm pass the 48 KB of shared memory a block has by
+    default: the route takes them, and the kernel launches and gives its
+    plain version's bits on integer-valued rows (every sum under 2^24)."""
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    dev = _hopper()
+    d = rr.RERANK_MAX_D - less
+    rng = np.random.default_rng(d)
+    n, nq, c = 700, 5, 24
+    rpos, valid = _rerank_pool(rng, n, nq, c)
+    rpos, valid = rpos.to(dev), valid.to(dev)
+    src = torch.as_tensor(rng.integers(-16, 17, (n + 1, d)),
+                          dtype=torch.float32, device=dev)
+    src[n] = 0
+    qt = torch.as_tensor(rng.integers(-16, 17, (nq, d)), dtype=torch.float32,
+                         device=dev)
+    assert rr.rerank_kernel_fits(qt, src)
+    before = rr.RERANK_LAUNCHES
+    got = rr.rescore_rows_kernel(qt, src, rpos, valid)
+    want = rr.rescore_rows_plain(qt, src, rpos, valid)
+    torch.cuda.synchronize()
+    assert rr.RERANK_LAUNCHES == before + 1
+    assert torch.isfinite(want).any()
+    assert torch.equal(got, want), d
+
+
+def _ids_up_to_ties(dists, i0, i1):
+    """ids equal except inside equal-distance runs, where each interior
+    run holds the same id set (the run cut by the k-th place is checked
+    by distance alone): the grouped tests' rule."""
+    dists, i0, i1 = dists.cpu(), i0.cpu(), i1.cpu()
+    for r in range(dists.shape[0]):
+        start, k = 0, dists.shape[1]
+        for end in range(1, k + 1):
+            if end == k or dists[r, end] != dists[r, start]:
+                if end < k or start == 0:
+                    assert set(i0[r, start:end].tolist()) == \
+                        set(i1[r, start:end].tolist()), r
+                start = end
+
+
+def _reranks(engine):
+    from raft_tpu_torch.obs import default_registry
+
+    return {c.labels["route"]: c.value
+            for c in default_registry().series("ivf_rerank_calls_total")
+            if c.labels["engine"] == engine}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 960])
+def test_grouped_search_rerank_routes_agree_on_card(d, monkeypatch):
+    """On a Hopper card, a DEEP-like (d = 96: IVF-Flat and IVF-PQ with its
+    stored rows) and a GIST-like (d = 960: IVF-Flat) grouped search of
+    integer-valued rows rerank by R, one launch a search counted under
+    ``route="kernel"``, and return what the gather route returns (the
+    rule forced off): the distances bit for bit, the ids up to ties."""
+    from raft_tpu_torch.spatial.ann import (
+        IVFFlatParams, IVFPQParams, ivf_flat_build, ivf_flat_search_grouped,
+        ivf_pq_build, ivf_pq_search_grouped)
+    from raft_tpu_torch.spatial.ann import rerank as rr
+
+    dev = _hopper()
+    g = torch.Generator(device=dev).manual_seed(d)
+    centres = torch.randint(-6, 7, (16, d), generator=g, device=dev).float()
+    x = centres[torch.randint(0, 16, (8192,), generator=g, device=dev)]
+    x = x + torch.randint(-3, 4, x.shape, generator=g, device=dev).float()
+    q = x[:256] + torch.randint(-2, 3, (256, d), generator=g,
+                                device=dev).float()
+    searches = {"ivf_flat": functools.partial(
+        ivf_flat_search_grouped,
+        ivf_flat_build(x, IVFFlatParams(n_lists=64, seed=0), device=dev),
+        q, 10, n_probes=8, qcap=64)}
+    if d == 96:
+        pq = ivf_pq_build(x, IVFPQParams(n_lists=64, pq_dim=24, pq_bits=8),
+                          device=dev)
+        searches["ivf_pq"] = functools.partial(
+            ivf_pq_search_grouped, pq, q, 10, n_probes=8, qcap=64,
+            refine_ratio=4.0)
+    for engine, search in searches.items():
+        routes, launches = _reranks(engine), rr.RERANK_LAUNCHES
+        dk, ik = search()
+        torch.cuda.synchronize()
+        assert rr.RERANK_LAUNCHES == launches + 1, engine
+        after = _reranks(engine)
+        assert after["kernel"] == routes.get("kernel", 0) + 1
+        assert after.get("gather", 0) == routes.get("gather", 0)
+        with monkeypatch.context() as m:
+            m.setattr(rr, "rerank_kernel_fits", lambda qf, src: False)
+            dg, ig = search()
+        torch.cuda.synchronize()
+        assert rr.RERANK_LAUNCHES == launches + 1
+        assert _reranks(engine)["gather"] == after.get("gather", 0) + 1
+        assert torch.equal(dk, dg), engine
+        _ids_up_to_ties(dk, ik, ig)

@@ -111,7 +111,7 @@ def _above(name: str, forbidden) -> bool:
 @pytest.mark.parametrize("module,forbidden", [
     (m, ("grouped", "coarse") + ABOVE_GROUPED)
     for m in ("scan_core", "flat_kernel", "sq_kernel", "pq_kernel",
-              "common")
+              "rerank", "common")
 ] + [
     ("grouped", ("coarse",) + ABOVE_GROUPED),
     ("coarse", ABOVE_GROUPED),
