@@ -6949,13 +6949,37 @@ def graph_path(x, qb, true, rng, card, dev, keep):
         return dict(fz.LAUNCHES, gather_rescores=fz.RESCORE_GATHER_CALLS)
 
     fused0 = fused_counts()
-    t0 = time.perf_counter()
-    index = graph_build(x, GraphParams(
-        degree=GRAPH_DEGREE, intermediate_degree=2 * GRAPH_DEGREE,
-        n_entry=GRAPH_ENTRIES, seed=0), metric="sqeuclidean", device=dev)
-    sync(dev)
-    build_s = time.perf_counter() - t0
+    # the patch's inputs, to hold its device form against the plain one
+    patch_in = []
+    device_patch = gmod._patch_reachability
+
+    def kept_patch(adj, entries, xf, *a, **kw):
+        patch_in.append((adj.clone(), np.array(entries)))
+        return device_patch(adj, entries, xf, *a, **kw)
+
+    gmod._patch_reachability = kept_patch
+    try:
+        t0 = time.perf_counter()
+        index = graph_build(x, GraphParams(
+            degree=GRAPH_DEGREE, intermediate_degree=2 * GRAPH_DEGREE,
+            n_entry=GRAPH_ENTRIES, seed=0), metric="sqeuclidean", device=dev)
+        sync(dev)
+        build_s = time.perf_counter() - t0
+    finally:
+        gmod._patch_reachability = device_patch
     st = index.build_stats
+    (adj0, entries0), = patch_in
+    t0 = time.perf_counter()
+    want_adj, want_st = gmod._patch_reachability_plain(
+        adj0, entries0, index.data_padded[:-1])
+    plain_s = time.perf_counter() - t0
+    same = (torch.equal(want_adj, index.storage.adjacency[:-1])
+            and want_st == {k: st[k] for k in want_st})
+    log(f"[{card}] graph patch: the device form ({st['patch_s']:.2f} s) "
+        f"against its plain version ({plain_s:.2f} s): adjacency and counts "
+        f"{'equal' if same else 'DIFFER'}")
+    check(same, "the device patch differs from its plain version")
+    del adj0, want_adj, patch_in
     fused = {k: v - fused0[k] for k, v in fused_counts().items()}
     adj = index.storage.adjacency.cpu().numpy()
     n_reach = reachable(adj[:-1], index.storage.entries.cpu().numpy())
@@ -7132,18 +7156,17 @@ def graph_phase(args, card, dev, data):
     qb = torch.as_tensor(q_np, device=dev)
     keep = {}
     gk.LAUNCHES = 0
-    gmod.ENGINE_FALLBACKS = 0
+    fallbacks0 = gmod.ENGINE_FALLBACKS
     with kernel_calls(gk, "beam_scan_score", beam_key) as shapes:
         out = graph_path(x, qb, true, rng, card, dev, keep)
     launches = gk.LAUNCHES
+    fallbacks = gmod.ENGINE_FALLBACKS - fallbacks0
     log(f"graph path: beam_scan_score launched {launches} times, by "
-        f"(queries, Cpad): {dict(shapes)}; ENGINE_FALLBACKS "
-        f"{gmod.ENGINE_FALLBACKS}")
+        f"(queries, Cpad): {dict(shapes)}; ENGINE_FALLBACKS {fallbacks}")
     check(launches > 0, "the graph path never launched beam_scan_score")
     check(launches == sum(shapes.values()),
           "beam_scan launches outside beam_scan_score on the graph path")
-    check(gmod.ENGINE_FALLBACKS == 0,
-          f"{gmod.ENGINE_FALLBACKS} graph searches left the kernel")
+    check(fallbacks == 0, f"{fallbacks} graph searches left the kernel")
 
     # the kernel against its plain version on the path's own inputs: every
     # round of one 4,096-query search per beam and of one nq = 1 search
@@ -7183,6 +7206,20 @@ def graph_phase(args, card, dev, data):
     deg32 = (qb, index.data_padded, ids32, full, index.n)
     errs.append(compare_beam_score(deg32, "beam_scan_score at degree 32"))
     timed["degree32"] = time_beam(*deg32) + beam_bound(ids32, DIM)
+    del deg32, ids32
+    # the sift1m-graph cell's launch: 10,000 queries x 2,048 candidates
+    # (beam 32 x degree 64) of width 128 over 1M rows, random ids
+    tbl = torch.randn((SIFT_ROWS + 1, SIFT_DIM), generator=gen, device=dev)
+    tbl[SIFT_ROWS] = 1e15
+    q128 = torch.randn((SIFT_QUERIES, SIFT_DIM), generator=gen, device=dev)
+    ids64 = torch.randint(0, SIFT_ROWS, (SIFT_QUERIES, 2048), generator=gen,
+                          device=dev, dtype=torch.int32)
+    full = torch.tensor([[0, 2048]], dtype=torch.int32,
+                        device=dev).expand(SIFT_QUERIES, 2).contiguous()
+    deg64 = (q128, tbl, ids64, full, SIFT_ROWS)
+    errs.append(compare_beam_score(deg64, "beam_scan_score at degree 64"))
+    timed["degree64_d128"] = time_beam(*deg64) + beam_bound(ids64, SIFT_DIM)
+    del deg64, ids64, tbl, q128
     for shp, (ms, plain_ms, library_ms, mins_ms, bound_ms, bound_by,
               distinct, no_reuse_ms) in timed.items():
         log(f"[{card}] beam_scan_score {shp} (queries, Cpad), "

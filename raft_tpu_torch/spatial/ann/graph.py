@@ -6,11 +6,14 @@ of ``raft_tpu/spatial/ann/graph.py`` (CAGRA-style; docs/graph_ann.md).
 degree-bounded occlusion prune, a reachability patch from seeded entry
 points, and a static ``(n + 1, degree)`` int32 adjacency padded with
 ``-1`` (the extra row is the sentinel node's). The JAX package runs the
-prune and the patch in numpy on the host; the port runs the prune in
-torch on the index's device, blocked over rows, and the patch's
-distances there too. Their results follow the JAX rules step for step;
-on generic data the order of f32 sums may differ from numpy's, which
-can flip a comparison that is tied to within a few ulp.
+prune and the patch in numpy on the host; the port runs both in torch on
+the index's device: the prune blocked over rows, the patch a round at a
+time (candidates from a gram-form GEMM, certified against the f32 error
+bound and re-scored exactly, the claims resolved at once by deferred
+acceptance), bitwise its plain host-driven version
+:func:`_patch_reachability_plain`. Their results follow the JAX rules
+step for step; on generic data the order of f32 sums may differ from
+numpy's, which can flip a comparison that is tied to within a few ulp.
 
 **Search** (:func:`graph_search`): the JAX package's one jitted program
 becomes an eager loop of ``iters`` rounds over a fixed-width pool of
@@ -50,14 +53,16 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import errors
+from raft_tpu_torch.core.annotate import annotate
 from raft_tpu_torch.core.device import (
     as_tensor, full_f32, hopper_device, resolve_device,
 )
 from raft_tpu_torch.distance.pairwise import relu0, sqrt_f64
 from raft_tpu_torch.spatial.ann import graph_kernel as gk
+from raft_tpu_torch.spatial.ann import search_obs
 from raft_tpu_torch.spatial.ann.common import score_l2_candidates
 from raft_tpu_torch.spatial.ann.scan_core import LANE, SUBCHUNK, round_up
-from raft_tpu_torch.spatial.selection import top_k_smallest
+from raft_tpu_torch.spatial.selection import SELECT_K_MAX_ROW, top_k_smallest
 
 __all__ = [
     "GraphParams", "GraphStorage", "GraphIndex", "graph_build",
@@ -74,10 +79,18 @@ _SENTINEL_VAL = 1e15
 # Knuth multiplicative hash constant (2^32 / phi) for the visited table.
 _HASH_MULT = 2654435761
 
-# searches of a CUDA index that use_kernel=None sent to the exact engine
-# because the kernel cannot serve them
-ENGINE_FALLBACKS = 0
 _fallback_reasons_warned: set = set()
+
+
+def __getattr__(name: str):
+    # ENGINE_FALLBACKS: searches of a CUDA index that use_kernel=None sent
+    # to the exact engine because the kernel cannot serve them, read from
+    # the exact/fallback series of graph_search_engine_total (search_obs),
+    # never kept apart
+    if name == "ENGINE_FALLBACKS":
+        return search_obs.graph_engines("exact", "fallback")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class GraphParams:
@@ -143,9 +156,12 @@ class GraphIndex:
         it = _auto_iters(self.n) if iters is None else iters
         q0 = torch.zeros((nq, self.data_padded.shape[1]),
                          dtype=torch.float32, device=self.device)
-        graph_search(self, q0, k, beam=beam, iters=it, hash_bits=hash_bits,
-                     row_mask=graph_live_mask(self) if with_mask else None,
-                     use_kernel=use_kernel)
+        with search_obs.uncounted():
+            graph_search(self, q0, k, beam=beam, iters=it,
+                         hash_bits=hash_bits,
+                         row_mask=graph_live_mask(self) if with_mask
+                         else None,
+                         use_kernel=use_kernel)
         _sync(self.device)
         return it
 
@@ -174,10 +190,13 @@ def _resolve_beam_engine(use_kernel, d: int, c: int,
     engine elsewhere; a CUDA index sent to the exact engine is counted in
     ``ENGINE_FALLBACKS`` and warned about once per reason. ``True``: the
     kernel engine, raising with the unmet requirement (on a CPU index it
-    runs the scan's plain version). ``False``: the exact engine."""
+    runs the scan's plain version). ``False``: the exact engine. Every
+    call counts its choice, and why, in ``graph_search_engine_total``
+    (:func:`.search_obs.graph_engine`)."""
     c_pad = round_up(c, LANE)
     if use_kernel is None:
         if device.type != "cuda":
+            search_obs.graph_engine("exact", "host")
             return False
         if not gk.beam_scan_supported(d, c_pad):
             reason = (f"d={d} does not fit the beam kernel's shared-memory "
@@ -185,9 +204,9 @@ def _resolve_beam_engine(use_kernel, d: int, c: int,
         elif not hopper_device(device):
             reason = f"{device} is not a capability-9.0 (Hopper) card"
         else:
+            search_obs.graph_engine("kernel", "auto")
             return True
-        global ENGINE_FALLBACKS
-        ENGINE_FALLBACKS += 1
+        search_obs.graph_engine("exact", "fallback")
         if reason not in _fallback_reasons_warned:
             _fallback_reasons_warned.add(reason)
             logger.warning(
@@ -207,6 +226,7 @@ def _resolve_beam_engine(use_kernel, d: int, c: int,
             "use_kernel=True needs a capability-9.0 (Hopper) CUDA device "
             "for the sm_90a kernel; %s is not one", device,
         )
+    search_obs.graph_engine("kernel" if use_kernel else "exact", "pinned")
     return bool(use_kernel)
 
 
@@ -394,13 +414,14 @@ def _nearest_order(xf, us, rows, top: int):
     return order.cpu().numpy()
 
 
-def _patch_reachability(adj: torch.Tensor, entries: np.ndarray,
-                        xf: torch.Tensor, top: int = 64):
-    """Make every row reachable from the seeded entries, as the JAX
-    package does: each unreached row (ascending) overwrites the last
-    unclaimed adjacency slot of its nearest reached row with an edge to
-    it; then re-BFS and repeat, since new edges cascade (and overwritten
-    ones can cut rows off). Each slot is claimed at most once.
+def _patch_reachability_plain(adj: torch.Tensor, entries: np.ndarray,
+                              xf: torch.Tensor, top: int = 64):
+    """Plain version of :func:`_patch_reachability`. Make every row
+    reachable from the seeded entries, as the JAX package does: each
+    unreached row (ascending) overwrites the last unclaimed adjacency
+    slot of its nearest reached row with an edge to it; then re-BFS and
+    repeat, since new edges cascade (and overwritten ones can cut rows
+    off). Each slot is claimed at most once.
 
     The JAX package scans every reached row in distance order per
     unreached row. The same choice — the nearest reached row that still
@@ -459,6 +480,218 @@ def _patch_reachability(adj: torch.Tensor, entries: np.ndarray,
         patch_misses=misses)
 
 
+# The patch on the index's device. The plain rule is a serial
+# dictatorship: each unreached row, in ascending order, takes the nearest
+# reached row that still has a slot. Every row ranks its claimants the
+# same way (lower id first), so the outcome is also the one stable
+# assignment, which deferred acceptance reaches with all claimants
+# proposing at once: each proposes to the next row of its list, each row
+# keeps its lowest-id proposers up to its free slots and turns the rest
+# away. A claimant's list is a prefix of its exact order over the rows
+# that could still take it, chosen from a gram-form GEMM and certified
+# against the f32 error bound (_patch_lists).
+
+# the certification margin is this times (d + 4) (‖u‖² + max ‖f‖²): twice
+# the f32 error of a d-term gram form and of the difference form together
+_PATCH_MARGIN = 8.0 * 2.0 ** -24
+
+
+def _reached_on(adj: torch.Tensor, entries: torch.Tensor) -> torch.Tensor:
+    """:func:`_reached` on ``adj``'s device: a boolean tensor."""
+    seen = torch.zeros(adj.shape[0], dtype=torch.bool, device=adj.device)
+    seen[entries] = True
+    frontier = entries
+    while frontier.numel():
+        nxt = adj[frontier].reshape(-1).long()
+        nxt = nxt[nxt >= 0]
+        nxt = torch.unique(nxt[~seen[nxt]])
+        seen[nxt] = True
+        frontier = nxt
+    return seen
+
+
+def _group_rank(keys: torch.Tensor) -> torch.Tensor:
+    """Position of each entry of the sorted ``keys`` within its run of
+    equal keys."""
+    ar = torch.arange(keys.numel(), device=keys.device)
+    start = torch.ones_like(keys, dtype=torch.bool)
+    start[1:] = keys[1:] != keys[:-1]
+    return ar - torch.cummax(torch.where(start, ar, 0), 0).values
+
+
+def _patch_lists(xf, norms, us, ranks, free, closed_full, closed_maxh,
+                 top: int, budget: int):
+    """Candidate lists of the unreached rows ``us`` (their claim ranks
+    ``ranks``): positions into ``free`` of the rows each may claim, in the
+    plain rule's order (squared distance in the difference form of
+    :func:`_nearest_order`, then id), -1 padded; and the list lengths.
+
+    A row is closed to ``u`` when all its free slots are held by lower
+    ranks (``closed_full`` and ``closed_maxh`` < rank): it would turn u
+    away, so it is left out. The gram form ‖u‖² + ‖f‖² − 2 u·f (TF32 off)
+    picks the ``top`` nearest open rows a claimant, selected a tile of at
+    most the selection kernel's row cap (``SELECT_K_MAX_ROW``) at a time
+    and merged; they are re-scored exactly and kept where the exact
+    distance lies below the ``top``-th gram value less the error margin,
+    below which no row left out can fall. A claimant left with an empty
+    list (near-ties across the margin) is scored exactly against every
+    open row."""
+    dev = xf.device
+    n_free, d = free.numel(), xf.shape[1]
+    k = min(top, n_free)
+    fx = xf[free]
+    fn = norms[free]
+    width = min(n_free, SELECT_K_MAX_ROW)
+    rows = max(1, budget // (12 * width + 8 * k * d))
+    out = torch.full((us.numel(), k), -1, dtype=torch.int32, device=dev)
+    lens = torch.zeros(us.numel(), dtype=torch.int64, device=dev)
+    # rows closed to a claimant of rank r: the full ones whose highest
+    # holder ranks below r
+    full_maxh = torch.sort(closed_maxh[closed_full]).values
+    n_open = n_free - torch.searchsorted(full_maxh, ranks)
+    margin = _PATCH_MARGIN * (d + 4) * (norms[us] + fn.max())
+    inf = float("inf")
+    for b0 in range(0, us.numel(), rows):
+        b1 = min(b0 + rows, us.numel())
+        uq = xf[us[b0:b1]]
+        rb = ranks[b0:b1, None]
+        vals, pos = [], []
+        for t0 in range(0, n_free, width):
+            t1 = min(t0 + width, n_free)
+            g = torch.addmm(norms[us[b0:b1], None] + fn[None, t0:t1], uq,
+                            fx[t0:t1].T, alpha=-2.0)
+            g.masked_fill_(closed_full[None, t0:t1]
+                           & (closed_maxh[None, t0:t1] < rb), inf)
+            v, p = top_k_smallest(g, min(k, t1 - t0))
+            vals.append(v)
+            pos.append(p + t0)
+        v, p = vals[0], pos[0]
+        if len(vals) > 1:
+            v, o = top_k_smallest(torch.cat(vals, 1), k)
+            p = torch.gather(torch.cat(pos, 1), 1, o)
+        tau = torch.where(n_open[b0:b1] <= k, inf,
+                          v[:, -1] - margin[b0:b1])
+        diff = fx[p] - uq[:, None, :]
+        e = torch.sum(diff * diff, dim=2)
+        del diff
+        e = torch.where(torch.isfinite(v) & (e < tau[:, None]), e, inf)
+        # by (distance, id): positions ascend with ids
+        p, o = torch.sort(p, dim=1)
+        e, o = torch.sort(torch.gather(e, 1, o), dim=1, stable=True)
+        p = torch.gather(p, 1, o)
+        out[b0:b1] = torch.where(torch.isfinite(e), p, -1).to(torch.int32)
+        lens[b0:b1] = torch.isfinite(e).sum(1)
+    for i in ((lens == 0) & (n_open > 0)).nonzero().flatten().tolist():
+        diff = fx - xf[us[i]][None, :]
+        e = torch.sum(diff * diff, dim=1)
+        e.masked_fill_(closed_full & (closed_maxh < ranks[i]), inf)
+        v, p = top_k_smallest(e, k)
+        out[i] = torch.where(torch.isfinite(v), p, -1).to(torch.int32)
+        lens[i] = torch.isfinite(v).sum()
+    return out, lens
+
+
+def _claim(xf, norms, miss, free, cap, top: int, budget: int):
+    """The plain rule's claims of one patch round: for each unreached row
+    of ``miss`` (ascending), the position in ``free`` of the row whose
+    slot it takes, -1 where every row's slots went to lower ids. ``cap``
+    holds each free row's slots left. Deferred acceptance over candidate
+    lists (:func:`_patch_lists`); a claimant whose list ran out gets the
+    next one, over the rows still open to it."""
+    dev = xf.device
+    n_u, n_free = miss.numel(), free.numel()
+    ranks = torch.arange(n_u, device=dev)
+    k = min(top, n_free)
+    held = torch.full((n_u,), -1, dtype=torch.int64, device=dev)
+    lists = torch.full((n_u, k), -1, dtype=torch.int32, device=dev)
+    lens = torch.zeros(n_u, dtype=torch.int64, device=dev)
+    ptr = torch.zeros(n_u, dtype=torch.int64, device=dev)
+    dead = torch.zeros(n_u, dtype=torch.bool, device=dev)
+    cols = torch.arange(k, device=dev)
+
+    def holds():
+        # the holders, and per row their count and highest rank
+        h = (held >= 0).nonzero().flatten()
+        maxh = torch.full((n_free,), -1, dtype=torch.int64, device=dev)
+        maxh.scatter_reduce_(0, held[h], h, "amax")
+        return h, torch.bincount(held[h], minlength=n_free) >= cap, maxh
+
+    pending = ranks
+    while pending.numel():
+        _, full, maxh = holds()
+        lst, n = _patch_lists(xf, norms, miss[pending], pending, free,
+                              full, maxh, k, budget)
+        lists[pending] = lst
+        lens[pending] = n
+        ptr[pending] = 0
+        dead[pending] = n == 0
+        while True:
+            act = ((held < 0) & (ptr < lens)).nonzero().flatten()
+            if not act.numel():
+                break
+            # each claimant proposes to the next row of its list that is
+            # still open to it (a closed row would turn it away)
+            h, full, maxh = holds()
+            w = lists[act].long()
+            wc = w.clamp_min(0)
+            open_ = ((cols >= ptr[act, None]) & (cols < lens[act, None])
+                     & ~(full[wc] & (maxh[wc] < act[:, None])))
+            has = open_.any(1)
+            first = torch.argmax(open_.to(torch.uint8), dim=1)
+            ptr[act] = torch.where(has, first + 1, lens[act])
+            w = torch.gather(w, 1, first[:, None])[:, 0][has]
+            act = act[has]
+            touched = torch.zeros(n_free, dtype=torch.bool, device=dev)
+            touched[w] = True
+            h = h[touched[held[h]]]
+            key, _ = torch.sort(torch.cat([held[h], w]) * n_u
+                                + torch.cat([h, act]))
+            sw, su = key // n_u, key % n_u
+            held[su] = torch.where(_group_rank(sw) < cap[sw], sw, -1)
+        pending = ((held < 0) & ~dead).nonzero().flatten()
+    return held
+
+
+@full_f32
+def _patch_reachability(adj: torch.Tensor, entries: np.ndarray,
+                        xf: torch.Tensor, top: int = 64):
+    """Make every row reachable from the seeded entries by the rule of
+    :func:`_patch_reachability_plain`, with the same choices, on ``xf``'s
+    device: a breadth-first walk there, and each round's claims resolved
+    at once (:func:`_claim`) over candidate lists of ``top`` rows chosen
+    by a GEMM a block of unreached rows. Returns the patched adjacency on
+    ``adj``'s device and the plain version's counts."""
+    dev = xf.device
+    budget = (1 << 30) if dev.type == "cuda" else (64 << 20)
+    a = adj.to(dev, copy=True)
+    n, degree = a.shape
+    norms = torch.sum(xf * xf, dim=1)
+    ent = torch.as_tensor(np.asarray(entries), device=dev).long()
+    claimed = torch.zeros(n, dtype=torch.int64, device=dev)
+    targets = torch.zeros(n, dtype=torch.bool, device=dev)
+    misses = []
+    for _ in range(n):
+        seen = _reached_on(a, ent)
+        miss = (~seen).nonzero().flatten()
+        if not miss.numel():
+            break
+        misses.append(int(miss.numel()))
+        cap = torch.where(seen, degree - claimed, 0)
+        free = (cap > 0).nonzero().flatten()
+        if not free.numel():    # every reached row fully claimed —
+            break               # degenerate; leave the remainder
+        pos = _claim(xf, norms, miss, free, cap[free], top, budget)
+        ok = pos >= 0
+        key, _ = torch.sort(free[pos[ok]] * n + miss[ok])
+        w, u = key // n, key % n
+        a[w, degree - 1 - claimed[w] - _group_rank(w)] = u.to(a.dtype)
+        claimed += torch.bincount(w, minlength=n)
+        targets[u] = True
+    return a.to(adj.device), dict(
+        patch_edges=int(claimed.sum()), patched_rows=int(targets.sum()),
+        patch_misses=misses)
+
+
 # ---------------------------------------------------------------------------
 # mutation (tombstones): the mask is an operand of the search, folded at
 # the exact tail only. True inserts rebuild the graph.
@@ -501,7 +734,15 @@ def graph_search(index: GraphIndex, queries, k: int, *, beam: int = 32,
     ids, -1 where fewer than ``k`` reachable live rows exist; squared L2
     distances (the root, through f64, for metric='l2'), exact f32 through
     the shared rerank tail. ``use_kernel`` picks the candidate-scoring
-    engine (:func:`_resolve_beam_engine`)."""
+    engine (:func:`_resolve_beam_engine`). The call is the
+    ``graph.search`` range, and its phases ranges of their own
+    (:mod:`.search_obs`)."""
+    with annotate("graph.search"):
+        return _search(index, queries, k, beam, iters, hash_bits, row_mask,
+                       use_kernel)
+
+
+def _search(index, queries, k, beam, iters, hash_bits, row_mask, use_kernel):
     q = torch.as_tensor(queries, device=index.device)
     errors.check_matrix(q, "queries")
     errors.check_same_cols(q, index.data_padded, "queries", "index")
@@ -516,6 +757,7 @@ def graph_search(index: GraphIndex, queries, k: int, *, beam: int = 32,
         use_kernel, index.data_padded.shape[1],
         beam * index.storage.degree, index.device,
     )
+    search_obs.graph_call("kernel" if uk else "exact")
     vals, ids = _beam_impl(index, q, k=k, beam=beam, iters=it,
                            hash_bits=hb, row_mask=row_mask, use_kernel=uk)
     if index.metric == "l2":
@@ -603,42 +845,61 @@ def _beam_impl(index: GraphIndex, q, k: int, beam: int, iters: int,
                        dtype=torch.bool, device=dev)
     first_col = torch.zeros((nq, 1), dtype=torch.bool, device=dev)
 
+    # the candidate slots that are the sentinel after the gather, after
+    # the dedup and after the visited filter, summed on the device while
+    # counts are taken (search_obs.count_slots)
+    slots = (torch.zeros(3, dtype=torch.int64, device=dev)
+             if search_obs.counting() else None)
+
     for _ in range(iters):
-        # frontier: the best `beam` unexpanded live entries
-        sel_key = torch.where(pool_x | (pool_i >= n), inf, pool_d)
-        key, sel = top_k_smallest(sel_key, beam)
-        pool_x = pool_x.scatter(1, sel, True)
-        fids = torch.where(torch.isfinite(key), torch.gather(pool_i, 1, sel),
-                           n)
-        # gather the neighbours (the sentinel row is all -1)
-        cand = adjacency[fids.long()].reshape(nq, C)
-        cand = torch.where(cand < 0, n, cand)
-        # within-round dedup: sort, send repeated ids to the sentinel
-        cand = torch.sort(cand, dim=1)[0]
-        dup = torch.cat([first_col, cand[:, 1:] == cand[:, :-1]], dim=1)
-        cand = torch.where(dup, n, cand)
-        # visited filter, then mark (writing 1 is idempotent)
-        seen = torch.gather(visited, 1, _hash(cand)) > 0
-        cand = torch.where(seen, n, cand)
-        visited.scatter_(1, _hash(cand), 1)
+        with annotate("graph.frontier"):
+            # frontier: the best `beam` unexpanded live entries
+            sel_key = torch.where(pool_x | (pool_i >= n), inf, pool_d)
+            key, sel = top_k_smallest(sel_key, beam)
+            pool_x = pool_x.scatter(1, sel, True)
+            fids = torch.where(torch.isfinite(key),
+                               torch.gather(pool_i, 1, sel), n)
+            # gather the neighbours (the sentinel row is all -1)
+            cand = adjacency[fids.long()].reshape(nq, C)
+            cand = torch.where(cand < 0, n, cand)
+            # within-round dedup: sort, send repeated ids to the sentinel
+            cand = torch.sort(cand, dim=1)[0]
+            if slots is not None:
+                slots[0] += (cand == n).sum()
+            dup = torch.cat([first_col, cand[:, 1:] == cand[:, :-1]], dim=1)
+            cand = torch.where(dup, n, cand)
+            if slots is not None:
+                slots[1] += (cand == n).sum()
+            # visited filter, then mark (writing 1 is idempotent)
+            seen = torch.gather(visited, 1, _hash(cand)) > 0
+            cand = torch.where(seen, n, cand)
+            visited.scatter_(1, _hash(cand), 1)
+            if slots is not None:
+                slots[2] += (cand == n).sum()
         # score + merge: keep the best P of pool and new
-        new_d, new_i = _score_new(cand)
-        all_d = torch.cat([pool_d, new_d], dim=1)
-        all_i = torch.cat([pool_i, new_i.to(i32)], dim=1)
-        all_x = torch.cat([pool_x, no_x], dim=1)
-        pool_d, idx = top_k_smallest(all_d, P)
-        pool_i = torch.gather(all_i, 1, idx)
-        pool_x = torch.gather(all_x, 1, idx)
+        with annotate("graph.scan"):
+            new_d, new_i = _score_new(cand)
+        with annotate("graph.merge"):
+            all_d = torch.cat([pool_d, new_d], dim=1)
+            all_i = torch.cat([pool_i, new_i.to(i32)], dim=1)
+            all_x = torch.cat([pool_x, no_x], dim=1)
+            pool_d, idx = top_k_smallest(all_d, P)
+            pool_i = torch.gather(all_i, 1, idx)
+            pool_x = torch.gather(all_x, 1, idx)
         if on_round is not None:
             on_round(fids, pool_i, pool_d)
+    if slots is not None:
+        search_obs.count_slots(slots[0], slots[1] - slots[0],
+                               slots[2] - slots[1], nq * C * iters)
 
     # exact tail: the only place tombstones fold
-    live = pool_i < n
-    if row_mask is not None:
-        mask = torch.as_tensor(row_mask, device=dev)
-        live &= mask[torch.clamp(pool_i, 0, n - 1).long()] > 0
-    d2 = score_l2_candidates(qf, table[pool_i.long()].float(), live)
-    vals, pos = top_k_smallest(d2, k)
-    ids = torch.gather(pool_i, 1, pos)
-    ids = torch.where(torch.isfinite(vals), ids, -1)
+    with annotate("graph.rerank"):
+        live = pool_i < n
+        if row_mask is not None:
+            mask = torch.as_tensor(row_mask, device=dev)
+            live &= mask[torch.clamp(pool_i, 0, n - 1).long()] > 0
+        d2 = score_l2_candidates(qf, table[pool_i.long()].float(), live)
+        vals, pos = top_k_smallest(d2, k)
+        ids = torch.gather(pool_i, 1, pos)
+        ids = torch.where(torch.isfinite(vals), ids, -1)
     return vals, ids.to(i32)

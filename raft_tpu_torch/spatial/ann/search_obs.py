@@ -1,5 +1,5 @@
-"""What the IVF searches record about themselves: phase ranges and
-counters.
+"""What the IVF and graph searches record about themselves: phase
+ranges and counters.
 
 The ranges go through :mod:`raft_tpu_torch.core.annotate`, the port's one
 range layer: emitted while its gate is open or a ``torch.profiler``
@@ -54,6 +54,33 @@ and ``RAFT_TPU_OBS`` gates them as it gates every series:
   (:func:`uncounted`). The dropped count is a device-side sum folded
   into the counter when it is read: the search adds no host sync, and
   with no range emitted no device work either.
+
+The graph index's beam search (:func:`~.graph.graph_search`) records
+itself here too, with the same range layer and registry:
+
+* ``graph.search`` — the public entry, the whole call;
+* ``graph.frontier`` — a round's frontier: its selection, the neighbour
+  gather, the within-round dedup sort, the visited filter and mark;
+* ``graph.scan`` — a round's scoring of its candidates: the beam kernel
+  (#5), its sub-chunk selection and gathers, or the exact engine's
+  :func:`~.common.score_l2_candidates`;
+* ``graph.merge`` — a round's top-P of pool and candidates;
+* ``graph.rerank`` — the exact tail and its top-k;
+* ``graph_search_calls_total{engine}`` — calls of the public search by
+  the engine that scored them, always recorded;
+* ``graph_search_engine_total{engine,reason}`` — each engine choice of
+  :func:`~.graph._resolve_beam_engine`, always recorded:
+  ``engine="kernel"`` (``auto``: ``use_kernel=None`` on a Hopper card;
+  ``pinned``: ``True``) or ``engine="exact"`` (``fallback``: a CUDA
+  index the kernel cannot serve under ``None``, which
+  ``graph.ENGINE_FALLBACKS`` reads; ``pinned``: ``False``; ``host``: a
+  CPU index under ``None``);
+* ``graph_search_slots_total{kind}`` — the candidate slots of every
+  round by fate: ``new`` (scored), ``dup`` (repeated within the round),
+  ``visited`` (found in the visited table), ``sentinel`` (an empty
+  adjacency slot or an empty frontier entry); counted as
+  ``ivf_search_pairs_total`` is, only while ranges are emitted and never
+  in a warm-up, as device-side sums folded when read.
 """
 
 from __future__ import annotations
@@ -66,10 +93,13 @@ from typing import Callable, Iterator
 from raft_tpu_torch.core.annotate import annotate, ranges_on
 from raft_tpu_torch.obs import metrics as _metrics
 
-__all__ = ["count_pairs", "entry", "host_sync", "rerank", "scan_form",
-           "scan_forms", "uncounted"]
+__all__ = ["count_pairs", "count_slots", "counting", "entry",
+           "graph_call", "graph_engine", "graph_engines", "host_sync",
+           "rerank", "scan_form", "scan_forms", "uncounted"]
 
 SCAN_FORMS = "ivf_search_scan_form_total"
+GRAPH_ENGINES = "graph_search_engine_total"
+GRAPH_SLOTS = "graph_search_slots_total"
 
 # counter handles by (name, labels): made in the registry once
 _handles: dict = {}
@@ -133,7 +163,7 @@ def count_pairs(engine: str, slot, qcap: int) -> None:
     """While ranges are emitted and outside a warm-up, count a search's
     (query, probe) pairs and, as a device-side sum, those whose slot
     (:func:`~.common.invert_probe_map_ranked`) is past ``qcap``."""
-    if getattr(_local, "warmup", False) or not ranges_on():
+    if not counting():
         return
     _counter("ivf_search_pairs_total", engine=engine).inc(slot.numel())
     _counter("ivf_search_pairs_dropped_total", engine=engine).inc_deferred(
@@ -142,12 +172,47 @@ def count_pairs(engine: str, slot, qcap: int) -> None:
 
 @contextlib.contextmanager
 def uncounted() -> Iterator[None]:
-    """Hold around a warm-up search on this thread: its pairs are not
-    counted (an all-zeros batch probes the same lists from every query,
-    and would read as a flood of drops)."""
+    """Hold around a warm-up search on this thread: its pairs (and a
+    graph search's slots) are not counted (an all-zeros batch probes the
+    same lists from every query, and would read as a flood of drops)."""
     prev = getattr(_local, "warmup", False)
     _local.warmup = True
     try:
         yield
     finally:
         _local.warmup = prev
+
+
+def counting() -> bool:
+    """Are per-search counts taken: ranges emitted, and no warm-up on
+    this thread?"""
+    return ranges_on() and not getattr(_local, "warmup", False)
+
+
+def graph_call(engine: str) -> None:
+    """Count one graph search scored by ``engine``."""
+    _counter("graph_search_calls_total", engine=engine).inc()
+
+
+def graph_engine(engine: str, reason: str) -> None:
+    """Count one engine choice of the graph search, for ``reason``."""
+    _counter(GRAPH_ENGINES, engine=engine, reason=reason).inc()
+
+
+def graph_engines(engine: str, reason=None) -> int:
+    """The graph searches counted on ``engine`` (for ``reason`` alone,
+    when given)."""
+    return sum(c.value for c in _metrics.default_registry().series(GRAPH_ENGINES)
+               if c.labels.get("engine") == engine
+               and reason in (None, c.labels.get("reason")))
+
+
+def count_slots(sentinel, dup, visited, total: int) -> None:
+    """Add one graph search's candidate slots by fate: ``sentinel``,
+    ``dup`` and ``visited`` are 0-d device counts, ``total`` every slot of
+    its rounds; the rest are ``new``."""
+    _counter(GRAPH_SLOTS, kind="sentinel").inc_deferred(sentinel)
+    _counter(GRAPH_SLOTS, kind="dup").inc_deferred(dup)
+    _counter(GRAPH_SLOTS, kind="visited").inc_deferred(visited)
+    _counter(GRAPH_SLOTS, kind="new").inc_deferred(
+        total - sentinel - dup - visited)

@@ -48,7 +48,9 @@ from raft_tpu_torch.core.device import (
 from raft_tpu_torch.distance.distance_type import DistanceType, resolve_metric
 from raft_tpu_torch.distance.pairwise import relu0, sqrt_f64
 from raft_tpu_torch.spatial import knn_obs
-from raft_tpu_torch.spatial.selection import merge_topk, top_k_smallest
+from raft_tpu_torch.spatial.selection import (
+    SELECT_K_MAX_K, merge_topk, top_k_smallest,
+)
 
 __all__ = [
     "BIG", "LAUNCHES", "RESCORE_GATHER_CALLS", "WGMMA_MAX_D", "chunk_mins",
@@ -394,12 +396,16 @@ _L2_FAMILY = (
 def fused_knn_supported(metric: DistanceType, m: int, n: int, d: int,
                         k: int) -> bool:
     """Shapes and metrics the fused path serves: an L2-family metric,
-    enough chunks for the exact cover, k <= 128 and d <= 4096 (the JAX
-    package's rule)."""
+    enough chunks for the exact cover, d <= 4096 and k up to the
+    selection kernel's cap (``SELECT_K_MAX_K``, 256). The JAX package
+    stops at k = 128, the TPU's lane width; the port's selections and
+    rescore take any k the cap allows, so a kNN graph of intermediate
+    degree 128 (k + 1 = 129 with the row itself) stays on the fused
+    kernels."""
     return (
         metric in _L2_FAMILY
         and n // _CHUNK >= max(k, 32)
-        and k <= 128
+        and k <= SELECT_K_MAX_K
         and d <= 4096
         and m >= 1
     )

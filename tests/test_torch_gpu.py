@@ -478,6 +478,76 @@ def test_beam_scan_score_kernel_matches_plain_version():
                     assert (err <= tol).all(), (what, err.max().item())
 
 
+@pytest.mark.gpu
+def test_beam_scan_score_at_the_graph_cell_launch():
+    """On a Hopper card: both outputs of the beam scan at the launch of the
+    ``sift1m-graph`` cell, Cpad 2,048 (beam 32 x degree 64) at d = 128,
+    over 100,000 rows with repeated and sentinel ids, for 64 queries: the
+    minima bitwise, the exact distances bitwise on integer inputs and
+    within the f32 summation bound on Gaussian ones."""
+    from raft_tpu_torch.spatial.ann import graph_kernel as tgk
+
+    dev = _hopper()
+    rng = np.random.default_rng(12)
+    nq, d, n, c_pad = 64, 128, 100_000, 2048
+    bounds = torch.tensor([[0, c_pad]], dtype=torch.int32,
+                          device=dev).expand(nq, 2).contiguous()
+    for integer in (True, False):
+        if integer:
+            table = rng.integers(-8, 8, (n + 1, d)).astype(np.float32)
+            q = rng.integers(-8, 8, (nq, d)).astype(np.float32)
+        else:
+            table = rng.standard_normal((n + 1, d)).astype(np.float32)
+            q = rng.standard_normal((nq, d)).astype(np.float32)
+        table[n] = 1e15
+        ids = rng.integers(0, n, (nq, c_pad)).astype(np.int32)
+        ids[:, 1::7] = ids[:, ::7][:, :ids[:, 1::7].shape[1]]   # repeats
+        ids[:, -300:] = n                                        # sentinels
+        args = tuple(torch.as_tensor(a, device=dev)
+                     for a in (q, table, ids)) + (bounds, n)
+        mins, exact = tgk.beam_scan_score(*args)
+        want_m, want_e = tgk.beam_scan_score_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(mins, want_m), integer
+        live = args[2] < n
+        assert torch.equal(torch.isinf(exact), ~live)
+        if integer:
+            assert torch.equal(exact, want_e)
+        else:
+            err = (exact - want_e).abs()[live].double()
+            tol = _beam_tol(args[0], args[1], args[2])[live]
+            assert (err <= tol).all(), err.max().item()
+
+
+@pytest.mark.gpu
+def test_graph_patch_on_card_equals_plain_version():
+    """On a Hopper card: the reachability patch's device form against its
+    plain version on the pruned degree-64 graph of 100,000 rows of a
+    64-centre mixture at width 128 (the kNN graph at k + 1 = 129 on the
+    fused kernels): the adjacency and the patch counts bitwise."""
+    from raft_tpu_torch.sparse import knn_graph
+    from raft_tpu_torch.spatial import knn as bfk
+    from raft_tpu_torch.spatial.ann import graph as tgraph
+
+    dev = _hopper()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n, d = 100_000, 128
+    centres = 2.0 * torch.randn((64, d), generator=gen, device=dev)
+    lab = torch.randint(0, 64, (n,), generator=gen, device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev) + centres[lab]
+    bfk.SCAN_FALLBACKS = 0
+    g = knn_graph(x, 128, symmetrize=True)
+    assert bfk.SCAN_FALLBACKS == 0
+    nnz = int(g.nnz)
+    adj = tgraph._occlusion_prune(x, g.rows[:nnz].long(), g.cols[:nnz].long(),
+                                  64, 256)
+    entries = np.array([11, 4242, 50000, 99999], np.int32)
+    got, got_st = tgraph._patch_reachability(adj, entries, x)
+    want, want_st = tgraph._patch_reachability_plain(adj, entries, x)
+    assert torch.equal(got, want)
+    assert got_st == want_st and got_st["patch_edges"] > n // 2
+
+
 # (m, n, d, c): d 128 (f32 and bf16 index) and 768 (the wide regime)
 _RESCORE_SHAPES = ((300, 20000 + 37, 128, 24), (200, 16384, 128, 48),
                    (96, 6000, 768, 48), (40, 3000, 768, 24))
@@ -1667,6 +1737,33 @@ def test_knn_graph_fused_against_scan_on_card():
     pairs = set(zip(a.labels.cpu().tolist(), b.labels.tolist()))
     assert len(pairs) == 64
     np.testing.assert_array_equal(np.sort(a.deltas), np.sort(b.deltas))
+
+
+@pytest.mark.gpu
+def test_knn_graph_past_k_128_stays_fused_on_card():
+    """knn_graph at 65,536 rows and k = 128 (a query of 129 rows with the
+    row itself, past the JAX package's cap of 128) on the fused kernels,
+    against its scan-path graph: on integer rows each row's neighbour
+    distances are equal."""
+    from raft_tpu_torch.sparse import knn_graph
+    from raft_tpu_torch.spatial import fused_knn as fz
+    from raft_tpu_torch.spatial import knn as bfk
+
+    dev = _hopper()
+    rng = np.random.default_rng(10)
+    n, d, k = 65536, 128, 128
+    x = (rng.integers(-40, 40, (64, d))[np.repeat(np.arange(64), n // 64)]
+         + rng.integers(-3, 4, (n, d))).astype(np.float32)
+    xd = torch.as_tensor(x, device=dev)
+    before = dict(fz.LAUNCHES)
+    bfk.SCAN_FALLBACKS = 0
+    fused = knn_graph(xd, k, symmetrize=False)
+    assert fz.LAUNCHES["rescore_scores"] > before["rescore_scores"]
+    assert bfk.SCAN_FALLBACKS == 0
+    scan = knn_graph(xd, k, symmetrize=False, use_fused=False)
+    assert torch.equal(fused.rows, scan.rows)
+    assert torch.equal(fused.vals.reshape(n, k).sort(1).values,
+                       scan.vals.reshape(n, k).sort(1).values)
 
 
 @pytest.mark.gpu

@@ -511,16 +511,22 @@ def test_chunk_mins_counts_calls_by_route():
 
 
 def test_plan_and_supported_predicate_match_jax():
+    """The block plan is JAX's; so is the support rule up to k = 128, the
+    JAX package's cap. Past it the port serves k up to its selection
+    kernel's cap (SELECT_K_MAX_K) wherever JAX's rule at k = 128 holds and
+    there are k chunks to cover."""
     L2, L1 = DistanceType.L2SqrtExpanded, DistanceType.L1
     for m in (1, 37, 128, 1000, 10000):
         for n in (1000, 4109, 8192, 65536, 1_000_000):
             for d in (19, 128, 768, 4096, 5000):
                 assert tfk._plan_blocks(m, n, d) == jfk._plan_blocks(m, n, d)
-                for k in (1, 10, 32, 129):
+                for k in (1, 10, 32, 128, 129, 256, 257):
                     for metric in (L2, L1, DistanceType.L2Unexpanded):
-                        assert tfk.fused_knn_supported(metric, m, n, d, k) \
-                            == jfk.fused_knn_supported(JDT(int(metric)), m,
-                                                       n, d, k)
+                        got = tfk.fused_knn_supported(metric, m, n, d, k)
+                        jax_rule = jfk.fused_knn_supported(
+                            JDT(int(metric)), m, n, d, min(k, 128))
+                        assert got == (jax_rule and k <= 256
+                                       and n // 128 >= k)
 
 
 # ---------------------------------------------------------------------------
